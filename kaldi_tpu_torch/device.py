@@ -1,0 +1,48 @@
+"""Device selection and float32 precision control for the port."""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Union
+
+import torch
+
+DeviceLike = Union[None, str, torch.device]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """`None` means CUDA.  CUDA asked for on a machine without it raises;
+    the CPU is used only when the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """Run float32 matmuls in full float32 (TF32 off) inside the block,
+    restoring the caller's setting after.  The reference pins these
+    products to `Precision.HIGHEST` for the same reason: MFCC and
+    i-vector statistics need the whole f32 mantissa."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """True when two devices name the same card (cuda == cuda:0)."""
+    if a.type != b.type:
+        return False
+    if a.type == "cpu":
+        return True
+    ia = a.index if a.index is not None else torch.cuda.current_device()
+    ib = b.index if b.index is not None else torch.cuda.current_device()
+    return ia == ib

@@ -1,0 +1,85 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  These tests need an NVIDIA GPU and nvcc, so they skip elsewhere;
+on a machine with a card run them with
+`python -m pytest tests/test_torch_cuda_kernels.py -m cuda -q`.
+They import no jax, so they run where only the port is installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
+                                                 BlockChainGraph)
+from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
+                                                  synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.ops import block_chain_step as bcs
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def small_decoder(seed, device, V=23):
+    spec = DirectGraphSpec(vocab=V, num_phones=6, min_pron=1, max_pron=5,
+                           num_pdfs=64, seed=seed)
+    g = BlockChainGraph.build(synth_lexicon(spec), synth_bigram(spec),
+                              num_pdfs=64)
+    return BlockChainDecoder(g, device=device)
+
+
+@pytest.mark.parametrize("seed,B", [(0, 1), (1, 19), (2, 64), (3, 129)])
+def test_step_kernel_equals_plain(cuda, seed, B):
+    dec = small_decoder(seed, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    Up, N = dec.Up, dec.g.N
+    cost = torch.randn(Up, N, B, generator=gen, device=cuda) * 5 + 20
+    cost[torch.rand(cost.shape, generator=gen, device=cuda) < 0.2] = bcs.INF
+    ovr = torch.randn(Up, B, generator=gen, device=cuda) * 5 + 15
+    ovr[torch.rand(ovr.shape, generator=gen, device=cuda) < 0.2] = bcs.INF
+    amf = torch.randn(N, B, generator=gen, device=cuda)
+    ams = torch.randn(N, B, generator=gen, device=cuda)
+    active = torch.rand(B, generator=gen, device=cuda) < 0.8
+    args = (cost, ovr, amf, ams, dec._first, dec._bigram_ends, dec._end_src,
+            active)
+    before = bcs.launches
+    got = bcs.block_chain_step(*args)
+    assert bcs.launches == before + 1
+    want = bcs.block_chain_step_reference(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("new", "bits", "rootexp", "rootarg"), got, want):
+        assert torch.equal(g, w), name
+
+
+def test_step_kernel_rejects_bad_inputs(cuda):
+    dec = small_decoder(0, cuda)
+    Up, N, B = dec.Up, dec.g.N, 4
+    cost = torch.zeros(Up, N, B, device=cuda)
+    ovr = torch.zeros(Up, B, device=cuda)
+    am = torch.zeros(N, B, device=cuda)
+    active = torch.ones(B, dtype=torch.bool, device=cuda)
+    base = [cost, ovr, am, am, dec._first, dec._bigram_ends, dec._end_src,
+            active]
+    with pytest.raises(TypeError):
+        bcs.block_chain_step(*([cost.double()] + base[1:]))
+    with pytest.raises(ValueError):
+        bcs.block_chain_step(*base, new=cost)
+    with pytest.raises(ValueError):
+        bcs.block_chain_step(*(base[:2] + [am[:, :2]] + base[3:]))
+
+
+def test_decode_kernel_equals_plain(cuda):
+    dec = small_decoder(5, cuda, V=31)
+    plain = BlockChainDecoder(dec.g, device=cuda,
+                              step=bcs.block_chain_step_reference)
+    rng = np.random.default_rng(5)
+    ll = rng.normal(size=(7, 25, 64)).astype(np.float32)
+    lengths = [25, 24, 20, 13, 9, 25, 3]
+    got = dec.decode_batch(ll, lengths=lengths)
+    want = plain.decode_batch(ll, lengths=lengths)
+    assert got == want
+    assert all(h is not None for h in got)

@@ -1,0 +1,105 @@
+"""Import hygiene of the port: no module of kaldi_tpu_torch, and nothing
+chip_smoke.py imports, pulls in jax, flax, triton or kaldi_tpu; and the
+entry points raise when CUDA is asked for on a machine without it, and
+run when the caller passes device="cpu"."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import kaldi_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(kaldi_tpu_torch.__path__,
+                                               "kaldi_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton",
+                                    "kaldi_tpu"))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_no_jax_flax_triton_or_kaldi_tpu():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    n_modules, bad = proc.stdout.split("\n")[:2]
+    assert int(n_modules) >= 15
+    assert bad == "", f"forbidden modules imported: {bad}"
+
+
+def _makers(device):
+    """Constructors of the port's entry points on `device`."""
+    from kaldi_tpu_torch.decoder.batched_pipeline2 import \
+        BatchedOfflinePipeline2
+    from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
+                                                     BlockChainGraph)
+    from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
+                                                      synth_bigram,
+                                                      synth_lexicon)
+    from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
+    from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
+    from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
+                                              chain_tdnnf_from_flax)
+    from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
+    spec = DirectGraphSpec(vocab=5, num_phones=4, min_pron=1, max_pron=3,
+                           num_pdfs=16)
+    g = BlockChainGraph.build(synth_lexicon(spec), synth_bigram(spec),
+                              num_pdfs=16)
+    ivec = load_ivector_extractor(os.path.join(
+        REPO, "egs", "bench_corpus", "flagship_ng_ivec.npz"))
+    cfg = ChainTdnnfConfig(feat_dim=4, num_pdfs=16, hidden_dim=8,
+                           bottleneck_dim=4, prefinal_dim=4, num_layers=0)
+    params = {"input_affine": {"kernel": np.zeros((4, 8)),
+                               "bias": np.zeros(8)},
+              "output_affine": {"kernel": np.zeros((4, 16)),
+                                "bias": np.zeros(16)},
+              "output_xent_affine": {"kernel": np.zeros((4, 16)),
+                                     "bias": np.zeros(16)}}
+    stats = {"input_bn": {"bn": {"mean": np.zeros(8), "var": np.ones(8)}}}
+    for head in ("prefinal_chain", "prefinal_xent"):
+        params[head] = {"affine": {"kernel": np.zeros((8, 8)),
+                                   "bias": np.zeros(8)},
+                        "linear": {"kernel": np.zeros((8, 4))}}
+        stats[head] = {n: {"bn": {"mean": np.zeros(d), "var": np.ones(d)}}
+                       for n, d in (("bn1", 8), ("bn2", 4))}
+    opts = MfccOptions()
+    opts.frame_opts.dither = 0.0
+    return [
+        lambda: OfflineFeature(opts, device=device),
+        lambda: BatchedIvectorExtractor(ivec, device=device),
+        lambda: chain_tdnnf_from_flax(
+            cfg, {"params": params, "batch_stats": stats}, device=device),
+        lambda: BlockChainDecoder(g, device=device),
+    ], BatchedOfflinePipeline2
+
+
+def test_entry_points_raise_without_cuda_and_run_on_cpu():
+    from kaldi_tpu_torch.device import resolve_device
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    makers, pipeline = _makers(None)
+    for make in makers:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    makers, pipeline = _makers("cpu")
+    fe, iv, model, dec = [make() for make in makers]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipeline(model, dec, fe)
+    pipeline(model, dec, fe, ivector_extractor=iv, device="cpu")
+    feats, n = fe.compute_batch_device([np.zeros(4000, np.int16)])
+    assert feats.device.type == "cpu" and int(n[0]) == 23
+    out = dec.decode_batch(np.zeros((1, 6, 16), np.float32))
+    assert out[0] is not None

@@ -1,0 +1,91 @@
+"""Port parity, end to end: the JAX BatchedOfflinePipeline2 (MFCC ->
+i-vectors -> ChainTdnnf -> BlockChainDecoder with Pallas kernel a in
+interpret mode) against the kaldi_tpu_torch pipeline on the CPU, with a
+small random-init model (float32 params; both pipelines round the model
+input to bf16), the committed i-vector extractor, a small block-chain
+graph and three seeded waves.  Equal words; cost within 1e-4 relative.
+
+Two wires: int16 waves of three lengths (zero padding), and mu-law waves
+of one length whose frame count fills its bucket exactly, so that no
+frame holds only the mu-law pad byte (whose cepstra are rounding noise,
+see test_torch_frontend.py)."""
+
+import os
+
+import numpy as np
+import pytest
+
+from kaldi_tpu.decoder.batched_pipeline2 import \
+    BatchedOfflinePipeline2 as JaxPipeline
+from kaldi_tpu.decoder.block_chain import BlockChainDecoder as JaxDecoder
+from kaldi_tpu.feat.frontend import OfflineFeature as JaxFeature
+from kaldi_tpu.feat.frontend import mulaw_encode as jax_mulaw_encode
+from kaldi_tpu.ivector.batched import BatchedIvectorExtractor as JaxIvec
+from kaldi_tpu.nnet3.models import ChainTdnnf as FlaxTdnnf
+from kaldi_tpu.nnet3.models import ChainTdnnfConfig as FlaxConfig
+from kaldi_tpu.recipes.bench_corpus import BenchCorpusSpec, mfcc_options
+from kaldi_tpu.recipes.bench_corpus import \
+    load_ivector_extractor as jax_load_ivec
+from kaldi_tpu_torch.decoder.batched_pipeline2 import (
+    BatchedOfflinePipeline2, PipelineStats)
+from kaldi_tpu_torch.decoder.block_chain import BlockChainDecoder
+from kaldi_tpu_torch.feat.frontend import OfflineFeature
+from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
+from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
+                                          chain_tdnnf_from_flax)
+from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
+from test_torch_block_chain import graphs
+from test_torch_frontend import bench_options, waves
+from test_torch_tdnnf import SMALL, random_variables
+
+IVEC = os.path.join(os.path.dirname(__file__), "..", "egs", "bench_corpus",
+                    "flagship_ng_ivec.npz")
+
+
+def pipelines(seed=0):
+    jg, tg = graphs(seed, V=9, num_pdfs=SMALL["num_pdfs"])
+    fcfg = FlaxConfig(**SMALL)
+    variables = random_variables(fcfg, seed=seed)
+    ref = JaxPipeline(FlaxTdnnf(fcfg, train=False), variables["params"],
+                      variables["batch_stats"],
+                      JaxDecoder(jg, interpret=True),
+                      JaxFeature(mfcc_options(BenchCorpusSpec())),
+                      ivector_extractor=JaxIvec(jax_load_ivec(IVEC)))
+    dev = "cpu"
+    port = BatchedOfflinePipeline2(
+        chain_tdnnf_from_flax(ChainTdnnfConfig(**SMALL), variables,
+                              device=dev),
+        BlockChainDecoder(tg, device=dev),
+        OfflineFeature(bench_options(), device=dev),
+        ivector_extractor=BatchedIvectorExtractor(
+            load_ivector_extractor(IVEC), device=dev),
+        device=dev)
+    return ref, port
+
+
+@pytest.mark.parametrize("wire", ["int16", "mulaw"])
+def test_pipeline_matches_jax(wire):
+    ref, port = pipelines()
+    if wire == "int16":
+        ws = [w.astype(np.int16) for w in waves(11, [8000, 6500, 4900])]
+    else:
+        n = 63 * 160 + 400                 # 64 frames: the bucket, exactly
+        ws = [jax_mulaw_encode(w) for w in waves(12, [n, n, n])]
+    want = ref.decode_batch(ws)
+    stats = PipelineStats()
+    got = port.decode_batch(ws, stats=stats)
+    assert stats.total_audio_s == pytest.approx(
+        sum(len(w) for w in ws) / 16000.0)
+    assert stats.wall_s >= stats.search_s > 0
+    for b, (r, o) in enumerate(zip(want, got)):
+        assert r is not None and o is not None
+        assert o[0] == r[0], f"lane {b} words"
+        assert len(o[0]) > 0
+        assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
+            f"lane {b}: {o[1]} vs {r[1]}"
+
+
+def test_lattice_mode_not_ported():
+    _, port = pipelines()
+    with pytest.raises(NotImplementedError, match="kernel b"):
+        port.decode_batch([np.zeros(4000, np.int16)], generate_lattices=True)
