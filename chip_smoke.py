@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
 """Smoke test of the kaldi_tpu_torch port on one NVIDIA GPU.
 
-Drives the port's main path at full width: 128 lanes x 5 s of seeded
+Drives the port's main paths at full width: 128 lanes x 5 s of seeded
 mu-law audio -> MFCC -> i-vectors -> the committed flagship_ng chain
 TDNN-F (17 x 1536, bf16) -> exact block-chain Viterbi over the
 V=700 DirectGraphSpec graph (2,215,861 states), through
-BatchedOfflinePipeline2.decode_batch.
+BatchedOfflinePipeline2.decode_batch, in best-path mode and in lattice
+mode (generate_lattices=True, lattice_beam=8, J=4).
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from kaldi_tpu_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version on the card, at the
-     main path's full shape and at a small ragged shape (torch.equal),
-     and their times;
-  4. the slice: one warm-up decode_batch, three timed ones with the
-     kernel launch counts read around each; the bf16 AM against float32
-     on 4 lanes; 8 lanes decoded again with the plain step (equal words,
-     tids and costs); one decode_batch under torch.profiler (device time
-     by kernel, busy share, peak memory);
-  5. the kernel table; the last line is {"ok": true, "device": ...}.
+     main path's full shape and at a small ragged shape (torch.equal;
+     the lattice step also on forced ties), and their times;
+  4. the best-path slice: one warm-up decode_batch, three timed ones with
+     the kernel launch counts read around each; the bf16 AM against
+     float32 on 4 lanes; 8 lanes decoded again with the plain step (equal
+     words, tids and costs); one decode_batch under torch.profiler
+     (device time by kernel, busy share, peak memory);
+  5. the lattice slice: one warm-up under torch.profiler and two timed
+     decode_batch calls in lattice mode (launch counts, the lattice
+     stages' seconds, each lane's lattice best path against the
+     best-path decode); 8 lanes decoded again with the plain lattice
+     step (equal lattices);
+  6. the kernel table; the last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 """
@@ -48,6 +54,7 @@ from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
 from kaldi_tpu_torch.ops import _build
+from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.recipes.bench_corpus import (load_ivector_extractor,
                                                   load_params)
@@ -60,6 +67,7 @@ LANES, UTT_S, FS = 128, 5.0, 16000
 HBM_RATE = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12)]
 FP32_OPS = 67e12          # H100 SXM float32 outside the tensor cores
+LAT_J, LAT_BEAM = 4, 8.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -85,6 +93,31 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def synth_wave(rng: np.random.Generator) -> np.ndarray:
+    """UTT_S seconds of mu-law audio in the style of the corpus the
+    acoustic model was trained on: a random run of two-formant phones
+    (30 log-spaced (f1, f2) pairs, 70-120 ms each, a speaker warp and
+    gain) in noise."""
+    inventory = [(280.0 * 1.16 ** g, 1100.0 * 1.19 ** g * 1.06 ** m)
+                 for g in range(10) for m in range(3)]
+    warp, speaker_gain = rng.uniform(0.97, 1.03), rng.uniform(0.7, 1.3)
+    n = int(FS * UTT_S)
+    parts, total = [], 0
+    while total < n:
+        f1, f2 = inventory[rng.integers(len(inventory))]
+        k = int((0.07 + 0.05 * rng.random()) * FS)
+        t = np.arange(k) / FS
+        gain = (0.75 + 0.5 * rng.random()) * speaker_gain
+        tones = 1500 * np.sin(2 * np.pi * f1 * warp * t) \
+            + 950 * np.sin(2 * np.pi * f2 * warp * t)
+        ramp = np.minimum(1.0, np.minimum(np.arange(k), k - np.arange(k))
+                          / (0.008 * FS))
+        parts.append((gain * tones + 1600 * rng.normal(size=k)) * ramp)
+        total += k
+    x = np.concatenate(parts)[:n]
+    return mulaw_encode(np.clip(x, -32767, 32767))
+
+
 def step_inputs(dec: BlockChainDecoder, B: int, seed: int, n_inactive: int):
     """Seeded random planes with INF entries, made on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -105,9 +138,31 @@ def step_inputs(dec: BlockChainDecoder, B: int, seed: int, n_inactive: int):
             dec._bigram_ends, dec._end_src, active)
 
 
+def lattice_step_inputs(dec: BlockChainDecoder, B: int, seed: int,
+                        n_inactive: int, t: int, ties: bool = False):
+    """The planes of step_inputs plus an entry-frame plane in [0, t].
+    ties: every block holds the same columns and one bigram cost, so the
+    candidates of a word meet at equal cost, and blocks 3 and 7 are
+    lowered, so that smaller candidates displace entries of equal cost."""
+    cost, ovr, amf, ams, first, bigram_ends, end_src, active = step_inputs(
+        dec, B, seed, n_inactive)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    ent = torch.floor(torch.rand(cost.shape, generator=gen, device="cuda")
+                      * (t + 1))
+    if ties:
+        cost[:] = cost[0].clone()
+        ovr[:] = ovr[0].clone()
+        for plane in (cost, ovr):
+            plane[4:] += 1.0
+            plane[3] -= 2.0
+            plane[7] -= 5.0
+        bigram_ends = torch.where(bigram_ends < bcs.INF, 1.25, bcs.INF)
+    return (t, cost, ent, ovr, amf, ams, first, bigram_ends, end_src, active)
+
+
 def step_cost(dec: BlockChainDecoder, B: int):
-    """Bytes a step must move (each input read once, each output written
-    once) and the adds/compares it must do, at batch B."""
+    """Bytes a best-path step must move (each input read once, each output
+    written once) and the adds/compares it must do, at batch B."""
     Up, N, Vp = dec.Up, dec.g.N, dec.Vp
     plane = Up * N * B
     bytes_in = 4 * plane + 4 * Up * B + 2 * 4 * N * B + N + 4 * Up * Vp \
@@ -117,22 +172,102 @@ def step_cost(dec: BlockChainDecoder, B: int):
     return bytes_in + bytes_out, ops
 
 
-def check_step(dec: BlockChainDecoder, B: int, seed: int, n_inactive: int,
-               label: str) -> dict:
-    args = step_inputs(dec, B, seed, n_inactive)
-    got = bcs.block_chain_step(*args)
-    want = bcs.block_chain_step_reference(*args)
+def lattice_step_cost(dec: BlockChainDecoder, B: int, J: int):
+    """The same for a lattice step: two planes in, two out, three (J, Vp,
+    B) lists out; two adds, a compare and two selects per state, an add
+    and a compare per word-end candidate (the few insertions that follow
+    a won compare are not counted)."""
+    Up, N, Vp = dec.Up, dec.g.N, dec.Vp
+    plane = Up * N * B
+    bytes_in = 2 * 4 * plane + 4 * Up * B + 2 * 4 * N * B + N \
+        + 4 * Up * Vp + 4 * Vp + B + 4
+    bytes_out = 2 * 4 * plane + 3 * 4 * J * Vp * B
+    ops = 5 * plane + 2 * N * B + 2 * Up * Vp * B
+    return bytes_in + bytes_out, ops
+
+
+def check_kernel(name: str, kernel, plain, names, args, label: str,
+                 **kw) -> dict:
+    """Hold one kernel launch against its plain version (torch.equal on
+    every output); exits on a difference."""
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
     torch.cuda.synchronize()
-    names = ("new", "bits", "rootexp", "rootarg")
     equal = {n: bool(torch.equal(g, w)) for n, g, w in zip(names, got, want)}
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
-    row = {"shape": label, "B": B, "equal": equal, "max_abs_err": err}
+    row = {"shape": label, "B": int(args[-1].shape[0]), "equal": equal,
+           "max_abs_err": err}
     if not all(equal.values()):
-        emit("kernel_check", ok=False, **row)
-        raise SystemExit(f"block_chain_step differs from its plain version "
-                         f"at {label}: {equal}")
+        emit("kernel_check", ok=False, kernel=name, **row)
+        raise SystemExit(f"{name} differs from its plain version at "
+                         f"{label}: {equal}")
     return row
+
+
+def time_kernel(name: str, kernel_once, plain_once, plain_iters: int,
+                nbytes: int, nops: int, rate: float, shape) -> dict:
+    """ms a launch by CUDA events (kernel, plain, kernel again) beside the
+    bound from the bytes and operations of this run's shapes."""
+    for _ in range(3):
+        kernel_once()
+    plain_once()
+    torch.cuda.synchronize()
+    k_ms = cuda_ms(kernel_once, 20)
+    p_ms = cuda_ms(plain_once, plain_iters)
+    k_ms_2 = cuda_ms(kernel_once, 20)
+    bytes_ms, ops_ms = nbytes / rate * 1e3, nops / FP32_OPS * 1e3
+    row = {"kernel": name, "shape": list(shape), "ms": k_ms,
+           "ms_repeat": k_ms_2, "plain_ms": p_ms,
+           "bound_ms": max(bytes_ms, ops_ms), "bytes": nbytes, "ops": nops,
+           "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+           "achieved_bytes_per_s": nbytes / (k_ms * 1e-3)}
+    emit("kernel_time", **row)
+    return row
+
+
+def profile_call(fn) -> dict:
+    """Where one call spends the card's time: device time by kernel and
+    peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        prof_wall = time.perf_counter() - t0
+    # device-side events only (a host op's device time repeats its
+    # kernels')
+    by_name = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    device_ms = sum(ms for ms, _, _ in by_name)
+    return {"wall_s_profiled": prof_wall, "device_ms": device_ms,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "top": [{"ms": ms, "calls": c, "name": k[:70]}
+                    for ms, c, k in by_name[:10]]}
+
+
+def lattice_diff(got, want) -> float:
+    """Largest weight difference between two lattices of equal structure
+    (states, arc labels and next states); exits when the structure
+    differs."""
+    if (got is None) != (want is None):
+        raise SystemExit("one lattice is None, the other is not")
+    if got is None:
+        return 0.0
+    labels = [[[(a.ilabel, a.olabel, a.nextstate) for a in arcs]
+               for arcs in lat.arcs] for lat in (got, want)]
+    if got.start != want.start or labels[0] != labels[1]:
+        raise SystemExit("two lattices differ in states or arc labels")
+    pairs = [(a.weight, r.weight) for ga, wa in zip(got.arcs, want.arcs)
+             for a, r in zip(ga, wa)]
+    pairs += [(f, g) for f, g in zip(got.finals, want.finals) if f != g]
+    return max((abs(x - y) for p, q in pairs for x, y in zip(p, q)),
+               default=0.0)
 
 
 def main() -> int:
@@ -176,37 +311,57 @@ def main() -> int:
         device="cuda")
     if not (small.g.end_row < 0).any():
         raise SystemExit("the small graph needs one-phone words")
-    rows = [check_step(decoder, LANES, SEED + 1, 0, "full"),
-            check_step(small, 19, SEED + 2, 5, "small_ragged")]
+    a_names = ("new", "bits", "rootexp", "rootarg")
+    rows = [check_kernel("block_chain_step", bcs.block_chain_step,
+                         bcs.block_chain_step_reference, a_names,
+                         step_inputs(dec, B, seed, off), label)
+            for dec, B, seed, off, label in (
+                (decoder, LANES, SEED + 1, 0, "full"),
+                (small, 19, SEED + 2, 5, "small_ragged"))]
     emit("kernel_check", ok=True, kernel="block_chain_step", checks=rows)
     args = step_inputs(decoder, LANES, SEED + 3, 0)
     out_new = torch.empty_like(args[0])
     out_bits = torch.empty((decoder.Up, graph.N // 8, LANES),
                            dtype=torch.uint8, device="cuda")
-
-    def kernel_once():
-        bcs.block_chain_step(*args, new=out_new, bits=out_bits)
-
-    def plain_once():
-        bcs.block_chain_step_reference(*args)
-
-    for _ in range(3):
-        kernel_once()
-    plain_once()
-    torch.cuda.synchronize()
-    k_ms = cuda_ms(kernel_once, 20)
-    p_ms = cuda_ms(plain_once, 5)
-    k_ms_2 = cuda_ms(kernel_once, 20)
-    nbytes, nops = step_cost(decoder, LANES)
-    bytes_ms, ops_ms = nbytes / rate * 1e3, nops / FP32_OPS * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    emit("kernel_time", kernel="block_chain_step",
-         shape=[decoder.Up, graph.N, LANES], ms=k_ms, ms_repeat=k_ms_2,
-         plain_ms=p_ms, bound_ms=bound_ms, bytes=nbytes, ops=nops,
-         bytes_ms=bytes_ms, ops_ms=ops_ms,
-         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-         achieved_bytes_per_s=nbytes / (k_ms * 1e-3))
+    time_a = time_kernel(
+        "block_chain_step",
+        lambda: bcs.block_chain_step(*args, new=out_new, bits=out_bits),
+        lambda: bcs.block_chain_step_reference(*args), 5,
+        *step_cost(decoder, LANES), rate, (decoder.Up, graph.N, LANES))
     del args, out_new, out_bits
+    torch.cuda.empty_cache()
+
+    # kernel b (the lattice step) against its plain version
+    b_names = ("new", "ent_new", "rc", "ru", "re")
+    rows_b = [check_kernel("block_chain_lattice_step",
+                           bcl.block_chain_lattice_step,
+                           bcl.block_chain_lattice_step_reference, b_names,
+                           lattice_step_inputs(dec, B, seed, off, t, ties),
+                           label, J=LAT_J)
+              for dec, B, seed, off, t, ties, label in (
+                  (decoder, LANES, SEED + 4, 0, 57, False, "full"),
+                  (small, 19, SEED + 5, 5, 9, False, "small_ragged"),
+                  (small, 19, SEED + 6, 5, 9, True, "forced_ties"))]
+    tie_args = lattice_step_inputs(small, 19, SEED + 6, 5, 9, True)
+    rc, ru = bcl.block_chain_lattice_step(*tie_args, J=LAT_J)[2:4]
+    passed = bool(((rc[2] == rc[3]) & (ru[2] > ru[3])
+                   & (rc[3] < bcs.INF)).any())
+    emit("kernel_check", ok=passed, kernel="block_chain_lattice_step",
+         checks=rows_b, ties_displaced_entry_passed_its_equals=passed)
+    if not passed:
+        raise SystemExit("the forced-ties case holds no list in which a "
+                         "displaced entry passed its equals")
+    del tie_args, rc, ru
+    args = lattice_step_inputs(decoder, LANES, SEED + 7, 0, 57)
+    out_new, out_ent = torch.empty_like(args[1]), torch.empty_like(args[1])
+    time_b = time_kernel(
+        "block_chain_lattice_step",
+        lambda: bcl.block_chain_lattice_step(*args, J=LAT_J, new=out_new,
+                                             ent_new=out_ent),
+        lambda: bcl.block_chain_lattice_step_reference(*args, J=LAT_J), 2,
+        *lattice_step_cost(decoder, LANES, LAT_J), rate,
+        (decoder.Up, graph.N, LANES))
+    del args, out_new, out_ent
     torch.cuda.empty_cache()
 
     # 4. the slice at full width --------------------------------------------
@@ -227,16 +382,7 @@ def main() -> int:
     pipe = BatchedOfflinePipeline2(model, decoder, fe,
                                    ivector_extractor=ivec, device="cuda")
     rng = np.random.default_rng(SEED)
-    n = int(FS * UTT_S)
-    t = np.arange(n) / FS
-    waves = []
-    for _ in range(LANES):
-        f0 = rng.uniform(100, 300)
-        voiced = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6))
-                     / k for k in range(1, 12))
-        envelope = 0.5 + 0.5 * np.sin(2 * np.pi * rng.uniform(2, 5) * t)
-        x = 4000 * voiced * envelope + rng.normal(size=n) * 800
-        waves.append(mulaw_encode(np.clip(x, -32767, 32767)))
+    waves = [synth_wave(rng) for _ in range(LANES)]
 
     t0 = time.perf_counter()
     pipe.decode_batch(waves)                                 # warm-up
@@ -292,42 +438,123 @@ def main() -> int:
     if not all(same):
         raise SystemExit("kernel and plain step decode differently")
 
-    # where one decode_batch spends the card's time
-    torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pipe.decode_batch(waves)
-        prof_wall = time.perf_counter() - t0
-    # device-side events only (a host op's device time repeats its
-    # kernels')
-    by_name = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)
-    device_ms = sum(ms for ms, _, _ in by_name)
-    emit("profile", wall_s_profiled=prof_wall, device_ms=device_ms,
-         busy_share_of_median_wall=device_ms / 1e3 / sorted(
-             r["wall_s"] for r in runs)[1],
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-         top=[{"ms": ms, "calls": c, "name": k[:70]}
-              for ms, c, k in by_name[:10]])
-
-    # 5. tables -------------------------------------------------------------
     walls = sorted(r["wall_s"] for r in runs)
+    prof = profile_call(lambda: pipe.decode_batch(waves))
+    emit("profile", busy_share_of_median_wall=prof["device_ms"] / 1e3
+         / walls[1], **prof)
+
+    # 5. lattice mode at full width -----------------------------------------
+    del k_hyps, p_hyps, plain_dec, pipe32, ll32
+    # the warm-up call runs under the profiler (the host assembly makes a
+    # lattice call long, so it is not repeated for the profile)
+    prof = profile_call(lambda: pipe.decode_batch(
+        waves, generate_lattices=True, lattice_beam=LAT_BEAM))
+    lat_runs, lat_outs = [], None
+    for it in range(2):
+        stats, lat_stats = PipelineStats(), {}
+        bcl.launches = 0
+        lat_outs = pipe.decode_batch(waves, stats=stats,
+                                     generate_lattices=True,
+                                     lattice_beam=LAT_BEAM,
+                                     lat_stats=lat_stats)
+        launches = bcl.launches
+        n_ok = sum(o is not None for o in lat_outs)
+        run = {"iter": it, "lattices": n_ok, "lanes": LANES,
+               "audio_s": stats.total_audio_s, "wall_s": stats.wall_s,
+               "feat_s": stats.feat_s, "am_s": stats.am_s,
+               "search_s": stats.search_s, "xrt": stats.xrt,
+               "lat_stats": lat_stats,
+               "launches": {"block_chain_lattice_step": launches}}
+        emit("slice_lattice", **run)
+        lat_runs.append(run)
+        if launches != T_out:
+            raise SystemExit(f"block_chain_lattice_step launched {launches} "
+                             f"times in one decode_batch, expected {T_out}")
+        # as in the reference, a narrow beam can leave a lane without a
+        # lattice (no final word end that the per-frame beam keeps
+        # connected to the start); a few lanes in a hundred do so here
+        if n_ok < 0.95 * LANES:
+            raise SystemExit(f"only {n_ok}/{LANES} lattices")
+    lat_wall = min(r["wall_s"] for r in lat_runs)
+    emit("profile_lattice", busy_share_of_best_wall=prof["device_ms"] / 1e3
+         / lat_wall, **prof)
+    # Each lane's lattice best path against the best-path decode.  A
+    # lattice holds real paths no dearer than the best path plus the beam,
+    # so its best path costs at least the Viterbi cost and at most that
+    # plus the beam (relative tolerance 1e-3).  As in the reference, the
+    # lattice's final states are word ends reached in the last frame that
+    # survive the per-frame beam, so the Viterbi path itself can be
+    # missing; most lanes must hold it (equal cost).
+    n_same_cost = n_same_words = 0
+    have = [lo for lo in lat_outs if lo is not None]
+    for lane, (lo, o) in enumerate(zip(lat_outs, outs)):
+        if lo is None:
+            continue
+        tol = 1e-3 * max(1.0, abs(o[1]))
+        if not o[1] - tol <= lo[1] <= o[1] + LAT_BEAM + tol:
+            raise SystemExit(f"lane {lane}: lattice best path costs {lo[1]}, "
+                             f"the best-path decode {o[1]}")
+        n_same_cost += abs(lo[1] - o[1]) <= tol
+        n_same_words += lo[0] == o[0]
+    arcs = sorted(lo[2].num_arcs() for lo in have)
+    # a path takes one arc a frame, so a lattice with more arcs than the
+    # utterance has frames holds alternatives
+    emit("lattice_check", lanes=LANES, lattices=len(have),
+         lanes_cost_equal=n_same_cost, lanes_words_equal=n_same_words,
+         rel_tolerance=1e-3, arcs_median=arcs[len(arcs) // 2],
+         states_median=sorted(lo[2].num_states
+                              for lo in have)[len(have) // 2],
+         frames_max=int(out_lens.max()))
+    if 2 * n_same_cost <= LANES:
+        raise SystemExit(f"only {n_same_cost}/{LANES} lattices hold the "
+                         "best-path decode")
+    if not arcs[len(arcs) // 2] > int(out_lens.max()):
+        raise SystemExit("the median lattice holds no alternative")
+    del lat_outs, have
+
+    # the same 8 lanes, kernel step vs plain step, on the same loglikes;
+    # the two steps agree bit for bit, so the lattices should too: the
+    # stated tolerance on weights is 1e-6
+    plain_dec = BlockChainDecoder(
+        graph, device="cuda",
+        lattice_step=bcl.block_chain_lattice_step_reference)
+    lat_kw = dict(lengths=out_lens[:8], lattice_beam=LAT_BEAM, J=LAT_J)
+    k_lats = decoder.decode_batch_lattice(loglikes[:8], **lat_kw)
+    t0 = time.perf_counter()
+    p_lats = plain_dec.decode_batch_lattice(loglikes[:8], **lat_kw)
+    plain_s = time.perf_counter() - t0
+    if any(k is None for k in k_lats):
+        raise SystemExit("a lane of the plain-step comparison has no "
+                         "lattice")
+    diff = max(lattice_diff(k, p) for k, p in zip(k_lats, p_lats))
+    emit("plain_lattice_check", lanes=8, max_weight_diff=diff, limit=1e-6,
+         states=[k.num_states for k in k_lats], plain_seconds=plain_s)
+    if not diff <= 1e-6:
+        raise SystemExit("kernel and plain lattice step give different "
+                         "lattices")
+    del k_lats, p_lats, plain_dec
+
+    # 6. tables -------------------------------------------------------------
     emit("summary", wall_s_median=walls[1], xrt_median=runs[0]["audio_s"]
-         / walls[1], kernel_ms=k_ms, bound_ms=bound_ms, plain_ms=p_ms,
+         / walls[1], lattice_wall_s=[r["wall_s"] for r in lat_runs],
+         lattice_xrt=[r["xrt"] for r in lat_runs],
          seconds_total=time.perf_counter() - t_start)
-    print(json.dumps({"kernels": [{
-        "name": "block_chain_step", "route": "cuda",
-        "source": "kaldi_tpu_torch/csrc/block_chain_step.cu",
-        "replaces": "kaldi_tpu/decoder/block_chain.py:345",
-        "launches": runs[-1]["launches"]["block_chain_step"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None}]}), flush=True)
+    kernels = []
+    for name, replaces, timed, checks, launches in (
+            ("block_chain_step", "kaldi_tpu/decoder/block_chain.py:345",
+             time_a, rows, runs[-1]["launches"]["block_chain_step"]),
+            ("block_chain_lattice_step",
+             "kaldi_tpu/decoder/block_chain.py:547", time_b, rows_b,
+             lat_runs[-1]["launches"]["block_chain_lattice_step"])):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"kaldi_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in checks),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,6 +12,7 @@ from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 
 pytestmark = pytest.mark.cuda
@@ -83,3 +84,89 @@ def test_decode_kernel_equals_plain(cuda):
     want = plain.decode_batch(ll, lengths=lengths)
     assert got == want
     assert all(h is not None for h in got)
+
+
+def lattice_step_args(dec, B, seed, t, ties=False):
+    gen = torch.Generator(device=dec.device).manual_seed(seed)
+    Up, N = dec.Up, dec.g.N
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dec.device)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dec.device)
+
+    cost = randn(Up, N, B) * 5 + 20
+    cost[rand(Up, N, B) < 0.2] = bcs.INF
+    ovr = randn(Up, B) * 5 + 15
+    ovr[rand(Up, B) < 0.2] = bcs.INF
+    ent = torch.floor(rand(Up, N, B) * (t + 1))
+    bigram_ends = dec._bigram_ends
+    if ties:
+        # equal candidates in every block, then some blocks lowered, so
+        # that smaller candidates displace entries of equal cost
+        cost[:] = cost[0].clone()
+        ovr[:] = ovr[0].clone()
+        for plane in (cost, ovr):
+            plane[4:] += 1.0
+            plane[3] -= 2.0
+            plane[7] -= 5.0
+        bigram_ends = torch.where(bigram_ends < bcs.INF, 1.25, bcs.INF)
+    active = rand(B) < 0.8
+    return (t, cost, ent, ovr, randn(N, B), randn(N, B), dec._first,
+            bigram_ends, dec._end_src, active)
+
+
+@pytest.mark.parametrize("seed,B,J,ties", [
+    (0, 1, 4, False), (1, 19, 4, False), (2, 64, 2, False),
+    (3, 129, 8, False), (4, 33, 4, True), (5, 7, 1, True)])
+def test_lattice_step_kernel_equals_plain(cuda, seed, B, J, ties):
+    dec = small_decoder(seed, cuda)
+    args = lattice_step_args(dec, B, seed, t=seed + 3, ties=ties)
+    before = bcl.launches
+    got = bcl.block_chain_lattice_step(*args, J=J)
+    assert bcl.launches == before + 1
+    want = bcl.block_chain_lattice_step_reference(*args, J=J)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("new", "ent_new", "rc", "ru", "re"), got, want):
+        assert torch.equal(g, w), name
+    if ties and J == 4:
+        # blocks [7, 3, 2, 0]: a displaced entry passed its equals
+        rc, ru = want[2], want[3]
+        assert ((rc[2] == rc[3]) & (ru[2] > ru[3]) & (rc[3] < bcs.INF)).any()
+
+
+def test_lattice_step_kernel_rejects_bad_inputs(cuda):
+    dec = small_decoder(0, cuda)
+    args = list(lattice_step_args(dec, 4, 0, t=2))
+    cost, ent = args[1], args[2]
+    with pytest.raises(TypeError):
+        bcl.block_chain_lattice_step(*(args[:2] + [ent.double()] + args[3:]))
+    with pytest.raises(ValueError, match="alias"):
+        bcl.block_chain_lattice_step(*args, new=cost)
+    with pytest.raises(ValueError, match="alias"):
+        bcl.block_chain_lattice_step(*args, ent_new=ent)
+    with pytest.raises(ValueError, match="J="):
+        bcl.block_chain_lattice_step(*args, J=bcl.MAX_J + 1)
+    with pytest.raises(ValueError):
+        bcl.block_chain_lattice_step(*(args[:4] + [args[4][:, :2]]
+                                       + args[5:]))
+
+
+def lattice_key(lat):
+    return (lat.start, lat.finals,
+            [[tuple(a) for a in arcs] for arcs in lat.arcs])
+
+
+def test_lattice_decode_kernel_equals_plain(cuda):
+    dec = small_decoder(5, cuda, V=31)
+    plain = BlockChainDecoder(
+        dec.g, device=cuda,
+        lattice_step=bcl.block_chain_lattice_step_reference)
+    rng = np.random.default_rng(5)
+    ll = rng.normal(size=(7, 25, 64)).astype(np.float32)
+    lengths = [25, 24, 20, 13, 9, 25, 3]
+    got = dec.decode_batch_lattice(ll, lengths=lengths, lattice_beam=10.0)
+    want = plain.decode_batch_lattice(ll, lengths=lengths, lattice_beam=10.0)
+    assert all(lat is not None for lat in got)
+    assert [lattice_key(g) for g in got] == [lattice_key(w) for w in want]

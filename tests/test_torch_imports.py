@@ -26,6 +26,7 @@ bad = sorted(m for m in sys.modules
                                     "kaldi_tpu"))
 print(len(names))
 print(",".join(bad))
+print(",".join(n for n in names if n not in sys.modules))
 """
 
 
@@ -33,9 +34,23 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    n_modules, bad = proc.stdout.split("\n")[:2]
-    assert int(n_modules) >= 15
+    n_modules, bad, missing = proc.stdout.split("\n")[:3]
+    assert int(n_modules) >= 22
     assert bad == "", f"forbidden modules imported: {bad}"
+    assert missing == ""
+    walked = set(_walked())
+    for name in ("fstext.fst", "fstext.ops", "lat.kaldi_lattice",
+                 "lat.functions", "ops.block_chain_lattice_step",
+                 "ops.block_chain_step", "decoder.block_chain"):
+        assert f"kaldi_tpu_torch.{name}" in walked, name
+
+
+def _walked():
+    import pkgutil
+
+    import kaldi_tpu_torch
+    return [m.name for m in pkgutil.walk_packages(kaldi_tpu_torch.__path__,
+                                                  "kaldi_tpu_torch.")]
 
 
 def _makers(device):
@@ -103,3 +118,5 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
     assert feats.device.type == "cpu" and int(n[0]) == 23
     out = dec.decode_batch(np.zeros((1, 6, 16), np.float32))
     assert out[0] is not None
+    lats = dec.decode_batch_lattice(np.zeros((1, 6, 16), np.float32))
+    assert lats[0] is not None and lats[0].num_states > 0

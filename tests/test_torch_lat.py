@@ -1,0 +1,95 @@
+"""Port parity of the host FST and lattice pieces: the port's own copies
+of VectorFst (with its text form), connect and lattice_best_path against
+the JAX package's, on hand-built lattices.  Exact: the same Python
+arithmetic runs on both sides."""
+
+import pytest
+
+from kaldi_tpu.fstext import fst as jfst
+from kaldi_tpu.fstext.ops import connect as jax_connect
+from kaldi_tpu.lat.functions import lattice_best_path as jax_best_path
+from kaldi_tpu_torch.fstext import fst as tfst
+from kaldi_tpu_torch.fstext.ops import connect
+from kaldi_tpu_torch.lat.functions import lattice_best_path
+from kaldi_tpu_torch.lat.kaldi_lattice import Lattice
+
+# (states, start, arcs (src, ilabel, olabel, (graph, acoustic), dst),
+#  finals {state: weight})
+LATTICES = {
+    "linear": (3, 0, [(0, 5, 1, (0.5, 1.0), 1), (1, 6, 0, (0.0, 2.0), 2)],
+               {2: (0.25, 0.0)}),
+    # two word alternatives, a dead end (3) and an unreachable state (4)
+    "diamond": (6, 0, [(0, 1, 7, (1.0, 2.0), 1), (0, 2, 8, (0.5, 2.0), 2),
+                       (1, 3, 0, (0.0, 0.5), 5), (2, 4, 0, (0.0, 1.5), 5),
+                       (0, 9, 9, (0.1, 0.1), 3), (4, 9, 9, (0.0, 0.0), 5)],
+                {5: (1.5, 0.0)}),
+    # equal totals: the first path found stays (strict improvement only)
+    "tie": (4, 0, [(0, 1, 1, (1.0, 1.0), 1), (0, 2, 2, (0.5, 1.5), 2),
+                   (1, 3, 0, (0.0, 0.0), 3), (2, 4, 0, (0.0, 0.0), 3)],
+            {3: (0.0, 0.0)}),
+    # start is not state 0, two finals, epsilon input labels
+    "finals": (4, 2, [(2, 0, 4, (0.0, 3.0), 0), (2, 11, 5, (2.0, 0.0), 1),
+                      (0, 12, 0, (0.0, 0.25), 3)],
+               {1: (0.5, 0.0), 3: (0.0, 0.0)}),
+    "no_final": (2, 0, [(0, 1, 1, (1.0, 1.0), 1)], {}),
+}
+
+
+def build(mod, name):
+    n, start, arcs, finals = LATTICES[name]
+    lat = mod.VectorFst(mod.LatticeWeight)
+    lat.add_states(n)
+    lat.set_start(start)
+    for s, il, ol, w, d in arcs:
+        lat.add_arc(s, mod.Arc(il, ol, w, d))
+    for s, w in finals.items():
+        lat.set_final(s, w)
+    return lat
+
+
+def same(got, want):
+    assert (got.num_states, got.start, got.num_arcs()) == \
+        (want.num_states, want.start, want.num_arcs())
+    assert got.finals == want.finals
+    assert [[tuple(a) for a in arcs] for arcs in got.arcs] == \
+        [[tuple(a) for a in arcs] for arcs in want.arcs]
+
+
+@pytest.mark.parametrize("name", sorted(LATTICES))
+def test_connect_and_best_path_match(name):
+    got, want = build(tfst, name), build(jfst, name)
+    assert lattice_best_path(got) == jax_best_path(want)
+    same(connect(got), jax_connect(want))
+    if name != "no_final":
+        assert got.num_states > 0
+        assert lattice_best_path(got) == jax_best_path(want)
+
+
+@pytest.mark.parametrize("name", ["diamond", "finals"])
+def test_text_form_matches_and_round_trips(name):
+    got, want = build(tfst, name), build(jfst, name)
+    assert got.to_text() == want.to_text()
+    back = Lattice.from_text(got.to_text(), tfst.LatticeWeight)
+    assert back.to_text() == got.to_text()
+    assert lattice_best_path(back) == lattice_best_path(got)
+    copy = got.copy()
+    copy.arcs[got.start][0].ilabel += 1
+    assert copy.to_text() != got.to_text()
+
+
+def test_semirings_match():
+    assert (tfst.EPS, tfst.INF) == (jfst.EPS, jfst.INF)
+    pairs = [((1.0, 2.0), (2.5, 0.5)), ((1.0, 2.0), (0.5, 2.5)),
+             ((1.0, 2.0), tfst.LatticeWeight.zero)]
+    for a, b in pairs:
+        for op in ("plus", "times"):
+            assert getattr(tfst.LatticeWeight, op)(a, b) == \
+                getattr(jfst.LatticeWeight, op)(a, b)
+        assert tfst.LatticeWeight.approx_equal(a, b) == \
+            jfst.LatticeWeight.approx_equal(a, b)
+    for a, b in [(1.0, 2.0), (3.0, 3.0), (1.0, tfst.INF)]:
+        for op in ("plus", "times", "approx_equal"):
+            assert getattr(tfst.TropicalWeight, op)(a, b) == \
+                getattr(jfst.TropicalWeight, op)(a, b)
+    t = tfst.VectorFst()
+    assert t.semiring is tfst.TropicalWeight and t.start == -1

@@ -4,6 +4,10 @@ interpret mode) against the kaldi_tpu_torch pipeline on the CPU, with a
 small random-init model (float32 params; both pipelines round the model
 input to bf16), the committed i-vector extractor, a small block-chain
 graph and three seeded waves.  Equal words; cost within 1e-4 relative.
+Lattice mode (Pallas kernel b in interpret mode on the JAX side): equal
+words, cost within 1e-4 relative, lattices with equal states and arc
+labels; arc weights within 2e-3 absolute, since the two acoustic models
+differ by about 1e-4 a frame and a word arc sums several frames.
 
 Two wires: int16 waves of three lengths (zero padding), and mu-law waves
 of one length whose frame count fills its bucket exactly, so that no
@@ -34,7 +38,9 @@ from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
 from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
+from kaldi_tpu_torch.lat.functions import lattice_best_path
 from test_torch_block_chain import graphs
+from test_torch_block_chain_lattice import assert_lattices_match
 from test_torch_frontend import bench_options, waves
 from test_torch_tdnnf import SMALL, random_variables
 
@@ -85,7 +91,31 @@ def test_pipeline_matches_jax(wire):
             f"lane {b}: {o[1]} vs {r[1]}"
 
 
-def test_lattice_mode_not_ported():
+def test_lattice_mode_matches_jax():
+    ref, port = pipelines()
+    ws = [w.astype(np.int16) for w in waves(11, [8000, 6500, 4900])]
+    want = ref.decode_batch(ws, generate_lattices=True, lattice_beam=10.0)
+    lat_stats = {}
+    stats = PipelineStats()
+    got = port.decode_batch(ws, stats=stats, generate_lattices=True,
+                            lattice_beam=10.0, lat_stats=lat_stats)
+    assert lat_stats["n_survivors"] > 0 and lat_stats["fwd_s"] > 0
+    assert stats.search_s >= lat_stats["fwd_s"]
+    best = port.decode_batch(ws)
+    for b, (r, o) in enumerate(zip(want, got)):
+        assert r is not None and o is not None
+        assert o[0] == r[0] == best[b][0], f"lane {b} words"
+        assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
+            f"lane {b}: {o[1]} vs {r[1]}"
+        assert abs(o[1] - best[b][1]) <= 1e-3
+        assert_lattices_match(o[2], r[2], atol=2e-3)
+        assert lattice_best_path(o[2])[1] == o[0]
+    # alternatives exist in some lane
+    assert any(o[2].num_arcs() > len(lattice_best_path(o[2])[0])
+               for o in got)
+
+
+def test_num_waves_not_ported():
     _, port = pipelines()
-    with pytest.raises(NotImplementedError, match="kernel b"):
-        port.decode_batch([np.zeros(4000, np.int16)], generate_lattices=True)
+    with pytest.raises(NotImplementedError, match="num_waves"):
+        port.decode_batch([np.zeros(4000, np.int16)], num_waves=2)
