@@ -6,7 +6,11 @@ mu-law audio -> MFCC -> i-vectors -> the committed flagship_ng chain
 TDNN-F (17 x 1536, bf16) -> exact block-chain Viterbi over the
 V=700 DirectGraphSpec graph (2,215,861 states), through
 BatchedOfflinePipeline2.decode_batch, in best-path mode and in lattice
-mode (generate_lattices=True, lattice_beam=8, J=4).
+mode (generate_lattices=True, lattice_beam=8, J=4); and the same 128
+lanes' loglikes -> BatchedViterbi.run, the dense exact Viterbi over a
+flat graph (the V=64 block-chain graph's to_flat_graph(): 20,865 states,
+44,914 arcs, in-arc tables padded to K=128), shared by all lanes (decode)
+and one graph a lane (forced alignment).
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -19,12 +23,20 @@ Phases, one JSON line each (any failure exits nonzero):
      float32 on 4 lanes; 8 lanes decoded again with the plain step (equal
      words, tids and costs); one decode_batch under torch.profiler
      (device time by kernel, busy share, peak memory);
-  5. the lattice slice: one warm-up under torch.profiler and two timed
-     decode_batch calls in lattice mode (launch counts, the lattice
+  5. the lattice slice: one warm-up under torch.profiler and one timed
+     decode_batch call in lattice mode (launch counts, the lattice
      stages' seconds, each lane's lattice best path against the
      best-path decode); 8 lanes decoded again with the plain lattice
      step (equal lattices);
-  6. the kernel table; the last line is {"ok": true, "device": ...}.
+  6. the flat-graph slice: one warm-up and three timed BatchedViterbi.run
+     calls (seconds of table preparation, frame loop, copy to the host
+     and traceback; launch counts), one under torch.profiler; the
+     block-chain decoder and the host FasterDecoder on the same graph
+     and loglikes (cross_check); one sub-graph a lane cut along its
+     decoded words (alignment: the per-lane-table form of the kernel
+     must give the lane's tids and cost back); 8 lanes again with the
+     plain relaxation;
+  7. the kernel table; the last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 """
@@ -42,20 +54,25 @@ import torch
 
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
+from kaldi_tpu_torch.decoder.batched_viterbi import BatchedViterbi
 from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
+                                             FasterDecoderOptions)
 from kaldi_tpu_torch.feat.frontend import (MfccOptions, OfflineFeature,
                                            mulaw_encode)
 from kaldi_tpu_torch.feat.mel import MelBanksOptions
 from kaldi_tpu_torch.feat.window import FrameExtractionOptions
+from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
 from kaldi_tpu_torch.ops import _build
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
+from kaldi_tpu_torch.ops import viterbi_relax as vr
 from kaldi_tpu_torch.recipes.bench_corpus import (load_ivector_extractor,
                                                   load_params)
 
@@ -68,6 +85,11 @@ HBM_RATE = [("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
             ("H100", 3.35e12)]
 FP32_OPS = 67e12          # H100 SXM float32 outside the tensor cores
 LAT_J, LAT_BEAM = 4, 8.0
+LN2 = float(np.log(2.0))
+# the two decoders of cross_check round in different orders, so two paths
+# whose float64 costs differ by less than this share of the cost are a tie
+# that either may win
+TIE_REL = 4e-6
 
 
 def emit(phase: str, **kw) -> None:
@@ -186,18 +208,146 @@ def lattice_step_cost(dec: BlockChainDecoder, B: int, J: int):
     return bytes_in + bytes_out, ops
 
 
+def relax_inputs(arrays: dict, B: int, P: int, seed: int):
+    """Seeded costs with INF entries and loglikes on the card, lanes
+    fastest as the decoder keeps them, beside the tables of
+    `BatchedViterbi._prepare`.  -> (emitting args, closure args)."""
+    tabs = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()
+            if k != "init_cost"}
+    S = tabs["e_in_src"].shape[-2]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cost = torch.randn(S + 1, B, generator=gen, device="cuda") * 50 + 400
+    cost.masked_fill_(torch.rand(cost.shape, generator=gen, device="cuda")
+                      < 0.3, float(vr.INF))
+    cost[S] = float(vr.INF)
+    ll = torch.randn(P, B, generator=gen, device="cuda") * 4
+    emitting = (cost.T, tabs["e_in_src"], tabs["e_in_w"], tabs["e_in_pdf"],
+                ll.T)
+    return emitting, (cost.T, tabs["ne_in_src"], tabs["ne_in_w"])
+
+
+def relax_cost(args):
+    """Bytes a relaxation must move (tables, cost row in and out, loglikes,
+    each once) and its float operations (emitting: an add, a multiply and
+    a subtraction a candidate; closure: an add a candidate), from the
+    shapes of its arguments."""
+    cost, in_src = args[0], args[1]
+    B, S1 = cost.shape
+    closure = len(args) == 3
+    nbytes = 4 * in_src.numel() * (2 if closure else 3) + 2 * 4 * B * S1
+    cand = in_src.shape[-2] * in_src.shape[-1] * B
+    if closure:
+        return nbytes, cand + B * (S1 - 1)
+    return nbytes + 4 * args[4].numel(), 3 * cand
+
+
+def eps_fst(seed: int, n: int = 41) -> VectorFst:
+    """A seeded random graph with an epsilon DAG (arcs to higher states
+    only), for the closure mode of the relaxation kernel."""
+    rng = np.random.default_rng(seed)
+    fst = VectorFst()
+    for _ in range(n):
+        fst.add_state()
+    fst.start = 0
+    for s in range(n):
+        fst.add_arc(s, Arc(int(rng.integers(1, 30)), 0,
+                           float(rng.uniform(0.1, 2.0)), s))
+        for d in rng.integers(0, n, 2):
+            fst.add_arc(s, Arc(int(rng.integers(1, 30)), 0,
+                               float(rng.uniform(0.1, 2.0)), int(d)))
+        for d in rng.integers(s + 1, n, 2 if s + 1 < n else 0):
+            if rng.random() < 0.5:
+                fst.add_arc(s, Arc(0, int(rng.integers(0, 4)),
+                                   float(rng.uniform(0.2, 1.5)), int(d)))
+    fst.set_final(n - 1, 0.5)
+    return fst
+
+
+def flat_fsts(vocabs) -> list:
+    """Flat graphs of small block-chain graphs of different sizes."""
+    out = []
+    for i, v in enumerate(vocabs):
+        spec = DirectGraphSpec(vocab=v, num_phones=6, min_pron=1, max_pron=4,
+                               num_pdfs=64, seed=10 + i)
+        out.append(BlockChainGraph.build(
+            synth_lexicon(spec), synth_bigram(spec),
+            num_pdfs=64).to_flat_graph().to_vector_fst())
+    return out
+
+
+def timed_methods(obj, names, sink: dict) -> None:
+    """Wrap obj's methods so that each call adds its seconds, the card's
+    queued work included, to sink[name]."""
+    for name in names:
+        inner = getattr(obj, name)
+
+        def wrapper(*args, _inner=inner, _name=name, **kw):
+            t0 = time.perf_counter()
+            out = _inner(*args, **kw)
+            torch.cuda.synchronize()
+            sink[_name] = sink.get(_name, 0.0) + time.perf_counter() - t0
+            return out
+
+        setattr(obj, name, wrapper)
+
+
+def path_cost(g: BlockChainGraph, words, tids, loglikes: np.ndarray) -> float:
+    """Float64 cost of a decoded path from its labels: LN2 an arc, the
+    bigram cost of each word in the context of the one before, the
+    end-of-sentence cost, and minus the loglike of each frame's pdf."""
+    ctx = [g.V] + [w - 1 for w in words[:-1]]
+    graph = len(tids) * LN2 + float(g.eos_cost[words[-1] - 1]) + sum(
+        float(g.bigram[u, w - 1]) for u, w in zip(ctx, words))
+    pdfs = g.tid2pdf[np.asarray(tids)]
+    return graph - float(loglikes[np.arange(len(tids)), pdfs]
+                         .astype(np.float64).sum())
+
+
+def lane_subgraph(g: BlockChainGraph, flat, words) -> VectorFst:
+    """The part of the flat graph that a word sequence runs through: the
+    begin root, each word's root, and each word's chain rows in the block
+    of the word before it.  States and arcs keep their order."""
+    root0 = g.U * g.N
+    keep = {root0 + g.V}
+    u = g.V
+    for word in words:
+        w = word - 1
+        e = int(g.end_row[w])
+        if e >= 0:
+            k = len(g.prons[w])
+            keep.update(range(u * g.N + e - (k - 2), u * g.N + e + 1))
+        keep.add(root0 + w)
+        u = w
+    states = np.array(sorted(keep))
+    arcs = np.nonzero(np.isin(flat.src, states) & np.isin(flat.dst, states))[0]
+    new_id = {int(s): i for i, s in enumerate(states)}
+    fst = VectorFst()
+    for _ in states:
+        fst.add_state()
+    fst.start = new_id[flat.start]
+    for a in arcs:
+        fst.add_arc(new_id[int(flat.src[a])],
+                    Arc(int(flat.ilabel[a]), int(flat.olabel[a]),
+                        float(flat.weight[a]), new_id[int(flat.dst[a])]))
+    for s in states:
+        if flat.finals[s] < vr.INF / 2:
+            fst.set_final(new_id[int(s)], float(flat.finals[s]))
+    return fst
+
+
 def check_kernel(name: str, kernel, plain, names, args, label: str,
-                 **kw) -> dict:
+                 B: int, **kw) -> dict:
     """Hold one kernel launch against its plain version (torch.equal on
     every output); exits on a difference."""
     got = kernel(*args, **kw)
     want = plain(*args, **kw)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
     torch.cuda.synchronize()
     equal = {n: bool(torch.equal(g, w)) for n, g, w in zip(names, got, want)}
     err = max(float((g.double() - w.double()).abs().max())
               for g, w in zip(got, want))
-    row = {"shape": label, "B": int(args[-1].shape[0]), "equal": equal,
-           "max_abs_err": err}
+    row = {"shape": label, "B": B, "equal": equal, "max_abs_err": err}
     if not all(equal.values()):
         emit("kernel_check", ok=False, kernel=name, **row)
         raise SystemExit(f"{name} differs from its plain version at "
@@ -227,9 +377,10 @@ def time_kernel(name: str, kernel_once, plain_once, plain_iters: int,
     return row
 
 
-def profile_call(fn) -> dict:
+def profile_call(fn, per_launch_of: str = "") -> dict:
     """Where one call spends the card's time: device time by kernel and
-    peak memory."""
+    peak memory.  per_launch_of: a kernel name (or part of one) whose mean
+    device ms a launch is reported too."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=[
@@ -245,10 +396,19 @@ def profile_call(fn) -> dict:
                       if e.device_type == torch.autograd.DeviceType.CUDA
                       and e.self_device_time_total > 0), reverse=True)
     device_ms = sum(ms for ms, _, _ in by_name)
-    return {"wall_s_profiled": prof_wall, "device_ms": device_ms,
-            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "top": [{"ms": ms, "calls": c, "name": k[:70]}
-                    for ms, c, k in by_name[:10]]}
+    copy_ms = sum(ms for ms, _, k in by_name if k.startswith("Mem"))
+    out = {"wall_s_profiled": prof_wall, "device_ms": device_ms,
+           "copy_ms": copy_ms,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "top": [{"ms": ms, "calls": c, "name": k[:70]}
+                   for ms, c, k in by_name[:10]]}
+    if per_launch_of:
+        hits = [(ms, c) for ms, c, k in by_name if per_launch_of in k]
+        if len(hits) != 1:
+            raise SystemExit(f"{len(hits)} profiled kernels match "
+                             f"{per_launch_of!r}")
+        out["ms_per_launch"] = {per_launch_of: hits[0][0] / hits[0][1]}
+    return out
 
 
 def lattice_diff(got, want) -> float:
@@ -314,7 +474,7 @@ def main() -> int:
     a_names = ("new", "bits", "rootexp", "rootarg")
     rows = [check_kernel("block_chain_step", bcs.block_chain_step,
                          bcs.block_chain_step_reference, a_names,
-                         step_inputs(dec, B, seed, off), label)
+                         step_inputs(dec, B, seed, off), label, B)
             for dec, B, seed, off, label in (
                 (decoder, LANES, SEED + 1, 0, "full"),
                 (small, 19, SEED + 2, 5, "small_ragged"))]
@@ -337,7 +497,7 @@ def main() -> int:
                            bcl.block_chain_lattice_step,
                            bcl.block_chain_lattice_step_reference, b_names,
                            lattice_step_inputs(dec, B, seed, off, t, ties),
-                           label, J=LAT_J)
+                           label, B, J=LAT_J)
               for dec, B, seed, off, t, ties, label in (
                   (decoder, LANES, SEED + 4, 0, 57, False, "full"),
                   (small, 19, SEED + 5, 5, 9, False, "small_ragged"),
@@ -362,6 +522,63 @@ def main() -> int:
         *lattice_step_cost(decoder, LANES, LAT_J), rate,
         (decoder.Up, graph.N, LANES))
     del args, out_new, out_ent
+    torch.cuda.empty_cache()
+
+    # kernel c (the padded in-arc relaxation) against its plain version:
+    # the flat form of the V=64 block-chain graph, shared by all lanes
+    t0 = time.perf_counter()
+    spec64 = DirectGraphSpec(vocab=64, num_pdfs=2000)
+    graph64 = BlockChainGraph.build(synth_lexicon(spec64),
+                                    synth_bigram(spec64),
+                                    num_pdfs=spec64.num_pdfs)
+    flat64 = graph64.to_flat_graph()
+    dense = BatchedViterbi(flat64.to_vector_fst(), flat64.tid2pdf,
+                           device="cuda")
+    _, arrays64, S64, eps64 = dense._prepare(LANES)
+    K64 = arrays64["e_in_src"].shape[1]
+    live = int((arrays64["e_in_src"] < S64).sum())
+    emit("flat_graph", V=graph64.V, states=flat64.num_states,
+         arcs=flat64.num_arcs, S_with_dead=S64, K=K64,
+         K_eps=arrays64["ne_in_src"].shape[1], eps_iters=eps64,
+         live_slots=live, slots=S64 * K64, live_share=live / (S64 * K64),
+         seconds=time.perf_counter() - t0)
+    full_e, full_c = relax_inputs(arrays64, LANES, spec64.num_pdfs, SEED + 8)
+    ragged = BatchedViterbi((flat_fsts([5, 9, 7, 4]) * 5)[:19],
+                            np.concatenate([[0], np.arange(64),
+                                            np.arange(64)]),
+                            device="cuda")._prepare(19)
+    if ragged[2] % 2 == 0 or ragged[1]["e_in_src"].ndim != 3:
+        raise SystemExit("the ragged case needs an odd S and per-lane tables")
+    ragged_e, _ = relax_inputs(ragged[1], 19, 64, SEED + 9)
+    eps_prep = BatchedViterbi(eps_fst(SEED + 10), np.arange(30),
+                              device="cuda")._prepare(19)
+    live_eps = int((eps_prep[1]["ne_in_src"] < eps_prep[2]).sum())
+    if live_eps == 0 or eps_prep[3] < 2:
+        raise SystemExit("the epsilon case holds no live epsilon arc")
+    _, eps_c = relax_inputs(eps_prep[1], 19, 30, SEED + 11)
+    rows_c = [check_kernel("viterbi_relax", vr.viterbi_relax,
+                           vr.relax_padded, ("new",), args, label,
+                           args[0].shape[0], **kw)
+              for args, label, kw in (
+                  (full_e, "full_shared_emitting", {}),
+                  (ragged_e, "small_ragged_per_lane_emitting", {}),
+                  (full_c, "full_closure_K1", {}),
+                  (eps_c, "closure_live_epsilon_arcs", {}),
+                  (full_e, "full_scale_0.3",
+                   {"acoustic_scale": 0.3}))]
+    emit("kernel_check", ok=True, kernel="viterbi_relax", checks=rows_c,
+         ragged_S=ragged[2], ragged_K=ragged[1]["e_in_src"].shape[2],
+         eps_live_arcs=live_eps)
+    out_e = torch.empty((S64 + 1, LANES), device="cuda").T
+    time_c = time_kernel(
+        "viterbi_relax", lambda: vr.viterbi_relax(*full_e, 1.0, out=out_e),
+        lambda: vr.relax_padded(*full_e, 1.0), 5, *relax_cost(full_e), rate,
+        (LANES, S64, K64))
+    time_c_closure = time_kernel(
+        "viterbi_relax_closure", lambda: vr.viterbi_relax(*full_c, out=out_e),
+        lambda: vr.relax_padded(*full_c), 5, *relax_cost(full_c), rate,
+        (LANES, S64, arrays64["ne_in_src"].shape[1]))
+    del full_e, full_c, ragged_e, eps_c, out_e
     torch.cuda.empty_cache()
 
     # 4. the slice at full width --------------------------------------------
@@ -450,7 +667,7 @@ def main() -> int:
     prof = profile_call(lambda: pipe.decode_batch(
         waves, generate_lattices=True, lattice_beam=LAT_BEAM))
     lat_runs, lat_outs = [], None
-    for it in range(2):
+    for it in range(1):
         stats, lat_stats = PipelineStats(), {}
         bcl.launches = 0
         lat_outs = pipe.decode_batch(waves, stats=stats,
@@ -534,10 +751,150 @@ def main() -> int:
                          "lattices")
     del k_lats, p_lats, plain_dec
 
-    # 6. tables -------------------------------------------------------------
+    # 6. the flat-graph slice: BatchedViterbi over the V=64 graph -----------
+    n_relax = T_out + (T_out + 1) * eps64
+    stage_names = ("_prepare", "_forward", "_to_host", "_traceback")
+    stage_s: dict = {}
+    timed_methods(dense, stage_names, stage_s)
+    dense.run(loglikes, out_lens)                            # warm-up
+    dense_runs, dense_hyps = [], None
+    for it in range(3):
+        stage_s.clear()
+        vr.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense_hyps = dense.run(loglikes, out_lens)
+        wall = time.perf_counter() - t0
+        launches = vr.launches
+        n_ok = sum(h is not None for h in dense_hyps)
+        run = {"iter": it, "lanes_decoded": n_ok, "lanes": LANES,
+               "frames": T_out, "audio_s": runs[0]["audio_s"],
+               "wall_s": wall, "xrt_search_only": runs[0]["audio_s"] / wall,
+               "prepare_s": stage_s["_prepare"],
+               "frame_loop_s": stage_s["_forward"],
+               "to_host_s": stage_s["_to_host"],
+               "traceback_s": stage_s["_traceback"],
+               "launches": {"viterbi_relax": launches}}
+        emit("slice_viterbi", **run)
+        dense_runs.append(run)
+        if launches != n_relax:
+            raise SystemExit(f"viterbi_relax launched {launches} times in "
+                             f"one run, expected {n_relax}")
+        if n_ok != LANES:
+            raise SystemExit(f"only {n_ok}/{LANES} lanes decoded")
+        if not all(np.isfinite(h[2]) and len(h[1]) > 0
+                   and len(h[0]) == n for h, n in zip(dense_hyps, out_lens)):
+            raise SystemExit("a lane has a non-finite cost, no words or an "
+                             "alignment of the wrong length")
+    dense_walls = sorted(r["wall_s"] for r in dense_runs)
+    # a closure launch is shorter than the wrapper's host time, so CUDA
+    # events around a loop of launches time the host; the profiler gives
+    # the kernel's own time in the run
+    prof = profile_call(lambda: dense.run(loglikes, out_lens),
+                        per_launch_of="relax<true>")
+    closure_device_ms = prof["ms_per_launch"]["relax<true>"]
+    emit("profile_viterbi", busy_share_of_median_wall=prof["device_ms"] / 1e3
+         / dense_walls[1], kernel_share_of_median_wall=(
+             prof["device_ms"] - prof["copy_ms"]) / 1e3 / dense_walls[1],
+         **prof)
+
+    # the block-chain decoder (kernel a) and the host token-passing decoder
+    # on the same graph and loglikes.  Equal words and tids are expected;
+    # where they differ, the two paths must be a tie (see TIE_REL)
+    dec64 = BlockChainDecoder(graph64, device="cuda")
+    bcs.launches = 0
+    t0 = time.perf_counter()
+    chain_hyps = dec64.decode_batch(loglikes, lengths=out_lens)
+    chain_s = time.perf_counter() - t0
+    chain_launches = bcs.launches
+    ll_host = loglikes.cpu().numpy()
+
+    def agree(lane, ali, words, cost, other):
+        """'equal', 'tied' or exits: `other` is (ali, words, cost)."""
+        tol = 1e-3 * max(1.0, abs(other[2]))
+        if abs(cost - other[2]) >= tol:
+            raise SystemExit(f"lane {lane}: costs {cost} and {other[2]}")
+        if words == other[1] and ali == other[0]:
+            return "equal"
+        ll_b = ll_host[lane]
+        gap = abs(path_cost(graph64, words, ali, ll_b)
+                  - path_cost(graph64, other[1], other[0], ll_b))
+        if gap > TIE_REL * max(1.0, abs(cost)):
+            raise SystemExit(f"lane {lane}: two decoders give different "
+                             f"paths {gap} apart in float64")
+        return "tied"
+
+    verdicts = []
+    for lane, (c, d) in enumerate(zip(chain_hyps, dense_hyps)):
+        if c is None:
+            raise SystemExit(f"lane {lane}: the block-chain decoder failed")
+        verdicts.append(agree(lane, c[1], c[0], c[2], d))
+    host = FasterDecoder(flat64.to_vector_fst(),
+                         FasterDecoderOptions(beam=1e9, max_active=10 ** 9))
+    t0 = time.perf_counter()
+    host_verdicts = []
+    for lane in range(4):
+        h = host.decode(ll_host[lane, :out_lens[lane]], flat64.tid2pdf)
+        if h is None:
+            raise SystemExit(f"lane {lane}: the host decoder failed")
+        host_verdicts.append(agree(lane, h[0], h[1], h[2], dense_hyps[lane]))
+    emit("cross_check", lanes=LANES, lanes_equal=verdicts.count("equal"),
+         lanes_tied=verdicts.count("tied"), tie_rel=TIE_REL,
+         cost_rel_tolerance=1e-3, block_chain_seconds=chain_s,
+         launches={"block_chain_step": chain_launches},
+         host_lanes=host_verdicts, host_seconds=time.perf_counter() - t0,
+         words_lane0=dense_hyps[0][1][:12], cost_lane0=dense_hyps[0][2])
+    if chain_launches != T_out:
+        raise SystemExit(f"block_chain_step launched {chain_launches} times")
+    if 2 * verdicts.count("equal") <= LANES:
+        raise SystemExit("most lanes differ between the two decoders")
+
+    # forced alignment: one graph a lane, cut from the flat graph along the
+    # lane's decoded words.  It holds the lane's best path, so the
+    # per-lane-table form of the kernel must give tids and cost back
+    t0 = time.perf_counter()
+    subs = [lane_subgraph(graph64, flat64, h[1]) for h in dense_hyps]
+    aligner = BatchedViterbi(subs, flat64.tid2pdf, device="cuda")
+    build_s = time.perf_counter() - t0
+    vr.launches = 0
+    t0 = time.perf_counter()
+    ali_hyps = aligner.run(loglikes, out_lens)
+    ali_s = time.perf_counter() - t0
+    ali_launches = vr.launches
+    n_same = 0
+    for lane, (a, d) in enumerate(zip(ali_hyps, dense_hyps)):
+        if a is None or a[0] != d[0] or a[1] != d[1] or \
+                abs(a[2] - d[2]) > 1e-3 * max(1.0, abs(d[2])):
+            raise SystemExit(f"lane {lane}: alignment over its sub-graph "
+                             "differs from the decode")
+        n_same += a[2] == d[2]
+    sizes = sorted(g.num_states for g in subs)
+    emit("alignment", lanes=LANES, lanes_tids_equal=LANES,
+         lanes_cost_bit_equal=int(n_same), cost_rel_tolerance=1e-3,
+         states_min=sizes[0], states_median=sizes[LANES // 2],
+         states_max=sizes[-1], graphs_seconds=build_s, run_seconds=ali_s,
+         launches={"viterbi_relax": ali_launches})
+    if ali_launches != n_relax:
+        raise SystemExit(f"viterbi_relax launched {ali_launches} times in "
+                         f"the alignment run, expected {n_relax}")
+
+    # the same 8 lanes with the plain relaxation
+    plain_dense = BatchedViterbi(flat64.to_vector_fst(), flat64.tid2pdf,
+                                 device="cuda", relax=vr.relax_padded)
+    vr.launches = 0
+    t0 = time.perf_counter()
+    p_hyps = plain_dense.run(loglikes[:8], out_lens[:8])
+    same = [p == d for p, d in zip(p_hyps, dense_hyps)]
+    emit("plain_relax_check", lanes=8, equal=same,
+         kernel_launches=vr.launches, plain_seconds=time.perf_counter() - t0)
+    if not all(same) or vr.launches:
+        raise SystemExit("kernel and plain relaxation decode differently")
+
+    # 7. tables -------------------------------------------------------------
     emit("summary", wall_s_median=walls[1], xrt_median=runs[0]["audio_s"]
          / walls[1], lattice_wall_s=[r["wall_s"] for r in lat_runs],
          lattice_xrt=[r["xrt"] for r in lat_runs],
+         viterbi_wall_s_median=dense_walls[1],
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -545,7 +902,9 @@ def main() -> int:
              time_a, rows, runs[-1]["launches"]["block_chain_step"]),
             ("block_chain_lattice_step",
              "kaldi_tpu/decoder/block_chain.py:547", time_b, rows_b,
-             lat_runs[-1]["launches"]["block_chain_lattice_step"])):
+             lat_runs[-1]["launches"]["block_chain_lattice_step"]),
+            ("viterbi_relax", "kaldi_tpu/ops/pallas_viterbi.py:93", time_c,
+             rows_c, dense_runs[-1]["launches"]["viterbi_relax"])):
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"kaldi_tpu_torch/csrc/{name}.cu",
@@ -554,6 +913,10 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": None})
+    kernels[-1].update(closure_device_ms=closure_device_ms,
+                       closure_ms=time_c_closure["ms"],
+                       closure_plain_ms=time_c_closure["plain_ms"],
+                       closure_bound_ms=time_c_closure["bound_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

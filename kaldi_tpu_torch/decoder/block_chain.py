@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.decoder.graph_direct import FlatGraph, _pdf_hash
 from kaldi_tpu_torch.device import DeviceLike, resolve_device
 from kaldi_tpu_torch.fstext.fst import Arc, LatticeWeight, VectorFst
 from kaldi_tpu_torch.fstext.ops import connect
@@ -44,16 +45,6 @@ from kaldi_tpu_torch.ops.block_chain_step import INF, LN2, block_chain_step
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _pdf_hash(a: np.ndarray, b: np.ndarray, num_pdfs: int,
-              salt: int) -> np.ndarray:
-    h = (np.asarray(a, np.uint64) * np.uint64(2654435761)
-         + np.asarray(b, np.uint64) * np.uint64(40503)
-         + np.uint64(salt) * np.uint64(97))
-    h ^= h >> np.uint64(13)
-    h = (h * np.uint64(0x9E3779B97F4A7C15)) & np.uint64(0xFFFFFFFFFFFFFFFF)
-    return ((h >> np.uint64(17)) % np.uint64(num_pdfs)).astype(np.int32)
 
 
 @dataclass
@@ -165,6 +156,49 @@ class BlockChainGraph:
     def tid2pdf(self) -> np.ndarray:
         return np.concatenate([[0], np.arange(self.num_pdfs),
                                np.arange(self.num_pdfs)]).astype(np.int32)
+
+    def to_flat_graph(self) -> FlatGraph:
+        """Equivalent FlatGraph (for host decoders / cross-tests).
+        State numbering identical to the device layout."""
+        U, N, V = self.U, self.N, self.V
+        root0 = U * N
+        src, dst, ilab, olab, wgt = [], [], [], [], []
+
+        def add(s, d, tid, ol, w):
+            src.append(s)
+            dst.append(d)
+            ilab.append(tid)
+            olab.append(ol)
+            wgt.append(w)
+
+        for u in range(U):
+            base = u * N
+            for n in range(self.n_true):
+                j = int(self.row_pos[n])
+                s = base + n
+                # self-loop
+                add(s, s, self.self_tid(self.pdf_self_row[n]), 0, LN2)
+                # in-arc (fwd): from previous row or root u
+                p = base + n - 1 if j > 0 else root0 + u
+                add(p, s, self.fwd_tid(self.pdf_fwd_row[n]), 0, LN2)
+            # word transitions into each root w
+            for w in range(V):
+                e = int(self.end_row[w])
+                s = base + e if e >= 0 else root0 + u
+                add(s, root0 + w, self.fwd_tid(self.pdf_wend_fwd[w]),
+                    w + 1, float(self.bigram[u, w]) + LN2)
+        for w in range(V):
+            r = root0 + w
+            add(r, r, self.self_tid(self.pdf_root_self[w]), 0, LN2)
+        S = U * N + U
+        finals = np.full(S, INF, np.float32)
+        finals[root0:root0 + V] = self.eos_cost
+        words = ["<eps>"] + [f"W{w:05d}" for w in range(V)]
+        return FlatGraph(np.asarray(src, np.int32), np.asarray(dst, np.int32),
+                         np.asarray(ilab, np.int32), np.asarray(olab, np.int32),
+                         np.asarray(wgt, np.float32), finals,
+                         start=root0 + V, tid2pdf=self.tid2pdf,
+                         num_pdfs=self.num_pdfs, words=words)
 
 
 Hyp = Optional[Tuple[List[int], List[int], float]]

@@ -2,7 +2,10 @@
 kaldi_tpu_torch against the JAX reference (Pallas kernel a in interpret
 mode).  The step's plain version must equal kernel a exactly (adds, mins
 and compares only); decode_batch must give equal words and tids, and
-costs within 1e-5 relative."""
+costs within 1e-5 relative.  The port's block-chain decoder is also held
+against two independent decoders of the port on `to_flat_graph()`: equal
+words and tids, costs within 1e-3 * max(1, |cost|) (the bar of the JAX
+package's own tests/test_block_chain.py)."""
 
 import numpy as np
 import pytest
@@ -14,10 +17,13 @@ from kaldi_tpu.decoder.block_chain import BlockChainGraph as JaxGraph
 from kaldi_tpu.decoder.graph_direct import DirectGraphSpec as JaxSpec
 from kaldi_tpu.decoder.graph_direct import synth_bigram as jax_bigram
 from kaldi_tpu.decoder.graph_direct import synth_lexicon as jax_lexicon
+from kaldi_tpu_torch.decoder.batched_viterbi import BatchedViterbi
 from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
+                                             FasterDecoderOptions)
 from kaldi_tpu_torch.ops.block_chain_step import (INF, block_chain_step,
                                                   block_chain_step_reference)
 
@@ -157,3 +163,32 @@ def test_decode_batch_long_words_scaled_acoustics():
     for r, o in zip(ref, out):
         assert o[0] == r[0] and o[1] == r[1]
         assert abs(o[2] - r[2]) <= 1e-5 * max(1.0, abs(r[2]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_exact_match_batched_viterbi_and_host(seed):
+    """Three decoders of the port on one graph: the block-chain layout,
+    the dense batched Viterbi over its flat form, and host token
+    passing."""
+    _, tg = graphs(seed)
+    fst = tg.to_flat_graph().to_vector_fst()
+    dec = BlockChainDecoder(tg, device="cpu")
+    dense = BatchedViterbi(fst, tg.tid2pdf, device="cpu")
+    host = FasterDecoder(fst, FasterDecoderOptions(beam=1e9,
+                                                   max_active=10 ** 9))
+    rng = np.random.default_rng(seed + 20)
+    B, T = 3, 9
+    ll = rng.normal(size=(B, T, tg.num_pdfs)).astype(np.float32)
+    lengths = [T, T - 2, T - 5]
+    out = dec.decode_batch(ll, acoustic_scale=1.0, lengths=lengths)
+    out_dense = dense.run(ll, lengths)
+    for b in range(B):
+        ref = host.decode(ll[b, :lengths[b]], tg.tid2pdf, acoustic_scale=1.0)
+        assert ref is not None and out[b] is not None
+        words, tids, cost = out[b]
+        for name, (r_ali, r_words, r_cost) in (("host", ref),
+                                               ("dense", out_dense[b])):
+            assert abs(cost - r_cost) < 1e-3 * max(1.0, abs(r_cost)), \
+                f"lane {b} {name}: {cost} vs {r_cost}"
+            assert words == r_words, f"lane {b} {name}"
+            assert tids == r_ali, f"lane {b} {name}"

@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from kaldi_tpu_torch.decoder.batched_viterbi import BatchedViterbi
 from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
+from kaldi_tpu_torch.ops import viterbi_relax as vr
 
 pytestmark = pytest.mark.cuda
 
@@ -170,3 +172,110 @@ def test_lattice_decode_kernel_equals_plain(cuda):
     want = plain.decode_batch_lattice(ll, lengths=lengths, lattice_beam=10.0)
     assert all(lat is not None for lat in got)
     assert [lattice_key(g) for g in got] == [lattice_key(w) for w in want]
+
+
+def relax_args(device, seed, B, S, A, P, per_lane, lanes_fastest):
+    """Seeded tables (per lane: graphs of different sizes, padded to a
+    common K), costs with INF entries and loglikes."""
+    rng = np.random.default_rng(seed)
+    tabs = []
+    for b in range(B if per_lane else 1):
+        a = max(0, A - 3 * b)
+        s_b = max(2, S - b)               # smaller graphs in later lanes
+        src = rng.integers(0, s_b, a).astype(np.int32)
+        dst = rng.integers(0, s_b, a).astype(np.int32)
+        if a > 5:
+            dst[:5] = 0                   # one state of in-degree >= 5
+        w = rng.uniform(0, 2, a).astype(np.float32)
+        pdf = rng.integers(0, P, a).astype(np.int32)
+        tabs.append(vr.build_incoming_table(S, src, dst, w, pdf))
+    K = max(t[3] for t in tabs)
+
+    def pad(arr, fill):
+        out = np.full((S, K), fill, arr.dtype)
+        out[:, :arr.shape[1]] = arr
+        return out
+
+    fills = (S, vr.INF, 0)
+    arrs = [np.stack([pad(t[i], fills[i]) for t in tabs]) for i in range(3)]
+    if not per_lane:
+        arrs = [a[0] for a in arrs]
+    cost = rng.uniform(0, 50, (B, S + 1)).astype(np.float32)
+    cost[rng.random(cost.shape) < 0.3] = vr.INF
+    cost[:, S] = vr.INF
+    ll = (rng.normal(size=(B, P)) * 4).astype(np.float32)
+    cost, ll, in_src, in_w, in_pdf = (
+        torch.from_numpy(a).to(device) for a in (cost, ll, *arrs))
+    if lanes_fastest:
+        cost, ll = cost.T.contiguous().T, ll.T.contiguous().T
+    return cost, in_src, in_w, in_pdf, ll
+
+
+@pytest.mark.parametrize("seed,B,S,A,per_lane,lanes_fastest", [
+    (0, 1, 1, 0, False, True), (1, 19, 37, 90, False, True),
+    (2, 19, 37, 90, True, True), (3, 128, 301, 700, False, True),
+    (4, 33, 257, 400, True, False), (5, 7, 64, 10, False, False)])
+def test_relax_kernel_equals_plain(cuda, seed, B, S, A, per_lane,
+                                   lanes_fastest):
+    cost, in_src, in_w, in_pdf, ll = relax_args(cuda, seed, B, S, A, 11,
+                                                per_lane, lanes_fastest)
+    before = vr.launches
+    got = vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7)
+    want = vr.relax_padded(cost, in_src, in_w, in_pdf, ll, 0.7)
+    closed = vr.viterbi_relax(cost, in_src, in_w)
+    closed_want = vr.relax_padded(cost, in_src, in_w)
+    assert vr.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(closed, closed_want)
+    assert bool(torch.isfinite(got).all())
+    # into a lanes-fastest (S+1, B) buffer, dead column included
+    out = torch.zeros((S + 1, B), device=cuda)
+    vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7, out=out.T)
+    assert torch.equal(out.T[:, :S], want)
+    assert bool((out[S] == float(vr.INF)).all())
+
+
+def test_relax_kernel_rejects_bad_inputs(cuda):
+    cost, in_src, in_w, in_pdf, ll = relax_args(cuda, 0, 4, 9, 20, 5, False,
+                                                True)
+    with pytest.raises(TypeError):
+        vr.viterbi_relax(cost.double(), in_src, in_w, in_pdf, ll)
+    with pytest.raises(TypeError):
+        vr.viterbi_relax(cost, in_src.long(), in_w, in_pdf, ll)
+    with pytest.raises(ValueError, match="go together"):
+        vr.viterbi_relax(cost, in_src, in_w, in_pdf)
+    with pytest.raises(ValueError):
+        vr.viterbi_relax(cost[:, :-1], in_src, in_w, in_pdf, ll)
+    with pytest.raises(ValueError, match="overlap"):
+        vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, out=cost)
+    with pytest.raises(ValueError):
+        vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll.cpu())
+
+
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_batched_viterbi_kernel_equals_plain(cuda, per_lane):
+    """Shared tables and one graph a lane: the kernel and the plain
+    relaxation give identical hypotheses, and every relaxation of a run
+    is one launch."""
+    dec = small_decoder(5, "cpu", V=13)
+    flat = dec.g.to_flat_graph()
+    fsts = [flat.to_vector_fst()]
+    if per_lane:
+        spec = DirectGraphSpec(vocab=7, num_phones=6, min_pron=1, max_pron=3,
+                               num_pdfs=64, seed=9)
+        other = BlockChainGraph.build(synth_lexicon(spec),
+                                      synth_bigram(spec), num_pdfs=64)
+        fsts = [fsts[0], other.to_flat_graph().to_vector_fst()] * 3
+    rng = np.random.default_rng(6)
+    ll = rng.normal(size=(6, 21, 64)).astype(np.float32)
+    lengths = [21, 20, 13, 9, 21, 3]
+    kernel = BatchedViterbi(fsts, flat.tid2pdf, device=cuda)
+    plain = BatchedViterbi(fsts, flat.tid2pdf, device=cuda,
+                           relax=vr.relax_padded)
+    before = vr.launches
+    got = kernel.run(ll, lengths)
+    assert vr.launches == before + 21 + 22 * 1
+    assert got == plain.run(ll, lengths)
+    assert all(h is not None for h in got)
+    assert [len(h[0]) for h in got] == lengths

@@ -35,13 +35,15 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules, bad, missing = proc.stdout.split("\n")[:3]
-    assert int(n_modules) >= 22
+    assert int(n_modules) >= 25
     assert bad == "", f"forbidden modules imported: {bad}"
     assert missing == ""
     walked = set(_walked())
     for name in ("fstext.fst", "fstext.ops", "lat.kaldi_lattice",
                  "lat.functions", "ops.block_chain_lattice_step",
-                 "ops.block_chain_step", "decoder.block_chain"):
+                 "ops.block_chain_step", "decoder.block_chain",
+                 "ops.viterbi_relax", "decoder.batched_viterbi",
+                 "decoder.viterbi", "decoder.graph_direct"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
@@ -57,6 +59,7 @@ def _makers(device):
     """Constructors of the port's entry points on `device`."""
     from kaldi_tpu_torch.decoder.batched_pipeline2 import \
         BatchedOfflinePipeline2
+    from kaldi_tpu_torch.decoder.batched_viterbi import BatchedViterbi
     from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                      BlockChainGraph)
     from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
@@ -96,6 +99,8 @@ def _makers(device):
         lambda: chain_tdnnf_from_flax(
             cfg, {"params": params, "batch_stats": stats}, device=device),
         lambda: BlockChainDecoder(g, device=device),
+        lambda: BatchedViterbi(g.to_flat_graph().to_vector_fst(), g.tid2pdf,
+                               device=device),
     ], BatchedOfflinePipeline2
 
 
@@ -110,7 +115,7 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     makers, pipeline = _makers("cpu")
-    fe, iv, model, dec = [make() for make in makers]
+    fe, iv, model, dec, dense = [make() for make in makers]
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline(model, dec, fe)
     pipeline(model, dec, fe, ivector_extractor=iv, device="cpu")
@@ -120,3 +125,5 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
     assert out[0] is not None
     lats = dec.decode_batch_lattice(np.zeros((1, 6, 16), np.float32))
     assert lats[0] is not None and lats[0].num_states > 0
+    hyps = dense.run(np.zeros((2, 6, 16), np.float32), [6, 4])
+    assert [len(h[0]) for h in hyps] == [6, 4]
