@@ -9,15 +9,20 @@ BatchedOfflinePipeline2.decode_batch, in best-path mode and in lattice
 mode (generate_lattices=True, lattice_beam=8, J=4); and the same 128
 lanes' loglikes -> BatchedViterbi.run, the dense exact Viterbi over a
 flat graph (the V=64 block-chain graph's to_flat_graph(): 20,865 states,
-44,914 arcs, in-arc tables padded to K=128), shared by all lanes (decode)
-and one graph a lane (forced alignment).
+44,914 arcs, in-arc tables padded to K=128, of which the relaxation kernel
+walks the live slots only), shared by all lanes (decode) and one graph a
+lane (forced alignment).
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from kaldi_tpu_torch/csrc with nvcc;
   3. each kernel against its plain PyTorch version on the card, at the
      main path's full shape and at a small ragged shape (torch.equal;
-     the lattice step also on forced ties), and their times;
+     the lattice step also on forced ties; the relaxation with its live
+     counts and without, the first version), and their times (the
+     relaxation: first version and live walk in turns, by CUDA events
+     around a replayed CUDA graph of launches, beside the padded and the
+     live bound, and the host time of a launch);
   4. the best-path slice: one warm-up decode_batch, three timed ones with
      the kernel launch counts read around each; the bf16 AM against
      float32 on 4 lanes; 8 lanes decoded again with the plain step (equal
@@ -26,13 +31,17 @@ Phases, one JSON line each (any failure exits nonzero):
   5. the lattice slice: one warm-up under torch.profiler and one timed
      decode_batch call in lattice mode (launch counts, the lattice
      stages' seconds, each lane's lattice best path against the
-     best-path decode); 8 lanes decoded again with the plain lattice
+     best-path decode); 4 lanes decoded again with the plain lattice
      step (equal lattices);
   6. the flat-graph slice: one warm-up and three timed BatchedViterbi.run
      calls (seconds of table preparation, frame loop, copy to the host
-     and traceback; launch counts), one under torch.profiler; the
-     block-chain decoder and the host FasterDecoder on the same graph
-     and loglikes (cross_check); one sub-graph a lane cut along its
+     and traceback; launch counts: one emitting launch a frame, no
+     closure launch on this epsilon-free graph), one under
+     torch.profiler; one run as the first version made it (every slot
+     walked, every launch fully checked, the closure launched: equal
+     hypotheses, its frame loop's seconds beside the new one's); the
+     block-chain decoder and, on 2 lanes, the host FasterDecoder on the
+     same graph and loglikes (cross_check); one sub-graph a lane cut along its
      decoded words (alignment: the per-lane-table form of the kernel
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
@@ -54,6 +63,7 @@ import torch
 
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
+from kaldi_tpu_torch.decoder import batched_viterbi as tbv
 from kaldi_tpu_torch.decoder.batched_viterbi import BatchedViterbi
 from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
@@ -208,12 +218,17 @@ def lattice_step_cost(dec: BlockChainDecoder, B: int, J: int):
     return bytes_in + bytes_out, ops
 
 
-def relax_inputs(arrays: dict, B: int, P: int, seed: int):
+def relax_inputs(arrays: dict, B: int, P: int, seed: int,
+                 big_ll0: bool = False):
     """Seeded costs with INF entries and loglikes on the card, lanes
     fastest as the decoder keeps them, beside the tables of
-    `BatchedViterbi._prepare`.  -> (emitting args, closure args)."""
+    `BatchedViterbi._prepare` and their live counts.
+    -> (emitting args, closure args, emitting counts, closure counts)."""
     tabs = {k: torch.as_tensor(v, device="cuda") for k, v in arrays.items()
             if k != "init_cost"}
+    e_deg = vr.live_counts(arrays["e_in_src"], arrays["e_in_w"],
+                           arrays["e_in_pdf"])
+    ne_deg = vr.live_counts(arrays["ne_in_src"], arrays["ne_in_w"])
     S = tabs["e_in_src"].shape[-2]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cost = torch.randn(S + 1, B, generator=gen, device="cuda") * 50 + 400
@@ -221,24 +236,61 @@ def relax_inputs(arrays: dict, B: int, P: int, seed: int):
                       < 0.3, float(vr.INF))
     cost[S] = float(vr.INF)
     ll = torch.randn(P, B, generator=gen, device="cuda") * 4
+    if big_ll0:
+        ll[0] = 1e25
     emitting = (cost.T, tabs["e_in_src"], tabs["e_in_w"], tabs["e_in_pdf"],
                 ll.T)
-    return emitting, (cost.T, tabs["ne_in_src"], tabs["ne_in_w"])
+    return (emitting, (cost.T, tabs["ne_in_src"], tabs["ne_in_w"]),
+            torch.as_tensor(e_deg, device="cuda"),
+            torch.as_tensor(ne_deg, device="cuda"))
 
 
-def relax_cost(args):
-    """Bytes a relaxation must move (tables, cost row in and out, loglikes,
-    each once) and its float operations (emitting: an add, a multiply and
-    a subtraction a candidate; closure: an add a candidate), from the
-    shapes of its arguments."""
+def relax_cost(args, in_deg=None):
+    """Bytes a relaxation must move (each once) and its float operations
+    (emitting: an add, a multiply and a subtraction a candidate; closure:
+    an add a candidate and a min a state), from its arguments.  Without
+    `in_deg`: the padded tables counted whole, as the first version walks
+    them.  With it: what this table's data needs, the live slots (12 bytes
+    each, 8 in a closure), the counts, and a candidate for every live slot
+    and for one dead slot of every state that has one."""
     cost, in_src = args[0], args[1]
     B, S1 = cost.shape
+    K = in_src.shape[-1]
     closure = len(args) == 3
-    nbytes = 4 * in_src.numel() * (2 if closure else 3) + 2 * 4 * B * S1
-    cand = in_src.shape[-2] * in_src.shape[-1] * B
-    if closure:
-        return nbytes, cand + B * (S1 - 1)
-    return nbytes + 4 * args[4].numel(), 3 * cand
+    rows = 2 * 4 * B * S1 + (0 if closure else 4 * args[4].numel())
+    per_lane = B if in_src.dim() == 2 else 1
+    if in_deg is None:
+        slots = walk = in_src.numel()
+        table_bytes = 4 * slots * (2 if closure else 3)
+    else:
+        slots = int(in_deg.sum())
+        walk = slots + int((in_deg < K).sum())
+        table_bytes = 4 * slots * (2 if closure else 3) + 4 * in_deg.numel()
+    cand = walk * per_lane
+    ops = cand + B * (S1 - 1) if closure else 3 * cand
+    return table_bytes + rows, ops
+
+
+def degree_tables(S: int, K: int, P: int, seed: int) -> dict:
+    """Seeded shared tables with a state whose K slots are all live (state
+    0), a long walk that ends in a dead slot (state 1, 5K/8 in-arcs), a
+    state without in-arc (the last) and 1-3 in-arcs elsewhere; an epsilon
+    table with K/2 arcs into state 2."""
+    rng = np.random.default_rng(seed)
+    dst = np.concatenate([np.zeros(K, np.int64), np.ones(5 * K // 8, np.int64),
+                          rng.integers(2, S - 1, 2 * S)])
+    e = vr.build_incoming_table(S, rng.integers(0, S, len(dst)), dst,
+                                rng.uniform(0.1, 3.0, len(dst)),
+                                rng.integers(0, P, len(dst)))
+    ne_dst = np.concatenate([np.full(K // 2, 2),
+                             rng.integers(3, S - 1, S // 4)])
+    ne = vr.build_incoming_table(S, rng.integers(0, S, len(ne_dst)), ne_dst,
+                                 rng.uniform(0.1, 3.0, len(ne_dst)),
+                                 np.zeros(len(ne_dst), np.int64))
+    if e[3] != K:
+        raise SystemExit(f"degree_tables: K={e[3]}, expected {K}")
+    return {"e_in_src": e[0], "e_in_w": e[1], "e_in_pdf": e[2],
+            "ne_in_src": ne[0], "ne_in_w": ne[1]}
 
 
 def eps_fst(seed: int, n: int = 41) -> VectorFst:
@@ -373,6 +425,118 @@ def time_kernel(name: str, kernel_once, plain_once, plain_iters: int,
            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
            "achieved_bytes_per_s": nbytes / (k_ms * 1e-3)}
+    emit("kernel_time", **row)
+    return row
+
+
+def relax_all_slots(*args, in_deg=None, **kw):
+    """The relaxation as the first version of the kernel made it: the live
+    counts are dropped, every launch is fully checked."""
+    return vr.viterbi_relax(*args, **kw)
+
+
+def tables_identity(arrays: dict) -> bool:
+    """Whether `BatchedViterbi._forward` will prove the closure step over
+    these tables the identity and launch none."""
+    return vr.closure_is_identity(
+        arrays["ne_in_src"], arrays["ne_in_w"],
+        vr.live_counts(arrays["ne_in_src"], arrays["ne_in_w"]),
+        arrays["e_in_src"], arrays["e_in_w"],
+        vr.live_counts(arrays["e_in_src"], arrays["e_in_w"],
+                       arrays["e_in_pdf"]))
+
+
+def graph_ms(fn, launches: int = 50, replays: int = 4) -> float:
+    """Device ms per call of fn: CUDA events around replays of a captured
+    CUDA graph of `launches` calls, so that no host time separates the
+    launches (a kernel of ten microseconds is shorter than any wrapper)."""
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (launches * replays)
+
+
+def host_ms(fn, iters: int = 200) -> float:
+    """Host ms per call of fn by the host clock: the time to enqueue, the
+    card's work not awaited (the queue is drained before and after)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+def time_relax(name: str, args, in_deg, rate: float, shape, **extra) -> dict:
+    """One relaxation at `args`: the first version (all K slots) and the
+    live walk in turns (old, new, new, old), device ms a launch under a
+    replayed CUDA graph; the plain version by events; host ms of a launch
+    through the fully checked call and through the prepared form; the
+    padded and the live bound."""
+    closure = len(args) == 3
+    cost, in_src, in_w = args[:3]
+    in_pdf, ll = (None, None) if closure else args[3:5]
+    out = torch.empty((cost.shape[1], cost.shape[0]), device="cuda").T
+    old = vr.PreparedRelax(in_src, in_w, in_pdf, 1.0)
+    new = vr.PreparedRelax(in_src, in_w, in_pdf, 1.0, in_deg)
+    before = vr.launches
+
+    def old_once():
+        old(cost, ll, out=out)
+
+    def new_once():
+        new(cost, ll, out=out)
+
+    def full_checks_once():
+        vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 1.0, out=out)
+
+    def plain_once():
+        vr.relax_padded(cost, in_src, in_w, in_pdf, ll, 1.0)
+
+    for fn in (old_once, new_once, plain_once):
+        fn()
+    torch.cuda.synchronize()
+    ms = [graph_ms(fn) for fn in (old_once, new_once, new_once, old_once)]
+    p_ms = cuda_ms(plain_once, 5)
+    loop_ms = cuda_ms(new_once, 200)
+    host = {"full_checks": host_ms(full_checks_once),
+            "prepared": host_ms(new_once),
+            "prepared_first_version": host_ms(old_once)}
+    bounds = {}
+    for key, deg in (("padded", None), ("live", in_deg)):
+        nbytes, nops = relax_cost(args, deg)
+        bytes_ms, ops_ms = nbytes / rate * 1e3, nops / FP32_OPS * 1e3
+        bounds[key] = {"bound_ms": max(bytes_ms, ops_ms), "bytes": nbytes,
+                       "ops": nops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+                       "bound_by": "bytes" if bytes_ms >= ops_ms
+                       else "operations"}
+    row = {"kernel": name, "shape": list(shape),
+           "clock": "device ms a launch: CUDA events around a replayed CUDA "
+                    "graph of 50 launches on the same buffers",
+           "first_version_ms": ms[0], "ms": ms[1], "ms_repeat": ms[2],
+           "first_version_ms_repeat": ms[3],
+           "speedup": (ms[0] + ms[3]) / (ms[1] + ms[2]),
+           "events_around_a_loop_of_prepared_calls_ms": loop_ms,
+           "host_ms_a_launch": host, "plain_ms": p_ms,
+           "bound_ms": bounds["live"]["bound_ms"],
+           "bound_by": bounds["live"]["bound_by"],
+           "share_of_live_bound": bounds["live"]["bound_ms"] / ms[1],
+           "first_version_share_of_padded_bound":
+               bounds["padded"]["bound_ms"] / ms[0],
+           "bounds": bounds, "launches_made": vr.launches - before, **extra}
     emit("kernel_time", **row)
     return row
 
@@ -524,8 +688,8 @@ def main() -> int:
     del args, out_new, out_ent
     torch.cuda.empty_cache()
 
-    # kernel c (the padded in-arc relaxation) against its plain version:
-    # the flat form of the V=64 block-chain graph, shared by all lanes
+    # kernel c (the in-arc relaxation) against its plain version: the flat
+    # form of the V=64 block-chain graph, shared by all lanes
     t0 = time.perf_counter()
     spec64 = DirectGraphSpec(vocab=64, num_pdfs=2000)
     graph64 = BlockChainGraph.build(synth_lexicon(spec64),
@@ -536,49 +700,85 @@ def main() -> int:
                            device="cuda")
     _, arrays64, S64, eps64 = dense._prepare(LANES)
     K64 = arrays64["e_in_src"].shape[1]
-    live = int((arrays64["e_in_src"] < S64).sum())
+    full_e, full_c, full_deg, full_ne_deg = relax_inputs(
+        arrays64, LANES, spec64.num_pdfs, SEED + 8)
+    live = int(full_deg.sum())
+    identity64 = tables_identity(arrays64)
     emit("flat_graph", V=graph64.V, states=flat64.num_states,
          arcs=flat64.num_arcs, S_with_dead=S64, K=K64,
          K_eps=arrays64["ne_in_src"].shape[1], eps_iters=eps64,
          live_slots=live, slots=S64 * K64, live_share=live / (S64 * K64),
+         walk_slots=live + int((full_deg < K64).sum()),
+         long_states=int((full_deg + (full_deg < K64).int()
+                          > vr.LONG_WALK).sum()),
+         max_in_degree=int(full_deg.max()),
+         closure_is_identity=identity64,
          seconds=time.perf_counter() - t0)
-    full_e, full_c = relax_inputs(arrays64, LANES, spec64.num_pdfs, SEED + 8)
+    if not identity64:
+        raise SystemExit("the V=64 graph has no epsilon arc, yet its "
+                         "closure step is not proven the identity")
     ragged = BatchedViterbi((flat_fsts([5, 9, 7, 4]) * 5)[:19],
                             np.concatenate([[0], np.arange(64),
                                             np.arange(64)]),
                             device="cuda")._prepare(19)
     if ragged[2] % 2 == 0 or ragged[1]["e_in_src"].ndim != 3:
         raise SystemExit("the ragged case needs an odd S and per-lane tables")
-    ragged_e, _ = relax_inputs(ragged[1], 19, 64, SEED + 9)
+    ragged_e, _, ragged_deg, _ = relax_inputs(ragged[1], 19, 64, SEED + 9)
     eps_prep = BatchedViterbi(eps_fst(SEED + 10), np.arange(30),
                               device="cuda")._prepare(19)
-    live_eps = int((eps_prep[1]["ne_in_src"] < eps_prep[2]).sum())
+    _, eps_c, _, eps_deg = relax_inputs(eps_prep[1], 19, 30, SEED + 11)
+    live_eps = int(eps_deg.sum())
     if live_eps == 0 or eps_prep[3] < 2:
         raise SystemExit("the epsilon case holds no live epsilon arc")
-    _, eps_c = relax_inputs(eps_prep[1], 19, 30, SEED + 11)
-    rows_c = [check_kernel("viterbi_relax", vr.viterbi_relax,
-                           vr.relax_padded, ("new",), args, label,
-                           args[0].shape[0], **kw)
-              for args, label, kw in (
-                  (full_e, "full_shared_emitting", {}),
-                  (ragged_e, "small_ragged_per_lane_emitting", {}),
-                  (full_c, "full_closure_K1", {}),
-                  (eps_c, "closure_live_epsilon_arcs", {}),
-                  (full_e, "full_scale_0.3",
-                   {"acoustic_scale": 0.3}))]
+    # a state whose K slots are all live, a long walk with a dead slot, a
+    # state without in-arc, and loglikes whose column 0 is 1e25, so that a
+    # dead slot's candidate is not 2e30; 20 lanes take 4 lanes a thread, 19
+    # one
+    deg_e, deg_c, deg_deg, deg_ne_deg = relax_inputs(
+        degree_tables(3001, 64, 50, SEED + 12), 20, 50, SEED + 13,
+        big_ll0=True)
+    if not (bool((deg_deg == 64).any()) and bool((deg_deg == 0).any())
+            and bool((deg_ne_deg == 32).any())):
+        raise SystemExit("the degree case lacks a state with deg 0 or K")
+    deg19_e, deg19_c, _, _ = relax_inputs(
+        degree_tables(3001, 64, 50, SEED + 12), 19, 50, SEED + 14,
+        big_ll0=True)
+    rows_c = []
+    for args, deg, label, kw in (
+            (full_e, full_deg, "full_shared_emitting", {}),
+            (ragged_e, ragged_deg, "small_ragged_per_lane_emitting", {}),
+            (full_c, full_ne_deg, "full_closure_K1", {}),
+            (eps_c, eps_deg, "closure_live_epsilon_arcs", {}),
+            (full_e, full_deg, "full_scale_0.3", {"acoustic_scale": 0.3}),
+            (deg_e, deg_deg, "deg_0_and_K_ll0_1e25_emitting", {}),
+            (deg_c, deg_ne_deg, "deg_0_and_K_closure", {}),
+            (deg19_e, deg_deg, "deg_0_and_K_ll0_1e25_19_lanes",
+             {"acoustic_scale": 0.3}),
+            (deg19_c, deg_ne_deg, "deg_0_and_K_closure_19_lanes", {})):
+        for walk, deg_kw in (("live", {"in_deg": deg}), ("all_slots", {})):
+            rows_c.append(check_kernel(
+                "viterbi_relax", vr.viterbi_relax, vr.relax_padded, ("new",),
+                args, f"{label}/{walk}", args[0].shape[0], **kw, **deg_kw))
     emit("kernel_check", ok=True, kernel="viterbi_relax", checks=rows_c,
          ragged_S=ragged[2], ragged_K=ragged[1]["e_in_src"].shape[2],
          eps_live_arcs=live_eps)
-    out_e = torch.empty((S64 + 1, LANES), device="cuda").T
-    time_c = time_kernel(
-        "viterbi_relax", lambda: vr.viterbi_relax(*full_e, 1.0, out=out_e),
-        lambda: vr.relax_padded(*full_e, 1.0), 5, *relax_cost(full_e), rate,
-        (LANES, S64, K64))
-    time_c_closure = time_kernel(
-        "viterbi_relax_closure", lambda: vr.viterbi_relax(*full_c, out=out_e),
-        lambda: vr.relax_padded(*full_c), 5, *relax_cost(full_c), rate,
-        (LANES, S64, arrays64["ne_in_src"].shape[1]))
-    del full_e, full_c, ragged_e, eps_c, out_e
+    # times: first version and live walk in turns, emitting and closure, at
+    # the slice's shape; the closure also over an epsilon DAG of 20,001
+    # states (the decoder launches no closure over the K=1 all-dead table)
+    big_eps = BatchedViterbi(eps_fst(SEED + 15, n=20001), np.arange(30),
+                             device="cuda")._prepare(LANES)
+    _, big_c, _, big_ne_deg = relax_inputs(big_eps[1], LANES, 30, SEED + 16)
+    time_c = time_relax("viterbi_relax", full_e, full_deg, rate,
+                        (LANES, S64, K64))
+    time_c_closure = time_relax("viterbi_relax_closure", full_c, full_ne_deg,
+                                rate,
+                                (LANES, S64, arrays64["ne_in_src"].shape[1]))
+    time_c_eps = time_relax(
+        "viterbi_relax_closure_epsilon_dag", big_c, big_ne_deg, rate,
+        (LANES, big_eps[2], big_eps[1]["ne_in_src"].shape[1]),
+        live_arcs=int(big_ne_deg.sum()))
+    del full_e, full_c, ragged_e, eps_c, deg_e, deg_c, deg19_e, deg19_c
+    del big_c, big_eps
     torch.cuda.empty_cache()
 
     # 4. the slice at full width --------------------------------------------
@@ -729,22 +929,22 @@ def main() -> int:
         raise SystemExit("the median lattice holds no alternative")
     del lat_outs, have
 
-    # the same 8 lanes, kernel step vs plain step, on the same loglikes;
+    # the same 4 lanes, kernel step vs plain step, on the same loglikes;
     # the two steps agree bit for bit, so the lattices should too: the
     # stated tolerance on weights is 1e-6
     plain_dec = BlockChainDecoder(
         graph, device="cuda",
         lattice_step=bcl.block_chain_lattice_step_reference)
-    lat_kw = dict(lengths=out_lens[:8], lattice_beam=LAT_BEAM, J=LAT_J)
-    k_lats = decoder.decode_batch_lattice(loglikes[:8], **lat_kw)
+    lat_kw = dict(lengths=out_lens[:4], lattice_beam=LAT_BEAM, J=LAT_J)
+    k_lats = decoder.decode_batch_lattice(loglikes[:4], **lat_kw)
     t0 = time.perf_counter()
-    p_lats = plain_dec.decode_batch_lattice(loglikes[:8], **lat_kw)
+    p_lats = plain_dec.decode_batch_lattice(loglikes[:4], **lat_kw)
     plain_s = time.perf_counter() - t0
     if any(k is None for k in k_lats):
         raise SystemExit("a lane of the plain-step comparison has no "
                          "lattice")
     diff = max(lattice_diff(k, p) for k, p in zip(k_lats, p_lats))
-    emit("plain_lattice_check", lanes=8, max_weight_diff=diff, limit=1e-6,
+    emit("plain_lattice_check", lanes=4, max_weight_diff=diff, limit=1e-6,
          states=[k.num_states for k in k_lats], plain_seconds=plain_s)
     if not diff <= 1e-6:
         raise SystemExit("kernel and plain lattice step give different "
@@ -752,10 +952,13 @@ def main() -> int:
     del k_lats, p_lats, plain_dec
 
     # 6. the flat-graph slice: BatchedViterbi over the V=64 graph -----------
-    n_relax = T_out + (T_out + 1) * eps64
+    # the V=64 graph's closure step is proven the identity (flat_graph
+    # above), so a run is one emitting launch a frame
+    n_relax = T_out
     stage_names = ("_prepare", "_forward", "_to_host", "_traceback")
     stage_s: dict = {}
     timed_methods(dense, stage_names, stage_s)
+    timed_methods(tbv, ("_viterbi_device",), stage_s)
     dense.run(loglikes, out_lens)                            # warm-up
     dense_runs, dense_hyps = [], None
     for it in range(3):
@@ -772,6 +975,9 @@ def main() -> int:
                "wall_s": wall, "xrt_search_only": runs[0]["audio_s"] / wall,
                "prepare_s": stage_s["_prepare"],
                "frame_loop_s": stage_s["_forward"],
+               "device_loop_s": stage_s["_viterbi_device"],
+               "loop_ms_a_launch": stage_s["_viterbi_device"] * 1e3
+               / max(launches, 1),
                "to_host_s": stage_s["_to_host"],
                "traceback_s": stage_s["_traceback"],
                "launches": {"viterbi_relax": launches}}
@@ -787,16 +993,50 @@ def main() -> int:
             raise SystemExit("a lane has a non-finite cost, no words or an "
                              "alignment of the wrong length")
     dense_walls = sorted(r["wall_s"] for r in dense_runs)
-    # a closure launch is shorter than the wrapper's host time, so CUDA
-    # events around a loop of launches time the host; the profiler gives
-    # the kernel's own time in the run
+    # the profiler gives the kernel's own time in the run, where each
+    # launch reads a new frame of loglikes and writes a new table row
     prof = profile_call(lambda: dense.run(loglikes, out_lens),
-                        per_launch_of="relax<true>")
-    closure_device_ms = prof["ms_per_launch"]["relax<true>"]
+                        per_launch_of="relax_live")
+    run_device_ms = prof["ms_per_launch"]["relax_live"]
     emit("profile_viterbi", busy_share_of_median_wall=prof["device_ms"] / 1e3
          / dense_walls[1], kernel_share_of_median_wall=(
              prof["device_ms"] - prof["copy_ms"]) / 1e3 / dense_walls[1],
          **prof)
+
+    # the frame loop as the first version made it, for the same result:
+    # every launch fully checked, all K slots walked, the closure launched
+    first = BatchedViterbi(flat64.to_vector_fst(), flat64.tid2pdf,
+                           device="cuda", relax=relax_all_slots)
+    first_s: dict = {}
+    timed_methods(first, stage_names, first_s)
+    proven = tbv.closure_is_identity
+    tbv.closure_is_identity = lambda *a: False
+    try:
+        first.run(loglikes, out_lens)                        # warm-up
+        first_runs = []
+        for it in range(2):
+            first_s.clear()
+            stage_s.clear()
+            vr.launches = 0
+            first_hyps = first.run(loglikes, out_lens)
+            # the module's `_viterbi_device` reports into stage_s
+            first_runs.append({
+                "frame_loop_s": first_s["_forward"],
+                "device_loop_s": stage_s["_viterbi_device"],
+                "launches": vr.launches})
+    finally:
+        tbv.closure_is_identity = proven
+    emit("slice_viterbi_first_version", runs=first_runs,
+         equal_to_the_live_walk=first_hyps == dense_hyps,
+         frame_loop_s_live_walk=[r["frame_loop_s"] for r in dense_runs],
+         device_loop_s_live_walk=[r["device_loop_s"] for r in dense_runs])
+    if first_hyps != dense_hyps:
+        raise SystemExit("the first version and the live walk decode "
+                         "differently")
+    if first_runs[-1]["launches"] != T_out + (T_out + 1) * eps64:
+        raise SystemExit(f"the first version launched "
+                         f"{first_runs[-1]['launches']} times")
+    del first, first_hyps
 
     # the block-chain decoder (kernel a) and the host token-passing decoder
     # on the same graph and loglikes.  Equal words and tids are expected;
@@ -833,7 +1073,7 @@ def main() -> int:
                          FasterDecoderOptions(beam=1e9, max_active=10 ** 9))
     t0 = time.perf_counter()
     host_verdicts = []
-    for lane in range(4):
+    for lane in range(2):
         h = host.decode(ll_host[lane, :out_lens[lane]], flat64.tid2pdf)
         if h is None:
             raise SystemExit(f"lane {lane}: the host decoder failed")
@@ -856,6 +1096,16 @@ def main() -> int:
     subs = [lane_subgraph(graph64, flat64, h[1]) for h in dense_hyps]
     aligner = BatchedViterbi(subs, flat64.tid2pdf, device="cuda")
     build_s = time.perf_counter() - t0
+    ali_prep = aligner._prepare(LANES)
+    ali_identity = tables_identity(ali_prep[1])
+    n_relax_ali = T_out if ali_identity else T_out + (T_out + 1) * ali_prep[3]
+    # the kernel alone at the alignment shape (one table a lane), first
+    # version and live walk in turns
+    ali_e, _, ali_deg, _ = relax_inputs(ali_prep[1], LANES, spec64.num_pdfs,
+                                        SEED + 17)
+    time_ali = time_relax("viterbi_relax_per_lane_tables", ali_e, ali_deg,
+                          rate, tuple(ali_prep[1]["e_in_src"].shape))
+    del ali_e, ali_deg
     vr.launches = 0
     t0 = time.perf_counter()
     ali_hyps = aligner.run(loglikes, out_lens)
@@ -873,10 +1123,13 @@ def main() -> int:
          lanes_cost_bit_equal=int(n_same), cost_rel_tolerance=1e-3,
          states_min=sizes[0], states_median=sizes[LANES // 2],
          states_max=sizes[-1], graphs_seconds=build_s, run_seconds=ali_s,
+         closure_is_identity=ali_identity,
+         kernel_ms_a_launch=time_ali["ms"],
+         kernel_first_version_ms_a_launch=time_ali["first_version_ms"],
          launches={"viterbi_relax": ali_launches})
-    if ali_launches != n_relax:
+    if ali_launches != n_relax_ali:
         raise SystemExit(f"viterbi_relax launched {ali_launches} times in "
-                         f"the alignment run, expected {n_relax}")
+                         f"the alignment run, expected {n_relax_ali}")
 
     # the same 8 lanes with the plain relaxation
     plain_dense = BatchedViterbi(flat64.to_vector_fst(), flat64.tid2pdf,
@@ -913,10 +1166,19 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": None})
-    kernels[-1].update(closure_device_ms=closure_device_ms,
-                       closure_ms=time_c_closure["ms"],
-                       closure_plain_ms=time_c_closure["plain_ms"],
-                       closure_bound_ms=time_c_closure["bound_ms"])
+    kernels[-1].update(
+        ms_clock=time_c["clock"], run_device_ms=run_device_ms,
+        first_version_ms=time_c["first_version_ms"],
+        padded_bound_ms=time_c["bounds"]["padded"]["bound_ms"],
+        host_ms_a_launch=time_c["host_ms_a_launch"],
+        closure_ms=time_c_closure["ms"],
+        closure_first_version_ms=time_c_closure["first_version_ms"],
+        closure_plain_ms=time_c_closure["plain_ms"],
+        closure_bound_ms=time_c_closure["bound_ms"],
+        closure_padded_bound_ms=time_c_closure["bounds"]["padded"]["bound_ms"],
+        closure_epsilon_dag_ms=time_c_eps["ms"],
+        closure_epsilon_dag_first_version_ms=time_c_eps["first_version_ms"],
+        closure_epsilon_dag_bound_ms=time_c_eps["bound_ms"])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

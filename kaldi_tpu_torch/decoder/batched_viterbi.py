@@ -6,10 +6,13 @@ is one emitting relaxation followed by a fixed number of epsilon
 relaxations (the graph's epsilon depth, computed at pack time, replaces
 the data-dependent non-emitting iteration loop).  Every relaxation is one
 launch of `ops.viterbi_relax` (a CUDA kernel on the card) over the padded
-incoming-arc tables; the reference's `lax.scan` over frames is a Python
-loop of launches here.  The per-frame cost tables stay on the device in
-one preallocated tensor, come to the host once, and the traceback is
-recovered there by cost-consistency (no backpointer storage on device).
+incoming-arc tables, prepared once a run (`PreparedRelax`); the
+reference's `lax.scan` over frames is a Python loop of launches here.
+Where the epsilon table provably changes no cost row (a graph without
+epsilon arcs), the closure launches are left out.  The per-frame cost
+tables stay on the device in one preallocated tensor, come to the host
+once, and the traceback is recovered there by cost-consistency (no
+backpointer storage on device).
 
 Exact (no beam): correct for per-utterance training/alignment graphs and
 small-to-medium decoding graphs where S x K fits the arithmetic budget.
@@ -34,8 +37,12 @@ import torch
 
 from kaldi_tpu_torch.device import DeviceLike, resolve_device
 from kaldi_tpu_torch.fstext.fst import EPS, TropicalWeight, VectorFst
-from kaldi_tpu_torch.ops.viterbi_relax import (INF, build_incoming_table,
-                                               check_tables, viterbi_relax)
+from kaldi_tpu_torch.ops.viterbi_relax import (DEAD_SLACK, INF,
+                                               PreparedRelax,
+                                               build_incoming_table,
+                                               check_tables,
+                                               closure_is_identity,
+                                               live_counts, viterbi_relax)
 
 _log = logging.getLogger(__name__)
 
@@ -119,18 +126,32 @@ def _eps_depth(fst: VectorFst, cap: int = 10) -> int:
     return min(max(depth, default=0) + 1, cap)
 
 
+def _scaled_min(loglikes: torch.Tensor, scale: float) -> float:
+    """min of scale * loglikes (NaN if any is), 0 for no loglikes."""
+    if loglikes.numel() == 0:
+        return 0.0
+    lo, hi = (float(x) for x in torch.aminmax(loglikes))
+    return min(scale * lo, scale * hi)
+
+
 def _viterbi_device(loglikes: torch.Tensor, acoustic_scale: float,
                     e_in_src, e_in_w, e_in_pdf, ne_in_src, ne_in_w,
                     init_cost: torch.Tensor, num_states: int, eps_iters: int,
-                    relax: RelaxFn = viterbi_relax) -> torch.Tensor:
+                    relax: RelaxFn = viterbi_relax, e_in_deg=None,
+                    ne_in_deg=None,
+                    closure_identity: bool = False) -> torch.Tensor:
     """loglikes: (B, T, P); padded incoming-arc tables are (S, K), shared,
-    or (B, S, K) (see ops/viterbi_relax); all tensors on one device.
-    Cost rows carry a dead state at index S kept at INF.  Returns
-    (B, T+1, S+1) post-closure cost tables, a view of a lanes-fastest
-    tensor.
+    or (B, S, K) (see ops/viterbi_relax), `e_in_deg` and `ne_in_deg` their
+    live counts (optional); all tensors on one device.  Cost rows carry a
+    dead state at index S kept at INF.  Returns (B, T+1, S+1) post-closure
+    cost tables, a view of a lanes-fastest tensor.
 
     Launches: T emitting relaxations and (T + 1) * eps_iters closure
-    relaxations."""
+    relaxations.  closure_identity: the tables passed
+    `ops.viterbi_relax.closure_is_identity`; when this run's loglikes meet
+    its condition too, a closure step would copy its row, so none is
+    launched and each emitting step writes its table row itself: T
+    launches, the same tables bit for bit."""
     B, S1 = init_cost.shape
     if S1 != num_states + 1:
         raise ValueError(f"init_cost has {S1} columns, expected "
@@ -139,23 +160,45 @@ def _viterbi_device(loglikes: torch.Tensor, acoustic_scale: float,
         raise ValueError(f"eps_iters={eps_iters}: pack_graph gives >= 1")
     T = loglikes.shape[1]
     dev = init_cost.device
+
+    def bind(in_src, in_w, in_pdf, in_deg):
+        """One table set's relaxation as f(cost, [ll_t,] out=...)."""
+        if relax is viterbi_relax:
+            return PreparedRelax(in_src, in_w, in_pdf, acoustic_scale, in_deg)
+        kw = {} if in_deg is None else {"in_deg": in_deg}
+        if in_pdf is None:
+            return lambda cost, out: relax(cost, in_src, in_w, out=out, **kw)
+        return lambda cost, ll_t, out: relax(
+            cost, in_src, in_w, in_pdf, ll_t, acoustic_scale, out=out, **kw)
+
+    emit = bind(e_in_src, e_in_w, e_in_pdf, e_in_deg)
     ll = loglikes.permute(1, 2, 0).contiguous()              # (T, P, B)
     table = torch.empty((T + 1, S1, B), dtype=torch.float32, device=dev)
+    lls = [x.T for x in ll.unbind(0)]                        # (B, P) views
+    rows = [x.T for x in table.unbind(0)]                    # (B, S+1) views
+    if closure_identity and _scaled_min(loglikes, acoustic_scale) \
+            >= -DEAD_SLACK:
+        rows[0].copy_(init_cost)
+        for t in range(T):
+            emit(rows[t], lls[t], out=rows[t + 1])
+        return table.permute(2, 0, 1)
+
+    close = bind(ne_in_src, ne_in_w, None, ne_in_deg)
     scratch = torch.empty((2, S1, B), dtype=torch.float32, device=dev)
+    pads = [x.T for x in scratch.unbind(0)]
 
     def eps_close(cur: torch.Tensor, dst: torch.Tensor) -> None:
-        """eps_iters closure steps from `cur` (S+1, B); the last one
-        writes `dst`.  `cur` is scratch[0] or a tensor of its own."""
+        """eps_iters closure steps from `cur` (B, S+1); the last one
+        writes `dst`.  `cur` is pads[0] or a tensor of its own."""
         for i in range(eps_iters):
-            nxt = dst if i == eps_iters - 1 else scratch[(i + 1) % 2]
-            relax(cur.T, ne_in_src, ne_in_w, out=nxt.T)
+            nxt = dst if i == eps_iters - 1 else pads[(i + 1) % 2]
+            close(cur, out=nxt)
             cur = nxt
 
-    eps_close(init_cost.T.contiguous(), table[0])
+    eps_close(init_cost.T.contiguous().T, rows[0])
     for t in range(T):
-        relax(table[t].T, e_in_src, e_in_w, e_in_pdf, ll[t].T,
-              acoustic_scale, out=scratch[0].T)
-        eps_close(scratch[0], table[t + 1])
+        emit(rows[t], lls[t], out=pads[0])
+        eps_close(pads[0], rows[t + 1])
     return table.permute(2, 0, 1)
 
 
@@ -237,12 +280,20 @@ class BatchedViterbi:
         check_tables(arrays["e_in_src"], arrays["e_in_pdf"],
                      loglikes.shape[2])
         check_tables(arrays["ne_in_src"], None, None)
+        e_deg = live_counts(arrays["e_in_src"], arrays["e_in_w"],
+                            arrays["e_in_pdf"])
+        ne_deg = live_counts(arrays["ne_in_src"], arrays["ne_in_w"])
+        identity = closure_is_identity(
+            arrays["ne_in_src"], arrays["ne_in_w"], ne_deg,
+            arrays["e_in_src"], arrays["e_in_w"], e_deg)
+        arrays = dict(arrays, e_in_deg=e_deg, ne_in_deg=ne_deg)
         with torch.inference_mode():
             return _viterbi_device(
                 loglikes, self.acoustic_scale,
                 **{k: torch.as_tensor(v, device=self.device)
                    for k, v in arrays.items()},
-                num_states=S, eps_iters=eps_iters, relax=self.relax)
+                num_states=S, eps_iters=eps_iters, relax=self.relax,
+                closure_identity=identity)
 
     @staticmethod
     def _to_host(costs: torch.Tensor) -> np.ndarray:

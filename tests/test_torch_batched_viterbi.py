@@ -21,7 +21,8 @@ from kaldi_tpu_torch.decoder import batched_viterbi as tbv
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   build_direct_hclg)
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
-from kaldi_tpu_torch.ops.viterbi_relax import INF, relax_padded
+from kaldi_tpu_torch.ops.viterbi_relax import (INF, closure_is_identity,
+                                               live_counts, relax_padded)
 
 GRAPH_FIELDS = ("e_src", "e_dst", "e_ilabel", "e_olabel", "e_weight",
                 "ne_src", "ne_dst", "ne_olabel", "ne_weight", "final")
@@ -231,3 +232,136 @@ def test_pdf_index_outside_loglikes_raises():
     tv = tbv.BatchedViterbi(tfst, tid2pdf, device="cpu")
     with pytest.raises(ValueError, match="in_pdf"):
         tv.run(np.zeros((1, 3, 5), np.float32))
+
+
+def counting(calls):
+    def relax(*args, **kw):
+        calls.append(len(args))
+        return relax_padded(*args, **kw)
+    return relax
+
+
+def device_tables(tv, ll, arrays, S, eps_iters, scale, **kw):
+    calls = []
+    got = tbv._viterbi_device(
+        torch.from_numpy(ll), scale,
+        **{k: torch.from_numpy(v) for k, v in arrays.items()},
+        num_states=S, eps_iters=eps_iters, relax=counting(calls), **kw)
+    return got.numpy(), calls
+
+
+def identity_of(arrays):
+    e_deg = live_counts(arrays["e_in_src"], arrays["e_in_w"],
+                        arrays["e_in_pdf"])
+    ne_deg = live_counts(arrays["ne_in_src"], arrays["ne_in_w"])
+    return closure_is_identity(arrays["ne_in_src"], arrays["ne_in_w"], ne_deg,
+                               arrays["e_in_src"], arrays["e_in_w"],
+                               e_deg), e_deg, ne_deg
+
+
+@pytest.mark.parametrize("seed,with_deg", [(1, False), (2, True), (3, True)])
+def test_epsilon_free_graph_takes_no_closure_launch(seed, with_deg):
+    """An epsilon-free graph's epsilon table holds dead slots and the pad
+    self-arc of weight INF: T relax calls instead of T + (T + 1), and the
+    cost tables are exactly those with the closure forced on; against the
+    JAX package as test_viterbi_device_cost_tables_match_jax does."""
+    jfst, tfst, tid2pdf = flat_fsts(seed)
+    B, T, P = 4, 9, 24
+    # negative loglikes: costs grow, so no sum cancels to near zero
+    ll = -np.abs(np.random.default_rng(seed + 60).normal(size=(B, T, P))
+                 .astype(np.float32)) * 3.0
+    jv = jbv.BatchedViterbi(jfst, tid2pdf, acoustic_scale=0.7)
+    tv = tbv.BatchedViterbi(tfst, tid2pdf, acoustic_scale=0.7, device="cpu")
+    _, j_arr, S, eps_iters = jv._prepare(B)
+    _, t_arr, _, _ = tv._prepare(B)
+    identity, e_deg, ne_deg = identity_of(t_arr)
+    assert identity and eps_iters == 1
+    assert ne_deg.sum() == 1 and ne_deg[S - 1] == 1      # the pad self-arc
+    if with_deg:
+        t_arr = dict(t_arr, e_in_deg=e_deg, ne_in_deg=ne_deg)
+    got, calls = device_tables(tv, ll, t_arr, S, eps_iters, 0.7,
+                               closure_identity=True)
+    forced, forced_calls = device_tables(tv, ll, t_arr, S, eps_iters, 0.7)
+    assert len(calls) == T and all(n > 3 for n in calls)
+    assert len(forced_calls) == T + (T + 1) * eps_iters
+    np.testing.assert_array_equal(got, forced)
+    want = np.asarray(jbv._viterbi_device(
+        jnp.asarray(ll), 0.7, **{k: jnp.asarray(v) for k, v in j_arr.items()},
+        num_states=S, eps_iters=eps_iters))
+    live = want < INF / 2
+    np.testing.assert_allclose(got[live], want[live], rtol=1e-5)
+    assert (got[~live] >= INF / 2).all() and np.isfinite(got).all()
+    assert (got[:, :, S] == INF).all() and live.mean() > 0.3
+
+
+def test_closure_stays_when_the_loglikes_could_lift_a_dead_candidate():
+    """With scale * ll[:, :, 0] below -DEAD_SLACK a state without in-arc
+    ends above 2e30, and a closure step lowers it: the launches stay, and
+    the tables are those of the forced closure."""
+    _, tfst, tid2pdf = flat_fsts(1)
+    B, T, P = 3, 5, 24
+    ll = np.random.default_rng(70).normal(size=(B, T, P)).astype(np.float32)
+    ll[1, 2, 0] = -1e25
+    tv = tbv.BatchedViterbi(tfst, tid2pdf, device="cpu")
+    _, t_arr, S, eps_iters = tv._prepare(B)
+    got, calls = device_tables(tv, ll, t_arr, S, eps_iters, 1.0,
+                               closure_identity=True)
+    forced, _ = device_tables(tv, ll, t_arr, S, eps_iters, 1.0)
+    assert len(calls) == T + (T + 1) * eps_iters
+    np.testing.assert_array_equal(got, forced)
+    # the emitting step alone leaves such a state above 2e30 ...
+    raw = relax_padded(torch.from_numpy(forced[:, 2]),
+                       *[torch.from_numpy(t_arr[k]) for k in
+                         ("e_in_src", "e_in_w", "e_in_pdf")],
+                       torch.from_numpy(ll[:, 2]), 1.0).numpy()
+    assert (raw[1, :S - 1] > INF + INF).any()
+    # ... and the closure step brings it back (but for the pad state S-1,
+    # whose one epsilon slot is its self-arc)
+    assert (forced[1, 3, :S - 1] <= INF + INF).all()
+
+
+@pytest.mark.parametrize("case", ["ragged_epsfree", "epsilon_dag",
+                                  "graph_a_lane", "unreachable_final"])
+def test_run_counts_and_results_with_and_without_closure(case, monkeypatch):
+    """`run` through `_forward`: the relax calls of a run (T for tables
+    whose closure is the identity, T + (T + 1) * eps_iters otherwise) and
+    hypotheses equal to those with the closure forced on."""
+    lengths = None
+    if case == "ragged_epsfree":
+        _, tfst, tid2pdf = flat_fsts(1)
+        graphs, (B, T, P), lengths = tfst, (5, 11, 24), [11, 9, 11, 4, 7]
+    elif case == "epsilon_dag":
+        arcs, finals, n, tid2pdf = random_eps_fst(1)
+        graphs, (B, T, P), lengths = both_fsts(arcs, finals, n)[1], \
+            (4, 9, 8), [9, 6, 9, 3]
+    elif case == "graph_a_lane":
+        graphs = []
+        for b, n in enumerate([14, 9, 17, 6]):
+            arcs, finals, n, tid2pdf = random_eps_fst(40, n=n)
+            graphs.append(both_fsts([a for a in arcs if a[1] != 0],
+                                    finals, n)[1])
+        (B, T, P), lengths = (4, 10, 8), [10, 10, 7, 5]
+    else:
+        graphs = both_fsts([(0, 1, 0, 0.5, 0), (1, 1, 0, 0.5, 1)],
+                           [(1, 0.0)], 2)[1]
+        tid2pdf, (B, T, P) = np.array([0, 0], np.int32), (1, 3, 1)
+    ll = np.random.default_rng(80).normal(size=(B, T, P)).astype(np.float32)
+    calls = []
+    tv = tbv.BatchedViterbi(graphs, tid2pdf, acoustic_scale=0.9,
+                            device="cpu", relax=counting(calls))
+    _, arrays, _, eps_iters = tv._prepare(B)
+    identity = identity_of(arrays)[0]
+    # unreachable_final: K = 1 and state 1 is fed by itself alone, so no
+    # slot bounds it by 2e30 and the closure launches stay
+    assert identity == (case in ("ragged_epsfree", "graph_a_lane"))
+    got = tv.run(ll, lengths)
+    assert len(calls) == (T if identity else T + (T + 1) * eps_iters)
+    monkeypatch.setattr(tbv, "closure_is_identity", lambda *a: False)
+    del calls[:]
+    forced = tv.run(ll, lengths)
+    assert len(calls) == T + (T + 1) * eps_iters
+    assert got == forced
+    if case == "unreachable_final":
+        assert got == [None]
+    else:
+        assert all(h is not None for h in got)

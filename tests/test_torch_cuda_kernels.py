@@ -174,9 +174,15 @@ def test_lattice_decode_kernel_equals_plain(cuda):
     assert [lattice_key(g) for g in got] == [lattice_key(w) for w in want]
 
 
-def relax_args(device, seed, B, S, A, P, per_lane, lanes_fastest):
+def relax_args(device, seed, B, S, A, P, per_lane, lanes_fastest,
+               full=0, big_ll0=False):
     """Seeded tables (per lane: graphs of different sizes, padded to a
-    common K), costs with INF entries and loglikes."""
+    common K), their live counts, costs with INF entries and loglikes.
+    full: state 0 gets exactly `full` in-arcs (a power of two) and no
+    other state more, so that its K slots are all live; from 32 on, state
+    1 gets five eighths of that, a long walk that ends in a dead slot, and
+    the last state gets none.  big_ll0: loglikes column 0 is 1e25, so a
+    dead slot's candidate is not 2e30."""
     rng = np.random.default_rng(seed)
     tabs = []
     for b in range(B if per_lane else 1):
@@ -186,6 +192,11 @@ def relax_args(device, seed, B, S, A, P, per_lane, lanes_fastest):
         dst = rng.integers(0, s_b, a).astype(np.int32)
         if a > 5:
             dst[:5] = 0                   # one state of in-degree >= 5
+        if full:
+            dst = (2 + np.arange(a) % (s_b - 3)).astype(np.int32)
+            dst[:full] = 0
+            if full >= 32:
+                dst[full:full + 5 * full // 8] = 1
         w = rng.uniform(0, 2, a).astype(np.float32)
         pdf = rng.integers(0, P, a).astype(np.int32)
         tabs.append(vr.build_incoming_table(S, src, dst, w, pdf))
@@ -200,29 +211,46 @@ def relax_args(device, seed, B, S, A, P, per_lane, lanes_fastest):
     arrs = [np.stack([pad(t[i], fills[i]) for t in tabs]) for i in range(3)]
     if not per_lane:
         arrs = [a[0] for a in arrs]
+    deg = vr.live_counts(*arrs)
+    if full:
+        assert K == full and (deg == K).any() and (deg == 0).any()
     cost = rng.uniform(0, 50, (B, S + 1)).astype(np.float32)
     cost[rng.random(cost.shape) < 0.3] = vr.INF
     cost[:, S] = vr.INF
     ll = (rng.normal(size=(B, P)) * 4).astype(np.float32)
-    cost, ll, in_src, in_w, in_pdf = (
-        torch.from_numpy(a).to(device) for a in (cost, ll, *arrs))
+    if big_ll0:
+        ll[:, 0] = 1e25
+    cost, ll, in_src, in_w, in_pdf, deg = (
+        torch.from_numpy(a).to(device) for a in (cost, ll, *arrs, deg))
     if lanes_fastest:
         cost, ll = cost.T.contiguous().T, ll.T.contiguous().T
-    return cost, in_src, in_w, in_pdf, ll
+    return cost, in_src, in_w, in_pdf, ll, deg
 
 
-@pytest.mark.parametrize("seed,B,S,A,per_lane,lanes_fastest", [
-    (0, 1, 1, 0, False, True), (1, 19, 37, 90, False, True),
-    (2, 19, 37, 90, True, True), (3, 128, 301, 700, False, True),
-    (4, 33, 257, 400, True, False), (5, 7, 64, 10, False, False)])
+@pytest.mark.parametrize("with_deg", [False, True])
+@pytest.mark.parametrize("seed,B,S,A,per_lane,lanes_fastest,full,big_ll0", [
+    (0, 1, 1, 0, False, True, 0, False),
+    (1, 19, 37, 90, False, True, 0, False),
+    (2, 19, 37, 90, True, True, 0, False),
+    (3, 128, 301, 700, False, True, 0, False),
+    (4, 33, 257, 400, True, False, 0, False),
+    (5, 7, 64, 10, False, False, 0, False),
+    (6, 64, 90, 200, False, True, 8, False),
+    (7, 12, 40, 100, True, True, 8, True),
+    (8, 128, 301, 700, False, True, 0, True),
+    (9, 20, 70, 300, False, True, 64, False),
+    (10, 7, 70, 300, False, True, 64, True)])
 def test_relax_kernel_equals_plain(cuda, seed, B, S, A, per_lane,
-                                   lanes_fastest):
-    cost, in_src, in_w, in_pdf, ll = relax_args(cuda, seed, B, S, A, 11,
-                                                per_lane, lanes_fastest)
+                                   lanes_fastest, full, big_ll0, with_deg):
+    """with_deg: the walk over live slots; without: the first version over
+    all K slots.  Both equal the plain version bit for bit."""
+    cost, in_src, in_w, in_pdf, ll, deg = relax_args(
+        cuda, seed, B, S, A, 11, per_lane, lanes_fastest, full, big_ll0)
+    kw = {"in_deg": deg} if with_deg else {}
     before = vr.launches
-    got = vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7)
+    got = vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7, **kw)
     want = vr.relax_padded(cost, in_src, in_w, in_pdf, ll, 0.7)
-    closed = vr.viterbi_relax(cost, in_src, in_w)
+    closed = vr.viterbi_relax(cost, in_src, in_w, **kw)
     closed_want = vr.relax_padded(cost, in_src, in_w)
     assert vr.launches == before + 2
     torch.cuda.synchronize()
@@ -231,14 +259,14 @@ def test_relax_kernel_equals_plain(cuda, seed, B, S, A, per_lane,
     assert bool(torch.isfinite(got).all())
     # into a lanes-fastest (S+1, B) buffer, dead column included
     out = torch.zeros((S + 1, B), device=cuda)
-    vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7, out=out.T)
+    vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7, out=out.T, **kw)
     assert torch.equal(out.T[:, :S], want)
     assert bool((out[S] == float(vr.INF)).all())
 
 
 def test_relax_kernel_rejects_bad_inputs(cuda):
-    cost, in_src, in_w, in_pdf, ll = relax_args(cuda, 0, 4, 9, 20, 5, False,
-                                                True)
+    cost, in_src, in_w, in_pdf, ll, deg = relax_args(cuda, 0, 4, 9, 20, 5,
+                                                     False, True)
     with pytest.raises(TypeError):
         vr.viterbi_relax(cost.double(), in_src, in_w, in_pdf, ll)
     with pytest.raises(TypeError):
@@ -251,13 +279,31 @@ def test_relax_kernel_rejects_bad_inputs(cuda):
         vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, out=cost)
     with pytest.raises(ValueError):
         vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll.cpu())
+    with pytest.raises(TypeError):
+        vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, in_deg=deg.long())
+    with pytest.raises(ValueError):
+        vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, in_deg=deg[:-1])
+    plan = vr.PreparedRelax(in_src, in_w, in_pdf, 1.0, deg)
+    with pytest.raises(ValueError, match="overlap"):
+        plan(cost, ll, out=cost)
+    with pytest.raises(ValueError, match="go together"):
+        plan(cost)
+    with pytest.raises(TypeError):
+        plan(cost, ll.double())
 
 
+def relax_all_slots(*args, in_deg=None, **kw):
+    """The first version of the kernel: the live counts are dropped."""
+    return vr.viterbi_relax(*args, **kw)
+
+
+@pytest.mark.parametrize("with_deg", [False, True])
 @pytest.mark.parametrize("per_lane", [False, True])
-def test_batched_viterbi_kernel_equals_plain(cuda, per_lane):
-    """Shared tables and one graph a lane: the kernel and the plain
-    relaxation give identical hypotheses, and every relaxation of a run
-    is one launch."""
+def test_batched_viterbi_kernel_equals_plain(cuda, per_lane, with_deg):
+    """Shared tables and one graph a lane: the kernel (the live walk, and
+    the first version over all slots) and the plain relaxation give
+    identical hypotheses, and every relaxation of a run is one launch; a
+    table set whose closure is the identity takes no closure launch."""
     dec = small_decoder(5, "cpu", V=13)
     flat = dec.g.to_flat_graph()
     fsts = [flat.to_vector_fst()]
@@ -270,12 +316,21 @@ def test_batched_viterbi_kernel_equals_plain(cuda, per_lane):
     rng = np.random.default_rng(6)
     ll = rng.normal(size=(6, 21, 64)).astype(np.float32)
     lengths = [21, 20, 13, 9, 21, 3]
-    kernel = BatchedViterbi(fsts, flat.tid2pdf, device=cuda)
+    kernel = BatchedViterbi(fsts, flat.tid2pdf, device=cuda,
+                            **({} if with_deg else
+                               {"relax": relax_all_slots}))
     plain = BatchedViterbi(fsts, flat.tid2pdf, device=cuda,
                            relax=vr.relax_padded)
+    _, arrays, _, eps_iters = kernel._prepare(6)
+    identity = vr.closure_is_identity(
+        arrays["ne_in_src"], arrays["ne_in_w"],
+        vr.live_counts(arrays["ne_in_src"], arrays["ne_in_w"]),
+        arrays["e_in_src"], arrays["e_in_w"],
+        vr.live_counts(arrays["e_in_src"], arrays["e_in_w"],
+                       arrays["e_in_pdf"]))
     before = vr.launches
     got = kernel.run(ll, lengths)
-    assert vr.launches == before + 21 + 22 * 1
+    assert vr.launches == before + 21 + (0 if identity else 22 * eps_iters)
     assert got == plain.run(ll, lengths)
     assert all(h is not None for h in got)
     assert [len(h[0]) for h in got] == lengths
