@@ -19,7 +19,9 @@ Phases, one JSON line each (any failure exits nonzero):
   3. each kernel against its plain PyTorch version on the card, at the
      main path's full shape and at a small ragged shape (torch.equal;
      the lattice step also on forced ties; the relaxation with its live
-     counts and without, the first version), and their times (the
+     counts and without, the first version, into the batched decoder's
+     lanes-fastest rows, dead column included, and into rows of its own,
+     with the instantiation each call takes), and their times (the
      relaxation: first version and live walk in turns, by CUDA events
      around a replayed CUDA graph of launches, beside the padded and the
      live bound, and the host time of a launch);
@@ -407,6 +409,58 @@ def check_kernel(name: str, kernel, plain, names, args, label: str,
     return row
 
 
+def check_relax(args, deg, label: str, lanes_a_thread: int, **kw) -> list:
+    """One relaxation case against the plain version, torch.equal, through
+    the live walk (`deg`) and through the first version, each in two
+    output layouts: the wrapper's own (B, S) rows, and a lanes-fastest
+    (B, S+1) row as the batched decoder passes it, filled with NaN
+    before, whose dead column must come back as INF from an emitting step
+    and as the old value from a closure step (the closure cases get a dead
+    column of 7e29 to tell the two apart).  The wrapper is asked which
+    instantiation each call takes: in the decoder's layout the live walk
+    must take `lanes_a_thread` lanes a thread.  Exits on a difference."""
+    closure = len(args) == 3
+    cost, in_src, in_w = args[:3]
+    in_pdf, ll = (None, None) if closure else args[3:5]
+    B, S = cost.shape[0], cost.shape[1] - 1
+    if closure:
+        cost = cost.clone()                         # keeps the strides
+        cost[:, S] = 7e29
+        args = (cost, in_src, in_w)
+    want = vr.relax_padded(*args, **kw)
+    dead = cost[:, S] if closure else torch.full((B,), float(vr.INF),
+                                                 device="cuda")
+    rows = []
+    for walk, in_deg, lanes in (("live", deg, lanes_a_thread),
+                                ("all_slots", None, 0)):
+        plan = vr.PreparedRelax(in_src, in_w, in_pdf, 1.0, in_deg)
+        for layout in ("own_rows", "decoder_rows"):
+            if layout == "own_rows":
+                got = vr.viterbi_relax(*args, in_deg=in_deg, **kw)
+                ran = plan.lanes_a_thread(cost, ll, got)
+                equal = {"new": bool(torch.equal(got, want))}
+                ran_ok = ran == min(lanes, 1)       # lanes are not fastest
+            else:
+                out = torch.full((S + 1, B), float("nan"), device="cuda").T
+                got = vr.viterbi_relax(*args, out=out, in_deg=in_deg, **kw)
+                ran = plan.lanes_a_thread(cost, ll, out)
+                equal = {"new": bool(torch.equal(out[:, :S], want)),
+                         "returned": bool(torch.equal(got, out[:, :S])),
+                         "dead_column": bool(torch.equal(out[:, S], dead))}
+                ran_ok = ran == lanes
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            row = {"shape": f"{label}/{walk}/{layout}", "B": B,
+                   "equal": equal, "max_abs_err": err, "lanes_a_thread": ran}
+            if not (all(equal.values()) and ran_ok):
+                emit("kernel_check", ok=False, kernel="viterbi_relax", **row)
+                raise SystemExit(
+                    f"viterbi_relax at {row['shape']}: {equal}, {ran} lanes "
+                    f"a thread (expected {lanes} in the decoder's layout)")
+            rows.append(row)
+    return rows
+
+
 def time_kernel(name: str, kernel_once, plain_once, plain_iters: int,
                 nbytes: int, nops: int, rate: float, shape) -> dict:
     """ms a launch by CUDA events (kernel, plain, kernel again) beside the
@@ -509,6 +563,10 @@ def time_relax(name: str, args, in_deg, rate: float, shape, **extra) -> dict:
     for fn in (old_once, new_once, plain_once):
         fn()
     torch.cuda.synchronize()
+    lanes = new.lanes_a_thread(cost, ll, out)
+    if lanes != (4 if in_src.dim() == 2 else 1):
+        raise SystemExit(f"{name}: the timed live walk takes {lanes} lanes a "
+                         "thread, not what the decoder's layout gives")
     ms = [graph_ms(fn) for fn in (old_once, new_once, new_once, old_once)]
     p_ms = cuda_ms(plain_once, 5)
     loop_ms = cuda_ms(new_once, 200)
@@ -523,7 +581,7 @@ def time_relax(name: str, args, in_deg, rate: float, shape, **extra) -> dict:
                        "ops": nops, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
                        "bound_by": "bytes" if bytes_ms >= ops_ms
                        else "operations"}
-    row = {"kernel": name, "shape": list(shape),
+    row = {"kernel": name, "shape": list(shape), "lanes_a_thread": lanes,
            "clock": "device ms a launch: CUDA events around a replayed CUDA "
                     "graph of 50 launches on the same buffers",
            "first_version_ms": ms[0], "ms": ms[1], "ms_repeat": ms[2],
@@ -732,8 +790,9 @@ def main() -> int:
         raise SystemExit("the epsilon case holds no live epsilon arc")
     # a state whose K slots are all live, a long walk with a dead slot, a
     # state without in-arc, and loglikes whose column 0 is 1e25, so that a
-    # dead slot's candidate is not 2e30; 20 lanes take 4 lanes a thread, 19
-    # one
+    # dead slot's candidate is not 2e30.  In the decoder's layout 128 and
+    # 20 lanes over shared tables take 4 lanes a thread, 19 lanes and one
+    # table a lane take one
     deg_e, deg_c, deg_deg, deg_ne_deg = relax_inputs(
         degree_tables(3001, 64, 50, SEED + 12), 20, 50, SEED + 13,
         big_ll0=True)
@@ -744,21 +803,18 @@ def main() -> int:
         degree_tables(3001, 64, 50, SEED + 12), 19, 50, SEED + 14,
         big_ll0=True)
     rows_c = []
-    for args, deg, label, kw in (
-            (full_e, full_deg, "full_shared_emitting", {}),
-            (ragged_e, ragged_deg, "small_ragged_per_lane_emitting", {}),
-            (full_c, full_ne_deg, "full_closure_K1", {}),
-            (eps_c, eps_deg, "closure_live_epsilon_arcs", {}),
-            (full_e, full_deg, "full_scale_0.3", {"acoustic_scale": 0.3}),
-            (deg_e, deg_deg, "deg_0_and_K_ll0_1e25_emitting", {}),
-            (deg_c, deg_ne_deg, "deg_0_and_K_closure", {}),
-            (deg19_e, deg_deg, "deg_0_and_K_ll0_1e25_19_lanes",
+    for args, deg, label, lanes, kw in (
+            (full_e, full_deg, "full_shared_emitting", 4, {}),
+            (ragged_e, ragged_deg, "small_ragged_per_lane_emitting", 1, {}),
+            (full_c, full_ne_deg, "full_closure_K1", 4, {}),
+            (eps_c, eps_deg, "closure_live_epsilon_arcs", 1, {}),
+            (full_e, full_deg, "full_scale_0.3", 4, {"acoustic_scale": 0.3}),
+            (deg_e, deg_deg, "deg_0_and_K_ll0_1e25_emitting", 4, {}),
+            (deg_c, deg_ne_deg, "deg_0_and_K_closure", 4, {}),
+            (deg19_e, deg_deg, "deg_0_and_K_ll0_1e25_19_lanes", 1,
              {"acoustic_scale": 0.3}),
-            (deg19_c, deg_ne_deg, "deg_0_and_K_closure_19_lanes", {})):
-        for walk, deg_kw in (("live", {"in_deg": deg}), ("all_slots", {})):
-            rows_c.append(check_kernel(
-                "viterbi_relax", vr.viterbi_relax, vr.relax_padded, ("new",),
-                args, f"{label}/{walk}", args[0].shape[0], **kw, **deg_kw))
+            (deg19_c, deg_ne_deg, "deg_0_and_K_closure_19_lanes", 1, {})):
+        rows_c += check_relax(args, deg, label, lanes, **kw)
     emit("kernel_check", ok=True, kernel="viterbi_relax", checks=rows_c,
          ragged_S=ragged[2], ragged_K=ragged[1]["e_in_src"].shape[2],
          eps_live_arcs=live_eps)
@@ -996,8 +1052,8 @@ def main() -> int:
     # the profiler gives the kernel's own time in the run, where each
     # launch reads a new frame of loglikes and writes a new table row
     prof = profile_call(lambda: dense.run(loglikes, out_lens),
-                        per_launch_of="relax_live")
-    run_device_ms = prof["ms_per_launch"]["relax_live"]
+                        per_launch_of="relax_live<false, 4>")
+    run_device_ms = prof["ms_per_launch"]["relax_live<false, 4>"]
     emit("profile_viterbi", busy_share_of_median_wall=prof["device_ms"] / 1e3
          / dense_walls[1], kernel_share_of_median_wall=(
              prof["device_ms"] - prof["copy_ms"]) / 1e3 / dense_walls[1],
@@ -1006,7 +1062,8 @@ def main() -> int:
     # the frame loop as the first version made it, for the same result:
     # every launch fully checked, all K slots walked, the closure launched
     first = BatchedViterbi(flat64.to_vector_fst(), flat64.tid2pdf,
-                           device="cuda", relax=relax_all_slots)
+                           device="cuda",
+                           relax=vr.each_call(relax_all_slots))
     first_s: dict = {}
     timed_methods(first, stage_names, first_s)
     proven = tbv.closure_is_identity
@@ -1133,7 +1190,8 @@ def main() -> int:
 
     # the same 8 lanes with the plain relaxation
     plain_dense = BatchedViterbi(flat64.to_vector_fst(), flat64.tid2pdf,
-                                 device="cuda", relax=vr.relax_padded)
+                                 device="cuda",
+                                 relax=vr.each_call(vr.relax_padded))
     vr.launches = 0
     t0 = time.perf_counter()
     p_hyps = plain_dense.run(loglikes[:8], out_lens[:8])

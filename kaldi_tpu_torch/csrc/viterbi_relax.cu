@@ -309,6 +309,18 @@ bool aligned16(const void* p) {
   return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
+// Whether the live walk takes 4 lanes a thread: shared tables, unit lane
+// strides, rows aligned to 16 bytes.
+bool four_lanes(bool closure, const float* cost, long long cs_b,
+                long long cs_s, long long lane_stride, const float* ll,
+                long long ls_b, long long ls_p, const float* out,
+                long long os_b, long long os_s, int B) {
+  return lane_stride == 0 && B % 4 == 0 && cs_b == 1 && os_b == 1 &&
+         cs_s % 4 == 0 && os_s % 4 == 0 && aligned16(cost) &&
+         aligned16(out) &&
+         (closure || (ls_b == 1 && ls_p % 4 == 0 && aligned16(ll)));
+}
+
 template <bool kClosure>
 void launch(const float* cost, long long cs_b, long long cs_s,
             const int* in_src, const float* in_w, const int* in_pdf,
@@ -326,11 +338,8 @@ void launch(const float* cost, long long cs_b, long long cs_s,
         scale, out, os_b, os_s, B, S, K, out_cols);
     return;
   }
-  // 4 lanes a thread: shared tables, unit lane strides, aligned rows
-  const bool vec =
-      lane_stride == 0 && B % 4 == 0 && cs_b == 1 && os_b == 1 &&
-      cs_s % 4 == 0 && os_s % 4 == 0 && aligned16(cost) && aligned16(out) &&
-      (kClosure || (ls_b == 1 && ls_p % 4 == 0 && aligned16(ll)));
+  const bool vec = four_lanes(kClosure, cost, cs_b, cs_s, lane_stride, ll,
+                              ls_b, ls_p, out, os_b, os_s, B);
   if (lane_stride != 0) n_long = 0;   // one table a lane: no long blocks
   const int lanes_a_block = 32 * (vec ? 4 : 1);
   const dim3 block(32, kTile);
@@ -375,4 +384,21 @@ extern "C" int viterbi_relax(const float* cost, long long cs_b,
                   n_long, long_walk, lane_stride, ll, ls_b, ls_p, scale, out,
                   os_b, os_s, B, S, K, out_cols, st);
   return (int)cudaGetLastError();
+}
+
+// The instantiation that viterbi_relax launches for these arguments, as
+// lanes a thread: 0 the first version (in_deg null), 1 or 4 the live walk.
+// Launches nothing.
+extern "C" int viterbi_relax_lanes_a_thread(
+    const float* cost, long long cs_b, long long cs_s, const int* in_src,
+    const float* in_w, const int* in_pdf, const int* in_deg,
+    const int* long_states, int n_long, int long_walk, long long lane_stride,
+    const float* ll, long long ls_b, long long ls_p, float scale, float* out,
+    long long os_b, long long os_s, int B, int S, int K, int out_cols,
+    int closure, void* stream) {
+  if (in_deg == nullptr) return 0;
+  return four_lanes(closure != 0, cost, cs_b, cs_s, lane_stride, ll, ls_b,
+                    ls_p, out, os_b, os_s, B)
+             ? 4
+             : 1;
 }

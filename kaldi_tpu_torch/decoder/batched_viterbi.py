@@ -42,11 +42,14 @@ from kaldi_tpu_torch.ops.viterbi_relax import (DEAD_SLACK, INF,
                                                build_incoming_table,
                                                check_tables,
                                                closure_is_identity,
-                                               live_counts, viterbi_relax)
+                                               live_counts)
 
 _log = logging.getLogger(__name__)
 
-RelaxFn = Callable[..., torch.Tensor]
+# (in_src, in_w, in_pdf, acoustic_scale, in_deg) -> the relaxation over
+# these tables: f(cost, loglikes_t, out=...), or f(cost, out=...) for an
+# epsilon table (in_pdf None)
+RelaxFactory = Callable[..., Callable[..., torch.Tensor]]
 Hyp = Optional[Tuple[List[int], List[int], float]]
 
 
@@ -137,12 +140,13 @@ def _scaled_min(loglikes: torch.Tensor, scale: float) -> float:
 def _viterbi_device(loglikes: torch.Tensor, acoustic_scale: float,
                     e_in_src, e_in_w, e_in_pdf, ne_in_src, ne_in_w,
                     init_cost: torch.Tensor, num_states: int, eps_iters: int,
-                    relax: RelaxFn = viterbi_relax, e_in_deg=None,
+                    relax: RelaxFactory = PreparedRelax, e_in_deg=None,
                     ne_in_deg=None,
                     closure_identity: bool = False) -> torch.Tensor:
     """loglikes: (B, T, P); padded incoming-arc tables are (S, K), shared,
     or (B, S, K) (see ops/viterbi_relax), `e_in_deg` and `ne_in_deg` their
-    live counts (optional); all tensors on one device.  Cost rows carry a
+    live counts (optional); all tensors on one device.  `relax` makes the
+    relaxation of one table set (see RelaxFactory).  Cost rows carry a
     dead state at index S kept at INF.  Returns (B, T+1, S+1) post-closure
     cost tables, a view of a lanes-fastest tensor.
 
@@ -161,17 +165,7 @@ def _viterbi_device(loglikes: torch.Tensor, acoustic_scale: float,
     T = loglikes.shape[1]
     dev = init_cost.device
 
-    def bind(in_src, in_w, in_pdf, in_deg):
-        """One table set's relaxation as f(cost, [ll_t,] out=...)."""
-        if relax is viterbi_relax:
-            return PreparedRelax(in_src, in_w, in_pdf, acoustic_scale, in_deg)
-        kw = {} if in_deg is None else {"in_deg": in_deg}
-        if in_pdf is None:
-            return lambda cost, out: relax(cost, in_src, in_w, out=out, **kw)
-        return lambda cost, ll_t, out: relax(
-            cost, in_src, in_w, in_pdf, ll_t, acoustic_scale, out=out, **kw)
-
-    emit = bind(e_in_src, e_in_w, e_in_pdf, e_in_deg)
+    emit = relax(e_in_src, e_in_w, e_in_pdf, acoustic_scale, e_in_deg)
     ll = loglikes.permute(1, 2, 0).contiguous()              # (T, P, B)
     table = torch.empty((T + 1, S1, B), dtype=torch.float32, device=dev)
     lls = [x.T for x in ll.unbind(0)]                        # (B, P) views
@@ -183,7 +177,7 @@ def _viterbi_device(loglikes: torch.Tensor, acoustic_scale: float,
             emit(rows[t], lls[t], out=rows[t + 1])
         return table.permute(2, 0, 1)
 
-    close = bind(ne_in_src, ne_in_w, None, ne_in_deg)
+    close = relax(ne_in_src, ne_in_w, None, acoustic_scale, ne_in_deg)
     scratch = torch.empty((2, S1, B), dtype=torch.float32, device=dev)
     pads = [x.T for x in scratch.unbind(0)]
 
@@ -206,13 +200,15 @@ class BatchedViterbi:
     """Batched exact Viterbi for a SHARED graph over many utterances
     (decode) or per-utterance graphs (alignment).
 
-    relax: the relaxation, `ops.viterbi_relax` by default (the CUDA
-    kernel for CUDA tensors); `ops.viterbi_relax.relax_padded` runs the
-    plain version on the card, for comparison."""
+    relax: what makes the relaxation of a table set, `PreparedRelax` by
+    default (the CUDA kernel for CUDA tensors, tables checked once a run);
+    `each_call(relax_padded)` (both of `ops.viterbi_relax`) runs the plain
+    version on the card, for comparison, and `each_call` fits any function
+    of `viterbi_relax`'s arguments."""
 
     def __init__(self, graphs, tid_to_pdf: np.ndarray,
                  acoustic_scale: float = 1.0, device: DeviceLike = None,
-                 relax: RelaxFn = viterbi_relax):
+                 relax: RelaxFactory = PreparedRelax):
         if isinstance(graphs, VectorFst):
             graphs = [graphs]
         self.device = resolve_device(device)

@@ -220,13 +220,15 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device,
 
 
 def _bind(lib: ctypes.CDLL):
-    fn = lib.viterbi_relax
-    if fn.argtypes is None:
-        p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = [p, ll, ll, p, p, p, p, p, i, i, ll, p, ll, ll,
-                       ctypes.c_float, p, ll, ll, i, i, i, i, i, p]
-        fn.restype = ctypes.c_int
-    return fn
+    """-> (the launch, the question which instantiation it would take)."""
+    fns = lib.viterbi_relax, lib.viterbi_relax_lanes_a_thread
+    for fn in fns:
+        if fn.argtypes is None:
+            p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+            fn.argtypes = [p, ll, ll, p, p, p, p, p, i, i, ll, p, ll, ll,
+                           ctypes.c_float, p, ll, ll, i, i, i, i, i, p]
+            fn.restype = ctypes.c_int
+    return fns
 
 
 class PreparedRelax:
@@ -242,7 +244,8 @@ class PreparedRelax:
     without it all K slots (the first version).  The results are equal bit
     for bit.  Like the table indices, the counts are not checked here.
     For shared tables the states with a walk longer than LONG_WALK are
-    listed here, once (a device-to-host synchronisation)."""
+    listed here, once (a device-to-host synchronisation).  All tensors of
+    a call lie on the tables' device."""
 
     def __init__(self, in_src, in_w, in_pdf=None,
                  acoustic_scale: float = 1.0, in_deg=None):
@@ -265,7 +268,7 @@ class PreparedRelax:
             _check("in_pdf", in_pdf, tshape, torch.int32, dev, True)
         if in_deg is not None:
             _check("in_deg", in_deg, tshape[:-1], torch.int32, dev, True)
-        self._fn = _bind(_build.load("viterbi_relax"))
+        self._fn, self._lanes_fn = _bind(_build.load("viterbi_relax"))
         self._long = None
         if in_deg is not None and self.lanes is None:
             walk = in_deg + (in_deg < self.K)
@@ -299,18 +302,10 @@ class PreparedRelax:
                              f"{tuple(out.shape)}")
         _check("out", out, (B, out.shape[1]), torch.float32, dev, False)
 
-    def __call__(self, cost: torch.Tensor,
-                 loglikes_t: Optional[torch.Tensor] = None,
-                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if cost.device.type == "cpu":
-            in_src, in_w, in_pdf, _ = self.tables
-            return relax_padded(cost, in_src, in_w, in_pdf, loglikes_t,
-                                self.scale, out)
+    def _args(self, cost, ll, out) -> tuple:
+        """The C interface's arguments but for the stream, every tensor
+        checked."""
         dev, S = self.dev, self.S
-        if out is None and cost.dim() == 2:
-            out = torch.empty((cost.shape[0], S), dtype=torch.float32,
-                              device=dev)
-        ll = loglikes_t
         f32 = torch.float32
         ok = (cost.dim() == 2 and cost.shape[1] == S + 1
               and cost.dtype is f32 and cost.device == dev
@@ -332,10 +327,37 @@ class PreparedRelax:
                              "other states' old costs while it writes)")
         if ll is None:
             ll = cost                               # closure: never read
-        args = (cost.data_ptr(), cost.stride(0), cost.stride(1),
+        return (cost.data_ptr(), cost.stride(0), cost.stride(1),
                 *self._table_args, ll.data_ptr(), ll.stride(0), ll.stride(1),
                 self.scale, out.data_ptr(), out.stride(0), out.stride(1),
                 cost.shape[0], S, self.K, out.shape[1], int(self.closure))
+
+    def lanes_a_thread(self, cost: torch.Tensor,
+                       loglikes_t: Optional[torch.Tensor],
+                       out: torch.Tensor) -> int:
+        """Which instantiation of the kernel a call with these CUDA
+        tensors launches, as the lanes a thread takes: 0 the first version
+        (no `in_deg`), 1 or 4 the live walk (4 needs shared tables, lanes
+        in multiples of 4 with stride 1 and rows aligned to 16 bytes, as
+        the batched decoder keeps them).  Launches nothing."""
+        if self.dev.type != "cuda":
+            raise ValueError("the tables are not on a CUDA device")
+        return self._lanes_fn(*self._args(cost, loglikes_t, out), None)
+
+    def __call__(self, cost: torch.Tensor,
+                 loglikes_t: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dev, S = self.dev, self.S
+        if cost.device != dev:
+            raise ValueError(f"cost is on {cost.device}, the tables on {dev}")
+        if dev.type == "cpu":
+            in_src, in_w, in_pdf, _ = self.tables
+            return relax_padded(cost, in_src, in_w, in_pdf, loglikes_t,
+                                self.scale, out)
+        if out is None and cost.dim() == 2:
+            out = torch.empty((cost.shape[0], S), dtype=torch.float32,
+                              device=dev)
+        args = self._args(cost, loglikes_t, out)
         if torch.cuda.current_device() == dev.index:
             rc = self._fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         else:
@@ -359,8 +381,11 @@ def viterbi_relax(cost, in_src, in_w, in_pdf=None, loglikes_t=None,
     (`live_counts` of the tables) the walk over live slots, without it the
     first version over all K slots; the results are equal bit for bit.
     Table indices and counts are not checked here: whoever builds the
-    tables checks them once (`check_tables`, `live_counts`).  A loop over
-    frames prepares once instead (`PreparedRelax`)."""
+    tables checks them once (`check_tables`, `live_counts`).  With `in_deg`
+    over shared tables a call waits for the device once (`PreparedRelax`
+    lists the long walks on the host).  A loop over frames prepares once
+    instead (`PreparedRelax`, or `each_call` for any other function of
+    these arguments)."""
     if cost.device.type == "cpu":
         return relax_padded(cost, in_src, in_w, in_pdf, loglikes_t,
                             acoustic_scale, out)
@@ -377,6 +402,22 @@ def viterbi_relax(cost, in_src, in_w, in_pdf=None, loglikes_t=None,
                          f"{cost.device}")
     return PreparedRelax(in_src, in_w, in_pdf, acoustic_scale, in_deg)(
         cost, loglikes_t, out)
+
+
+def each_call(relax):
+    """A relaxation function with `viterbi_relax`'s arguments in the form
+    of `PreparedRelax`: `each_call(relax)(tables...)` gives the callable
+    of one table set, and each of its calls passes the tables to `relax`
+    again (which then checks them again)."""
+    def prepare(in_src, in_w, in_pdf=None, acoustic_scale: float = 1.0,
+                in_deg=None):
+        if in_pdf is None:
+            return lambda cost, out=None: relax(cost, in_src, in_w, out=out,
+                                                in_deg=in_deg)
+        return lambda cost, loglikes_t, out=None: relax(
+            cost, in_src, in_w, in_pdf, loglikes_t, acoustic_scale, out=out,
+            in_deg=in_deg)
+    return prepare
 
 
 def check_tables(in_src: np.ndarray, in_pdf: Optional[np.ndarray],

@@ -22,7 +22,8 @@ from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   build_direct_hclg)
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
 from kaldi_tpu_torch.ops.viterbi_relax import (INF, closure_is_identity,
-                                               live_counts, relax_padded)
+                                               each_call, live_counts,
+                                               relax_padded)
 
 GRAPH_FIELDS = ("e_src", "e_dst", "e_ilabel", "e_olabel", "e_weight",
                 "ne_src", "ne_dst", "ne_olabel", "ne_weight", "final")
@@ -167,7 +168,8 @@ def test_viterbi_device_cost_tables_match_jax(seed):
     got = tbv._viterbi_device(
         torch.from_numpy(ll), 0.6,
         **{k: torch.from_numpy(v) for k, v in t_arr.items()},
-        num_states=S, eps_iters=eps_iters, relax=counting_relax).numpy()
+        num_states=S, eps_iters=eps_iters,
+        relax=each_call(counting_relax)).numpy()
     assert got.shape == want.shape == (B, T + 1, S + 1)
     live = want < INF / 2
     np.testing.assert_allclose(got[live], want[live], rtol=1e-5)
@@ -246,7 +248,8 @@ def device_tables(tv, ll, arrays, S, eps_iters, scale, **kw):
     got = tbv._viterbi_device(
         torch.from_numpy(ll), scale,
         **{k: torch.from_numpy(v) for k, v in arrays.items()},
-        num_states=S, eps_iters=eps_iters, relax=counting(calls), **kw)
+        num_states=S, eps_iters=eps_iters, relax=each_call(counting(calls)),
+        **kw)
     return got.numpy(), calls
 
 
@@ -348,7 +351,7 @@ def test_run_counts_and_results_with_and_without_closure(case, monkeypatch):
     ll = np.random.default_rng(80).normal(size=(B, T, P)).astype(np.float32)
     calls = []
     tv = tbv.BatchedViterbi(graphs, tid2pdf, acoustic_scale=0.9,
-                            device="cpu", relax=counting(calls))
+                            device="cpu", relax=each_call(counting(calls)))
     _, arrays, _, eps_iters = tv._prepare(B)
     identity = identity_of(arrays)[0]
     # unreachable_final: K = 1 and state 1 is fed by itself alone, so no

@@ -262,6 +262,18 @@ def test_relax_kernel_equals_plain(cuda, seed, B, S, A, per_lane,
     vr.viterbi_relax(cost, in_src, in_w, in_pdf, ll, 0.7, out=out.T, **kw)
     assert torch.equal(out.T[:, :S], want)
     assert bool((out[S] == float(vr.INF)).all())
+    # the instantiation that this call took: the first version, or the live
+    # walk with 4 lanes a thread where the layout allows it
+    plan = vr.PreparedRelax(in_src, in_w, in_pdf, 0.7, kw.get("in_deg"))
+    four = not per_lane and lanes_fastest and B % 4 == 0
+    assert plan.lanes_a_thread(cost, ll, out.T) == \
+        (0 if not with_deg else 4 if four else 1)
+    # a closure step into such a buffer keeps the old dead column
+    cost[:, S] = 3.0
+    out.fill_(float("nan"))
+    vr.viterbi_relax(cost, in_src, in_w, out=out.T, **kw)
+    assert torch.equal(out.T[:, :S], vr.relax_padded(cost, in_src, in_w))
+    assert bool((out[S] == 3.0).all())
 
 
 def test_relax_kernel_rejects_bad_inputs(cuda):
@@ -290,6 +302,8 @@ def test_relax_kernel_rejects_bad_inputs(cuda):
         plan(cost)
     with pytest.raises(TypeError):
         plan(cost, ll.double())
+    with pytest.raises(ValueError, match="the tables on"):
+        vr.PreparedRelax(in_src.cpu(), in_w.cpu(), in_pdf.cpu())(cost, ll)
 
 
 def relax_all_slots(*args, in_deg=None, **kw):
@@ -318,9 +332,9 @@ def test_batched_viterbi_kernel_equals_plain(cuda, per_lane, with_deg):
     lengths = [21, 20, 13, 9, 21, 3]
     kernel = BatchedViterbi(fsts, flat.tid2pdf, device=cuda,
                             **({} if with_deg else
-                               {"relax": relax_all_slots}))
+                               {"relax": vr.each_call(relax_all_slots)}))
     plain = BatchedViterbi(fsts, flat.tid2pdf, device=cuda,
-                           relax=vr.relax_padded)
+                           relax=vr.each_call(vr.relax_padded))
     _, arrays, _, eps_iters = kernel._prepare(6)
     identity = vr.closure_is_identity(
         arrays["ne_in_src"], arrays["ne_in_w"],

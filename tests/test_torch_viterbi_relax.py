@@ -341,6 +341,36 @@ def test_prepared_relax_on_cpu_equals_plain_and_checks_nothing_twice():
     assert torch.equal(out[:, :12], got) and (out[:, 12] == vr.INF).all()
     with pytest.raises(ValueError, match="K >= 1"):
         vr.PreparedRelax(t_src[:, :0], t_w[:, :0])
+    # a cost row on another device than the tables is refused by name
+    with pytest.raises(ValueError, match="the tables on cpu"):
+        plan(torch.empty((4, 13), device="meta"), t_ll)
+
+
+@pytest.mark.parametrize("closure", [False, True])
+def test_each_call_gives_a_function_the_prepared_form(closure):
+    """`each_call(f)` makes, from a table set, the callable that
+    `PreparedRelax` makes: same arguments, same results, and every call
+    hands `f` the tables, the scale and the live counts again."""
+    src, dst, w, pdf, cost, ll = make_problem(9)
+    in_src, in_w, in_pdf, _ = vr.build_incoming_table(12, src, dst, w, pdf)
+    deg = torch.from_numpy(vr.live_counts(in_src, in_w, in_pdf))
+    t_cost, t_src, t_w, t_pdf, t_ll = tens(cost, in_src, in_w, in_pdf, ll)
+    seen = []
+
+    def relax(*args, **kw):
+        seen.append((len(args), sorted(kw)))
+        assert kw["in_deg"] is deg
+        return vr.relax_padded(*args, **kw)
+
+    tables = (t_src, t_w, None if closure else t_pdf, 0.6, deg)
+    rows = (t_cost,) if closure else (t_cost, t_ll)
+    step, plan = vr.each_call(relax)(*tables), vr.PreparedRelax(*tables)
+    out = torch.zeros((4, 13))
+    got = step(*rows, out=out)
+    assert torch.equal(got, plan(*rows))
+    assert torch.equal(out[:, :12], got)
+    assert torch.equal(step(*rows), got)
+    assert seen == [(3 if closure else 6, ["in_deg", "out"])] * 2
 
 
 def identity_tables(S=6, KN=2, KE=4):
