@@ -1,17 +1,23 @@
 #!/usr/bin/env python3
 """Smoke test of the kaldi_tpu_torch port on one NVIDIA GPU.
 
-Drives the port's main paths at full width: 128 lanes x 5 s of seeded
-mu-law audio -> MFCC -> i-vectors -> the committed flagship_ng chain
-TDNN-F (17 x 1536, bf16) -> exact block-chain Viterbi over the
-V=700 DirectGraphSpec graph (2,215,861 states), through
-BatchedOfflinePipeline2.decode_batch, in best-path mode and in lattice
-mode (generate_lattices=True, lattice_beam=8, J=4); and the same 128
-lanes' loglikes -> BatchedViterbi.run, the dense exact Viterbi over a
-flat graph (the V=64 block-chain graph's to_flat_graph(): 20,865 states,
-44,914 arcs, in-arc tables padded to K=128, of which the relaxation kernel
-walks the live slots only), shared by all lanes (decode) and one graph a
-lane (forced alignment).
+Drives the port's main path as the repo's headline measures it
+(bench.py main_scale): the 128 test utterances of the V=20,000 bench
+corpus on the mu-law wire -> MFCC -> i-vectors -> the committed
+flagship_ng chain TDNN-F (17 x 1536, bf16) -> NgramLexDecoder over the
+trigram x triphone NgramLexGraph (495,782 states, pool of 128 rows, beam
+16) -> words -> WER, through BatchedOfflinePipeline2.decode_batch.  No
+hand-written kernel is on that path (its search is PyTorch ops).  The
+paths that carry the kernels run at full width too: 128 lanes x 5 s of
+seeded mu-law audio -> the same frontend and model -> exact block-chain
+Viterbi over the V=700 DirectGraphSpec graph (2,215,861 states), in
+best-path mode and in lattice mode (generate_lattices=True,
+lattice_beam=8, J=4); and the same 128 lanes' loglikes ->
+BatchedViterbi.run, the dense exact Viterbi over a flat graph (the V=64
+block-chain graph's to_flat_graph(): 20,865 states, 44,914 arcs, in-arc
+tables padded to K=128, of which the relaxation kernel walks the live
+slots only), shared by all lanes (decode) and one graph a lane (forced
+alignment).
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -30,12 +36,23 @@ Phases, one JSON line each (any failure exits nonzero):
      float32 on 4 lanes; 8 lanes decoded again with the plain step (equal
      words, tids and costs); one decode_batch under torch.profiler
      (device time by kernel, busy share, peak memory);
-  5. the lattice slice: one warm-up under torch.profiler and one timed
-     decode_batch call in lattice mode (launch counts, the lattice
-     stages' seconds, each lane's lattice best path against the
-     best-path decode); 4 lanes decoded again with the plain lattice
-     step (equal lattices);
-  6. the flat-graph slice: one warm-up and three timed BatchedViterbi.run
+  5. the main path (ng_graph, slice_ng, profile_ng, ng_cpu_check,
+     cross_check_ng): the bench corpus, its fingerprint against the
+     committed model's, the graph and its sizes; one warm-up and three
+     timed decode_batch calls (wall, xRT, the feat/am/search split, the
+     decoder's fwd_s/fol_s/traceback_s, lanes decoded, WER within half a
+     point of the recorded 9.34%, no kernel launched); one call under
+     torch.profiler (device time by kernel, by op and by decoder block,
+     launches per frame, busy share, peak memory); 4 lanes' loglikes
+     through the decoder on the CPU (equal words and tids, costs within
+     1e-4 relative); a V=30 graph from the same transition model and tree
+     decoded exactly on the card and by the host FasterDecoder on its
+     to_flat_graph() (equal words and tids);
+  6. the lattice slice: one timed decode_batch call in lattice mode,
+     under torch.profiler (launch counts, the lattice stages' seconds,
+     each lane's lattice best path against the best-path decode); 2 lanes
+     decoded again with the plain lattice step (equal lattices);
+  7. the flat-graph slice: one warm-up and three timed BatchedViterbi.run
      calls (seconds of table preparation, frame loop, copy to the host
      and traceback; launch counts: one emitting launch a frame, no
      closure launch on this epsilon-free graph), one under
@@ -47,13 +64,14 @@ Phases, one JSON line each (any failure exits nonzero):
      decoded words (alignment: the per-lane-table form of the kernel
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
-  7. the kernel table; the last line is {"ok": true, "device": ...}.
+  8. the kernel table; the last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -71,13 +89,12 @@ from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
-from kaldi_tpu_torch.feat.frontend import (MfccOptions, OfflineFeature,
-                                           mulaw_encode)
-from kaldi_tpu_torch.feat.mel import MelBanksOptions
-from kaldi_tpu_torch.feat.window import FrameExtractionOptions
+from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
+from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
@@ -85,8 +102,12 @@ from kaldi_tpu_torch.ops import _build
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
-from kaldi_tpu_torch.recipes.bench_corpus import (load_ivector_extractor,
-                                                  load_params)
+from kaldi_tpu_torch.recipes.bench_corpus import (
+    bench_scale_spec, build_decode_graph_ng, build_lang, corpus_fingerprint,
+    load_ivector_extractor, load_params, make_corpus, make_lexicon,
+    make_text, mfcc_options, wer_of)
+from kaldi_tpu_torch.tree.context_dep import ContextDependency
+from kaldi_tpu_torch.util.kaldi_io import read_kaldi_object
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ART = os.path.join(REPO, "egs", "bench_corpus")
@@ -102,6 +123,21 @@ LN2 = float(np.log(2.0))
 # whose float64 costs differ by less than this share of the cost are a tie
 # that either may win
 TIE_REL = 4e-6
+# the main path's search, as bench.py main_scale runs it (bench.py:139-185):
+# the trigram pruned at counts 2 and 3, a pool of 128 rows within a beam
+# of 16
+NG_LM_PRUNE = dict(prune_bi=2, prune_tri=3)
+NG_SEARCH = dict(prune_k=128, prune_beam=16.0, exact_topk=False)
+# the last recorded WER of that path (BENCH_r05.json: 1564 test words);
+# the port's bar is this value within half a point: the record's search
+# selected its pool approximately and its bf16 acoustic model ran on
+# another device, so a few words may go either way
+NG_WER, NG_WER_BAND = 9.34, 0.5
+# the profiler's marker of a launch that waited for a full launch queue
+STALL = "Command Buffer Full"
+# the n-gram decoder's blocks: four a frame, then the follow pass
+NG_BLOCKS = ("_forward", "_lm_fold", "_expand", "_rows", "_roots",
+             "_follow")
 
 
 def emit(phase: str, **kw) -> None:
@@ -599,10 +635,14 @@ def time_relax(name: str, args, in_deg, rate: float, shape, **extra) -> dict:
     return row
 
 
-def profile_call(fn, per_launch_of: str = "") -> dict:
+def profile_call(fn, per_launch_of: str = "", top: int = 10,
+                 ranges=()) -> dict:
     """Where one call spends the card's time: device time by kernel and
-    peak memory.  per_launch_of: a kernel name (or part of one) whose mean
-    device ms a launch is reported too."""
+    by the torch op that launched it (the `top` largest), the number of
+    kernel launches and peak memory.  per_launch_of: a kernel name (or
+    part of one) whose mean device ms a launch is reported too.  ranges:
+    names of `record_function` ranges whose device time (their kernels'
+    and their children's) is reported."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=[
@@ -613,17 +653,57 @@ def profile_call(fn, per_launch_of: str = "") -> dict:
         prof_wall = time.perf_counter() - t0
     # device-side events only (a host op's device time repeats its
     # kernels')
+    averages = prof.key_averages()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     by_name = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      for e in averages
+                      if e.device_type == cuda and e.key not in ranges
                       and e.self_device_time_total > 0), reverse=True)
     device_ms = sum(ms for ms, _, _ in by_name)
     copy_ms = sum(ms for ms, _, k in by_name if k.startswith("Mem"))
     out = {"wall_s_profiled": prof_wall, "device_ms": device_ms,
            "copy_ms": copy_ms,
+           "kernel_launches": sum(c for _, c, k in by_name
+                                  if not k.startswith("Mem")),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "top": [{"ms": ms, "calls": c, "name": k[:70]}
-                   for ms, c, k in by_name[:10]]}
+                   for ms, c, k in by_name[:top]]}
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in averages
+                  if e.device_type == cpu and e.key not in ranges
+                  and e.key != STALL and e.self_device_time_total > 0),
+                 reverse=True)
+    out["by_op"] = [{"ms": ms, "calls": c, "op": k[:60]}
+                    for ms, c, k in ops[:top]]
+    if ranges:
+        # a range's own host time, the number and device time of the
+        # kernels it and its children launched, and its span on the card
+        # (first kernel's start to last kernel's end, idle gaps included)
+        out["ranges"] = {e.key: {"host_ms": e.cpu_time_total / 1e3,
+                                 "calls": e.count, "device_ms": 0.0,
+                                 "kernel_launches": 0}
+                         for e in averages
+                         if e.device_type == cpu and e.key in ranges}
+        for e in averages:
+            if e.device_type == cuda and e.key in out["ranges"]:
+                out["ranges"][e.key]["span_ms"] = e.device_time_total / 1e3
+
+        def kernels(ev):
+            """(launches, device us) under ev; a STALL marker repeats the
+            kernels of the launch it delayed, so it is left out"""
+            if ev.name == STALL:
+                return 0, 0.0
+            n, us = len(ev.kernels), sum(k.duration for k in ev.kernels)
+            for child in ev.cpu_children:
+                cn, cus = kernels(child)
+                n, us = n + cn, us + cus
+            return n, us
+
+        for ev in prof.events():
+            if ev.name in out["ranges"] and ev.device_type == cpu:
+                n, us = kernels(ev)
+                out["ranges"][ev.name]["kernel_launches"] += n
+                out["ranges"][ev.name]["device_ms"] += us / 1e3
     if per_launch_of:
         hits = [(ms, c) for ms, c, k in by_name if per_launch_of in k]
         if len(hits) != 1:
@@ -631,6 +711,36 @@ def profile_call(fn, per_launch_of: str = "") -> dict:
                              f"{per_launch_of!r}")
         out["ms_per_launch"] = {per_launch_of: hits[0][0] / hits[0][1]}
     return out
+
+
+@contextlib.contextmanager
+def each_call_inside(obj, names, around):
+    """Inside the block, each call of one of obj's methods `names` runs
+    inside the context manager around(name)."""
+    for name in names:
+        inner = getattr(obj, name)
+
+        def wrapper(*args, _inner=inner, _name=name, **kw):
+            with around(_name):
+                return _inner(*args, **kw)
+
+        setattr(obj, name, wrapper)
+    try:
+        yield
+    finally:
+        for name in names:
+            delattr(obj, name)
+
+
+@contextlib.contextmanager
+def no_host_sync(_name=None):
+    """Inside the block, anything that waits for the card raises
+    (torch's sync debug mode)."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def lattice_diff(got, want) -> float:
@@ -650,6 +760,206 @@ def lattice_diff(got, want) -> float:
     pairs += [(f, g) for f, g in zip(got.finals, want.finals) if f != g]
     return max((abs(x - y) for p, q in pairs for x, y in zip(p, q)),
                default=0.0)
+
+
+def flagship_am():
+    """The committed flagship_ng chain TDNN-F (17 x 1536, bf16) and
+    i-vector extractor on the card, and the bench MFCC frontend.
+    -> (config, flax variables, model, i-vector extractor, frontend)."""
+    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=32, num_pdfs=2000,
+                           hidden_dim=1536, bottleneck_dim=160,
+                           prefinal_dim=256, num_layers=17,
+                           subsample_layer=8, frame_subsampling_factor=3)
+    variables = load_params(os.path.join(ART, "flagship_ng_params.npz"))
+    model = chain_tdnnf_from_flax(cfg, variables, dtype=torch.bfloat16,
+                                  device="cuda")
+    ivec = BatchedIvectorExtractor(load_ivector_extractor(
+        os.path.join(ART, "flagship_ng_ivec.npz")), device="cuda")
+    fe = OfflineFeature(mfcc_options(bench_scale_spec()), device="cuda")
+    return cfg, variables, model, ivec, fe
+
+
+def kernel_launch_counts() -> dict:
+    return {"block_chain_step": bcs.launches,
+            "block_chain_lattice_step": bcl.launches,
+            "viterbi_relax": vr.launches}
+
+
+def reset_kernel_counts() -> None:
+    bcs.launches = bcl.launches = vr.launches = 0
+
+
+def build_ng_path() -> dict:
+    """The main path's search: the bench corpus (V=20,000), its trigram
+    LM (prune 2/3) x the committed triphone tree, the NgramLexGraph and
+    its decoder on the card; the corpus fingerprint against the one
+    recorded beside the committed model."""
+    spec = bench_scale_spec()
+    t0 = time.perf_counter()
+    lexicon, _, _, test_txt, test_wav, lm_text = make_corpus(
+        spec, train_audio=False)
+    corpus_s = time.perf_counter() - t0
+    fingerprint = corpus_fingerprint(spec, lexicon, test_txt, test_wav,
+                                     lm_text)
+    with open(os.path.join(ART, "flagship_ng_meta.json")) as f:
+        meta = json.load(f)
+    t0 = time.perf_counter()
+    tm = read_kaldi_object(TransitionModel.read,
+                           os.path.join(ART, "flagship_ng.tm"))
+    tree = read_kaldi_object(ContextDependency.read,
+                             os.path.join(ART, "flagship_ng.tree"))
+    lang = build_lang(lexicon)
+    graph = build_decode_graph_ng(lexicon, lm_text, tm, tree, lang=lang,
+                                  **NG_LM_PRUNE)
+    graph_s = time.perf_counter() - t0
+    del lm_text
+    t0 = time.perf_counter()
+    dec = NgramLexDecoder(graph, device="cuda")
+    torch.cuda.synchronize()
+    lm = graph.lm
+    emit("ng_graph", vocab=graph.V, states=graph.num_states,
+         states_meta=meta["states"], units=graph.U, rows=graph.n_rows_true,
+         Nr=graph.Nr, pair_states=lm.SP, bigrams=lm.num_explicit_bi,
+         trigrams=lm.num_explicit_tri, VC=dec.VC,
+         K=min(NG_SEARCH["prune_k"], dec.VC), fold_levels=len(
+             dec._fold_levels), hist_inv=dec._hist_inv is not None,
+         num_pdfs=graph.num_pdfs, corpus_fingerprint=fingerprint,
+         meta_fingerprint=meta["corpus_hash"], corpus_s=corpus_s,
+         graph_s=graph_s, decoder_s=time.perf_counter() - t0)
+    if fingerprint != meta["corpus_hash"]:
+        raise SystemExit(f"corpus fingerprint {fingerprint}, the committed "
+                         f"model's {meta['corpus_hash']}")
+    if graph.num_states != meta["states"]:
+        raise SystemExit(f"{graph.num_states} graph states, the committed "
+                         f"model's graph has {meta['states']}")
+    return {"spec": spec, "lexicon": lexicon, "lang": lang, "tm": tm,
+            "tree": tree, "test_txt": test_txt, "test_wav": test_wav,
+            "graph": graph, "dec": dec}
+
+
+def run_ng_slice(ng: dict, model, ivec, fe) -> dict:
+    """slice_ng and profile_ng: the 128 bench test utterances on the
+    mu-law wire through BatchedOfflinePipeline2 with the n-gram decoder
+    (one warm-up, three timed calls; WER against the test text), then one
+    call under the profiler.  None of kernels a-c is on this path: their
+    counts must stay 0."""
+    spec, graph, dec = ng["spec"], ng["graph"], ng["dec"]
+    test_txt, test_wav = ng["test_txt"], ng["test_wav"]
+    utts = sorted(test_wav)
+    waves = [mulaw_encode(np.clip(test_wav[u], -32767, 32767))
+             for u in utts]
+    dec_stats: dict = {}
+    pipe = BatchedOfflinePipeline2(
+        model, dec, fe, sample_rate=spec.fs, ivector_extractor=ivec,
+        search_kwargs=dict(NG_SEARCH, stats=dec_stats), device="cuda")
+    n_words = sum(len(r) for r in test_txt.values())
+    t0 = time.perf_counter()
+    with each_call_inside(dec, ("_forward", "_follow"), no_host_sync):
+        pipe.decode_batch(waves)                             # warm-up
+    emit("ng_warmup", seconds=time.perf_counter() - t0,
+         frame_loop_and_follow_pass_host_syncs=0)
+    bucket = fe.stage_batch(waves)[3]
+    T_out = -(-bucket // 3)
+    runs, outs = [], None
+    for it in range(3):
+        stats = PipelineStats()
+        reset_kernel_counts()
+        outs = pipe.decode_batch(waves, stats=stats)
+        hyps = {u: ([] if o is None else [graph.words[w] for w in o[0]])
+                for u, o in zip(utts, outs)}
+        wer = wer_of(hyps, test_txt)
+        run = {"iter": it, "lanes_decoded": sum(o is not None for o in outs),
+               "lanes": len(waves), "frames": T_out,
+               "audio_s": stats.total_audio_s, "wall_s": stats.wall_s,
+               "feat_s": stats.feat_s, "am_s": stats.am_s,
+               "search_s": stats.search_s, "xrt": stats.xrt,
+               "fwd_s": dec_stats["fwd_s"], "fol_s": dec_stats["fol_s"],
+               "traceback_s": dec_stats["traceback_s"], "wer": wer,
+               "word_errors": round(wer * n_words / 100.0),
+               "ref_words": n_words, "wer_reference": NG_WER,
+               "launches": kernel_launch_counts()}
+        emit("slice_ng", **run)
+        runs.append(run)
+        if run["lanes_decoded"] != len(waves):
+            raise SystemExit(f"only {run['lanes_decoded']}/{len(waves)} "
+                             "lanes decoded")
+        if any(run["launches"].values()):
+            raise SystemExit("a kernel of another path ran in slice_ng")
+        if not abs(wer - NG_WER) <= NG_WER_BAND:
+            raise SystemExit(f"WER {wer:.2f}% is more than {NG_WER_BAND} "
+                             f"points from {NG_WER}%")
+    walls = sorted(r["wall_s"] for r in runs)
+    with each_call_inside(dec, NG_BLOCKS, torch.profiler.record_function):
+        prof = profile_call(lambda: pipe.decode_batch(waves), top=25,
+                            ranges=NG_BLOCKS)
+    blocks = prof["ranges"]
+    emit("profile_ng", busy_share_of_median_wall=prof["device_ms"] / 1e3
+         / walls[1], frames=T_out,
+         launches_per_frame=blocks["_forward"]["kernel_launches"] / T_out,
+         follow_launches_per_frame=blocks["_follow"]["kernel_launches"]
+         / T_out, **prof)
+    feats, nframes = fe.compute_batch_device(waves)
+    loglikes, out_lens = pipe.loglikes(feats, nframes)
+    return {"runs": runs, "outs": outs, "loglikes": loglikes,
+            "out_lens": out_lens, "frames": T_out}
+
+
+def ng_cpu_check(ng: dict, loglikes, out_lens, lanes: int = 4) -> None:
+    """The same loglikes of `lanes` lanes through the port's n-gram
+    decoder on the CPU and on the card: equal words and tids, costs
+    within 1e-4 relative."""
+    kw = dict(lengths=out_lens[:lanes], **NG_SEARCH)
+    card = ng["dec"].decode_batch(loglikes[:lanes], **kw)
+    t0 = time.perf_counter()
+    cpu_dec = NgramLexDecoder(ng["graph"], device="cpu")
+    host = cpu_dec.decode_batch(loglikes[:lanes].cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    rel = max(abs(c[2] - h[2]) / max(1.0, abs(h[2]))
+              for c, h in zip(card, host))
+    same = [c[0] == h[0] and c[1] == h[1] for c, h in zip(card, host)]
+    emit("ng_cpu_check", lanes=lanes, words_and_tids_equal=same,
+         max_cost_rel_diff=rel, limit=1e-4, cpu_seconds=cpu_s,
+         words_lane0=card[0][0][:12], cost_lane0=card[0][2])
+    if not all(same) or not rel <= 1e-4:
+        raise SystemExit("the n-gram decoder differs between the card and "
+                         "the CPU")
+
+
+def cross_check_ng(ng: dict, vocab: int = 30, lanes: int = 3,
+                   frames: int = 24) -> None:
+    """A V=30 graph from the committed transition model and tree (the
+    first words of the bench lexicon, LM text of the same process): the
+    port's n-gram decoder on the card with every virtual row in the pool
+    (exact) against the host FasterDecoder on its to_flat_graph(), on
+    seeded random loglikes.  Equal words and tids, costs within 1e-3 *
+    max(1, |cost|) (float32 sums against float64)."""
+    t0 = time.perf_counter()
+    spec = bench_scale_spec(vocab=vocab, num_lm_sents=300, num_test=4)
+    lexicon = make_lexicon(spec)
+    text = make_text(spec, spec.num_lm_sents, spec.seed + 3)
+    graph = build_decode_graph_ng(lexicon, text, ng["tm"], ng["tree"],
+                                  lang=ng["lang"])
+    dec = NgramLexDecoder(graph, device="cuda")
+    flat = graph.to_flat_graph()
+    host = FasterDecoder(flat.to_vector_fst(),
+                         FasterDecoderOptions(beam=1e9, max_active=10 ** 9))
+    rng = np.random.default_rng(SEED + 20)
+    ll = rng.normal(size=(lanes, frames, graph.num_pdfs)).astype(np.float32)
+    got = dec.decode_batch(ll)
+    n_equal = 0
+    for lane, h in enumerate(got):
+        ref = host.decode(ll[lane], graph.tid2pdf)
+        if h is None or ref is None:
+            raise SystemExit(f"cross_check_ng lane {lane}: no path")
+        if h[0] != ref[1] or h[1] != ref[0] or \
+                abs(h[2] - ref[2]) > 1e-3 * max(1.0, abs(ref[2])):
+            raise SystemExit(f"cross_check_ng lane {lane}: {h[0]} "
+                             f"{h[2]} against the host's {ref[1]} {ref[2]}")
+        n_equal += 1
+    emit("cross_check_ng", vocab=graph.V, states=graph.num_states,
+         units=graph.U, flat_arcs=flat.num_arcs, VC=dec.VC, K=dec.VC,
+         lanes=lanes, frames=frames, lanes_equal=n_equal,
+         words_lane0=got[0][0], seconds=time.perf_counter() - t0)
 
 
 def main() -> int:
@@ -838,20 +1148,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. the slice at full width --------------------------------------------
-    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=32, num_pdfs=2000,
-                           hidden_dim=1536, bottleneck_dim=160,
-                           prefinal_dim=256, num_layers=17,
-                           subsample_layer=8, frame_subsampling_factor=3)
-    variables = load_params(os.path.join(ART, "flagship_ng_params.npz"))
-    model = chain_tdnnf_from_flax(cfg, variables, dtype=torch.bfloat16,
-                                  device="cuda")
-    ivec = BatchedIvectorExtractor(load_ivector_extractor(
-        os.path.join(ART, "flagship_ng_ivec.npz")), device="cuda")
-    opts = MfccOptions(frame_opts=FrameExtractionOptions(samp_freq=FS,
-                                                         dither=0.0),
-                       mel_opts=MelBanksOptions(num_bins=40))
-    opts.num_ceps = 40
-    fe = OfflineFeature(opts, device="cuda")
+    cfg, variables, model, ivec, fe = flagship_am()
     pipe = BatchedOfflinePipeline2(model, decoder, fe,
                                    ivector_extractor=ivec, device="cuda")
     rng = np.random.default_rng(SEED)
@@ -916,20 +1213,30 @@ def main() -> int:
     emit("profile", busy_share_of_median_wall=prof["device_ms"] / 1e3
          / walls[1], **prof)
 
-    # 5. lattice mode at full width -----------------------------------------
+    # 5. the main path: the n-gram search over the V=20,000 graph ----------
+    ng = build_ng_path()
+    ng_res = run_ng_slice(ng, model, ivec, fe)
+    ng_cpu_check(ng, ng_res["loglikes"], ng_res["out_lens"])
+    cross_check_ng(ng)
+    ng_walls = sorted(r["wall_s"] for r in ng_res["runs"])
+    ng_runs = ng_res["runs"]
+    del ng, ng_res
+    torch.cuda.empty_cache()
+
+    # 6. lattice mode at full width -----------------------------------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
-    # the warm-up call runs under the profiler (the host assembly makes a
-    # lattice call long, so it is not repeated for the profile)
-    prof = profile_call(lambda: pipe.decode_batch(
-        waves, generate_lattices=True, lattice_beam=LAT_BEAM))
+    # one call, under the profiler, is the timed call (the host assembly
+    # makes a lattice call long; the best-path calls above warmed the
+    # frontend, the model and the card)
     lat_runs, lat_outs = [], None
     for it in range(1):
         stats, lat_stats = PipelineStats(), {}
         bcl.launches = 0
-        lat_outs = pipe.decode_batch(waves, stats=stats,
-                                     generate_lattices=True,
-                                     lattice_beam=LAT_BEAM,
-                                     lat_stats=lat_stats)
+        holder = []
+        prof = profile_call(lambda: holder.append(pipe.decode_batch(
+            waves, stats=stats, generate_lattices=True,
+            lattice_beam=LAT_BEAM, lat_stats=lat_stats)))
+        lat_outs = holder[0]
         launches = bcl.launches
         n_ok = sum(o is not None for o in lat_outs)
         run = {"iter": it, "lattices": n_ok, "lanes": LANES,
@@ -985,29 +1292,29 @@ def main() -> int:
         raise SystemExit("the median lattice holds no alternative")
     del lat_outs, have
 
-    # the same 4 lanes, kernel step vs plain step, on the same loglikes;
+    # the same 2 lanes, kernel step vs plain step, on the same loglikes;
     # the two steps agree bit for bit, so the lattices should too: the
     # stated tolerance on weights is 1e-6
     plain_dec = BlockChainDecoder(
         graph, device="cuda",
         lattice_step=bcl.block_chain_lattice_step_reference)
-    lat_kw = dict(lengths=out_lens[:4], lattice_beam=LAT_BEAM, J=LAT_J)
-    k_lats = decoder.decode_batch_lattice(loglikes[:4], **lat_kw)
+    lat_kw = dict(lengths=out_lens[:2], lattice_beam=LAT_BEAM, J=LAT_J)
+    k_lats = decoder.decode_batch_lattice(loglikes[:2], **lat_kw)
     t0 = time.perf_counter()
-    p_lats = plain_dec.decode_batch_lattice(loglikes[:4], **lat_kw)
+    p_lats = plain_dec.decode_batch_lattice(loglikes[:2], **lat_kw)
     plain_s = time.perf_counter() - t0
     if any(k is None for k in k_lats):
         raise SystemExit("a lane of the plain-step comparison has no "
                          "lattice")
     diff = max(lattice_diff(k, p) for k, p in zip(k_lats, p_lats))
-    emit("plain_lattice_check", lanes=4, max_weight_diff=diff, limit=1e-6,
+    emit("plain_lattice_check", lanes=2, max_weight_diff=diff, limit=1e-6,
          states=[k.num_states for k in k_lats], plain_seconds=plain_s)
     if not diff <= 1e-6:
         raise SystemExit("kernel and plain lattice step give different "
                          "lattices")
     del k_lats, p_lats, plain_dec
 
-    # 6. the flat-graph slice: BatchedViterbi over the V=64 graph -----------
+    # 7. the flat-graph slice: BatchedViterbi over the V=64 graph -----------
     # the V=64 graph's closure step is proven the identity (flat_graph
     # above), so a run is one emitting launch a frame
     n_relax = T_out
@@ -1201,11 +1508,14 @@ def main() -> int:
     if not all(same) or vr.launches:
         raise SystemExit("kernel and plain relaxation decode differently")
 
-    # 7. tables -------------------------------------------------------------
+    # 8. tables -------------------------------------------------------------
     emit("summary", wall_s_median=walls[1], xrt_median=runs[0]["audio_s"]
          / walls[1], lattice_wall_s=[r["wall_s"] for r in lat_runs],
          lattice_xrt=[r["xrt"] for r in lat_runs],
          viterbi_wall_s_median=dense_walls[1],
+         ng_wall_s_median=ng_walls[1],
+         ng_xrt_median=ng_runs[0]["audio_s"] / ng_walls[1],
+         ng_wer=ng_runs[-1]["wer"],
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (

@@ -1,7 +1,7 @@
 """Offline batched full-pipeline decoder: waves -> MFCC -> i-vectors ->
-chain TDNN-F (bf16) -> block-chain Viterbi -> words (and, in lattice
-mode, word lattices), all batched on one card (port of
-`kaldi_tpu/decoder/batched_pipeline2.py`).
+chain TDNN-F (bf16) -> batched Viterbi search (the n-gram lexchain or
+the block-chain decoder) -> words (and, in lattice mode, word lattices),
+all batched on one card (port of `kaldi_tpu/decoder/batched_pipeline2.py`).
 
 The reference's analogue is the offline batched GPU pipeline of the
 upstream project (BatchedThreadedNnet3CudaPipeline2, whose printed
@@ -43,13 +43,18 @@ class BatchedOfflinePipeline2:
     with generate_lattices=True, (word_ids, total_cost, Lattice) or None.
 
     model: a ChainTdnnf carrying its weights (see
-    `nnet3.models.chain_tdnnf_from_flax`); decoder: a BlockChainDecoder;
-    feature_computer: an OfflineFeature; ivector_extractor: an optional
-    BatchedIvectorExtractor whose whole-utterance i-vectors are the
-    model's second input.  All of them must live on `device`."""
+    `nnet3.models.chain_tdnnf_from_flax`); decoder: anything with a
+    `decode_batch` (an NgramLexDecoder, a BlockChainDecoder; lattice mode
+    needs `decode_batch_lattice`); feature_computer: an OfflineFeature;
+    ivector_extractor: an optional BatchedIvectorExtractor whose
+    whole-utterance i-vectors are the model's second input.  All of them
+    must live on `device`.  search_kwargs are forwarded to
+    `decoder.decode_batch` in best-path mode (prune_k/prune_beam of the
+    n-gram decoder, for example)."""
 
     def __init__(self, model, decoder, feature_computer,
                  acoustic_scale: float = 1.0, sample_rate: float = 16000.0,
+                 search_kwargs: Optional[dict] = None,
                  ivector_extractor=None, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model
@@ -58,6 +63,7 @@ class BatchedOfflinePipeline2:
         self.ivec = ivector_extractor
         self.acoustic_scale = acoustic_scale
         self.sample_rate = sample_rate
+        self.search_kwargs = dict(search_kwargs or {})
         parts = [("decoder", decoder.device),
                  ("feature_computer", feature_computer.device),
                  ("model", next(model.parameters()).device)]
@@ -132,7 +138,8 @@ class BatchedOfflinePipeline2:
                 out.append((words, cost, lat))
         else:
             hyps = self.decoder.decode_batch(loglikes, self.acoustic_scale,
-                                             lengths=out_lens)
+                                             lengths=out_lens,
+                                             **self.search_kwargs)
             out = [None if h is None else (h[0], h[2]) for h in hyps]
         t_search = time.perf_counter() - t0
         wall = time.perf_counter() - t_all

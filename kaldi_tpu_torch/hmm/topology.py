@@ -1,0 +1,122 @@
+"""HMM topology (port of the reading half of
+`kaldi_tpu/hmm/topology.py`; parity: hmm/hmm-topology.h:93).
+
+Per-phone HMM prototypes: each entry is a list of states, each state
+has a pdf-class (or none for the final non-emitting state) and a list
+of (next-state, probability) transitions.  Text and binary `topo`
+formats are read as the reference writes them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import BinaryIO, Dict, List, Tuple
+
+from kaldi_tpu_torch.base import io_funcs as iof
+
+NO_PDF = -1
+
+
+@dataclass
+class HmmState:
+    forward_pdf_class: int = NO_PDF
+    self_loop_pdf_class: int = NO_PDF
+    transitions: List[Tuple[int, float]] = field(default_factory=list)
+
+    def __post_init__(self):
+        if self.self_loop_pdf_class == NO_PDF and \
+                self.forward_pdf_class != NO_PDF:
+            self.self_loop_pdf_class = self.forward_pdf_class
+
+
+class HmmTopology:
+    def __init__(self):
+        self.phones: List[int] = []          # sorted phone ids
+        self.phone2idx: Dict[int, int] = {}  # phone -> entry index
+        self.entries: List[List[HmmState]] = []
+
+    def topology_for_phone(self, phone: int) -> List[HmmState]:
+        if phone not in self.phone2idx:
+            raise ValueError(f"no topology entry for phone {phone}")
+        return self.entries[self.phone2idx[phone]]
+
+    @classmethod
+    def read(cls, stream: BinaryIO, binary: bool = True) -> "HmmTopology":
+        topo = cls()
+        iof.expect_token(stream, binary, "<Topology>")
+        if binary:
+            topo._read_binary(stream)
+        else:
+            topo._read_text(stream)
+        topo.phones = sorted(topo.phone2idx)
+        return topo
+
+    def _read_binary(self, stream: BinaryIO) -> None:
+        # hmm-topology.cc:208-227: phones, phone2idx, [-1 marker of the
+        # extended format], entries
+        iof.read_int_vector(stream, True)
+        phone2idx_vec = iof.read_int_vector(stream, True)
+        self.phone2idx = {p: i for p, i in enumerate(phone2idx_vec)
+                          if i != -1}
+        n_entries = iof.read_int32(stream, True)
+        is_hmm = True
+        if n_entries == -1:
+            is_hmm = False
+            n_entries = iof.read_int32(stream, True)
+        for _ in range(n_entries):
+            entry = []
+            for _ in range(iof.read_int32(stream, True)):
+                fwd = iof.read_int32(stream, True)
+                slf = fwd if is_hmm else iof.read_int32(stream, True)
+                st = HmmState(fwd, slf)
+                for _ in range(iof.read_int32(stream, True)):
+                    ns = iof.read_int32(stream, True)
+                    st.transitions.append((ns, iof.read_float(stream, True)))
+                entry.append(st)
+            self.entries.append(entry)
+        iof.expect_token(stream, True, "</Topology>")
+
+    def _read_text(self, stream: BinaryIO) -> None:
+        def tok():
+            return iof.read_token(stream, False)
+
+        while True:
+            t = tok()
+            if t == "</Topology>":
+                return
+            if t != "<TopologyEntry>":
+                raise ValueError(f"expected <TopologyEntry>, got {t}")
+            iof.expect_token(stream, False, "<ForPhones>")
+            phones = []
+            while (t := tok()) != "</ForPhones>":
+                phones.append(int(t))
+            entry: List[HmmState] = []
+            t = tok()
+            while t != "</TopologyEntry>":
+                if t != "<State>":
+                    raise ValueError(f"expected <State>, got {t}")
+                if int(tok()) != len(entry):
+                    raise ValueError("HMM states out of order")
+                st = HmmState()
+                t = tok()
+                if t == "<PdfClass>":
+                    st.forward_pdf_class = int(tok())
+                    st.self_loop_pdf_class = st.forward_pdf_class
+                    t = tok()
+                elif t == "<ForwardPdfClass>":
+                    st.forward_pdf_class = int(tok())
+                    if tok() != "<SelfLoopPdfClass>":
+                        raise ValueError("expected <SelfLoopPdfClass>")
+                    st.self_loop_pdf_class = int(tok())
+                    t = tok()
+                while t == "<Transition>":
+                    ns = int(tok())
+                    st.transitions.append((ns, float(tok())))
+                    t = tok()
+                if t != "</State>":
+                    raise ValueError(f"expected </State>, got {t}")
+                entry.append(st)
+                t = tok()
+            self.entries.append(entry)
+            for p in phones:
+                self.phone2idx[p] = len(self.entries) - 1

@@ -1,0 +1,118 @@
+"""Transition model (port of the reading half and the queries of
+`kaldi_tpu/hmm/transition_model.py`; parity: hmm/transition-model.h:124).
+
+Maps between transition-ids, transition-states, tuples
+(phone, hmm_state, forward_pdf, self_loop_pdf) and pdf-ids, and holds
+the transition log-probs, as read from a `final.mdl`-style file
+(<TransitionModel> topo <Triples>/<Tuples> ... <LogProbs> ...).
+"""
+
+from __future__ import annotations
+
+import bisect
+from typing import BinaryIO, List, Tuple
+
+import numpy as np
+
+from kaldi_tpu_torch.base import io_funcs as iof
+from kaldi_tpu_torch.hmm.topology import HmmTopology
+
+
+class TransitionModel:
+    def __init__(self):
+        self.topo: HmmTopology = None
+        self.tuples: List[Tuple[int, int, int, int]] = []
+        self.log_probs = np.zeros(1, dtype=np.float32)  # 1-based
+
+    def _compute_derived(self) -> None:
+        """transition-state and transition-id tables
+        (transition-model.cc:144)."""
+        n = len(self.tuples)
+        self.state2id = np.zeros(n + 2, dtype=np.int32)
+        cur = 1
+        for ts in range(1, n + 2):
+            self.state2id[ts] = cur
+            if ts <= n:
+                phone, hmm_state = self.tuples[ts - 1][:2]
+                entry = self.topo.topology_for_phone(phone)
+                cur += len(entry[hmm_state].transitions)
+        self.id2state = np.zeros(cur, dtype=np.int32)
+        self.id2pdf_id = np.zeros(cur, dtype=np.int32)
+        for ts in range(1, n + 1):
+            for tid in range(self.state2id[ts], self.state2id[ts + 1]):
+                self.id2state[tid] = ts
+                self.id2pdf_id[tid] = (self.tuples[ts - 1][3]
+                                       if self.is_self_loop(tid)
+                                       else self.tuples[ts - 1][2])
+
+    # -- queries ------------------------------------------------------------
+    @property
+    def num_transition_ids(self) -> int:
+        return len(self.id2state) - 1
+
+    def transition_id_to_pdf(self, tid: int) -> int:
+        return int(self.id2pdf_id[tid])
+
+    def tuple_to_transition_state(self, phone, hmm_state, pdf,
+                                  self_pdf) -> int:
+        t = (phone, hmm_state, pdf, self_pdf)
+        i = bisect.bisect_left(self.tuples, t)
+        if i >= len(self.tuples) or self.tuples[i] != t:
+            raise ValueError(f"no transition state for tuple {t}")
+        return i + 1
+
+    def pair_to_transition_id(self, trans_state: int,
+                              trans_index: int) -> int:
+        return int(self.state2id[trans_state]) + trans_index
+
+    def num_transition_indices(self, trans_state: int) -> int:
+        return int(self.state2id[trans_state + 1]
+                   - self.state2id[trans_state])
+
+    def is_self_loop(self, tid: int) -> bool:
+        ts = self.id2state[tid]
+        idx = tid - self.state2id[ts]
+        phone, hmm_state, _, _ = self.tuples[ts - 1]
+        trans = self.topo.topology_for_phone(phone)[hmm_state].transitions
+        return idx < len(trans) and trans[idx][0] == hmm_state
+
+    def get_transition_log_prob(self, tid: int) -> float:
+        return float(self.log_probs[tid])
+
+    def self_loop_of(self, trans_state: int) -> int:
+        """Transition-id of this state's self-loop, or 0."""
+        phone, hmm_state, _, _ = self.tuples[trans_state - 1]
+        trans = self.topo.topology_for_phone(phone)[hmm_state].transitions
+        for idx, (dest, _) in enumerate(trans):
+            if dest == hmm_state:
+                return self.pair_to_transition_id(trans_state, idx)
+        return 0
+
+    # -- I/O ----------------------------------------------------------------
+    @classmethod
+    def read(cls, stream: BinaryIO, binary: bool = True
+             ) -> "TransitionModel":
+        tm = cls()
+        iof.expect_token(stream, binary, "<TransitionModel>")
+        tm.topo = HmmTopology.read(stream, binary)
+        token = iof.read_token(stream, binary)
+        if token not in ("<Triples>", "<Tuples>"):
+            raise ValueError(f"expected <Triples>/<Tuples>, got {token}")
+        tuples = []
+        for _ in range(iof.read_int32(stream, binary)):
+            phone = iof.read_int32(stream, binary)
+            hmm_state = iof.read_int32(stream, binary)
+            fwd = iof.read_int32(stream, binary)
+            slf = (iof.read_int32(stream, binary)
+                   if token == "<Tuples>" else fwd)
+            tuples.append((phone, hmm_state, fwd, slf))
+        tm.tuples = tuples
+        end = iof.read_token(stream, binary)
+        if end not in ("</Triples>", "</Tuples>"):
+            raise ValueError(f"expected </Triples>/</Tuples>, got {end}")
+        tm._compute_derived()
+        iof.expect_token(stream, binary, "<LogProbs>")
+        tm.log_probs = iof.read_vector(stream, binary).astype(np.float32)
+        iof.expect_token(stream, binary, "</LogProbs>")
+        iof.expect_token(stream, binary, "</TransitionModel>")
+        return tm

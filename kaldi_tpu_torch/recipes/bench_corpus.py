@@ -1,17 +1,389 @@
-"""Loaders for the committed bench-corpus model files (numpy copies of
-the loaders in `kaldi_tpu/recipes/bench_corpus.py`).
+"""The deterministic synthetic bench corpus and the loaders of the
+committed bench-corpus model files (numpy copies of the corpus
+generator, `mfcc_options`, `build_lang`, `build_decode_graph_ng`,
+`wer_of` and the loaders of `kaldi_tpu/recipes/bench_corpus.py`).
+
+The corpus is seed-deterministic: a V-word lexicon over a formant-pair
+phone inventory, Markov text with second-order structure, and two-formant
+phone audio in noise with per-speaker warps.  `make_corpus` draws the
+same numbers as the reference, so `corpus_fingerprint` of the bench
+configuration equals the hash recorded beside the committed model
+(`egs/bench_corpus/flagship_ng_meta.json`).
 
 `egs/bench_corpus/flagship_ng_params.npz` holds the flagship chain
 TDNN-F as "/"-joined flax paths ("params/tdnnf1/linear", ...), the big
 arrays stored as float16; `flagship_ng_ivec.npz` holds the i-vector
-extractor with its diagonal UBM.
+extractor with its diagonal UBM; `flagship_ng.tm` and `.tree` the
+trained transition model and triphone tree.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import hashlib
+import math
+from dataclasses import asdict, dataclass
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+
+from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexGraph
+from kaldi_tpu_torch.feat.frontend import MfccOptions
+from kaldi_tpu_torch.feat.window import FrameExtractionOptions
+from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
+from kaldi_tpu_torch.util.edit_distance import edit_distance_counts
+
+
+@dataclass
+class BenchCorpusSpec:
+    vocab: int = 200
+    num_phone_groups: int = 8      # confusable groups
+    phones_per_group: int = 3      # members differ by a small f2 gap
+    fs: float = 16000.0
+    noise: float = 2500.0          # additive noise sigma (tones ~1500;
+    #                                ~-6 dB SNR — hard enough that the
+    #                                flagship WER band stays nonzero)
+    f2_gap: float = 60.0           # separation inside a group
+    min_pron: int = 2
+    max_pron: int = 4
+    words_per_utt: int = 12
+    num_train: int = 384
+    num_test: int = 128
+    num_lm_sents: int = 4000
+    seed: int = 11
+    vec_text: bool = False         # vectorized text sampler (required
+    #                                at vocabulary scale; different RNG
+    #                                stream than the v1 scalar sampler,
+    #                                so committed-model specs keep False)
+    num_speakers: int = 0          # > 0: per-speaker VTLN-like formant
+    #                                warp + gain (utterances assigned
+    #                                round-robin) — the variability the
+    #                                i-vector-adapted AM removes
+    warp_lo: float = 0.88          # speaker warp range; at ±12% the
+    warp_hi: float = 1.12          # warp shift (~±240 Hz at f2=2 kHz)
+    #                                dwarfs the in-group f2_gap, so
+    #                                narrow it when the corpus must
+    #                                stay separable without perfect
+    #                                speaker normalization
+    log_spaced: bool = False       # multiplicative formant spacing:
+    #                                the speaker warp is MULTIPLICATIVE,
+    #                                so with additive spacing the same
+    #                                Hz gap is aliased at high f2 and
+    #                                resolvable at low f2 (measured:
+    #                                cross-cluster substitutions, not
+    #                                the designed minimal pairs).  With
+    #                                log spacing every phone contrast is
+    #                                a fixed RATIO vs the warp ratio —
+    #                                uniform difficulty across groups.
+    f2_member_ratio: float = 1.06  # in-group member step (log_spaced);
+    #                                ~= the ±3% warp SPREAD, so speaker
+    #                                normalization (i-vectors) stays
+    #                                load-bearing for the minimal pairs
+
+    @property
+    def num_phones(self) -> int:
+        return self.num_phone_groups * self.phones_per_group
+
+
+def bench_scale_spec(**over) -> BenchCorpusSpec:
+    """The round-4 vocabulary-scale bench configuration: V=20k over a
+    30-phone inventory, trigram LM text, triphone-tree training.  The
+    decode graph this yields (build_decode_graph_ng, prune (2,3)) has
+    ~500k states — the reference's own headline runs on a graph of
+    this order (LibriSpeech tgsmall HCLG, cuda-fst.h:62)."""
+    kw = dict(vocab=20000, num_phone_groups=10, phones_per_group=3,
+              min_pron=2, max_pron=5, words_per_utt=12,
+              num_train=384, num_test=128, num_lm_sents=600000,
+              noise=1600.0, seed=11, vec_text=True,
+              num_speakers=24, warp_lo=0.97, warp_hi=1.03,
+              log_spaced=True, f2_member_ratio=1.06)
+    # warp +-3% multiplicative + LOG-SPACED formants: with the round-3
+    # additive 60 Hz member gap the warp shift at high f2 (~+-110 Hz
+    # at 3.7 kHz) exceeded the gap, aliasing phone identity outright —
+    # measured cross-cluster (not minimal-pair) substitutions and a
+    # 0.78 linear-probe phone-accuracy ceiling.  Log spacing makes
+    # every contrast a fixed ratio: groups 16-19% apart (any speaker),
+    # members 6% apart vs a 6% cross-speaker warp spread — confusable
+    # WITHOUT speaker normalization, separable with it, which is
+    # exactly the job the i-vector leg exists to do (run_tdnn_1d.sh's
+    # online-ivector configuration).
+    kw.update(over)
+    return BenchCorpusSpec(**kw)
+
+
+def phone_inventory(spec: BenchCorpusSpec) -> Dict[str, Tuple[float, float]]:
+    """Phone -> (f1, f2).  Groups share f1; members differ by a small
+    f2 offset (the confusability axis)."""
+    inv: Dict[str, Tuple[float, float]] = {}
+    for g in range(spec.num_phone_groups):
+        if spec.log_spaced:
+            # group identity rides f1 (16%/step >> warp spread, so it
+            # survives any speaker); member identity is an f2 ratio
+            f1 = 280.0 * 1.16 ** g
+            f2_base = 1100.0 * 1.19 ** g
+            for m in range(spec.phones_per_group):
+                inv[f"p{g}_{m}"] = (f1,
+                                    f2_base * spec.f2_member_ratio ** m)
+            continue
+        f1 = 280.0 + 160.0 * g
+        f2_base = 1100.0 + 290.0 * g
+        for m in range(spec.phones_per_group):
+            inv[f"p{g}_{m}"] = (f1, f2_base + spec.f2_gap * m)
+    return inv
+
+
+def make_lexicon(spec: BenchCorpusSpec) -> Dict[str, List[List[str]]]:
+    """V words; confusable clusters share their prefix and differ in
+    the LAST phone within one formant group."""
+    rng = np.random.default_rng(spec.seed)
+    inv = sorted(phone_inventory(spec))
+    lex: Dict[str, List[List[str]]] = {}
+    seen = set()
+    w = 0
+    while len(lex) < spec.vocab:
+        k = int(rng.integers(spec.min_pron, spec.max_pron + 1))
+        prefix = [inv[rng.integers(len(inv))] for _ in range(k - 1)]
+        g = int(rng.integers(spec.num_phone_groups))
+        # a cluster of words sharing `prefix`, distinguished only by
+        # the group-m member of the last phone
+        for m in range(spec.phones_per_group):
+            if len(lex) >= spec.vocab:
+                break
+            pron = prefix + [f"p{g}_{m}"]
+            key = tuple(pron)
+            if key in seen:
+                continue
+            seen.add(key)
+            lex[f"W{w:04d}"] = [pron]
+            w += 1
+    return lex
+
+
+def make_text(spec: BenchCorpusSpec, n_sents: int, seed: int
+              ) -> List[List[str]]:
+    """Markov text with SECOND-ORDER structure: Zipf unigram +
+    per-context preferred successors (bigram mass) + hashed
+    pair-context preferred successors (trigram mass a bigram LM cannot
+    capture — what makes the trigram first pass earn its keep).  The
+    PROCESS tables depend only on spec.seed; `seed` drives the
+    sampling — train/test/LM text must come from the SAME process."""
+    rng = np.random.default_rng(seed)
+    proc_rng = np.random.default_rng(spec.seed + 777)
+    V = spec.vocab
+    words = [f"W{w:04d}" for w in range(V)]
+    zipf = 1.0 / np.arange(1, V + 1) ** 0.8
+    zipf /= zipf.sum()
+    n_hot = 4
+    hot = proc_rng.integers(0, V, size=(V + 1, n_hot))
+    # hashed pair-context table: successor prefers hot2[(u,v) hash]
+    M2 = 1 << 14
+    hot2 = proc_rng.integers(0, V, size=(M2, n_hot))
+    if spec.vec_text:
+        # vectorized across sentences (position-major): same process
+        # tables, different draw order than the v1 scalar sampler
+        lens = np.maximum(
+            spec.words_per_utt + rng.integers(-2, 3, n_sents), 1)
+        Lmax = int(lens.max())
+        prev2 = np.full(n_sents, V, np.int64)
+        prev = np.full(n_sents, V, np.int64)
+        cols = []
+        for _t in range(Lmax):
+            r = rng.random(n_sents)
+            h_i = rng.integers(0, n_hot, n_sents)
+            w2 = hot2[(prev2 * 1000003 + prev * 8191) % M2, h_i]
+            w1 = hot[prev, h_i]
+            wz = rng.choice(V, size=n_sents, p=zipf)
+            w = np.where(r < 0.35, w2, np.where(r < 0.7, w1, wz))
+            cols.append(w)
+            prev2, prev = prev, w
+        toks = np.stack(cols, axis=1)
+        return [[words[toks[i, t]] for t in range(lens[i])]
+                for i in range(n_sents)]
+    sents = []
+    for _ in range(n_sents):
+        n = spec.words_per_utt + int(rng.integers(-2, 3))
+        sent = []
+        prev2, prev = V, V
+        for _ in range(max(n, 1)):
+            r = rng.random()
+            if r < 0.35:
+                h2 = (prev2 * 1000003 + prev * 8191) % M2
+                w = int(hot2[h2, rng.integers(n_hot)])
+            elif r < 0.7:
+                w = int(hot[prev, rng.integers(n_hot)])
+            else:
+                w = int(rng.choice(V, p=zipf))
+            sent.append(words[w])
+            prev2, prev = prev, w
+        sents.append(sent)
+    return sents
+
+
+def speaker_params(spec: BenchCorpusSpec
+                   ) -> Tuple[np.ndarray, np.ndarray]:
+    """(warps, gains) per speaker, deterministic in spec.seed."""
+    rng = np.random.default_rng(spec.seed + 555)
+    S = max(spec.num_speakers, 1)
+    if spec.num_speakers == 0:
+        return np.ones(1), np.ones(1)
+    return (rng.uniform(spec.warp_lo, spec.warp_hi, S),
+            rng.uniform(0.7, 1.3, S))
+
+
+def synth_utterance(words: Sequence[str],
+                    lexicon: Dict[str, List[List[str]]],
+                    inv: Dict[str, Tuple[float, float]],
+                    spec: BenchCorpusSpec, seed: int,
+                    warp: float = 1.0,
+                    spk_gain: float = 1.0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    fs = spec.fs
+
+    def sil(dur):
+        n = int(dur * fs)
+        return spec.noise * 0.5 * rng.normal(size=n)
+
+    parts = [sil(0.15 + 0.1 * rng.random())]
+    for w in words:
+        pron = lexicon[w][0]
+        for ph in pron:
+            f1, f2 = inv[ph]
+            f1, f2 = f1 * warp, f2 * warp
+            dur = 0.07 + 0.05 * rng.random()
+            n = int(dur * fs)
+            t = np.arange(n) / fs
+            gain = (0.75 + 0.5 * rng.random()) * spk_gain
+            seg = gain * (1500 * np.sin(2 * np.pi * f1 * t)
+                          + 950 * np.sin(2 * np.pi * f2 * t)) \
+                + spec.noise * rng.normal(size=n)
+            env = np.minimum(1.0, np.minimum(np.arange(n), n - np.arange(n))
+                             / (0.008 * fs))
+            parts.append(seg * env)
+        if rng.random() < 0.35:
+            parts.append(sil(0.06 + 0.12 * rng.random()))
+    parts.append(sil(0.15 + 0.1 * rng.random()))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def make_corpus(spec: BenchCorpusSpec, train_audio: bool = True):
+    """-> (lexicon, train_txt, train_wav, test_txt, test_wav, lm_text).
+    All deterministic in spec.seed.  train_audio=False skips the train
+    waveform synthesis (decode-side reconstruction, e.g. bench.py)."""
+    lexicon = make_lexicon(spec)
+    inv = phone_inventory(spec)
+    train_sents = make_text(spec, spec.num_train, spec.seed + 1)
+    test_sents = make_text(spec, spec.num_test, spec.seed + 2)
+    lm_text = make_text(spec, spec.num_lm_sents, spec.seed + 3)
+    train_txt = {f"tr{i:04d}": s for i, s in enumerate(train_sents)}
+    test_txt = {f"te{i:04d}": s for i, s in enumerate(test_sents)}
+    warps, gains = speaker_params(spec)
+    S = len(warps)
+    train_wav = {} if not train_audio else \
+        {u: synth_utterance(s, lexicon, inv, spec, 10_000 + i,
+                            warps[i % S], gains[i % S])
+         for i, (u, s) in enumerate(train_txt.items())}
+    test_wav = {u: synth_utterance(s, lexicon, inv, spec, 50_000 + i,
+                                   warps[i % S], gains[i % S])
+                for i, (u, s) in enumerate(test_txt.items())}
+    return lexicon, train_txt, train_wav, test_txt, test_wav, lm_text
+
+
+def corpus_fingerprint(spec: BenchCorpusSpec, lexicon, test_txt,
+                       test_wav, lm_text) -> str:
+    """Stable hash of everything a committed trained model depends on:
+    spec fields, phone inventory (formant layout), lexicon, test text,
+    LM text (head + length), speaker warps, and a slice of the first
+    test waveform.  Written into the *_meta.json of each trained
+    artifact by egs/bench_corpus/train.py and re-checked by bench.py,
+    so that corpus-generator drift can never silently invalidate a
+    committed model again (round-4 regression: corpus edits changed
+    the text under the round-3 flagship, WER 2.24% -> 5.89% with no
+    signal; VERDICT r4 weak #1)."""
+    h = hashlib.sha256()
+    h.update(repr(sorted(asdict(spec).items())).encode())
+    h.update(repr(sorted(phone_inventory(spec).items())).encode())
+    for u in sorted(test_txt):
+        h.update((u + " " + " ".join(test_txt[u])).encode())
+    h.update(str(len(lm_text)).encode())
+    for s in lm_text[:200]:
+        h.update(" ".join(s).encode())
+    for w in sorted(lexicon):
+        h.update((w + ":" + ";".join(
+            " ".join(p) for p in lexicon[w])).encode())
+    warps, gains = speaker_params(spec)
+    h.update(np.asarray(warps, np.float64).tobytes())
+    h.update(np.asarray(gains, np.float64).tobytes())
+    if test_wav:
+        u0 = sorted(test_wav)[0]
+        h.update(np.asarray(test_wav[u0][:4000],
+                            np.float32).tobytes())
+    return h.hexdigest()[:16]
+
+
+# ----------------------------------------------------------------------
+def mfcc_options(spec: BenchCorpusSpec, num_ceps: int = 40) -> MfccOptions:
+    """The bench MFCC configuration: num_ceps cepstra over
+    max(num_ceps, 23) mel bins, dither 0."""
+    opts = MfccOptions(frame_opts=FrameExtractionOptions(
+        samp_freq=spec.fs, dither=0.0))
+    opts.num_ceps = num_ceps
+    opts.mel_opts.num_bins = max(num_ceps, 23)
+    return opts
+
+
+class Lang:
+    """The symbol tables of a lang directory (utils/prepare_lang.sh):
+    phone ids 1-based over the sorted phones and the silence phone, word
+    ids 1-based over the sorted words (0 = eps)."""
+
+    def __init__(self, lexicon: Dict[str, List[List[str]]],
+                 sil_phone: str = "SIL"):
+        phone_set = sorted({p for prons in lexicon.values()
+                            for pron in prons for p in pron} | {sil_phone})
+        self.phones = {p: i + 1 for i, p in enumerate(phone_set)}
+        self.phone_names = {i: p for p, i in self.phones.items()}
+        self.words = {w: i + 1 for i, w in enumerate(sorted(lexicon))}
+        self.word_names = {i: w for w, i in self.words.items()}
+
+
+def build_lang(lexicon) -> Lang:
+    return Lang(lexicon, sil_phone="SIL")
+
+
+def build_decode_graph_ng(lexicon, lm_text, chain_tm, chain_tree,
+                          lang=None, prune_bi: int = 1,
+                          prune_tri: int = 2) -> NgramLexGraph:
+    """NgramLexGraph from the corpus artifacts: estimated backoff
+    trigram + trained triphone-tree pdf/tid tables (word-internal
+    windows) + optional-silence lexicon: the bench graph."""
+    if lang is None:
+        lang = build_lang(lexicon)
+    vocab = sorted(lexicon)
+    lm = TrigramBackoffLm.from_counts(lm_text, vocab, prune_bi=prune_bi,
+                                      prune_tri=prune_tri)
+    prons, pron_word, pron_cost = [], [], []
+    for wi, w in enumerate(vocab):
+        variants = lexicon[w]
+        for pron in variants:
+            prons.append(np.asarray([lang.phones[p] for p in pron],
+                                    np.int32))
+            pron_word.append(wi)
+            pron_cost.append(math.log(max(len(variants), 1)))
+    return NgramLexGraph.build(
+        prons, lm, pron_word=pron_word, pron_cost=pron_cost,
+        tm=chain_tm, tree=chain_tree, use_sil=True,
+        sil_phone=lang.phones["SIL"], sil_prob=0.5)
+
+
+def wer_of(hyps: Dict[str, List[str]], refs: Dict[str, List[str]]
+           ) -> float:
+    """Percent word errors of hyps against refs (a missing hyp is an
+    empty one)."""
+    errs = tot = 0
+    for u, ref in refs.items():
+        ins, dels, subs = edit_distance_counts(ref, hyps.get(u, []))
+        errs += ins + dels + subs
+        tot += len(ref)
+    return 100.0 * errs / max(tot, 1)
 
 
 def load_params(path: str) -> dict:

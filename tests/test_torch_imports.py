@@ -43,7 +43,11 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "lat.functions", "ops.block_chain_lattice_step",
                  "ops.block_chain_step", "decoder.block_chain",
                  "ops.viterbi_relax", "decoder.batched_viterbi",
-                 "decoder.viterbi", "decoder.graph_direct"):
+                 "decoder.viterbi", "decoder.graph_direct",
+                 "decoder.lexchain_ng", "lm.trigram", "base.io_funcs",
+                 "util.kaldi_io", "util.edit_distance", "hmm.topology",
+                 "hmm.transition_model", "tree.event_map",
+                 "tree.context_dep", "recipes.bench_corpus"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
@@ -65,10 +69,13 @@ def _makers(device):
     from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                       synth_bigram,
                                                       synth_lexicon)
+    from kaldi_tpu_torch.decoder.lexchain_ng import (NgramLexDecoder,
+                                                     NgramLexGraph)
     from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
     from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
     from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                               chain_tdnnf_from_flax)
+    from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
     from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
     spec = DirectGraphSpec(vocab=5, num_phones=4, min_pron=1, max_pron=3,
                            num_pdfs=16)
@@ -93,6 +100,9 @@ def _makers(device):
                        for n, d in (("bn1", 8), ("bn2", 4))}
     opts = MfccOptions()
     opts.frame_opts.dither = 0.0
+    lm = TrigramBackoffLm.from_counts([["a", "b", "a"], ["b"]], prune_tri=1)
+    ng = NgramLexGraph.build([np.array([1, 2]), np.array([3])], lm,
+                             num_pdfs=16)
     return [
         lambda: OfflineFeature(opts, device=device),
         lambda: BatchedIvectorExtractor(ivec, device=device),
@@ -101,6 +111,7 @@ def _makers(device):
         lambda: BlockChainDecoder(g, device=device),
         lambda: BatchedViterbi(g.to_flat_graph().to_vector_fst(), g.tid2pdf,
                                device=device),
+        lambda: NgramLexDecoder(ng, device=device),
     ], BatchedOfflinePipeline2
 
 
@@ -115,7 +126,7 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
     makers, pipeline = _makers("cpu")
-    fe, iv, model, dec, dense = [make() for make in makers]
+    fe, iv, model, dec, dense, ngram = [make() for make in makers]
     with pytest.raises(RuntimeError, match="CUDA"):
         pipeline(model, dec, fe)
     pipeline(model, dec, fe, ivector_extractor=iv, device="cpu")
@@ -127,3 +138,6 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
     assert lats[0] is not None and lats[0].num_states > 0
     hyps = dense.run(np.zeros((2, 6, 16), np.float32), [6, 4])
     assert [len(h[0]) for h in hyps] == [6, 4]
+    hyps = ngram.decode_batch(np.zeros((2, 6, 16), np.float32),
+                              lengths=[6, 4])
+    assert [len(h[1]) for h in hyps] == [6, 4]

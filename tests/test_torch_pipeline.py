@@ -9,6 +9,10 @@ words, cost within 1e-4 relative, lattices with equal states and arc
 labels; arc weights within 2e-3 absolute, since the two acoustic models
 differ by about 1e-4 a frame and a word arc sums several frames.
 
+The main path's search, the n-gram decoder, runs through both pipelines
+with the same search_kwargs (a pruned pool): equal words, cost within
+1e-4 relative.
+
 Two wires: int16 waves of three lengths (zero padding), and mu-law waves
 of one length whose frame count fills its bucket exactly, so that no
 frame holds only the mu-law pad byte (whose cepstra are rounding noise,
@@ -22,6 +26,7 @@ import pytest
 from kaldi_tpu.decoder.batched_pipeline2 import \
     BatchedOfflinePipeline2 as JaxPipeline
 from kaldi_tpu.decoder.block_chain import BlockChainDecoder as JaxDecoder
+from kaldi_tpu.decoder.lexchain_ng import NgramLexDecoder as JaxNgDecoder
 from kaldi_tpu.feat.frontend import OfflineFeature as JaxFeature
 from kaldi_tpu.feat.frontend import mulaw_encode as jax_mulaw_encode
 from kaldi_tpu.ivector.batched import BatchedIvectorExtractor as JaxIvec
@@ -33,6 +38,7 @@ from kaldi_tpu.recipes.bench_corpus import \
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
 from kaldi_tpu_torch.decoder.block_chain import BlockChainDecoder
+from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.feat.frontend import OfflineFeature
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
@@ -42,6 +48,7 @@ from kaldi_tpu_torch.lat.functions import lattice_best_path
 from test_torch_block_chain import graphs
 from test_torch_block_chain_lattice import assert_lattices_match
 from test_torch_frontend import bench_options, waves
+from test_torch_lexchain_ng import graphs as ng_graphs
 from test_torch_tdnnf import SMALL, random_variables
 
 IVEC = os.path.join(os.path.dirname(__file__), "..", "egs", "bench_corpus",
@@ -119,3 +126,48 @@ def test_num_waves_not_ported():
     _, port = pipelines()
     with pytest.raises(NotImplementedError, match="num_waves"):
         port.decode_batch([np.zeros(4000, np.int16)], num_waves=2)
+
+
+def test_ngram_search_with_search_kwargs_matches_jax():
+    """Both pipelines with an NgramLexDecoder and the same search_kwargs
+    (a pool of 4 rows within a beam of 8, forwarded to decode_batch), on
+    the waves of test_pipeline_matches_jax.  Both round the model input
+    to bf16, so where a feature or i-vector element sits at a bf16
+    rounding boundary the two AMs part by about 1e-3 a frame on a whole
+    lane (other seeds show it); the decoders themselves must agree on the
+    same loglikes: the JAX decoder on the port pipeline's loglikes gives
+    the port's words and costs."""
+    jg, tg, _ = ng_graphs(2, V=8, use_sil=True, ctx=3)
+    fcfg = FlaxConfig(**SMALL)
+    variables = random_variables(fcfg, seed=0)
+    kw = dict(prune_k=4, prune_beam=8.0, exact_topk=False)
+    ref = JaxPipeline(FlaxTdnnf(fcfg, train=False), variables["params"],
+                      variables["batch_stats"], JaxNgDecoder(jg),
+                      JaxFeature(mfcc_options(BenchCorpusSpec())),
+                      search_kwargs=kw,
+                      ivector_extractor=JaxIvec(jax_load_ivec(IVEC)))
+    stats = {}
+    port = BatchedOfflinePipeline2(
+        chain_tdnnf_from_flax(ChainTdnnfConfig(**SMALL), variables,
+                              device="cpu"),
+        NgramLexDecoder(tg, device="cpu"),
+        OfflineFeature(bench_options(), device="cpu"),
+        search_kwargs=dict(kw, stats=stats),
+        ivector_extractor=BatchedIvectorExtractor(
+            load_ivector_extractor(IVEC), device="cpu"),
+        device="cpu")
+    ws = [w.astype(np.int16) for w in waves(11, [8000, 6500, 4900])]
+    want = ref.decode_batch(ws)
+    got = port.decode_batch(ws)
+    assert set(stats) == {"fwd_s", "fol_s", "traceback_s"}
+    feats, nframes = port.feats.compute_batch_device(ws)
+    loglikes, out_lens = port.loglikes(feats, nframes)
+    same_ll = JaxNgDecoder(jg).decode_batch(loglikes.numpy(),
+                                            lengths=out_lens, **kw)
+    for b, (r, o, s) in enumerate(zip(want, got, same_ll)):
+        assert r is not None and o is not None
+        assert o[0] == r[0] == s[0], f"lane {b} words"
+        assert len(o[0]) > 0
+        assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
+            f"lane {b}: {o[1]} vs {r[1]}"
+        assert abs(o[1] - s[2]) <= 1e-4 * max(1.0, abs(s[2]))
