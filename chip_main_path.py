@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
 """The main path's phases of chip_smoke.py alone, on one NVIDIA GPU,
-plus two diagnostics of its WER.
+plus diagnostics of its WER and of its lattice mode.
 
 Runs what chip_smoke.py runs for the main path (ng_graph, slice_ng,
 profile_ng, ng_cpu_check, cross_check_ng: the V=20,000 bench corpus and
 graph, 128 test utterances through BatchedOfflinePipeline2 with the
-n-gram decoder, WER), without the kernel phases, so that work on the
-main path's search can be measured in about two minutes.  Then:
+n-gram decoder, WER; slice_ng_lattice, ng_lattice_cpu_check: the same
+utterances in lattice mode), without the kernel phases, so that work on
+the main path's search can be measured alone.  Then:
   probe_f32_am      the WER of the same utterances with the flagship
                     model in float32 instead of bf16;
   probe_exact_pool  16 lanes' loglikes decoded with every
                     virtual-context row in the pool (exact search)
-                    against the bench's pool of 128 rows, beam 16.
+                    against the bench's pool of 128 rows, beam 16;
+  probe_survivor_rule, probe_reference_events
+                    lattice mode under the two rules of the reference
+                    that the port changed: the word-end events its
+                    survivor rule keeps, and lattices, differing lanes
+                    and WER without the best path's word ends put into
+                    the events, at 64 and 256 events a frame.
 The WER band of chip_smoke.py is not applied here.  JSON lines as in
 chip_smoke.py; exits nonzero on any failed check.
 
@@ -29,6 +36,62 @@ import numpy as np
 import torch
 
 import chip_smoke as cs
+from kaldi_tpu_torch.decoder.lexchain_ng import INF
+from kaldi_tpu_torch.lat.functions import lattice_best_path
+
+
+def probe_lattice_rules(dec, ll, lens, wer, utts) -> None:
+    """Lattice mode under the reference's two rules that the port
+    changed, on the 128 lanes' loglikes: how many word-end events its
+    survivor rule (cost within the beam of the lane's final best) keeps,
+    and the lattices, the lanes whose lattice best path differs from
+    decode_batch with the same pool, and the WER when the best path's word
+    ends are not put into the events (the reference's selection), with 64
+    and with 256 events a frame."""
+    best = dec.decode_batch(ll, lengths=lens, prune_k=cs.NG_LAT_POOL)
+    T, B = ll.shape[1], ll.shape[0]
+    K = min(cs.NG_LAT_POOL, dec.VC)
+    with torch.inference_mode():
+        am = (-ll).permute(1, 2, 0).contiguous()
+        active = torch.as_tensor(np.arange(T)[:, None] < lens[None, :],
+                                 device=dec.device)
+        none = torch.full((T, B), -1, device=dec.device)
+        roots, sil, sil_t, outs = dec._forward_lattice(am, active, K, 64,
+                                                       none)
+        lane_best = dec._finals(roots, sil, sil_t)[4]
+        ev_val = outs["ev_val"]
+        live = (ev_val < INF / 2) & active[:, :, None]
+        kept = live & (ev_val <= lane_best[None, :, None] + cs.LAT_BEAM
+                       + 1e-3)
+        n_live, n_kept = int(live.sum()), int(kept.sum())
+        lanes_kept = int(kept.any(dim=2).any(dim=0).sum())
+        del outs, ev_val, live, kept
+    cs.emit("probe_survivor_rule", events=n_live,
+            events_within_beam_of_final_best=n_kept,
+            lanes_with_such_events=lanes_kept, beam=cs.LAT_BEAM)
+    forced = dec._viterbi_word_ends
+    dec._viterbi_word_ends = lambda am, active, K: torch.full(
+        active.shape, -1, device=active.device)
+    try:
+        for cap in (64, 256):
+            stats = {}
+            t0 = time.perf_counter()
+            lats = dec.decode_batch_lattice(ll, lengths=lens,
+                                            lattice_beam=cs.LAT_BEAM,
+                                            event_cap=cap, stats=stats)
+            seconds = time.perf_counter() - t0
+            words = [[] if lat is None else lattice_best_path(lat)[1]
+                     for lat in lats]
+            cs.emit("probe_reference_events", event_cap=cap,
+                    lattices=sum(lat is not None for lat in lats),
+                    lanes_words_differ=[i for i, (w, h) in
+                                        enumerate(zip(words, best))
+                                        if w != h[0]],
+                    wer=wer([(w,) for w in words], utts),
+                    wer_same_pool=wer(best, utts), seconds=seconds,
+                    stats=stats)
+    finally:
+        dec._viterbi_word_ends = forced
 
 
 def main() -> int:
@@ -48,6 +111,8 @@ def main() -> int:
     ll, lens = res["loglikes"], res["out_lens"]
     cs.ng_cpu_check(ng, ll, lens)
     cs.cross_check_ng(ng)
+    cs.run_ng_lattice(ng, model, ivec, fe, ll, lens)
+    cs.ng_lattice_cpu_check(ng, ll, lens)
     graph, dec, test_txt = ng["graph"], ng["dec"], ng["test_txt"]
     utts = sorted(ng["test_wav"])
     waves = [cs.mulaw_encode(np.clip(ng["test_wav"][u], -32767, 32767))
@@ -73,6 +138,7 @@ def main() -> int:
                                   for a, b in zip(exact, pruned)),
             cost_exact=[a[2] for a in exact[:4]],
             cost_pruned=[b[2] for b in pruned[:4]])
+    probe_lattice_rules(dec, ll, lens, wer, utts)
     cs.emit("probe_done", seconds=time.perf_counter() - t_all)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,13 +6,16 @@ Drives the port's main path as the repo's headline measures it
 corpus on the mu-law wire -> MFCC -> i-vectors -> the committed
 flagship_ng chain TDNN-F (17 x 1536, bf16) -> NgramLexDecoder over the
 trigram x triphone NgramLexGraph (495,782 states, pool of 128 rows, beam
-16) -> words -> WER, through BatchedOfflinePipeline2.decode_batch.  No
-hand-written kernel is on that path (its search is PyTorch ops).  The
+16) -> words -> WER, through BatchedOfflinePipeline2.decode_batch, and
+in lattice mode as bench.py --with-lattices runs it (J=4, 64 word-end
+events and 128 pool rows a frame, lattice_beam=8).  No hand-written
+kernel is on that path (its search is PyTorch ops).  The
 paths that carry the kernels run at full width too: 128 lanes x 5 s of
 seeded mu-law audio -> the same frontend and model -> exact block-chain
 Viterbi over the V=700 DirectGraphSpec graph (2,215,861 states), in
-best-path mode and in lattice mode (generate_lattices=True,
-lattice_beam=8, J=4); and the same 128 lanes' loglikes ->
+best-path mode, and in lattice mode (generate_lattices=True,
+lattice_beam=8, J=4) on 32 of the lanes, kernel b's own checks and times
+at full width; and the same 128 lanes' loglikes ->
 BatchedViterbi.run, the dense exact Viterbi over a flat graph (the V=64
 block-chain graph's to_flat_graph(): 20,865 states, 44,914 arcs, in-arc
 tables padded to K=128, of which the relaxation kernel walks the live
@@ -47,11 +50,21 @@ Phases, one JSON line each (any failure exits nonzero):
      through the decoder on the CPU (equal words and tids, costs within
      1e-4 relative); a V=30 graph from the same transition model and tree
      decoded exactly on the card and by the host FasterDecoder on its
-     to_flat_graph() (equal words and tids);
-  6. the lattice slice: one timed decode_batch call in lattice mode,
-     under torch.profiler (launch counts, the lattice stages' seconds,
-     each lane's lattice best path against the best-path decode); 2 lanes
-     decoded again with the plain lattice step (equal lattices);
+     to_flat_graph() (equal words and tids); then the main path in lattice
+     mode (slice_ng_lattice, ng_lattice_cpu_check): one warm-up and one
+     timed decode_batch(generate_lattices=True, lattice_beam=8) of the 128
+     utterances (wall, lattice xRT, the decoder's fwd_s/n_events/pool_s/
+     assemble_s, peak memory, lattices, median states and arcs, the WER of
+     the lattice best paths against the WER of decode_batch with the same
+     pool on the same loglikes, the lanes whose words differ, no kernel
+     launched; at least 95% lattices, the two WERs within half a point);
+     2 lanes' lattices on the CPU equal to the card's in structure,
+     weights within 1e-9 x the largest |prefix sum| of acoustic costs;
+  6. the block-chain lattice slice on 32 of the lanes: one timed
+     decode_batch call in lattice mode, under torch.profiler (launch
+     counts, the lattice stages' seconds, each lane's lattice best path
+     against the best-path decode); 1 lane decoded again with the plain
+     lattice step (equal lattices);
   7. the flat-graph slice: one warm-up and three timed BatchedViterbi.run
      calls (seconds of table preparation, frame loop, copy to the host
      and traceback; launch counts: one emitting launch a frame, no
@@ -133,6 +146,13 @@ NG_SEARCH = dict(prune_k=128, prune_beam=16.0, exact_topk=False)
 # selected its pool approximately and its bf16 acoustic model ran on
 # another device, so a few words may go either way
 NG_WER, NG_WER_BAND = 9.34, 0.5
+# lattice mode of the main path: the decoder's default pool of 128 rows a
+# lane and frame (no beam); its lattice best paths are scored against
+# decode_batch with that pool
+NG_LAT_POOL = 128
+# the block-chain lattice slice runs this many of the 128 lanes: its host
+# assembly is the slowest phase of the script
+BC_LAT_LANES = 32
 # the profiler's marker of a launch that waited for a full launch queue
 STALL = "Command Buffer Full"
 # the n-gram decoder's blocks: four a frame, then the follow pass
@@ -962,6 +982,101 @@ def cross_check_ng(ng: dict, vocab: int = 30, lanes: int = 3,
          words_lane0=got[0][0], seconds=time.perf_counter() - t0)
 
 
+def run_ng_lattice(ng: dict, model, ivec, fe, loglikes, out_lens) -> dict:
+    """slice_ng_lattice: the 128 bench test utterances through
+    BatchedOfflinePipeline2 in lattice mode with the n-gram decoder (J=4,
+    event_cap=64, prune_k=128, the decoder's defaults; lattice_beam=8),
+    one warm-up and one timed call.  Each lane's lattice best path is
+    scored against the test text, and against decode_batch with the same
+    pool (prune_k=128, no beam) on the same loglikes.  None of kernels
+    a-c is on this path: their counts must stay 0."""
+    spec, graph, dec = ng["spec"], ng["graph"], ng["dec"]
+    test_txt, test_wav = ng["test_txt"], ng["test_wav"]
+    utts = sorted(test_wav)
+    waves = [mulaw_encode(np.clip(test_wav[u], -32767, 32767))
+             for u in utts]
+    pipe = BatchedOfflinePipeline2(model, dec, fe, sample_rate=spec.fs,
+                                   ivector_extractor=ivec, device="cuda")
+    t0 = time.perf_counter()
+    pipe.decode_batch(waves, generate_lattices=True,
+                      lattice_beam=LAT_BEAM)                 # warm-up
+    warm_s = time.perf_counter() - t0
+    stats, lat_stats, host_s = PipelineStats(), {}, {}
+    # the host assembly's two phases, summed over the lanes
+    timed_methods(dec, ("_plan_lane", "_assemble_lane"), host_s)
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    outs = pipe.decode_batch(waves, stats=stats, generate_lattices=True,
+                             lattice_beam=LAT_BEAM, lat_stats=lat_stats)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    host_s = dict(host_s)
+    launches = kernel_launch_counts()
+
+    def words_of(hyps):
+        return {u: ([] if h is None else [graph.words[w] for w in h[0]])
+                for u, h in zip(utts, hyps)}
+
+    t0 = time.perf_counter()
+    pooled = dec.decode_batch(loglikes, lengths=out_lens,
+                              prune_k=NG_LAT_POOL)
+    pooled_s = time.perf_counter() - t0
+    have = [o for o in outs if o is not None]
+    wer_lat = wer_of(words_of(outs), test_txt)
+    wer_pool = wer_of(words_of(pooled), test_txt)
+    differ = [lane for lane, (o, h) in enumerate(zip(outs, pooled))
+              if o is None or h is None or o[0] != h[0]]
+    states = sorted(o[2].num_states for o in have)
+    arcs = sorted(o[2].num_arcs() for o in have)
+    run = {"lanes": len(waves), "lattices": len(have),
+           "audio_s": stats.total_audio_s, "wall_s": stats.wall_s,
+           "xrt": stats.xrt, "feat_s": stats.feat_s, "am_s": stats.am_s,
+           "search_s": stats.search_s, "warmup_s": warm_s,
+           "lat_stats": lat_stats, "plan_lane_s": host_s["_plan_lane"],
+           "assemble_lane_s": host_s["_assemble_lane"],
+           "peak_memory_gb": peak_gb,
+           "states_median": states[len(states) // 2] if states else 0,
+           "arcs_median": arcs[len(arcs) // 2] if arcs else 0,
+           "wer_lattice_best_path": wer_lat, "wer_same_pool": wer_pool,
+           "same_pool_decode_s": pooled_s, "lanes_words_differ": differ,
+           "launches": launches}
+    emit("slice_ng_lattice", **run)
+    if any(launches.values()):
+        raise SystemExit("a kernel of another path ran in slice_ng_lattice")
+    if len(have) < 0.95 * len(waves):
+        raise SystemExit(f"only {len(have)}/{len(waves)} lattices")
+    if not abs(wer_lat - wer_pool) <= 0.5:
+        raise SystemExit(f"lattice WER {wer_lat:.3f}% is more than 0.5 "
+                         f"points from the same pool's {wer_pool:.3f}%")
+    return run
+
+
+def ng_lattice_cpu_check(ng: dict, loglikes, out_lens, lanes: int = 2
+                         ) -> None:
+    """ng_lattice_cpu_check: `lanes` lanes' loglikes through the n-gram
+    decoder's lattice mode on the card and on the CPU.  The lattices must
+    be equal in structure (states, start, arc labels and next states);
+    weights and finals may differ by the rounding of the float64 prefix
+    sums of the acoustic costs (the two devices sum in other orders): the
+    bound is 1e-9 x max(1, the largest |prefix sum|)."""
+    kw = dict(lengths=out_lens[:lanes], lattice_beam=LAT_BEAM)
+    card = ng["dec"].decode_batch_lattice(loglikes[:lanes], **kw)
+    t0 = time.perf_counter()
+    cpu_dec = NgramLexDecoder(ng["graph"], device="cpu")
+    host = cpu_dec.decode_batch_lattice(loglikes[:lanes].cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    cs_max = float(torch.cumsum(-loglikes[:lanes].double(), 1).abs().max())
+    bound = 1e-9 * max(1.0, cs_max)
+    diff = max(lattice_diff(c, h) for c, h in zip(card, host))
+    emit("ng_lattice_cpu_check", lanes=lanes, max_weight_diff=diff,
+         bound=bound, max_abs_prefix_sum=cs_max, cpu_seconds=cpu_s,
+         states=[None if c is None else c.num_states for c in card])
+    if any(c is None for c in card):
+        raise SystemExit("a lane of the CPU check has no lattice")
+    if not diff <= bound:
+        raise SystemExit("the n-gram lattices differ between the card and "
+                         "the CPU")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1218,28 +1333,33 @@ def main() -> int:
     ng_res = run_ng_slice(ng, model, ivec, fe)
     ng_cpu_check(ng, ng_res["loglikes"], ng_res["out_lens"])
     cross_check_ng(ng)
+    ng_lat = run_ng_lattice(ng, model, ivec, fe, ng_res["loglikes"],
+                            ng_res["out_lens"])
+    ng_lattice_cpu_check(ng, ng_res["loglikes"], ng_res["out_lens"])
     ng_walls = sorted(r["wall_s"] for r in ng_res["runs"])
     ng_runs = ng_res["runs"]
     del ng, ng_res
     torch.cuda.empty_cache()
 
-    # 6. lattice mode at full width -----------------------------------------
+    # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
     # one call, under the profiler, is the timed call (the host assembly
     # makes a lattice call long; the best-path calls above warmed the
-    # frontend, the model and the card)
+    # frontend, the model and the card).  Kernel b's checks and times above
+    # ran at full width
     lat_runs, lat_outs = [], None
+    n_lat = BC_LAT_LANES
     for it in range(1):
         stats, lat_stats = PipelineStats(), {}
         bcl.launches = 0
         holder = []
         prof = profile_call(lambda: holder.append(pipe.decode_batch(
-            waves, stats=stats, generate_lattices=True,
+            waves[:n_lat], stats=stats, generate_lattices=True,
             lattice_beam=LAT_BEAM, lat_stats=lat_stats)))
         lat_outs = holder[0]
         launches = bcl.launches
         n_ok = sum(o is not None for o in lat_outs)
-        run = {"iter": it, "lattices": n_ok, "lanes": LANES,
+        run = {"iter": it, "lattices": n_ok, "lanes": n_lat,
                "audio_s": stats.total_audio_s, "wall_s": stats.wall_s,
                "feat_s": stats.feat_s, "am_s": stats.am_s,
                "search_s": stats.search_s, "xrt": stats.xrt,
@@ -1253,21 +1373,24 @@ def main() -> int:
         # as in the reference, a narrow beam can leave a lane without a
         # lattice (no final word end that the per-frame beam keeps
         # connected to the start); a few lanes in a hundred do so here
-        if n_ok < 0.95 * LANES:
-            raise SystemExit(f"only {n_ok}/{LANES} lattices")
+        if n_ok < 0.95 * n_lat:
+            raise SystemExit(f"only {n_ok}/{n_lat} lattices")
     lat_wall = min(r["wall_s"] for r in lat_runs)
     emit("profile_lattice", busy_share_of_best_wall=prof["device_ms"] / 1e3
          / lat_wall, **prof)
-    # Each lane's lattice best path against the best-path decode.  A
-    # lattice holds real paths no dearer than the best path plus the beam,
-    # so its best path costs at least the Viterbi cost and at most that
-    # plus the beam (relative tolerance 1e-3).  As in the reference, the
-    # lattice's final states are word ends reached in the last frame that
-    # survive the per-frame beam, so the Viterbi path itself can be
-    # missing; most lanes must hold it (equal cost).
+    # Each lane's lattice best path against the best-path decode of the
+    # same waves (a batch of another size can take other bf16 GEMMs in the
+    # model: about 0.1 of a lane's cost).  A lattice holds real paths no
+    # dearer than the best path plus the beam, so its best path costs at
+    # least the Viterbi cost and at most that plus the beam (relative
+    # tolerance 1e-3).  As in the reference, the lattice's final states
+    # are word ends reached in the last frame that survive the per-frame
+    # beam, so the Viterbi path itself can be missing; most lanes must hold
+    # it (equal cost).
     n_same_cost = n_same_words = 0
     have = [lo for lo in lat_outs if lo is not None]
-    for lane, (lo, o) in enumerate(zip(lat_outs, outs)):
+    lat_best = pipe.decode_batch(waves[:n_lat])
+    for lane, (lo, o) in enumerate(zip(lat_outs, lat_best)):
         if lo is None:
             continue
         tol = 1e-3 * max(1.0, abs(o[1]))
@@ -1279,35 +1402,35 @@ def main() -> int:
     arcs = sorted(lo[2].num_arcs() for lo in have)
     # a path takes one arc a frame, so a lattice with more arcs than the
     # utterance has frames holds alternatives
-    emit("lattice_check", lanes=LANES, lattices=len(have),
+    emit("lattice_check", lanes=n_lat, lattices=len(have),
          lanes_cost_equal=n_same_cost, lanes_words_equal=n_same_words,
          rel_tolerance=1e-3, arcs_median=arcs[len(arcs) // 2],
          states_median=sorted(lo[2].num_states
                               for lo in have)[len(have) // 2],
          frames_max=int(out_lens.max()))
-    if 2 * n_same_cost <= LANES:
-        raise SystemExit(f"only {n_same_cost}/{LANES} lattices hold the "
+    if 2 * n_same_cost <= n_lat:
+        raise SystemExit(f"only {n_same_cost}/{n_lat} lattices hold the "
                          "best-path decode")
     if not arcs[len(arcs) // 2] > int(out_lens.max()):
         raise SystemExit("the median lattice holds no alternative")
     del lat_outs, have
 
-    # the same 2 lanes, kernel step vs plain step, on the same loglikes;
-    # the two steps agree bit for bit, so the lattices should too: the
-    # stated tolerance on weights is 1e-6
+    # one lane, kernel step vs plain step, on the same loglikes; the two
+    # steps agree bit for bit, so the lattices should too: the stated
+    # tolerance on weights is 1e-6
     plain_dec = BlockChainDecoder(
         graph, device="cuda",
         lattice_step=bcl.block_chain_lattice_step_reference)
-    lat_kw = dict(lengths=out_lens[:2], lattice_beam=LAT_BEAM, J=LAT_J)
-    k_lats = decoder.decode_batch_lattice(loglikes[:2], **lat_kw)
+    lat_kw = dict(lengths=out_lens[:1], lattice_beam=LAT_BEAM, J=LAT_J)
+    k_lats = decoder.decode_batch_lattice(loglikes[:1], **lat_kw)
     t0 = time.perf_counter()
-    p_lats = plain_dec.decode_batch_lattice(loglikes[:2], **lat_kw)
+    p_lats = plain_dec.decode_batch_lattice(loglikes[:1], **lat_kw)
     plain_s = time.perf_counter() - t0
     if any(k is None for k in k_lats):
         raise SystemExit("a lane of the plain-step comparison has no "
                          "lattice")
     diff = max(lattice_diff(k, p) for k, p in zip(k_lats, p_lats))
-    emit("plain_lattice_check", lanes=2, max_weight_diff=diff, limit=1e-6,
+    emit("plain_lattice_check", lanes=1, max_weight_diff=diff, limit=1e-6,
          states=[k.num_states for k in k_lats], plain_seconds=plain_s)
     if not diff <= 1e-6:
         raise SystemExit("kernel and plain lattice step give different "
@@ -1515,7 +1638,9 @@ def main() -> int:
          viterbi_wall_s_median=dense_walls[1],
          ng_wall_s_median=ng_walls[1],
          ng_xrt_median=ng_runs[0]["audio_s"] / ng_walls[1],
-         ng_wer=ng_runs[-1]["wer"],
+         ng_wer=ng_runs[-1]["wer"], ng_lattice_wall_s=ng_lat["wall_s"],
+         ng_lattice_xrt=ng_lat["xrt"],
+         ng_lattice_wer=ng_lat["wer_lattice_best_path"],
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (

@@ -49,8 +49,8 @@ class BatchedOfflinePipeline2:
     ivector_extractor: an optional BatchedIvectorExtractor whose
     whole-utterance i-vectors are the model's second input.  All of them
     must live on `device`.  search_kwargs are forwarded to
-    `decoder.decode_batch` in best-path mode (prune_k/prune_beam of the
-    n-gram decoder, for example)."""
+    `decoder.decode_batch` in best-path mode only (prune_k/prune_beam of
+    the n-gram decoder, for example)."""
 
     def __init__(self, model, decoder, feature_computer,
                  acoustic_scale: float = 1.0, sample_rate: float = 16000.0,
@@ -105,10 +105,13 @@ class BatchedOfflinePipeline2:
                      num_waves: int = 1) -> List[Optional[tuple]]:
         """generate_lattices=False: per lane (word_ids, total_cost).
         generate_lattices=True: per lane (word_ids, total_cost, word
-        Lattice): the search runs in lattice mode (device dumps of the
-        top-J word predecessors, host assembly), and the words and cost
-        are the lattice's best path.  lat_stats, when given, receives the
-        lattice stages' seconds (see `decode_batch_lattice`).
+        Lattice): the search runs in lattice mode with its default J,
+        pool and event capacity (device dumps of each word end's top-J
+        predecessors, host assembly), and the words and cost are the
+        lattice's best path.  search_kwargs do not apply.  lat_stats, when
+        given, is the decoder's `decode_batch_lattice` stats: the lattice
+        stages' seconds and sizes (the n-gram decoder's fwd_s, n_events,
+        pool_s and assemble_s; the block-chain decoder's keys).
 
         num_waves: the reference splits the batch into waves whose host
         to device transfers overlap the compute; only 1 is ported."""

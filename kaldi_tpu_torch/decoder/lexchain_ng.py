@@ -1,7 +1,7 @@
 """N-gram lexchain: batched device Viterbi over (context-dependent tree)
 x (sparse backoff trigram) x (chain topology) graphs (port of
 `kaldi_tpu/decoder/lexchain_ng.py`: `NgramLexGraph` and
-`NgramLexDecoder` in best-path mode).
+`NgramLexDecoder` in best-path and lattice mode).
 
 With a trigram the future depends on the LM state (word pair), so exact
 search keeps word interiors separate per reachable LM state.  The graph
@@ -36,7 +36,10 @@ The device side is PyTorch ops, lanes last ((rows, B) planes, as the
 reference lays them out): a Python frame loop writes each frame's
 decisions (bit-packed) and its expansion pool into tensors allocated
 before the loop, and a device follow pass walks them backward, so only
-the (T, B) state trajectory reaches the host.
+the (T, B) state trajectory reaches the host.  Lattice mode runs the same
+blocks with fixed-capacity dumps a frame (the pool, the cheapest word
+ends), gathers each surviving word end's best entries on the card, and
+assembles each lane's word lattice on the host.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ import torch
 
 from kaldi_tpu_torch.decoder.graph_direct import INF, LN2, FlatGraph
 from kaldi_tpu_torch.device import DeviceLike, resolve_device
+from kaldi_tpu_torch.fstext.fst import Arc, LatticeWeight, VectorFst
+from kaldi_tpu_torch.fstext.ops import connect
 from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
 
 BIG = np.float32(1e10)
@@ -58,6 +63,8 @@ BIG = np.float32(1e10)
 # 0x7F000000 less its bias 0x40000000, so an empty entry decodes to the
 # same slot
 SLOT_SENTINEL = 0x7F000000 - 0x40000000
+# the lattice step's raw-slot sentinel (an empty fold entry)
+IBIG = 2 ** 31 - 1
 _log = logging.getLogger(__name__)
 
 Hyp = Optional[Tuple[List[int], List[int], float]]
@@ -538,6 +545,10 @@ class NgramLexDecoder:
 
     VC_D = 16         # arcs per virtual-context row
     FOLD_D = 16       # fan-in of the backoff fold tree
+    # lattice mode: the survivor pools are computed in chunks whose
+    # candidate planes (about this many bytes a candidate) stay under this
+    POOL_CHUNK_BYTES = 2 << 30
+    POOL_BYTES_A_CANDIDATE = 48
 
     def __init__(self, graph: NgramLexGraph, device: DeviceLike = None):
         g = graph
@@ -770,9 +781,10 @@ class NgramLexDecoder:
 
     def _lm_fold(self, roots: torch.Tensor, sil: torch.Tensor):
         """Block 1, the LM fold: slots (roots and silence shadows,
-        (U+1, B)) -> their min rmin, the LM states' values and encoded
-        slots (S, B), the backoff tree's unival and uslot (V+1, B), and
-        the null state's value and slot (B,)."""
+        (U+1, B)) -> their min rmin and whether a shadow gave it
+        (pick_sil), the LM states' values and encoded slots (S, B), the
+        backoff tree's unival and uslot (V+1, B), and the null state's
+        value and slot (B,)."""
         g = self.g
         radj = roots + self._nosil
         if g.use_sil:
@@ -786,7 +798,7 @@ class NgramLexDecoder:
         nv_cand = unival + self._bo1[:, None]
         nval = nv_cand.amin(dim=0)
         nslot = uslot.gather(0, nv_cand.argmin(dim=0)[None, :])[0]
-        return rmin, sval, sarg, unival, uslot, nval, nslot
+        return rmin, pick_sil, sval, sarg, unival, uslot, nval, nslot
 
     def _expand(self, rmin, sval, sarg, unival, uslot, nval, K: int,
                 beam: float):
@@ -826,10 +838,10 @@ class NgramLexDecoder:
             + self._unit_pron_cost
         return ent_unit, ids, vals, pslot
 
-    def _rows(self, cost, am_t, ent_unit):
-        """Block 3, the row relaxation: roll(1) with the word-entry
-        overwrite of first rows, min against the self-loop.  -> (new
-        cost (Nr, B), bit-packed decisions (Nr/8, B))."""
+    def _relax_rows(self, cost, am_t, ent_unit):
+        """The row relaxation: roll(1) with the word-entry overwrite of
+        first rows, min against the self-loop.  -> (new cost (Nr, B),
+        take_fwd (Nr, B) bool)."""
         amf = am_t.index_select(0, self._pdf_fwd_row) + self._fwd_extra
         ams = am_t.index_select(0, self._pdf_self_row) + self._self_extra
         fwd_src = torch.roll(cost, 1, 0)
@@ -838,15 +850,18 @@ class NgramLexDecoder:
         fwd_cand = fwd_src + amf
         self_cand = cost + ams
         take_fwd = fwd_cand < self_cand
-        return (torch.where(take_fwd, fwd_cand, self_cand),
-                self._pack_bits(take_fwd, self.g.Nr // 8))
+        return torch.where(take_fwd, fwd_cand, self_cand), take_fwd
 
-    def _roots(self, cost, roots, sil, am_t, ent_unit):
-        """Block 4, roots and silence shadows.  -> (roots (U+1, B),
-        shadows (U+1, B), bit-packed root and shadow decisions)."""
-        g = self.g
-        U = g.U
-        UB = _round_up(U + 1, 8) // 8
+    def _rows(self, cost, am_t, ent_unit):
+        """Block 3, the row relaxation.  -> (new cost (Nr, B), bit-packed
+        decisions (Nr/8, B))."""
+        new_cost, take_fwd = self._relax_rows(cost, am_t, ent_unit)
+        return new_cost, self._pack_bits(take_fwd, self.g.Nr // 8)
+
+    def _relax_roots(self, cost, roots, am_t, ent_unit):
+        """Unit roots: the word-end arc against the root's self-loop.
+        -> (roots (U+1, B), end_cand and take_end (U, B))."""
+        U = self.g.U
         am_end = am_t.index_select(0, self._pdf_end) + self._tr_end
         end_src = torch.where(self._end_is_row[:, None],
                               cost.index_select(0, self._end_row), ent_unit)
@@ -857,23 +872,37 @@ class NgramLexDecoder:
         roots_new = torch.cat([torch.where(take_end, end_cand, self_r),
                                roots.new_full((1, roots.shape[1]),
                                               float(INF))], 0)
-        end_bits = self._pack_bits(take_end, UB)
-        if not g.use_sil:
-            return roots_new, sil, end_bits, torch.zeros_like(end_bits)
+        return roots_new, end_cand, take_end
+
+    def _relax_sil(self, roots, sil, am_t):
+        """Silence shadows (use_sil): entered from their roots or held.
+        -> (shadows (U+1, B), sil_take (U+1, B) bool)."""
+        g = self.g
         sil_in = roots + g.sil_cost + g.sil_tr_fwd \
             + am_t[g.sil_pdf_fwd][None, :]
         sil_self = sil + g.sil_tr_self + am_t[g.sil_pdf_self][None, :]
         sil_take = sil_in < sil_self
-        return (roots_new, torch.where(sil_take, sil_in, sil_self), end_bits,
-                self._pack_bits(sil_take, UB))
+        return torch.where(sil_take, sil_in, sil_self), sil_take
+
+    def _roots(self, cost, roots, sil, am_t, ent_unit):
+        """Block 4, roots and silence shadows.  -> (roots (U+1, B),
+        shadows (U+1, B), bit-packed root and shadow decisions)."""
+        UB = _round_up(self.g.U + 1, 8) // 8
+        roots_new, _, take_end = self._relax_roots(cost, roots, am_t,
+                                                   ent_unit)
+        end_bits = self._pack_bits(take_end, UB)
+        if not self.g.use_sil:
+            return roots_new, sil, end_bits, torch.zeros_like(end_bits)
+        sil_new, sil_take = self._relax_sil(roots, sil, am_t)
+        return roots_new, sil_new, end_bits, self._pack_bits(sil_take, UB)
 
     def _frame(self, cost, roots, sil, am_t, act, K: int, beam: float,
                outs: Dict[str, torch.Tensor], t: int):
         """One frame: cost (Nr, B), roots and sil (U+1, B), am_t (P, B)
         (costs, -scale x loglikes), act (B,) -> the new planes; the
         frame's decisions and pool are written into outs[...][t]."""
-        rmin, sval, sarg, unival, uslot, nval, nslot = self._lm_fold(roots,
-                                                                     sil)
+        rmin, _, sval, sarg, unival, uslot, nval, nslot = self._lm_fold(
+            roots, sil)
         ent_unit, ids, vals, pslot = self._expand(rmin, sval, sarg, unival,
                                                   uslot, nval, K, beam)
         new_cost, row_bits = self._rows(cost, am_t, ent_unit)
@@ -990,6 +1019,21 @@ class NgramLexDecoder:
             cur = torch.where(active[t], prev, cur)
         return cur, states
 
+    def _final_state(self, roots, sil):
+        """Each lane's best final (a root or a shadow, with its final
+        cost) -> (its state (B,) int64, its cost (B,))."""
+        g = self.g
+        Nr, U = g.Nr, g.U
+        fin_root = roots + self._eos_slot
+        fin_sil = sil + self._eos_slot if g.use_sil else \
+            torch.full_like(fin_root, float(INF))
+        allfin = torch.cat([fin_root, fin_sil], 0)
+        best_i = allfin.argmin(dim=0)
+        final_state = torch.where(
+            best_i <= U, torch.where(best_i == U, Nr + U, Nr + best_i),
+            Nr + U + 1 + (best_i - (U + 1)))
+        return final_state, allfin.amin(dim=0)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -1012,7 +1056,6 @@ class NgramLexDecoder:
         traceback_s.  -> per lane (word ids, tids, cost), or None when
         no path survives."""
         g = self.g
-        Nr, U = g.Nr, g.U
         ll = torch.as_tensor(loglikes, dtype=torch.float32,
                              device=self.device)
         B, T, P = ll.shape
@@ -1032,15 +1075,7 @@ class NgramLexDecoder:
                 self._sync()
                 stats["fwd_s"] = time.perf_counter() - t0
                 t0 = time.perf_counter()
-            fin_root = roots + self._eos_slot
-            fin_sil = sil + self._eos_slot if g.use_sil else \
-                torch.full_like(fin_root, float(INF))
-            allfin = torch.cat([fin_root, fin_sil], 0)
-            best_i = allfin.argmin(dim=0)
-            best_cost = allfin.amin(dim=0)
-            final_state = torch.where(
-                best_i <= U, torch.where(best_i == U, Nr + U, Nr + best_i),
-                Nr + U + 1 + (best_i - (U + 1)))
+            final_state, best_cost = self._final_state(roots, sil)
             first_state, states = self._follow(outs, active, final_state)
             states = states.cpu().numpy()
             first_state = first_state.cpu().numpy()
@@ -1102,3 +1137,613 @@ class NgramLexDecoder:
 
     def decode(self, loglikes, acoustic_scale: float = 1.0) -> Hyp:
         return self.decode_batch(loglikes[None], acoustic_scale)[0]
+
+    # ==================================================================
+    # Lattice mode: device dumps of fixed capacity a frame (the top-K
+    # entry-source pool and the top-L word-end events of each lane), a
+    # device gather of each surviving event's top-J entry candidates, and
+    # host assembly of each lane's word lattice (alpha and beta over the
+    # captured event graph, pruning, FST emission).
+    # ==================================================================
+    @staticmethod
+    def _raw_slot(enc: torch.Tensor) -> torch.Tensor:
+        """Encoded slots (slot * 2 + from_sil, -1 for none, SLOT_SENTINEL
+        for an empty fold entry) -> the lattice step's raw slots (-1,
+        slot, IBIG).  The map is monotone, so the winners of the encoded
+        fold are the winners of a fold over raw slots."""
+        return torch.where(enc == SLOT_SENTINEL, IBIG, enc >> 1)
+
+    def _frame_lattice(self, planes, am_t, act, t: int, K: int, L: int,
+                       outs: Dict[str, torch.Tensor], force: torch.Tensor):
+        """One lattice frame.  planes = (cost, ent (Nr, B), roots, sil,
+        sil_t (U+1, B)): ent holds each row's entry frame, sil_t each
+        shadow's start frame.  The entry values are the best-path step's
+        (same blocks, same op sequence) with an infinite pool beam.
+        force (B,) holds a unit whose word end, where the frame has it,
+        enters the L events whatever its rank (-1: none).
+        The frame's dumps are written into outs[...][t]; -> the new
+        planes."""
+        cost, ent, roots, sil, sil_t = planes
+        g = self.g
+        U = g.U
+        B = cost.shape[1]
+        lane = torch.arange(B, device=cost.device)
+        tf = float(t)
+        rmin, pick_sil, sval, sarg, unival, uslot, nval, nslot = \
+            self._lm_fold(roots, sil)
+        src_time = torch.where(pick_sil, sil_t, tf - 1.0)
+        ent_unit, ids, vals, pslot = self._expand(
+            rmin, sval, sarg, unival, uslot, nval, K, float(BIG))
+        pslot = self._raw_slot(pslot)
+        nslot = self._raw_slot(nslot)
+        # the reference gathers these at the clipped raw slot (an empty
+        # entry reads slot U's planes), so they are not the encoded bit
+        pidx = pslot.clamp(0, U).to(torch.int64) * B + lane[:, None]
+        nidx = nslot.clamp(0, U).to(torch.int64) * B + lane
+        # --- rows, with the entry frame riding beside the cost ---------
+        new_cost, take_fwd = self._relax_rows(cost, am_t, ent_unit)
+        fwd_ent = torch.roll(ent, 1, 0)
+        fwd_ent[self._first_rows] = tf
+        new_ent = torch.where(take_fwd, fwd_ent, ent)
+        # --- roots and the frame's top-L word-end events ---------------
+        roots_new, end_cand, take_end = self._relax_roots(cost, roots, am_t,
+                                                          ent_unit)
+        arr_te = torch.where(self._end_is_row[:, None],
+                             ent.index_select(0, self._end_row), tf)
+        evq = torch.where(take_end & act[None, :], end_cand, float(INF))
+        units = torch.arange(U, device=cost.device)[:, None]
+        forced = (units == force[None, :]) & (evq < INF / 2)
+        ev_ids, _ = self._select(torch.where(forced, float("-inf"), evq), L)
+        ev_val = evq.reshape(-1)[ev_ids * B + lane[:, None]]       # (B, L)
+        if g.use_sil:
+            sil_new, sil_take = self._relax_sil(roots, sil, am_t)
+            sil_t_new = torch.where(sil_take, tf - 1.0, sil_t)
+        else:
+            sil_new, sil_t_new = sil, sil_t
+        for name, value in (
+                ("ids", ids), ("vals", vals), ("pslot", pslot),
+                ("p_fromsil", pick_sil.reshape(-1)[pidx]),
+                ("p_srct", src_time.reshape(-1)[pidx]),
+                ("nval", nval), ("nslot", nslot),
+                ("n_fromsil", pick_sil.reshape(-1)[nidx]),
+                ("n_srct", src_time.reshape(-1)[nidx]),
+                ("n_srcval", rmin.reshape(-1)[nidx]),
+                ("ev_ids", ev_ids), ("ev_val", ev_val),
+                ("ev_te", arr_te.reshape(-1)[ev_ids * B + lane[:, None]])):
+            outs[name][t] = value
+        keep = act[None, :]
+        return tuple(torch.where(keep, new, old) for new, old in (
+            (new_cost, cost), (new_ent, ent), (roots_new, roots),
+            (sil_new, sil), (sil_t_new, sil_t)))
+
+    def _forward_lattice(self, am: torch.Tensor, active: torch.Tensor,
+                         K: int, L: int, force: torch.Tensor):
+        """am (T, P, B) costs, active (T, B), force (T, B) (see
+        _frame_lattice) -> final roots, shadows and shadow start frames
+        (U+1, B) and the per-frame dumps: the pool ids (T, B, K) int64,
+        vals f32, pslot int32 (raw slots), p_fromsil bool and p_srct f32;
+        the null state's nval, nslot, n_fromsil, n_srct and n_srcval
+        (T, B); the word-end events ev_ids (T, B, L) int64, ev_val and
+        ev_te (entry frame) f32."""
+        g = self.g
+        Nr, U = g.Nr, g.U
+        T, _, B = am.shape
+        dev = self.device
+        f32, i32, i64 = torch.float32, torch.int32, torch.int64
+        shapes = {"ids": ((B, K), i64), "vals": ((B, K), f32),
+                  "pslot": ((B, K), i32), "p_fromsil": ((B, K), torch.bool),
+                  "p_srct": ((B, K), f32), "nval": ((B,), f32),
+                  "nslot": ((B,), i32), "n_fromsil": ((B,), torch.bool),
+                  "n_srct": ((B,), f32), "n_srcval": ((B,), f32),
+                  "ev_ids": ((B, L), i64), "ev_val": ((B, L), f32),
+                  "ev_te": ((B, L), f32)}
+        outs = {name: torch.empty((T,) + shape, dtype=dtype, device=dev)
+                for name, (shape, dtype) in shapes.items()}
+        roots = torch.full((U + 1, B), float(INF), device=dev)
+        roots[U] = 0.0
+        planes = (torch.full((Nr, B), float(INF), device=dev),
+                  torch.zeros((Nr, B), device=dev), roots,
+                  torch.full((U + 1, B), float(INF), device=dev),
+                  torch.full((U + 1, B), -1.0, device=dev))
+        for t in range(T):
+            planes = self._frame_lattice(planes, am[t], active[t], t, K, L,
+                                         outs, force[t])
+        _, _, roots, sil, sil_t = planes
+        return roots, sil, sil_t, outs
+
+    def _viterbi_word_ends(self, am: torch.Tensor, active: torch.Tensor,
+                           K: int) -> torch.Tensor:
+        """The best-path pass over the lattice's pool (K rows, no beam:
+        the lattice frame's entry values, bit for bit) -> (T, B) int64:
+        the unit whose word end the lane's best path takes in each frame,
+        or -1."""
+        Nr, U = self.g.Nr, self.g.U
+        roots, sil, outs = self._forward(am, active, K, float(BIG))
+        first, states = self._follow(outs, active,
+                                     self._final_state(roots, sil)[0])
+        prev = torch.cat([first[None], states[:-1]], 0)
+        is_end = (states >= Nr) & (states < Nr + U) & (prev != states) \
+            & active
+        return torch.where(is_end, states - Nr, -1)
+
+    def _finals(self, roots, sil, sil_t):
+        """Each lane's Lf = min(32, 2(U+1)) smallest root and shadow
+        finals, on the device.  -> (values (B, Lf), slots, is_shadow,
+        start frames of the shadows (B, Lf), each lane's best (B,))."""
+        g = self.g
+        U = g.U
+        B = roots.shape[1]
+        fin_root = roots + self._eos_slot
+        fin_sil = sil + self._eos_slot if g.use_sil else \
+            torch.full_like(fin_root, float(INF))
+        fi, fv = self._select(torch.cat([fin_root, fin_sil], 0),
+                              min(32, 2 * (U + 1)))
+        is_sil = fi >= U + 1
+        slot = torch.where(is_sil, fi - (U + 1), fi)
+        lane = torch.arange(B, device=roots.device)
+        stime = sil_t.reshape(-1)[slot.clamp(0, U) * B + lane[:, None]]
+        return fv, slot, is_sil, stime, fv.amin(dim=1)
+
+    def _event_pools(self, outs, st, su, sb, J: int):
+        """The top-J entry candidates of each survivor (t = its entry
+        frame, unit, lane) over its frame's K*D pool arcs and the null
+        state's backoff, in chunks of at most POOL_CHUNK_BYTES of
+        candidate planes.  Ties go to the first column (argmin).  -> numpy
+        (S, J) value (f32), slot (int32), start frame (f32), from-silence
+        flag and LM cost (f32)."""
+        K = outs["ids"].shape[2]
+        per = max(1, self.POOL_CHUNK_BYTES
+                  // ((K * self.VC_D + 1) * self.POOL_BYTES_A_CANDIDATE))
+        parts = []
+        for lo in range(0, len(st), per):
+            idx = [torch.as_tensor(x[lo:lo + per], device=self.device)
+                   for x in (st, su, sb)]
+            parts.append([c.cpu().numpy()
+                          for c in self._pool_chunk(outs, *idx, J)])
+        return [np.concatenate(cols) for cols in zip(*parts)]
+
+    def _pool_chunk(self, outs, st, su, sb, J: int):
+        """_event_pools on one chunk of survivors (device tensors)."""
+        SP = self.g.lm.SP
+        D = self.VC_D
+        ids_k = outs["ids"][st, sb]                       # (S, K)
+        vals_k = outs["vals"][st, sb]
+        n, K = ids_k.shape
+        pair = self._unit_is_pair[su]
+        word = self._unit_uni_word[su]
+        target = torch.where(pair, self._unit_pair[su], SP + word)
+        cand = vals_k[:, :, None] + self._vc_cost[ids_k]  # (S, K, D)
+        cand = torch.where(self._vc_dst[ids_k] == target[:, None, None],
+                           cand, float(INF)).reshape(n, K * D)
+        nv = outs["nval"][st, sb]
+        bo_val = torch.where(pair, float(INF), nv + self._uni[word])
+        all_v = torch.cat([cand, bo_val[:, None]], 1) \
+            + self._unit_pron_cost[su]
+        # the LM cost of a candidate (pronunciation cost excluded): an
+        # explicit arc's cost, or the null state's value less its source
+        # root's value plus the unigram
+        bo_lm = (nv - outs["n_srcval"][st, sb]) + self._uni[word]
+        n_planes = [outs[k][st, sb] for k in ("nslot", "n_srct",
+                                              "n_fromsil")]
+        p_planes = [outs[k][st, sb] for k in ("pslot", "p_srct",
+                                              "p_fromsil")]
+        picks = []
+        for _ in range(J):
+            a = all_v.argmin(dim=1)
+            col = a[:, None]
+            is_bo = a == K * D
+            k = (a // D).clamp(max=K - 1)[:, None]
+            slot, stime, fromsil = (
+                torch.where(is_bo, nq, pq.gather(1, k)[:, 0])
+                for nq, pq in zip(n_planes, p_planes))
+            lm = torch.where(
+                is_bo, bo_lm,
+                cand.gather(1, col.clamp(max=K * D - 1))[:, 0]
+                - vals_k.gather(1, k)[:, 0])
+            picks.append((all_v.gather(1, col)[:, 0], slot, stime, fromsil,
+                          lm))
+            all_v.scatter_(1, col, float(INF))
+        return [torch.stack(p, 1) for p in zip(*picks)]
+
+    def decode_batch_lattice(self, loglikes, acoustic_scale: float = 1.0,
+                             lengths: Optional[Sequence[int]] = None,
+                             lattice_beam: float = 8.0, J: int = 4,
+                             prune_k: Optional[int] = 128,
+                             event_cap: int = 64,
+                             stats: Optional[Dict[str, float]] = None):
+        """Word-lattice decode: per lane a Lattice (ilabel = tid, olabel =
+        word id, weights (graph, acoustic)) pruned to `lattice_beam`, or
+        None.  Per frame at most `event_cap` word-end events and `prune_k`
+        entry sources (within an infinite beam) are captured, so the
+        dumps are of fixed capacity; alpha + beta pruning of the captured
+        event graph is exact.  The events are each frame's cheapest word
+        ends, and the word ends of the lane's best path (found by a
+        best-path pass over the same pool first) whatever their rank, so
+        the lattice holds the path decode_batch gives with that pool.
+        stats, when given, receives fwd_s (both passes), n_events, pool_s
+        and assemble_s."""
+        g = self.g
+        U = g.U
+        ll = torch.as_tensor(loglikes, dtype=torch.float32,
+                             device=self.device)
+        B, T, P = ll.shape
+        if P < g.num_pdfs:
+            raise ValueError(f"loglikes pdf dim {P} < {g.num_pdfs}")
+        lengths = np.asarray(lengths if lengths is not None else [T] * B,
+                             np.int64)
+        K = min(self.VC if prune_k is None else int(prune_k), self.VC)
+        L = int(min(event_cap, U))
+        with torch.inference_mode():
+            am = (ll * (-acoustic_scale)).permute(1, 2, 0).contiguous()
+            active = torch.as_tensor(
+                np.arange(T)[:, None] < lengths[None, :], device=self.device)
+            t0 = time.perf_counter()
+            force = self._viterbi_word_ends(am, active, K)
+            roots, sil, sil_t, outs = self._forward_lattice(am, active, K, L,
+                                                            force)
+            fin = [x.cpu().numpy() for x in self._finals(roots, sil, sil_t)]
+            ev_ids, ev_val, ev_te = (outs[k].cpu().numpy()
+                                     for k in ("ev_ids", "ev_val", "ev_te"))
+        fv, fslot, fsil, fst, best = fin
+        fst = np.rint(fst).astype(np.int64)
+        ev_te = np.rint(ev_te).astype(np.int64)
+        if stats is not None:
+            stats["fwd_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        # ---- survivors: every captured event of an active frame ------
+        # The reference keeps only events within the beam of the lane's
+        # final best.  That drops every event whose path still has a
+        # negative cost to go, and with a chain model's outputs costs
+        # fall frame by frame: its lattices come out empty.  The
+        # assembly's alpha + beta pruning of the captured event graph is
+        # exact, so it alone decides what stays.
+        okev = (ev_val < INF / 2) \
+            & (np.arange(T)[:, None, None] < lengths[None, :, None])
+        st_, sb_, sl_ = np.nonzero(okev)
+        su_ = ev_ids[st_, sb_, sl_].astype(np.int64)
+        sv_ = ev_val[st_, sb_, sl_].astype(np.float64)
+        ste_ = ev_te[st_, sb_, sl_]
+        # one survivor a (t, unit, lane), in key order as the reference
+        # orders them (an exact selection repeats none)
+        ukey = (sb_ * T + st_) * (U + 1) + su_
+        _, first = np.unique(ukey, return_index=True)
+        st_, sb_, su_, sv_, ste_ = (x[first] for x in
+                                    (st_, sb_, su_, sv_, ste_))
+        if stats is not None:
+            stats["n_events"] = len(st_)
+        if len(st_) == 0:
+            return [None] * B
+        # ---- top-J entry pools at the survivors -----------------------
+        with torch.inference_mode():
+            ecv, esl, est, efs, elm = self._event_pools(outs, ste_, su_,
+                                                        sb_, J)
+        del outs
+        ecv = ecv.astype(np.float64)
+        esl = esl.astype(np.int64)
+        est = np.rint(est).astype(np.int64)
+        efs = efs.astype(bool)
+        elm = elm.astype(np.float64)
+        if stats is not None:
+            stats["pool_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+        # ---- per-lane node graphs (phase 1: structure only) -----------
+        plans = []
+        lane_off = np.searchsorted(sb_, np.arange(B + 1))   # lane-major
+        for b in range(B):
+            sel = slice(lane_off[b], lane_off[b + 1])
+            fin_b = [(float(fv[b, i]), int(fslot[b, i]), bool(fsil[b, i]),
+                      int(fst[b, i]))
+                     for i in range(fv.shape[1]) if fv[b, i] < INF / 2]
+            plans.append(self._plan_lane(
+                b, int(lengths[b]), st_[sel], su_[sel], sv_[sel],
+                ste_[sel], ecv[sel], esl[sel], est[sel], efs[sel],
+                elm[sel], fin_b, float(best[b]), lattice_beam))
+        # ---- one batched device gather of self-span acoustics ---------
+        # differences of two float64 prefix sums (the reference's are
+        # float32, whose rounding at |sum| ~ 1e3-1e4 reaches 1e-3: enough
+        # to flip a pruning decision between two devices)
+        req = [p["span_req"] for p in plans if p is not None]
+        if sum(len(r[0]) for r in req):
+            t0s, t1s, pdfs, bs = (torch.as_tensor(
+                np.concatenate([r[i] for r in req]), device=self.device)
+                for i in range(4))
+            with torch.inference_mode():
+                am_cs = torch.cumsum(am.to(torch.float64), dim=0)
+                vals_sp = (am_cs[t1s, pdfs, bs]
+                           - am_cs[t0s, pdfs, bs]).cpu().numpy()
+            del am_cs
+        else:
+            vals_sp = np.zeros(0)
+        off = 0
+        lats = []
+        for p in plans:
+            if p is None:
+                lats.append(None)
+                continue
+            n = len(p["span_req"][0])
+            # an arc from a node that no captured path reaches has
+            # alpha - alpha = INF - INF: NaN, which fails every <= test,
+            # so the arc is pruned
+            with np.errstate(invalid="ignore"):
+                lats.append(self._assemble_lane(p, vals_sp[off:off + n]))
+            off += n
+        if stats is not None:
+            stats["assemble_s"] = time.perf_counter() - t0
+        return lats
+
+    def _plan_lane(self, b, Tb, st, su, sv, ste, ecv, esl, est, efs,
+                   elm, fin_b, best, beam):
+        """Phase-1 host planning for one lane: node set (events +
+        referenced entry sources + final anchors), entry/self/final
+        arc lists, and the (t0, t1, pdf) span-acoustic gather request.
+        Returns None for an unreachable lane."""
+        g = self.g
+        U = g.U
+        if Tb == 0 or len(st) == 0 or not np.isfinite(best) \
+                or best >= INF / 2:
+            return None
+        cutoff = best + beam + 1e-4
+        J = ecv.shape[1]
+        # ---- candidate arcs (flattened over events x J; the exact
+        # alpha+beta filter runs in phase 2 — no value pre-filter here
+        # because beta can be negative with positive loglikes) ---------
+        n_ev = len(st)
+        ev_i = np.repeat(np.arange(n_ev), J)
+        cand_v = ecv.reshape(-1)
+        keep = cand_v < INF / 2
+        # a_cost: alpha at dst via candidate j
+        a_cost = sv[ev_i] - ecv[ev_i, 0] + cand_v
+        ev_i = ev_i[keep]
+        a_cost = a_cost[keep]
+        c_slot = esl.reshape(-1)[keep]
+        c_st = est.reshape(-1)[keep]
+        c_fs = efs.reshape(-1)[keep]
+        c_lm = elm.reshape(-1)[keep]
+        src_is_start = (c_slot >= U) | (c_st < 0)
+        # ---- node set -------------------------------------------------
+        ev_key = su * (Tb + 1) + st
+        src_key = np.where(src_is_start, -1, c_slot * (Tb + 1) + c_st)
+        fin_keys = []
+        for (val, slot, is_sil, stime) in fin_b:
+            if val > cutoff or slot > U:
+                continue
+            if is_sil:
+                if stime >= 0 and slot < U:
+                    fin_keys.append(slot * (Tb + 1) + stime)
+            elif slot < U:
+                fin_keys.append(slot * (Tb + 1) + (Tb - 1))
+        node_keys = np.unique(np.concatenate(
+            [ev_key, src_key[src_key >= 0],
+             np.asarray(fin_keys, np.int64)]))
+        node_u = node_keys // (Tb + 1)
+        node_t = node_keys % (Tb + 1)
+        n = len(node_keys)
+        # node alpha: arrival value at event nodes, else INF (filled
+        # exactly along self-chains in phase 2)
+        node_arr = np.full(n, np.inf)
+        pos = np.searchsorted(node_keys, ev_key)
+        node_arr[pos] = sv
+        node_te = np.full(n, -1, np.int64)
+        node_te[pos] = ste
+        src_i = np.where(src_is_start, -1,
+                         np.searchsorted(node_keys, src_key))
+        # drop arcs referencing a nonexistent source node (possible
+        # only if the source key computation raced the unique() — it
+        # cannot, but guard)
+        ok = src_is_start | ((src_i < n)
+                             & (node_keys[np.maximum(src_i, 0)]
+                                == src_key))
+        ev_i, a_cost, c_slot, c_st, c_fs, c_lm, src_is_start, src_i = (
+            x[ok] for x in (ev_i, a_cost, c_slot, c_st, c_fs, c_lm,
+                            src_is_start, src_i))
+        dst_i = np.searchsorted(node_keys, ev_key[ev_i])
+        # ---- self-extension spans (consecutive same-unit nodes) ------
+        same = node_u[1:] == node_u[:-1]
+        ss = np.nonzero(same)[0]
+        sd = ss + 1
+        pdfs = g.pdf_root_self[node_u[ss]]
+        span_req = (node_t[ss].astype(np.int64),
+                    node_t[sd].astype(np.int64),
+                    pdfs.astype(np.int64),
+                    np.full(len(ss), b, np.int64))
+        return dict(b=b, Tb=Tb, cutoff=cutoff, best=best,
+                    node_keys=node_keys, node_u=node_u, node_t=node_t,
+                    node_arr=node_arr, node_te=node_te,
+                    ev_i=ev_i, a_cost=a_cost, c_slot=c_slot,
+                    c_st=c_st, c_fs=c_fs, c_lm=c_lm,
+                    src_is_start=src_is_start, src_i=src_i,
+                    dst_i=dst_i, ss=ss, sd=sd, fin_b=fin_b,
+                    span_req=span_req)
+
+    def _assemble_lane(self, p, span_ac):
+        """Phase-2 host assembly: exact alpha along self-chains, beta
+        over the captured node graph, alpha+beta pruning, FST emission
+        (ilabel=tid, olabel=word, weights (graph, acoustic))."""
+        g = self.g
+        U = g.U
+        Tb, cutoff = p["Tb"], p["cutoff"]
+        node_u, node_t = p["node_u"], p["node_t"]
+        node_arr, node_te = p["node_arr"], p["node_te"]
+        ss, sd = p["ss"], p["sd"]
+        n = len(node_u)
+        eos = g.eos_of_slot()                      # (U+1,)
+        tr_self = np.asarray(g.tr_root_self, np.float64)
+        s_cost = (node_t[sd] - node_t[ss]) * tr_self[node_u[ss]] \
+            + span_ac
+        # ---- alpha along chains (nodes sorted by (u, t)): Jacobi
+        # relaxation over consecutive-node edges, one hop per pass
+        # (vectorized; passes bounded by the longest per-unit chain)
+        alpha = node_arr.copy()
+        for _ in range(n):
+            new = alpha[ss] + s_cost
+            upd = new < alpha[sd] - 1e-12
+            if not upd.any():
+                break
+            np.minimum.at(alpha, sd[upd], new[upd])
+        # ---- beta ------------------------------------------------------
+        beta = np.full(n, np.inf)
+        last = node_t == Tb - 1
+        beta[last] = eos[node_u[last]]
+        fin_sil_arcs = []
+        for (val, slot, is_sil, stime) in p["fin_b"]:
+            if val > cutoff:
+                continue
+            if is_sil and slot < U and stime >= 0:
+                i = np.searchsorted(p["node_keys"],
+                                    slot * (Tb + 1) + stime)
+                if i < n and p["node_keys"][i] == \
+                        slot * (Tb + 1) + stime:
+                    beta[i] = min(beta[i], val - alpha[i])
+                    fin_sil_arcs.append((int(i), int(slot),
+                                         int(stime), float(val)))
+            elif is_sil and slot >= U:
+                fin_sil_arcs.append((-1, int(slot), int(stime),
+                                     float(val)))
+        ev_i, a_cost = p["ev_i"], p["a_cost"]
+        src_is_start, src_i, dst_i = (p["src_is_start"], p["src_i"],
+                                      p["dst_i"])
+        src_alpha = np.where(src_is_start, 0.0,
+                             alpha[np.maximum(src_i, 0)])
+        arc_delta = a_cost - src_alpha
+        arc_src_t = np.where(src_is_start, -1,
+                             node_t[np.maximum(src_i, 0)])
+        # frame by frame from the last, over the self spans and the arcs
+        # (start arcs excluded) whose source is in the frame: each edge
+        # reads a node of a later frame, so a frame's edges are one
+        # order-free min, grouped by one stable sort of their frames
+        inner = ~src_is_start
+        e_src = np.concatenate([ss, src_i[inner]])
+        e_dst = np.concatenate([sd, dst_i[inner]])
+        e_cost = np.concatenate([s_cost, arc_delta[inner]])
+        e_t = np.concatenate([node_t[ss], arc_src_t[inner]])
+        by_t = np.argsort(-e_t, kind="stable")
+        e_src, e_dst, e_cost = e_src[by_t], e_dst[by_t], e_cost[by_t]
+        _, starts = np.unique(-e_t[by_t], return_index=True)
+        for lo, hi in zip(starts, np.append(starts[1:], len(by_t))):
+            np.minimum.at(beta, e_src[lo:hi],
+                          e_cost[lo:hi] + beta[e_dst[lo:hi]])
+        keep_node = alpha + beta <= cutoff
+        # ---- emit ------------------------------------------------------
+        lat = VectorFst(LatticeWeight)
+        nodes: Dict[int, int] = {}
+        start = lat.add_state()
+        lat.set_start(start)
+
+        def node_state(i):
+            s = nodes.get(i)
+            if s is None:
+                s = lat.add_state()
+                nodes[i] = s
+            return s
+
+        def emit_chain(cur, dst_state, u, te, t, olabel, graph, acous):
+            e = int(g.end_row[u])
+            k = len(g.prons[int(g.unit_var[u])])
+            dur = t - te + 1
+            tids = []
+            if e >= 0:
+                first_row = e - (k - 2)
+                tids = [int(g.tid_fwd_row[r])
+                        for r in range(first_row, e + 1)]
+                tids += [int(g.tid_self_row[e])] * (dur - k)
+            tids.append(int(g.tid_end[u]))
+            for q, tid in enumerate(tids):
+                lastq = q == len(tids) - 1
+                nxt = dst_state if lastq else lat.add_state()
+                wgt = (graph, acous) if q == 0 else (0.0, 0.0)
+                lat.add_arc(cur, Arc(tid, olabel if q == 0 else 0,
+                                     wgt, nxt))
+                cur = nxt
+
+        def emit_sil(cur, n_frames):
+            for q in range(n_frames):
+                nxt = lat.add_state()
+                lat.add_arc(cur, Arc(
+                    int(g.sil_tid_fwd if q == 0 else g.sil_tid_self),
+                    0, (0.0, 0.0), nxt))
+                cur = nxt
+            return cur
+
+        keep_arc = keep_node[dst_i] & \
+            (src_is_start | keep_node[np.maximum(src_i, 0)]) & \
+            (src_alpha + arc_delta + beta[dst_i] <= cutoff)
+        for i in np.nonzero(keep_arc)[0]:
+            u = int(node_u[dst_i[i]])
+            t = int(node_t[dst_i[i]])
+            te = int(node_te[dst_i[i]])
+            src_t = int(p["c_st"][i])
+            lm_cost = float(p["c_lm"][i])
+            is_start = bool(src_is_start[i])
+            cur = start if is_start else node_state(int(src_i[i]))
+            dst = node_state(int(dst_i[i]))
+            n_sil = (te - 1) - src_t
+            var = int(g.unit_var[u])
+            k = len(g.prons[var])
+            dur = t - te + 1
+            e = int(g.end_row[u])
+            gcost = lm_cost + float(g.pron_cost[var]) \
+                + float(g.tr_end[u])
+            if e >= 0:
+                first_row = e - (k - 2)
+                gcost += float(np.sum(g.tr_fwd_row[first_row:e + 1]))
+                gcost += (dur - k) * float(g.tr_self_row[e])
+            if n_sil > 0:
+                gcost += g.sil_cost + g.sil_tr_fwd + \
+                    (n_sil - 1) * g.sil_tr_self
+            elif g.use_sil:
+                gcost += g.nosil_cost
+            acous = float(arc_delta[i]) - gcost
+            if n_sil > 0:
+                cur = emit_sil(cur, n_sil)
+            emit_chain(cur, dst, u, te, t,
+                       int(g.unit_word[u]) + 1, gcost, acous)
+        # self-extension arcs
+        keep_span = keep_node[ss] & keep_node[sd] \
+            & ~(alpha[ss] + s_cost + beta[sd] > cutoff)
+        for k2 in np.nonzero(keep_span)[0]:
+            i0, i1 = int(ss[k2]), int(sd[k2])
+            cur = nodes.get(i0)
+            if cur is None:
+                continue
+            u = int(node_u[i0])
+            t0, t1 = int(node_t[i0]), int(node_t[i1])
+            dstn = node_state(i1)
+            gc = (t1 - t0) * float(tr_self[u])
+            ac = float(span_ac[k2])
+            for q in range(t0 + 1, t1 + 1):
+                lastq = q == t1
+                nxt = dstn if lastq else lat.add_state()
+                wgt = (gc, ac) if q == t0 + 1 else (0.0, 0.0)
+                lat.add_arc(cur, Arc(int(g.tid_root_self[u]), 0, wgt,
+                                     nxt))
+                cur = nxt
+        # finals at last-frame nodes
+        for i, s in list(nodes.items()):
+            if int(node_t[i]) == Tb - 1:
+                lat.set_final(s, (float(eos[int(node_u[i])]), 0.0))
+        # final-silence arcs (trailing silence then eos)
+        for (i, slot, stime, val) in fin_sil_arcs:
+            if i >= 0 and i not in nodes:
+                continue
+            cur = start if i < 0 else nodes[i]
+            src_alpha_f = 0.0 if i < 0 else float(alpha[i])
+            n_frames = (Tb - 1) - stime
+            if n_frames <= 0:
+                continue
+            gcost = g.sil_cost + g.sil_tr_fwd + \
+                (n_frames - 1) * g.sil_tr_self
+            eos_f = float(eos[min(slot, U)])
+            acous = (val - eos_f - src_alpha_f) - gcost
+            nxt = lat.add_state()
+            lat.add_arc(cur, Arc(int(g.sil_tid_fwd), 0,
+                                 (gcost, acous), nxt))
+            for q in range(1, n_frames):
+                nn = lat.add_state()
+                lat.add_arc(nxt, Arc(int(g.sil_tid_self), 0,
+                                     (0.0, 0.0), nn))
+                nxt = nn
+            lat.set_final(nxt, (eos_f, 0.0))
+        connect(lat)
+        if lat.num_states == 0 or lat.start is None:
+            return None
+        return lat

@@ -1,15 +1,20 @@
 """Port parity of the host FST and lattice pieces: the port's own copies
-of VectorFst (with its text form), connect and lattice_best_path against
-the JAX package's, on hand-built lattices.  Exact: the same Python
-arithmetic runs on both sides."""
+of VectorFst (with its text form), connect, lattice_best_path,
+lattice_prune, lattice_state_times and lattice_nbest against the JAX
+package's, on hand-built lattices and on seeded random acyclic ones.
+Exact: the same Python arithmetic runs on both sides."""
 
 import pytest
 
 from kaldi_tpu.fstext import fst as jfst
 from kaldi_tpu.fstext.ops import connect as jax_connect
+import numpy as np
+
+from kaldi_tpu.lat import functions as jlat
 from kaldi_tpu.lat.functions import lattice_best_path as jax_best_path
 from kaldi_tpu_torch.fstext import fst as tfst
 from kaldi_tpu_torch.fstext.ops import connect
+from kaldi_tpu_torch.lat import functions as tlat
 from kaldi_tpu_torch.lat.functions import lattice_best_path
 from kaldi_tpu_torch.lat.kaldi_lattice import Lattice
 
@@ -35,8 +40,9 @@ LATTICES = {
 }
 
 
-def build(mod, name):
-    n, start, arcs, finals = LATTICES[name]
+def build(mod, name, spec=None):
+    """LATTICES[name], or the spec given, in module mod's VectorFst."""
+    n, start, arcs, finals = spec or LATTICES[name]
     lat = mod.VectorFst(mod.LatticeWeight)
     lat.add_states(n)
     lat.set_start(start)
@@ -93,3 +99,59 @@ def test_semirings_match():
                 getattr(jfst.TropicalWeight, op)(a, b)
     t = tfst.VectorFst()
     assert t.semiring is tfst.TropicalWeight and t.start == -1
+
+
+def random_dag(seed, n=40, density=0.12):
+    """A seeded acyclic lattice as LATTICES holds them: arcs go to higher
+    states only (one to the next state always), epsilon inputs and
+    outputs among them, two to four finals, state 0 the start."""
+    rng = np.random.default_rng(seed)
+    arcs = []
+    for s in range(n - 1):
+        dsts = [d for d in range(s + 2, n) if rng.random() < density]
+        for d in [s + 1] + dsts:
+            arcs.append((s, int(rng.integers(0, 9)),
+                         int(rng.integers(0, 5)),
+                         (round(float(rng.uniform(0, 3)), 3),
+                          round(float(rng.normal(1.0, 2.0)), 3)), d))
+    finals = {int(s): (round(float(rng.uniform(0, 1)), 3), 0.0)
+              for s in rng.choice(np.arange(n // 2, n),
+                                  int(rng.integers(2, 5)), replace=False)}
+    return n, 0, arcs, finals
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_prune_times_and_nbest_match(seed):
+    got, want = (build(m, None, random_dag(seed)) for m in (tfst, jfst))
+    assert tlat.lattice_state_times(got) == jlat.lattice_state_times(want)
+    assert tlat._topsort(got) == jlat._topsort(want)
+    assert tlat._forward_backward_costs(got) == \
+        jlat._forward_backward_costs(want)
+    for n in (1, 5, 40):
+        paths = tlat.lattice_nbest(got, n)
+        assert paths == jlat.lattice_nbest(want, n)
+        assert len(paths) == n
+        assert [p[2] for p in paths] == sorted(p[2] for p in paths)
+    for beam in (0.5, 3.0, 1e9):
+        pruned = tlat.lattice_prune(got, beam)
+        same(pruned, jlat.lattice_prune(want, beam))
+        assert lattice_best_path(pruned)[2] == \
+            pytest.approx(lattice_best_path(got)[2])
+    assert tlat.lattice_prune(got, 0.5).num_arcs() < \
+        tlat.lattice_prune(got, 1e9).num_arcs()
+
+
+@pytest.mark.parametrize("name", ["diamond", "finals", "tie"])
+def test_prune_and_nbest_on_hand_built(name):
+    got, want = build(tfst, name), build(jfst, name)
+    for beam in (0.0, 1.0, 10.0):
+        same(tlat.lattice_prune(got, beam), jlat.lattice_prune(want, beam))
+    assert tlat.lattice_nbest(got, 3) == jlat.lattice_nbest(want, 3)
+    assert tlat.lattice_state_times(got) == jlat.lattice_state_times(want)
+
+
+def test_cycles_are_refused():
+    lat = build(tfst, "linear")
+    lat.add_arc(2, tfst.Arc(1, 0, (0.0, 0.0), 0))
+    with pytest.raises(ValueError, match="cycles"):
+        tlat.lattice_nbest(lat, 2)

@@ -10,8 +10,9 @@ labels; arc weights within 2e-3 absolute, since the two acoustic models
 differ by about 1e-4 a frame and a word arc sums several frames.
 
 The main path's search, the n-gram decoder, runs through both pipelines
-with the same search_kwargs (a pruned pool): equal words, cost within
-1e-4 relative.
+with the same search_kwargs (a pruned pool), and in lattice mode: equal
+words, cost within 1e-4 relative; its lattices equal the JAX decoder's
+on the port's own loglikes.
 
 Two wires: int16 waves of three lengths (zero padding), and mu-law waves
 of one length whose frame count fills its bucket exactly, so that no
@@ -128,6 +129,33 @@ def test_num_waves_not_ported():
         port.decode_batch([np.zeros(4000, np.int16)], num_waves=2)
 
 
+def ng_pipelines(search_kwargs=None, stats=None, acoustic_scale=1.0):
+    """Both pipelines with an NgramLexDecoder over the same small graph
+    (V=8, silence, triphone-hashed tables), the small random model and the
+    committed i-vector extractor; the search_kwargs forwarded to both
+    (the port's also with `stats`) -> (JAX graph, JAX pipeline, port)."""
+    jg, tg, _ = ng_graphs(2, V=8, use_sil=True, ctx=3)
+    fcfg = FlaxConfig(**SMALL)
+    variables = random_variables(fcfg, seed=0)
+    kw = search_kwargs or {}
+    ref = JaxPipeline(FlaxTdnnf(fcfg, train=False), variables["params"],
+                      variables["batch_stats"], JaxNgDecoder(jg),
+                      JaxFeature(mfcc_options(BenchCorpusSpec())),
+                      acoustic_scale=acoustic_scale, search_kwargs=kw,
+                      ivector_extractor=JaxIvec(jax_load_ivec(IVEC)))
+    port = BatchedOfflinePipeline2(
+        chain_tdnnf_from_flax(ChainTdnnfConfig(**SMALL), variables,
+                              device="cpu"),
+        NgramLexDecoder(tg, device="cpu"),
+        OfflineFeature(bench_options(), device="cpu"),
+        acoustic_scale=acoustic_scale,
+        search_kwargs=dict(kw, stats=stats) if stats is not None else kw,
+        ivector_extractor=BatchedIvectorExtractor(
+            load_ivector_extractor(IVEC), device="cpu"),
+        device="cpu")
+    return jg, ref, port
+
+
 def test_ngram_search_with_search_kwargs_matches_jax():
     """Both pipelines with an NgramLexDecoder and the same search_kwargs
     (a pool of 4 rows within a beam of 8, forwarded to decode_batch), on
@@ -137,25 +165,9 @@ def test_ngram_search_with_search_kwargs_matches_jax():
     lane (other seeds show it); the decoders themselves must agree on the
     same loglikes: the JAX decoder on the port pipeline's loglikes gives
     the port's words and costs."""
-    jg, tg, _ = ng_graphs(2, V=8, use_sil=True, ctx=3)
-    fcfg = FlaxConfig(**SMALL)
-    variables = random_variables(fcfg, seed=0)
     kw = dict(prune_k=4, prune_beam=8.0, exact_topk=False)
-    ref = JaxPipeline(FlaxTdnnf(fcfg, train=False), variables["params"],
-                      variables["batch_stats"], JaxNgDecoder(jg),
-                      JaxFeature(mfcc_options(BenchCorpusSpec())),
-                      search_kwargs=kw,
-                      ivector_extractor=JaxIvec(jax_load_ivec(IVEC)))
     stats = {}
-    port = BatchedOfflinePipeline2(
-        chain_tdnnf_from_flax(ChainTdnnfConfig(**SMALL), variables,
-                              device="cpu"),
-        NgramLexDecoder(tg, device="cpu"),
-        OfflineFeature(bench_options(), device="cpu"),
-        search_kwargs=dict(kw, stats=stats),
-        ivector_extractor=BatchedIvectorExtractor(
-            load_ivector_extractor(IVEC), device="cpu"),
-        device="cpu")
+    jg, ref, port = ng_pipelines(kw, stats)
     ws = [w.astype(np.int16) for w in waves(11, [8000, 6500, 4900])]
     want = ref.decode_batch(ws)
     got = port.decode_batch(ws)
@@ -171,3 +183,41 @@ def test_ngram_search_with_search_kwargs_matches_jax():
         assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
             f"lane {b}: {o[1]} vs {r[1]}"
         assert abs(o[1] - s[2]) <= 1e-4 * max(1.0, abs(s[2]))
+
+
+def test_ngram_lattice_mode_matches_jax():
+    """Both pipelines in lattice mode with the n-gram decoder (beam 20)
+    on the same waves, at acoustic scale 0.1, where path costs rise frame
+    by frame: at scale 1 this small model's costs fall, and the
+    reference's survivor rule then drops the best path
+    (test_torch_lexchain_ng_lattice.py).  Equal words, costs within 1e-4
+    relative, and lat_stats reaches the decoder.  On the port pipeline's
+    own loglikes (the bf16 seam above) the JAX decoder's lattices equal
+    the port's state for state, weights within 1e-4, and each lattice's
+    best path is the port's decode_batch with the same pool."""
+    scale = 0.1
+    jg, ref, port = ng_pipelines(acoustic_scale=scale)
+    ws = [w.astype(np.int16) for w in waves(11, [8000, 6500, 4900])]
+    want = ref.decode_batch(ws, generate_lattices=True, lattice_beam=20.0)
+    lat_stats = {}
+    stats = PipelineStats()
+    got = port.decode_batch(ws, stats=stats, generate_lattices=True,
+                            lattice_beam=20.0, lat_stats=lat_stats)
+    assert sorted(lat_stats) == ["assemble_s", "fwd_s", "n_events",
+                                 "pool_s"]
+    assert stats.search_s >= lat_stats["fwd_s"] > 0
+    feats, nframes = port.feats.compute_batch_device(ws)
+    loglikes, out_lens = port.loglikes(feats, nframes)
+    same_ll = JaxNgDecoder(jg).decode_batch_lattice(
+        loglikes.numpy(), scale, lengths=out_lens, lattice_beam=20.0)
+    best = port.decoder.decode_batch(loglikes, scale, lengths=out_lens,
+                                     prune_k=128)
+    for b, (r, o, s, h) in enumerate(zip(want, got, same_ll, best)):
+        assert r is not None and o is not None and s is not None
+        assert o[0] == r[0] == h[0], f"lane {b} words"
+        assert len(o[0]) > 0
+        assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
+            f"lane {b}: {o[1]} vs {r[1]}"
+        assert abs(o[1] - h[2]) <= 1e-4 * max(1.0, abs(h[2]))
+        assert_lattices_match(o[2], s)
+        assert o[2].num_arcs() > out_lens[b]
