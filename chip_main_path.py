@@ -22,11 +22,19 @@ the main path's search can be measured alone.  Then:
 The WER band of chip_smoke.py is not applied here.  JSON lines as in
 chip_smoke.py; exits nonzero on any failed check.
 
-Run: python3 chip_main_path.py   (needs CUDA)
+With --online it runs chip_smoke.py's online phases alone instead:
+slice_online (kernel a under BatchedDeviceOnlinePipeline, on the
+best-path slice's loglikes; it builds the kernels), then, on the main
+path, slice_online_ng, online_ng_stream_offline (against one
+decode_batch of the 128 utterances with the bench's pool) and
+online_batcher_ng.
+
+Run: python3 chip_main_path.py [--online]   (needs CUDA)
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -94,7 +102,49 @@ def probe_lattice_rules(dec, ll, lens, wer, utts) -> None:
         dec._viterbi_word_ends = forced
 
 
+def online() -> None:
+    """chip_smoke.py's online phases alone."""
+    built = cs._build.build()
+    cs.emit("build", sources={n: round(i["seconds"], 3)
+                              for n, i in built.items()})
+    cfg, _variables, model, ivec, fe = cs.flagship_am()
+    spec = cs.DirectGraphSpec(vocab=700, num_pdfs=2000)
+    decoder = cs.BlockChainDecoder(cs.BlockChainGraph.build(
+        cs.synth_lexicon(spec), cs.synth_bigram(spec),
+        num_pdfs=spec.num_pdfs), device="cuda")
+    pipe = cs.BatchedOfflinePipeline2(model, decoder, fe,
+                                      ivector_extractor=ivec, device="cuda")
+    rng = np.random.default_rng(cs.SEED)
+    waves = [cs.synth_wave(rng) for _ in range(cs.LANES)]
+    loglikes, out_lens = pipe.loglikes(*fe.compute_batch_device(waves))
+    cs.run_slice_online(decoder, loglikes, out_lens)
+    del pipe, decoder, loglikes
+    torch.cuda.empty_cache()
+    ng = cs.build_ng_path()
+    utts = sorted(ng["test_wav"])
+    waves = [cs.mulaw_encode(np.clip(ng["test_wav"][u], -32767, 32767))
+             for u in utts]
+    pipe = cs.BatchedOfflinePipeline2(model, ng["dec"], fe,
+                                      sample_rate=ng["spec"].fs,
+                                      ivector_extractor=ivec, device="cuda")
+    ll, lens = pipe.loglikes(*fe.compute_batch_device(waves))
+    hyps = ng["dec"].decode_batch(ll, lengths=lens, **cs.NG_SEARCH)
+    outs = [None if h is None else (h[0], h[2]) for h in hyps]
+    test_txt = ng["test_txt"]
+    wer = cs.wer_of(dict(zip(utts, cs.ng_words(ng["graph"], hyps))),
+                    test_txt)
+    errors = cs.word_errors(wer, test_txt)
+    cs.emit("offline_ng", wer=wer, word_errors=errors)
+    cs.run_online_ng(ng, model, ivec, fe)
+    cs.run_online_stream_offline(ng, ll, lens, outs, errors)
+    cs.run_online_batcher(ng, ll, lens)
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--online", action="store_true",
+                    help="run chip_smoke.py's online phases alone")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -104,6 +154,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
+    if args.online:
+        online()
+        cs.emit("online_done", seconds=time.perf_counter() - t_all)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     cfg, variables, model, ivec, fe = cs.flagship_am()
     ng = cs.build_ng_path()
     cs.NG_WER_BAND = float("inf")

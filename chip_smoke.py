@@ -20,7 +20,13 @@ BatchedViterbi.run, the dense exact Viterbi over a flat graph (the V=64
 block-chain graph's to_flat_graph(): 20,865 states, 44,914 arcs, in-arc
 tables padded to K=128, of which the relaxation kernel walks the live
 slots only), shared by all lanes (decode) and one graph a lane (forced
-alignment).
+alignment).  Online, the same slices stream through the port's
+batched online pipeline: the best-path slice's loglikes through
+BatchedDeviceOnlinePipeline (kernel a every frame of every chunk), and the
+main path as egs/bench_corpus/measure_online_ng.py runs it
+(BatchedDeviceOnlinePipelineNg, 32-frame chunks scored by the TDNN-F,
+endpointing on), its offline loglikes streamed, and OnlineDynamicBatcher
+over 32 lanes.
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -38,7 +44,12 @@ Phases, one JSON line each (any failure exits nonzero):
      the kernel launch counts read around each; the bf16 AM against
      float32 on 4 lanes; 8 lanes decoded again with the plain step (equal
      words, tids and costs); one decode_batch under torch.profiler
-     (device time by kernel, busy share, peak memory);
+     (device time by kernel, busy share, peak memory); slice_online: the
+     same loglikes streamed through BatchedDeviceOnlinePipeline in
+     16-frame chunks with ragged arrivals, idle lanes and 8 lanes bound
+     again mid-session (each result equal to decode_batch, kernel a
+     launched 16 times a chunk, wall, chunk and finalize ms p50/p99, peak
+     memory), 8 lanes again with the plain step (equal, no launch);
   5. the main path (ng_graph, slice_ng, profile_ng, ng_cpu_check,
      cross_check_ng): the bench corpus, its fingerprint against the
      committed model's, the graph and its sizes; one warm-up and three
@@ -60,6 +71,14 @@ Phases, one JSON line each (any failure exits nonzero):
      launched; at least 95% lattices, the two WERs within half a point);
      2 lanes' lattices on the CPU equal to the card's in structure,
      weights within 1e-9 x the largest |prefix sum| of acoustic costs;
+     then the main path online: slice_online_ng (the 128 utterances
+     through BatchedDeviceOnlinePipelineNg, a warm-up and a timed round:
+     xRT, chunk and finalize ms, WER, each lane equal to decode_batch of
+     the loglikes its scorer produced), online_ng_stream_offline
+     (slice_ng's loglikes streamed: no lane differing from slice_ng, so
+     its WER), online_batcher_ng (OnlineDynamicBatcher on 32 lanes with
+     the default endpoint rules: every utterance equal to decode_batch of
+     the frames its lane consumed, endpoints, the history trimmed);
   6. the block-chain lattice slice on 32 of the lanes: one timed
      decode_batch call in lattice mode, under torch.profiler (launch
      counts, the lattice stages' seconds, each lane's lattice best path
@@ -77,7 +96,8 @@ Phases, one JSON line each (any failure exits nonzero):
      decoded words (alignment: the per-lane-table form of the kernel
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
-  8. the kernel table; the last line is {"ok": true, "device": ...}.
+  8. the kernel table (kernel a's launches on the online path too); the
+     last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 """
@@ -111,6 +131,10 @@ from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
+from kaldi_tpu_torch.online.batched_device_pipeline import (
+    BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineNg,
+    OnlineDynamicBatcher)
+from kaldi_tpu_torch.online.decoding import OnlineEndpointConfig
 from kaldi_tpu_torch.ops import _build
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
@@ -158,6 +182,15 @@ STALL = "Command Buffer Full"
 # the n-gram decoder's blocks: four a frame, then the follow pass
 NG_BLOCKS = ("_forward", "_lm_fold", "_expand", "_rows", "_roots",
              "_follow")
+# online: the block-chain pipeline's chunk (the reference's default), the
+# n-gram pipeline as egs/bench_corpus/measure_online_ng.py runs it, and
+# the dynamic batcher's lanes
+ONLINE_TC = 16
+NG_ONLINE = dict(chunk_frames=32, prune_k=128, prune_beam=16.0,
+                 endpointing=True)
+ONLINE_BATCH_LANES = 32
+# the online pipeline's stages that the n-gram phases time
+STAGES = ("scorer", "_advance", "_endpoint_stats", "_traceback")
 
 
 def emit(phase: str, **kw) -> None:
@@ -1077,6 +1110,412 @@ def ng_lattice_cpu_check(ng: dict, loglikes, out_lens, lanes: int = 2
                          "the CPU")
 
 
+def ms_percentiles(seconds) -> dict:
+    """p50, p99 and max of a list of seconds, in ms (of 128 finalize
+    calls the one that runs the follow pass is above p99)."""
+    xs = np.asarray(seconds, np.float64) * 1e3
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "max": float(xs.max()),
+            "n": int(xs.size)}
+
+
+def gather_scorer(loglikes: torch.Tensor):
+    """A chunk scorer over loglikes already on the card: each frame's
+    features are (utterance, frame), and it returns that frame's row of
+    `loglikes` (B, T, P), on the card."""
+    def score(feats: np.ndarray) -> torch.Tensor:
+        idx = torch.from_numpy(feats.astype(np.int64)).to(loglikes.device)
+        return loglikes[idx[..., 0], idx[..., 1]]
+    return score
+
+
+def frame_ids(utt: int, start: int, n: int) -> np.ndarray:
+    """The (n, 2) features of gather_scorer: utterance, frame."""
+    return np.stack([np.full(n, utt), np.arange(start, start + n)],
+                    1).astype(np.float32)
+
+
+def differing_lanes(got, want) -> list:
+    """Lanes whose (words, tids, cost) differ."""
+    return [i for i, (o, r) in enumerate(zip(got, want))
+            if o is None or r is None or tuple(o) != tuple(r)]
+
+
+def record_finalize(pipe, consumed: dict, seconds: list) -> None:
+    """Wrap pipe.finalize so that consumed[utterance] gets the frames its
+    lane decoded and each call's seconds go to `seconds`."""
+    inner = pipe.finalize
+
+    def finalize(lane):
+        ch = pipe.channels[lane]
+        t0 = time.perf_counter()
+        out = inner(lane)
+        seconds.append(time.perf_counter() - t0)
+        consumed[ch.utterance_id] = ch.end_frame - ch.start_frame
+        return out
+
+    pipe.finalize = finalize
+
+
+def word_errors(wer: float, test_txt: dict) -> int:
+    return round(wer * sum(len(r) for r in test_txt.values()) / 100.0)
+
+
+def run_slice_online(decoder: BlockChainDecoder, loglikes: torch.Tensor,
+                     out_lens: np.ndarray) -> dict:
+    """slice_online: kernel a in the online pattern.  The best-path
+    slice's loglikes (128 lanes x 171 frames, V=700 graph) stream through
+    BatchedDeviceOnlinePipeline in chunks of ONLINE_TC frames, arriving in
+    seeded pieces of 1-24 frames, each lane idle in a round with
+    probability 1/4.  Lanes 0-7 first stream a 40-frame utterance (their
+    own frames 100-139), are finalized and freed mid-session, and are
+    bound again by init_channel to their full utterance.  Every result
+    must equal decode_batch of the same loglikes; kernel a must launch Tc
+    times a compute() that advanced; 8 lanes streamed again with the
+    plain step must give equal results and launch it 0 times."""
+    lanes, T_max, P = loglikes.shape
+    n_short, short0, short_len = 8, 100, 40
+    plan = {b: ([(b, short0, short_len)] if b < n_short else [])
+            + [(b, 0, int(out_lens[b]))] for b in range(lanes)}
+    rng = np.random.default_rng(SEED + 30)
+    pipe = BatchedDeviceOnlinePipeline(
+        decoder, gather_scorer(loglikes), feat_dim=2, num_lanes=lanes,
+        chunk_frames=ONLINE_TC)
+    fin_s: list = []
+    record_finalize(pipe, {}, fin_s)
+    results, chunk_s, n_advanced = {}, [], 0
+    cursor = [0] * lanes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t_start = time.perf_counter()
+    for b in range(lanes):
+        pipe.init_channel(b, f"{b}.0")
+    while any(plan.values()):
+        for b in range(lanes):
+            if not plan[b] or cursor[b] >= plan[b][0][2] or \
+                    rng.random() < 0.25:
+                continue
+            u, s, n = plan[b][0]
+            k = min(int(rng.integers(1, 25)), n - cursor[b])
+            pipe.accept_features(b, frame_ids(u, s + cursor[b], k))
+            cursor[b] += k
+        t0 = time.perf_counter()
+        n_advanced += pipe.compute() > 0
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+        for b in range(lanes):
+            if not plan[b] or cursor[b] < plan[b][0][2]:
+                continue
+            if len(plan[b]) > 1:           # decoded: rebind mid-session
+                if pipe.channels[b].pending:
+                    continue
+                results[f"{b}.0"] = pipe.finalize(b)
+                pipe.free_channel(b)
+                pipe.init_channel(b, f"{b}.1")
+            plan[b].pop(0)
+            cursor[b] = 0
+    while pipe.compute():
+        n_advanced += 1
+    frames = pipe._total_frames
+    for b in range(lanes):
+        results[pipe.channels[b].utterance_id] = pipe.finalize(b)
+        pipe.free_channel(b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = bcs.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del pipe
+    torch.cuda.empty_cache()
+    full = decoder.decode_batch(loglikes, lengths=out_lens)
+    short = decoder.decode_batch(
+        loglikes[:n_short, short0:short0 + short_len].contiguous())
+    got = [results[f"{b}.{int(b < n_short)}"] for b in range(lanes)]
+    differ = differing_lanes(got, full) + [
+        lanes + i for i in differing_lanes(
+            [results[f"{b}.0"] for b in range(n_short)], short)]
+    # the same lanes again with the plain step, as one batch of 8
+    plain = BlockChainDecoder(decoder.g, device=decoder.device,
+                              step=bcs.block_chain_step_reference)
+    ppipe = BatchedDeviceOnlinePipeline(
+        plain, gather_scorer(loglikes), feat_dim=2, num_lanes=n_short,
+        chunk_frames=ONLINE_TC)
+    bcs.launches = 0
+    for b in range(n_short):
+        ppipe.init_channel(b, str(b))
+        ppipe.accept_features(b, frame_ids(b, 0, int(out_lens[b])))
+    while ppipe.compute():
+        pass
+    plain_hyps = [ppipe.finalize(b) for b in range(n_short)]
+    plain_launches = bcs.launches
+    plain_differ = differing_lanes(plain_hyps, got[:n_short])
+    run = {"lanes": lanes, "chunk_frames": ONLINE_TC,
+           "utterances": lanes + n_short, "compute_calls": len(chunk_s),
+           "compute_calls_advanced": n_advanced, "frames": frames,
+           "wall_s": wall, "chunk_ms": ms_percentiles(chunk_s),
+           "finalize_ms": ms_percentiles(fin_s),
+           "peak_memory_gb": peak_gb,
+           "launches": {"block_chain_step": launches},
+           "launches_expected": ONLINE_TC * n_advanced,
+           "lanes_differing_from_decode_batch": differ,
+           "plain_lanes": n_short, "plain_launches": plain_launches,
+           "plain_lanes_differing": plain_differ,
+           "words_lane0": got[0][0][:12], "cost_lane0": got[0][2]}
+    emit("slice_online", **run)
+    if launches != ONLINE_TC * n_advanced:
+        raise SystemExit(f"block_chain_step launched {launches} times in "
+                         f"{n_advanced} chunks of {ONLINE_TC}")
+    if differ or any(h is None for h in got):
+        raise SystemExit(f"online lanes {differ} differ from decode_batch")
+    if plain_differ or plain_launches:
+        raise SystemExit("the plain step streams differently, or launched "
+                         "the kernel")
+    return run
+
+
+def online_ng_pipe(ng: dict, scorer, feat_dim: int, lanes: int):
+    return BatchedDeviceOnlinePipelineNg(
+        ng["dec"], scorer, feat_dim=feat_dim, num_lanes=lanes,
+        **NG_ONLINE)
+
+
+def ng_words(graph, hyps) -> list:
+    return [[] if h is None else [graph.words[w] for w in h[0]]
+            for h in hyps]
+
+
+def run_online_ng(ng: dict, model, ivec, fe) -> dict:
+    """slice_online_ng: the production online configuration as
+    egs/bench_corpus/measure_online_ng.py runs it, at 128 lanes.  The
+    128 test utterances' MFCCs (float waves, as that script computes
+    them) stacked by 3 to the model's output rate, fed 32 output frames a
+    lane and round; the flagship TDNN-F (bf16) scores each chunk of 96
+    input frames with each lane's utterance i-vector (extract_batch, with
+    the lanes' frame counts); BatchedDeviceOnlinePipelineNg over the
+    495,782-state graph (pool 128, beam 16, endpointing on).  A warm-up
+    round, then a timed one: xRT, chunk and finalize latency, WER.  Every
+    lane must equal decode_batch (same pool) of the loglikes the scorer
+    produced in that round, concatenated per lane."""
+    graph, dec, test_txt = ng["graph"], ng["dec"], ng["test_txt"]
+    utts = sorted(ng["test_wav"])
+    lanes, Tc = len(utts), NG_ONLINE["chunk_frames"]
+    sub = 3
+    waves = [np.asarray(ng["test_wav"][u], np.float32) for u in utts]
+    with torch.inference_mode():
+        feats, nframes = fe.compute_batch_device(waves)
+        ivecs = ivec.extract_batch(feats, nframes).to(torch.bfloat16)
+    host = feats.cpu().numpy()
+    stacked = []
+    for b, n in enumerate(nframes):
+        T = (int(n) // sub) * sub
+        stacked.append(host[b, :T].reshape(T // sub, sub * host.shape[2]))
+    D = host.shape[2]
+
+    def scorer(chunk: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(chunk).to(dec.device).view(lanes, Tc * sub,
+                                                         D)
+        return model.chain(x, ivecs).to(torch.float32)
+
+    pipe = online_ng_pipe(ng, scorer, sub * D, lanes)
+    captured: list = []
+    stage_s: dict = {}
+    audio_s = sum(len(f) for f in stacked) * 0.03
+    rounds = []
+    for rnd in range(2):
+        if rnd == 1:
+            advance = pipe._advance
+
+            def capture(am, act, _inner=advance):
+                captured.append((am, act))
+                return _inner(am, act)
+
+            pipe._advance = capture
+            # the stages of a chunk and of a result, each call ended by a
+            # sync: the scorer, the frame loop, the endpoint statistics
+            # (two host reads a chunk) and the follow pass
+            timed_methods(pipe, STAGES, stage_s)
+            reset_kernel_counts()
+            torch.cuda.reset_peak_memory_stats()
+        results, chunk_s, fin_s = [None] * lanes, [], []
+        cursors = [0] * lanes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b, u in enumerate(utts):
+            pipe.init_channel(b, u)
+        while True:
+            fed = False
+            for b in range(lanes):
+                c = cursors[b]
+                if c < len(stacked[b]):
+                    pipe.accept_features(b, stacked[b][c:c + Tc])
+                    cursors[b] += Tc
+                    fed = True
+            if not fed:
+                break
+            t1 = time.perf_counter()
+            pipe.compute()
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t1)
+        while pipe.compute():
+            pass
+        for b in range(lanes):
+            t1 = time.perf_counter()
+            results[b] = pipe.finalize(b)
+            fin_s.append(time.perf_counter() - t1)
+            pipe.free_channel(b)
+        wall = time.perf_counter() - t0
+        rounds.append({"wall_s": wall, "chunks": len(chunk_s),
+                       "chunk_s": chunk_s, "fin_s": fin_s})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = kernel_launch_counts()
+    # the loglikes the scorer produced, each lane's active frames in order
+    am = torch.cat([a for a, _ in captured])             # (T, P, B)
+    act = torch.cat([a for _, a in captured])            # (T, B)
+    lens = act.sum(0).cpu().numpy()
+    ll = torch.zeros((lanes, int(lens.max()), am.shape[1]),
+                     device=dec.device)
+    for b in range(lanes):
+        ll[b, :int(lens[b])] = -am[act[:, b], :, b]
+    del am, captured
+    want = dec.decode_batch(ll, lengths=lens,
+                            prune_k=NG_ONLINE["prune_k"],
+                            prune_beam=NG_ONLINE["prune_beam"])
+    del ll
+    differ = differing_lanes(results, want)
+    hyps = dict(zip(utts, ng_words(graph, results)))
+    wer = wer_of(hyps, test_txt)
+    timed = rounds[-1]
+    chunk = ms_percentiles(timed["chunk_s"])
+    fin = ms_percentiles(timed["fin_s"])
+    # the keys of measure_online_ng.py's JSON line (unrounded), then more
+    run = {"metric": "online_ng_pipeline_aggregate_xRT",
+           "value": audio_s / timed["wall_s"], "unit": "x realtime",
+           "lanes": lanes, "chunk_frames": Tc, "endpointing": True,
+           "states": graph.num_states, "vocab": graph.V,
+           "chunk_ms_p50": chunk["p50"], "finalize_ms_p50": fin["p50"],
+           "finalize_ms_p99": fin["p99"], "wer": wer,
+           "decoded": sum(h is not None for h in results),
+           "chunk_ms_p99": chunk["p99"], "chunk_ms_max": chunk["max"],
+           "finalize_ms_max": fin["max"], "finalize_calls": fin["n"],
+           "chunks": timed["chunks"], "audio_s": audio_s,
+           "wall_s": timed["wall_s"], "warmup_wall_s": rounds[0]["wall_s"],
+           "word_errors": word_errors(wer, test_txt),
+           "peak_memory_gb": peak_gb, "launches": launches,
+           "frames_scored": int(lens.sum()), "stage_s": stage_s,
+           "lanes_differing_from_decode_batch": differ}
+    emit("slice_online_ng", **run)
+    if differ:
+        raise SystemExit(f"online lanes {differ} differ from decode_batch "
+                         "of the scorer's loglikes")
+    if any(launches.values()):
+        raise SystemExit("a kernel of another path ran in slice_online_ng")
+    return run
+
+
+def run_online_stream_offline(ng: dict, loglikes: torch.Tensor,
+                              out_lens: np.ndarray, outs: list,
+                              slice_ng_errors: int) -> dict:
+    """online_ng_stream_offline: the main path's own loglikes (slice_ng's)
+    streamed 32 frames a lane and round through the online n-gram
+    pipeline, the scorer returning each slice: every lane's words and
+    cost must equal slice_ng's, and so its WER."""
+    graph, test_txt = ng["graph"], ng["test_txt"]
+    utts = sorted(ng["test_wav"])
+    lanes, Tc = len(utts), NG_ONLINE["chunk_frames"]
+    pipe = online_ng_pipe(ng, gather_scorer(loglikes), 2, lanes)
+    t0 = time.perf_counter()
+    for b, u in enumerate(utts):
+        pipe.init_channel(b, u)
+    for c in range(0, int(out_lens.max()), Tc):
+        for b in range(lanes):
+            n = min(Tc, int(out_lens[b]) - c)
+            if n > 0:
+                pipe.accept_features(b, frame_ids(b, c, n))
+        pipe.compute()
+    while pipe.compute():
+        pass
+    results = [pipe.finalize(b) for b in range(lanes)]
+    wall = time.perf_counter() - t0
+    for b in range(lanes):
+        pipe.free_channel(b)
+    differ = [b for b, (h, o) in enumerate(zip(results, outs))
+              if h is None or o is None or (h[0], h[2]) != tuple(o)]
+    wer = wer_of(dict(zip(utts, ng_words(graph, results))), test_txt)
+    errors = word_errors(wer, test_txt)
+    emit("online_ng_stream_offline", lanes=lanes, chunk_frames=Tc,
+         wall_s=wall, wer=wer, word_errors=errors,
+         slice_ng_word_errors=slice_ng_errors,
+         lanes_differing_from_slice_ng=differ)
+    if differ or errors != slice_ng_errors:
+        raise SystemExit(f"streaming the main path's loglikes differs from "
+                         f"slice_ng in lanes {differ}")
+    return {"wall_s": wall, "wer": wer}
+
+
+def run_online_batcher(ng: dict, loglikes: torch.Tensor,
+                       out_lens: np.ndarray) -> dict:
+    """online_batcher_ng: the 128 utterances' offline loglikes through
+    OnlineDynamicBatcher on 32 lanes (default OnlineEndpointConfig,
+    frame_shift 0.03 s): lanes finalize on an endpoint or at the end of
+    their input and are bound again to the next utterance mid-stream.
+    Every utterance must get a result equal to decode_batch of the frames
+    its lane consumed (the whole utterance, or its prefix up to the
+    endpoint)."""
+    graph, test_txt = ng["graph"], ng["test_txt"]
+    utts = sorted(ng["test_wav"])
+    pipe = online_ng_pipe(ng, gather_scorer(loglikes), 2,
+                          ONLINE_BATCH_LANES)
+    consumed: dict = {}
+    fin_s: list = []
+    record_finalize(pipe, consumed, fin_s)
+    trims, windows = [], []
+    trim = pipe._trim_committed
+
+    def counted_trim():
+        before = pipe._total_frames
+        trim()
+        windows.append(pipe._total_frames)
+        if pipe._total_frames < before:
+            trims.append(before - pipe._total_frames)
+
+    pipe._trim_committed = counted_trim
+    stage_s: dict = {}
+    timed_methods(pipe, STAGES, stage_s)
+    batcher = OnlineDynamicBatcher(pipe, OnlineEndpointConfig(),
+                                   frame_shift=0.03)
+    for b, u in enumerate(utts):
+        batcher.push(u, frame_ids(b, 0, int(out_lens[b])))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = batcher.run()
+    wall = time.perf_counter() - t0
+    lens = np.array([consumed.get(u, 0) for u in utts])
+    got = [results.get(u) for u in utts]
+    want = ng["dec"].decode_batch(loglikes, lengths=lens,
+                                  prune_k=NG_ONLINE["prune_k"],
+                                  prune_beam=NG_ONLINE["prune_beam"])
+    differ = differing_lanes(got, want)
+    n_ep = sum(batcher.endpointed.values())
+    wer = wer_of(dict(zip(utts, ng_words(graph, got))), test_txt)
+    emit("online_batcher_ng", lanes=ONLINE_BATCH_LANES,
+         utterances=len(utts), results=sum(h is not None for h in got),
+         endpointed=n_ep, frames_cut_by_endpoints=int(
+             (out_lens[:len(utts)] - lens).sum()),
+         wer=wer, wall_s=wall, finalize_ms=ms_percentiles(fin_s),
+         stage_s=stage_s, trims=len(trims),
+         frames_trimmed=int(sum(trims)),
+         max_window_frames=max(windows), max_frames=pipe.max_frames,
+         lanes_differing_from_decode_batch=differ)
+    if len(results) != len(utts) or any(h is None for h in got):
+        raise SystemExit("an utterance of the batcher has no result")
+    if differ:
+        raise SystemExit(f"batcher results {differ} differ from the decode "
+                         "of the frames their lanes consumed")
+    if not trims:
+        raise SystemExit("the batcher's session never trimmed its history")
+    return {"wall_s": wall, "wer": wer, "endpointed": n_ep}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1327,6 +1766,7 @@ def main() -> int:
     prof = profile_call(lambda: pipe.decode_batch(waves))
     emit("profile", busy_share_of_median_wall=prof["device_ms"] / 1e3
          / walls[1], **prof)
+    online = run_slice_online(decoder, loglikes, out_lens)
 
     # 5. the main path: the n-gram search over the V=20,000 graph ----------
     ng = build_ng_path()
@@ -1336,6 +1776,13 @@ def main() -> int:
     ng_lat = run_ng_lattice(ng, model, ivec, fe, ng_res["loglikes"],
                             ng_res["out_lens"])
     ng_lattice_cpu_check(ng, ng_res["loglikes"], ng_res["out_lens"])
+    # the main path online: streaming, the recorded result, the batcher
+    ng_online = run_online_ng(ng, model, ivec, fe)
+    run_online_stream_offline(ng, ng_res["loglikes"], ng_res["out_lens"],
+                              ng_res["outs"],
+                              ng_res["runs"][-1]["word_errors"])
+    ng_batcher = run_online_batcher(ng, ng_res["loglikes"],
+                                    ng_res["out_lens"])
     ng_walls = sorted(r["wall_s"] for r in ng_res["runs"])
     ng_runs = ng_res["runs"]
     del ng, ng_res
@@ -1641,6 +2088,13 @@ def main() -> int:
          ng_wer=ng_runs[-1]["wer"], ng_lattice_wall_s=ng_lat["wall_s"],
          ng_lattice_xrt=ng_lat["xrt"],
          ng_lattice_wer=ng_lat["wer_lattice_best_path"],
+         online_wall_s=online["wall_s"],
+         online_ng_xrt=ng_online["value"],
+         online_ng_chunk_ms_p50=ng_online["chunk_ms_p50"],
+         online_ng_finalize_ms_max=ng_online["finalize_ms_max"],
+         online_ng_wer=ng_online["wer"],
+         online_batcher_wer=ng_batcher["wer"],
+         online_batcher_endpointed=ng_batcher["endpointed"],
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -1659,6 +2113,8 @@ def main() -> int:
             "ms": timed["ms"], "plain_ms": timed["plain_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
             "library_ms": None})
+    kernels[0]["launches_online"] = \
+        online["launches"]["block_chain_step"]
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

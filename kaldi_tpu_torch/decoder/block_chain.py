@@ -273,18 +273,25 @@ class BlockChainDecoder:
         self._k1_mask = tens(g.end_row < 0, torch.bool)
 
     # ------------------------------------------------------------------
-    def _forward(self, am: torch.Tensor, active: torch.Tensor):
-        """am (T, P, B) f32, active (T, B) bool -> final roots (Up, B)
-        and the per-frame decisions: bits (T, Up, N/8, B) u8, root
-        argmin contexts (T, V, B) and root self-loop flags (T, V, B)."""
+    def _forward(self, am: torch.Tensor, active: torch.Tensor,
+                 carry: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """am (T, P, B) f32, active (T, B) bool, carry: the (cost (Up, N,
+        B), roots (Up, B)) to resume from, or None for a fresh start at
+        the begin root; the frame loop writes into the carried cost plane
+        -> ((cost, roots) after the last frame, (bits (T, Up, N/8, B) u8,
+        root argmin contexts (T, V, B), root self-loop flags (T, V, B)))."""
         g = self.g
         V, N, Up = g.V, g.N, self.Up
         T, _, B = am.shape
         dev = self.device
-        cur = torch.full((Up, N, B), INF, dtype=torch.float32, device=dev)
+        if carry is None:
+            cur = torch.full((Up, N, B), INF, dtype=torch.float32,
+                             device=dev)
+            ovr = torch.full((Up, B), INF, dtype=torch.float32, device=dev)
+            ovr[V] = 0.0                                # begin root
+        else:
+            cur, ovr = carry
         nxt = torch.empty_like(cur)
-        ovr = torch.full((Up, B), INF, dtype=torch.float32, device=dev)
-        ovr[V] = 0.0                                    # begin root
         bits = torch.empty((T, Up, N // 8, B), dtype=torch.uint8,
                            device=dev)
         args = torch.empty((T, V, B), dtype=torch.int32, device=dev)
@@ -311,7 +318,7 @@ class BlockChainDecoder:
                 [torch.where(take_self, self_c, exp_w), ovr_pad], dim=0)
             ovr = torch.where(act[None, :], root_new, ovr)   # lane freeze
             cur, nxt = nxt, cur
-        return ovr, bits, args, selfs
+        return (cur, ovr), (bits, args, selfs)
 
     def _follow(self, bits, args, selfs, active, final_state):
         """Walk the decisions backward: -> (state before frame 0 (B,),
@@ -368,7 +375,7 @@ class BlockChainDecoder:
             am = (ll * (-acoustic_scale)).permute(1, 2, 0).contiguous()
             active = torch.as_tensor(
                 np.arange(T)[:, None] < lengths[None, :], device=self.device)
-            ovr, bits, args, selfs = self._forward(am, active)
+            (_, ovr), (bits, args, selfs) = self._forward(am, active)
             # best final root per lane
             total = ovr[:V] + self._eos[:V, None]
             best_w = torch.argmin(total, dim=0)

@@ -919,12 +919,15 @@ class NgramLexDecoder:
                 torch.where(keep, sil_new, sil))
 
     def _forward(self, am: torch.Tensor, active: torch.Tensor, K: int,
-                 beam: float):
-        """am (T, P, B) costs, active (T, B) -> final roots and shadows
-        (U+1, B) and the per-frame dumps: row_bits (T, Nr/8, B),
+                 beam: float,
+                 carry: Optional[Tuple[torch.Tensor, ...]] = None):
+        """am (T, P, B) costs, active (T, B), carry: the (cost (Nr, B),
+        roots (U+1, B), shadows (U+1, B)) to resume from, or None for a
+        fresh start at the begin slot -> ((cost, roots, shadows) after
+        the last frame, the per-frame dumps: row_bits (T, Nr/8, B),
         end_bits and sil_bits (T, UB, B) uint8; ids (T, B, K) int64,
         vals (T, B, K) f32, pslot (T, B, K) int32, nval (T, B) f32 and
-        nslot (T, B) int32."""
+        nslot (T, B) int32)."""
         g = self.g
         Nr, U = g.Nr, g.U
         T, _, B = am.shape
@@ -943,14 +946,17 @@ class NgramLexDecoder:
             "nval": torch.empty((T, B), dtype=torch.float32, device=dev),
             "nslot": torch.empty((T, B), dtype=torch.int32, device=dev),
         }
-        cost = torch.full((Nr, B), float(INF), device=dev)
-        roots = torch.full((U + 1, B), float(INF), device=dev)
-        roots[U] = 0.0
-        sil = torch.full((U + 1, B), float(INF), device=dev)
+        if carry is None:
+            cost = torch.full((Nr, B), float(INF), device=dev)
+            roots = torch.full((U + 1, B), float(INF), device=dev)
+            roots[U] = 0.0
+            sil = torch.full((U + 1, B), float(INF), device=dev)
+        else:
+            cost, roots, sil = carry
         for t in range(T):
             cost, roots, sil = self._frame(cost, roots, sil, am[t],
                                            active[t], K, beam, outs, t)
-        return roots, sil, outs
+        return (cost, roots, sil), outs
 
     def _follow(self, outs: Dict[str, torch.Tensor], active: torch.Tensor,
                 final_state: torch.Tensor):
@@ -1070,7 +1076,7 @@ class NgramLexDecoder:
             active = torch.as_tensor(
                 np.arange(T)[:, None] < lengths[None, :], device=self.device)
             t0 = time.perf_counter()
-            roots, sil, outs = self._forward(am, active, K, beam)
+            (_, roots, sil), outs = self._forward(am, active, K, beam)
             if stats is not None:
                 self._sync()
                 stats["fwd_s"] = time.perf_counter() - t0
@@ -1258,7 +1264,7 @@ class NgramLexDecoder:
         the unit whose word end the lane's best path takes in each frame,
         or -1."""
         Nr, U = self.g.Nr, self.g.U
-        roots, sil, outs = self._forward(am, active, K, float(BIG))
+        (_, roots, sil), outs = self._forward(am, active, K, float(BIG))
         first, states = self._follow(outs, active,
                                      self._final_state(roots, sil)[0])
         prev = torch.cat([first[None], states[:-1]], 0)

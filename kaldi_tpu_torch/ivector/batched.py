@@ -1,19 +1,21 @@
-"""Batched device i-vector extraction, offline mode (port of
+"""Batched device i-vector extraction (port of
 `kaldi_tpu/ivector/batched.py`).
 
-Whole-utterance i-vectors for the offline batched pipeline: diagonal
-UBM posteriors as a (B*T, G) matmul, masked zeroth/first-order stats,
-and one R x R solve per lane.  Everything is float32 with TF32 off: the
-quadratic term x^2 @ inv_vars is O(1e4-1e6) for raw MFCCs while the
-logit differences that pick the component are O(1), so a reduced
-mantissa destroys the posteriors.
-
-The online (carried-state) methods are not ported yet.
+Two modes:
+  * extract_batch: whole-utterance i-vectors for the offline batched
+    pipeline: diagonal UBM posteriors as a (B*T, G) matmul, masked
+    zeroth/first-order stats, and one R x R solve per lane;
+  * init_state / acc_chunk / ivector / reset_lanes: the carried
+    (linear, quadratic) estimation state of the online batched
+    pipeline, one chunk of frames at a time.
+Everything is float32 with TF32 off: the quadratic term x^2 @ inv_vars
+is O(1e4-1e6) for raw MFCCs while the logit differences that pick the
+component are O(1), so a reduced mantissa destroys the posteriors.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,3 +99,47 @@ class BatchedIvectorExtractor:
             lin = torch.einsum("gdr,bgd->br", self._MS, x)
             lin[:, 0] += self.prior_offset
             return self._solve(quad, lin)
+
+    # -- online (carried) estimation -----------------------------------
+    def init_state(self, B: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Fresh state of B lanes: (linear (B, R) with the prior offset
+        in column 0, quadratic (B, R, R) the identity)."""
+        lin = torch.zeros((B, self.R), dtype=torch.float32,
+                          device=self.device)
+        lin[:, 0] = self.prior_offset
+        quad = torch.eye(self.R, device=self.device).expand(
+            B, self.R, self.R).contiguous()
+        return lin, quad
+
+    def acc_chunk(self, state, feats: torch.Tensor, mask: torch.Tensor,
+                  weights: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Accumulate one chunk: feats (B, C, D), mask (B, C) valid
+        frames, weights (B, C) per-frame weights (silence weighting; all
+        ones by default) -> the new state."""
+        lin, quad = state
+        with torch.inference_mode(), full_f32():
+            m = mask.to(torch.float32)
+            if weights is not None:
+                m = m * weights.to(torch.float32)
+            gamma, x = self._stats(feats.to(torch.float32), m)
+            quad = quad + torch.einsum("bg,grs->brs", gamma, self._U)
+            lin = lin + torch.einsum("gdr,bgd->br", self._MS, x)
+        return lin, quad
+
+    def ivector(self, state) -> torch.Tensor:
+        """Each lane's current i-vector from the carried state: (B, R),
+        the prior offset removed."""
+        lin, quad = state
+        with torch.inference_mode(), full_f32():
+            return self._solve(quad, lin)
+
+    def reset_lanes(self, state, done: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The state with the lanes flagged in `done` (B,) bool back at
+        init_state's (rebinding a lane to a new utterance)."""
+        lin, quad = state
+        lin0, quad0 = self.init_state(lin.shape[0])
+        with torch.inference_mode():
+            return (torch.where(done[:, None], lin0, lin),
+                    torch.where(done[:, None, None], quad0, quad))

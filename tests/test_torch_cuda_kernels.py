@@ -13,6 +13,8 @@ from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.online.batched_device_pipeline import \
+    BatchedDeviceOnlinePipeline
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
@@ -86,6 +88,53 @@ def test_decode_kernel_equals_plain(cuda):
     want = plain.decode_batch(ll, lengths=lengths)
     assert got == want
     assert all(h is not None for h in got)
+
+
+def test_online_kernel_equals_plain(cuda):
+    """Kernel a in the online pattern: the carry resumes from chunk to
+    chunk, chunks are padded with act False, some lanes sit idle for
+    whole chunks and come back, and three lanes are reset mid-session by
+    init_channel.  After every chunk the carry is torch.equal to the
+    plain step's, and each chunk launches the kernel Tc times."""
+    dec = small_decoder(6, cuda, V=31)
+    plain = BlockChainDecoder(dec.g, device=cuda,
+                              step=bcs.block_chain_step_reference)
+    rng = np.random.default_rng(6)
+    B, Tc, P = 19, 4, dec.g.num_pdfs
+    lls = [rng.normal(size=(int(rng.integers(6, 15)), P)).astype(np.float32)
+           for _ in range(B + 3)]
+    pipes = [BatchedDeviceOnlinePipeline(d, lambda f: f, feat_dim=P,
+                                         num_lanes=B, chunk_frames=Tc)
+             for d in (dec, plain)]
+    lane_utt = list(range(B))
+    cursor = [0] * B
+    for pipe in pipes:
+        for b in range(B):
+            pipe.init_channel(b, f"u{b}")
+    for rnd in range(14):
+        if rnd == 4:                      # lanes 0-2 start anew
+            for b in range(3):
+                lane_utt[b], cursor[b] = B + b, 0
+                for pipe in pipes:
+                    pipe.init_channel(b, f"u{B + b}")
+        idle = rng.random(B) < 0.3
+        sizes = rng.integers(1, Tc + 3, B)
+        for b in range(B):
+            ll = lls[lane_utt[b]]
+            if idle[b] or cursor[b] >= len(ll):
+                continue
+            for pipe in pipes:
+                pipe.accept_features(b, ll[cursor[b]:cursor[b] + sizes[b]])
+            cursor[b] += int(sizes[b])
+        for pipe, launched in zip(pipes, (Tc, 0)):
+            before = bcs.launches
+            advanced = pipe.compute()
+            assert bcs.launches - before == (launched if advanced else 0)
+        torch.cuda.synchronize()
+        assert torch.equal(pipes[0]._cost, pipes[1]._cost), rnd
+        assert torch.equal(pipes[0]._ovr, pipes[1]._ovr), rnd
+    got, want = ([p.finalize(b) for b in range(B)] for p in pipes)
+    assert got == want and all(h is not None for h in got)
 
 
 def lattice_step_args(dec, B, seed, t, ties=False):

@@ -47,7 +47,9 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "decoder.lexchain_ng", "lm.trigram", "base.io_funcs",
                  "util.kaldi_io", "util.edit_distance", "hmm.topology",
                  "hmm.transition_model", "tree.event_map",
-                 "tree.context_dep", "recipes.bench_corpus"):
+                 "tree.context_dep", "recipes.bench_corpus",
+                 "online.decoding", "online.features",
+                 "online.batched_device_pipeline"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
