@@ -1423,6 +1423,7 @@ def run_online_stream_offline(ng: dict, loglikes: torch.Tensor,
     utts = sorted(ng["test_wav"])
     lanes, Tc = len(utts), NG_ONLINE["chunk_frames"]
     pipe = online_ng_pipe(ng, gather_scorer(loglikes), 2, lanes)
+    reset_kernel_counts()
     t0 = time.perf_counter()
     for b, u in enumerate(utts):
         pipe.init_channel(b, u)
@@ -1436,6 +1437,7 @@ def run_online_stream_offline(ng: dict, loglikes: torch.Tensor,
         pass
     results = [pipe.finalize(b) for b in range(lanes)]
     wall = time.perf_counter() - t0
+    launches = kernel_launch_counts()
     for b in range(lanes):
         pipe.free_channel(b)
     differ = [b for b, (h, o) in enumerate(zip(results, outs))
@@ -1444,11 +1446,14 @@ def run_online_stream_offline(ng: dict, loglikes: torch.Tensor,
     errors = word_errors(wer, test_txt)
     emit("online_ng_stream_offline", lanes=lanes, chunk_frames=Tc,
          wall_s=wall, wer=wer, word_errors=errors,
-         slice_ng_word_errors=slice_ng_errors,
+         slice_ng_word_errors=slice_ng_errors, launches=launches,
          lanes_differing_from_slice_ng=differ)
     if differ or errors != slice_ng_errors:
         raise SystemExit(f"streaming the main path's loglikes differs from "
                          f"slice_ng in lanes {differ}")
+    if any(launches.values()):
+        raise SystemExit("a kernel of another path ran in "
+                         "online_ng_stream_offline")
     return {"wall_s": wall, "wer": wer}
 
 
@@ -1486,9 +1491,11 @@ def run_online_batcher(ng: dict, loglikes: torch.Tensor,
     for b, u in enumerate(utts):
         batcher.push(u, frame_ids(b, 0, int(out_lens[b])))
     torch.cuda.synchronize()
+    reset_kernel_counts()
     t0 = time.perf_counter()
     results = batcher.run()
     wall = time.perf_counter() - t0
+    launches = kernel_launch_counts()
     lens = np.array([consumed.get(u, 0) for u in utts])
     got = [results.get(u) for u in utts]
     want = ng["dec"].decode_batch(loglikes, lengths=lens,
@@ -1505,7 +1512,7 @@ def run_online_batcher(ng: dict, loglikes: torch.Tensor,
          stage_s=stage_s, trims=len(trims),
          frames_trimmed=int(sum(trims)),
          max_window_frames=max(windows), max_frames=pipe.max_frames,
-         lanes_differing_from_decode_batch=differ)
+         launches=launches, lanes_differing_from_decode_batch=differ)
     if len(results) != len(utts) or any(h is None for h in got):
         raise SystemExit("an utterance of the batcher has no result")
     if differ:
@@ -1513,6 +1520,8 @@ def run_online_batcher(ng: dict, loglikes: torch.Tensor,
                          "of the frames their lanes consumed")
     if not trims:
         raise SystemExit("the batcher's session never trimmed its history")
+    if any(launches.values()):
+        raise SystemExit("a kernel of another path ran in online_batcher_ng")
     return {"wall_s": wall, "wer": wer, "endpointed": n_ep}
 
 
