@@ -22,10 +22,8 @@ the main path's search can be measured alone.  Then:
 The WER band of chip_smoke.py is not applied here.  JSON lines as in
 chip_smoke.py; exits nonzero on any failed check.
 
-With --online it runs chip_smoke.py's online phases alone instead:
-slice_online (kernel a under BatchedDeviceOnlinePipeline, on the
-best-path slice's loglikes; it builds the kernels), then, on the main
-path, slice_online_ng, online_ng_stream_offline (against one
+With --online it runs chip_smoke.py's online phases of the main path
+alone instead: slice_online_ng, online_ng_stream_offline (against one
 decode_batch of the 128 utterances with the bench's pool) and
 online_batcher_ng.
 
@@ -103,23 +101,8 @@ def probe_lattice_rules(dec, ll, lens, wer, utts) -> None:
 
 
 def online() -> None:
-    """chip_smoke.py's online phases alone."""
-    built = cs._build.build()
-    cs.emit("build", sources={n: round(i["seconds"], 3)
-                              for n, i in built.items()})
+    """chip_smoke.py's online phases of the main path alone."""
     cfg, _variables, model, ivec, fe = cs.flagship_am()
-    spec = cs.DirectGraphSpec(vocab=700, num_pdfs=2000)
-    decoder = cs.BlockChainDecoder(cs.BlockChainGraph.build(
-        cs.synth_lexicon(spec), cs.synth_bigram(spec),
-        num_pdfs=spec.num_pdfs), device="cuda")
-    pipe = cs.BatchedOfflinePipeline2(model, decoder, fe,
-                                      ivector_extractor=ivec, device="cuda")
-    rng = np.random.default_rng(cs.SEED)
-    waves = [cs.synth_wave(rng) for _ in range(cs.LANES)]
-    loglikes, out_lens = pipe.loglikes(*fe.compute_batch_device(waves))
-    cs.run_slice_online(decoder, loglikes, out_lens)
-    del pipe, decoder, loglikes
-    torch.cuda.empty_cache()
     ng = cs.build_ng_path()
     utts = sorted(ng["test_wav"])
     waves = [cs.mulaw_encode(np.clip(ng["test_wav"][u], -32767, 32767))
@@ -143,7 +126,8 @@ def online() -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--online", action="store_true",
-                    help="run chip_smoke.py's online phases alone")
+                    help="run chip_smoke.py's online phases of the main "
+                    "path alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "

@@ -49,7 +49,9 @@ Phases, one JSON line each (any failure exits nonzero):
      16-frame chunks with ragged arrivals, idle lanes and 8 lanes bound
      again mid-session (each result equal to decode_batch, kernel a
      launched 16 times a chunk, wall, chunk and finalize ms p50/p99, peak
-     memory), 8 lanes again with the plain step (equal, no launch);
+     memory), then the same schedule at 128 lanes through a kernel and a
+     plain-step pipeline in lockstep (carries and decisions equal after
+     every chunk, every result equal, no launch by the plain one);
   5. the main path (ng_graph, slice_ng, profile_ng, ng_cpu_check,
      cross_check_ng): the bench corpus, its fingerprint against the
      committed model's, the graph and its sizes; one warm-up and three
@@ -74,7 +76,8 @@ Phases, one JSON line each (any failure exits nonzero):
      then the main path online: slice_online_ng (the 128 utterances
      through BatchedDeviceOnlinePipelineNg, a warm-up and a timed round:
      xRT, chunk and finalize ms, WER, each lane equal to decode_batch of
-     the loglikes its scorer produced), online_ng_stream_offline
+     the loglikes its scorer produced; then a round for the stage
+     seconds), online_ng_stream_offline
      (slice_ng's loglikes streamed: no lane differing from slice_ng, so
      its WER), online_batcher_ng (OnlineDynamicBatcher on 32 lanes with
      the default endpoint rules: every utterance equal to decode_batch of
@@ -186,10 +189,14 @@ NG_BLOCKS = ("_forward", "_lm_fold", "_expand", "_rows", "_roots",
 # n-gram pipeline as egs/bench_corpus/measure_online_ng.py runs it, and
 # the dynamic batcher's lanes
 ONLINE_TC = 16
+# slice_online's lanes that first stream a short utterance: how many, its
+# first frame and its length
+ONLINE_SHORT = (8, 100, 40)
 NG_ONLINE = dict(chunk_frames=32, prune_k=128, prune_beam=16.0,
                  endpointing=True)
 ONLINE_BATCH_LANES = 32
-# the online pipeline's stages that the n-gram phases time
+# the online pipeline's stages that slice_online_ng times, in a round of
+# their own
 STAGES = ("scorer", "_advance", "_endpoint_stats", "_traceback")
 
 
@@ -1161,36 +1168,26 @@ def word_errors(wer: float, test_txt: dict) -> int:
     return round(wer * sum(len(r) for r in test_txt.values()) / 100.0)
 
 
-def run_slice_online(decoder: BlockChainDecoder, loglikes: torch.Tensor,
-                     out_lens: np.ndarray) -> dict:
-    """slice_online: kernel a in the online pattern.  The best-path
-    slice's loglikes (128 lanes x 171 frames, V=700 graph) stream through
-    BatchedDeviceOnlinePipeline in chunks of ONLINE_TC frames, arriving in
-    seeded pieces of 1-24 frames, each lane idle in a round with
-    probability 1/4.  Lanes 0-7 first stream a 40-frame utterance (their
-    own frames 100-139), are finalized and freed mid-session, and are
-    bound again by init_channel to their full utterance.  Every result
-    must equal decode_batch of the same loglikes; kernel a must launch Tc
-    times a compute() that advanced; 8 lanes streamed again with the
-    plain step must give equal results and launch it 0 times."""
-    lanes, T_max, P = loglikes.shape
-    n_short, short0, short_len = 8, 100, 40
+def online_schedule(pipes, out_lens: np.ndarray, compute) -> list:
+    """Drive `pipes` (block-chain online pipelines over gather_scorer of
+    the best-path slice's loglikes, one lane an utterance stream) in
+    lockstep through slice_online's seeded schedule: pieces of 1-24
+    frames, each lane idle in a round with probability 1/4; lanes below
+    ONLINE_SHORT[0] first stream ONLINE_SHORT[2] of their own frames from
+    ONLINE_SHORT[1], are finalized and freed mid-session, and are bound
+    again by init_channel to their full utterance.  compute() runs one
+    chunk on every pipe and returns the lanes advanced.  -> each pipe's
+    results by utterance id ("b.0", then "b.1" for a rebound lane)."""
+    n_short, short0, short_len = ONLINE_SHORT
+    lanes = pipes[0].B
     plan = {b: ([(b, short0, short_len)] if b < n_short else [])
             + [(b, 0, int(out_lens[b]))] for b in range(lanes)}
     rng = np.random.default_rng(SEED + 30)
-    pipe = BatchedDeviceOnlinePipeline(
-        decoder, gather_scorer(loglikes), feat_dim=2, num_lanes=lanes,
-        chunk_frames=ONLINE_TC)
-    fin_s: list = []
-    record_finalize(pipe, {}, fin_s)
-    results, chunk_s, n_advanced = {}, [], 0
+    results = [{} for _ in pipes]
     cursor = [0] * lanes
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_kernel_counts()
-    t_start = time.perf_counter()
-    for b in range(lanes):
-        pipe.init_channel(b, f"{b}.0")
+    for p in pipes:
+        for b in range(lanes):
+            p.init_channel(b, f"{b}.0")
     while any(plan.values()):
         for b in range(lanes):
             if not plan[b] or cursor[b] >= plan[b][0][2] or \
@@ -1198,29 +1195,69 @@ def run_slice_online(decoder: BlockChainDecoder, loglikes: torch.Tensor,
                 continue
             u, s, n = plan[b][0]
             k = min(int(rng.integers(1, 25)), n - cursor[b])
-            pipe.accept_features(b, frame_ids(u, s + cursor[b], k))
+            for p in pipes:
+                p.accept_features(b, frame_ids(u, s + cursor[b], k))
             cursor[b] += k
-        t0 = time.perf_counter()
-        n_advanced += pipe.compute() > 0
-        torch.cuda.synchronize()
-        chunk_s.append(time.perf_counter() - t0)
+        compute()
         for b in range(lanes):
             if not plan[b] or cursor[b] < plan[b][0][2]:
                 continue
             if len(plan[b]) > 1:           # decoded: rebind mid-session
-                if pipe.channels[b].pending:
+                if pipes[0].channels[b].pending:
                     continue
-                results[f"{b}.0"] = pipe.finalize(b)
-                pipe.free_channel(b)
-                pipe.init_channel(b, f"{b}.1")
+                for p, res in zip(pipes, results):
+                    res[f"{b}.0"] = p.finalize(b)
+                    p.free_channel(b)
+                    p.init_channel(b, f"{b}.1")
             plan[b].pop(0)
             cursor[b] = 0
-    while pipe.compute():
-        n_advanced += 1
-    frames = pipe._total_frames
-    for b in range(lanes):
-        results[pipe.channels[b].utterance_id] = pipe.finalize(b)
-        pipe.free_channel(b)
+    while compute():
+        pass
+    for p, res in zip(pipes, results):
+        for b in range(lanes):
+            res[p.channels[b].utterance_id] = p.finalize(b)
+            p.free_channel(b)
+    return results
+
+
+def run_slice_online(decoder: BlockChainDecoder, loglikes: torch.Tensor,
+                     out_lens: np.ndarray) -> dict:
+    """slice_online: kernel a in the online pattern.  The best-path
+    slice's loglikes (128 lanes x 171 frames, V=700 graph) stream through
+    BatchedDeviceOnlinePipeline in chunks of ONLINE_TC frames on
+    online_schedule's seeded pieces, idle lanes and mid-session rebinds.
+    Every result must equal decode_batch of the same loglikes; kernel a
+    must launch Tc times a compute() that advanced.  Then the same
+    schedule drives a kernel pipeline and a plain-step pipeline in
+    lockstep at all 128 lanes: after every chunk their carries and the
+    chunk's decisions must be equal, every result too, and the plain
+    pipeline must launch the kernel 0 times."""
+    lanes = loglikes.shape[0]
+    n_short, short0, short_len = ONLINE_SHORT
+
+    def online_pipe(dec):
+        return BatchedDeviceOnlinePipeline(
+            dec, gather_scorer(loglikes), feat_dim=2, num_lanes=lanes,
+            chunk_frames=ONLINE_TC)
+
+    pipe = online_pipe(decoder)
+    fin_s: list = []
+    record_finalize(pipe, {}, fin_s)
+    chunk_s: list = []
+
+    def timed_compute() -> int:
+        t0 = time.perf_counter()
+        n = pipe.compute()
+        torch.cuda.synchronize()
+        if n:
+            chunk_s.append(time.perf_counter() - t0)
+        return n
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts()
+    t_start = time.perf_counter()
+    results = online_schedule([pipe], out_lens, timed_compute)[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = bcs.launches
@@ -1234,40 +1271,62 @@ def run_slice_online(decoder: BlockChainDecoder, loglikes: torch.Tensor,
     differ = differing_lanes(got, full) + [
         lanes + i for i in differing_lanes(
             [results[f"{b}.0"] for b in range(n_short)], short)]
-    # the same lanes again with the plain step, as one batch of 8
-    plain = BlockChainDecoder(decoder.g, device=decoder.device,
-                              step=bcs.block_chain_step_reference)
-    ppipe = BatchedDeviceOnlinePipeline(
-        plain, gather_scorer(loglikes), feat_dim=2, num_lanes=n_short,
-        chunk_frames=ONLINE_TC)
-    bcs.launches = 0
-    for b in range(n_short):
-        ppipe.init_channel(b, str(b))
-        ppipe.accept_features(b, frame_ids(b, 0, int(out_lens[b])))
-    while ppipe.compute():
-        pass
-    plain_hyps = [ppipe.finalize(b) for b in range(n_short)]
-    plain_launches = bcs.launches
-    plain_differ = differing_lanes(plain_hyps, got[:n_short])
+    # the same schedule again, kernel and plain step in lockstep
+    kpipe = online_pipe(decoder)
+    ppipe = online_pipe(BlockChainDecoder(
+        decoder.g, device=decoder.device,
+        step=bcs.block_chain_step_reference))
+    plain = {"launches": 0, "chunks": 0, "chunks_differing": []}
+
+    def both() -> int:
+        n = kpipe.compute()
+        before = bcs.launches
+        m = ppipe.compute()
+        plain["launches"] += bcs.launches - before
+        if n or m:
+            ky, py = kpipe._ys[-1], ppipe._ys[-1]
+            if not (n == m and torch.equal(kpipe._cost, ppipe._cost)
+                    and torch.equal(kpipe._ovr, ppipe._ovr)
+                    and all(torch.equal(v, py[k]) for k, v in ky.items())):
+                plain["chunks_differing"].append(plain["chunks"])
+            plain["chunks"] += 1
+        return n
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    k_res, p_res = online_schedule([kpipe, ppipe], out_lens, both)
+    plain_s = time.perf_counter() - t0
+    plain_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del kpipe, ppipe
+    torch.cuda.empty_cache()
+    ids = sorted(results)
+    plain_differ = [u for u in ids
+                    if not results[u] == k_res[u] == p_res[u]]
     run = {"lanes": lanes, "chunk_frames": ONLINE_TC,
-           "utterances": lanes + n_short, "compute_calls": len(chunk_s),
-           "compute_calls_advanced": n_advanced, "frames": frames,
-           "wall_s": wall, "chunk_ms": ms_percentiles(chunk_s),
+           "utterances": len(results), "compute_calls_advanced":
+           len(chunk_s), "frames": ONLINE_TC * len(chunk_s),
+           "wall_s": wall,
+           "chunk_ms": ms_percentiles(chunk_s),
            "finalize_ms": ms_percentiles(fin_s),
            "peak_memory_gb": peak_gb,
            "launches": {"block_chain_step": launches},
-           "launches_expected": ONLINE_TC * n_advanced,
+           "launches_expected": ONLINE_TC * len(chunk_s),
            "lanes_differing_from_decode_batch": differ,
-           "plain_lanes": n_short, "plain_launches": plain_launches,
-           "plain_lanes_differing": plain_differ,
+           "plain_lanes": lanes, "plain_chunks_compared": plain["chunks"],
+           "plain_chunks_differing": plain["chunks_differing"],
+           "plain_launches": plain["launches"],
+           "plain_utterances_differing": plain_differ,
+           "plain_lockstep_s": plain_s,
+           "plain_lockstep_peak_memory_gb": plain_peak_gb,
            "words_lane0": got[0][0][:12], "cost_lane0": got[0][2]}
     emit("slice_online", **run)
-    if launches != ONLINE_TC * n_advanced:
+    if launches != ONLINE_TC * len(chunk_s):
         raise SystemExit(f"block_chain_step launched {launches} times in "
-                         f"{n_advanced} chunks of {ONLINE_TC}")
+                         f"{len(chunk_s)} chunks of {ONLINE_TC}")
     if differ or any(h is None for h in got):
         raise SystemExit(f"online lanes {differ} differ from decode_batch")
-    if plain_differ or plain_launches:
+    if plain["chunks_differing"] or plain_differ or plain["launches"] or \
+            plain["chunks"] != len(chunk_s):
         raise SystemExit("the plain step streams differently, or launched "
                          "the kernel")
     return run
@@ -1293,9 +1352,11 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
     input frames with each lane's utterance i-vector (extract_batch, with
     the lanes' frame counts); BatchedDeviceOnlinePipelineNg over the
     495,782-state graph (pool 128, beam 16, endpointing on).  A warm-up
-    round, then a timed one: xRT, chunk and finalize latency, WER.  Every
-    lane must equal decode_batch (same pool) of the loglikes the scorer
-    produced in that round, concatenated per lane."""
+    round, a timed one (xRT, chunk and finalize latency, WER), and a
+    staged one whose stage seconds end each call with a sync.  Every lane
+    of the timed round must equal decode_batch (same pool) of the
+    loglikes the scorer produced in it, concatenated per lane, and the
+    staged round must give the same results."""
     graph, dec, test_txt = ng["graph"], ng["dec"], ng["test_txt"]
     utts = sorted(ng["test_wav"])
     lanes, Tc = len(utts), NG_ONLINE["chunk_frames"]
@@ -1320,9 +1381,9 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
     captured: list = []
     stage_s: dict = {}
     audio_s = sum(len(f) for f in stacked) * 0.03
-    rounds = []
-    for rnd in range(2):
-        if rnd == 1:
+    rounds, launches, peak_gb = [], {}, 0.0
+    for rnd in ("warm-up", "timed", "staged"):
+        if rnd == "timed":
             advance = pipe._advance
 
             def capture(am, act, _inner=advance):
@@ -1330,12 +1391,17 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
                 return _inner(am, act)
 
             pipe._advance = capture
-            # the stages of a chunk and of a result, each call ended by a
-            # sync: the scorer, the frame loop, the endpoint statistics
-            # (two host reads a chunk) and the follow pass
-            timed_methods(pipe, STAGES, stage_s)
             reset_kernel_counts()
             torch.cuda.reset_peak_memory_stats()
+        elif rnd == "staged":
+            del pipe._advance
+            launches = kernel_launch_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            # a round apart from the timed one: the stages of a chunk and
+            # of a result, each call ended by a sync: the scorer, the
+            # frame loop, the endpoint statistics (two host reads a
+            # chunk) and the follow pass
+            timed_methods(pipe, STAGES, stage_s)
         results, chunk_s, fin_s = [None] * lanes, [], []
         cursors = [0] * lanes
         torch.cuda.synchronize()
@@ -1365,9 +1431,8 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
             pipe.free_channel(b)
         wall = time.perf_counter() - t0
         rounds.append({"wall_s": wall, "chunks": len(chunk_s),
-                       "chunk_s": chunk_s, "fin_s": fin_s})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    launches = kernel_launch_counts()
+                       "chunk_s": chunk_s, "fin_s": fin_s,
+                       "results": results})
     # the loglikes the scorer produced, each lane's active frames in order
     am = torch.cat([a for a, _ in captured])             # (T, P, B)
     act = torch.cat([a for _, a in captured])            # (T, B)
@@ -1381,10 +1446,11 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
                             prune_k=NG_ONLINE["prune_k"],
                             prune_beam=NG_ONLINE["prune_beam"])
     del ll
+    timed = rounds[1]
+    results = timed["results"]
     differ = differing_lanes(results, want)
     hyps = dict(zip(utts, ng_words(graph, results)))
     wer = wer_of(hyps, test_txt)
-    timed = rounds[-1]
     chunk = ms_percentiles(timed["chunk_s"])
     fin = ms_percentiles(timed["fin_s"])
     # the keys of measure_online_ng.py's JSON line (unrounded), then more
@@ -1402,11 +1468,14 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
            "word_errors": word_errors(wer, test_txt),
            "peak_memory_gb": peak_gb, "launches": launches,
            "frames_scored": int(lens.sum()), "stage_s": stage_s,
-           "lanes_differing_from_decode_batch": differ}
+           "staged_wall_s": rounds[2]["wall_s"],
+           "lanes_differing_from_decode_batch": differ,
+           "staged_lanes_differing": differing_lanes(
+               rounds[2]["results"], results)}
     emit("slice_online_ng", **run)
-    if differ:
+    if differ or run["staged_lanes_differing"]:
         raise SystemExit(f"online lanes {differ} differ from decode_batch "
-                         "of the scorer's loglikes")
+                         "of the scorer's loglikes, or between rounds")
     if any(launches.values()):
         raise SystemExit("a kernel of another path ran in slice_online_ng")
     return run
@@ -1484,8 +1553,6 @@ def run_online_batcher(ng: dict, loglikes: torch.Tensor,
             trims.append(before - pipe._total_frames)
 
     pipe._trim_committed = counted_trim
-    stage_s: dict = {}
-    timed_methods(pipe, STAGES, stage_s)
     batcher = OnlineDynamicBatcher(pipe, OnlineEndpointConfig(),
                                    frame_shift=0.03)
     for b, u in enumerate(utts):
@@ -1509,7 +1576,7 @@ def run_online_batcher(ng: dict, loglikes: torch.Tensor,
          endpointed=n_ep, frames_cut_by_endpoints=int(
              (out_lens[:len(utts)] - lens).sum()),
          wer=wer, wall_s=wall, finalize_ms=ms_percentiles(fin_s),
-         stage_s=stage_s, trims=len(trims),
+         finalize_s=sum(fin_s), trims=len(trims),
          frames_trimmed=int(sum(trims)),
          max_window_frames=max(windows), max_frames=pipe.max_frames,
          launches=launches, lanes_differing_from_decode_batch=differ)

@@ -4,12 +4,14 @@
 An utterance has ended when any of five rules holds.  A rule looks at
 the utterance's length, the trailing silence on the best path, the best
 final cost relative to the best cost overall, and whether the best path
-has left silence yet.  Times are in seconds."""
+has left silence yet.  Times are in seconds.  The batched pipelines
+tell silence from their graph's silence states, so the config names no
+silence phones."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Sequence
+from typing import List
 
 
 @dataclass
@@ -30,7 +32,6 @@ class EndpointRule:
 @dataclass
 class OnlineEndpointConfig:
     """The reference's five default rules (online-endpoint.h:84)."""
-    silence_phones: Sequence[int] = field(default_factory=list)
     rule1: EndpointRule = field(default_factory=lambda: EndpointRule(
         False, 5.0, float("inf"), 0.0))
     rule2: EndpointRule = field(default_factory=lambda: EndpointRule(
