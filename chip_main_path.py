@@ -27,7 +27,12 @@ alone instead: slice_online_ng, online_ng_stream_offline (against one
 decode_batch of the 128 utterances with the bench's pool) and
 online_batcher_ng.
 
-Run: python3 chip_main_path.py [--online]   (needs CUDA)
+With --legacy it runs chip_smoke.py's legacy-path phases alone (the same
+function chip_smoke.py calls, legacy_phases): lex_graph, slice_lex (with
+profile_lex, slice_lex_int16 and lex_pruned_full_k), lex_cpu_check,
+cross_check_lex and slice_online_lex.
+
+Run: python3 chip_main_path.py [--online | --legacy]   (needs CUDA)
 """
 
 from __future__ import annotations
@@ -125,9 +130,12 @@ def online() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--online", action="store_true",
-                    help="run chip_smoke.py's online phases of the main "
-                    "path alone")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--online", action="store_true",
+                      help="run chip_smoke.py's online phases of the main "
+                      "path alone")
+    mode.add_argument("--legacy", action="store_true",
+                      help="run chip_smoke.py's legacy-path phases alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -138,9 +146,13 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
-    if args.online:
-        online()
-        cs.emit("online_done", seconds=time.perf_counter() - t_all)
+    if args.online or args.legacy:
+        if args.online:
+            online()
+        else:
+            cs.emit("legacy_summary", **cs.legacy_phases())
+        cs.emit("online_done" if args.online else "legacy_done",
+                seconds=time.perf_counter() - t_all)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)

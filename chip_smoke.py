@@ -26,7 +26,12 @@ BatchedDeviceOnlinePipeline (kernel a every frame of every chunk), and the
 main path as egs/bench_corpus/measure_online_ng.py runs it
 (BatchedDeviceOnlinePipelineNg, 32-frame chunks scored by the TDNN-F,
 endpointing on), its offline loglikes streamed, and OnlineDynamicBatcher
-over 32 lanes.
+over 32 lanes.  The legacy path (bench.py --legacy) runs at full width
+too: the 128 test utterances of the V=200 bench corpus -> MFCC -> the
+committed flagship_params.npz TDNN-F (17 x 1536, bf16, no i-vectors) ->
+exact LexChainDecoder search over the bigram x monophone-chain graph
+(818 states), offline and streaming (egs/bench_corpus/measure_online.py's
+configuration through BatchedDeviceOnlinePipelineLex).
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -82,6 +87,22 @@ Phases, one JSON line each (any failure exits nonzero):
      its WER), online_batcher_ng (OnlineDynamicBatcher on 32 lanes with
      the default endpoint rules: every utterance equal to decode_batch of
      the frames its lane consumed, endpoints, the history trimmed);
+     then the legacy path: lex_graph (corpus and graph build seconds, V,
+     N, P, states, explicit bigrams, the corpus fingerprint against the
+     JAX package's), slice_lex (one warm-up with no host sync in the frame
+     loop or the follow pass, three timed decode_batch calls on the
+     mu-law wire: wall, xRT, the feat/am/search split, the decoder's
+     fwd_s/fol_s/traceback_s, peak memory, 128/128 lanes, WER, no kernel
+     launched), profile_lex (launches a frame), slice_lex_int16 (the
+     same utterances on the int16 wire: WER within 0.5 points and 8
+     words of the JAX package's CPU WER), lex_pruned_full_k (every
+     virtual-context row in the pool: equal to exact), lex_cpu_check (4
+     lanes again on the CPU), cross_check_lex (the 2 shortest lanes
+     against the host FasterDecoder on to_flat_graph(): equal, or a
+     float64 tie), slice_online_lex (measure_online.py's configuration
+     at 128 lanes: a warm-up, a timed and a staged round; xRT, chunk and
+     finalize ms, WER, peak memory, each lane equal to decode_batch of
+     the loglikes its scorer produced);
   6. the block-chain lattice slice on 32 of the lanes: one timed
      decode_batch call in lattice mode, under torch.profiler (launch
      counts, the lattice stages' seconds, each lane's lattice best path
@@ -99,7 +120,8 @@ Phases, one JSON line each (any failure exits nonzero):
      decoded words (alignment: the per-lane-table form of the kernel
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
-  8. the kernel table (kernel a's launches on the online path too); the
+  8. the kernel table (kernel a's launches on the online path too, and
+     each kernel's launches on the legacy phases, which must be 0); the
      last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
@@ -125,6 +147,7 @@ from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.decoder.lexchain import LexChainDecoder
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
@@ -135,15 +158,16 @@ from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
 from kaldi_tpu_torch.online.batched_device_pipeline import (
-    BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineNg,
-    OnlineDynamicBatcher)
+    BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineLex,
+    BatchedDeviceOnlinePipelineNg, OnlineDynamicBatcher)
 from kaldi_tpu_torch.online.decoding import OnlineEndpointConfig
 from kaldi_tpu_torch.ops import _build
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
 from kaldi_tpu_torch.recipes.bench_corpus import (
-    bench_scale_spec, build_decode_graph_ng, build_lang, corpus_fingerprint,
+    BenchCorpusSpec, bench_scale_spec, build_decode_graph,
+    build_decode_graph_ng, build_lang, chain_tm_tree_for, corpus_fingerprint,
     load_ivector_extractor, load_params, make_corpus, make_lexicon,
     make_text, mfcc_options, wer_of)
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
@@ -198,6 +222,23 @@ ONLINE_BATCH_LANES = 32
 # the online pipeline's stages that slice_online_ng times, in a round of
 # their own
 STAGES = ("scorer", "_advance", "_endpoint_stats", "_traceback")
+# the legacy path (bench.py --legacy): the default BenchCorpusSpec (V=200)
+# and the committed flagship_params.npz TDNN-F, exact search.  Its bar is
+# the JAX package's own output on the same corpus, measured once on the
+# CPU by tools/legacy_jax_bar.py: the corpus fingerprint, and the WER and
+# word errors of the 128 test utterances (1544 words) on the int16 wire.
+# On the mu-law wire (bench.py's default) the JAX package's CPU output
+# ends every lane with words decoded from pad frames (39.637% WER, the
+# mu-law pad-frame divergence of ROADMAP.md section 3), so the WER of the
+# mu-law calls is reported and the bar is held on the int16 wire
+LEX_FINGERPRINT = "3e53478d13ee20fd"
+LEX_WER, LEX_WORD_ERRORS = 6.023316062176166, 93
+LEX_WER_BAND, LEX_WORDS_BAND = 0.5, 8
+# the legacy decoder's blocks whose launches profile_lex counts
+LEX_BLOCKS = ("_forward", "_follow")
+# measure_online.py's configuration (--chunk 32, no endpointing), at 128
+# lanes instead of its default 64 so that the WER covers every test word
+LEX_ONLINE = dict(chunk_frames=32)
 
 
 def emit(phase: str, **kw) -> None:
@@ -1343,44 +1384,32 @@ def ng_words(graph, hyps) -> list:
             for h in hyps]
 
 
-def run_online_ng(ng: dict, model, ivec, fe) -> dict:
-    """slice_online_ng: the production online configuration as
-    egs/bench_corpus/measure_online_ng.py runs it, at 128 lanes.  The
-    128 test utterances' MFCCs (float waves, as that script computes
-    them) stacked by 3 to the model's output rate, fed 32 output frames a
-    lane and round; the flagship TDNN-F (bf16) scores each chunk of 96
-    input frames with each lane's utterance i-vector (extract_batch, with
-    the lanes' frame counts); BatchedDeviceOnlinePipelineNg over the
-    495,782-state graph (pool 128, beam 16, endpointing on).  A warm-up
-    round, a timed one (xRT, chunk and finalize latency, WER), and a
-    staged one whose stage seconds end each call with a sync.  Every lane
-    of the timed round must equal decode_batch (same pool) of the
-    loglikes the scorer produced in it, concatenated per lane, and the
-    staged round must give the same results."""
-    graph, dec, test_txt = ng["graph"], ng["dec"], ng["test_txt"]
-    utts = sorted(ng["test_wav"])
-    lanes, Tc = len(utts), NG_ONLINE["chunk_frames"]
-    sub = 3
-    waves = [np.asarray(ng["test_wav"][u], np.float32) for u in utts]
+def stacked_mfcc(fe, waves, sub: int = 3):
+    """Each wave's MFCCs (float waves, as egs/bench_corpus/measure_online*.py
+    compute them) stacked by `sub` to the model's output rate -> (the
+    features on the card (B, T, D), nframes, the stacked rows of each
+    lane as numpy (T // sub, sub * D))."""
     with torch.inference_mode():
         feats, nframes = fe.compute_batch_device(waves)
-        ivecs = ivec.extract_batch(feats, nframes).to(torch.bfloat16)
     host = feats.cpu().numpy()
     stacked = []
     for b, n in enumerate(nframes):
         T = (int(n) // sub) * sub
         stacked.append(host[b, :T].reshape(T // sub, sub * host.shape[2]))
-    D = host.shape[2]
+    return feats, nframes, stacked
 
-    def scorer(chunk: np.ndarray) -> torch.Tensor:
-        x = torch.from_numpy(chunk).to(dec.device).view(lanes, Tc * sub,
-                                                         D)
-        return model.chain(x, ivecs).to(torch.float32)
 
-    pipe = online_ng_pipe(ng, scorer, sub * D, lanes)
+def online_rounds(pipe, utts, stacked, Tc: int) -> dict:
+    """An online slice's three rounds through `pipe`, one lane an
+    utterance, Tc stacked rows a lane and round: a warm-up, a timed round
+    (chunk and finalize seconds, kernel launches, peak memory; the chunks
+    the scorer produced are kept) and a staged round whose stages
+    (STAGES) each end with a sync.  -> {"rounds": [{wall_s, chunks,
+    chunk_s, fin_s, results}] x 3, "captured": [(am, act)] of the timed
+    round, "stage_s", "launches", "peak_gb"}."""
+    lanes = len(utts)
     captured: list = []
     stage_s: dict = {}
-    audio_s = sum(len(f) for f in stacked) * 0.03
     rounds, launches, peak_gb = [], {}, 0.0
     for rnd in ("warm-up", "timed", "staged"):
         if rnd == "timed":
@@ -1400,7 +1429,7 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
             # a round apart from the timed one: the stages of a chunk and
             # of a result, each call ended by a sync: the scorer, the
             # frame loop, the endpoint statistics (two host reads a
-            # chunk) and the follow pass
+            # chunk, with endpointing on) and the follow pass
             timed_methods(pipe, STAGES, stage_s)
         results, chunk_s, fin_s = [None] * lanes, [], []
         cursors = [0] * lanes
@@ -1433,52 +1462,108 @@ def run_online_ng(ng: dict, model, ivec, fe) -> dict:
         rounds.append({"wall_s": wall, "chunks": len(chunk_s),
                        "chunk_s": chunk_s, "fin_s": fin_s,
                        "results": results})
+    return {"rounds": rounds, "captured": captured, "stage_s": stage_s,
+            "launches": launches, "peak_gb": peak_gb}
+
+
+def online_check(name: str, dec, graph, utts, test_txt, out: dict,
+                 audio_s: float, run: dict, search: dict) -> dict:
+    """The checks and numbers of an online slice after online_rounds:
+    every lane of the timed round must equal decode_batch (with
+    `search`) of the loglikes the scorer produced in it, concatenated per
+    lane, the staged round must give the same results, and no kernel of
+    another path may have launched.  `run` (the metric's own keys) is
+    completed with xRT, chunk and finalize ms, WER and the rest, emitted
+    as phase `name` and returned."""
+    lanes = len(utts)
     # the loglikes the scorer produced, each lane's active frames in order
-    am = torch.cat([a for a, _ in captured])             # (T, P, B)
-    act = torch.cat([a for _, a in captured])            # (T, B)
+    am = torch.cat([a for a, _ in out["captured"]])         # (T, P, B)
+    act = torch.cat([a for _, a in out["captured"]])        # (T, B)
     lens = act.sum(0).cpu().numpy()
     ll = torch.zeros((lanes, int(lens.max()), am.shape[1]),
                      device=dec.device)
     for b in range(lanes):
         ll[b, :int(lens[b])] = -am[act[:, b], :, b]
-    del am, captured
-    want = dec.decode_batch(ll, lengths=lens,
-                            prune_k=NG_ONLINE["prune_k"],
-                            prune_beam=NG_ONLINE["prune_beam"])
+    del am, act
+    out["captured"].clear()
+    want = dec.decode_batch(ll, lengths=lens, **search)
     del ll
+    rounds = out["rounds"]
     timed = rounds[1]
     results = timed["results"]
     differ = differing_lanes(results, want)
-    hyps = dict(zip(utts, ng_words(graph, results)))
-    wer = wer_of(hyps, test_txt)
+    wer = wer_of(dict(zip(utts, ng_words(graph, results))), test_txt)
     chunk = ms_percentiles(timed["chunk_s"])
     fin = ms_percentiles(timed["fin_s"])
-    # the keys of measure_online_ng.py's JSON line (unrounded), then more
-    run = {"metric": "online_ng_pipeline_aggregate_xRT",
-           "value": audio_s / timed["wall_s"], "unit": "x realtime",
-           "lanes": lanes, "chunk_frames": Tc, "endpointing": True,
-           "states": graph.num_states, "vocab": graph.V,
-           "chunk_ms_p50": chunk["p50"], "finalize_ms_p50": fin["p50"],
-           "finalize_ms_p99": fin["p99"], "wer": wer,
-           "decoded": sum(h is not None for h in results),
-           "chunk_ms_p99": chunk["p99"], "chunk_ms_max": chunk["max"],
-           "finalize_ms_max": fin["max"], "finalize_calls": fin["n"],
-           "chunks": timed["chunks"], "audio_s": audio_s,
-           "wall_s": timed["wall_s"], "warmup_wall_s": rounds[0]["wall_s"],
-           "word_errors": word_errors(wer, test_txt),
-           "peak_memory_gb": peak_gb, "launches": launches,
-           "frames_scored": int(lens.sum()), "stage_s": stage_s,
-           "staged_wall_s": rounds[2]["wall_s"],
-           "lanes_differing_from_decode_batch": differ,
-           "staged_lanes_differing": differing_lanes(
-               rounds[2]["results"], results)}
-    emit("slice_online_ng", **run)
+    run.update({
+        "value": audio_s / timed["wall_s"], "unit": "x realtime",
+        "lanes": lanes, "states": graph.num_states, "vocab": graph.V,
+        "chunk_ms_p50": chunk["p50"], "finalize_ms_p50": fin["p50"],
+        "finalize_ms_p99": fin["p99"], "wer": wer,
+        "decoded": sum(h is not None for h in results),
+        "chunk_ms_p99": chunk["p99"], "chunk_ms_max": chunk["max"],
+        "finalize_ms_max": fin["max"], "finalize_calls": fin["n"],
+        "chunks": timed["chunks"], "audio_s": audio_s,
+        "wall_s": timed["wall_s"], "warmup_wall_s": rounds[0]["wall_s"],
+        "word_errors": word_errors(wer, test_txt),
+        "peak_memory_gb": out["peak_gb"], "launches": out["launches"],
+        "frames_scored": int(lens.sum()), "stage_s": out["stage_s"],
+        "staged_wall_s": rounds[2]["wall_s"],
+        "lanes_differing_from_decode_batch": differ,
+        "staged_lanes_differing": differing_lanes(rounds[2]["results"],
+                                                  results)})
+    emit(name, **run)
     if differ or run["staged_lanes_differing"]:
-        raise SystemExit(f"online lanes {differ} differ from decode_batch "
+        raise SystemExit(f"{name}: lanes {differ} differ from decode_batch "
                          "of the scorer's loglikes, or between rounds")
-    if any(launches.values()):
-        raise SystemExit("a kernel of another path ran in slice_online_ng")
+    if run["decoded"] != lanes:
+        raise SystemExit(f"{name}: only {run['decoded']}/{lanes} lanes "
+                         "decoded")
+    if any(out["launches"].values()):
+        raise SystemExit(f"a kernel of another path ran in {name}")
     return run
+
+
+def run_online_ng(ng: dict, model, ivec, fe) -> dict:
+    """slice_online_ng: the production online configuration as
+    egs/bench_corpus/measure_online_ng.py runs it, at 128 lanes.  The
+    128 test utterances' MFCCs (float waves, as that script computes
+    them) stacked by 3 to the model's output rate, fed 32 output frames a
+    lane and round; the flagship TDNN-F (bf16) scores each chunk of 96
+    input frames with each lane's utterance i-vector (extract_batch, with
+    the lanes' frame counts); BatchedDeviceOnlinePipelineNg over the
+    495,782-state graph (pool 128, beam 16, endpointing on).  A warm-up
+    round, a timed one (xRT, chunk and finalize latency, WER), and a
+    staged one whose stage seconds end each call with a sync.  Every lane
+    of the timed round must equal decode_batch (same pool) of the
+    loglikes the scorer produced in it, concatenated per lane, and the
+    staged round must give the same results."""
+    graph, dec = ng["graph"], ng["dec"]
+    utts = sorted(ng["test_wav"])
+    lanes, Tc = len(utts), NG_ONLINE["chunk_frames"]
+    sub = 3
+    waves = [np.asarray(ng["test_wav"][u], np.float32) for u in utts]
+    feats, nframes, stacked = stacked_mfcc(fe, waves, sub)
+    with torch.inference_mode():
+        ivecs = ivec.extract_batch(feats, nframes).to(torch.bfloat16)
+    D = feats.shape[2]
+    del feats
+
+    def scorer(chunk: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(chunk).to(dec.device).view(lanes, Tc * sub,
+                                                         D)
+        return model.chain(x, ivecs).to(torch.float32)
+
+    pipe = online_ng_pipe(ng, scorer, sub * D, lanes)
+    out = online_rounds(pipe, utts, stacked, Tc)
+    # the keys of measure_online_ng.py's JSON line (unrounded), then more
+    return online_check(
+        "slice_online_ng", dec, graph, utts, ng["test_txt"], out,
+        sum(len(f) for f in stacked) * 0.03,
+        {"metric": "online_ng_pipeline_aggregate_xRT", "chunk_frames": Tc,
+         "endpointing": True},
+        dict(prune_k=NG_ONLINE["prune_k"],
+             prune_beam=NG_ONLINE["prune_beam"]))
 
 
 def run_online_stream_offline(ng: dict, loglikes: torch.Tensor,
@@ -1590,6 +1675,326 @@ def run_online_batcher(ng: dict, loglikes: torch.Tensor,
     if any(launches.values()):
         raise SystemExit("a kernel of another path ran in online_batcher_ng")
     return {"wall_s": wall, "wer": wer, "endpointed": n_ep}
+
+
+def build_lex_path() -> dict:
+    """The legacy path's search: the default BenchCorpusSpec corpus
+    (V=200, no training audio), the chain system of chain_tm_tree_for,
+    the LexChainGraph of build_decode_graph and its decoder on the card;
+    the corpus fingerprint against the JAX package's."""
+    spec = BenchCorpusSpec()
+    t0 = time.perf_counter()
+    lexicon, _, _, test_txt, test_wav, lm_text = make_corpus(
+        spec, train_audio=False)
+    corpus_s = time.perf_counter() - t0
+    fingerprint = corpus_fingerprint(spec, lexicon, test_txt, test_wav,
+                                     lm_text)
+    t0 = time.perf_counter()
+    lang, tm, tree = chain_tm_tree_for(lexicon)
+    graph = build_decode_graph(lexicon, lm_text, tm, tree, lang=lang)
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dec = LexChainDecoder(graph, device="cuda")
+    torch.cuda.synchronize()
+    emit("lex_graph", vocab=graph.V, N=graph.N, rows=graph.n_true,
+         P=graph.P, states=graph.num_states,
+         explicit_bigrams=graph.lm.num_explicit, num_pdfs=graph.num_pdfs,
+         tm_pdfs=tm.num_pdfs, dense_corrections=dec._use_dense_corr,
+         dense_table=list(dec._srcw_tab.shape), buckets=len(dec._buckets),
+         variants_a_word=dec._maxvar, VC=dec.VC,
+         corpus_fingerprint=fingerprint,
+         jax_cpu_fingerprint=LEX_FINGERPRINT, corpus_s=corpus_s,
+         graph_s=graph_s, decoder_s=time.perf_counter() - t0)
+    if fingerprint != LEX_FINGERPRINT:
+        raise SystemExit(f"corpus fingerprint {fingerprint}, the JAX "
+                         f"package's {LEX_FINGERPRINT}")
+    return {"spec": spec, "lexicon": lexicon, "tm": tm,
+            "test_txt": test_txt, "test_wav": test_wav, "graph": graph,
+            "dec": dec}
+
+
+def legacy_am(lex: dict):
+    """The committed legacy TDNN-F, flagship_params.npz (17 x 1536,
+    bottleneck 160, 50 pdfs, no i-vectors) in bf16 on the card, and the
+    40-cepstra MFCC frontend, as bench.py main_legacy builds them."""
+    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=0,
+                           num_pdfs=lex["tm"].num_pdfs, hidden_dim=1536,
+                           bottleneck_dim=160, prefinal_dim=256,
+                           num_layers=17, subsample_layer=8,
+                           frame_subsampling_factor=3)
+    model = chain_tdnnf_from_flax(
+        cfg, load_params(os.path.join(ART, "flagship_params.npz")),
+        dtype=torch.bfloat16, device="cuda")
+    fe = OfflineFeature(mfcc_options(lex["spec"], num_ceps=40),
+                        device="cuda")
+    return model, fe
+
+
+def lex_words(lex: dict, utts, outs) -> dict:
+    return {u: ([] if o is None else [lex["graph"].words[w] for w in o[0]])
+            for u, o in zip(utts, outs)}
+
+
+def run_lex_slice(lex: dict, model, fe) -> dict:
+    """slice_lex and profile_lex: the 128 test utterances through
+    BatchedOfflinePipeline2 with the LexChain decoder, exact search, as
+    bench.py --legacy runs it (mu-law wire): one warm-up with no host
+    sync allowed in the frame loop or the follow pass, three timed calls
+    (wall, xRT, the feat/am/search split, the decoder's
+    fwd_s/fol_s/traceback_s, peak memory, lanes decoded, WER; none of
+    kernels a-c may launch), one call under the profiler (launches a
+    frame); then the same utterances on the int16 wire, whose WER is held
+    to the JAX package's CPU WER; and one pruned decode with every
+    virtual-context row in the pool, equal to the exact one."""
+    spec, graph, dec = lex["spec"], lex["graph"], lex["dec"]
+    test_txt, test_wav = lex["test_txt"], lex["test_wav"]
+    utts = sorted(test_wav)
+    clipped = [np.clip(test_wav[u], -32767, 32767) for u in utts]
+    waves = [mulaw_encode(w) for w in clipped]
+    dec_stats: dict = {}
+    pipe = BatchedOfflinePipeline2(model, dec, fe, sample_rate=spec.fs,
+                                   search_kwargs={"stats": dec_stats},
+                                   device="cuda")
+    n_words = sum(len(r) for r in test_txt.values())
+    t0 = time.perf_counter()
+    with each_call_inside(dec, LEX_BLOCKS, no_host_sync):
+        pipe.decode_batch(waves)                             # warm-up
+    emit("lex_warmup", seconds=time.perf_counter() - t0,
+         frame_loop_and_follow_pass_host_syncs=0)
+    bucket = fe.stage_batch(waves)[3]
+    T_out = -(-bucket // 3)
+    runs = []
+    for it in range(3):
+        stats = PipelineStats()
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        outs = pipe.decode_batch(waves, stats=stats)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        wer = wer_of(lex_words(lex, utts, outs), test_txt)
+        run = {"iter": it, "wire": "mulaw",
+               "lanes_decoded": sum(o is not None for o in outs),
+               "lanes": len(waves), "frames": T_out,
+               "audio_s": stats.total_audio_s, "wall_s": stats.wall_s,
+               "feat_s": stats.feat_s, "am_s": stats.am_s,
+               "search_s": stats.search_s, "xrt": stats.xrt,
+               "fwd_s": dec_stats["fwd_s"], "fol_s": dec_stats["fol_s"],
+               "traceback_s": dec_stats["traceback_s"],
+               "peak_memory_gb": peak_gb, "wer": wer,
+               "word_errors": round(wer * n_words / 100.0),
+               "ref_words": n_words, "launches": kernel_launch_counts()}
+        emit("slice_lex", **run)
+        runs.append(run)
+        if run["lanes_decoded"] != len(waves):
+            raise SystemExit(f"only {run['lanes_decoded']}/{len(waves)} "
+                             "lanes decoded")
+        if any(run["launches"].values()):
+            raise SystemExit("a kernel of another path ran in slice_lex")
+    walls = sorted(r["wall_s"] for r in runs)
+    with each_call_inside(dec, LEX_BLOCKS, torch.profiler.record_function):
+        prof = profile_call(lambda: pipe.decode_batch(waves), top=15,
+                            ranges=LEX_BLOCKS)
+    blocks = prof["ranges"]
+    emit("profile_lex", busy_share_of_median_wall=prof["device_ms"] / 1e3
+         / walls[1], frames=T_out,
+         launches_per_frame=blocks["_forward"]["kernel_launches"] / T_out,
+         follow_launches_per_frame=blocks["_follow"]["kernel_launches"]
+         / T_out, **prof)
+    # the bar: the int16 wire against the JAX package's CPU output
+    reset_kernel_counts()
+    stats = PipelineStats()
+    outs16 = pipe.decode_batch([w.astype(np.int16) for w in clipped],
+                               stats=stats)
+    wer16 = wer_of(lex_words(lex, utts, outs16), test_txt)
+    errors16 = round(wer16 * n_words / 100.0)
+    emit("slice_lex_int16", wer=wer16, word_errors=errors16,
+         jax_cpu_wer=LEX_WER, jax_cpu_word_errors=LEX_WORD_ERRORS,
+         band_points=LEX_WER_BAND, band_words=LEX_WORDS_BAND,
+         lanes_decoded=sum(o is not None for o in outs16),
+         wall_s=stats.wall_s, xrt=stats.xrt,
+         launches=kernel_launch_counts(),
+         mulaw_wer=runs[-1]["wer"])
+    if sum(o is not None for o in outs16) != len(waves):
+        raise SystemExit("a lane of the int16 call has no result")
+    if not (abs(wer16 - LEX_WER) <= LEX_WER_BAND
+            and abs(errors16 - LEX_WORD_ERRORS) <= LEX_WORDS_BAND):
+        raise SystemExit(f"int16 WER {wer16:.3f}% ({errors16} errors) is "
+                         f"more than {LEX_WER_BAND} points or "
+                         f"{LEX_WORDS_BAND} words from the JAX package's "
+                         f"{LEX_WER:.3f}% ({LEX_WORD_ERRORS})")
+    if any(kernel_launch_counts().values()):
+        raise SystemExit("a kernel of another path ran in slice_lex_int16")
+    # every virtual-context row in the pool: the exact search's candidates
+    feats, nframes = fe.compute_batch_device(waves)
+    loglikes, out_lens = pipe.loglikes(feats, nframes)
+    exact = dec.decode_batch(loglikes, lengths=out_lens)
+    t0 = time.perf_counter()
+    full = dec.decode_batch(loglikes, lengths=out_lens, prune_k=dec.VC)
+    full_s = time.perf_counter() - t0
+    differ = [b for b, (f, e) in enumerate(zip(full, exact))
+              if f is None or e is None or f[:2] != e[:2]
+              or abs(f[2] - e[2]) > 1e-4 * max(1.0, abs(e[2]))]
+    emit("lex_pruned_full_k", K=dec.VC, lanes=len(full), seconds=full_s,
+         lanes_differing_from_exact=differ,
+         lanes_differing_from_slice=[
+             b for b, (e, o) in enumerate(zip(exact, outs))
+             if e is None or o is None or e[0] != o[0]])
+    if differ:
+        raise SystemExit(f"pruned search with every row in the pool "
+                         f"differs from exact in lanes {differ}")
+    return {"runs": runs, "loglikes": loglikes, "out_lens": out_lens,
+            "frames": T_out, "wer_int16": wer16, "errors_int16": errors16,
+            "profile": prof}
+
+
+def lex_cpu_check(lex: dict, loglikes, out_lens, lanes: int = 4) -> None:
+    """The same loglikes of `lanes` lanes through the LexChain decoder on
+    the CPU and on the card: equal words and tids, costs within 1e-4
+    relative."""
+    kw = dict(lengths=out_lens[:lanes])
+    card = lex["dec"].decode_batch(loglikes[:lanes], **kw)
+    t0 = time.perf_counter()
+    host = LexChainDecoder(lex["graph"], device="cpu").decode_batch(
+        loglikes[:lanes].cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    rel = max(abs(c[2] - h[2]) / max(1.0, abs(h[2]))
+              for c, h in zip(card, host))
+    same = [c[0] == h[0] and c[1] == h[1] for c, h in zip(card, host)]
+    emit("lex_cpu_check", lanes=lanes, words_and_tids_equal=same,
+         max_cost_rel_diff=rel, limit=1e-4, cpu_seconds=cpu_s,
+         words_lane0=card[0][0][:12], cost_lane0=card[0][2])
+    if not all(same) or not rel <= 1e-4:
+        raise SystemExit("the LexChain decoder differs between the card "
+                         "and the CPU")
+
+
+def flat_path_cost(flat, tids, words, ll: np.ndarray) -> float:
+    """Float64 cost of the cheapest path of the flat graph with these
+    input labels (one a frame) and output words: its arc weights and
+    final cost, minus the loglike of each frame's pdf."""
+    K = len(words)
+    cost = np.full((flat.num_states, K + 1), np.inf)
+    cost[flat.start, 0] = 0.0
+    weight = flat.weight.astype(np.float64)
+    for tid in tids:
+        sel = flat.ilabel == tid
+        src, dst, olab, w = flat.src[sel], flat.dst[sel], \
+            flat.olabel[sel], weight[sel]
+        new = np.full_like(cost, np.inf)
+        for k in range(K + 1):
+            c = cost[src, k] + w
+            eps = olab == 0
+            np.minimum.at(new[:, k], dst[eps], c[eps])
+            if k < K:
+                hit = olab == words[k]
+                np.minimum.at(new[:, k + 1], dst[hit], c[hit])
+        cost = new
+    graph = float((cost[:, K] + flat.finals.astype(np.float64)).min())
+    pdfs = flat.tid2pdf[np.asarray(tids)]
+    return graph - float(ll[np.arange(len(tids)), pdfs]
+                         .astype(np.float64).sum())
+
+
+def cross_check_lex(lex: dict, loglikes, out_lens, lanes: int = 2) -> None:
+    """The LexChain decoder on the card (exact) against the host
+    FasterDecoder on the graph's to_flat_graph(), on the `lanes` shortest
+    lanes of the slice's loglikes: equal words and tids, costs within
+    1e-3 * max(1, |cost|) (float32 sums against float64).  Where the
+    paths differ they must be a float64 tie (TIE_REL)."""
+    t0 = time.perf_counter()
+    graph = lex["graph"]
+    flat = graph.to_flat_graph()
+    host = FasterDecoder(flat.to_vector_fst(),
+                         FasterDecoderOptions(beam=1e9, max_active=10 ** 9))
+    pick = [int(b) for b in np.argsort(out_lens, kind="stable")[:lanes]]
+    ll = loglikes[pick].cpu().numpy()
+    got = lex["dec"].decode_batch(loglikes[pick], lengths=out_lens[pick])
+    verdicts = []
+    for i, b in enumerate(pick):
+        n = int(out_lens[b])
+        ref = host.decode(ll[i, :n], flat.tid2pdf)
+        h = got[i]
+        if h is None or ref is None:
+            raise SystemExit(f"cross_check_lex lane {b}: no path")
+        if abs(h[2] - ref[2]) > 1e-3 * max(1.0, abs(ref[2])):
+            raise SystemExit(f"cross_check_lex lane {b}: cost {h[2]} "
+                             f"against the host's {ref[2]}")
+        if h[0] == ref[1] and h[1] == ref[0]:
+            verdicts.append("equal")
+            continue
+        gap = abs(flat_path_cost(flat, h[1], h[0], ll[i])
+                  - flat_path_cost(flat, ref[0], ref[1], ll[i]))
+        if gap > TIE_REL * max(1.0, abs(ref[2])):
+            raise SystemExit(f"cross_check_lex lane {b}: different paths "
+                             f"{gap} apart in float64")
+        verdicts.append("tied")
+    emit("cross_check_lex", lanes=pick, frames=[int(out_lens[b])
+                                                for b in pick],
+         flat_states=flat.num_states, flat_arcs=flat.num_arcs,
+         lanes_equal=verdicts.count("equal"),
+         lanes_tied=verdicts.count("tied"), tie_rel=TIE_REL,
+         words_lane0=got[0][0], seconds=time.perf_counter() - t0)
+
+
+def run_online_lex(lex: dict, model, fe) -> dict:
+    """slice_online_lex: egs/bench_corpus/measure_online.py's
+    configuration, at 128 lanes rather than its 64.  The 128 test
+    utterances' MFCCs (float waves) stacked by 3 (feat_dim 120), fed 32
+    output frames a lane and round; the legacy TDNN-F (bf16, no
+    i-vectors) scores each chunk of 96 input frames on its own;
+    BatchedDeviceOnlinePipelineLex over the V=200 graph, exact search,
+    no endpointing.  Rounds and checks as slice_online_ng: every lane
+    equal to decode_batch of the loglikes the scorer produced."""
+    graph, dec = lex["graph"], lex["dec"]
+    utts = sorted(lex["test_wav"])
+    lanes, Tc = len(utts), LEX_ONLINE["chunk_frames"]
+    sub = 3
+    waves = [np.asarray(lex["test_wav"][u], np.float32) for u in utts]
+    feats, _, stacked = stacked_mfcc(fe, waves, sub)
+    D = feats.shape[2]
+    del feats
+
+    def scorer(chunk: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(chunk).to(dec.device).view(lanes, Tc * sub,
+                                                         D)
+        return model.chain(x, None).to(torch.float32)
+
+    pipe = BatchedDeviceOnlinePipelineLex(dec, scorer, feat_dim=sub * D,
+                                          num_lanes=lanes, **LEX_ONLINE)
+    out = online_rounds(pipe, utts, stacked, Tc)
+    return online_check(
+        "slice_online_lex", dec, graph, utts, lex["test_txt"], out,
+        sum(len(f) for f in stacked) * 0.03,
+        {"metric": "online_pipeline_aggregate_xRT", "chunk_frames": Tc,
+         "endpointing": False, "lanes_measure_online_default": 64}, {})
+
+
+def legacy_phases() -> dict:
+    """The legacy path on the card: lex_graph, slice_lex (with
+    profile_lex, slice_lex_int16, lex_pruned_full_k), lex_cpu_check,
+    cross_check_lex and slice_online_lex -> their numbers."""
+    lex = build_lex_path()
+    model, fe = legacy_am(lex)
+    res = run_lex_slice(lex, model, fe)
+    lex_cpu_check(lex, res["loglikes"], res["out_lens"])
+    cross_check_lex(lex, res["loglikes"], res["out_lens"])
+    online = run_online_lex(lex, model, fe)
+    walls = sorted(r["wall_s"] for r in res["runs"])
+    out = {"lex_wall_s_median": walls[1],
+           "lex_xrt_median": res["runs"][0]["audio_s"] / walls[1],
+           "lex_wer_mulaw": res["runs"][-1]["wer"],
+           "lex_wer_int16": res["wer_int16"],
+           "lex_launches_per_frame":
+               res["profile"]["ranges"]["_forward"]["kernel_launches"]
+               / res["frames"],
+           "online_lex_xrt": online["value"],
+           "online_lex_chunk_ms_p50": online["chunk_ms_p50"],
+           "online_lex_finalize_ms_max": online["finalize_ms_max"],
+           "online_lex_wer": online["wer"],
+           "launches": {"slice_lex": res["runs"][-1]["launches"],
+                        "slice_online_lex": online["launches"]}}
+    del lex, model, fe, res
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1863,6 +2268,9 @@ def main() -> int:
     ng_runs = ng_res["runs"]
     del ng, ng_res
     torch.cuda.empty_cache()
+
+    # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
+    legacy = legacy_phases()
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
@@ -2171,6 +2579,7 @@ def main() -> int:
          online_ng_wer=ng_online["wer"],
          online_batcher_wer=ng_batcher["wer"],
          online_batcher_endpointed=ng_batcher["endpointed"],
+         **{k: v for k, v in legacy.items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -2191,6 +2600,9 @@ def main() -> int:
             "library_ms": None})
     kernels[0]["launches_online"] = \
         online["launches"]["block_chain_step"]
+    for k in kernels:
+        k["launches_legacy"] = sum(counts[k["name"]] for counts in
+                                   legacy["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -52,6 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.decoder.chain_blocks import ChainBlocks
 from kaldi_tpu_torch.decoder.graph_direct import INF, LN2, FlatGraph
 from kaldi_tpu_torch.device import DeviceLike, resolve_device
 from kaldi_tpu_torch.fstext.fst import Arc, LatticeWeight, VectorFst
@@ -536,7 +537,7 @@ class NgramLexGraph:
 
 
 
-class NgramLexDecoder:
+class NgramLexDecoder(ChainBlocks):
     """Batched Viterbi over an NgramLexGraph in PyTorch ops.
 
     decode_batch(loglikes (B, T, num_pdfs)) -> per lane
@@ -692,32 +693,6 @@ class NgramLexDecoder:
         self._bit_weights = tens(1 << np.arange(8), torch.uint8).view(1, 8, 1)
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _select(vm: torch.Tensor, K: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Each lane's K smallest of vm (VC, B), in the reference's
-        `top_k` order: ascending value, ties by lower row.  The f32
-        value's bits, made order-preserving as an int32, and the row
-        form one int64 key, so the selection has no ties.
-        -> (rows (B, K) int64, values (B, K) f32)."""
-        v = vm.T.contiguous()
-        bits = v.view(torch.int32)
-        key = (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
-        rows = torch.arange(v.shape[1], device=v.device)
-        keys = torch.topk((key << 32) | rows, K, dim=1, largest=False,
-                          sorted=True).values
-        ids = keys & 0xFFFFFFFF
-        return ids, v.gather(1, ids)
-
-    def _pack_bits(self, dec: torch.Tensor, npad: int) -> torch.Tensor:
-        """dec (n, B) bool -> (npad, B) uint8, bit i of byte j = row
-        8j + i."""
-        n, B = dec.shape
-        d = torch.zeros((npad * 8, B), dtype=torch.uint8, device=dec.device)
-        d[:n] = dec
-        return (d.view(npad, 8, B) * self._bit_weights).sum(
-            dim=1, dtype=torch.uint8)
-
     def _fold_slots(self, rmin: torch.Tensor, pick_sil: torch.Tensor):
         """Slots (roots and shadows, (U+1, B)) -> LM-state values and
         encoded slots (slot * 2 + from_sil), (S, B).  Among equal
@@ -838,51 +813,11 @@ class NgramLexDecoder:
             + self._unit_pron_cost
         return ent_unit, ids, vals, pslot
 
-    def _relax_rows(self, cost, am_t, ent_unit):
-        """The row relaxation: roll(1) with the word-entry overwrite of
-        first rows, min against the self-loop.  -> (new cost (Nr, B),
-        take_fwd (Nr, B) bool)."""
-        amf = am_t.index_select(0, self._pdf_fwd_row) + self._fwd_extra
-        ams = am_t.index_select(0, self._pdf_self_row) + self._self_extra
-        fwd_src = torch.roll(cost, 1, 0)
-        fwd_src[self._first_rows] = ent_unit.index_select(
-            0, self._first_units)
-        fwd_cand = fwd_src + amf
-        self_cand = cost + ams
-        take_fwd = fwd_cand < self_cand
-        return torch.where(take_fwd, fwd_cand, self_cand), take_fwd
-
     def _rows(self, cost, am_t, ent_unit):
         """Block 3, the row relaxation.  -> (new cost (Nr, B), bit-packed
         decisions (Nr/8, B))."""
         new_cost, take_fwd = self._relax_rows(cost, am_t, ent_unit)
         return new_cost, self._pack_bits(take_fwd, self.g.Nr // 8)
-
-    def _relax_roots(self, cost, roots, am_t, ent_unit):
-        """Unit roots: the word-end arc against the root's self-loop.
-        -> (roots (U+1, B), end_cand and take_end (U, B))."""
-        U = self.g.U
-        am_end = am_t.index_select(0, self._pdf_end) + self._tr_end
-        end_src = torch.where(self._end_is_row[:, None],
-                              cost.index_select(0, self._end_row), ent_unit)
-        end_cand = end_src + am_end
-        self_r = roots[:U] + am_t.index_select(0, self._pdf_root_self) \
-            + self._tr_root_self
-        take_end = end_cand < self_r
-        roots_new = torch.cat([torch.where(take_end, end_cand, self_r),
-                               roots.new_full((1, roots.shape[1]),
-                                              float(INF))], 0)
-        return roots_new, end_cand, take_end
-
-    def _relax_sil(self, roots, sil, am_t):
-        """Silence shadows (use_sil): entered from their roots or held.
-        -> (shadows (U+1, B), sil_take (U+1, B) bool)."""
-        g = self.g
-        sil_in = roots + g.sil_cost + g.sil_tr_fwd \
-            + am_t[g.sil_pdf_fwd][None, :]
-        sil_self = sil + g.sil_tr_self + am_t[g.sil_pdf_self][None, :]
-        sil_take = sil_in < sil_self
-        return torch.where(sil_take, sil_in, sil_self), sil_take
 
     def _roots(self, cost, roots, sil, am_t, ent_unit):
         """Block 4, roots and silence shadows.  -> (roots (U+1, B),
@@ -1039,10 +974,6 @@ class NgramLexDecoder:
             best_i <= U, torch.where(best_i == U, Nr + U, Nr + best_i),
             Nr + U + 1 + (best_i - (U + 1)))
         return final_state, allfin.amin(dim=0)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     def decode_batch(self, loglikes, acoustic_scale: float = 1.0,

@@ -1,39 +1,80 @@
-"""Transition model (port of the reading half and the queries of
+"""Transition model (port of the construction from a topology and a
+tree, the reading half and the queries of
 `kaldi_tpu/hmm/transition_model.py`; parity: hmm/transition-model.h:124).
 
 Maps between transition-ids, transition-states, tuples
 (phone, hmm_state, forward_pdf, self_loop_pdf) and pdf-ids, and holds
-the transition log-probs, as read from a `final.mdl`-style file
-(<TransitionModel> topo <Triples>/<Tuples> ... <LogProbs> ...).
+the transition log-probs: built from an HmmTopology and a tree
+(`TransitionModel(topo, ctx_dep)`, the topology's probabilities), or
+read from a `final.mdl`-style file (<TransitionModel> topo
+<Triples>/<Tuples> ... <LogProbs> ...).
 """
 
 from __future__ import annotations
 
 import bisect
-from typing import BinaryIO, List, Tuple
+import math
+from typing import BinaryIO, List, Optional, Tuple
 
 import numpy as np
 
 from kaldi_tpu_torch.base import io_funcs as iof
-from kaldi_tpu_torch.hmm.topology import HmmTopology
+from kaldi_tpu_torch.hmm.topology import NO_PDF, HmmTopology
 
 
 class TransitionModel:
-    def __init__(self):
-        self.topo: HmmTopology = None
+    def __init__(self, topo: Optional[HmmTopology] = None, ctx_dep=None):
+        self.topo = topo
         self.tuples: List[Tuple[int, int, int, int]] = []
         self.log_probs = np.zeros(1, dtype=np.float32)  # 1-based
+        if topo is not None and ctx_dep is not None:
+            self._compute_tuples(ctx_dep)
+            self._compute_derived()
+            self._initialize_probs()
+
+    def _compute_tuples(self, ctx_dep) -> None:
+        """The (phone, hmm_state, fwd_pdf, self_pdf) tuples the tree can
+        give each emitting state (transition-model.cc:27), sorted."""
+        tuples = set()
+        for phone in self.topo.phones:
+            for j, st in enumerate(self.topo.topology_for_phone(phone)):
+                if st.forward_pdf_class == NO_PDF:
+                    continue
+                for pdf in ctx_dep.pdfs_for(phone, st.forward_pdf_class):
+                    if st.self_loop_pdf_class != st.forward_pdf_class:
+                        for sp in ctx_dep.pdfs_for(phone,
+                                                   st.self_loop_pdf_class):
+                            tuples.add((phone, j, pdf, sp))
+                    else:
+                        tuples.add((phone, j, pdf, pdf))
+        self.tuples = sorted(tuples)
+
+    def _initialize_probs(self) -> None:
+        """Log-probs from the topology's transition probabilities."""
+        nid = self.num_transition_ids
+        self.log_probs = np.zeros(nid + 1, dtype=np.float32)
+        for tid in range(1, nid + 1):
+            ts = self.id2state[tid]
+            idx = tid - self.state2id[ts]
+            phone, hmm_state, _, _ = self.tuples[ts - 1]
+            prob = self.topo.topology_for_phone(
+                phone)[hmm_state].transitions[idx][1]
+            if prob <= 0.0:
+                raise ValueError("zero transition probability in topology")
+            self.log_probs[tid] = math.log(prob)
 
     def _compute_derived(self) -> None:
-        """transition-state and transition-id tables
+        """transition-state and transition-id tables and the pdf count
         (transition-model.cc:144)."""
         n = len(self.tuples)
         self.state2id = np.zeros(n + 2, dtype=np.int32)
         cur = 1
+        self.num_pdfs = 0
         for ts in range(1, n + 2):
             self.state2id[ts] = cur
             if ts <= n:
-                phone, hmm_state = self.tuples[ts - 1][:2]
+                phone, hmm_state, fwd, slf = self.tuples[ts - 1]
+                self.num_pdfs = max(self.num_pdfs, fwd + 1, slf + 1)
                 entry = self.topo.topology_for_phone(phone)
                 cur += len(entry[hmm_state].transitions)
         self.id2state = np.zeros(cur, dtype=np.int32)

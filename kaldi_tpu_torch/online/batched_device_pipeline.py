@@ -1,14 +1,15 @@
 """Batched multi-stream online decoding with the search on the device
 (port of `kaldi_tpu/online/batched_device_pipeline.py`:
-`BatchedDeviceOnlinePipeline`, `BatchedDeviceOnlinePipelineNg` and
-`OnlineDynamicBatcher`; the reference's
-cudadecoder/batched-threaded-nnet3-cuda-online-pipeline.h).
+`BatchedDeviceOnlinePipeline`, `BatchedDeviceOnlinePipelineLex`,
+`BatchedDeviceOnlinePipelineNg` and `OnlineDynamicBatcher`; the
+reference's cudadecoder/batched-threaded-nnet3-cuda-online-pipeline.h).
 
 B lanes are the batch dimension of one resident carry of a decoder's
 frame loop: the block-chain decoder's (cost (Up, N, B), roots (Up, B)),
 whose frame step is the CUDA kernel `block_chain_step` on the card, or
-the n-gram decoder's (rows (Nr, B), roots and silence shadows (U+1, B)),
-PyTorch ops.  compute() gathers every channel's pending frames,
+the LexChain decoder's (rows (N, B), variant roots and silence shadows
+(P+1, B)) or the n-gram decoder's (rows (Nr, B), unit roots and shadows
+(U+1, B)), PyTorch ops.  compute() gathers every channel's pending frames,
 right-pads them to one chunk of Tc frames, scores the chunk in one call
 and runs the decoder's frame loop over it for all lanes from the carry;
 a lane without new frames is frozen by the chunk's per-frame `act` mask.
@@ -18,8 +19,9 @@ card once and kept) and ships only the (T, B) state trajectory to the
 host.
 
 Memory: the block-chain decisions take Up * N/8 * B bytes a frame (36
-MB at V=700 and 128 lanes), the n-gram dumps Nr/8 * B bytes plus the
-pools.  The history is bounded by `max_frames`; `free_channel` drops the
+MB at V=700 and 128 lanes), the LexChain dumps N/8 * B bytes plus an
+int32 source root a word and lane (V * B * 4), the n-gram dumps
+Nr/8 * B bytes plus the pools.  The history is bounded by `max_frames`; `free_channel` drops the
 frames before the earliest active utterance's start.
 """
 
@@ -89,7 +91,7 @@ class BatchedDeviceOnlinePipeline:
         with torch.inference_mode():
             self._init_device()
 
-    # -- decoder-specific hooks (overridden by the n-gram variant) ------
+    # -- decoder-specific hooks (overridden by the LexChain variants) ----
     def _init_device(self) -> None:
         dec = self.decoder
         self._cost = torch.full((dec.Up, dec.g.N, self.B), INF,
@@ -389,43 +391,35 @@ class BatchedDeviceOnlinePipeline:
                    for rule in config.rules())
 
 
-class BatchedDeviceOnlinePipelineNg(BatchedDeviceOnlinePipeline):
-    """The production online configuration: streaming batched decode over
-    an NgramLexDecoder ((context-dependent tree) x (backoff trigram)
-    graphs), each frame's pool the lane's prune_k best rows within
-    prune_beam.  Carries in its own body the hooks that the reference's
-    `BatchedDeviceOnlinePipelineLex` gives it (the lane reset, `_advance`,
-    `_current_best`, `_best_in_silence`)."""
-
-    def __init__(self, decoder: NgramLexDecoder, scorer: Callable,
-                 feat_dim: int, *args, prune_k: int = 128,
-                 prune_beam: float = 16.0, **kw):
-        self._prune_k = prune_k
-        self._prune_beam = float(prune_beam)
-        super().__init__(decoder, scorer, feat_dim, *args, **kw)
+class BatchedDeviceOnlinePipelineLex(BatchedDeviceOnlinePipeline):
+    """Streaming batched decode over a LexChainDecoder (the shared-lexicon
+    entry-LM graph of a real lexicon, a backoff bigram and a chain
+    tree), exact search: the resident carry is (chain rows (N, B),
+    variant roots and silence shadows (P+1, B)), resumed by the
+    decoder's own frame loop."""
 
     def _init_device(self) -> None:
-        dec = self.decoder
-        g = dec.g
-        # the reference asks for the approximate pool selection here
-        # (exact_topk=False); the port's selection is always exact
-        self._K = int(min(self._prune_k, dec.VC))
-        self._cost = torch.full((g.Nr, self.B), INF, dtype=torch.float32,
+        g = self.decoder.g
+        self._alloc_planes(g.N, g.P)
+
+    def _alloc_planes(self, rows: int, roots: int) -> None:
+        """The carry: rows (rows, B); roots and shadows (roots + 1, B),
+        the begin root last."""
+        self._cost = torch.full((rows, self.B), INF, dtype=torch.float32,
                                 device=self.device)
-        self._roots = torch.full((g.U + 1, self.B), INF,
+        self._roots = torch.full((roots + 1, self.B), INF,
                                  dtype=torch.float32, device=self.device)
         self._sil = torch.full_like(self._roots, INF)
 
     def _reset_lane(self, lane: int) -> None:
         self._cost[:, lane] = INF
         self._roots[:, lane] = INF
-        self._roots[self.decoder.g.U, lane] = 0.0      # the begin slot
+        self._roots[-1, lane] = 0.0                    # the begin root
         self._sil[:, lane] = INF
 
     def _advance(self, am: torch.Tensor, act: torch.Tensor) -> Dumps:
         (self._cost, self._roots, self._sil), outs = self.decoder._forward(
-            am, act, self._K, self._prune_beam,
-            carry=(self._cost, self._roots, self._sil))
+            am, act, carry=(self._cost, self._roots, self._sil))
         return outs
 
     def _follow(self, ys: Dumps, act: torch.Tensor,
@@ -453,28 +447,72 @@ class BatchedDeviceOnlinePipelineNg(BatchedDeviceOnlinePipeline):
             return np.zeros(self.B, bool)
         return (self._sil.amin(dim=0) < self._live_best()).cpu().numpy()
 
-    def _decode_traj(self, traj: np.ndarray) -> Tuple[List[int],
-                                                     List[int]]:
+    def _traj_labels(self, traj: np.ndarray, rows: int, roots: int,
+                     row_word: np.ndarray, root_word: np.ndarray
+                     ) -> Tuple[List[int], List[int]]:
+        """A lane's states after each of its frames -> (words, tids), the
+        path starting at the begin root: rows [0, rows), roots
+        [rows, rows + roots), the begin root, then the shadows."""
         g = self.decoder.g
-        Nr, U = g.Nr, g.U
-        root0, begin, sil0 = Nr, Nr + U, Nr + U + 1
+        root0, begin, sil0 = rows, rows + roots, rows + roots + 1
         cur = np.asarray(traj, np.int64)
         prev = np.concatenate([[begin], cur])[:-1]
         held = prev == cur
-        is_row = cur < Nr
+        is_row = cur < rows
         is_sil = (cur >= sil0) & bool(g.use_sil)
-        n = np.clip(cur, 0, Nr - 1)
-        u = np.clip(cur - root0, 0, U - 1)
+        n = np.clip(cur, 0, rows - 1)
+        u = np.clip(cur - root0, 0, roots - 1)
         tids = np.where(
             is_row, np.where(held, g.tid_self_row[n], g.tid_fwd_row[n]),
             np.where(is_sil, np.where(held, g.sil_tid_self, g.sil_tid_fwd),
                      np.where(held, g.tid_root_self[u], g.tid_end[u])))
         word = np.where(
-            is_row & ~held & g.row_is_first[n] & (prev >= Nr),
-            g.unit_word[np.maximum(g.row_unit[n], 0)] + 1,
+            is_row & ~held & g.row_is_first[n] & (prev >= rows),
+            row_word[n] + 1,
             np.where(~is_row & ~is_sil & ~held & (g.end_row[u] < 0),
-                     g.unit_word[u] + 1, 0))
+                     root_word[u] + 1, 0))
         return word[word > 0].tolist(), tids.tolist()
+
+    def _decode_traj(self, traj: np.ndarray) -> Tuple[List[int],
+                                                     List[int]]:
+        g = self.decoder.g
+        return self._traj_labels(traj, g.N, g.P, np.maximum(g.row_word, 0),
+                                 g.pron_word)
+
+
+class BatchedDeviceOnlinePipelineNg(BatchedDeviceOnlinePipelineLex):
+    """The production online configuration: streaming batched decode over
+    an NgramLexDecoder ((context-dependent tree) x (backoff trigram)
+    graphs), each frame's pool the lane's prune_k best rows within
+    prune_beam.  The carry is (rows (Nr, B), unit roots and shadows
+    (U+1, B)); everything else is the LexChain pipeline's."""
+
+    def __init__(self, decoder: NgramLexDecoder, scorer: Callable,
+                 feat_dim: int, *args, prune_k: int = 128,
+                 prune_beam: float = 16.0, **kw):
+        self._prune_k = prune_k
+        self._prune_beam = float(prune_beam)
+        super().__init__(decoder, scorer, feat_dim, *args, **kw)
+
+    def _init_device(self) -> None:
+        dec = self.decoder
+        # the reference asks for the approximate pool selection here
+        # (exact_topk=False); the port's selection is always exact
+        self._K = int(min(self._prune_k, dec.VC))
+        self._alloc_planes(dec.g.Nr, dec.g.U)
+
+    def _advance(self, am: torch.Tensor, act: torch.Tensor) -> Dumps:
+        (self._cost, self._roots, self._sil), outs = self.decoder._forward(
+            am, act, self._K, self._prune_beam,
+            carry=(self._cost, self._roots, self._sil))
+        return outs
+
+    def _decode_traj(self, traj: np.ndarray) -> Tuple[List[int],
+                                                     List[int]]:
+        g = self.decoder.g
+        return self._traj_labels(traj, g.Nr, g.U,
+                                 g.unit_word[np.maximum(g.row_unit, 0)],
+                                 g.unit_word)
 
 
 class OnlineDynamicBatcher:

@@ -1,7 +1,8 @@
 """The deterministic synthetic bench corpus and the loaders of the
 committed bench-corpus model files (numpy copies of the corpus
-generator, `mfcc_options`, `build_lang`, `build_decode_graph_ng`,
-`wer_of` and the loaders of `kaldi_tpu/recipes/bench_corpus.py`).
+generator, `mfcc_options`, `build_lang`, `build_decode_graph`,
+`build_decode_graph_ng`, `chain_tm_tree_for`, `wer_of` and the loaders
+of `kaldi_tpu/recipes/bench_corpus.py`).
 
 The corpus is seed-deterministic: a V-word lexicon over a formant-pair
 phone inventory, Markov text with second-order structure, and two-formant
@@ -10,6 +11,10 @@ same numbers as the reference, so `corpus_fingerprint` of the bench
 configuration equals the hash recorded beside the committed model
 (`egs/bench_corpus/flagship_ng_meta.json`).
 
+The legacy corpus (the default `BenchCorpusSpec()`, V=200) decodes with
+the LexChain graph of `build_decode_graph` over the monophone chain
+system of `chain_tm_tree_for`, and the committed
+`egs/bench_corpus/flagship_params.npz` TDNN-F (no i-vectors).
 `egs/bench_corpus/flagship_ng_params.npz` holds the flagship chain
 TDNN-F as "/"-joined flax paths ("params/tdnnf1/linear", ...), the big
 arrays stored as float16; `flagship_ng_ivec.npz` holds the i-vector
@@ -26,10 +31,15 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from kaldi_tpu_torch.decoder.lexchain import LexChainGraph
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexGraph
 from kaldi_tpu_torch.feat.frontend import MfccOptions
 from kaldi_tpu_torch.feat.window import FrameExtractionOptions
+from kaldi_tpu_torch.hmm.topology import HmmTopology
+from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+from kaldi_tpu_torch.lm.bigram import BigramBackoffLm
 from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
+from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
 from kaldi_tpu_torch.util.edit_distance import edit_distance_counts
 
 
@@ -333,10 +343,13 @@ def mfcc_options(spec: BenchCorpusSpec, num_ceps: int = 40) -> MfccOptions:
 class Lang:
     """The symbol tables of a lang directory (utils/prepare_lang.sh):
     phone ids 1-based over the sorted phones and the silence phone, word
-    ids 1-based over the sorted words (0 = eps)."""
+    ids 1-based over the sorted words (0 = eps); the silence phone and
+    the probability of optional silence between words."""
 
     def __init__(self, lexicon: Dict[str, List[List[str]]],
-                 sil_phone: str = "SIL"):
+                 sil_phone: str = "SIL", sil_prob: float = 0.5):
+        self.sil_phone = sil_phone
+        self.sil_prob = sil_prob
         phone_set = sorted({p for prons in lexicon.values()
                             for pron in prons for p in pron} | {sil_phone})
         self.phones = {p: i + 1 for i, p in enumerate(phone_set)}
@@ -346,7 +359,47 @@ class Lang:
 
 
 def build_lang(lexicon) -> Lang:
-    return Lang(lexicon, sil_phone="SIL")
+    return Lang(lexicon, sil_phone="SIL", sil_prob=0.5)
+
+
+def _lexicon_arrays(lexicon, lang: Lang):
+    """Every pronunciation variant of the sorted words as phone ids, its
+    word index and its cost ln(number of variants of the word)."""
+    prons, pron_word, pron_cost = [], [], []
+    for wi, w in enumerate(sorted(lexicon)):
+        variants = lexicon[w]
+        for pron in variants:
+            prons.append(np.asarray([lang.phones[p] for p in pron],
+                                    np.int32))
+            pron_word.append(wi)
+            pron_cost.append(math.log(max(len(variants), 1)))
+    return prons, pron_word, pron_cost
+
+
+def build_decode_graph(lexicon, lm_text, chain_tm, chain_tree,
+                       lang=None) -> LexChainGraph:
+    """LexChainGraph from the corpus artifacts: estimated backoff bigram
+    + the chain system's pdf/tid tables + optional-silence lexicon (the
+    legacy graph)."""
+    if lang is None:
+        lang = build_lang(lexicon)
+    lm = BigramBackoffLm.from_counts(lm_text, sorted(lexicon))
+    prons, pron_word, pron_cost = _lexicon_arrays(lexicon, lang)
+    return LexChainGraph.build(
+        prons, lm, pron_word=pron_word, pron_cost=pron_cost,
+        tm=chain_tm, tree=chain_tree, use_sil=True,
+        sil_phone=lang.phones[lang.sil_phone], sil_prob=lang.sil_prob)
+
+
+def chain_tm_tree_for(lexicon):
+    """The deterministic chain system of a corpus, made without training
+    artifacts: the chain topology and a monophone tree (two pdf-classes
+    a phone) over the lang's phones -> (lang, transition model, tree)."""
+    lang = build_lang(lexicon)
+    phones = sorted(lang.phones.values())
+    topo = HmmTopology.chain_topology(phones)
+    tree = monophone_context_dependency(phones, {p: 2 for p in phones})
+    return lang, TransitionModel(topo, tree), tree
 
 
 def build_decode_graph_ng(lexicon, lm_text, chain_tm, chain_tree,
@@ -360,14 +413,7 @@ def build_decode_graph_ng(lexicon, lm_text, chain_tm, chain_tree,
     vocab = sorted(lexicon)
     lm = TrigramBackoffLm.from_counts(lm_text, vocab, prune_bi=prune_bi,
                                       prune_tri=prune_tri)
-    prons, pron_word, pron_cost = [], [], []
-    for wi, w in enumerate(vocab):
-        variants = lexicon[w]
-        for pron in variants:
-            prons.append(np.asarray([lang.phones[p] for p in pron],
-                                    np.int32))
-            pron_word.append(wi)
-            pron_cost.append(math.log(max(len(variants), 1)))
+    prons, pron_word, pron_cost = _lexicon_arrays(lexicon, lang)
     return NgramLexGraph.build(
         prons, lm, pron_word=pron_word, pron_cost=pron_cost,
         tm=chain_tm, tree=chain_tree, use_sil=True,

@@ -44,7 +44,9 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "ops.block_chain_step", "decoder.block_chain",
                  "ops.viterbi_relax", "decoder.batched_viterbi",
                  "decoder.viterbi", "decoder.graph_direct",
-                 "decoder.lexchain_ng", "lm.trigram", "base.io_funcs",
+                 "decoder.lexchain_ng", "decoder.lexchain",
+                 "decoder.chain_blocks", "lm.trigram", "lm.bigram",
+                 "base.io_funcs",
                  "util.kaldi_io", "util.edit_distance", "hmm.topology",
                  "hmm.transition_model", "tree.event_map",
                  "tree.context_dep", "recipes.bench_corpus",
@@ -143,3 +145,33 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
     hyps = ngram.decode_batch(np.zeros((2, 6, 16), np.float32),
                               lengths=[6, 4])
     assert [len(h[1]) for h in hyps] == [6, 4]
+
+
+def test_lexchain_entry_points_raise_without_cuda_and_run_on_cpu():
+    """The legacy path's decoder and online pipeline: CUDA by default
+    (raising without it), the CPU when asked."""
+    from kaldi_tpu_torch.decoder.lexchain import (LexChainDecoder,
+                                                  LexChainGraph)
+    from kaldi_tpu_torch.lm.bigram import BigramBackoffLm
+    from kaldi_tpu_torch.online.batched_device_pipeline import \
+        BatchedDeviceOnlinePipelineLex
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    lm = BigramBackoffLm.from_counts([["a", "b", "a"], ["b"]])
+    g = LexChainGraph.build([np.array([1, 2]), np.array([3])], lm,
+                            num_pdfs=16, use_sil=True, sil_phone=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LexChainDecoder(g)
+    dec = LexChainDecoder(g, device="cpu")
+    assert dec.device.type == "cpu"
+    hyps = dec.decode_batch(np.zeros((2, 6, 16), np.float32),
+                            lengths=[6, 4])
+    assert [len(h[1]) for h in hyps] == [6, 4]
+    pipe = BatchedDeviceOnlinePipelineLex(dec, lambda f: f, feat_dim=16,
+                                          num_lanes=2, chunk_frames=4)
+    assert pipe._cost.device.type == "cpu"
+    pipe.init_channel(0, "u")
+    pipe.accept_features(0, np.zeros((6, 16), np.float32))
+    while pipe.compute():
+        pass
+    assert pipe.finalize(0) == hyps[0]

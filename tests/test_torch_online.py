@@ -5,7 +5,8 @@ reference, on the CPU.
 
 The same seeded numpy inputs and the same arrival schedule go through
 the JAX pipeline (`BlockChainDecoder(interpret=True)`, Pallas kernel a in
-interpret mode; `NgramLexDecoder`) and the port's (`device="cpu"`): each
+interpret mode; `LexChainDecoder`; `NgramLexDecoder`) and the port's
+(`device="cpu"`): each
 lane's words and tids must be equal and its cost within 1e-4 relative.
 The port's streaming results must also equal its own offline
 `decode_batch` of the same loglikes exactly: the carry resumes the frame
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from kaldi_tpu.decoder.block_chain import BlockChainDecoder as JaxBcDecoder
+from kaldi_tpu.decoder.lexchain import LexChainDecoder as JaxLexDecoder
 from kaldi_tpu.decoder.lexchain_ng import NgramLexDecoder as JaxNgDecoder
 from kaldi_tpu.ivector.batched import BatchedIvectorExtractor as JaxIvec
 from kaldi_tpu.online import batched_device_pipeline as jbp
@@ -27,6 +29,7 @@ from kaldi_tpu.recipes.bench_corpus import BenchCorpusSpec, mfcc_options
 from kaldi_tpu.recipes.bench_corpus import \
     load_ivector_extractor as jax_load_ivec
 from kaldi_tpu_torch.decoder.block_chain import BlockChainDecoder
+from kaldi_tpu_torch.decoder.lexchain import LexChainDecoder
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.feat.frontend import OfflineFeature
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
@@ -38,6 +41,7 @@ from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
 from tests.test_torch_block_chain import graphs as bc_graphs
 from tests.test_torch_frontend import bench_options, waves
 from tests.test_torch_ivector import IVEC, feats_like_ubm
+from tests.test_torch_lexchain import graphs as lex_graphs
 from tests.test_torch_lexchain_ng import graphs as ng_graphs
 
 REL = 1e-4
@@ -246,6 +250,158 @@ def test_block_chain_endpointing_tracks_without_changing_results():
     assert not pipe.endpoint_detected(0, OnlineEndpointConfig())
     assert pipe.endpoint_detected(0, OnlineEndpointConfig(
         rule5=EndpointRule(False, 0.0, float("inf"), 0.1)))
+
+
+# --- the LexChain pipeline (exact search) --------------------------------
+def lex_system(seed, use_sil):
+    """The reference test's graph: V=7, a second variant, silence phone
+    4 (test_batched_device_online.py::test_lexchain_streaming_...)."""
+    jg, tg, _ = lex_graphs(seed, use_sil=use_sil, sil_phone=4)
+    return JaxLexDecoder(jg), LexChainDecoder(tg, device="cpu"), tg
+
+
+@pytest.mark.parametrize("seed,use_sil,idle", [(0, False, 0.0),
+                                               (0, True, 0.3),
+                                               (1, True, 0.0),
+                                               (2, False, 0.3)])
+def test_lex_streaming_matches_jax_and_offline(seed, use_sil, idle):
+    """Ragged pieces of 1-4 frames with idle lanes: the port's Lex
+    pipeline gives JAX's results, and bit for bit its own decode_batch
+    of the same loglikes."""
+    jdec, tdec, g = lex_system(seed, use_sil)
+    rng = np.random.default_rng(seed + 30)
+    lens = [11, 7, 9]
+    lls = [rng.normal(size=(T, g.num_pdfs)).astype(np.float32)
+           for T in lens]
+    rounds = schedule(rng, lens, idle)
+    kw = dict(feat_dim=g.num_pdfs, num_lanes=3, chunk_frames=4)
+    want = stream(jbp.BatchedDeviceOnlinePipelineLex(
+        jdec, identity_scorer, **kw), lls, rounds)
+    pipe = tbp.BatchedDeviceOnlinePipelineLex(tdec, identity_scorer, **kw)
+    got = stream(pipe, lls, rounds)
+    assert_same(got, want, "jax")
+    batch, lengths = padded(lls, g.num_pdfs)
+    assert_same(got, tdec.decode_batch(batch, lengths=lengths), "offline",
+                exact=True)
+    assert pipe._history()["bits"].shape[0] == pipe._total_frames
+
+
+@pytest.mark.parametrize("use_sil", [False, True])
+def test_lex_partials_and_lane_reuse(use_sil):
+    """A partial result, a lane freed and bound again to a new utterance
+    while the other lane idles: JAX's results, and each final one equal
+    to decode_batch of its utterance alone."""
+    jdec, tdec, g = lex_system(1, use_sil)
+    rng = np.random.default_rng(12)
+    kw = dict(feat_dim=g.num_pdfs, num_lanes=2, chunk_frames=4)
+    ll1 = rng.normal(size=(8, g.num_pdfs)).astype(np.float32)
+    ll2 = rng.normal(size=(6, g.num_pdfs)).astype(np.float32)
+
+    def drive(pipe):
+        seen = []
+        pipe.init_channel(0, "a")
+        pipe.accept_features(0, ll1[:4])
+        pipe.compute()
+        seen.append(pipe.get_partial(0))
+        pipe.accept_features(0, ll1[4:])
+        pipe.compute()
+        seen.append(pipe.finalize(0))
+        pipe.free_channel(0)
+        pipe.init_channel(0, "b")          # lane 0 reused, lane 1 idle
+        pipe.accept_features(0, ll2)
+        while pipe.compute():
+            pass
+        seen.append(pipe.finalize(0))
+        seen.append(pipe.get_partial(1))
+        return seen
+
+    want = drive(jbp.BatchedDeviceOnlinePipelineLex(jdec, identity_scorer,
+                                                    **kw))
+    got = drive(tbp.BatchedDeviceOnlinePipelineLex(tdec, identity_scorer,
+                                                   **kw))
+    assert got[0] is not None and len(got[0][1]) == 4
+    assert got[3] is None and want[3] is None
+    assert_same(got[:3], want[:3], "jax")
+    offline = [tdec.decode_batch(ll[None])[0] for ll in (ll1, ll2)]
+    assert_same([got[1], got[2]], offline, "offline", exact=True)
+
+
+def test_lex_endpoint_rotation_with_silence():
+    """Utterances with trailing silence through 2 lanes of the Lex
+    pipeline under OnlineDynamicBatcher: the port ends the same
+    utterances at the same frames as JAX, with the same results, each
+    equal to decode_batch of the frames its lane consumed."""
+    jdec, tdec, g = lex_system(2, True)
+    utts = make_utts(g, np.random.default_rng(6), 6, sil_tail=8)
+    kw = dict(feat_dim=g.num_pdfs, num_lanes=2, chunk_frames=4,
+              endpointing=True)
+    runs = []
+    for mod, dec, Config, Rule in ((jbp, jdec, JaxConfig, JaxRule),
+                                   (tbp, tdec, OnlineEndpointConfig,
+                                    EndpointRule)):
+        pipe = mod.BatchedDeviceOnlinePipelineLex(dec, identity_scorer,
+                                                  **kw)
+        consumed = {}
+        finalize = pipe.finalize
+
+        def wrapped(lane, _pipe=pipe, _seen=consumed, _fin=finalize):
+            ch = _pipe.channels[lane]
+            _seen[ch.utterance_id] = ch.end_frame - ch.start_frame
+            return _fin(lane)
+
+        pipe.finalize = wrapped
+        batcher = mod.OnlineDynamicBatcher(
+            pipe, endpoint_config=rule_config(Config, Rule, rule2=4.0),
+            frame_shift=1.0)
+        for i, ll in enumerate(utts):
+            batcher.push(f"u{i:02d}", ll)
+        runs.append((batcher.run(), batcher.endpointed, consumed,
+                     pipe._last_rel_cost))
+    (want, jep, jcons, jrel), (got, tep, tcons, trel) = runs
+    ids = [f"u{i:02d}" for i in range(len(utts))]
+    assert sorted(got) == ids and tep == jep and tcons == jcons
+    assert any(tep.values()), "no endpoint fired on trailing silence"
+    assert_same([got[i] for i in ids], [want[i] for i in ids], "jax")
+    np.testing.assert_allclose(trel, jrel, rtol=REL, atol=REL)
+    batch, lengths = padded([u[:tcons[i]] for i, u in zip(ids, utts)],
+                            g.num_pdfs)
+    assert_same([got[i] for i in ids],
+                tdec.decode_batch(batch, lengths=lengths), "offline",
+                exact=True)
+
+
+def test_lex_endpoint_rules_on_silence():
+    """An utterance of silence only: rule 2 (non-silence needed) does not
+    fire, rule 1 does, and the trackers equal JAX's."""
+    jdec, tdec, g = lex_system(0, True)
+    rng = np.random.default_rng(9)
+    ll = rng.normal(size=(16, g.num_pdfs)).astype(np.float32) - 4.0
+    ll[:, g.sil_pdf_fwd] += 8.0
+    ll[:, g.sil_pdf_self] += 8.0
+    verdicts = []
+    for mod, dec, Config, Rule in ((jbp, jdec, JaxConfig, JaxRule),
+                                   (tbp, tdec, OnlineEndpointConfig,
+                                    EndpointRule)):
+        pipe = mod.BatchedDeviceOnlinePipelineLex(
+            dec, identity_scorer, feat_dim=g.num_pdfs, num_lanes=1,
+            chunk_frames=4, endpointing=True)
+        pipe.init_channel(0, "sil_only")
+        pipe.accept_features(0, ll)
+        pipe.input_finished(0)
+        while pipe.compute():
+            pass
+        ch = pipe.channels[0]
+        verdicts.append((
+            pipe.endpoint_detected(0, rule_config(Config, Rule, rule2=4.0),
+                                   frame_shift=1.0),
+            pipe.endpoint_detected(0, rule_config(Config, Rule, rule1=8.0),
+                                   frame_shift=1.0),
+            ch.trailing_sil, ch.nonsil_seen,
+            float(pipe._last_rel_cost[0])))
+    (j2, j1, jt, jn, jrel), (t2, t1, tt, tn, trel) = verdicts
+    assert (t2, t1) == (False, True) == (j2, j1)
+    assert (tt, tn) == (jt, jn) == (16, False)
+    assert abs(trel - jrel) <= REL * max(1.0, abs(jrel))
 
 
 # --- the n-gram pipeline, endpointing and the dynamic batcher -----------

@@ -14,6 +14,12 @@ with the same search_kwargs (a pruned pool), and in lattice mode: equal
 words, cost within 1e-4 relative; its lattices equal the JAX decoder's
 on the port's own loglikes.
 
+The legacy path (bench.py --legacy): the quick legacy corpus's chain
+system and LexChain graph, a small random model without i-vectors, the
+corpus's own test utterances, exact search: equal words, cost within
+1e-4 relative, and the JAX decoder on the port's loglikes gives the
+port's words and costs.
+
 Two wires: int16 waves of three lengths (zero padding), and mu-law waves
 of one length whose frame count fills its bucket exactly, so that no
 frame holds only the mu-law pad byte (whose cepstra are rounding noise,
@@ -27,23 +33,27 @@ import pytest
 from kaldi_tpu.decoder.batched_pipeline2 import \
     BatchedOfflinePipeline2 as JaxPipeline
 from kaldi_tpu.decoder.block_chain import BlockChainDecoder as JaxDecoder
+from kaldi_tpu.decoder.lexchain import LexChainDecoder as JaxLexDecoder
 from kaldi_tpu.decoder.lexchain_ng import NgramLexDecoder as JaxNgDecoder
 from kaldi_tpu.feat.frontend import OfflineFeature as JaxFeature
 from kaldi_tpu.feat.frontend import mulaw_encode as jax_mulaw_encode
 from kaldi_tpu.ivector.batched import BatchedIvectorExtractor as JaxIvec
 from kaldi_tpu.nnet3.models import ChainTdnnf as FlaxTdnnf
 from kaldi_tpu.nnet3.models import ChainTdnnfConfig as FlaxConfig
+from kaldi_tpu.recipes import bench_corpus as jbc
 from kaldi_tpu.recipes.bench_corpus import BenchCorpusSpec, mfcc_options
 from kaldi_tpu.recipes.bench_corpus import \
     load_ivector_extractor as jax_load_ivec
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
 from kaldi_tpu_torch.decoder.block_chain import BlockChainDecoder
+from kaldi_tpu_torch.decoder.lexchain import LexChainDecoder
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.feat.frontend import OfflineFeature
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
+from kaldi_tpu_torch.recipes import bench_corpus as tbc
 from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
 from kaldi_tpu_torch.lat.functions import lattice_best_path
 from test_torch_block_chain import graphs
@@ -221,3 +231,53 @@ def test_ngram_lattice_mode_matches_jax():
         assert abs(o[1] - h[2]) <= 1e-4 * max(1.0, abs(h[2]))
         assert_lattices_match(o[2], s)
         assert o[2].num_arcs() > out_lens[b]
+
+
+def test_legacy_lexchain_pipeline_matches_jax():
+    """bench.py main_legacy's pipeline at a small size on both sides: the
+    quick legacy spec (V=24), chain_tm_tree_for and build_decode_graph of
+    each package, a small random model without i-vectors (18 pdfs),
+    LexChainDecoder (exact), the MFCC frontend with 40 cepstra, and the
+    corpus's 6 test utterances as int16 waves."""
+    quick = dict(vocab=24, num_phone_groups=4, phones_per_group=2,
+                 words_per_utt=5, num_train=2, num_test=6, num_lm_sents=80)
+    built = []
+    for bc in (jbc, tbc):
+        spec = bc.BenchCorpusSpec(**quick)
+        lexicon, _, _, test_txt, test_wav, lm_text = bc.make_corpus(
+            spec, train_audio=False)
+        lang, tm, tree = bc.chain_tm_tree_for(lexicon)
+        built.append((spec, test_wav, bc.build_decode_graph(
+            lexicon, lm_text, tm, tree, lang=lang)))
+    (spec, test_wav, jg), (_, _, tg) = built
+    kw = dict(SMALL, ivector_dim=0, num_pdfs=tg.num_pdfs)
+    fcfg = FlaxConfig(**kw)
+    variables = random_variables(fcfg, seed=3)
+    ref = JaxPipeline(FlaxTdnnf(fcfg, train=False), variables["params"],
+                      variables["batch_stats"], JaxLexDecoder(jg),
+                      JaxFeature(mfcc_options(spec, num_ceps=40)),
+                      sample_rate=spec.fs)
+    port = BatchedOfflinePipeline2(
+        chain_tdnnf_from_flax(ChainTdnnfConfig(**kw), variables,
+                              device="cpu"),
+        LexChainDecoder(tg, device="cpu"),
+        OfflineFeature(tbc.mfcc_options(tbc.BenchCorpusSpec(**quick),
+                                        num_ceps=40), device="cpu"),
+        sample_rate=spec.fs, device="cpu")
+    ws = [np.clip(test_wav[u], -32767, 32767).astype(np.int16)
+          for u in sorted(test_wav)]
+    want = ref.decode_batch(ws)
+    stats = PipelineStats()
+    got = port.decode_batch(ws, stats=stats)
+    assert stats.search_s > 0 and stats.total_audio_s > 6.0
+    feats, nframes = port.feats.compute_batch_device(ws)
+    loglikes, out_lens = port.loglikes(feats, nframes)
+    same_ll = JaxLexDecoder(jg).decode_batch(loglikes.numpy(),
+                                             lengths=out_lens)
+    for b, (r, o, s) in enumerate(zip(want, got, same_ll)):
+        assert r is not None and o is not None
+        assert o[0] == r[0] == s[0], f"lane {b} words"
+        assert len(o[0]) > 0
+        assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
+            f"lane {b}: {o[1]} vs {r[1]}"
+        assert abs(o[1] - s[2]) <= 1e-4 * max(1.0, abs(s[2]))

@@ -5,7 +5,8 @@ chain_tdnnf_from_flax, against the flax reference in float32.
     of max|ref|;
 (ii) the committed full-width flagship_ng_params.npz (17 x 1536) on a
     ~1 s utterance: within 1e-3 of max|ref| (17 layers of float32
-    matmuls summed in another order);
+    matmuls summed in another order); the same for the legacy model,
+    flagship_params.npz (17 x 1536, 50 pdfs, no i-vectors);
 (iii) bf16, loosely: the port in bf16 against the flax model with bf16
     params (rounding happens at different places, see components.py).
 """
@@ -31,6 +32,8 @@ SMALL = dict(feat_dim=40, ivector_dim=32, num_pdfs=48, hidden_dim=64,
 FLAGSHIP = dict(feat_dim=40, ivector_dim=32, num_pdfs=2000, hidden_dim=1536,
                 bottleneck_dim=160, prefinal_dim=256, num_layers=17,
                 subsample_layer=8, frame_subsampling_factor=3)
+# the legacy model (bench.py main_legacy): no i-vectors, 50 pdfs
+LEGACY = dict(FLAGSHIP, ivector_dim=0, num_pdfs=50)
 
 
 def random_variables(cfg, seed=0):
@@ -111,6 +114,24 @@ def test_flagship_weights_f32():
     with torch.inference_mode():
         out = model(torch.from_numpy(feats), torch.from_numpy(ivecs))
     assert out[0].shape == (1, 34, 2000)
+    for r, o in zip(ref, out):
+        assert_close_of_max(o.numpy(), np.asarray(r), 1e-3)
+
+
+def test_legacy_flagship_weights_f32():
+    """flagship_params.npz through load_params and chain_tdnnf_from_flax,
+    against flax on ~1 s of frames, both heads, without i-vectors."""
+    path = os.path.join(ART, "flagship_params.npz")
+    variables = load_params(path)
+    cfg = FlaxConfig(**LEGACY)
+    assert cfg.ivector_dim == 0
+    feats = inputs(7, 1, 100, cfg)[0]               # ~1 s of frames
+    ref = FlaxTdnnf(cfg, train=False).apply(jax_load_params(path), feats)
+    model = chain_tdnnf_from_flax(ChainTdnnfConfig(**LEGACY), variables,
+                                  device="cpu")
+    with torch.inference_mode():
+        out = model(torch.from_numpy(feats), None)
+    assert out[0].shape == (1, 34, 50)
     for r, o in zip(ref, out):
         assert_close_of_max(o.numpy(), np.asarray(r), 1e-3)
 
