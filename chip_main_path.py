@@ -30,7 +30,9 @@ online_batcher_ng.
 With --legacy it runs chip_smoke.py's legacy-path phases alone (the same
 function chip_smoke.py calls, legacy_phases): lex_graph, slice_lex (with
 profile_lex, slice_lex_int16 and lex_pruned_full_k), lex_cpu_check,
-cross_check_lex and slice_online_lex.
+slice_lex_lattice (with profile_lex_lattice), lex_lattice_cpu_check,
+lattice_functions (on slice_lex_lattice's lattices only: the main path's
+lattice phase does not run), cross_check_lex and slice_online_lex.
 
 Run: python3 chip_main_path.py [--online | --legacy]   (needs CUDA)
 """

@@ -30,8 +30,11 @@ over 32 lanes.  The legacy path (bench.py --legacy) runs at full width
 too: the 128 test utterances of the V=200 bench corpus -> MFCC -> the
 committed flagship_params.npz TDNN-F (17 x 1536, bf16, no i-vectors) ->
 exact LexChainDecoder search over the bigram x monophone-chain graph
-(818 states), offline and streaming (egs/bench_corpus/measure_online.py's
-configuration through BatchedDeviceOnlinePipelineLex).
+(818 states), offline, in lattice mode as bench.py --legacy
+--with-lattices runs it (J=4, lattice_beam=8, with the exact backward
+pass), and streaming (egs/bench_corpus/measure_online.py's configuration
+through BatchedDeviceOnlinePipelineLex); the host lattice functions run
+on the lattices of both lattice phases.
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -97,7 +100,21 @@ Phases, one JSON line each (any failure exits nonzero):
      same utterances on the int16 wire: WER within 0.5 points and 8
      words of the JAX package's CPU WER), lex_pruned_full_k (every
      virtual-context row in the pool: equal to exact), lex_cpu_check (4
-     lanes again on the CPU), cross_check_lex (the 2 shortest lanes
+     lanes again on the CPU), slice_lex_lattice (one warm-up with no
+     host sync in the forward or the backward frame loop, one timed
+     decode_batch(generate_lattices=True, lattice_beam=8) on the mu-law
+     wire: wall, xRT, the feat/am/search split, the decoder's lattice
+     stats, _assemble_lane's host seconds, peak memory, median states and
+     arcs, WER; 128/128 lattices, each lane's best path decode_batch's
+     words, cost within 1e-4 relative, no kernel launched),
+     profile_lex_lattice (launches a frame of each loop),
+     lex_lattice_cpu_check (2 lanes' lattices on the CPU equal to the
+     card's in structure, weights within 1e-9 x the largest |prefix
+     sum|), lattice_functions (8 lattices of slice_lex_lattice and 8 of
+     slice_ng_lattice: determinize_lattice_pruned, posteriors,
+     lattice_best_path_lattice, lattice_scale, add_word_ins_penalty, each
+     one's seconds; the best path kept, posteriors summing to 1 within
+     1e-6 a frame), cross_check_lex (the 2 shortest lanes
      against the host FasterDecoder on to_flat_graph(): equal, or a
      float64 tie), slice_online_lex (measure_online.py's configuration
      at 128 lanes: a warm-up, a timed and a staged round; xRT, chunk and
@@ -130,6 +147,7 @@ Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -155,6 +173,7 @@ from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
+from kaldi_tpu_torch.lat import functions as latf
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax)
 from kaldi_tpu_torch.online.batched_device_pipeline import (
@@ -239,6 +258,13 @@ LEX_BLOCKS = ("_forward", "_follow")
 # measure_online.py's configuration (--chunk 32, no endpointing), at 128
 # lanes instead of its default 64 so that the WER covers every test word
 LEX_ONLINE = dict(chunk_frames=32)
+# lattice mode of the legacy decoder: its two frame loops, whose launches
+# a frame profile_lex_lattice counts
+LEX_LAT_BLOCKS = ("_forward_lattice", "_backward")
+# lattice_functions: how many lattices of each lattice phase it runs, the
+# determinization beam, and the lattice_scale / word penalty it applies
+LATF_LANES, LATF_DET_BEAM = 8, 8.0
+LATF_SCALE, LATF_PENALTY = (0.5, 0.08), 1.5
 
 
 def emit(phase: str, **kw) -> None:
@@ -844,6 +870,29 @@ def no_host_sync(_name=None):
         torch.cuda.set_sync_debug_mode("default")
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """Inside the block, the garbage collector's collections are counted
+    and timed: yields a dict whose collections, gen2 (full collections)
+    and seconds grow as they happen."""
+    log = {"collections": 0, "gen2": 0, "seconds": 0.0}
+    start = [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+            return
+        log["collections"] += 1
+        log["gen2"] += info["generation"] == 2
+        log["seconds"] += time.perf_counter() - start[0]
+
+    gc.callbacks.append(on_gc)
+    try:
+        yield log
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
 def lattice_diff(got, want) -> float:
     """Largest weight difference between two lattices of equal structure
     (states, arc labels and next states); exits when the structure
@@ -1128,6 +1177,8 @@ def run_ng_lattice(ng: dict, model, ivec, fe, loglikes, out_lens) -> dict:
     if not abs(wer_lat - wer_pool) <= 0.5:
         raise SystemExit(f"lattice WER {wer_lat:.3f}% is more than 0.5 "
                          f"points from the same pool's {wer_pool:.3f}%")
+    # the first lattices, for lattice_functions
+    run["lattices"] = [o[2] for o in have[:LATF_LANES]]
     return run
 
 
@@ -1867,6 +1918,211 @@ def lex_cpu_check(lex: dict, loglikes, out_lens, lanes: int = 4) -> None:
                          "and the CPU")
 
 
+def run_lex_lattice(lex: dict, model, fe) -> dict:
+    """slice_lex_lattice and profile_lex_lattice: the 128 test
+    utterances (mu-law wire) through BatchedOfflinePipeline2 in lattice
+    mode with the LexChain decoder, as bench.py --legacy --with-lattices
+    runs it (J=4, lattice_beam=8): one warm-up with no host sync allowed
+    in the forward or the backward frame loop, one timed call (wall,
+    xRT, the feat/am/search split, the decoder's stats, the host seconds
+    of _assemble_lane summed over the lanes, peak memory, lattices,
+    median states and arcs, the best paths' WER; none of kernels a-c may
+    launch).  Each lane's lattice best path must be decode_batch's on the
+    loglikes the call scored: equal words, cost within 1e-4 relative (the
+    search is exact, so one lane that differs is a fault).  Then one
+    decode_batch_lattice under the profiler: launches a frame of each
+    loop.  The timed call also reports the garbage collector's pauses
+    inside it.  -> the numbers, the loglikes and the first lattices."""
+    spec, graph, dec = lex["spec"], lex["graph"], lex["dec"]
+    test_txt, test_wav = lex["test_txt"], lex["test_wav"]
+    utts = sorted(test_wav)
+    waves = [mulaw_encode(np.clip(test_wav[u], -32767, 32767))
+             for u in utts]
+    pipe = BatchedOfflinePipeline2(model, dec, fe, sample_rate=spec.fs,
+                                   device="cuda")
+    scored = {}
+    inner = pipe.loglikes
+
+    def loglikes(feats, nframes):
+        scored["ll"] = inner(feats, nframes)
+        return scored["ll"]
+
+    pipe.loglikes = loglikes
+    t0 = time.perf_counter()
+    with each_call_inside(dec, LEX_LAT_BLOCKS, no_host_sync):
+        pipe.decode_batch(waves, generate_lattices=True,
+                          lattice_beam=LAT_BEAM)             # warm-up
+    warm_s = time.perf_counter() - t0
+    stats, lat_stats, host_s = PipelineStats(), {}, {}
+    timed_methods(dec, ("_assemble_lane",), host_s)
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with gc_pauses() as gc_log:
+        outs = pipe.decode_batch(waves, stats=stats, generate_lattices=True,
+                                 lattice_beam=LAT_BEAM, lat_stats=lat_stats)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = kernel_launch_counts()
+    delattr(dec, "_assemble_lane")
+    ll, lens = scored["ll"]
+    best = dec.decode_batch(ll, lengths=lens)
+    have = [o for o in outs if o is not None]
+    differ = [b for b, (o, h) in enumerate(zip(outs, best))
+              if o is None or h is None or o[0] != h[0]
+              or abs(o[1] - h[2]) > 1e-4 * max(1.0, abs(h[2]))]
+    rel = max((abs(o[1] - h[2]) / max(1.0, abs(h[2]))
+               for o, h in zip(outs, best) if o is not None
+               and h is not None), default=0.0)
+    states = sorted(o[2].num_states for o in have)
+    arcs = sorted(o[2].num_arcs() for o in have)
+    n_words = sum(len(r) for r in test_txt.values())
+    wer = wer_of(lex_words(lex, utts, outs), test_txt)
+    T = int(ll.shape[1])
+    run = {"lanes": len(waves), "lattices": len(have), "frames": T,
+           "audio_s": stats.total_audio_s, "wall_s": stats.wall_s,
+           "xrt": stats.xrt, "feat_s": stats.feat_s, "am_s": stats.am_s,
+           "search_s": stats.search_s, "warmup_s": warm_s,
+           "warmup_frame_loop_host_syncs": 0, "lat_stats": lat_stats,
+           "assemble_lane_s": host_s["_assemble_lane"],
+           "gc_in_timed_call": gc_log, "peak_memory_gb": peak_gb,
+           "states_median": states[len(states) // 2] if states else 0,
+           "arcs_median": arcs[len(arcs) // 2] if arcs else 0,
+           "wer_lattice_best_path": wer,
+           "word_errors": round(wer * n_words / 100.0),
+           "wer_decode_batch": wer_of(lex_words(
+               lex, utts, [None if h is None else (h[0],) for h in best]),
+               test_txt),
+           "lanes_differing_from_decode_batch": differ,
+           "max_cost_rel_diff": rel, "launches": launches}
+    emit("slice_lex_lattice", **run)
+    if any(launches.values()):
+        raise SystemExit("a kernel of another path ran in slice_lex_lattice")
+    if len(have) != len(waves):
+        raise SystemExit(f"only {len(have)}/{len(waves)} lattices")
+    if differ:
+        raise SystemExit(f"lattice best paths differ from decode_batch in "
+                         f"lanes {differ}")
+    with each_call_inside(dec, LEX_LAT_BLOCKS,
+                          torch.profiler.record_function):
+        prof = profile_call(lambda: dec.decode_batch_lattice(
+            ll, lengths=lens, lattice_beam=LAT_BEAM), top=12,
+            ranges=LEX_LAT_BLOCKS)
+    blocks = prof["ranges"]
+    emit("profile_lex_lattice", frames=T,
+         forward_launches_per_frame=blocks["_forward_lattice"]
+         ["kernel_launches"] / T,
+         backward_launches_per_frame=blocks["_backward"]["kernel_launches"]
+         / T, busy_share_of_wall=prof["device_ms"] / 1e3
+         / prof["wall_s_profiled"], **prof)
+    run.update(profile=prof, loglikes=ll, out_lens=lens,
+               lattices=[o[2] for o in have[:LATF_LANES]])
+    return run
+
+
+def lex_lattice_cpu_check(lex: dict, loglikes, out_lens, lanes: int = 2
+                          ) -> None:
+    """lex_lattice_cpu_check: `lanes` lanes' loglikes through the
+    LexChain decoder's lattice mode on the card and on the CPU.  The
+    lattices must be equal in structure (states, start, arc labels and
+    next states); weights and finals may differ by the rounding of the
+    float64 prefix sums of the acoustic costs (the two devices sum in
+    other orders): the bound is 1e-9 x max(1, the largest |prefix
+    sum|), as in ng_lattice_cpu_check."""
+    kw = dict(lengths=out_lens[:lanes], lattice_beam=LAT_BEAM)
+    card = lex["dec"].decode_batch_lattice(loglikes[:lanes], **kw)
+    t0 = time.perf_counter()
+    host = LexChainDecoder(lex["graph"], device="cpu").decode_batch_lattice(
+        loglikes[:lanes].cpu(), **kw)
+    cpu_s = time.perf_counter() - t0
+    cs_max = float(torch.cumsum(-loglikes[:lanes].double(), 1).abs().max())
+    bound = 1e-9 * max(1.0, cs_max)
+    diff = max(lattice_diff(c, h) for c, h in zip(card, host))
+    emit("lex_lattice_cpu_check", lanes=lanes, max_weight_diff=diff,
+         bound=bound, max_abs_prefix_sum=cs_max, cpu_seconds=cpu_s,
+         states=[None if c is None else c.num_states for c in card])
+    if any(c is None for c in card):
+        raise SystemExit("a lane of the CPU check has no lattice")
+    if not diff <= bound:
+        raise SystemExit("the LexChain lattices differ between the card "
+                         "and the CPU")
+
+
+def lattice_functions(sets: dict) -> dict:
+    """lattice_functions: the host lattice functions on the lattices of
+    each lattice phase (sets: phase -> lattices): the pruned
+    determinization (beam LATF_DET_BEAM), the per-frame posteriors,
+    the best path as a lattice, lattice_scale and add_word_ins_penalty,
+    each one's seconds summed over the lattices, and the states before
+    and after determinization.  Bars: the best path's words are kept
+    through the determinization and through lattice_best_path_lattice
+    (its cost too), the posteriors of every frame sum to 1 within 1e-6,
+    and lattice_scale(1, 1) leaves the best path as it was."""
+    out = {}
+    # the garbage collector paused, as timeit does: a collection of the
+    # heap's older objects would land on whichever call crossed its
+    # threshold
+    gc.collect()
+    gc.disable()
+    try:
+        for phase, lats in sets.items():
+            out[phase] = _lattice_functions_on(phase, lats)
+    finally:
+        gc.enable()
+    emit("lattice_functions", det_beam=LATF_DET_BEAM, scale=LATF_SCALE,
+         penalty=LATF_PENALTY, **out)
+    return out
+
+
+def _lattice_functions_on(phase: str, lats) -> dict:
+    """lattice_functions on one phase's lattices -> its numbers."""
+    secs = dict.fromkeys(("determinize_lattice_pruned",
+                          "lattice_forward_backward_post",
+                          "lattice_best_path_lattice", "lattice_scale",
+                          "add_word_ins_penalty"), 0.0)
+    before, after, post_err = [], [], 0.0
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        secs[name] += time.perf_counter() - t0
+        return res
+
+    for i, lat in enumerate(lats):
+        _, words, cost = latf.lattice_best_path(lat)
+        det = timed("determinize_lattice_pruned",
+                    latf.determinize_lattice_pruned, lat,
+                    beam=LATF_DET_BEAM)
+        before.append(lat.num_states)
+        after.append(det.num_states)
+        post = timed("lattice_forward_backward_post",
+                     latf.lattice_forward_backward_post, lat)
+        post_err = max([post_err] + [abs(sum(p for _, p in frame) - 1.0)
+                                     for frame in post])
+        one = timed("lattice_best_path_lattice",
+                    latf.lattice_best_path_lattice, lat)
+        same = timed("lattice_scale", latf.lattice_scale, lat, 1.0, 1.0)
+        timed("lattice_scale", latf.lattice_scale, lat, *LATF_SCALE)
+        timed("add_word_ins_penalty", latf.add_word_ins_penalty, lat,
+              LATF_PENALTY)
+        checks = {
+            "determinized": latf.lattice_best_path(det)[1] == words,
+            "best_path_lattice": latf.lattice_best_path(one)[1] == words
+            and abs(latf.lattice_best_path(one)[2] - cost)
+            <= 1e-9 * max(1.0, abs(cost)),
+            "scale_1_1": latf.lattice_best_path(same)
+            == latf.lattice_best_path(lat),
+            "frames": len(post) == len(latf.lattice_best_path(lat)[0])}
+        failed = [k for k, ok in checks.items() if not ok]
+        if failed:
+            raise SystemExit(f"lattice_functions {phase} lattice {i}: "
+                             f"{failed} failed")
+    if not post_err <= 1e-6:
+        raise SystemExit(f"lattice_functions {phase}: posteriors sum "
+                         f"to 1 within {post_err}")
+    return {"lattices": len(lats), "seconds": secs,
+            "states_before": before, "states_after_det": after,
+            "max_posterior_sum_err": post_err}
+
+
 def flat_path_cost(flat, tids, words, ll: np.ndarray) -> float:
     """Float64 cost of the cheapest path of the flat graph with these
     input labels (one a frame) and output words: its arc weights and
@@ -1968,17 +2224,27 @@ def run_online_lex(lex: dict, model, fe) -> dict:
          "endpointing": False, "lanes_measure_online_default": 64}, {})
 
 
-def legacy_phases() -> dict:
+def legacy_phases(ng_lattices=None) -> dict:
     """The legacy path on the card: lex_graph, slice_lex (with
     profile_lex, slice_lex_int16, lex_pruned_full_k), lex_cpu_check,
-    cross_check_lex and slice_online_lex -> their numbers."""
+    slice_lex_lattice (with profile_lex_lattice), lex_lattice_cpu_check,
+    lattice_functions (on slice_lex_lattice's lattices and on
+    ng_lattices, slice_ng_lattice's, where given), cross_check_lex and
+    slice_online_lex -> their numbers."""
     lex = build_lex_path()
     model, fe = legacy_am(lex)
     res = run_lex_slice(lex, model, fe)
     lex_cpu_check(lex, res["loglikes"], res["out_lens"])
+    lat = run_lex_lattice(lex, model, fe)
+    lex_lattice_cpu_check(lex, lat["loglikes"], lat["out_lens"])
+    sets = {"slice_lex_lattice": lat["lattices"]}
+    if ng_lattices:
+        sets["slice_ng_lattice"] = ng_lattices
+    latfn = lattice_functions(sets)
     cross_check_lex(lex, res["loglikes"], res["out_lens"])
     online = run_online_lex(lex, model, fe)
     walls = sorted(r["wall_s"] for r in res["runs"])
+    lat_blocks = lat["profile"]["ranges"]
     out = {"lex_wall_s_median": walls[1],
            "lex_xrt_median": res["runs"][0]["audio_s"] / walls[1],
            "lex_wer_mulaw": res["runs"][-1]["wer"],
@@ -1986,13 +2252,22 @@ def legacy_phases() -> dict:
            "lex_launches_per_frame":
                res["profile"]["ranges"]["_forward"]["kernel_launches"]
                / res["frames"],
+           "lex_lattice_wall_s": lat["wall_s"],
+           "lex_lattice_xrt": lat["xrt"],
+           "lex_lattice_wer": lat["wer_lattice_best_path"],
+           "lex_lattice_launches_per_frame": {
+               k: lat_blocks[k]["kernel_launches"] / lat["frames"]
+               for k in LEX_LAT_BLOCKS},
+           "lattice_functions_s": {k: sum(v["seconds"].values())
+                                   for k, v in latfn.items()},
            "online_lex_xrt": online["value"],
            "online_lex_chunk_ms_p50": online["chunk_ms_p50"],
            "online_lex_finalize_ms_max": online["finalize_ms_max"],
            "online_lex_wer": online["wer"],
            "launches": {"slice_lex": res["runs"][-1]["launches"],
+                        "slice_lex_lattice": lat["launches"],
                         "slice_online_lex": online["launches"]}}
-    del lex, model, fe, res
+    del lex, model, fe, res, lat
     torch.cuda.empty_cache()
     return out
 
@@ -2270,7 +2545,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
-    legacy = legacy_phases()
+    legacy = legacy_phases(ng_lat.pop("lattices"))
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32

@@ -1,7 +1,8 @@
 """Offline batched full-pipeline decoder: waves -> MFCC -> i-vectors ->
-chain TDNN-F (bf16) -> batched Viterbi search (the n-gram lexchain or
-the block-chain decoder) -> words (and, in lattice mode, word lattices),
-all batched on one card (port of `kaldi_tpu/decoder/batched_pipeline2.py`).
+chain TDNN-F (bf16) -> batched Viterbi search (the n-gram lexchain, the
+LexChain or the block-chain decoder) -> words (and, in lattice mode,
+word lattices), all batched on one card (port of
+`kaldi_tpu/decoder/batched_pipeline2.py`).
 
 The reference's analogue is the offline batched GPU pipeline of the
 upstream project (BatchedThreadedNnet3CudaPipeline2, whose printed
@@ -44,8 +45,9 @@ class BatchedOfflinePipeline2:
 
     model: a ChainTdnnf carrying its weights (see
     `nnet3.models.chain_tdnnf_from_flax`); decoder: anything with a
-    `decode_batch` (an NgramLexDecoder, a BlockChainDecoder; lattice mode
-    needs `decode_batch_lattice`); feature_computer: an OfflineFeature;
+    `decode_batch` (an NgramLexDecoder, a LexChainDecoder, a
+    BlockChainDecoder; lattice mode needs `decode_batch_lattice`, which
+    all three have); feature_computer: an OfflineFeature;
     ivector_extractor: an optional BatchedIvectorExtractor whose
     whole-utterance i-vectors are the model's second input.  All of them
     must live on `device`.  search_kwargs are forwarded to
@@ -111,7 +113,8 @@ class BatchedOfflinePipeline2:
         lattice's best path.  search_kwargs do not apply.  lat_stats, when
         given, is the decoder's `decode_batch_lattice` stats: the lattice
         stages' seconds and sizes (the n-gram decoder's fwd_s, n_events,
-        pool_s and assemble_s; the block-chain decoder's keys).
+        pool_s and assemble_s; the LexChain and block-chain decoders'
+        keys).
 
         num_waves: the reference splits the batch into waves whose host
         to device transfers overlap the compute; only 1 is ported."""

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from kaldi_tpu_torch.decoder.graph_direct import INF
@@ -89,8 +90,11 @@ class ChainBlocks:
         """Silence shadows (use_sil): entered from their roots or held.
         -> (shadows, sil_take bool), both shaped as roots."""
         g = self.g
-        sil_in = roots + g.sil_cost + g.sil_tr_fwd \
-            + am_t[g.sil_pdf_fwd][None, :]
+        # the reference's `roots + sil_cost + sil_tr_fwd + am`: XLA folds
+        # the two scalars into one float32 constant first, so the same sum
+        # here gives its shadows bit for bit
+        enter = float(np.float32(g.sil_cost) + np.float32(g.sil_tr_fwd))
+        sil_in = roots + enter + am_t[g.sil_pdf_fwd][None, :]
         sil_self = sil + g.sil_tr_self + am_t[g.sil_pdf_self][None, :]
         sil_take = sil_in < sil_self
         return torch.where(sil_take, sil_in, sil_self), sil_take

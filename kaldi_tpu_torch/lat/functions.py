@@ -3,31 +3,47 @@ lattice decoders and their tests need; parity: lat/lattice-functions.h,
 latbin tools).
 
 lattice_best_path      — lattice-best-path
+lattice_best_path_lattice — lattice-1best (the best path as a lattice)
+lattice_scale          — lattice-scale (lm/acoustic scale)
+add_word_ins_penalty   — lattice-add-penalty
 lattice_prune          — lattice-prune (forward-backward cost pruning)
 lattice_state_times    — the frame index of each state
+lattice_forward_backward_post — arc posteriors (lattice-functions.h:84)
 lattice_nbest          — lattice-to-nbest (exact k-best, acyclic)
+determinize_lattice_pruned — word-level determinization with beam
+                         pruning and the max-states back-off
+                         (lat/determinize-lattice-pruned.h)
 
-Not carried over yet: lattice_scale, add_word_ins_penalty, posteriors
-and the determinization (it needs `fstext/ops.py` `determinize_star`).
+Not carried over yet: determinize_lattice (it needs `fstext/ops.py`
+`determinize_star` and `invert`) and the rest of the module.
 """
 
 from __future__ import annotations
 
+import heapq
+import logging
+import math
 from collections import deque
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from kaldi_tpu_torch.fstext.fst import (EPS, INF, Arc, LatticeWeight,
                                         VectorFst)
 from kaldi_tpu_torch.fstext.ops import connect
 from kaldi_tpu_torch.lat.kaldi_lattice import Lattice
 
+_log = logging.getLogger(__name__)
+
 
 def _total(w: Tuple[float, float]) -> float:
     return w[0] + w[1]
 
 
-def lattice_best_path(lat: Lattice) -> Tuple[List[int], List[int], float]:
-    """Returns (alignment tids, words, total cost)."""
+def _best_chain(lat: Lattice) -> Tuple[List[Arc], int, float]:
+    """The cheapest path to a final state (shortest-path relaxation over
+    total costs; the first path found stays on equal totals) -> (its
+    arcs, the final state or -1 when none is reachable, its cost)."""
     n = lat.num_states
     dist = [INF] * n
     back: List[Optional[Tuple[int, Arc]]] = [None] * n
@@ -52,20 +68,66 @@ def lattice_best_path(lat: Lattice) -> Tuple[List[int], List[int], float]:
             c = dist[s] + _total(lat.finals[s])
             if c < best_c:
                 best_c, best_s = c, s
+    chain: List[Arc] = []
+    s = best_s
+    while best_s >= 0 and s != lat.start and back[s] is not None:
+        p, a = back[s]
+        chain.append(a)
+        s = p
+    chain.reverse()
+    return chain, best_s, best_c
+
+
+def lattice_best_path(lat: Lattice) -> Tuple[List[int], List[int], float]:
+    """Returns (alignment tids, words, total cost)."""
+    chain, best_s, best_c = _best_chain(lat)
     if best_s < 0:
         return [], [], INF
-    ali, words = [], []
-    s = best_s
-    while s != lat.start and back[s] is not None:
-        p, a = back[s]
-        if a.ilabel != EPS:
-            ali.append(a.ilabel)
-        if a.olabel != EPS:
-            words.append(a.olabel)
-        s = p
-    ali.reverse()
-    words.reverse()
-    return ali, words, best_c
+    return ([a.ilabel for a in chain if a.ilabel != EPS],
+            [a.olabel for a in chain if a.olabel != EPS], best_c)
+
+
+def lattice_best_path_lattice(lat: Lattice) -> Optional[Lattice]:
+    """The best path as a linear lattice, keeping each arc's weight and
+    the final weight (latbin/lattice-1best.cc: ShortestPath on the
+    lattice semiring); None when no final state is reachable."""
+    chain, best_s, _ = _best_chain(lat)
+    if best_s < 0:
+        return None
+    out = VectorFst(LatticeWeight)
+    cur = out.add_state()
+    out.set_start(cur)
+    for a in chain:
+        ns = out.add_state()
+        out.add_arc(cur, Arc(a.ilabel, a.olabel, a.weight, ns))
+        cur = ns
+    out.finals[cur] = lat.finals[best_s]
+    return out
+
+
+def lattice_scale(lat: Lattice, lm_scale: float = 1.0,
+                  acoustic_scale: float = 1.0) -> Lattice:
+    """Each arc and final weight (graph, acoustic) scaled by (lm_scale,
+    acoustic_scale)."""
+    out = lat.copy()
+    for arcs in out.arcs:
+        for a in arcs:
+            a.weight = (a.weight[0] * lm_scale, a.weight[1] * acoustic_scale)
+    for s in range(out.num_states):
+        w = out.finals[s]
+        if w != LatticeWeight.zero:
+            out.finals[s] = (w[0] * lm_scale, w[1] * acoustic_scale)
+    return out
+
+
+def add_word_ins_penalty(lat: Lattice, penalty: float) -> Lattice:
+    """`penalty` added to the graph cost of every arc with a word."""
+    out = lat.copy()
+    for arcs in out.arcs:
+        for a in arcs:
+            if a.olabel != EPS:
+                a.weight = (a.weight[0] + penalty, a.weight[1])
+    return out
 
 
 def _forward_backward_costs(lat: Lattice) -> Tuple[List[float], List[float]]:
@@ -167,6 +229,49 @@ def _topsort(lat: VectorFst) -> List[int]:
     return order
 
 
+def lattice_forward_backward_post(lat: Lattice, acoustic_scale: float = 1.0
+                                  ) -> List[List[Tuple[int, float]]]:
+    """Per-frame (transition-id, posterior) lists
+    (LatticeForwardBackward, lattice-functions.h:84), in the log
+    semiring over graph + acoustic_scale x acoustic costs."""
+    n = lat.num_states
+    order = _topsort(lat)
+
+    def arc_ll(a):
+        return -(a.weight[0] + acoustic_scale * a.weight[1])
+
+    alpha = [-INF] * n
+    alpha[lat.start] = 0.0
+    for s in order:
+        if alpha[s] == -INF:
+            continue
+        for a in lat.arcs[s]:
+            v = alpha[s] + arc_ll(a)
+            alpha[a.nextstate] = np.logaddexp(alpha[a.nextstate], v)
+    beta = [-INF] * n
+    for s in range(n):
+        if lat.finals[s] != LatticeWeight.zero:
+            beta[s] = -(lat.finals[s][0] + acoustic_scale * lat.finals[s][1])
+    for s in reversed(order):
+        for a in lat.arcs[s]:
+            beta[s] = np.logaddexp(beta[s], arc_ll(a) + beta[a.nextstate])
+    total = beta[lat.start]
+    times = lattice_state_times(lat)
+    T = max((times[s] for s in range(n) if times[s] >= 0), default=0)
+    post: List[Dict[int, float]] = [dict() for _ in range(T)]
+    for s in order:
+        if alpha[s] == -INF:
+            continue
+        for a in lat.arcs[s]:
+            if a.ilabel == EPS:
+                continue
+            p = math.exp(alpha[s] + arc_ll(a) + beta[a.nextstate] - total)
+            t = times[s]
+            if 0 <= t < T:
+                post[t][a.ilabel] = post[t].get(a.ilabel, 0.0) + p
+    return [sorted(d.items()) for d in post]
+
+
 def lattice_nbest(lat: Lattice, n: int) -> List[Tuple[List[int], List[int], float]]:
     """Exact n-best paths for an acyclic lattice: DP keeping n best
     (cost, path) per state."""
@@ -193,3 +298,220 @@ def lattice_nbest(lat: Lattice, n: int) -> List[Tuple[List[int], List[int], floa
         words = [a.olabel for a in arcs if a.olabel != EPS]
         out.append((ali, words, c))
     return out
+
+
+class _DetOverflow(Exception):
+    pass
+
+
+def _det_pruned_once(lat: Lattice, beam: float, max_states: int,
+                     max_elements: int) -> Lattice:
+    """One pass of beam-interleaved lattice determinization.
+
+    Weighted subset determinization over the lattice semiring with
+    transition-id strings (the algorithm of
+    lat/determinize-lattice-pruned.h:28-120,
+    re-implemented best-first): det states are normalized subsets of
+    (input state, residual (graph, acoustic) weight, residual tid
+    string); word-eps arcs are closed into the subsets; every subset
+    element is pruned against (forward cost + residual + input-lattice
+    backward best cost) <= best + beam, so the output never grows
+    blowup regions the beam would discard anyway.  Det states are
+    expanded best-first (a priority queue on forward cost) so hitting
+    max_states keeps the most promising part.  Raises _DetOverflow
+    when max_states/max_elements is exceeded (the caller backs off,
+    mirroring DeterminizeLatticePhonePrunedWrapper's retry)."""
+    W = LatticeWeight
+    n = lat.num_states
+    _, beta = _forward_backward_costs(lat)
+    best = beta[lat.start]
+    if best >= INF:
+        return Lattice(semiring=W)
+    cutoff = best + beam
+
+    def closure(elems):
+        """Expand word-eps arcs; keep per-state min-cost element.
+        elems: dict state -> (gcost, acost, string)."""
+        stack = list(elems.keys())
+        while stack:
+            s = stack.pop()
+            g, a, st = elems[s]
+            for arc in lat.arcs[s]:
+                if arc.olabel != EPS:
+                    continue
+                ng = g + arc.weight[0]
+                na = a + arc.weight[1]
+                nst = st + ((arc.ilabel,) if arc.ilabel else ())
+                old = elems.get(arc.nextstate)
+                if old is None or ng + na < old[0] + old[1] - 1e-12:
+                    elems[arc.nextstate] = (ng, na, nst)
+                    stack.append(arc.nextstate)
+        return elems
+
+    def normalize(elems, fwd_cost):
+        """Prune vs beam, subtract the min weight and common string
+        prefix.  Returns (divisor (g, a), prefix, key, kept-elems)."""
+        kept = {s: v for s, v in elems.items()
+                if fwd_cost + v[0] + v[1] + beta[s] <= cutoff + 1e-9}
+        if not kept:
+            return None
+        div = None
+        for s, (g, a, st) in kept.items():
+            if div is None or (g + a, g) < (div[0] + div[1], div[0]):
+                div = (g, a)
+        strings = [v[2] for v in kept.values()]
+        prefix = strings[0]
+        for st in strings[1:]:
+            k = 0
+            while k < len(prefix) and k < len(st) and prefix[k] == st[k]:
+                k += 1
+            prefix = prefix[:k]
+        p = len(prefix)
+        norm = {s: (g - div[0], a - div[1], st[p:])
+                for s, (g, a, st) in kept.items()}
+        key = tuple(sorted(
+            (s, round(g, 6), round(a, 6), st)
+            for s, (g, a, st) in norm.items()))
+        return div, prefix, key, norm
+
+    out = Lattice(semiring=W)
+    subsets: Dict[tuple, int] = {}      # key -> det id
+    det_elems: List[dict] = []
+    det_fwd: List[float] = []
+    det_out: List[int] = []             # det id -> output state
+    heap: List[Tuple[float, int]] = []
+    done = set()
+    n_elements = 0
+
+    def get_state(elems, fwd_cost):
+        """Returns (det id or None, divisor, prefix)."""
+        nonlocal n_elements
+        res = normalize(closure(elems), fwd_cost)
+        if res is None:
+            return None, None, None
+        div, prefix, key, norm = res
+        did = subsets.get(key)
+        if did is None:
+            did = len(det_elems)
+            subsets[key] = did
+            det_elems.append(norm)
+            det_fwd.append(fwd_cost + div[0] + div[1])
+            det_out.append(out.add_state())
+            heapq.heappush(heap, (det_fwd[did], did))
+            n_elements += len(norm)
+            if len(det_elems) > max_states or n_elements > max_elements:
+                raise _DetOverflow()
+        else:
+            # reached again via a cheaper prefix: children were pruned
+            # against the old (higher) forward cost — lower it and
+            # re-expand (Dijkstra decrease-key with re-expansion)
+            nf = fwd_cost + div[0] + div[1]
+            if nf < det_fwd[did] - 1e-9:
+                det_fwd[did] = nf
+                done.discard(did)
+                heapq.heappush(heap, (nf, did))
+        return did, div, prefix
+
+    def emit_chain(src, word, weight, string, dest):
+        """Arc chain carrying the word + tid string + weight."""
+        cur = src
+        if not string:
+            out.add_arc(cur, Arc(0, word, weight, dest))
+            return
+        for i, tid in enumerate(string):
+            last = i == len(string) - 1
+            nxt = dest if last else out.add_state()
+            out.add_arc(cur, Arc(tid, word if i == 0 else 0,
+                                 weight if i == 0 else W.one, nxt))
+            cur = nxt
+
+    start_elems = {lat.start: (0.0, 0.0, ())}
+    did, div, prefix = get_state(start_elems, 0.0)
+    if did is None:
+        return Lattice(semiring=W)
+    # initial divisor/prefix folded into a dedicated start chain
+    if div != (0.0, 0.0) or prefix:
+        real_start = out.add_state()
+        out.start = real_start
+        emit_chain(real_start, 0, div, prefix, det_out[did])
+    else:
+        out.start = det_out[did]
+
+    while heap:
+        fwd_cost, d = heapq.heappop(heap)
+        if d in done or fwd_cost > det_fwd[d] + 1e-12:
+            continue
+        done.add(d)
+        elems = det_elems[d]
+        d_state = det_out[d]
+        # re-expansion after decrease-key: drop previously emitted arcs
+        # (orphaned chain states are swept by the final connect())
+        out.arcs[d_state] = []
+        out.finals[d_state] = W.zero
+        # final weight: min over final elements (emit trailing string)
+        best_fin = None
+        for s, (g, a, st) in elems.items():
+            fw = lat.finals[s]
+            if fw == W.zero:
+                continue
+            cand = (g + fw[0], a + fw[1], st)
+            if fwd_cost + cand[0] + cand[1] > cutoff + 1e-9:
+                continue                    # final exceeds the beam
+            if best_fin is None or (cand[0] + cand[1]
+                                    < best_fin[0] + best_fin[1]):
+                best_fin = cand
+        if best_fin is not None:
+            if best_fin[2]:
+                fs = out.add_state()
+                out.set_final(fs, W.one)
+                emit_chain(d_state, 0, (best_fin[0], best_fin[1]),
+                           best_fin[2], fs)
+            else:
+                out.set_final(d_state, (best_fin[0], best_fin[1]))
+        # group outgoing non-eps word arcs by word
+        by_word: Dict[int, dict] = {}
+        for s, (g, a, st) in elems.items():
+            for arc in lat.arcs[s]:
+                if arc.olabel == EPS:
+                    continue
+                ng = g + arc.weight[0]
+                na = a + arc.weight[1]
+                nst = st + ((arc.ilabel,) if arc.ilabel else ())
+                tgt = by_word.setdefault(arc.olabel, {})
+                old = tgt.get(arc.nextstate)
+                if old is None or ng + na < old[0] + old[1] - 1e-12:
+                    tgt[arc.nextstate] = (ng, na, nst)
+        for word, nelems in sorted(by_word.items()):
+            ndid, ndiv, nprefix = get_state(nelems, fwd_cost)
+            if ndid is None:
+                continue
+            emit_chain(d_state, word, ndiv, nprefix, det_out[ndid])
+    connect(out)
+    return out
+
+
+def determinize_lattice_pruned(lat: Lattice, beam: float = 10.0,
+                               max_states: int = 50000,
+                               max_elements: int = 2_000_000,
+                               num_retries: int = 4) -> Lattice:
+    """Beam-interleaved word-level lattice determinization with bounded
+    memory (parity: lat/determinize-lattice-pruned.h incl. the
+    max_mem/beam backoff of DeterminizeLatticePhonePrunedWrapper:
+    on overflow, the beam shrinks and the input is pre-pruned, then
+    determinization reruns).  Output: word-deterministic lattice
+    (expanded form — arc chains carry the tid strings) containing
+    exactly the word sequences within `beam` of the best path, each
+    with its best-path weight and alignment."""
+    b = beam
+    work = lat
+    for attempt in range(num_retries):
+        try:
+            return _det_pruned_once(work, b, max_states, max_elements)
+        except _DetOverflow:
+            b *= 0.6
+            work = lattice_prune(work, b)
+            _log.warning("determinize_lattice_pruned: overflow, retrying "
+                         "with beam %.2f", b)
+    _log.warning("determinize_lattice_pruned: giving up, returning "
+                 "tight-pruned non-deterministic lattice")
+    return lattice_prune(lat, b)

@@ -148,10 +148,11 @@ def test_entry_points_raise_without_cuda_and_run_on_cpu():
 
 
 def test_lexchain_entry_points_raise_without_cuda_and_run_on_cpu():
-    """The legacy path's decoder and online pipeline: CUDA by default
-    (raising without it), the CPU when asked."""
+    """The legacy path's decoder (best path and lattice mode) and online
+    pipeline: CUDA by default (raising without it), the CPU when asked."""
     from kaldi_tpu_torch.decoder.lexchain import (LexChainDecoder,
                                                   LexChainGraph)
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
     from kaldi_tpu_torch.lm.bigram import BigramBackoffLm
     from kaldi_tpu_torch.online.batched_device_pipeline import \
         BatchedDeviceOnlinePipelineLex
@@ -167,6 +168,10 @@ def test_lexchain_entry_points_raise_without_cuda_and_run_on_cpu():
     hyps = dec.decode_batch(np.zeros((2, 6, 16), np.float32),
                             lengths=[6, 4])
     assert [len(h[1]) for h in hyps] == [6, 4]
+    lats = dec.decode_batch_lattice(np.zeros((2, 6, 16), np.float32),
+                                    lengths=[6, 4])
+    assert [lattice_best_path(lat)[1] for lat in lats] == \
+        [h[0] for h in hyps]
     pipe = BatchedDeviceOnlinePipelineLex(dec, lambda f: f, feat_dim=16,
                                           num_lanes=2, chunk_frames=4)
     assert pipe._cost.device.type == "cpu"

@@ -155,3 +155,133 @@ def test_cycles_are_refused():
     lat.add_arc(2, tfst.Arc(1, 0, (0.0, 0.0), 0))
     with pytest.raises(ValueError, match="cycles"):
         tlat.lattice_nbest(lat, 2)
+
+
+# ---- the lattice functions that consume lattices: on the lattices of the
+# JAX package's LexChain and n-gram decoders, converted to each package's
+# VectorFst ----------------------------------------------------------------
+DECODER_LATS = ("lex0", "lex1", "ng0", "ng1")
+
+
+def convert(lat, mod):
+    """A lattice in module mod's VectorFst: the same states, start, arcs
+    (in order) and finals."""
+    out = mod.VectorFst(mod.LatticeWeight)
+    out.add_states(lat.num_states)
+    out.set_start(lat.start)
+    for s, arcs in enumerate(lat.arcs):
+        for a in arcs:
+            out.add_arc(s, mod.Arc(a.ilabel, a.olabel, tuple(a.weight),
+                                   a.nextstate))
+        out.finals[s] = lat.finals[s]
+    return out
+
+
+@pytest.fixture(scope="module")
+def decoder_lattices():
+    """Two lanes' lattices of the JAX LexChain decoder and two of its
+    n-gram decoder (beam 10, small graphs of the port's parity tests)."""
+    from kaldi_tpu.decoder.lexchain import LexChainDecoder as JaxLex
+    from kaldi_tpu.decoder.lexchain_ng import NgramLexDecoder as JaxNg
+    from test_torch_lexchain import graphs as lex_graphs
+    from test_torch_lexchain_ng import graphs as ng_graphs
+    jg, _, rng = lex_graphs(1, use_sil=True, sil_phone=5, sil_prob=0.4,
+                            extra_variants=2)
+    ll = rng.normal(size=(2, 10, jg.num_pdfs)).astype(np.float32)
+    lats = JaxLex(jg).decode_batch_lattice(ll, lattice_beam=10.0)
+    jg, _, rng = ng_graphs(2, V=6, use_sil=True, ctx=3, extra_variants=1)
+    ll = rng.normal(size=(2, 10, jg.num_pdfs)).astype(np.float32)
+    lats += JaxNg(jg).decode_batch_lattice(ll, lattice_beam=10.0)
+    assert all(lat is not None and lat.num_arcs() > 30 for lat in lats)
+    return dict(zip(DECODER_LATS, lats))
+
+
+def pair(decoder_lattices, name):
+    """(port lattice, JAX lattice) of decoder_lattices[name]."""
+    want = decoder_lattices[name]
+    return convert(want, tfst), convert(want, jfst)
+
+
+@pytest.mark.parametrize("name", DECODER_LATS)
+def test_best_path_lattice_matches(decoder_lattices, name):
+    got, want = pair(decoder_lattices, name)
+    one = tlat.lattice_best_path_lattice(got)
+    same(one, jlat.lattice_best_path_lattice(want))
+    assert one.num_arcs() == one.num_states - 1
+    assert lattice_best_path(one) == lattice_best_path(got)
+
+
+@pytest.mark.parametrize("name", DECODER_LATS)
+def test_scale_and_penalty_match(decoder_lattices, name):
+    got, want = pair(decoder_lattices, name)
+    for lm, ac in ((1.0, 1.0), (0.5, 0.08), (2.0, 0.0)):
+        same(tlat.lattice_scale(got, lm, ac), jlat.lattice_scale(want, lm,
+                                                                 ac))
+    same(tlat.lattice_scale(got, 1.0, 1.0), got)
+    assert lattice_best_path(tlat.lattice_scale(got)) == \
+        lattice_best_path(got)
+    for penalty in (1.5, -0.5):
+        pen = tlat.add_word_ins_penalty(got, penalty)
+        same(pen, jlat.add_word_ins_penalty(want, penalty))
+        if penalty < 0:        # a bonus: the best path keeps its words
+            assert len(lattice_best_path(pen)[1]) >= \
+                len(lattice_best_path(got)[1])
+    assert got.to_text() == want.to_text()          # inputs untouched
+
+
+@pytest.mark.parametrize("name", DECODER_LATS)
+def test_forward_backward_post_matches(decoder_lattices, name):
+    got, want = pair(decoder_lattices, name)
+    for scale in (1.0, 0.1):
+        post = tlat.lattice_forward_backward_post(got, scale)
+        assert post == jlat.lattice_forward_backward_post(want, scale)
+        assert len(post) == len(lattice_best_path(got)[0])
+        for frame in post:
+            assert abs(sum(p for _, p in frame) - 1.0) <= 1e-6
+
+
+@pytest.mark.parametrize("name", DECODER_LATS)
+@pytest.mark.parametrize("beam", [3.0, 10.0])
+def test_determinize_pruned_matches(decoder_lattices, name, beam):
+    """Equal output lattices; every word sequence of the output once,
+    the best path's words and cost kept."""
+    got, want = pair(decoder_lattices, name)
+    det = tlat.determinize_lattice_pruned(got, beam=beam)
+    same(det, jlat.determinize_lattice_pruned(want, beam=beam))
+    _, words, cost = lattice_best_path(det)
+    _, words0, cost0 = lattice_best_path(got)
+    assert words == words0 and cost == pytest.approx(cost0, abs=1e-9)
+    seqs = [tuple(p[1]) for p in tlat.lattice_nbest(det, 50)]
+    assert len(seqs) == len(set(seqs))
+
+
+@pytest.mark.parametrize("name", ["lex0", "ng1"])
+def test_determinize_overflow_backs_off(decoder_lattices, name, caplog):
+    """max_states too small: each attempt overflows, the beam shrinks and
+    the input is pruned again, as in the reference, down to the tight
+    pruned lattice; with a few more states a retry succeeds."""
+    got, want = pair(decoder_lattices, name)
+    with caplog.at_level("WARNING", logger="kaldi_tpu_torch.lat.functions"):
+        out = tlat.determinize_lattice_pruned(got, beam=10.0, max_states=2)
+    same(out, jlat.determinize_lattice_pruned(want, beam=10.0,
+                                              max_states=2))
+    assert sum("overflow" in r.message for r in caplog.records) == 4
+    assert "giving up" in caplog.records[-1].message
+    assert lattice_best_path(out)[1] == lattice_best_path(got)[1]
+    full = tlat.determinize_lattice_pruned(got, beam=10.0)
+    n = full.num_states
+    caplog.clear()
+    with caplog.at_level("WARNING", logger="kaldi_tpu_torch.lat.functions"):
+        retried = tlat.determinize_lattice_pruned(got, beam=10.0,
+                                                  max_states=n // 3)
+    same(retried, jlat.determinize_lattice_pruned(want, beam=10.0,
+                                                  max_states=n // 3))
+    assert lattice_best_path(retried)[1] == lattice_best_path(got)[1]
+
+
+def test_best_path_lattice_without_a_final_is_none():
+    got, want = build(tfst, "no_final"), build(jfst, "no_final")
+    assert tlat.lattice_best_path_lattice(got) is None
+    assert jlat.lattice_best_path_lattice(want) is None
+    one = tlat.lattice_best_path_lattice(build(tfst, "diamond"))
+    same(one, jlat.lattice_best_path_lattice(build(jfst, "diamond")))

@@ -23,8 +23,6 @@ from kaldi_tpu.hmm.transition_model import TransitionModel as JaxTm
 from kaldi_tpu.lm.bigram import BigramBackoffLm as JaxLm
 from kaldi_tpu.recipes import bench_corpus as jbc
 from kaldi_tpu.tree import monophone_context_dependency as jax_mono
-from kaldi_tpu_torch.decoder.batched_pipeline2 import \
-    BatchedOfflinePipeline2
 from kaldi_tpu_torch.decoder.lexchain import LexChainDecoder, LexChainGraph
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
@@ -345,30 +343,6 @@ def test_traceback_refuses_paths_not_from_the_begin_root():
     out = td._traceback(states, first, np.array([1.0, 1.0]),
                         np.array([3, 3]))
     assert out == [None, None]
-
-
-def test_lattice_mode_raises_not_ported():
-    _, tg, _ = graphs(0)
-    td = LexChainDecoder(tg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        td.decode_batch_lattice(np.zeros((1, 4, tg.num_pdfs), np.float32))
-
-    class Model(torch.nn.Module):
-        def __init__(self):
-            super().__init__()
-            self.w = torch.nn.Parameter(torch.zeros(1))
-
-    class Feats:
-        device = torch.device("cpu")
-
-        def compute_batch_device(self, waves):
-            return torch.zeros((1, 12, 4)), np.array([12])
-
-    pipe = BatchedOfflinePipeline2(Model(), td, Feats(), device="cpu")
-    pipe.loglikes = lambda f, n: (torch.zeros((1, 4, tg.num_pdfs)),
-                                  np.array([4]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pipe.decode_batch([np.zeros(400, np.int16)], generate_lattices=True)
 
 
 def quick_graphs():

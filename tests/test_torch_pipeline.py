@@ -233,12 +233,13 @@ def test_ngram_lattice_mode_matches_jax():
         assert o[2].num_arcs() > out_lens[b]
 
 
-def test_legacy_lexchain_pipeline_matches_jax():
+def legacy_pipelines():
     """bench.py main_legacy's pipeline at a small size on both sides: the
     quick legacy spec (V=24), chain_tm_tree_for and build_decode_graph of
     each package, a small random model without i-vectors (18 pdfs),
-    LexChainDecoder (exact), the MFCC frontend with 40 cepstra, and the
-    corpus's 6 test utterances as int16 waves."""
+    LexChainDecoder (exact), the MFCC frontend with 40 cepstra; and the
+    corpus's 6 test utterances as int16 waves.  -> (JAX graph, JAX
+    pipeline, port pipeline, waves)."""
     quick = dict(vocab=24, num_phone_groups=4, phones_per_group=2,
                  words_per_utt=5, num_train=2, num_test=6, num_lm_sents=80)
     built = []
@@ -266,6 +267,12 @@ def test_legacy_lexchain_pipeline_matches_jax():
         sample_rate=spec.fs, device="cpu")
     ws = [np.clip(test_wav[u], -32767, 32767).astype(np.int16)
           for u in sorted(test_wav)]
+    return jg, ref, port, ws
+
+
+def test_legacy_lexchain_pipeline_matches_jax():
+    """The legacy pipelines (legacy_pipelines) in best-path mode."""
+    jg, ref, port, ws = legacy_pipelines()
     want = ref.decode_batch(ws)
     stats = PipelineStats()
     got = port.decode_batch(ws, stats=stats)
@@ -281,3 +288,36 @@ def test_legacy_lexchain_pipeline_matches_jax():
         assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
             f"lane {b}: {o[1]} vs {r[1]}"
         assert abs(o[1] - s[2]) <= 1e-4 * max(1.0, abs(s[2]))
+
+
+def test_legacy_lexchain_lattice_pipeline_matches_jax():
+    """The legacy pipelines in lattice mode (bench.py --legacy
+    --with-lattices, J=4) at lattice_beam 20 (at its beam of 8 this small
+    random model's lattices hold the best path alone): every lane has a
+    lattice whose
+    best path is the JAX pipeline's (equal words, cost within 1e-4
+    relative) and the port's decode_batch on the same loglikes; on those
+    loglikes the JAX decoder's lattices equal the port's state for
+    state, weights within 1e-4, and lat_stats reaches the decoder."""
+    jg, ref, port, ws = legacy_pipelines()
+    want = ref.decode_batch(ws, generate_lattices=True, lattice_beam=20.0)
+    lat_stats = {}
+    stats = PipelineStats()
+    got = port.decode_batch(ws, stats=stats, generate_lattices=True,
+                            lattice_beam=20.0, lat_stats=lat_stats)
+    assert stats.search_s >= lat_stats["fwd_s"] > 0
+    assert lat_stats["n_arcs"] > 0
+    feats, nframes = port.feats.compute_batch_device(ws)
+    loglikes, out_lens = port.loglikes(feats, nframes)
+    same_ll = JaxLexDecoder(jg).decode_batch_lattice(
+        loglikes.numpy(), lengths=out_lens, lattice_beam=20.0)
+    best = port.decoder.decode_batch(loglikes, lengths=out_lens)
+    for b, (r, o, s, h) in enumerate(zip(want, got, same_ll, best)):
+        assert r is not None and o is not None and s is not None
+        assert o[0] == r[0] == h[0], f"lane {b} words"
+        assert len(o[0]) > 0
+        assert abs(o[1] - r[1]) <= 1e-4 * max(1.0, abs(r[1])), \
+            f"lane {b}: {o[1]} vs {r[1]}"
+        assert abs(o[1] - h[2]) <= 1e-4 * max(1.0, abs(h[2]))
+        assert_lattices_match(o[2], s)
+        assert o[2].num_arcs() > out_lens[b]
