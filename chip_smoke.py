@@ -157,6 +157,8 @@ import time
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.chain.graphs import batch_pack
+from kaldi_tpu_torch.chain.objective import chain_loss
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
 from kaldi_tpu_torch.decoder import batched_viterbi as tbv
@@ -165,17 +167,22 @@ from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
+from kaldi_tpu_torch.decoder.graph import TrainingGraphCompiler
 from kaldi_tpu_torch.decoder.lexchain import LexChainDecoder
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
+from kaldi_tpu_torch.decoder.native_viterbi import NativeViterbi
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
+from kaldi_tpu_torch.device import deterministic_algorithms, full_f32
 from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
+from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.lat import functions as latf
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
-                                          chain_tdnnf_from_flax)
+                                          chain_tdnnf_from_flax,
+                                          chain_tdnnf_to_flax)
 from kaldi_tpu_torch.online.batched_device_pipeline import (
     BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineLex,
     BatchedDeviceOnlinePipelineNg, OnlineDynamicBatcher)
@@ -184,6 +191,9 @@ from kaldi_tpu_torch.ops import _build
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
+from kaldi_tpu_torch.recipes import chain as tchain
+from kaldi_tpu_torch.recipes import mono as tmono
+from kaldi_tpu_torch.recipes import train_bench
 from kaldi_tpu_torch.recipes.bench_corpus import (
     BenchCorpusSpec, bench_scale_spec, build_decode_graph,
     build_decode_graph_ng, build_lang, chain_tm_tree_for, corpus_fingerprint,
@@ -265,6 +275,21 @@ LEX_LAT_BLOCKS = ("_forward_lattice", "_backward")
 # determinization beam, and the lattice_scale / word penalty it applies
 LATF_LANES, LATF_DET_BEAM = 8, 8.0
 LATF_SCALE, LATF_PENALTY = (0.5, 0.08), 1.5
+# the legacy training recipe (egs/bench_corpus/train.py main(), the port's
+# recipes/train_bench.py) at full width: 8 epochs of the 17 x 1536 TDNN-F.
+# Its bar is the JAX package's own run of the same recipe on the CPU,
+# measured once by tools/legacy_train_jax_bar.py: the WER of the 128 test
+# utterances decoded with the trained weights in bf16, as train_lex decodes
+# them (99 word errors of 1544; 6.477%, 100 errors, with float32 weights),
+# plus 2.0 points: two trainings from different initial weights part
+TRAIN_EPOCHS = 8
+TRAIN_JAX_WER, TRAIN_WER_BAND = 6.4119170984455955, 2.0
+# the JAX package's chain objective a frame, each epoch's mean
+TRAIN_JAX_EPOCH_OBJF = [0.9396, 1.4081, 1.4991, 1.545, 1.58, 1.6063,
+                        1.621, 1.6331]
+# train_lex_check: the utterances of its GMM and alignment checks, and the
+# chunks of its one training step (one minibatch)
+TRAIN_CHECK_UTTS, TRAIN_CHECK_CHUNKS = 8, 32
 
 
 def emit(phase: str, **kw) -> None:
@@ -2272,6 +2297,285 @@ def legacy_phases(ng_lattices=None) -> dict:
     return out
 
 
+def run_train_lex() -> dict:
+    """train_lex: the legacy training recipe on the card, nothing cut
+    (recipes/train_bench.py train_and_decode): the corpus, MFCC, the mono
+    GMM, the alignment, the chain examples, TRAIN_EPOCHS epochs of the
+    17 x 1536 TDNN-F, then the 128 test utterances decoded in bf16.  The
+    seconds of each stage, the aligner, the steps, each epoch's
+    objective, the median step ms by CUDA events, the peak memory, the
+    WER and kernels a-c's launches (0); then one more step under the
+    profiler (its launches and device time).  Bars: the native aligner
+    ran, every step's objective is finite, the last epoch's mean is above
+    the first's, the WER is within TRAIN_WER_BAND of the JAX package's."""
+    reset_kernel_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    meta = train_bench.train_and_decode(
+        os.path.join(REPO, "_chip", "train_lex"), TRAIN_EPOCHS, "cuda",
+        stats=stats)
+    seconds = time.perf_counter() - t0
+    launches = kernel_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    sysd = stats.pop("system")
+    step_ms = sorted(stats["step_ms"])
+    dec = stats["decode"]
+    out = {"seconds": seconds,
+           "stage_s": {k: stats[k] for k in (
+               "corpus_s", "mfcc_s", "mono_s", "graphs_s", "align_s",
+               "chain_s", "decode_s")},
+           "aligner": stats["aligner"], "chunks": stats["chunks"],
+           "steps": len(stats["step_objf"]), "epochs": TRAIN_EPOCHS,
+           "epoch_objf": stats["epoch_objf"],
+           "jax_epoch_objf": TRAIN_JAX_EPOCH_OBJF,
+           "mono_avg_loglike_last": stats["mono_avg_loglikes"][-1],
+           "step_ms_median": step_ms[len(step_ms) // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "chain_s_a_step": stats["chain_s"] / len(stats["step_objf"]),
+           "peak_memory_gb": peak, "wer": dec["wer"],
+           "word_errors": dec["word_errors"], "ref_words": dec["ref_words"],
+           "lanes_decoded": dec["lanes_decoded"],
+           "decode_batch_s": dec["seconds"], "jax_cpu_wer": TRAIN_JAX_WER,
+           "wer_band": TRAIN_WER_BAND, "corpus_hash": meta["corpus_hash"],
+           "launches": launches}
+    emit("train_lex", **out)
+    if stats["aligner"] != tmono.NATIVE:
+        raise SystemExit(f"train_lex aligned with {stats['aligner']}, not "
+                         "the native aligner")
+    if meta["corpus_hash"] != LEX_FINGERPRINT:
+        raise SystemExit(f"corpus fingerprint {meta['corpus_hash']}")
+    if not np.isfinite(stats["step_objf"]).all():
+        raise SystemExit("a training step's objective is not finite")
+    if not stats["epoch_objf"][-1] > stats["epoch_objf"][0]:
+        raise SystemExit("the last epoch's objective is not above the "
+                         "first's")
+    if dec["wer"] > TRAIN_JAX_WER + TRAIN_WER_BAND:
+        raise SystemExit(f"train_lex WER {dec['wer']:.3f}% against the JAX "
+                         f"package's {TRAIN_JAX_WER:.3f}% + {TRAIN_WER_BAND}")
+    if any(launches.values()):
+        raise SystemExit(f"a hand kernel launched in train_lex: {launches}")
+    # one more step on the trained weights, under the profiler
+    den, chunks, nums = tchain.chain_egs(
+        sysd["gmm"], sysd["feats"], sysd["alignments"], sysd["chain_tm"],
+        sysd["chain_tree"], train_bench.train_options(), 3)
+    cfg = train_bench.flagship_config(sysd["spec"])
+    prof = profile_call(lambda: tchain._fit_chain(
+        cfg, den, chunks[:TRAIN_CHECK_CHUNKS], nums[:TRAIN_CHECK_CHUNKS],
+        train_bench.train_options(1), 150, 40,
+        variables=sysd["variables"], device="cuda"),
+        ranges=(tchain.STEP_RANGE,))
+    step = prof["ranges"][tchain.STEP_RANGE]
+    emit("profile_train_step", launches_a_step=step["kernel_launches"],
+         device_ms_a_step=step["device_ms"], host_ms_a_step=step["host_ms"],
+         span_ms=step.get("span_ms"), top=prof["top"], by_op=prof["by_op"],
+         peak_memory_gb=prof["peak_memory_gb"])
+    out["launches_a_step"] = step["kernel_launches"]
+    out["device_ms_a_step"] = step["device_ms"]
+    return {"sysd": sysd, "egs": (den, chunks, nums), "cfg": cfg,
+            "summary": out}
+
+
+def param_grads(cfg, variables, feats_b, packed, den, opts, dev,
+                dtype=torch.float32) -> dict:
+    """The gradient of minus the chain objective with respect to every
+    parameter, the model built from `variables` in `dtype` in training
+    mode on `dev` (TF32 off), in flax's layout as numpy float64."""
+    model = chain_tdnnf_from_flax(cfg, variables, dtype, dev)
+    model.train()
+    model.requires_grad_(True)
+    with full_f32(), deterministic_algorithms():
+        chain_out, xent_out = model(feats_b.to(dev, dtype))
+        objf, _ = chain_loss(opts.chain, den, packed, chain_out, xent_out)
+        objf.neg().backward()
+    for p in model.parameters():
+        p.data = torch.zeros_like(p) if p.grad is None else p.grad
+    return {k: v.astype(np.float64) for k, v in
+            _leaves(chain_tdnnf_to_flax(model)["params"])}
+
+
+def _leaves(tree, prefix=""):
+    """(path, array) of every array of a nested dict, in sorted order."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", tree[k]
+
+
+def train_lex_check(trained: dict) -> dict:
+    """train_lex_check: the card against the port's CPU code (float32,
+    TF32 off) from one state and one minibatch: one `_fit_chain` step on
+    the trained weights from both, objective within 1e-4 relative,
+    statistics within 1e-4, parameters within 1e-4 but where the first
+    step flipped (see below: at most 0.1% of them, within two first-step
+    moves); the semi-orthogonal constraint on the trained factors within
+    1e-4; the gradient of every parameter as
+    close to the CPU's float64 one as the CPU's float32 one, to twice its
+    error (or 1e-4 of the largest); the numerator and denominator
+    loglikes (1e-4 relative) and the gradient of the chain objective on
+    the card's network outputs (1e-4 of its largest); the mono GMM's
+    loglikes of TRAIN_CHECK_UTTS utterances (1e-4 relative) and their
+    alignments, equal or a flipped Viterbi tie (both paths' costs within
+    1e-4 relative)."""
+    sysd, cfg = trained["sysd"], trained["cfg"]
+    den, chunks, nums = trained["egs"]
+    mb, mb_nums = chunks[:TRAIN_CHECK_CHUNKS], nums[:TRAIN_CHECK_CHUNKS]
+    opts = train_bench.train_options(1)
+    steps = {}
+    for dev in ("cuda", "cpu"):
+        st: dict = {}
+        t0 = time.perf_counter()
+        _, v = tchain._fit_chain(cfg, den, mb, mb_nums, opts, 150, 40,
+                                 variables=sysd["variables"], device=dev,
+                                 stats=st)
+        steps[dev] = (st["step_objf"][0], v, time.perf_counter() - t0)
+
+    # Adam's first step moves an element by about lr * sign(g), and a
+    # float32 gradient of this network is good to about 1e-3 of its
+    # largest element on either device (its float64 value on the CPU is
+    # the yardstick below): an element whose gradient is below that moves
+    # one way on the card and the other on the CPU, and the two steps part
+    # by 2 lr there.  Such elements (moved in opposite directions, one of
+    # them by more than lr / 2) may part by 2 lr; every other element and
+    # the statistics by 1e-4
+    lr0 = float(tchain.lr_schedule(opts.learning_rate,
+                                   opts.final_learning_rate, 1, 1)(0))
+    old = dict(_leaves(sysd["variables"]))
+    diffs, flips, n_params = {}, 0, 0
+    for (p, a), (_, b) in zip(_leaves(steps["cuda"][1]),
+                              _leaves(steps["cpu"][1])):
+        d = np.abs(a - b)
+        if p.startswith("/params"):
+            da, db = a - old[p], b - old[p]
+            flip = (np.sign(da) != np.sign(db)) & (
+                np.maximum(np.abs(da), np.abs(db)) > lr0 / 2)
+            flips += int(flip.sum())
+            n_params += a.size
+            if (d[flip] > 2.0 * lr0 + 1e-6).any():
+                raise SystemExit(f"train_lex_check: {p} moved apart by "
+                                 "more than two first steps")
+            d = np.where(flip, 0.0, d)
+        diffs[p] = float(d.max())
+    worst = max(diffs, key=diffs.get)
+    moved = max(float(np.abs(a - old[p]).max()) for p, a in
+                _leaves(steps["cuda"][1]) if p.startswith("/params"))
+    # the semi-orthogonal constraint (every `orthonormal_interval` steps,
+    # not in this one) on the trained factors
+    constrained = {}
+    for dev in ("cuda", "cpu"):
+        model = chain_tdnnf_from_flax(cfg, sysd["variables"], torch.float32,
+                                      dev)
+        tchain.apply_orthonormal(model)
+        constrained[dev] = dict(_leaves(chain_tdnnf_to_flax(model)["params"]))
+    del model
+    constraint_diff = max(
+        float(np.abs(a - constrained["cpu"][p]).max())
+        for p, a in constrained["cuda"].items() if p.endswith("/linear"))
+    # the gradient of every parameter at the same state: the card's and
+    # the CPU's float32 against the CPU's float64
+    feats_b = torch.from_numpy(np.stack([c[0] for c in mb]))
+    packed = batch_pack(mb_nums)
+    g64 = param_grads(cfg, sysd["variables"], feats_b, packed, den, opts,
+                      "cpu", torch.float64)
+    g_scale = max(float(np.abs(g).max()) for g in g64.values())
+    grad_err = {}
+    for dev in ("cuda", "cpu"):
+        g = param_grads(cfg, sysd["variables"], feats_b, packed, den, opts,
+                        dev)
+        grad_err[dev] = max(float(np.abs(g[p] - g64[p]).max()) / g_scale
+                            for p in g64)
+    grad_bar = max(2.0 * grad_err["cpu"], 1e-4)
+    objf_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
+    # the chain objective on the card's outputs for the minibatch
+    model = chain_tdnnf_from_flax(cfg, sysd["variables"], torch.float32,
+                                  "cuda")
+    with torch.no_grad(), full_f32():
+        out = model.chain(feats_b.cuda())
+    del model
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        x = out.to(dev).clone().requires_grad_(True)
+        objf, aux = chain_loss(opts.chain, den, packed, x)
+        objf.backward()
+        losses[dev] = (float(aux["num"].detach()),
+                       float(aux["den"].detach()), x.grad.cpu().numpy())
+    num_rel = abs(losses["cuda"][0] - losses["cpu"][0]) / abs(
+        losses["cpu"][0])
+    den_rel = abs(losses["cuda"][1] - losses["cpu"][1]) / abs(
+        losses["cpu"][1])
+    g_out = losses["cpu"][2]
+    out_grad_rel = float(np.abs(losses["cuda"][2] - g_out).max()
+                         / np.abs(g_out).max())
+    # the GMM's loglikes and the alignments of a few utterances
+    gmm = sysd["gmm"]
+    utts = list(sysd["feats"])[:TRAIN_CHECK_UTTS]
+    feats = {u: sysd["feats"][u] for u in utts}
+    cpu_am = AmDiagGmm(device="cpu")
+    for g in gmm.am.densities:
+        cpu_am.add_pdf(g)
+    cpu_gmm = tmono.MonoSystem(gmm.lang, gmm.tree, gmm.tm, cpu_am)
+    ll_rel = max(float(np.abs(gmm.am.log_likes_batch(f)
+                              - cpu_am.log_likes_batch(f)).max()
+                       / np.abs(cpu_am.log_likes_batch(f)).max())
+                 for f in feats.values())
+    comp = TrainingGraphCompiler(gmm.tm, gmm.tree, gmm.lang)
+    graphs = {u: comp.compile(sysd["train_txt"][u]) for u in utts}
+    ali = {name: tmono._align_all(s, graphs, feats, 10.0, 0.1, 1.0)
+           for name, s in (("cuda", gmm), ("cpu", cpu_gmm))}
+    ties = []
+    for u in utts:
+        if ali["cuda"][u] == ali["cpu"][u]:
+            continue
+        costs = [NativeViterbi(graphs[u]).decode(
+            s.am.log_likes_batch(feats[u]), s.tm.id2pdf_id, 0.1,
+            beam=10.0)[2] for s in (gmm, cpu_gmm)]
+        ties.append({"utt": u, "costs": costs})
+    out = {"step_objf_cuda": steps["cuda"][0],
+           "step_objf_cpu": steps["cpu"][0], "step_objf_rel": objf_rel,
+           "param_max_abs_diff": diffs[worst], "param_worst": worst,
+           "elements_flipped": flips, "parameters": n_params,
+           "constraint_max_abs_diff": constraint_diff,
+           "first_step_lr": lr0, "grad_err_cuda_f32": grad_err["cuda"],
+           "grad_err_cpu_f32": grad_err["cpu"], "grad_bar": grad_bar,
+           "grad_max_f64": g_scale,
+           "step_moved_max": moved, "step_s_cuda": steps["cuda"][2],
+           "step_s_cpu": steps["cpu"][2], "num_rel": num_rel,
+           "den_rel": den_rel, "grad_rel_to_max": out_grad_rel,
+           "gmm_loglike_rel_to_max": ll_rel, "utts": len(utts),
+           "alignments_equal": len(utts) - len(ties), "ties": ties,
+           "tolerance": 1e-4}
+    emit("train_lex_check", **out)
+    if not (objf_rel <= 1e-4 and diffs[worst] <= 1e-4 and num_rel <= 1e-4
+            and den_rel <= 1e-4 and out_grad_rel <= 1e-4
+            and grad_err["cuda"] <= grad_bar and ll_rel <= 1e-4
+            and flips <= 1e-3 * n_params and constraint_diff <= 1e-4):
+        raise SystemExit("train_lex_check: the card and the CPU disagree")
+    if moved < 1e-6:
+        raise SystemExit("train_lex_check: the step left the weights as "
+                         "they were")
+    for t in ties:
+        if abs(t["costs"][0] - t["costs"][1]) > 1e-4 * abs(t["costs"][1]):
+            raise SystemExit(f"train_lex_check: {t['utt']} aligns "
+                             "differently and is no tie")
+    return out
+
+
+def train_phases() -> dict:
+    """train_lex and train_lex_check -> their summary, with kernels a-c's
+    launches in train_lex."""
+    trained = run_train_lex()
+    check = train_lex_check(trained)
+    out = dict(trained["summary"])
+    out["check"] = {k: check[k] for k in (
+        "step_objf_rel", "param_max_abs_diff", "num_rel", "den_rel",
+        "alignments_equal")}
+    del trained
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2546,6 +2850,9 @@ def main() -> int:
 
     # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
     legacy = legacy_phases(ng_lat.pop("lattices"))
+
+    # 5c. the legacy training recipe, end to end, and its card-CPU check ---
+    train = train_phases()
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
@@ -2855,6 +3162,7 @@ def main() -> int:
          online_batcher_wer=ng_batcher["wer"],
          online_batcher_endpointed=ng_batcher["endpointed"],
          **{k: v for k, v in legacy.items() if k != "launches"},
+         train={k: v for k, v in train.items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -2878,6 +3186,7 @@ def main() -> int:
     for k in kernels:
         k["launches_legacy"] = sum(counts[k["name"]] for counts in
                                    legacy["launches"].values())
+        k["launches_train"] = train["launches"][k["name"]]
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -1,0 +1,355 @@
+"""Chain supervision and denominator-graph construction (port of the
+monophone-topology part of `kaldi_tpu/chain/supervision.py`:
+`estimate_phone_lm`, `_stationary_initial`, `make_denominator_graph`,
+`denominator_graph_from_phone_lm`, `alignment_to_phone_segments`,
+`_chain_pdfs_for_phone`, `make_tolerance_supervision`,
+`alignment_to_tolerance_numerator` and `alignment_to_numerator_graph`).
+Host-side numpy.
+
+Parity: chain/chain-supervision.h (time-tolerant numerators from
+alignments), chain/language-model.h (the phone LM), chain-den-graph.h:159
+(the den graph: the phone LM expanded to an HMM acceptor over pdfs,
+initial probs from the stationary distribution).
+
+Not carried over yet: the window LM of context-dependent systems
+(`estimate_window_lm`), `union_graphs`, `lattice_to_tolerance_numerator`
+and `transcript_to_e2e_numerator`.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from collections import Counter, defaultdict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from kaldi_tpu_torch.chain.graphs import (DenominatorGraph, PackedGraph,
+                                          pack_emission_fst)
+from kaldi_tpu_torch.fstext.fst import EPS, Arc, TropicalWeight, VectorFst
+from kaldi_tpu_torch.fstext.ops import rm_epsilon
+from kaldi_tpu_torch.hmm.hmm_utils import expand_hmm
+from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+
+_log = logging.getLogger(__name__)
+
+
+def estimate_phone_lm(phone_seqs: Sequence[Sequence[int]],
+                      phones: Sequence[int],
+                      interp: float = 0.1) -> VectorFst:
+    """Bigram phone LM as an acceptor (chain-est-phone-lm equivalent;
+    bigram with unigram interpolation — dense over seen phones so the
+    denominator stays compact)."""
+    phones = sorted(set(phones))
+    uni = Counter()
+    bi: Dict[int, Counter] = defaultdict(Counter)
+    end_count = Counter()
+    start_count = Counter()
+    n_seq = 0
+    for seq in phone_seqs:
+        if not seq:
+            continue
+        n_seq += 1
+        start_count[seq[0]] += 1
+        for p in seq:
+            uni[p] += 1
+        for a, b in zip(seq, seq[1:]):
+            bi[a][b] += 1
+        end_count[seq[-1]] += 1
+    tot_uni = sum(uni.values())
+    uni_p = {p: (uni[p] + 1.0) / (tot_uni + len(phones)) for p in phones}
+
+    fst = VectorFst(TropicalWeight)
+    start = fst.add_state()
+    fst.set_start(start)
+    state_of = {p: fst.add_state() for p in phones}
+
+    # Above this size the dense interpolated form is intractable: at
+    # ~10k context tokens (a vocabulary-scale ctx chain system,
+    # recipes/chain.py train_chain_ctx) the dense bigram would emit
+    # 1e8 arcs — and an epsilon-backoff state is no better, because
+    # the denominator must be epsilon-free and rm_epsilon
+    # re-materializes the dense product (measured: 148M arcs at 7.2k
+    # tokens).  So past ~1k tokens (≈1M dense arcs) the sparse form
+    # keeps ONLY the seen bigram successors, maximum-likelihood-
+    # normalized per state: a pruned-support UN-SMOOTHED denominator —
+    # exactly the reference's choice ("We don't do any smoothing",
+    # chain/language-model.h:46; den fsts keep only seen histories).
+    # Below the cutoff the smoothed dense form trains measurably
+    # better on small corpora (test_bench_ctx_e2e fixture: 16.4% vs
+    # 24.3% WER at acoustic scale 0.35).
+    sparse = len(phones) > 1000
+    _log.info("estimate_phone_lm: %d tokens, %s bigram", len(phones),
+              "sparse unsmoothed" if sparse else "dense interpolated")
+
+    def add_arcs(src: int, counts: Counter, total: float,
+                 end_c: float = 0.0):
+        total = total + end_c
+        if sparse:
+            for p, c in counts.items():
+                fst.add_arc(src, Arc(p, p,
+                                     -math.log(max(c / total, 1e-10)),
+                                     state_of[p]))
+            if total and end_c:
+                fst.finals[src] = -math.log(max(end_c / total, 1e-10))
+            elif not counts:
+                # dead-end state: allow ending so the den acceptor
+                # stays coaccessible
+                fst.finals[src] = 0.0
+            return
+        for p in phones:
+            prob = ((1 - interp) * counts.get(p, 0) / total
+                    if total else 0.0) \
+                + interp * uni_p[p]
+            fst.add_arc(src, Arc(p, p, -math.log(max(prob, 1e-10)),
+                                 state_of[p]))
+        if total:
+            fend = max(end_c / total, 1e-4)
+        else:
+            fend = 1e-4
+        fst.finals[src] = -math.log(fend)
+
+    add_arcs(start, start_count, float(n_seq))
+    for p in phones:
+        tot = float(sum(bi[p].values()))
+        add_arcs(state_of[p], bi[p], tot, float(end_count[p]))
+    # start state should not be final
+    fst.finals[start] = TropicalWeight.zero
+    return fst
+
+
+def _stationary_initial(pg: PackedGraph, iters: int = 100) -> np.ndarray:
+    """Initial probs for the denominator = approximate stationary
+    distribution of the transition structure (chain-den-graph.cc
+    SetInitialProbs)."""
+    S = pg.num_states
+    probs = np.exp(np.maximum(pg.log_prob, -80))
+    pi = np.exp(np.maximum(pg.initial, -80))
+    if pi.sum() <= 0:
+        pi = np.ones(S)
+    pi = pi / pi.sum()
+    for _ in range(iters):
+        nxt = np.zeros(S)
+        np.add.at(nxt, pg.dst, pi[pg.src] * probs)
+        tot = nxt.sum()
+        if tot <= 0:
+            break
+        pi = nxt / tot
+    pi = np.maximum(pi, 1e-20)
+    return np.log(pi).astype(np.float32)
+
+
+def make_denominator_graph(phone_seqs: Sequence[Sequence[int]],
+                           tm: TransitionModel, ctx_dep,
+                           interp: float = 0.1) -> DenominatorGraph:
+    """Phone LM -> HMM acceptor over pdfs -> packed arrays."""
+    lm = estimate_phone_lm(phone_seqs, tm.get_phones(), interp)
+    return denominator_graph_from_phone_lm(lm, tm, ctx_dep)
+
+
+def denominator_graph_from_phone_lm(lm, tm: TransitionModel,
+                                    ctx_dep,
+                                    ilabel_info=None) -> DenominatorGraph:
+    """Denominator graph from an existing phone-LM acceptor
+    (chain-make-den-fst, chainbin/chain-make-den-fst.cc).  For
+    context-dependent trees pass `ilabel_info` mapping LM ilabels to
+    phone windows (the LM is then over context tokens, the CLG-level
+    view of chain-den-graph.cc)."""
+    # expand phones to HMMs with TRUE probabilities (scale 1/1)
+    h = expand_hmm(lm, tm, ctx_dep, transition_scale=1.0,
+                   self_loop_scale=1.0, ilabel_info=ilabel_info)
+    # relabel transition-ids -> pdf+1 and strip output labels
+    for arcs in h.arcs:
+        for a in arcs:
+            if a.ilabel != EPS:
+                a.ilabel = int(tm.id2pdf_id[a.ilabel]) + 1
+            a.olabel = a.ilabel
+    h = rm_epsilon(h)
+    # make all "phone boundary" structure final-free: the den graph in
+    # the reference is an acceptor where ending anywhere is allowed via
+    # final-probs; we keep the LM's final probs.
+    pg = pack_emission_fst(h)
+    pg.initial = _stationary_initial(pg)
+    _log.info("denominator graph: %d states, %d arcs", pg.num_states,
+              pg.num_arcs)
+    return DenominatorGraph(pg)
+
+
+def alignment_to_phone_segments(alignment: Sequence[int],
+                                tm: TransitionModel
+                                ) -> List[Tuple[int, int, int]]:
+    """Frame-level transition-id alignment -> [(phone, start, end)),
+    half-open at the alignment's frame rate."""
+    segs: List[Tuple[int, int, int]] = []
+    for t, tid in enumerate(alignment):
+        phone = tm.transition_id_to_phone(tid)
+        is_start = (tm.transition_id_to_hmm_state(tid) == 0
+                    and not tm.is_self_loop(tid))
+        if segs and segs[-1][0] == phone and not is_start:
+            segs[-1] = (phone, segs[-1][1], t + 1)
+        else:
+            segs.append((phone, t, t + 1))
+    return segs
+
+
+def _chain_pdfs_for_phone(chain_tm: TransitionModel,
+                          phone: int) -> Tuple[int, int]:
+    """(forward_pdf, self_loop_pdf) of a phone in the chain topology."""
+    for ts in range(1, chain_tm.num_transition_states + 1):
+        if chain_tm.transition_state_to_phone(ts) != phone:
+            continue
+        fwd_pdf = self_pdf = None
+        for idx in range(chain_tm.num_transition_indices(ts)):
+            tid = chain_tm.pair_to_transition_id(ts, idx)
+            pdf = int(chain_tm.id2pdf_id[tid])
+            if chain_tm.is_self_loop(tid):
+                self_pdf = pdf
+            else:
+                fwd_pdf = pdf
+        if self_pdf is None:
+            self_pdf = int(chain_tm.id2pdf_id[chain_tm.self_loop_of(ts)])
+        return fwd_pdf, self_pdf
+    raise ValueError(f"phone {phone} not in chain transition model")
+
+
+def make_tolerance_supervision(segments: Sequence[Tuple[int, int, int]],
+                               num_frames: int,
+                               chain_tm: TransitionModel,
+                               subsample: int = 3,
+                               left_tolerance: int = 5,
+                               right_tolerance: int = 5,
+                               pdf_pairs: Optional[Sequence[
+                                   Tuple[int, int]]] = None) -> PackedGraph:
+    """Time-tolerant numerator (chain-supervision.cc
+    AlignmentToProtoSupervision + TimeEnforcerFst, built directly as a
+    packed DAG): each phone boundary may move within
+    [-left_tolerance, +right_tolerance) input frames of its aligned
+    position; every output frame emits exactly one pdf (forward pdf on
+    the phone's first frame, self-loop pdf after), so the graph stays
+    time-synchronous for the scan-based FB.
+
+    States are (segment i, output frames consumed t); arcs consume one
+    output frame each. Unweighted (the normalization-FST composition of
+    the reference is folded into the denominator term)."""
+    T_out = max(1, num_frames // subsample)
+    N = len(segments)
+    if N == 0:
+        raise ValueError("empty supervision")
+    lo = np.empty(N, np.int64)
+    hi = np.empty(N, np.int64)
+    for i, (_, s, e) in enumerate(segments):
+        lo[i] = max(0, (s - left_tolerance) // subsample)
+        hi[i] = min(T_out, -((e + right_tolerance) // -subsample))
+    lo[0] = 0
+    # monotonic feasibility: starts strictly increase; each segment and
+    # all its successors must fit before T_out
+    for i in range(1, N):
+        lo[i] = max(lo[i], lo[i - 1] + 1)
+    for i in range(N - 1, -1, -1):
+        hi[i] = min(hi[i], T_out - (N - 1 - i))
+        if i + 1 < N:
+            hi[i] = min(hi[i], hi[i + 1] - 1 + 1)  # start_{i+1} < hi_{i+1}
+    if np.any(lo >= hi):
+        # degenerate window (very short segments / tight chunk): fall
+        # back to the exact zero-tolerance boundaries
+        pos = 0
+        for i, (_, s, e) in enumerate(segments):
+            lo[i] = max(pos, int(round(s / subsample)))
+            pos = lo[i] + 1
+        hi[:-1] = lo[1:]
+        hi[-1] = T_out
+        hi = np.maximum(hi, lo + 1)
+        hi = np.minimum(hi, T_out)
+        if np.any(lo >= hi):
+            raise ValueError("infeasible supervision windows")
+    # pdf_pairs: context-dependent (fwd_pdf, self_pdf) per segment
+    # (the ctx-tree chain path passes window-computed pdfs; monophone
+    # callers fall back to the per-phone lookup)
+    pdfs = list(pdf_pairs) if pdf_pairs is not None else \
+        [_chain_pdfs_for_phone(chain_tm, p) for p, _, _ in segments]
+
+    # state ids: 0 = start; (i, t) for t in (lo[i], hi[i]] means "in
+    # segment i, t output frames consumed"
+    state_of: Dict[Tuple[int, int], int] = {}
+    n_states = 1
+    for i in range(N):
+        for t in range(int(lo[i]) + 1, int(hi[i]) + 1):
+            state_of[(i, t)] = n_states
+            n_states += 1
+    src: List[int] = []
+    dst: List[int] = []
+    pdf: List[int] = []
+    if (0, 1) in state_of:
+        src.append(0)
+        dst.append(state_of[(0, 1)])
+        pdf.append(pdfs[0][0])
+    for (i, t), sid in state_of.items():
+        if t < hi[i] and t < T_out:  # stay: self-loop pdf
+            src.append(sid)
+            dst.append(state_of[(i, t + 1)])
+            pdf.append(pdfs[i][1])
+        if (i + 1 < N and lo[i + 1] <= t < hi[i + 1] and t < T_out):
+            src.append(sid)
+            dst.append(state_of[(i + 1, t + 1)])
+            pdf.append(pdfs[i + 1][0])
+    ninf = np.float32(-1e30)
+    final = np.full(n_states, ninf, np.float32)
+    end_state = state_of.get((N - 1, T_out))
+    if end_state is None:
+        raise ValueError("tolerance supervision: final state unreachable")
+    final[end_state] = 0.0
+    # co-accessibility prune (keep arcs on paths reaching the end)
+    src_a = np.asarray(src, np.int32)
+    dst_a = np.asarray(dst, np.int32)
+    pdf_a = np.asarray(pdf, np.int32)
+    keep_state = np.zeros(n_states, bool)
+    keep_state[end_state] = True
+    changed = True
+    while changed:
+        live = keep_state[dst_a] & ~keep_state[src_a]
+        changed = bool(live.any())
+        keep_state[src_a[live]] = True
+    keep_arc = keep_state[dst_a]
+    initial = np.full(n_states, ninf, np.float32)
+    initial[0] = 0.0
+    return PackedGraph(src_a[keep_arc], dst_a[keep_arc], pdf_a[keep_arc],
+                       np.zeros(int(keep_arc.sum()), np.float32),
+                       initial, final)
+
+
+def alignment_to_tolerance_numerator(alignment: Sequence[int],
+                                     ali_tm: TransitionModel,
+                                     chain_tm: TransitionModel,
+                                     subsample: int = 3,
+                                     left_tolerance: int = 5,
+                                     right_tolerance: int = 5
+                                     ) -> PackedGraph:
+    """Frame-level alignment (in ali_tm's topology) -> time-tolerant
+    chain numerator over chain_tm's pdfs."""
+    segs = alignment_to_phone_segments(alignment, ali_tm)
+    return make_tolerance_supervision(segs, len(alignment), chain_tm,
+                                      subsample, left_tolerance,
+                                      right_tolerance)
+
+
+def alignment_to_numerator_graph(alignment: Sequence[int],
+                                 tm: TransitionModel,
+                                 subsample: int = 3) -> PackedGraph:
+    """Exact linear numerator from a frame-level transition-id
+    alignment, subsampled to the output frame rate: state t --pdf--> t+1
+    for each output frame (chain supervision with zero tolerance)."""
+    pdfs = tm.transition_ids_to_pdfs(alignment)
+    sub = pdfs[subsample // 2::subsample]
+    if len(sub) == 0:
+        sub = pdfs[:1]
+    T = len(sub)
+    src = np.arange(T, dtype=np.int32)
+    dst = src + 1
+    ninf = -1e30
+    initial = np.full(T + 1, ninf, np.float32)
+    initial[0] = 0.0
+    final = np.full(T + 1, ninf, np.float32)
+    final[T] = 0.0
+    return PackedGraph(src, dst, np.asarray(sub, np.int32),
+                       np.zeros(T, np.float32), initial, final)

@@ -8,19 +8,23 @@ ProcessEmitting/ProcessNonemitting).  The acoustic scores arrive as a
 precomputed (frames x pdfs) matrix, so this host loop only does the
 data-dependent search.
 
-Not carried over yet: `best_path_through`, `_random_feasible_path` and
-`align_equal` (they wait for the transition model).
+`align_equal` (bin/align-equal-compiled) gives the flat-start alignment
+of monophone training: a seeded random feasible path through the
+training graph, the spare frames spread evenly as self-loops.
+
+Not carried over yet: `best_path_through`.
 """
 
 from __future__ import annotations
 
 import logging
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from kaldi_tpu_torch.fstext.fst import EPS, TropicalWeight, VectorFst
+from kaldi_tpu_torch.fstext.fst import EPS, Arc, TropicalWeight, VectorFst
 
 INF = float("inf")
 _log = logging.getLogger(__name__)
@@ -150,3 +154,133 @@ class FasterDecoder:
                     tokens[a.nextstate] = _Token(c, tok, EPS, a.olabel)
                     queue.append(a.nextstate)
         return tokens
+
+
+def _random_feasible_path(graph: VectorFst, num_frames: int,
+                          seed: int = 0) -> Optional[List[Arc]]:
+    """Random forward path (self-loops excluded) from start to a final
+    state whose emitting-arc count fits in num_frames.
+
+    Feasibility: mn[s] = min #emitting arcs from s to any final state
+    (multi-source BFS on the reversed graph, 0/1 weights); an arc is
+    admissible iff used + cost + mn[next] <= num_frames.  Among
+    admissible arcs we choose uniformly at random, seeded per
+    utterance by the caller — a CORPUS-level constant seed would give
+    every same-length utterance the same junction decisions and bias
+    the flat-start stats systematically.  Random choice at the
+    optional-silence junctions is what seeds the silence GMM with
+    flat-start stats — a shortest path would skip every silence branch
+    and EM could never latch onto SIL."""
+    start = graph.start
+    if start < 0:
+        return None
+    n_states = graph.num_states
+    INF = 1 << 30
+    # reversed adjacency (non-self-loop arcs only)
+    radj: List[List[Tuple[int, int]]] = [[] for _ in range(n_states)]
+    for s in range(n_states):
+        for a in graph.arcs[s]:
+            if a.nextstate != s:
+                radj[a.nextstate].append(
+                    (s, 0 if a.ilabel == EPS else 1))
+    mn = [INF] * n_states
+    dq = deque()
+    for s in range(n_states):
+        if graph.finals[s] != TropicalWeight.zero:
+            mn[s] = 0
+            dq.append(s)
+    while dq:  # 0/1-BFS (deque Dijkstra)
+        s = dq.popleft()
+        for p, c in radj[s]:
+            if mn[s] + c < mn[p]:
+                mn[p] = mn[s] + c
+                if c == 0:
+                    dq.appendleft(p)
+                else:
+                    dq.append(p)
+    if mn[start] > num_frames:
+        _log.warning(f"align_equal: graph needs >= {mn[start]} frames but the "
+             f"utterance has only {num_frames}")
+        return None
+    rng = np.random.default_rng((0x5EED ^ (num_frames * 2654435761
+                                           % (1 << 31)) ^ n_states)
+                                + 1000003 * (seed & 0xFFFFFFFF))
+    path: List[Arc] = []
+    s, used = start, 0
+    max_steps = 10 * (num_frames + n_states) + 100
+    for _ in range(max_steps):
+        cands = []
+        for a in graph.arcs[s]:
+            if a.nextstate == s or mn[a.nextstate] >= INF:
+                continue
+            c = 0 if a.ilabel == EPS else 1
+            if used + c + mn[a.nextstate] <= num_frames:
+                cands.append(a)
+        is_final = graph.finals[s] != TropicalWeight.zero
+        if is_final and (not cands or rng.random() < 0.5):
+            return path
+        if not cands:
+            return None
+        a = cands[rng.integers(len(cands))]
+        path.append(a)
+        used += 0 if a.ilabel == EPS else 1
+        s = a.nextstate
+    _log.warning("align_equal: random walk did not terminate (eps cycle?)")
+    return None
+
+
+def align_equal(graph: VectorFst, num_frames: int, tm,
+                seed: int = 0) -> Optional[List[int]]:
+    """Equal alignment (align-equal-compiled / EqualAlign,
+    hmm-utils.cc): pick a forward path through the training graph, then
+    distribute the remaining frames *evenly* as self-loops across the
+    path's states — the unbiased flat-start initialization EM needs
+    (a zero-acoustics Viterbi would instead dump all slack into the
+    single cheapest self-loop, typically silence).
+
+    The forward path is chosen RANDOMLY among feasible ones (like the
+    reference's EqualAlign): random choice at the optional-silence
+    junctions is what gives the silence model flat-start stats — a
+    shortest path would skip every silence branch and EM could never
+    latch onto SIL."""
+    path = _random_feasible_path(graph, num_frames, seed)
+    if path is None:
+        return None
+    emitting = [a for a in path if a.ilabel != EPS]
+    n = len(emitting)
+    if n > num_frames:
+        _log.warning(f"align_equal: path needs {n} frames but only "
+             f"{num_frames} available")
+        return None
+    # states (arc destinations) that can absorb self-loops
+    def self_loop_arc(state: int) -> Optional[Arc]:
+        for a in graph.arcs[state]:
+            if a.nextstate == state and a.ilabel != EPS:
+                return a
+        return None
+
+    # key by POSITION in the path, not arc identity: repeated words
+    # can reuse the same Arc objects (the compiler shares per-word
+    # sub-FSTs), and an id()-keyed share table would then double-count
+    loopable = [i for i, a in enumerate(path) if a.ilabel != EPS
+                and self_loop_arc(a.nextstate) is not None]
+    extra = num_frames - n
+    if extra > 0 and not loopable:
+        _log.warning("align_equal: no self-loops available to fill frames")
+        return None
+    shares: Dict[int, int] = {}
+    if loopable:
+        base, rem = divmod(extra, len(loopable))
+        for rank, pos in enumerate(loopable):
+            shares[pos] = base + (1 if rank < rem else 0)
+    alignment: List[int] = []
+    for i, a in enumerate(path):
+        if a.ilabel == EPS:
+            continue
+        alignment.append(a.ilabel)
+        k = shares.get(i, 0)
+        if k:
+            sl = self_loop_arc(a.nextstate)
+            alignment.extend([sl.ilabel] * k)
+    assert len(alignment) == num_frames
+    return alignment

@@ -1,11 +1,30 @@
-"""WFST algorithms on the VectorFst core: `connect` (the one function of
-`kaldi_tpu/fstext/ops.py` that lattice assembly needs).  Host-side."""
+"""WFST algorithms on the VectorFst core (port of `arcsort`, `connect`,
+`relabel`, `compose`, `rm_epsilon` and `determinize_star` of
+`kaldi_tpu/fstext/ops.py`: what lattice assembly and the training-graph
+compiler need).  Host-side.
+
+Parity: the OpenFst operations of the reference's graph builds
+(fstarcsort, fsttablecompose, fstrmepslocal, fstdeterminizestar).
+Not carried over yet: `minimize_encoded` (the decoding-graph build of
+`make_decoding_graph`), shortest paths, `replace_fst` and `push_special`.
+"""
 
 from __future__ import annotations
 
-from typing import List
+import bisect
+from collections import defaultdict, deque
+from typing import Dict, List, Optional, Tuple
 
-from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
+from kaldi_tpu_torch.fstext.fst import (EPS, INF, Arc, LatticeWeight,
+                                        VectorFst)
+
+
+def arcsort(fst: VectorFst, sort_type: str = "ilabel") -> VectorFst:
+    key = ((lambda a: (a.ilabel, a.olabel)) if sort_type == "ilabel"
+           else (lambda a: (a.olabel, a.ilabel)))
+    for arcs in fst.arcs:
+        arcs.sort(key=key)
+    return fst
 
 
 def connect(fst: VectorFst) -> VectorFst:
@@ -50,3 +69,311 @@ def connect(fst: VectorFst) -> VectorFst:
     fst.finals = new_finals
     fst.start = remap.get(fst.start, -1)
     return fst
+
+
+def relabel(fst: VectorFst, ilabel_map: Optional[Dict[int, int]] = None,
+            olabel_map: Optional[Dict[int, int]] = None) -> VectorFst:
+    for arcs in fst.arcs:
+        for a in arcs:
+            if ilabel_map is not None:
+                a.ilabel = ilabel_map.get(a.ilabel, a.ilabel)
+            if olabel_map is not None:
+                a.olabel = olabel_map.get(a.olabel, a.olabel)
+    return fst
+
+
+def compose(fst1: VectorFst, fst2: VectorFst,
+            connect_result: bool = True) -> VectorFst:
+    """Compose fst1 ∘ fst2. Uses the 3-state epsilon filter to avoid
+    duplicate epsilon paths."""
+    sr = fst1.semiring
+    assert fst2.semiring is sr
+    out = VectorFst(sr)
+    if fst1.start < 0 or fst2.start < 0:
+        return out
+    # sort fst2 by ilabel for binary search matching
+    fst2_sorted: List[Tuple[List[int], List[Arc]]] = []
+    for arcs in fst2.arcs:
+        sa = sorted(arcs, key=lambda a: a.ilabel)
+        fst2_sorted.append(([a.ilabel for a in sa], sa))
+
+    state_map: Dict[Tuple[int, int, int], int] = {}
+    queue: deque = deque()
+
+    def get_state(t: Tuple[int, int, int]) -> int:
+        if t not in state_map:
+            state_map[t] = out.add_state()
+            queue.append(t)
+        return state_map[t]
+
+    start = (fst1.start, fst2.start, 0)
+    out.set_start(get_state(start))
+    while queue:
+        s1, s2, f = queue.popleft()
+        cur = state_map[(s1, s2, f)]
+        w_final = sr.times(fst1.finals[s1], fst2.finals[s2])
+        out.finals[cur] = w_final
+        labels2, arcs2 = fst2_sorted[s2]
+        lo0 = bisect.bisect_left(labels2, EPS)
+        hi0 = bisect.bisect_right(labels2, EPS)
+        eps2_arcs = arcs2[lo0:hi0]
+        for a1 in fst1.arcs[s1]:
+            if a1.olabel == EPS:
+                # ε₂ move: fst1 advances alone (filter 0 or 2 → 2)
+                if f != 1:
+                    ns = get_state((a1.nextstate, s2, 2))
+                    out.add_arc(cur, Arc(a1.ilabel, EPS, a1.weight, ns))
+                # combined (ε₂,ε₁) move from filter 0: both advance
+                if f == 0:
+                    for a2 in eps2_arcs:
+                        ns = get_state((a1.nextstate, a2.nextstate, 0))
+                        out.add_arc(cur, Arc(a1.ilabel, a2.olabel,
+                                             sr.times(a1.weight, a2.weight),
+                                             ns))
+            else:
+                lo = bisect.bisect_left(labels2, a1.olabel)
+                hi = bisect.bisect_right(labels2, a1.olabel)
+                for a2 in arcs2[lo:hi]:
+                    ns = get_state((a1.nextstate, a2.nextstate, 0))
+                    out.add_arc(cur, Arc(a1.ilabel, a2.olabel,
+                                         sr.times(a1.weight, a2.weight), ns))
+        # ε₁ move: fst2 advances alone (filter 0 or 1 → 1)
+        if f != 2:
+            for a2 in eps2_arcs:
+                ns = get_state((s1, a2.nextstate, 1))
+                out.add_arc(cur, Arc(EPS, a2.olabel, a2.weight, ns))
+    if connect_result:
+        connect(out)
+    return out
+
+
+def _eps_closure(fst: VectorFst, s: int) -> List[Tuple[int, object]]:
+    """All (state, weight) reachable from s via epsilon (ilabel==olabel==0)
+    paths, including (s, one). Assumes no negative-weight eps cycles."""
+    sr = fst.semiring
+    dist: Dict[int, object] = {s: sr.one}
+    queue = deque([s])
+    while queue:
+        u = queue.popleft()
+        for a in fst.arcs[u]:
+            if a.ilabel == EPS and a.olabel == EPS:
+                w = sr.times(dist[u], a.weight)
+                old = dist.get(a.nextstate, sr.zero)
+                new = sr.plus(old, w)
+                if new != old:
+                    dist[a.nextstate] = new
+                    queue.append(a.nextstate)
+    return list(dist.items())
+
+
+def rm_epsilon(fst: VectorFst) -> VectorFst:
+    """Remove all (eps,eps) arcs, preserving weighted equivalence."""
+    sr = fst.semiring
+    out = VectorFst(sr)
+    out.add_states(fst.num_states)
+    out.start = fst.start
+    for s in range(fst.num_states):
+        final = sr.zero
+        seen_arcs: List[Arc] = []
+        for t, w in _eps_closure(fst, s):
+            final = sr.plus(final, sr.times(w, fst.finals[t]))
+            for a in fst.arcs[t]:
+                if not (a.ilabel == EPS and a.olabel == EPS):
+                    seen_arcs.append(Arc(a.ilabel, a.olabel,
+                                         sr.times(w, a.weight), a.nextstate))
+        out.finals[s] = final
+        out.arcs[s] = seen_arcs
+    return connect(out)
+
+
+def determinize_star(fst: VectorFst, delta: float = 1e-4,
+                     max_states: int = 10_000_000,
+                     functional: bool = True) -> VectorFst:
+    """functional=True: the classic DeterminizeStar contract (errors on
+    non-functional input). functional=False: lattice-determinization
+    semantics — when two paths with the same input sequence carry
+    different output strings, keep the better-weight one (the
+    CompactLatticeWeight Plus of lattice-weight.h:424)."""
+    sr = fst.semiring
+    out = VectorFst(sr)
+    if fst.start < 0:
+        return out
+
+    def better(w1, w2) -> bool:
+        """True if w1 strictly preferred over w2 by the semiring plus."""
+        return sr.plus(w1, w2) == w1 and w1 != w2
+
+    def quant(w):
+        if hasattr(sr, "quantize"):
+            return sr.quantize(w, delta)
+        if sr is LatticeWeight:
+            return (round(w[0] / delta), round(w[1] / delta))
+        return round(w / delta) if w != INF else INF
+
+    # subset: frozenset of (state, quantized-residual-weight, out-string)
+    # real values kept in dict alongside
+    def canon(subset: Dict[Tuple[int, Tuple], object]):
+        items = tuple(sorted((s, strg, quant(w))
+                             for (s, strg), w in subset.items()))
+        return items
+
+    def eps_expand(pairs: List[Tuple[int, Tuple[int, ...], object]]):
+        """Expand epsilon-input arcs: returns dict
+        {(state, out_string): weight}."""
+        if functional:
+            dist: Dict[Tuple[int, Tuple[int, ...]], object] = {}
+            queue = deque()
+            for s, strg, w in pairs:
+                k = (s, strg)
+                old = dist.get(k, sr.zero)
+                dist[k] = sr.plus(old, w)
+                queue.append(k)
+            while queue:
+                s, strg = queue.popleft()
+                w = dist[(s, strg)]
+                for a in fst.arcs[s]:
+                    if a.ilabel == EPS:
+                        nstr = strg if a.olabel == EPS else strg + (a.olabel,)
+                        if len(nstr) > 5000:
+                            raise RuntimeError(
+                                "determinize_star: output-string blowup "
+                                "(epsilon cycle with output?)")
+                        k = (a.nextstate, nstr)
+                        nw = sr.times(w, a.weight)
+                        old = dist.get(k, sr.zero)
+                        new = sr.plus(old, nw)
+                        if new != old:
+                            dist[k] = new
+                            queue.append(k)
+            return dist
+        # non-functional: key by state; keep (weight, string) with the
+        # preferred weight
+        best: Dict[int, Tuple[object, Tuple[int, ...]]] = {}
+        queue = deque()
+        for s, strg, w in pairs:
+            cur = best.get(s)
+            if cur is None or better(w, cur[0]):
+                best[s] = (w, strg)
+                queue.append(s)
+        while queue:
+            s = queue.popleft()
+            w, strg = best[s]
+            for a in fst.arcs[s]:
+                if a.ilabel == EPS:
+                    nstr = strg if a.olabel == EPS else strg + (a.olabel,)
+                    if len(nstr) > 5000:
+                        raise RuntimeError(
+                            "determinize_star: output-string blowup")
+                    nw = sr.times(w, a.weight)
+                    cur = best.get(a.nextstate)
+                    if cur is None or better(nw, cur[0]):
+                        best[a.nextstate] = (nw, nstr)
+                        queue.append(a.nextstate)
+        return {(s, strg): w for s, (w, strg) in best.items()}
+
+    subset_map: Dict[Tuple, int] = {}
+    work: deque = deque()
+
+    def common_divisor(weights):
+        """For tropical/lattice: min; used to normalize subsets."""
+        it = iter(weights)
+        acc = next(it)
+        for w in it:
+            acc = sr.plus(acc, w)
+        return acc
+
+    def get_out_state(subset_dict) -> Tuple[int, object, Tuple[int, ...]]:
+        """Normalize subset: factor out common weight and common output
+        prefix; return (out_state_id, common_weight, common_string)."""
+        common_w = common_divisor(subset_dict.values())
+        # common prefix of all strings
+        strings = [strg for (s, strg) in subset_dict.keys()]
+        prefix = strings[0]
+        for st in strings[1:]:
+            i = 0
+            while i < len(prefix) and i < len(st) and prefix[i] == st[i]:
+                i += 1
+            prefix = prefix[:i]
+        plen = len(prefix)
+        norm = {(s, strg[plen:]): sr.divide(w, common_w)
+                for (s, strg), w in subset_dict.items()}
+        key = canon(norm)
+        if key not in subset_map:
+            if len(subset_map) >= max_states:
+                raise RuntimeError("determinize_star: state blowup")
+            subset_map[key] = out.add_state()
+            work.append((key, norm))
+        return subset_map[key], common_w, prefix
+
+    def emit(src: int, ilabel: int, weight, out_string: Tuple[int, ...],
+             dest: int):
+        """Add arc src --ilabel:out_string/weight--> dest, spreading
+        strings > 1 over chain states."""
+        if len(out_string) == 0:
+            out.add_arc(src, Arc(ilabel, EPS, weight, dest))
+            return
+        cur = src
+        for i, ol in enumerate(out_string):
+            il = ilabel if i == 0 else EPS
+            w = weight if i == 0 else sr.one
+            if i == len(out_string) - 1:
+                nxt = dest
+            else:
+                nxt = out.add_state()
+            out.add_arc(cur, Arc(il, ol, w, nxt))
+            cur = nxt
+
+    # initialize
+    init = eps_expand([(fst.start, (), sr.one)])
+    s0, w0, p0 = get_out_state(init)
+    if w0 != sr.one or p0:
+        # need a super-start carrying the common weight/string
+        real_start = out.add_state()
+        out.set_start(real_start)
+        emit(real_start, EPS, w0, p0, s0)
+    else:
+        out.set_start(s0)
+
+    while work:
+        key, subset = work.popleft()
+        cur = subset_map[key]
+        # final weight: sum over final states; final strings must agree
+        final_w = sr.zero
+        final_strings = set()
+        best_final: Optional[Tuple[object, Tuple[int, ...]]] = None
+        for (s, strg), w in subset.items():
+            if fst.is_final(s):
+                final_strings.add(strg)
+                fw = sr.times(w, fst.finals[s])
+                final_w = sr.plus(final_w, fw)
+                if best_final is None or better(fw, best_final[0]):
+                    best_final = (fw, strg)
+        if len(final_strings) > 1:
+            if functional:
+                raise RuntimeError(
+                    "determinize_star: FST is not functional (conflicting "
+                    "output strings at final states)")
+            # lattice semantics: keep the best final (weight, string)
+            final_w, only = best_final
+            final_strings = {only}
+        if final_strings and next(iter(final_strings)):
+            # residual output string at final state: append via eps arcs
+            fstate = out.add_state()
+            out.finals[fstate] = sr.one
+            emit(cur, EPS, final_w, next(iter(final_strings)), fstate)
+        else:
+            out.finals[cur] = final_w
+        # group non-eps transitions by ilabel
+        by_label: Dict[int, List[Tuple[int, Tuple[int, ...], object]]] = \
+            defaultdict(list)
+        for (s, strg), w in subset.items():
+            for a in fst.arcs[s]:
+                if a.ilabel != EPS:
+                    nstr = strg if a.olabel == EPS else strg + (a.olabel,)
+                    by_label[a.ilabel].append(
+                        (a.nextstate, nstr, sr.times(w, a.weight)))
+        for ilabel, pairs in sorted(by_label.items()):
+            expanded = eps_expand(pairs)
+            dest, w, prefix = get_out_state(expanded)
+            emit(cur, ilabel, w, prefix, dest)
+    return out

@@ -1,0 +1,188 @@
+"""MLE accumulation and update for diagonal GMMs (port of
+`MleDiagGmmOptions`, `AccumDiagGmm`, `AccumAmDiagGmm` and
+`mle_am_diag_gmm_update` of `kaldi_tpu/gmm/mle.py`; parity:
+gmm/mle-diag-gmm.h:106, mle-am-diag-gmm.h:34).  Host-side numpy, as in
+the reference: given per-frame posteriors over components (or Viterbi
+one-hots over pdfs) the sufficient statistics are weighted matmuls.
+
+Not carried over yet: the accumulators' I/O and `accumulate_posterior`
+(lattice posteriors, the denominator side of MMI).
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
+from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+
+_log = logging.getLogger(__name__)
+
+
+@dataclass
+class MleDiagGmmOptions:
+    min_gaussian_weight: float = field(default=1e-5, metadata={
+        "doc": "Min Gaussian weight before we remove it"})
+    min_gaussian_occupancy: float = field(default=10.0, metadata={
+        "doc": "Minimum occupancy to update a Gaussian"})
+    min_variance: float = field(default=0.001, metadata={
+        "doc": "Variance floor (absolute variance)"})
+    remove_low_count_gaussians: bool = field(default=True, metadata={
+        "doc": "If true, remove Gaussians that fall below the floors"})
+
+
+class AccumDiagGmm:
+    def __init__(self, num_comp: int = 0, dim: int = 0, flags: str = "mvw"):
+        self.flags = flags
+        self.occupancy = np.zeros(num_comp, np.float64)
+        self.mean_accs = np.zeros((num_comp, dim), np.float64)
+        self.var_accs = np.zeros((num_comp, dim), np.float64)
+
+    @property
+    def num_comp(self):
+        return self.occupancy.shape[0]
+
+    @property
+    def dim(self):
+        return self.mean_accs.shape[1]
+
+    def accumulate(self, data: np.ndarray, posteriors: np.ndarray) -> None:
+        """data (T, D), posteriors (T, M)."""
+        data = np.asarray(data, np.float64)
+        post = np.asarray(posteriors, np.float64)
+        self.occupancy += post.sum(axis=0)
+        if "m" in self.flags:
+            self.mean_accs += post.T @ data
+        if "v" in self.flags:
+            self.var_accs += post.T @ (data * data)
+
+    def accumulate_from_gmm(self, gmm: DiagGmm, data: np.ndarray,
+                            frame_weights: Optional[np.ndarray] = None
+                            ) -> float:
+        """Accumulate with GMM-computed posteriors; returns total loglike."""
+        data = np.atleast_2d(np.asarray(data, np.float64))
+        post = gmm.component_posteriors(data)
+        ll = gmm.log_likelihood(data)
+        if frame_weights is not None:
+            post = post * np.asarray(frame_weights)[:, None]
+            ll = ll * np.asarray(frame_weights)
+        self.accumulate(data, post)
+        return float(ll.sum())
+
+
+def mle_diag_gmm_update(opts: MleDiagGmmOptions, acc: AccumDiagGmm,
+                        gmm: DiagGmm) -> Tuple[float, float]:
+    """In-place MLE update (mle-diag-gmm.cc MleDiagGmmUpdate).
+    Returns (objf improvement estimate, total count)."""
+    occ = acc.occupancy
+    tot = occ.sum()
+    if tot == 0:
+        _log.warning("no stats to update GMM")
+        return 0.0, 0.0
+    keep = occ > opts.min_gaussian_occupancy
+    if not keep.any():
+        _log.warning("all Gaussians below min occupancy; not updating")
+        return 0.0, tot
+
+    old_means = gmm.get_means().astype(np.float64)
+    old_vars = gmm.get_vars().astype(np.float64)
+    weights = occ / tot
+    means = np.where(keep[:, None],
+                     acc.mean_accs / np.maximum(occ[:, None], 1e-10),
+                     old_means)
+    if "v" in acc.flags:
+        variances = np.where(
+            keep[:, None],
+            acc.var_accs / np.maximum(occ[:, None], 1e-10) - means ** 2,
+            old_vars)
+        variances = np.maximum(variances, opts.min_variance)
+    else:
+        variances = old_vars
+    weights = np.maximum(weights, opts.min_gaussian_weight)
+    weights /= weights.sum()
+
+    if opts.remove_low_count_gaussians and (~keep).any() and keep.sum() >= 1:
+        weights, means, variances = (weights[keep], means[keep],
+                                     variances[keep])
+        weights /= weights.sum()
+    gmm.set_from_means_and_vars(weights, means, variances)
+    return 0.0, float(tot)
+
+
+class AccumAmDiagGmm:
+    """Per-pdf accumulators (mle-am-diag-gmm.h:34) + transition stats."""
+
+    def __init__(self, am: Optional[AmDiagGmm] = None, flags: str = "mvw",
+                 num_transition_ids: int = 0):
+        self.accs: List[AccumDiagGmm] = []
+        if am is not None:
+            self.accs = [AccumDiagGmm(g.num_gauss, g.dim, flags)
+                         for g in am.densities]
+        self.transition_accs = np.zeros(num_transition_ids + 1, np.float64)
+        self.total_loglike = 0.0
+        self.total_frames = 0.0
+
+    def accumulate_alignment(self, am: AmDiagGmm, trans_model,
+                             feats: np.ndarray,
+                             alignment: List[int]) -> float:
+        """Accumulate GMM + transition stats from a Viterbi alignment
+        (gmm-acc-stats-ali main loop, vectorized per pdf)."""
+        alignment = np.asarray(alignment, np.int64)
+        assert len(alignment) == feats.shape[0]
+        np.add.at(self.transition_accs, alignment, 1.0)
+        pdfs = trans_model.transition_ids_to_pdfs(alignment)
+        total = 0.0
+        for pdf in np.unique(pdfs):
+            idx = np.nonzero(pdfs == pdf)[0]
+            sub = feats[idx]
+            ll = self.accs[pdf].accumulate_from_gmm(am.get_pdf(pdf), sub)
+            total += ll
+        self.total_loglike += total
+        self.total_frames += len(alignment)
+        return total
+
+
+def mle_am_diag_gmm_update(opts: MleDiagGmmOptions, acc: AccumAmDiagGmm,
+                           am: AmDiagGmm, trans_model=None,
+                           mixup: Optional[int] = None,
+                           perturb_factor: float = 0.01) -> None:
+    """Update every pdf (and optionally transitions + mixing-up)."""
+    tot_count = 0.0
+    for pdf in range(am.num_pdfs):
+        _, c = mle_diag_gmm_update(opts, acc.accs[pdf], am.get_pdf(pdf))
+        tot_count += c
+    if trans_model is not None:
+        impr, tcount = trans_model.mle_update(acc.transition_accs)
+        _log.info("transition update: impr/frame %.4f over %s frames",
+                  impr, tcount)
+    if mixup is not None and mixup > am.num_gauss():
+        _mixup(am, acc, mixup, perturb_factor)
+    am.invalidate_pack()
+    _log.info("GMM update done over %s frames", tot_count)
+
+
+def _mixup(am: AmDiagGmm, acc: AccumAmDiagGmm, target: int,
+           perturb_factor: float) -> None:
+    """Distribute new Gaussians proportionally to pdf occupancy
+    (am-diag-gmm.cc SplitByCount)."""
+    occs = np.array([a.occupancy.sum() for a in acc.accs])
+    tot = occs.sum()
+    if tot <= 0:
+        return
+    current = np.array([g.num_gauss for g in am.densities])
+    targets = np.maximum(current,
+                         np.floor(occs / tot * target + 0.5).astype(int))
+    # adjust to hit the global target approximately
+    rng = np.random.default_rng(0)
+    for pdf in np.argsort(-occs):
+        if targets.sum() >= target:
+            break
+        targets[pdf] += 1
+    for pdf, g in enumerate(am.densities):
+        if targets[pdf] > g.num_gauss:
+            g.split(int(targets[pdf]), perturb_factor, rng)
+    am.invalidate_pack()

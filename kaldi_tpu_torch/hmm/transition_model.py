@@ -1,5 +1,5 @@
 """Transition model (port of the construction from a topology and a
-tree, the reading half and the queries of
+tree, the reading half, the queries and `mle_update` of
 `kaldi_tpu/hmm/transition_model.py`; parity: hmm/transition-model.h:124).
 
 Maps between transition-ids, transition-states, tuples
@@ -91,8 +91,27 @@ class TransitionModel:
     def num_transition_ids(self) -> int:
         return len(self.id2state) - 1
 
+    @property
+    def num_transition_states(self) -> int:
+        return len(self.tuples)
+
+    def transition_id_to_transition_state(self, tid: int) -> int:
+        return int(self.id2state[tid])
+
     def transition_id_to_pdf(self, tid: int) -> int:
         return int(self.id2pdf_id[tid])
+
+    def transition_ids_to_pdfs(self, tids) -> np.ndarray:
+        return self.id2pdf_id[np.asarray(tids, dtype=np.int64)]
+
+    def transition_id_to_phone(self, tid: int) -> int:
+        return self.tuples[self.id2state[tid] - 1][0]
+
+    def transition_id_to_hmm_state(self, tid: int) -> int:
+        return self.tuples[self.id2state[tid] - 1][1]
+
+    def transition_state_to_phone(self, ts: int) -> int:
+        return self.tuples[ts - 1][0]
 
     def tuple_to_transition_state(self, phone, hmm_state, pdf,
                                   self_pdf) -> int:
@@ -128,6 +147,31 @@ class TransitionModel:
             if dest == hmm_state:
                 return self.pair_to_transition_id(trans_state, idx)
         return 0
+
+    def get_phones(self) -> List[int]:
+        return self.topo.phones
+
+    def mle_update(self, stats: np.ndarray, floor: float = 0.01,
+                   min_count: float = 5.0) -> Tuple[float, float]:
+        """stats: counts indexed by transition-id (1-based array of size
+        num_transition_ids+1).  Returns (objf_impr_per_frame, count)."""
+        objf_impr = 0.0
+        count = 0.0
+        for ts in range(1, self.num_transition_states + 1):
+            lo, hi = self.state2id[ts], self.state2id[ts + 1]
+            counts = stats[lo:hi].astype(np.float64)
+            tot = counts.sum()
+            if tot < min_count:
+                continue
+            old_lp = self.log_probs[lo:hi].astype(np.float64)
+            new_p = counts / tot
+            new_p = np.maximum(new_p, floor)
+            new_p /= new_p.sum()
+            new_lp = np.log(new_p)
+            objf_impr += float((counts * (new_lp - old_lp)).sum())
+            count += tot
+            self.log_probs[lo:hi] = new_lp.astype(np.float32)
+        return (objf_impr / max(count, 1.0), count)
 
     # -- I/O ----------------------------------------------------------------
     @classmethod

@@ -1,11 +1,13 @@
-"""Chain TDNN-F acoustic model, inference only (port of
-`kaldi_tpu/nnet3/models.py` ChainTdnnf, the reference's flagship
-run_tdnn_1d.sh recipe: 17 TDNN-F layers, 1536 / bottleneck 160,
-frame subsampling 3, chain + xent heads).
+"""Chain TDNN-F acoustic model (port of `kaldi_tpu/nnet3/models.py`
+ChainTdnnf, the reference's flagship run_tdnn_1d.sh recipe: 17 TDNN-F
+layers, 1536 / bottleneck 160, frame subsampling 3, chain + xent heads).
 
-`chain_tdnnf_from_flax` is the one way weights enter the model: it
-takes the {"params", "batch_stats"} dict of numpy arrays that
-`recipes.bench_corpus.load_params` or flax's `model.init` gives.
+Weights live in flax's layout outside the model: `chain_tdnnf_init`
+draws a fresh {"params", "batch_stats"} dict of numpy arrays with flax's
+default initialisers, `recipes.bench_corpus.load_params` reads one, and
+`chain_tdnnf_from_flax` builds the model from one (eval mode; a trainer
+calls `.train()` and turns the gradients on).  `chain_tdnnf_to_flax`
+gives the dict back.
 """
 
 from __future__ import annotations
@@ -97,6 +99,97 @@ class ChainTdnnf(nn.Module):
         chain_out = self.output_affine(self.prefinal_chain(x))
         xent_out = self.output_xent_affine(self.prefinal_xent(x))
         return chain_out, torch.log_softmax(xent_out, dim=-1)
+
+
+def _lecun_normal(shape, gen: torch.Generator) -> np.ndarray:
+    """flax's lecun_normal for a Dense kernel (in, out): a normal
+    truncated to (-2, 2) with the standard deviation sqrt(1/in) over the
+    truncated normal's own (0.8796...)."""
+    std = float(np.sqrt(1.0 / shape[0])) / .87962566103423978
+    t = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
+                                generator=gen)
+    return t.numpy()
+
+
+def _glorot_uniform(shape, gen: torch.Generator) -> np.ndarray:
+    """flax's glorot_uniform for a (rows, cols) parameter: uniform in
+    +-sqrt(6 / (rows + cols))."""
+    limit = float(np.sqrt(6.0 / (shape[0] + shape[1])))
+    t = torch.empty(shape, dtype=torch.float32)
+    t.uniform_(-limit, limit, generator=gen)
+    return t.numpy()
+
+
+def chain_tdnnf_init(cfg: ChainTdnnfConfig,
+                     gen: torch.Generator) -> dict:
+    """Fresh {"params", "batch_stats"} in flax's layout (numpy float32),
+    drawn from `gen` with flax's defaults: lecun_normal Dense kernels,
+    glorot_uniform TDNN-F factors, zero biases, BatchNorm statistics 0
+    and 1.  Not the numbers flax draws (another generator), the same
+    distributions."""
+    H, bn = cfg.hidden_dim, cfg.bottleneck_dim
+
+    def dense(n_in, n_out, bias=True):
+        d = {"kernel": _lecun_normal((n_in, n_out), gen)}
+        if bias:
+            d["bias"] = np.zeros(n_out, np.float32)
+        return d
+
+    def stats(dim):
+        return {"bn": {"mean": np.zeros(dim, np.float32),
+                       "var": np.ones(dim, np.float32)}}
+
+    params = {"input_affine": dense(cfg.feat_dim + cfg.ivector_dim, H)}
+    batch_stats = {"input_bn": stats(H)}
+    for i, ts in enumerate(cfg.time_strides(), start=1):
+        k = 2 if ts else 1
+        params[f"tdnnf{i}"] = {
+            "linear": _glorot_uniform((bn, k * H), gen),
+            "affine": _glorot_uniform((H, k * bn), gen),
+            "bias": np.zeros(H, np.float32)}
+        batch_stats[f"tdnnf{i}"] = {"BatchNorm_0": stats(H)}
+    for head, out in (("chain", "output_affine"),
+                      ("xent", "output_xent_affine")):
+        params[f"prefinal_{head}"] = {
+            "affine": dense(H, H),
+            "linear": dense(H, cfg.prefinal_dim, bias=False)}
+        batch_stats[f"prefinal_{head}"] = {"bn1": stats(H),
+                                           "bn2": stats(cfg.prefinal_dim)}
+        params[out] = dense(cfg.prefinal_dim, cfg.num_pdfs)
+    return {"params": params, "batch_stats": batch_stats}
+
+
+def chain_tdnnf_to_flax(model: ChainTdnnf) -> dict:
+    """The model's {"params", "batch_stats"} in flax's layout, as numpy
+    float32: the inverse of `chain_tdnnf_from_flax`."""
+    def a(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    def dense(mod: Dense) -> dict:
+        d = {"kernel": a(mod.weight.T)}
+        if mod.bias is not None:
+            d["bias"] = a(mod.bias)
+        return d
+
+    def bn(mod: BatchNorm) -> dict:
+        return {"bn": {"mean": a(mod.mean), "var": a(mod.var)}}
+
+    params = {"input_affine": dense(model.input_affine)}
+    stats = {"input_bn": bn(model.input_bn)}
+    for i, layer in enumerate(model.tdnnf, start=1):
+        linear, affine = layer.reference_factors()
+        params[f"tdnnf{i}"] = {"linear": a(linear), "affine": a(affine),
+                               "bias": a(layer.bias)}
+        stats[f"tdnnf{i}"] = {"BatchNorm_0": bn(layer.norm)}
+    for head in ("chain", "xent"):
+        pre = getattr(model, f"prefinal_{head}")
+        params[f"prefinal_{head}"] = {"affine": dense(pre.affine),
+                                      "linear": dense(pre.linear)}
+        stats[f"prefinal_{head}"] = {"bn1": bn(pre.bn1), "bn2": bn(pre.bn2)}
+    params["output_affine"] = dense(model.output_affine)
+    params["output_xent_affine"] = dense(model.output_xent_affine)
+    return {"params": params, "batch_stats": stats}
 
 
 def chain_tdnnf_from_flax(cfg: ChainTdnnfConfig, variables: dict,

@@ -1,8 +1,9 @@
-"""The deterministic synthetic bench corpus and the loaders of the
-committed bench-corpus model files (numpy copies of the corpus
-generator, `mfcc_options`, `build_lang`, `build_decode_graph`,
-`build_decode_graph_ng`, `chain_tm_tree_for`, `wer_of` and the loaders
-of `kaldi_tpu/recipes/bench_corpus.py`).
+"""The deterministic synthetic bench corpus, the legacy training ladder
+and the loaders of the committed bench-corpus model files (numpy copies
+of the corpus generator, `mfcc_options`, `build_lang`, `train_system`
+(ctx=False, no i-vectors), `build_decode_graph`, `build_decode_graph_ng`,
+`chain_tm_tree_for`, `wer_of`, `save_params` and the loaders of
+`kaldi_tpu/recipes/bench_corpus.py`).
 
 The corpus is seed-deterministic: a V-word lexicon over a formant-pair
 phone inventory, Markov text with second-order structure, and two-formant
@@ -25,22 +26,31 @@ trained transition model and triphone tree.
 from __future__ import annotations
 
 import hashlib
+import logging
 import math
+import time
 from dataclasses import asdict, dataclass
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from kaldi_tpu_torch.decoder.graph import Lang, TrainingGraphCompiler
 from kaldi_tpu_torch.decoder.lexchain import LexChainGraph
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexGraph
-from kaldi_tpu_torch.feat.frontend import MfccOptions
+from kaldi_tpu_torch.device import DeviceLike
+from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
 from kaldi_tpu_torch.feat.window import FrameExtractionOptions
 from kaldi_tpu_torch.hmm.topology import HmmTopology
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.lm.bigram import BigramBackoffLm
 from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
+from kaldi_tpu_torch.recipes.chain import ChainTrainOptions, train_chain_topo
+from kaldi_tpu_torch.recipes.mono import (TrainMonoOptions, _align_all,
+                                          train_mono)
 from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
 from kaldi_tpu_torch.util.edit_distance import edit_distance_counts
+
+_log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -340,26 +350,85 @@ def mfcc_options(spec: BenchCorpusSpec, num_ceps: int = 40) -> MfccOptions:
     return opts
 
 
-class Lang:
-    """The symbol tables of a lang directory (utils/prepare_lang.sh):
-    phone ids 1-based over the sorted phones and the silence phone, word
-    ids 1-based over the sorted words (0 = eps); the silence phone and
-    the probability of optional silence between words."""
-
-    def __init__(self, lexicon: Dict[str, List[List[str]]],
-                 sil_phone: str = "SIL", sil_prob: float = 0.5):
-        self.sil_phone = sil_phone
-        self.sil_prob = sil_prob
-        phone_set = sorted({p for prons in lexicon.values()
-                            for pron in prons for p in pron} | {sil_phone})
-        self.phones = {p: i + 1 for i, p in enumerate(phone_set)}
-        self.phone_names = {i: p for p, i in self.phones.items()}
-        self.words = {w: i + 1 for i, w in enumerate(sorted(lexicon))}
-        self.word_names = {i: w for w, i in self.words.items()}
-
-
 def build_lang(lexicon) -> Lang:
     return Lang(lexicon, sil_phone="SIL", sil_prob=0.5)
+
+
+def train_system(spec: BenchCorpusSpec, cfg=None,
+                 chain_opts: Optional[ChainTrainOptions] = None,
+                 num_ceps: int = 40, mono_iters: int = 8,
+                 mono_totgauss: int = 500, ctx: bool = False,
+                 max_leaves: int = 500, min_gain: float = 50.0,
+                 ivector_dim: int = 0, window_den=None,
+                 device: DeviceLike = None,
+                 stats: Optional[dict] = None) -> dict:
+    """The legacy ladder: corpus -> MFCC -> mono GMM -> alignment ->
+    chain TDNN-F over the monophone chain topology, with the card doing
+    the MFCC, the GMM scoring and the chain training.  Returns a dict with
+    everything the decode side needs (and the trained variables, in
+    flax's layout).  stats, when given, receives each stage's seconds
+    (corpus_s, mfcc_s, mono_s, graphs_s, align_s, chain_s), the aligner
+    of the last alignment, the mono GMM's average loglike of each
+    iteration, and what `train_chain_topo` records.
+
+    The triphone system (ctx=True: max_leaves, min_gain, window_den) and
+    i-vector inputs (ivector_dim > 0) are not ported and raise."""
+    if ctx or window_den is not None:
+        raise NotImplementedError(
+            "ctx=True (the triphone chain system and its window-LM "
+            "denominator) is not ported; pass ctx=False")
+    if ivector_dim > 0:
+        raise NotImplementedError(
+            f"ivector_dim={ivector_dim}: i-vector extractor training is "
+            "not ported; pass ivector_dim=0")
+    if stats is None:
+        stats = {}
+    t0 = time.perf_counter()
+    lexicon, train_txt, train_wav, test_txt, test_wav, lm_text = \
+        make_corpus(spec)
+    lang = build_lang(lexicon)
+    stats["corpus_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    comp = OfflineFeature(mfcc_options(spec, num_ceps), device=device)
+    _log.info("bench_corpus: extracting %d train utterances",
+              len(train_wav))
+    feats_d, nframes = comp.compute_batch_device(list(train_wav.values()))
+    feats_h = feats_d.cpu().numpy()
+    feats = {u: feats_h[i, :nframes[i]] for i, u in enumerate(train_wav)}
+    del feats_d, feats_h
+    stats["mfcc_s"] = time.perf_counter() - t0
+    _log.info("bench_corpus: training mono GMM")
+    t0 = time.perf_counter()
+    gmm = train_mono(lang, feats, train_txt,
+                     TrainMonoOptions(num_iters=mono_iters,
+                                      totgauss=mono_totgauss),
+                     device=device)
+    stats["mono_s"] = time.perf_counter() - t0
+    stats["mono_avg_loglikes"] = list(gmm.avg_loglikes)
+    t0 = time.perf_counter()
+    compiler = TrainingGraphCompiler(gmm.tm, gmm.tree, lang)
+    graphs = {u: compiler.compile(train_txt[u]) for u in feats}
+    stats["graphs_s"] = time.perf_counter() - t0
+    _log.info("bench_corpus: aligning")
+    t0 = time.perf_counter()
+    ali = _align_all(gmm, graphs, feats, 10.0, 0.1, 1.0)
+    stats["align_s"] = time.perf_counter() - t0
+    stats["aligner"] = gmm.aligner
+    _log.info("bench_corpus: chain training")
+    if chain_opts is None:
+        chain_opts = ChainTrainOptions(num_epochs=8, learning_rate=1e-3,
+                                       minibatch_size=32, chunk_width=150,
+                                       left_tolerance=5, right_tolerance=5)
+    t0 = time.perf_counter()
+    model, variables, den, chain_tm, chain_tree = train_chain_topo(
+        gmm, feats, ali, cfg, chain_opts, device=device, stats=stats)
+    stats["chain_s"] = time.perf_counter() - t0
+    return dict(spec=spec, lexicon=lexicon, lang=lang,
+                train_txt=train_txt, test_txt=test_txt,
+                test_wav=test_wav, lm_text=lm_text, gmm=gmm,
+                model=model, variables=variables, den=den,
+                chain_tm=chain_tm, chain_tree=chain_tree,
+                ivector_extractor=None, feats=feats, alignments=ali)
 
 
 def _lexicon_arrays(lexicon, lang: Lang):
@@ -430,6 +499,27 @@ def wer_of(hyps: Dict[str, List[str]], refs: Dict[str, List[str]]
         errs += ins + dels + subs
         tot += len(ref)
     return 100.0 * errs / max(tot, 1)
+
+
+def save_params(path: str, variables: dict) -> None:
+    """Flatten the {params, batch_stats} tree to an npz of "/"-joined
+    paths, float16 for the float32 arrays of more than 1024 values (the
+    model runs in bf16 anyway): the format `load_params` reads."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(prefix, tree):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                walk(f"{prefix}/{k}", v)
+        else:
+            a = np.asarray(tree)
+            if a.dtype == np.float32 and a.size > 1024:
+                a = a.astype(np.float16)
+            flat[prefix] = a
+    for coll in ("params", "batch_stats"):
+        if coll in variables and variables[coll]:
+            walk(coll, variables[coll])
+    np.savez_compressed(path, **flat)
 
 
 def load_params(path: str) -> dict:

@@ -51,7 +51,11 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "hmm.transition_model", "tree.event_map",
                  "tree.context_dep", "recipes.bench_corpus",
                  "online.decoding", "online.features",
-                 "online.batched_device_pipeline"):
+                 "online.batched_device_pipeline", "decoder.graph",
+                 "decoder.native_viterbi", "hmm.hmm_utils", "gmm.diag_gmm",
+                 "gmm.am_diag_gmm", "gmm.mle", "chain.graphs",
+                 "chain.supervision", "chain.objective", "recipes.mono",
+                 "recipes.chain", "recipes.train_bench"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
@@ -180,3 +184,30 @@ def test_lexchain_entry_points_raise_without_cuda_and_run_on_cpu():
     while pipe.compute():
         pass
     assert pipe.finalize(0) == hyps[0]
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path):
+    """The training side: train_bench (its main and train_and_decode),
+    the GMM scorer and the chain trainer default to CUDA and raise
+    without it."""
+    from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
+    from kaldi_tpu_torch.recipes import bench_corpus as tbc
+    from kaldi_tpu_torch.recipes import chain as tchain
+    from kaldi_tpu_torch.recipes import train_bench
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AmDiagGmm()
+    assert AmDiagGmm(device="cpu").device.type == "cpu"
+    spec = tbc.BenchCorpusSpec(vocab=12, num_phone_groups=2,
+                               phones_per_group=2, words_per_utt=3,
+                               num_train=2, num_test=1, num_lm_sents=10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_bench.train_and_decode(str(tmp_path), epochs=1, spec=spec)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tchain._fit_chain(train_bench.flagship_config(spec), None, [], [],
+                          tchain.ChainTrainOptions(), 150, 40)
+    with pytest.raises(SystemExit):
+        train_bench.main([])                 # --out is required
+    assert not os.listdir(tmp_path)
+

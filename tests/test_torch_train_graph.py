@@ -1,0 +1,98 @@
+"""Port parity: the flat-start alignment (`align_equal`) and the native
+aligner of monophone training (`decoder/native_viterbi.py`), on the CPU,
+against the JAX package's, over the training graphs of a tiny bench
+corpus (V=30).  The same seed must give the same equal alignment; the
+port's native aligner must equal its own exact FasterDecoder and, beam
+for beam, the JAX package's native aligner."""
+
+import numpy as np
+import pytest
+
+from kaldi_tpu import native as jnative
+from kaldi_tpu.decoder import graph as jgraph
+from kaldi_tpu.decoder import viterbi as jvit
+from kaldi_tpu.hmm.transition_model import TransitionModel as JTm
+from kaldi_tpu.tree import monophone_context_dependency as jmono
+from kaldi_tpu_torch.decoder import graph as tgraph
+from kaldi_tpu_torch.decoder import native_viterbi as tnative
+from kaldi_tpu_torch.decoder import viterbi as tvit
+from kaldi_tpu_torch.hmm.transition_model import TransitionModel as TTm
+from kaldi_tpu_torch.recipes import bench_corpus as tbc
+from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
+
+TINY = dict(vocab=30, num_phone_groups=5, phones_per_group=2,
+            words_per_utt=8, num_train=10, num_test=4, num_lm_sents=60,
+            noise=850.0, f2_gap=120.0, seed=11)
+
+
+@pytest.fixture(scope="module")
+def graphs():
+    """(port graphs, JAX graphs, port tm, JAX tm) of 10 transcripts."""
+    spec = tbc.BenchCorpusSpec(**TINY)
+    lexicon = tbc.make_lexicon(spec)
+    sents = tbc.make_text(spec, spec.num_train, spec.seed + 1)
+    out = []
+    for Lang, mono, Tm, Compiler in (
+            (tgraph.Lang, monophone_context_dependency, TTm,
+             tgraph.TrainingGraphCompiler),
+            (jgraph.Lang, jmono, JTm, jgraph.TrainingGraphCompiler)):
+        lang = Lang(lexicon, sil_phone="SIL", sil_prob=0.5)
+        topo = lang.make_topology()
+        phones = sorted(lang.phones.values())
+        tree = mono(phones, {p: topo.num_pdf_classes(p) for p in phones})
+        tm = Tm(topo, tree)
+        comp = Compiler(tm, tree, lang)
+        out.append(([comp.compile(s) for s in sents], tm))
+    (tg, ttm), (jg, jtm) = out
+    return tg, jg, ttm, jtm
+
+
+@pytest.mark.parametrize("extra", [0, 7, 40, 123])
+def test_align_equal_matches(graphs, extra):
+    tg, jg, ttm, jtm = graphs
+    for seed, (t, j) in enumerate(zip(tg, jg)):
+        # the arcs of one feasible path (at least its emitting arcs), plus
+        # `extra` frames
+        n = len(jvit._random_feasible_path(j, 10 ** 6, 0)) + extra
+        a = tvit.align_equal(t, n, ttm, seed=seed)
+        b = jvit.align_equal(j, n, jtm, seed=seed)
+        assert a is not None and a == b
+        assert len(a) == n
+
+
+def test_align_equal_too_few_frames(graphs):
+    tg, _, ttm, _ = graphs
+    assert tvit.align_equal(tg[0], 3, ttm) is None
+
+
+def _loglikes(T: int, num_pdfs: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(T, num_pdfs)) * 8.0 - 60.0).astype(np.float32)
+
+
+def test_native_aligner_matches_faster_decoder_and_jax(graphs):
+    tg, jg, ttm, jtm = graphs
+    assert tnative.get_lib() is not None, "g++ build of beam_viterbi failed"
+    assert jnative.get_lib() is not None
+    for i, (t, j) in enumerate(zip(tg, jg)):
+        T = 3 * t.num_states // 4
+        ll = _loglikes(T, ttm.num_pdfs, 100 + i)
+        nat = tnative.NativeViterbi(t).decode(ll, ttm.id2pdf_id, 0.1)
+        exact = tvit.FasterDecoder(t, tvit.FasterDecoderOptions(
+            beam=1e9, max_active=10 ** 9)).decode(ll, ttm.id2pdf_id, 0.1)
+        assert nat is not None and exact is not None
+        assert nat[0] == exact[0] and nat[1] == exact[1]
+        assert abs(nat[2] - exact[2]) <= 1e-4 * abs(exact[2])
+        assert len(nat[0]) == T
+        for beam in (10.0, 1e9):
+            ours = tnative.NativeViterbi(t).decode(ll, ttm.id2pdf_id, 0.1,
+                                                   beam=beam)
+            ref = jnative.NativeViterbi(j).decode(ll, jtm.id2pdf_id, 0.1,
+                                                  beam=beam)
+            assert ours == ref
+
+
+def test_native_aligner_fails_without_a_path(graphs):
+    tg, _, ttm, _ = graphs
+    ll = _loglikes(2, ttm.num_pdfs, 1)
+    assert tnative.NativeViterbi(tg[0]).decode(ll, ttm.id2pdf_id) is None
