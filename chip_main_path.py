@@ -39,20 +39,10 @@ function chip_smoke.py calls, train_phases): train_lex (the legacy
 training recipe of egs/bench_corpus/train.py main() through the port's
 recipes/train_bench.py, every epoch, then the decode of the test set and
 one profiled step) and train_lex_check (the card against the CPU from
-one state and one minibatch).  Then, on the same corpus, GMM and
-alignments:
-  probe_reproducible  two `_fit_chain` runs of 2 epochs from seed 0,
-                      their weights compared bit for bit;
-  probe_seeds         the chain training from seeds 1-3, each decoded
-                      with bf16 and float32 weights: the WER spread the
-                      initial weights alone give;
-  probe_jax_weights   with --jax-params FILE (the params.npz that
-                      `tools/legacy_train_jax_bar.py --out DIR` writes):
-                      the JAX package's trained weights decoded by the
-                      port in bf16 and float32.
+one state and one minibatch).
 
-Run: python3 chip_main_path.py [--online | --legacy | --train
-     [--jax-params FILE]]   (needs CUDA)
+Run: python3 chip_main_path.py [--online | --legacy | --train]
+     (needs CUDA)
 """
 
 from __future__ import annotations
@@ -69,10 +59,6 @@ import torch
 import chip_smoke as cs
 from kaldi_tpu_torch.decoder.lexchain_ng import INF
 from kaldi_tpu_torch.lat.functions import lattice_best_path
-from kaldi_tpu_torch.recipes import chain as tchain
-from kaldi_tpu_torch.recipes import train_bench
-from kaldi_tpu_torch.recipes.bench_corpus import (BenchCorpusSpec,
-                                                  load_params, train_system)
 
 
 def probe_lattice_rules(dec, ll, lens, wer, utts) -> None:
@@ -129,49 +115,6 @@ def probe_lattice_rules(dec, ll, lens, wer, utts) -> None:
         dec._viterbi_word_ends = forced
 
 
-def train_probes(jax_params=None) -> None:
-    """probe_reproducible, probe_seeds and probe_jax_weights (see the
-    module's docstring), on a system trained again to its alignments."""
-    spec = BenchCorpusSpec()
-    cfg = train_bench.flagship_config(spec)
-    sysd = train_system(spec, cfg=cfg,
-                        chain_opts=train_bench.train_options(1),
-                        num_ceps=40, device="cuda")
-    den, chunks, nums = tchain.chain_egs(
-        sysd["gmm"], sysd["feats"], sysd["alignments"], sysd["chain_tm"],
-        sysd["chain_tree"], train_bench.train_options(), 3)
-
-    def fit(epochs, seed):
-        opts = train_bench.train_options(epochs)
-        opts.seed = seed
-        stats = {}
-        t0 = time.perf_counter()
-        _, v = tchain._fit_chain(cfg, den, chunks, nums, opts, 150, 40,
-                                 device="cuda", stats=stats)
-        return v, stats, time.perf_counter() - t0
-
-    runs = [fit(2, 0) for _ in range(2)]
-    diff = max(float(np.abs(a - b).max()) for (_, a), (_, b) in zip(
-        cs._leaves(runs[0][0]), cs._leaves(runs[1][0])))
-    cs.emit("probe_reproducible", epochs=2, max_abs_diff=diff,
-            objf_equal=runs[0][1]["step_objf"] == runs[1][1]["step_objf"],
-            seconds=[r[2] for r in runs],
-            step_ms_median=[sorted(r[1]["step_ms"])[len(r[1]["step_ms"])
-                                                    // 2] for r in runs])
-    for seed in (1, 2, 3):
-        sysd["variables"], stats, secs = fit(8, seed)
-        cs.emit("probe_seeds", seed=seed, epoch_objf=stats["epoch_objf"],
-                seconds=secs, **{f"wer_{name}": train_bench.decode_test(
-                    sysd, cfg, dtype, "cuda")["wer"] for name, dtype in
-                    (("bf16", torch.bfloat16), ("f32", torch.float32))})
-    if jax_params:
-        sysd["variables"] = load_params(jax_params)
-        cs.emit("probe_jax_weights", path=jax_params, **{
-            f"wer_{name}": train_bench.decode_test(
-                sysd, cfg, dtype, "cuda")["wer"] for name, dtype in
-            (("bf16", torch.bfloat16), ("f32", torch.float32))})
-
-
 def online() -> None:
     """chip_smoke.py's online phases of the main path alone."""
     cfg, _variables, model, ivec, fe = cs.flagship_am()
@@ -204,11 +147,7 @@ def main() -> int:
     mode.add_argument("--legacy", action="store_true",
                       help="run chip_smoke.py's legacy-path phases alone")
     mode.add_argument("--train", action="store_true",
-                      help="run chip_smoke.py's training phases alone, "
-                      "then the training probes")
-    ap.add_argument("--jax-params",
-                    help="with --train: the JAX package's trained weights "
-                    "(params.npz of tools/legacy_train_jax_bar.py --out)")
+                      help="run chip_smoke.py's training phases alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -228,7 +167,6 @@ def main() -> int:
             done = "legacy_done"
         else:
             cs.emit("train_summary", **cs.train_phases())
-            train_probes(args.jax_params)
             done = "train_done"
         cs.emit(done, seconds=time.perf_counter() - t_all)
         print(json.dumps({"ok": True, "device": {

@@ -119,7 +119,15 @@ Phases, one JSON line each (any failure exits nonzero):
      float64 tie), slice_online_lex (measure_online.py's configuration
      at 128 lanes: a warm-up, a timed and a staged round; xRT, chunk and
      finalize ms, WER, peak memory, each lane equal to decode_batch of
-     the loglikes its scorer produced);
+     the loglikes its scorer produced); then the legacy training recipe:
+     train_lex (recipes/train_bench.py, nothing cut: stage seconds, the
+     aligner, each epoch's objective, step ms, peak memory, the WER of
+     the test set within 2.0 points of the JAX package's),
+     profile_train_step (one step under torch.profiler) and
+     train_lex_check (the card against the CPU from one state and one
+     minibatch: the step, the optimizer, every leaf's gradient, the
+     chain loglikes, GMM loglikes and alignments), kernels a-c launched
+     0 times in each;
   6. the block-chain lattice slice on 32 of the lanes: one timed
      decode_batch call in lattice mode, under torch.profiler (launch
      counts, the lattice stages' seconds, each lane's lattice best path
@@ -138,7 +146,8 @@ Phases, one JSON line each (any failure exits nonzero):
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
   8. the kernel table (kernel a's launches on the online path too, and
-     each kernel's launches on the legacy phases, which must be 0); the
+     each kernel's launches on the legacy and the training phases, which
+     must be 0); the
      last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
@@ -173,7 +182,7 @@ from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.decoder.native_viterbi import NativeViterbi
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
-from kaldi_tpu_torch.device import deterministic_algorithms, full_f32
+from kaldi_tpu_torch.device import full_f32
 from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
 from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
@@ -281,7 +290,8 @@ LATF_SCALE, LATF_PENALTY = (0.5, 0.08), 1.5
 # measured once by tools/legacy_train_jax_bar.py: the WER of the 128 test
 # utterances decoded with the trained weights in bf16, as train_lex decodes
 # them (99 word errors of 1544; 6.477%, 100 errors, with float32 weights),
-# plus 2.0 points: two trainings from different initial weights part
+# plus 2.0 points (the initial weights alone move it by more than a point:
+# PERF.md)
 TRAIN_EPOCHS = 8
 TRAIN_JAX_WER, TRAIN_WER_BAND = 6.4119170984455955, 2.0
 # the JAX package's chain objective a frame, each epoch's mean
@@ -2361,18 +2371,26 @@ def run_train_lex() -> dict:
         sysd["gmm"], sysd["feats"], sysd["alignments"], sysd["chain_tm"],
         sysd["chain_tree"], train_bench.train_options(), 3)
     cfg = train_bench.flagship_config(sysd["spec"])
+    reset_kernel_counts()
     prof = profile_call(lambda: tchain._fit_chain(
         cfg, den, chunks[:TRAIN_CHECK_CHUNKS], nums[:TRAIN_CHECK_CHUNKS],
         train_bench.train_options(1), 150, 40,
         variables=sysd["variables"], device="cuda"),
         ranges=(tchain.STEP_RANGE,))
     step = prof["ranges"][tchain.STEP_RANGE]
-    emit("profile_train_step", launches_a_step=step["kernel_launches"],
+    step_launches = kernel_launch_counts()
+    emit("profile_train_step", launches=step_launches,
+         launches_a_step=step["kernel_launches"],
          device_ms_a_step=step["device_ms"], host_ms_a_step=step["host_ms"],
          span_ms=step.get("span_ms"), top=prof["top"], by_op=prof["by_op"],
          peak_memory_gb=prof["peak_memory_gb"])
+    if any(step_launches.values()):
+        raise SystemExit("a hand kernel launched in profile_train_step: "
+                         f"{step_launches}")
     out["launches_a_step"] = step["kernel_launches"]
     out["device_ms_a_step"] = step["device_ms"]
+    out["launches"] = {"train_lex": launches,
+                       "profile_train_step": step_launches}
     return {"sysd": sysd, "egs": (den, chunks, nums), "cfg": cfg,
             "summary": out}
 
@@ -2385,7 +2403,7 @@ def param_grads(cfg, variables, feats_b, packed, den, opts, dev,
     model = chain_tdnnf_from_flax(cfg, variables, dtype, dev)
     model.train()
     model.requires_grad_(True)
-    with full_f32(), deterministic_algorithms():
+    with full_f32():
         chain_out, xent_out = model(feats_b.to(dev, dtype))
         objf, _ = chain_loss(opts.chain, den, packed, chain_out, xent_out)
         objf.neg().backward()
@@ -2404,93 +2422,166 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}/{k}", tree[k]
 
 
+def _unflatten(leaves: dict) -> dict:
+    """{"/a/b": x} -> {"a": {"b": x}}: the inverse of `_leaves`."""
+    tree: dict = {}
+    for path, x in leaves.items():
+        node = tree
+        *head, last = path.strip("/").split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = x
+    return tree
+
+
+def _leaf_errors(grads: dict, ref: dict) -> dict:
+    """Each leaf's largest |grads - ref| over the leaf's own largest
+    |ref| (a leaf whose ref is all 0: 0 if grads is too, else inf)."""
+    out = {}
+    for p, r in ref.items():
+        scale = float(np.abs(r).max())
+        err = float(np.abs(grads[p] - r).max())
+        out[p] = err / scale if scale > 0 else (0.0 if err == 0 else np.inf)
+    return out
+
+
+def adam_first_move(grads: dict, lr: float, max_norm: float,
+                    eps: float = 1e-8) -> dict:
+    """The plain first step of ChainOptimizer in float64 -> each leaf's
+    move: the global norm clip, then Adam's first update, whose bias
+    corrections cancel its moments (u = g / (|g| + eps), |u| < 1)."""
+    norm = np.sqrt(sum(float(np.sum(g * g)) for g in grads.values()))
+    c = 1.0 if norm < max_norm else max_norm / norm
+    return {p: -lr * (g * c) / (np.abs(g * c) + eps)
+            for p, g in grads.items()}
+
+
+def _move_error(new: dict, old: dict, want: dict, lr: float) -> float:
+    """The largest |(new - old) - want| over want's leaves beyond the
+    rounding of a float32 parameter (half its spacing), in units of lr."""
+    worst = 0.0
+    for p, w in want.items():
+        half_ulp = 0.5 * np.spacing(np.abs(new[p]).astype(np.float32))
+        err = np.abs((new[p].astype(np.float64) - old[p]) - w) - half_ulp
+        worst = max(worst, float(err.max()) / lr)
+    return worst
+
+
+def optimizer_step(cfg, variables, grads: dict, opts, dev) -> dict:
+    """ChainOptimizer's first step with a one-step `_fit_chain`'s
+    schedule on `dev`, from `variables`, fed `grads` (flax's layout, in
+    float32) -> the new parameters' leaves."""
+    model = chain_tdnnf_from_flax(cfg, variables, torch.float32, dev)
+    gmodel = chain_tdnnf_from_flax(
+        cfg, {"params": grads, "batch_stats": variables["batch_stats"]},
+        torch.float32, dev)
+    opt = tchain.ChainOptimizer(
+        list(model.parameters()),
+        tchain.lr_schedule(opts.learning_rate, opts.final_learning_rate,
+                           1, 1), opts.max_param_change)
+    opt.step(list(gmodel.parameters()))
+    return dict(_leaves(chain_tdnnf_to_flax(model)["params"]))
+
+
 def train_lex_check(trained: dict) -> dict:
-    """train_lex_check: the card against the port's CPU code (float32,
-    TF32 off) from one state and one minibatch: one `_fit_chain` step on
-    the trained weights from both, objective within 1e-4 relative,
-    statistics within 1e-4, parameters within 1e-4 but where the first
-    step flipped (see below: at most 0.1% of them, within two first-step
-    moves); the semi-orthogonal constraint on the trained factors within
-    1e-4; the gradient of every parameter as
-    close to the CPU's float64 one as the CPU's float32 one, to twice its
-    error (or 1e-4 of the largest); the numerator and denominator
-    loglikes (1e-4 relative) and the gradient of the chain objective on
-    the card's network outputs (1e-4 of its largest); the mono GMM's
-    loglikes of TRAIN_CHECK_UTTS utterances (1e-4 relative) and their
-    alignments, equal or a flipped Viterbi tie (both paths' costs within
-    1e-4 relative)."""
+    """train_lex_check: the card against the port's CPU code (TF32 off)
+    from the trained state and one minibatch.
+      gradients: every parameter's in float64 on the card and on the CPU,
+        each leaf within 1e-6 of its own largest (an all-zero leaf, the
+        unused xent head's, exactly 0); in float32 on both against the
+        CPU's float64, each leaf against its own largest, the card's worst
+        leaf at most twice the CPU's (or 1e-3); the card's float32
+        gradient a second time bit for bit (a step adds in a fixed order);
+      the optimizer: its first step on each device, fed the same gradient
+        (the CPU's float64 in float32), within 1e-3 lr of the plain
+        float64 update beyond a float32 parameter's rounding;
+      one `_fit_chain` step on each device: the objective within 1e-4
+        relative, the batch statistics within 1e-4, and each device's
+        parameters moved as the plain update of its own float32 gradient
+        moves them, within 1e-3 lr (so by at most lr);
+      the semi-orthogonal constraint on the trained factors within 1e-4;
+      the numerator and denominator loglikes (1e-4 relative) and the
+        gradient of the chain objective on the card's network outputs
+        (1e-4 of its largest);
+      the mono GMM's loglikes of TRAIN_CHECK_UTTS utterances (1e-4
+        relative) and their alignments, equal or a flipped Viterbi tie
+        (both paths' costs within 1e-4 relative);
+    and kernels a-c launched 0 times."""
+    reset_kernel_counts()
     sysd, cfg = trained["sysd"], trained["cfg"]
+    variables = sysd["variables"]
     den, chunks, nums = trained["egs"]
     mb, mb_nums = chunks[:TRAIN_CHECK_CHUNKS], nums[:TRAIN_CHECK_CHUNKS]
     opts = train_bench.train_options(1)
-    steps = {}
+    lr0 = float(tchain.lr_schedule(opts.learning_rate,
+                                   opts.final_learning_rate, 1, 1)(0))
+    old = {p: a.astype(np.float64) for p, a in _leaves(variables)}
+    # the minibatch in the order `_fit_chain` shuffles it to, so that the
+    # gradients below are its step's
+    order = np.arange(len(mb))
+    np.random.default_rng(opts.seed).shuffle(order)
+    feats_b = torch.from_numpy(np.stack([mb[j][0] for j in order]))
+    packed = batch_pack([mb_nums[j] for j in order])
+
+    # every parameter's gradient, in float64 and float32 on each device
+    grads = {f"{dev}_{str(dt)[6:]}": param_grads(
+        cfg, variables, feats_b, packed, den, opts, dev, dt)
+        for dev in ("cpu", "cuda") for dt in (torch.float64, torch.float32)}
+    g64 = grads.pop("cpu_float64")
+    again = param_grads(cfg, variables, feats_b, packed, den, opts, "cuda")
+    reproducible = all(np.array_equal(again[p], grads["cuda_float32"][p])
+                       for p in g64)
+    leaf_err = {k: _leaf_errors(g, g64) for k, g in grads.items()}
+    worst = {k: max(e.values()) for k, e in leaf_err.items()}
+    worst_leaf = {k: max(e, key=e.get) for k, e in leaf_err.items()}
+    f32_bar = max(2.0 * worst["cpu_float32"], 1e-3)
+
+    # the optimizer on each device, fed one gradient
+    g32 = {p: g.astype(np.float32) for p, g in g64.items()}
+    want = adam_first_move({p: g.astype(np.float64) for p, g in g32.items()},
+                           lr0, opts.max_param_change)
+    opt_err = {dev: _move_error(
+        optimizer_step(cfg, variables, _unflatten(g32), opts, dev),
+        {p: old["/params" + p] for p in want}, want, lr0)
+        for dev in ("cuda", "cpu")}
+
+    # one `_fit_chain` step on each device, from its own gradient
+    steps, step_err, moved = {}, {}, {}
     for dev in ("cuda", "cpu"):
         st: dict = {}
         t0 = time.perf_counter()
         _, v = tchain._fit_chain(cfg, den, mb, mb_nums, opts, 150, 40,
-                                 variables=sysd["variables"], device=dev,
-                                 stats=st)
-        steps[dev] = (st["step_objf"][0], v, time.perf_counter() - t0)
+                                 variables=variables, device=dev, stats=st)
+        steps[dev] = (st["step_objf"][0], dict(_leaves(v)),
+                      time.perf_counter() - t0)
+        new = dict(_leaves(v["params"]))
+        step_err[dev] = _move_error(
+            new, {p: old["/params" + p] for p in new},
+            adam_first_move(grads[f"{dev}_float32"], lr0,
+                            opts.max_param_change), lr0)
+        moved[dev] = max(float(np.abs(a - old["/params" + p]).max())
+                         for p, a in new.items())
+    stats_diff = max(float(np.abs(a - steps["cpu"][1][p]).max())
+                     for p, a in steps["cuda"][1].items()
+                     if p.startswith("/batch_stats"))
+    parted = {p: np.abs(a - steps["cpu"][1][p]) for p, a in
+              steps["cuda"][1].items() if p.startswith("/params")}
+    apart = sum(int((d > 1e-2 * lr0).sum()) for d in parted.values())
+    objf_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
 
-    # Adam's first step moves an element by about lr * sign(g), and a
-    # float32 gradient of this network is good to about 1e-3 of its
-    # largest element on either device (its float64 value on the CPU is
-    # the yardstick below): an element whose gradient is below that moves
-    # one way on the card and the other on the CPU, and the two steps part
-    # by 2 lr there.  Such elements (moved in opposite directions, one of
-    # them by more than lr / 2) may part by 2 lr; every other element and
-    # the statistics by 1e-4
-    lr0 = float(tchain.lr_schedule(opts.learning_rate,
-                                   opts.final_learning_rate, 1, 1)(0))
-    old = dict(_leaves(sysd["variables"]))
-    diffs, flips, n_params = {}, 0, 0
-    for (p, a), (_, b) in zip(_leaves(steps["cuda"][1]),
-                              _leaves(steps["cpu"][1])):
-        d = np.abs(a - b)
-        if p.startswith("/params"):
-            da, db = a - old[p], b - old[p]
-            flip = (np.sign(da) != np.sign(db)) & (
-                np.maximum(np.abs(da), np.abs(db)) > lr0 / 2)
-            flips += int(flip.sum())
-            n_params += a.size
-            if (d[flip] > 2.0 * lr0 + 1e-6).any():
-                raise SystemExit(f"train_lex_check: {p} moved apart by "
-                                 "more than two first steps")
-            d = np.where(flip, 0.0, d)
-        diffs[p] = float(d.max())
-    worst = max(diffs, key=diffs.get)
-    moved = max(float(np.abs(a - old[p]).max()) for p, a in
-                _leaves(steps["cuda"][1]) if p.startswith("/params"))
     # the semi-orthogonal constraint (every `orthonormal_interval` steps,
     # not in this one) on the trained factors
     constrained = {}
     for dev in ("cuda", "cpu"):
-        model = chain_tdnnf_from_flax(cfg, sysd["variables"], torch.float32,
-                                      dev)
+        model = chain_tdnnf_from_flax(cfg, variables, torch.float32, dev)
         tchain.apply_orthonormal(model)
         constrained[dev] = dict(_leaves(chain_tdnnf_to_flax(model)["params"]))
     del model
     constraint_diff = max(
         float(np.abs(a - constrained["cpu"][p]).max())
         for p, a in constrained["cuda"].items() if p.endswith("/linear"))
-    # the gradient of every parameter at the same state: the card's and
-    # the CPU's float32 against the CPU's float64
-    feats_b = torch.from_numpy(np.stack([c[0] for c in mb]))
-    packed = batch_pack(mb_nums)
-    g64 = param_grads(cfg, sysd["variables"], feats_b, packed, den, opts,
-                      "cpu", torch.float64)
-    g_scale = max(float(np.abs(g).max()) for g in g64.values())
-    grad_err = {}
-    for dev in ("cuda", "cpu"):
-        g = param_grads(cfg, sysd["variables"], feats_b, packed, den, opts,
-                        dev)
-        grad_err[dev] = max(float(np.abs(g[p] - g64[p]).max()) / g_scale
-                            for p in g64)
-    grad_bar = max(2.0 * grad_err["cpu"], 1e-4)
-    objf_rel = abs(steps["cuda"][0] - steps["cpu"][0]) / abs(steps["cpu"][0])
     # the chain objective on the card's outputs for the minibatch
-    model = chain_tdnnf_from_flax(cfg, sysd["variables"], torch.float32,
-                                  "cuda")
+    model = chain_tdnnf_from_flax(cfg, variables, torch.float32, "cuda")
     with torch.no_grad(), full_f32():
         out = model.chain(feats_b.cuda())
     del model
@@ -2532,29 +2623,43 @@ def train_lex_check(trained: dict) -> dict:
             s.am.log_likes_batch(feats[u]), s.tm.id2pdf_id, 0.1,
             beam=10.0)[2] for s in (gmm, cpu_gmm)]
         ties.append({"utt": u, "costs": costs})
+    launches = kernel_launch_counts()
     out = {"step_objf_cuda": steps["cuda"][0],
            "step_objf_cpu": steps["cpu"][0], "step_objf_rel": objf_rel,
-           "param_max_abs_diff": diffs[worst], "param_worst": worst,
-           "elements_flipped": flips, "parameters": n_params,
+           "first_step_lr": lr0,
+           "parameters": sum(a.size for a in g64.values()),
+           "grad_worst_leaf_rel": worst, "grad_worst_leaf": worst_leaf,
+           "grad_f32_bar": f32_bar, "grad_reproducible": reproducible,
+           "optimizer_err_lr": opt_err, "step_err_lr": step_err,
+           "step_moved_max": moved, "step_elements_apart": apart,
+           "param_max_abs_diff": max(float(d.max())
+                                     for d in parted.values()),
+           "batch_stats_max_abs_diff": stats_diff,
            "constraint_max_abs_diff": constraint_diff,
-           "first_step_lr": lr0, "grad_err_cuda_f32": grad_err["cuda"],
-           "grad_err_cpu_f32": grad_err["cpu"], "grad_bar": grad_bar,
-           "grad_max_f64": g_scale,
-           "step_moved_max": moved, "step_s_cuda": steps["cuda"][2],
-           "step_s_cpu": steps["cpu"][2], "num_rel": num_rel,
-           "den_rel": den_rel, "grad_rel_to_max": out_grad_rel,
+           "step_s_cuda": steps["cuda"][2], "step_s_cpu": steps["cpu"][2],
+           "num_rel": num_rel, "den_rel": den_rel,
+           "grad_rel_to_max": out_grad_rel,
            "gmm_loglike_rel_to_max": ll_rel, "utts": len(utts),
            "alignments_equal": len(utts) - len(ties), "ties": ties,
-           "tolerance": 1e-4}
+           "launches": launches, "tolerance": 1e-4}
     emit("train_lex_check", **out)
-    if not (objf_rel <= 1e-4 and diffs[worst] <= 1e-4 and num_rel <= 1e-4
-            and den_rel <= 1e-4 and out_grad_rel <= 1e-4
-            and grad_err["cuda"] <= grad_bar and ll_rel <= 1e-4
-            and flips <= 1e-3 * n_params and constraint_diff <= 1e-4):
-        raise SystemExit("train_lex_check: the card and the CPU disagree")
-    if moved < 1e-6:
-        raise SystemExit("train_lex_check: the step left the weights as "
-                         "they were")
+    bars = {
+        "gradient float64": worst["cuda_float64"] <= 1e-6,
+        "gradient float32": worst["cuda_float32"] <= f32_bar,
+        "gradient reproducible": reproducible,
+        "optimizer": max(opt_err.values()) <= 1e-3,
+        "step": max(step_err.values()) <= 1e-3,
+        "step objective": objf_rel <= 1e-4,
+        "batch statistics": stats_diff <= 1e-4,
+        "constraint": constraint_diff <= 1e-4,
+        "chain loglikes": max(num_rel, den_rel, out_grad_rel) <= 1e-4,
+        "GMM loglikes": ll_rel <= 1e-4,
+        "weights moved": min(moved.values()) >= 1e-6,
+        "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"train_lex_check: the card and the CPU disagree: "
+                         f"{failed}")
     for t in ties:
         if abs(t["costs"][0] - t["costs"][1]) > 1e-4 * abs(t["costs"][1]):
             raise SystemExit(f"train_lex_check: {t['utt']} aligns "
@@ -2563,14 +2668,15 @@ def train_lex_check(trained: dict) -> dict:
 
 
 def train_phases() -> dict:
-    """train_lex and train_lex_check -> their summary, with kernels a-c's
-    launches in train_lex."""
+    """train_lex, profile_train_step and train_lex_check -> their
+    summary, with kernels a-c's launches in each."""
     trained = run_train_lex()
     check = train_lex_check(trained)
     out = dict(trained["summary"])
+    out["launches"]["train_lex_check"] = check["launches"]
     out["check"] = {k: check[k] for k in (
-        "step_objf_rel", "param_max_abs_diff", "num_rel", "den_rel",
-        "alignments_equal")}
+        "step_objf_rel", "grad_worst_leaf_rel", "step_err_lr", "num_rel",
+        "den_rel", "alignments_equal")}
     del trained
     torch.cuda.empty_cache()
     return out
@@ -3186,7 +3292,8 @@ def main() -> int:
     for k in kernels:
         k["launches_legacy"] = sum(counts[k["name"]] for counts in
                                    legacy["launches"].values())
-        k["launches_train"] = train["launches"][k["name"]]
+        k["launches_train"] = sum(counts[k["name"]] for counts in
+                                  train["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

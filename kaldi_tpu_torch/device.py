@@ -37,23 +37,6 @@ def full_f32() -> Iterator[None]:
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-@contextlib.contextmanager
-def deterministic_algorithms() -> Iterator[None]:
-    """Inside the block PyTorch takes its deterministic implementations
-    where it has them (on CUDA the scatter-adds that the backward pass of
-    a gather runs, which otherwise add in the order their atomics land),
-    warning instead of raising for an op that has none; the caller's
-    setting is restored after.  Training runs in it, so that one seed
-    gives one model."""
-    was = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn_only)
-
-
 def same_device(a: torch.device, b: torch.device) -> bool:
     """True when two devices name the same card (cuda == cuda:0)."""
     if a.type != b.type:

@@ -11,9 +11,9 @@ out (`ChainOptimizer`), the schedule optax's `join_schedules` of a
 warm-up and a linear fall (`lr_schedule`), the chunk order numpy's
 `default_rng(seed).shuffle`, and the semi-orthogonal constraint runs on
 every TDNN-F `linear` factor, in the reference's layout, every
-`orthonormal_interval` steps.  The steps run under PyTorch's
-deterministic algorithms (`device.deterministic_algorithms`), so that on
-the card one seed gives one model.
+`orthonormal_interval` steps.  Every op of a step adds in a fixed order
+(the chain objective's gathers included, `chain.objective.InArcs`), so
+on the card too one seed gives one model.
 
 Not carried over yet: the frame-rate `train_chain`, `nnet_log_likes` and
 the context-dependent system (`train_chain_ctx`, `build_ctx_chain_system`
@@ -34,8 +34,7 @@ from kaldi_tpu_torch.chain.objective import ChainTrainingOptions, chain_loss
 from kaldi_tpu_torch.chain.supervision import (
     alignment_to_numerator_graph, alignment_to_tolerance_numerator,
     make_denominator_graph)
-from kaldi_tpu_torch.device import (DeviceLike, deterministic_algorithms,
-                                    full_f32, resolve_device)
+from kaldi_tpu_torch.device import DeviceLike, full_f32, resolve_device
 from kaldi_tpu_torch.hmm.topology import HmmTopology
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.nnet3.components import constrain_orthonormal
@@ -336,7 +335,7 @@ def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
     rng_np = np.random.default_rng(opts.seed)
     order = np.arange(len(chunks))
     it = 0
-    with full_f32(), deterministic_algorithms():
+    with full_f32():
         for epoch in range(opts.num_epochs):
             rng_np.shuffle(order)
             objfs = []

@@ -15,7 +15,7 @@ the legacy serving path runs them; `<out>/meta.json` records the WER, and
 the same JSON is printed.  Runs on CUDA unless --device cpu is given.
 
 Run: python -m kaldi_tpu_torch.recipes.train_bench --out DIR
-     [--epochs N] [--device cpu]
+     [--device cpu]
 """
 
 from __future__ import annotations
@@ -128,11 +128,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", required=True,
                     help="directory for params.npz and meta.json")
-    ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--device", default=None,
                     help="cpu, or a CUDA device (the default)")
     args = ap.parse_args(argv)
-    meta = train_and_decode(args.out, args.epochs, args.device)
+    meta = train_and_decode(args.out, device=args.device)
     print(json.dumps(meta))
     return 0
 

@@ -212,10 +212,9 @@ def random_graph(seed, S=3, A=7, P=4):
 
 def forward(pg, out: torch.Tensor, leaky: float = 0.0) -> torch.Tensor:
     """The port's batched forward pass on one graph."""
-    arrays = tobj._as_tensors((pg.src, pg.dst, pg.pdf, pg.log_prob,
-                               pg.initial, pg.final), torch.device("cpu"))
-    return tobj._forward_loglike(out[None], *[a[None] for a in arrays],
-                                 leaky)[0]
+    graphs = tobj.InArcs(pg.src, pg.dst, pg.pdf, pg.log_prob, pg.initial,
+                         pg.final, out.shape[-1], torch.device("cpu"))
+    return tobj._forward_loglike(out[None], graphs, leaky)[0]
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -259,3 +258,56 @@ def test_gradient_ascent_improves_objective():
     assert np.isfinite(float(objf.detach()))
     objf2, _ = tobj.chain_loss(opts, den, nums, x.detach() + x.grad)
     assert float(objf2) > float(objf.detach())
+
+
+# ---- the padded in-arc layout
+
+@pytest.mark.parametrize("seed", range(3))
+def test_in_arc_gathers_backward_match_gather(seed):
+    """Both gathers of the forward pass (the source states' values, the
+    slots' pdf scores) take their gradient through the transposed tables;
+    it equals torch.gather's own (atomic on CUDA) on every live slot."""
+    rng = np.random.default_rng(seed)
+    pg = random_graph(seed, S=5, A=12, P=4)
+    graphs = tobj.InArcs(pg.src, pg.dst, pg.pdf, pg.log_prob, pg.initial,
+                         pg.final, 4, torch.device("cpu"))
+    live = torch.isfinite(graphs.log_prob).to(torch.float64)
+    w = torch.tensor(rng.normal(size=live.shape)) * live
+    for index, uses, n in ((graphs.src, graphs.src_uses, 5),
+                           (graphs.pdf, graphs.pdf_uses, 4)):
+        x = torch.tensor(rng.normal(size=(1, n)), requires_grad=True)
+        (tobj._Gather.apply(x, index, uses) * w).sum().backward()
+        y = x.detach().clone().requires_grad_(True)
+        (y.gather(-1, index) * w).sum().backward()
+        np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(),
+                                   rtol=1e-12, atol=1e-12)
+
+
+def test_in_arc_layout_of_a_padded_batch():
+    """Every live arc sits in one slot of its destination; batch_pack's
+    padding self-loops keep one copy; a padded batch of unequal graphs
+    gives each graph's own loglike."""
+    pgs = [random_graph(s, S=3 + s, A=6 + 3 * s, P=4) for s in range(3)]
+    packed = tgraphs.batch_pack(pgs)
+    graphs = tobj.InArcs(*packed, 4, torch.device("cpu"))
+    S, K = graphs.num_states, graphs.slots
+    for b, pg in enumerate(pgs):
+        lp = graphs.log_prob[b].view(S, K).numpy()
+        src = graphs.src[b].view(S, K).numpy()
+        pdf = graphs.pdf[b].view(S, K).numpy()
+        got = sorted((int(src[s, k]), s, int(pdf[s, k]), float(lp[s, k]))
+                     for s in range(S) for k in range(K)
+                     if np.isfinite(lp[s, k]))
+        want = sorted((int(a), int(d), int(p), float(w)) for a, d, p, w in
+                      zip(pg.src, pg.dst, pg.pdf, pg.log_prob))
+        dead = {(pg.num_states, pg.num_states, 0, -1e30)} \
+            if pg.num_arcs < packed[0].shape[1] else set()
+        assert [a for a in got if a[3] > -1e29] == want
+        assert {a for a in got if a[3] <= -1e29} == {
+            (s, d, p, float(np.float32(w))) for s, d, p, w in dead}
+    out = torch.tensor(np.random.default_rng(5).normal(size=(3, 6, 4)),
+                       dtype=torch.float32)
+    batch = tobj._forward_loglike(out, graphs, 0.0)
+    for b, pg in enumerate(pgs):
+        assert float(batch[b]) == pytest.approx(float(forward(pg, out[b])),
+                                                rel=1e-6, abs=1e-4)

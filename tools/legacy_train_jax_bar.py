@@ -19,8 +19,7 @@ one is the trained GMM's), the aligner used, the chunks and steps, the
 stage seconds and the corpus fingerprint.  --out DIR also writes the
 trained weights there as params.npz (the format of `save_params`).
 
-Run: JAX_PLATFORMS=cpu python tools/legacy_train_jax_bar.py [--epochs N]
-     [--out DIR]
+Run: JAX_PLATFORMS=cpu python tools/legacy_train_jax_bar.py [--out DIR]
 """
 
 import argparse
@@ -33,10 +32,11 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
+EPOCHS = 8      # train.py main()'s chain epochs
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--epochs", type=int, default=8)
     ap.add_argument("--out", help="write the trained params.npz here")
     args = ap.parse_args()
     import jax
@@ -80,7 +80,7 @@ def main() -> int:
                            num_layers=17, subsample_layer=8,
                            frame_subsampling_factor=3)
     opts = ChainTrainOptions(
-        num_epochs=args.epochs, learning_rate=7e-4,
+        num_epochs=EPOCHS, learning_rate=7e-4,
         final_learning_rate=1e-4, minibatch_size=32, chunk_width=150,
         left_tolerance=5, right_tolerance=5,
         chain=ChainTrainingOptions(l2_regularize=5e-5,
@@ -124,8 +124,8 @@ def main() -> int:
         "mono_avg_loglike": mono_ll,
         "aligner": "native" if get_lib() is not None else "FasterDecoder",
         "chunks": chunks[-1] if chunks else None,
-        "steps": (chunks[-1] // 32) * args.epochs if chunks else None,
-        "epochs": args.epochs, "num_pdfs": num_pdfs,
+        "steps": (chunks[-1] // 32) * EPOCHS if chunks else None,
+        "epochs": EPOCHS, "num_pdfs": num_pdfs,
         "corpus_fingerprint": corpus_fingerprint(
             spec, sysd["lexicon"], sysd["test_txt"], sysd["test_wav"],
             sysd["lm_text"]),
