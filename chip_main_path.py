@@ -41,8 +41,15 @@ recipes/train_bench.py, every epoch, then the decode of the test set and
 one profiled step) and train_lex_check (the card against the CPU from
 one state and one minibatch).
 
-Run: python3 chip_main_path.py [--online | --legacy | --train]
-     (needs CUDA)
+With --train-scale it runs chip_smoke.py's phases of the --scale
+training recipe alone (train_scale_phases): train_scale
+(egs/bench_corpus/train.py main_scale through the port's
+recipes/train_scale.py, 16 epochs, the test set decoded through the main
+path to a WER) and train_scale_check (the card's gradient against the
+CPU's on real chunks through the bucketed window-LM denominator).
+
+Run: python3 chip_main_path.py [--online | --legacy | --train |
+     --train-scale]  (needs CUDA)
 """
 
 from __future__ import annotations
@@ -148,6 +155,9 @@ def main() -> int:
                       help="run chip_smoke.py's legacy-path phases alone")
     mode.add_argument("--train", action="store_true",
                       help="run chip_smoke.py's training phases alone")
+    mode.add_argument("--train-scale", action="store_true",
+                      help="run chip_smoke.py's --scale training phases "
+                      "alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -158,13 +168,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
-    if args.online or args.legacy or args.train:
+    if args.online or args.legacy or args.train or args.train_scale:
         if args.online:
             online()
             done = "online_done"
         elif args.legacy:
             cs.emit("legacy_summary", **cs.legacy_phases())
             done = "legacy_done"
+        elif args.train_scale:
+            cs.emit("train_scale_summary", **cs.train_scale_phases())
+            done = "train_scale_done"
         else:
             cs.emit("train_summary", **cs.train_phases())
             done = "train_done"

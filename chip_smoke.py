@@ -126,8 +126,16 @@ Phases, one JSON line each (any failure exits nonzero):
      profile_train_step (one step under torch.profiler) and
      train_lex_check (the card against the CPU from one state and one
      minibatch: the step, the optimizer, every leaf's gradient, the
-     chain loglikes, GMM loglikes and alignments), kernels a-c launched
-     0 times in each;
+     chain loglikes, GMM loglikes and alignments); then the --scale
+     training recipe: train_scale (recipes/train_scale.py, nothing cut:
+     the i-vector extractor, the triphone tree, the window-LM
+     denominator's sizes, 16 epochs of the TDNN-F with i-vectors, stage
+     seconds, step ms, peak memory, the test set through the main path,
+     its WER within 2.0 points of the committed model's 9.53%),
+     profile_train_scale_step (one step under torch.profiler) and
+     train_scale_check (4 real chunks through the bucketed denominator:
+     every leaf's gradient on the card against the CPU's float64,
+     bit-equal twice); kernels a-c launched 0 times in each;
   6. the block-chain lattice slice on 32 of the lanes: one timed
      decode_batch call in lattice mode, under torch.profiler (launch
      counts, the lattice stages' seconds, each lane's lattice best path
@@ -167,7 +175,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.chain.graphs import batch_pack
-from kaldi_tpu_torch.chain.objective import chain_loss
+from kaldi_tpu_torch.chain.objective import chain_loss, den_arcs
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
 from kaldi_tpu_torch.decoder import batched_viterbi as tbv
@@ -202,7 +210,7 @@ from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
 from kaldi_tpu_torch.recipes import chain as tchain
 from kaldi_tpu_torch.recipes import mono as tmono
-from kaldi_tpu_torch.recipes import train_bench
+from kaldi_tpu_torch.recipes import train_bench, train_scale
 from kaldi_tpu_torch.recipes.bench_corpus import (
     BenchCorpusSpec, bench_scale_spec, build_decode_graph,
     build_decode_graph_ng, build_lang, chain_tm_tree_for, corpus_fingerprint,
@@ -300,6 +308,19 @@ TRAIN_JAX_EPOCH_OBJF = [0.9396, 1.4081, 1.4991, 1.545, 1.58, 1.6063,
 # train_lex_check: the utterances of its GMM and alignment checks, and the
 # chunks of its one training step (one minibatch)
 TRAIN_CHECK_UTTS, TRAIN_CHECK_CHUNKS = 8, 32
+# the --scale training recipe (egs/bench_corpus/train.py main_scale, the
+# port's recipes/train_scale.py) at full width, nothing cut: 16 epochs of
+# the 17 x 1536 TDNN-F with i-vectors over the triphone tree, the test set
+# decoded through the main path.  Its bar is the committed model's train
+# WER (flagship_ng_meta.json: 9.53%, a TPU run with approximate selection)
+# plus 2.0 points, train_lex's margin for other initial weights; beside it
+# the committed model through the port's main path (slice_ng: 147 of 1564)
+SCALE_EPOCHS = 16
+SCALE_META_WER, SCALE_WER_BAND = 9.53, 2.0
+SCALE_COMMITTED_PORT_WER = 100.0 * 147 / 1564
+SCALE_FINGERPRINT = "9fd542ef303e6a0d"
+# train_scale_check: the real chunks of its gradient check
+SCALE_CHECK_CHUNKS = 4
 
 
 def emit(phase: str, **kw) -> None:
@@ -2396,15 +2417,18 @@ def run_train_lex() -> dict:
 
 
 def param_grads(cfg, variables, feats_b, packed, den, opts, dev,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, ivecs_b=None) -> dict:
     """The gradient of minus the chain objective with respect to every
     parameter, the model built from `variables` in `dtype` in training
-    mode on `dev` (TF32 off), in flax's layout as numpy float64."""
+    mode on `dev` (TF32 off), fed feats_b (and ivecs_b, the i-vectors),
+    in flax's layout as numpy float64."""
     model = chain_tdnnf_from_flax(cfg, variables, dtype, dev)
     model.train()
     model.requires_grad_(True)
     with full_f32():
-        chain_out, xent_out = model(feats_b.to(dev, dtype))
+        chain_out, xent_out = model(
+            feats_b.to(dev, dtype),
+            None if ivecs_b is None else ivecs_b.to(dev, dtype))
         objf, _ = chain_loss(opts.chain, den, packed, chain_out, xent_out)
         objf.neg().backward()
     for p in model.parameters():
@@ -2677,6 +2701,182 @@ def train_phases() -> dict:
     out["check"] = {k: check[k] for k in (
         "step_objf_rel", "grad_worst_leaf_rel", "step_err_lr", "num_rel",
         "den_rel", "alignments_equal")}
+    del trained
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_bytes(a: str, b: str) -> bool:
+    with open(a, "rb") as f, open(b, "rb") as g:
+        return f.read() == g.read()
+
+
+def run_train_scale() -> dict:
+    """train_scale: the --scale training recipe on the card, nothing cut
+    (recipes/train_scale.py train_and_decode): the V=20,000 corpus, MFCC,
+    the mono GMM, the alignment, the i-vector extractor, the triphone tree,
+    the window-LM denominator and its bucketed layout, the chain examples,
+    SCALE_EPOCHS epochs of the 17 x 1536 TDNN-F with i-vectors, the decode
+    graph and the 128 test utterances through the main path.  The seconds
+    of each stage, the leaves and tids, the denominator's states, arcs and
+    slots by bucket, the chunks and steps, each epoch's objective, the
+    median step ms by CUDA events, the training's peak memory, the WER and
+    kernels a-c's launches (0).  Bars: the corpus fingerprint, every
+    step's objective finite, the last epoch's mean above the first's, the
+    WER within SCALE_WER_BAND of the committed model's train WER."""
+    reset_kernel_counts()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    meta = train_scale.train_and_decode(
+        os.path.join(REPO, "_chip", "train_scale"), SCALE_EPOCHS, "cuda",
+        stats=stats)
+    seconds = time.perf_counter() - t0
+    launches = kernel_launch_counts()
+    sysd = stats.pop("system")
+    step_ms = sorted(stats["step_ms"])
+    dec = stats["decode"]
+    out = {"seconds": seconds,
+           "stage_s": {k: stats[k] for k in (
+               "corpus_s", "mfcc_s", "mono_s", "graphs_s", "align_s",
+               "ivector_s", "tree_s", "den_s", "egs_s", "chain_s",
+               "graph_s", "decode_s")},
+           "aligner": stats["aligner"], "leaves": stats["leaves"],
+           "tids": stats["tids"], "tokens": stats["tokens"],
+           "window_den": stats["window_den"], "den": stats["den"],
+           "segment_skipped": stats["segment_skipped"],
+           "chunks": stats["chunks"], "steps": len(stats["step_objf"]),
+           "epochs": SCALE_EPOCHS, "epoch_objf": stats["epoch_objf"],
+           "step_ms_median": step_ms[len(step_ms) // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "chain_s_a_step": stats["chain_s"] / len(stats["step_objf"]),
+           "peak_memory_gb": stats["peak_memory_gb"],
+           "wer": dec["wer"], "word_errors": dec["word_errors"],
+           "ref_words": dec["ref_words"],
+           "lanes_decoded": dec["lanes_decoded"],
+           "graph_states": dec["states"], "decode_batch_s": dec["seconds"],
+           "files_equal_committed": {
+               name: _same_bytes(os.path.join(REPO, "_chip", "train_scale",
+                                              "chain" + ext),
+                                 os.path.join(ART, "flagship_ng" + ext))
+               for name, ext in (("tm", ".tm"), ("tree", ".tree"))},
+           "committed_model_port_wer": SCALE_COMMITTED_PORT_WER,
+           "committed_model_meta_wer": SCALE_META_WER,
+           "wer_band": SCALE_WER_BAND, "corpus_hash": meta["corpus_hash"],
+           "launches": launches}
+    emit("train_scale", **out)
+    if meta["corpus_hash"] != SCALE_FINGERPRINT:
+        raise SystemExit(f"corpus fingerprint {meta['corpus_hash']}")
+    if not np.isfinite(stats["step_objf"]).all():
+        raise SystemExit("a training step's objective is not finite")
+    if not stats["epoch_objf"][-1] > stats["epoch_objf"][0]:
+        raise SystemExit("the last epoch's objective is not above the "
+                         "first's")
+    if dec["lanes_decoded"] != len(sysd["test_wav"]):
+        raise SystemExit(f"only {dec['lanes_decoded']} lanes decoded")
+    if dec["wer"] > SCALE_META_WER + SCALE_WER_BAND:
+        raise SystemExit(f"train_scale WER {dec['wer']:.3f}% against the "
+                         f"committed model's {SCALE_META_WER}% + "
+                         f"{SCALE_WER_BAND}")
+    if any(launches.values()):
+        raise SystemExit(f"a hand kernel launched in train_scale: "
+                         f"{launches}")
+    return {"sysd": sysd, "summary": out}
+
+
+def train_scale_check(trained: dict) -> dict:
+    """profile_train_scale_step and train_scale_check, from the trained
+    state, on real chunks of the scale system (its first utterances'
+    numerators and i-vectors) through the bucketed window-LM denominator:
+    one training step of 32 chunks under the profiler (its launches and
+    device time), then the gradient check of SCALE_CHECK_CHUNKS chunks:
+    every parameter's gradient in float64 on the card within 1e-6 of the
+    CPU's float64, each leaf against its own largest value; in float32 on
+    the card against the CPU's float64, the worst leaf at most twice the
+    CPU float32's (or 1e-3); the card's float32 gradient a second time
+    bit for bit; kernels a-c launched 0 times in each."""
+    reset_kernel_counts()
+    sysd = trained["sysd"]
+    lang, lexicon = sysd["lang"], sysd["lexicon"]
+    utts = sorted(sysd["feats"])[:16]
+    prons = {u: [[lang.phones[p] for p in lexicon[w][0]]
+                 for w in sysd["train_txt"][u]] for u in utts}
+    segs, _ = tchain.ctx_segments(
+        sysd["gmm"], {u: sysd["alignments"][u] for u in utts}, prons)
+    opts = train_scale.train_options(1)
+    chunks, nums = tchain.ctx_chain_egs(
+        {u: sysd["feats"][u] for u in utts}, segs, sysd["chain_tm"],
+        sysd["chain_tree"], opts, 3, sysd["ivectors"])
+    cfg = train_scale.scale_config(sysd["chain_tm"].num_pdfs)
+    prof = profile_call(lambda: tchain._fit_chain(
+        cfg, sysd["den"], chunks[:32], nums[:32], opts, 150, 40,
+        variables=sysd["variables"], device="cuda", use_ivectors=True),
+        ranges=(tchain.STEP_RANGE,))
+    step = prof["ranges"][tchain.STEP_RANGE]
+    step_launches = kernel_launch_counts()
+    emit("profile_train_scale_step", launches=step_launches,
+         launches_a_step=step["kernel_launches"],
+         device_ms_a_step=step["device_ms"], host_ms_a_step=step["host_ms"],
+         span_ms=step.get("span_ms"), top=prof["top"], by_op=prof["by_op"],
+         peak_memory_gb=prof["peak_memory_gb"])
+    if any(step_launches.values()):
+        raise SystemExit("a hand kernel launched in "
+                         f"profile_train_scale_step: {step_launches}")
+    reset_kernel_counts()
+    chunks, nums = chunks[:SCALE_CHECK_CHUNKS], nums[:SCALE_CHECK_CHUNKS]
+    feats_b = torch.from_numpy(np.stack([c[0] for c in chunks]))
+    ivecs_b = torch.from_numpy(np.stack([c[2] for c in chunks]))
+    packed = batch_pack(nums)
+    den, variables = sysd["den"], sysd["variables"]
+    t0 = time.perf_counter()
+    grads = {f"{dev}_{str(dt)[6:]}": param_grads(
+        cfg, variables, feats_b, packed, den, opts, dev, dt, ivecs_b)
+        for dev in ("cpu", "cuda") for dt in (torch.float64, torch.float32)}
+    g64 = grads.pop("cpu_float64")
+    again = param_grads(cfg, variables, feats_b, packed, den, opts, "cuda",
+                        ivecs_b=ivecs_b)
+    reproducible = all(np.array_equal(again[p], grads["cuda_float32"][p])
+                       for p in g64)
+    leaf_err = {k: _leaf_errors(g, g64) for k, g in grads.items()}
+    worst = {k: max(e.values()) for k, e in leaf_err.items()}
+    f32_bar = max(2.0 * worst["cpu_float32"], 1e-3)
+    launches = kernel_launch_counts()
+    out = {"chunks": len(chunks), "output_frames": feats_b.shape[1] // 3,
+           "parameters": sum(a.size for a in g64.values()),
+           "grad_worst_leaf_rel": worst,
+           "grad_worst_leaf": {k: max(e, key=e.get)
+                               for k, e in leaf_err.items()},
+           "grad_f32_bar": f32_bar, "grad_reproducible": reproducible,
+           "den": den_arcs(den, cfg.num_pdfs, torch.device("cuda"))
+           .slot_sizes(), "seconds": time.perf_counter() - t0,
+           "launches": launches, "profile_launches": step_launches,
+           "launches_a_step": step["kernel_launches"],
+           "device_ms_a_step": step["device_ms"]}
+    emit("train_scale_check", **out)
+    bars = {"gradient float64": worst["cuda_float64"] <= 1e-6,
+            "gradient float32": worst["cuda_float32"] <= f32_bar,
+            "gradient reproducible": reproducible,
+            "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"train_scale_check: the card and the CPU "
+                         f"disagree: {failed}")
+    return out
+
+
+def train_scale_phases() -> dict:
+    """train_scale and train_scale_check -> their summary, with kernels
+    a-c's launches in each."""
+    trained = run_train_scale()
+    check = train_scale_check(trained)
+    out = dict(trained["summary"])
+    out["launches"] = {"train_scale": out["launches"],
+                       "profile_train_scale_step": check["profile_launches"],
+                       "train_scale_check": check["launches"]}
+    out["check"] = {k: check[k] for k in (
+        "grad_worst_leaf_rel", "grad_reproducible", "launches_a_step",
+        "device_ms_a_step")}
     del trained
     torch.cuda.empty_cache()
     return out
@@ -2959,6 +3159,9 @@ def main() -> int:
 
     # 5c. the legacy training recipe, end to end, and its card-CPU check ---
     train = train_phases()
+
+    # 5d. the --scale training recipe, decoded through the main path -------
+    scale = train_scale_phases()
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
@@ -3269,6 +3472,7 @@ def main() -> int:
          online_batcher_endpointed=ng_batcher["endpointed"],
          **{k: v for k, v in legacy.items() if k != "launches"},
          train={k: v for k, v in train.items() if k != "launches"},
+         train_scale={k: v for k, v in scale.items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -3294,6 +3498,8 @@ def main() -> int:
                                    legacy["launches"].values())
         k["launches_train"] = sum(counts[k["name"]] for counts in
                                   train["launches"].values())
+        k["launches_train_scale"] = sum(counts[k["name"]] for counts in
+                                        scale["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

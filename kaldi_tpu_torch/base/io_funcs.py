@@ -1,4 +1,4 @@
-"""Readers of the Kaldi wire format (numpy copy of the reading half of
+"""Readers and writers of the Kaldi wire format (numpy copy of
 `kaldi_tpu/base/io_funcs.py`, as far as the transition model, the HMM
 topology and the decision tree need it).
 
@@ -11,7 +11,7 @@ every value is a whitespace-delimited token.
 from __future__ import annotations
 
 import struct
-from typing import BinaryIO, List
+from typing import BinaryIO, List, Sequence
 
 import numpy as np
 
@@ -148,3 +148,74 @@ def read_vector(stream: BinaryIO, binary: bool) -> np.ndarray:
         if tok == "]":
             return np.asarray(vals, dtype=np.float32)
         vals.append(float(tok))
+
+
+# -- writers (the writing half of the same module, as far as the
+# transition model, the HMM topology and the decision tree need it) ------
+
+def init_output_stream(stream: BinaryIO, binary: bool) -> None:
+    if binary:
+        stream.write(BINARY_MARKER)
+
+
+def write_token(stream: BinaryIO, binary: bool, token: str) -> None:
+    if " " in token or not token:
+        raise ValueError(f"invalid token to write: {token!r}")
+    stream.write(token.encode("utf-8") + b" ")
+
+
+def write_int32(stream: BinaryIO, binary: bool, value: int) -> None:
+    if binary:
+        stream.write(b"\x04" + struct.pack("<i", int(value)))
+    else:
+        stream.write(f"{int(value)} ".encode())
+
+
+def write_uint32(stream: BinaryIO, binary: bool, value: int) -> None:
+    """Unsigned int32: the reference marks unsignedness with the size
+    byte -4 (0xfc; io-funcs-inl.h WriteBasicType)."""
+    if binary:
+        stream.write(b"\xfc" + struct.pack("<I", int(value)))
+    else:
+        stream.write(f"{int(value)} ".encode())
+
+
+def _format_float(v: float) -> str:
+    """The shortest text that reads back as the same float32."""
+    return np.format_float_positional(np.float32(v), unique=True, trim="-")
+
+
+def write_float(stream: BinaryIO, binary: bool, value: float) -> None:
+    if binary:
+        stream.write(b"\x04" + struct.pack("<f", float(value)))
+    else:
+        stream.write(_format_float(float(value)).encode() + b" ")
+
+
+def write_int_vector(stream: BinaryIO, binary: bool,
+                     values: Sequence[int]) -> None:
+    """WriteIntegerVector of int32 (io-funcs-inl.h)."""
+    values = [int(v) for v in values]
+    if binary:
+        stream.write(b"\x04" + struct.pack("<i", len(values)))
+        stream.write(np.asarray(values, dtype="<i4").tobytes())
+    else:
+        stream.write(b"[ " + " ".join(str(v) for v in values).encode()
+                     + (b" ]\n" if values else b"]\n"))
+
+
+def write_vector(stream: BinaryIO, binary: bool, vec: np.ndarray) -> None:
+    """A Kaldi Vector: "DV" for float64, else "FV" (float32)."""
+    vec = np.asarray(vec).reshape(-1)
+    if binary:
+        if vec.dtype == np.float64:
+            token, dt = "DV", "<f8"
+        else:
+            token, dt = "FV", "<f4"
+            vec = vec.astype(np.float32, copy=False)
+        write_token(stream, binary, token)
+        write_int32(stream, binary, vec.shape[0])
+        stream.write(np.ascontiguousarray(vec, dtype=dt).tobytes())
+    else:
+        stream.write(b" [ " + " ".join(_format_float(v) for v in vec).encode()
+                     + b" ]\n")

@@ -1,13 +1,13 @@
 """Transition model (port of the construction from a topology and a
-tree, the reading half, the queries and `mle_update` of
+tree, the reader and writer, the queries and `mle_update` of
 `kaldi_tpu/hmm/transition_model.py`; parity: hmm/transition-model.h:124).
 
 Maps between transition-ids, transition-states, tuples
 (phone, hmm_state, forward_pdf, self_loop_pdf) and pdf-ids, and holds
 the transition log-probs: built from an HmmTopology and a tree
 (`TransitionModel(topo, ctx_dep)`, the topology's probabilities), or
-read from a `final.mdl`-style file (<TransitionModel> topo
-<Triples>/<Tuples> ... <LogProbs> ...).
+read from and written to a `final.mdl`-style file (<TransitionModel>
+topo <Triples>/<Tuples> ... <LogProbs> ...).
 """
 
 from __future__ import annotations
@@ -174,6 +174,37 @@ class TransitionModel:
         return (objf_impr / max(count, 1.0), count)
 
     # -- I/O ----------------------------------------------------------------
+    def write(self, stream: BinaryIO, binary: bool = True) -> None:
+        is_hmm = self.topo.is_hmm()
+
+        def newline():
+            if not binary:
+                stream.write(b"\n")
+
+        iof.write_token(stream, binary, "<TransitionModel>")
+        newline()
+        self.topo.write(stream, binary)
+        iof.write_token(stream, binary, "<Triples>" if is_hmm else "<Tuples>")
+        iof.write_int32(stream, binary, len(self.tuples))
+        newline()
+        for phone, hmm_state, fwd, slf in self.tuples:
+            iof.write_int32(stream, binary, phone)
+            iof.write_int32(stream, binary, hmm_state)
+            iof.write_int32(stream, binary, fwd)
+            if not is_hmm:
+                iof.write_int32(stream, binary, slf)
+            newline()
+        iof.write_token(stream, binary,
+                        "</Triples>" if is_hmm else "</Tuples>")
+        newline()
+        iof.write_token(stream, binary, "<LogProbs>")
+        newline()
+        iof.write_vector(stream, binary, self.log_probs)
+        iof.write_token(stream, binary, "</LogProbs>")
+        newline()
+        iof.write_token(stream, binary, "</TransitionModel>")
+        newline()
+
     @classmethod
     def read(cls, stream: BinaryIO, binary: bool = True
              ) -> "TransitionModel":

@@ -1,8 +1,8 @@
-"""The deterministic synthetic bench corpus, the legacy training ladder
-and the loaders of the committed bench-corpus model files (numpy copies
-of the corpus generator, `mfcc_options`, `build_lang`, `train_system`
-(ctx=False, no i-vectors), `build_decode_graph`, `build_decode_graph_ng`,
-`chain_tm_tree_for`, `wer_of`, `save_params` and the loaders of
+"""The deterministic synthetic bench corpus, the training ladder and the
+writers and loaders of the bench-corpus model files (numpy copies of the
+corpus generator, `mfcc_options`, `build_lang`, `train_system`,
+`build_decode_graph`, `build_decode_graph_ng`, `chain_tm_tree_for`,
+`wer_of`, `save_params`, `save_ivector_extractor` and the loaders of
 `kaldi_tpu/recipes/bench_corpus.py`).
 
 The corpus is seed-deterministic: a V-word lexicon over a formant-pair
@@ -44,7 +44,9 @@ from kaldi_tpu_torch.hmm.topology import HmmTopology
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.lm.bigram import BigramBackoffLm
 from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
-from kaldi_tpu_torch.recipes.chain import ChainTrainOptions, train_chain_topo
+from kaldi_tpu_torch.ivector.batched import train_bench_extractor
+from kaldi_tpu_torch.recipes.chain import (ChainTrainOptions,
+                                           train_chain_ctx, train_chain_topo)
 from kaldi_tpu_torch.recipes.mono import (TrainMonoOptions, _align_all,
                                           train_mono)
 from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
@@ -362,25 +364,21 @@ def train_system(spec: BenchCorpusSpec, cfg=None,
                  ivector_dim: int = 0, window_den=None,
                  device: DeviceLike = None,
                  stats: Optional[dict] = None) -> dict:
-    """The legacy ladder: corpus -> MFCC -> mono GMM -> alignment ->
-    chain TDNN-F over the monophone chain topology, with the card doing
-    the MFCC, the GMM scoring and the chain training.  Returns a dict with
-    everything the decode side needs (and the trained variables, in
+    """The full ladder: corpus -> MFCC -> mono GMM -> alignment -> chain
+    TDNN-F, with the card doing the MFCC, the GMM scoring and the chain
+    training.  With ctx=True the chain system uses a triphone tree over
+    word-internal windows (`recipes.chain.train_chain_ctx`: max_leaves,
+    min_gain, window_den; cfg may be a factory num_pdfs -> cfg), else the
+    monophone chain topology.  With ivector_dim > 0 a diag-UBM i-vector
+    extractor is trained on the training features (on the host, float64)
+    and the chain AM takes each utterance's offset-removed i-vector as
+    its second input (cfg must set the same ivector_dim).  Returns a dict
+    with everything the decode side needs (and the trained variables, in
     flax's layout).  stats, when given, receives each stage's seconds
-    (corpus_s, mfcc_s, mono_s, graphs_s, align_s, chain_s), the aligner
-    of the last alignment, the mono GMM's average loglike of each
-    iteration, and what `train_chain_topo` records.
-
-    The triphone system (ctx=True: max_leaves, min_gain, window_den) and
-    i-vector inputs (ivector_dim > 0) are not ported and raise."""
-    if ctx or window_den is not None:
-        raise NotImplementedError(
-            "ctx=True (the triphone chain system and its window-LM "
-            "denominator) is not ported; pass ctx=False")
-    if ivector_dim > 0:
-        raise NotImplementedError(
-            f"ivector_dim={ivector_dim}: i-vector extractor training is "
-            "not ported; pass ivector_dim=0")
+    (corpus_s, mfcc_s, mono_s, graphs_s, align_s, ivector_s, chain_s,
+    and with ctx tree_s, den_s, egs_s), the aligner of the last
+    alignment, the mono GMM's average loglike of each iteration, and what
+    the chain trainer records."""
     if stats is None:
         stats = {}
     t0 = time.perf_counter()
@@ -414,21 +412,41 @@ def train_system(spec: BenchCorpusSpec, cfg=None,
     ali = _align_all(gmm, graphs, feats, 10.0, 0.1, 1.0)
     stats["align_s"] = time.perf_counter() - t0
     stats["aligner"] = gmm.aligner
+    ivec_ex, ivectors = None, None
+    if ivector_dim > 0:
+        _log.info("bench_corpus: training i-vector extractor")
+        t0 = time.perf_counter()
+        ivec_ex = train_bench_extractor(feats, ivector_dim=ivector_dim)
+        ivectors = {u: ivec_ex.extract_offset_removed(
+            np.asarray(f, np.float64)).astype(np.float32)
+            for u, f in feats.items()}
+        stats["ivector_s"] = time.perf_counter() - t0
     _log.info("bench_corpus: chain training")
     if chain_opts is None:
         chain_opts = ChainTrainOptions(num_epochs=8, learning_rate=1e-3,
                                        minibatch_size=32, chunk_width=150,
                                        left_tolerance=5, right_tolerance=5)
-    t0 = time.perf_counter()
-    model, variables, den, chain_tm, chain_tree = train_chain_topo(
-        gmm, feats, ali, cfg, chain_opts, device=device, stats=stats)
-    stats["chain_s"] = time.perf_counter() - t0
+    if ctx:
+        word_prons = {
+            u: [[lang.phones[p] for p in lexicon[w][0]]
+                for w in train_txt[u]] for u in feats}
+        model, variables, den, chain_tm, chain_tree = train_chain_ctx(
+            gmm, feats, ali, word_prons, cfg, chain_opts,
+            max_leaves=max_leaves, min_gain=min_gain, ivectors=ivectors,
+            window_den=window_den, device=device, stats=stats)
+    else:
+        t0 = time.perf_counter()
+        model, variables, den, chain_tm, chain_tree = train_chain_topo(
+            gmm, feats, ali, cfg, chain_opts, ivectors=ivectors,
+            device=device, stats=stats)
+        stats["chain_s"] = time.perf_counter() - t0
     return dict(spec=spec, lexicon=lexicon, lang=lang,
                 train_txt=train_txt, test_txt=test_txt,
                 test_wav=test_wav, lm_text=lm_text, gmm=gmm,
                 model=model, variables=variables, den=den,
                 chain_tm=chain_tm, chain_tree=chain_tree,
-                ivector_extractor=None, feats=feats, alignments=ali)
+                ivector_extractor=ivec_ex, feats=feats, alignments=ali,
+                ivectors=ivectors)
 
 
 def _lexicon_arrays(lexicon, lang: Lang):
@@ -538,6 +556,19 @@ def load_params(path: str) -> dict:
                 a = a.astype(np.float32)
             node[parts[-1]] = a
     return out
+
+
+def save_ivector_extractor(path: str, ex) -> None:
+    """An IvectorExtractor (diagonal UBM) to the npz `load_ivector_extractor`
+    reads: M and sigma_inv as float32, the prior offset, and the UBM's
+    weights, means and inverse variances as float64."""
+    np.savez_compressed(
+        path, M=ex.M.astype(np.float32),
+        sigma_inv=ex.sigma_inv.astype(np.float32),
+        prior=np.float64(ex.prior_offset),
+        weights=ex.ubm.weights.astype(np.float64),
+        means=ex.ubm.get_means().astype(np.float64),
+        inv_vars=ex.ubm.inv_vars.astype(np.float64))
 
 
 def load_ivector_extractor(path: str) -> Dict[str, np.ndarray]:

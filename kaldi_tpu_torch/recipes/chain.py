@@ -1,6 +1,8 @@
-"""Chain (LF-MMI) training over the monophone chain topology (port of
-`ChainTrainOptions`, `make_chain_system`, `mono_ali_to_chain_ali`,
-`train_chain_topo` and `_fit_chain` of `kaldi_tpu/recipes/chain.py`).
+"""Chain (LF-MMI) training over the monophone chain topology and over a
+context-dependent (triphone) tree (port of `ChainTrainOptions`,
+`make_chain_system`, `mono_ali_to_chain_ali`, `train_chain_topo`,
+`segment_alignment_words`, `build_ctx_chain_system`, `train_chain_ctx`
+and `_fit_chain` of `kaldi_tpu/recipes/chain.py`).
 
 Parity: steps/chain/train.py (den graph from the alignments' phone LM,
 time-tolerant numerators from the alignments, SGD on the chain
@@ -13,16 +15,17 @@ warm-up and a linear fall (`lr_schedule`), the chunk order numpy's
 every TDNN-F `linear` factor, in the reference's layout, every
 `orthonormal_interval` steps.  Every op of a step adds in a fixed order
 (the chain objective's gathers included, `chain.objective.InArcs`), so
-on the card too one seed gives one model.
+on the card too one seed gives one model.  With per-utterance i-vectors
+each chunk carries its utterance's i-vector as the model's second input.
 
 Not carried over yet: the frame-rate `train_chain`, `nnet_log_likes` and
-the context-dependent system (`train_chain_ctx`, `build_ctx_chain_system`
-and the window-LM denominator).
+the flat-start `train_chain_e2e`.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -30,10 +33,13 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.chain.graphs import DenominatorGraph, batch_pack
-from kaldi_tpu_torch.chain.objective import ChainTrainingOptions, chain_loss
+from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions, InArcs,
+                                             chain_loss, den_arcs)
 from kaldi_tpu_torch.chain.supervision import (
-    alignment_to_numerator_graph, alignment_to_tolerance_numerator,
-    make_denominator_graph)
+    alignment_to_numerator_graph, alignment_to_phone_segments,
+    alignment_to_tolerance_numerator, denominator_graph_from_phone_lm,
+    estimate_phone_lm, estimate_window_lm, make_denominator_graph,
+    make_tolerance_supervision)
 from kaldi_tpu_torch.device import DeviceLike, full_f32, resolve_device
 from kaldi_tpu_torch.hmm.topology import HmmTopology
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
@@ -42,7 +48,11 @@ from kaldi_tpu_torch.nnet3.models import (ChainTdnnf, ChainTdnnfConfig,
                                           chain_tdnnf_from_flax,
                                           chain_tdnnf_init,
                                           chain_tdnnf_to_flax)
+from kaldi_tpu_torch.tree.build_tree import (BuildTreeOptions, build_tree,
+                                             cluster_phones)
+from kaldi_tpu_torch.tree.clusterable import GaussClusterable
 from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
+from kaldi_tpu_torch.tree.event_map import PDF_CLASS_KEY
 
 _log = logging.getLogger(__name__)
 
@@ -217,13 +227,15 @@ def mono_ali_to_chain_ali(ali: Sequence[int], mono_tm, chain_tm,
 def chain_egs(sys_mono, feats: Dict[str, np.ndarray],
               mono_alignments: Dict[str, List[int]],
               chain_tm: TransitionModel, chain_tree,
-              opts: ChainTrainOptions, sub: int = 3):
+              opts: ChainTrainOptions, sub: int = 3,
+              ivectors: Optional[Dict[str, np.ndarray]] = None):
     """The denominator graph and the training examples of
     `train_chain_topo` -> (den_graph, chunks, num_graphs): the den graph
     from the phone LM of the chain alignments, and the utterances cut
     into chunks of chunk_width input frames (a multiple of sub), each
-    (feats, chain alignment at the output rate, None) with its numerator
-    (time-tolerant where opts asks for a tolerance)."""
+    (feats, chain alignment at the output rate, the utterance's i-vector
+    or None) with its numerator (time-tolerant where opts asks for a
+    tolerance)."""
     # chain alignments at the output rate
     chain_ali = {u: mono_ali_to_chain_ali(a, sys_mono.tm, chain_tm, sub)
                  for u, a in mono_alignments.items()}
@@ -254,7 +266,9 @@ def chain_egs(sys_mono, feats: Dict[str, np.ndarray],
             else:
                 g = alignment_to_numerator_graph(ca[o_start:o_end],
                                                  chain_tm, subsample=1)
-            chunks.append((f[start:start + cw], ca[o_start:o_end], None))
+            iv = None if ivectors is None else np.asarray(
+                ivectors[u], np.float32)
+            chunks.append((f[start:start + cw], ca[o_start:o_end], iv))
             num_graphs.append(g)
     if not chunks:
         raise ValueError("no chain chunks")
@@ -273,11 +287,8 @@ def train_chain_topo(sys_mono, feats: Dict[str, np.ndarray],
     """Chain training with the chain topology and frame subsampling.
     Returns (model, variables, den_graph, chain_tm, chain_tree); the
     model trains on `device`, and `stats` (when given) receives what
-    `_fit_chain` records plus the chunk count."""
-    if ivectors is not None:
-        raise NotImplementedError(
-            "i-vector inputs of chain training are not ported; pass "
-            "ivectors=None")
+    `_fit_chain` records plus the chunk count.  ivectors: per-utterance
+    i-vectors, the model's second input (cfg.ivector_dim of them)."""
     if opts is None:
         opts = ChainTrainOptions()
     chain_tm, chain_tree = make_chain_system(sys_mono.lang, sys_mono.tm)
@@ -291,28 +302,33 @@ def train_chain_topo(sys_mono, feats: Dict[str, np.ndarray],
                                frame_subsampling_factor=3)
         sub = 3
     den_graph, chunks, num_graphs = chain_egs(
-        sys_mono, feats, mono_alignments, chain_tm, chain_tree, opts, sub)
+        sys_mono, feats, mono_alignments, chain_tm, chain_tree, opts, sub,
+        ivectors)
     cw = (opts.chunk_width // sub) * sub
     if stats is not None:
         stats["chunks"] = len(chunks)
     model, variables = _fit_chain(cfg, den_graph, chunks, num_graphs,
-                                  opts, cw, dim, device=device, stats=stats)
+                                  opts, cw, dim, device=device, stats=stats,
+                                  use_ivectors=ivectors is not None)
     return model, variables, den_graph, chain_tm, chain_tree
 
 
 def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
                opts: ChainTrainOptions, cw: int, dim: int,
                variables: Optional[dict] = None, device: DeviceLike = None,
-               stats: Optional[dict] = None):
+               stats: Optional[dict] = None, use_ivectors: bool = False):
     """The chain SGD loop (the train_one_iteration body of
     steps/chain/train.py, single-process) -> (model, variables).
+    use_ivectors: each chunk's third item, its utterance's i-vector, is
+    the model's second input.
 
     variables: the initial {"params", "batch_stats"} in flax's layout;
     by default `chain_tdnnf_init` from a generator seeded with
     opts.seed.  stats, when given, receives each step's objective
     ("step_objf"), each epoch's mean ("epoch_objf"), and on CUDA each
     step's milliseconds on the card by CUDA events, from the forward
-    pass to the end of the update ("step_ms")."""
+    pass to the end of the update ("step_ms"), and the card's peak
+    allocation since its last reset ("peak_memory_gb")."""
     dev = resolve_device(device)
     if variables is None:
         variables = chain_tdnnf_init(
@@ -344,15 +360,21 @@ def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
                 idx = order[i:i + opts.minibatch_size]
                 feats_b = torch.from_numpy(
                     np.stack([chunks[j][0] for j in idx])).to(dev)
-                num_arrays = batch_pack([num_graphs[j] for j in idx])
+                ivecs_b = (torch.from_numpy(
+                    np.stack([chunks[j][2] for j in idx])).to(dev)
+                    if use_ivectors else None)
+                # the numerators' layout, copied to the card before the
+                # forward pass is queued
+                num_arcs = InArcs(*batch_pack([num_graphs[j] for j in idx]),
+                                  cfg.num_pdfs, dev)
                 if dev.type == "cuda":
                     ev = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
                     ev[0].record()
                 with torch.profiler.record_function(STEP_RANGE):
-                    chain_out, xent_out = model(feats_b)
+                    chain_out, xent_out = model(feats_b, ivecs_b)
                     objf, _aux = chain_loss(opts.chain, den_graph,
-                                            num_arrays, chain_out, xent_out)
+                                            num_arcs, chain_out, xent_out)
                     grads = torch.autograd.grad(-objf, params,
                                                 allow_unused=True)
                     opt.step(grads)
@@ -370,6 +392,257 @@ def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
     if events:
         torch.cuda.synchronize(dev)
         stats["step_ms"] = [a.elapsed_time(b) for a, b in events]
+        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     model.eval()
     model.requires_grad_(False)
     return model, chain_tdnnf_to_flax(model)
+
+
+# ----------------------------------------------------------------------
+# Context-dependent (triphone) chain system.  The reference builds the
+# chain tree from GMM alignments (steps/nnet3/chain/build_tree.sh) and
+# composes the den phone-LM through the context expansion
+# (chain-den-graph.cc); here the context convention is word-internal
+# windows (0-padded at word boundaries), matching the n-gram decoder's
+# graph build (decoder/lexchain_ng.py), so train-side pdfs and
+# decode-side pdfs agree exactly.
+
+def segment_alignment_words(ali: Sequence[int], mono_tm,
+                            word_prons: Sequence[Sequence[int]],
+                            sil_phone: int, N: int = 3, P: int = 1):
+    """Mono frame alignment + per-word phone lists ->
+    [(window, phone, start, end)] full-rate segments with word-internal
+    context windows; silence segments get the 0-padded window.  Raises
+    ValueError where the alignment and the transcript disagree."""
+    segs = alignment_to_phone_segments(ali, mono_tm)
+    exp: List[Tuple[int, Tuple[int, ...]]] = []
+    for pron in word_prons:
+        padded = [0] * P + [int(x) for x in pron] + [0] * (N - P - 1)
+        for i in range(len(pron)):
+            exp.append((int(pron[i]), tuple(padded[i:i + N])))
+    sil_win = tuple([0] * P + [sil_phone] + [0] * (N - P - 1))
+    out = []
+    j = 0
+    for (ph, s, e) in segs:
+        if ph == sil_phone and (j >= len(exp) or exp[j][0] != sil_phone):
+            out.append((sil_win, ph, s, e))
+            continue
+        if j < len(exp) and exp[j][0] == ph:
+            out.append((exp[j][1], ph, s, e))
+            j += 1
+        else:
+            raise ValueError(
+                f"alignment/transcript phone mismatch at segment "
+                f"{len(out)}: got phone {ph}, expected "
+                f"{exp[j] if j < len(exp) else 'EOS'}")
+    if j != len(exp):
+        raise ValueError(f"alignment ended with {len(exp) - j} "
+                         "transcript phones unconsumed")
+    return out
+
+
+def ctx_segments(sys_mono, mono_alignments: Dict[str, List[int]],
+                 word_prons: Dict[str, List[List[int]]],
+                 sil_phone: Optional[int] = None, N: int = 3, P: int = 1):
+    """`segment_alignment_words` of every utterance -> ({utt: segments},
+    the number of utterances whose alignment and transcript disagree,
+    left out)."""
+    if sil_phone is None:
+        sil_phone = sys_mono.lang.phones["SIL"]
+    seg_windows = {}
+    skipped = 0
+    for u, ali in mono_alignments.items():
+        try:
+            seg_windows[u] = segment_alignment_words(
+                ali, sys_mono.tm, word_prons[u], sil_phone, N, P)
+        except ValueError:
+            skipped += 1
+    if skipped:
+        _log.warning("%d utterances failed word segmentation", skipped)
+    return seg_windows, skipped
+
+
+def build_ctx_chain_system(feats: Dict[str, np.ndarray],
+                           seg_windows: Dict[str, list],
+                           phones: Sequence[int],
+                           N: int = 3, P: int = 1,
+                           max_leaves: int = 2000,
+                           min_gain: float = 30.0):
+    """Triphone chain tree from windowed alignment stats (the first frame
+    of a segment pdf-class 0, the rest pdf-class 1) + the chain
+    TransitionModel over it -> (chain_tm, chain_tree)."""
+    stats: Dict[tuple, GaussClusterable] = {}
+    for u, segs in seg_windows.items():
+        f = feats[u]
+        for (win, ph, s, e) in segs:
+            e = min(e, f.shape[0])
+            if e <= s:
+                continue
+            for pc, sl in ((0, slice(s, s + 1)), (1, slice(s + 1, e))):
+                frames = f[sl]
+                if frames.shape[0] == 0:
+                    continue
+                ev = tuple(sorted(
+                    [(PDF_CLASS_KEY, pc)]
+                    + [(i, int(w)) for i, w in enumerate(win)]))
+                gc = stats.get(ev)
+                if gc is None:
+                    gc = GaussClusterable(f.shape[1])
+                    stats[ev] = gc
+                gc.accumulate(frames)
+    qsets = cluster_phones(stats, list(phones), P)
+    # out-of-word position 0 can appear in context keys
+    questions = {k: [[0]] + qsets for k in range(N)}
+    questions[PDF_CLASS_KEY] = [[0], [1]]
+    roots = [([p], True, True) for p in phones]
+    topo = HmmTopology.chain_topology(list(phones))
+    tree = build_tree(stats, questions, roots, N, P,
+                      opts=BuildTreeOptions(max_leaves=max_leaves,
+                                            min_gain=min_gain),
+                      topo=topo)
+    tm = TransitionModel(topo, tree)
+    _log.info("ctx chain system: N=%d P=%d leaves=%d tids=%d", N, P,
+              tree.num_pdfs, tm.num_transition_ids)
+    return tm, tree
+
+
+def ctx_den_graph(seg_windows: Dict[str, list], chain_tm, chain_tree,
+                  window_den: Optional[bool] = None):
+    """The denominator of `train_chain_ctx` -> (den_graph, the context
+    tokens, window_den): a token-level bigram through the tree below
+    1000 seen context tokens, above that (window_den None) or when
+    window_den is True the tied pair-state window LM
+    (`estimate_window_lm`)."""
+    tokens = sorted({win for segs in seg_windows.values()
+                     for (win, _, _, _) in segs})
+    if window_den is None:
+        window_den = len(tokens) > 1000
+    if window_den:
+        win_seqs = [[win for (win, _, _, _) in segs]
+                    for segs in seg_windows.values()]
+        lm, ilabel_info = estimate_window_lm(win_seqs)
+    else:
+        tok_id = {w: i + 1 for i, w in enumerate(tokens)}
+        ilabel_info = [()] + list(tokens)
+        tok_seqs = [[tok_id[win] for (win, _, _, _) in segs]
+                    for segs in seg_windows.values()]
+        lm = estimate_phone_lm(tok_seqs, list(tok_id.values()))
+    den = denominator_graph_from_phone_lm(lm, chain_tm, chain_tree,
+                                          ilabel_info=ilabel_info)
+    return den, tokens, window_den
+
+
+def ctx_chain_egs(feats: Dict[str, np.ndarray], seg_windows: Dict[str, list],
+                  chain_tm, chain_tree, opts: ChainTrainOptions, sub: int,
+                  ivectors: Optional[Dict[str, np.ndarray]] = None):
+    """The examples of `train_chain_ctx` -> (chunks, num_graphs): each
+    utterance cut into chunks of chunk_width input frames (a multiple of
+    sub), each (feats, None, the utterance's i-vector or None) with its
+    context-aware time-tolerant numerator."""
+    cw = (opts.chunk_width // sub) * sub
+    tol = (opts.left_tolerance, opts.right_tolerance)
+    pdf_cache: Dict[tuple, Tuple[int, int]] = {}
+
+    def pdfs_of(win):
+        if win not in pdf_cache:
+            pdf_cache[win] = (chain_tree.compute(list(win), 0),
+                              chain_tree.compute(list(win), 1))
+        return pdf_cache[win]
+
+    chunks, num_graphs = [], []
+    for u, f in feats.items():
+        if u not in seg_windows:
+            continue
+        segs = seg_windows[u]
+        T_in = min(f.shape[0], max(e for (_, _, _, e) in segs))
+        for start in range(0, T_in - cw + 1, cw):
+            end = start + cw
+            clip = [(ph, max(s, start) - start, min(e, end) - start,
+                     win) for (win, ph, s, e) in segs
+                    if s < end and e > start]
+            if not clip:
+                continue
+            seg3 = [(ph, s, e) for (ph, s, e, _) in clip]
+            pairs = [pdfs_of(win) for (_, _, _, win) in clip]
+            try:
+                g = make_tolerance_supervision(
+                    seg3, cw, chain_tm, sub, *tol, pdf_pairs=pairs)
+            except ValueError:
+                continue
+            iv = None if ivectors is None else np.asarray(
+                ivectors[u], np.float32)
+            chunks.append((f[start:end], None, iv))
+            num_graphs.append(g)
+    if not chunks:
+        raise ValueError("no chain chunks")
+    return chunks, num_graphs
+
+
+def train_chain_ctx(sys_mono, feats: Dict[str, np.ndarray],
+                    mono_alignments: Dict[str, List[int]],
+                    word_prons: Dict[str, List[List[int]]],
+                    cfg=None, opts: Optional[ChainTrainOptions] = None,
+                    N: int = 3, P: int = 1,
+                    max_leaves: int = 2000, min_gain: float = 30.0,
+                    sil_phone: Optional[int] = None,
+                    ivectors: Optional[Dict[str, np.ndarray]] = None,
+                    window_den: Optional[bool] = None,
+                    device: DeviceLike = None,
+                    stats: Optional[dict] = None):
+    """Chain training over a context-dependent (triphone) tree with
+    word-internal windows.  word_prons: per utterance the transcript's
+    per-word phone lists.  cfg: a ChainTdnnfConfig, or a factory
+    num_pdfs -> cfg (the tree's leaf count depends on the data).
+    window_den: None (auto) picks the denominator LM as `ctx_den_graph`
+    does.  Returns (model, variables, den_graph, chain_tm, chain_tree);
+    the model trains on `device`.  stats, when given, receives the
+    seconds of the tree (tree_s), the denominator and its layout on the
+    device (den_s), the examples (egs_s) and the training (chain_s), the
+    leaves, tids, tokens, the denominator's sizes ("den", from
+    `InArcs.slot_sizes`), the chunk count and what `_fit_chain`
+    records."""
+    if opts is None:
+        opts = ChainTrainOptions()
+    if stats is None:
+        stats = {}
+    t0 = time.perf_counter()
+    seg_windows, skipped = ctx_segments(sys_mono, mono_alignments,
+                                        word_prons, sil_phone, N, P)
+    phones = sorted(sys_mono.tm.get_phones())
+    chain_tm, chain_tree = build_ctx_chain_system(
+        feats, seg_windows, phones, N, P, max_leaves, min_gain)
+    stats["tree_s"] = time.perf_counter() - t0
+    stats.update(leaves=chain_tree.num_pdfs,
+                 tids=chain_tm.num_transition_ids, segment_skipped=skipped)
+    if callable(cfg):
+        cfg = cfg(chain_tm.num_pdfs)
+    dim = next(iter(feats.values())).shape[1]
+    if cfg is None:
+        cfg = ChainTdnnfConfig(feat_dim=dim, num_pdfs=chain_tm.num_pdfs,
+                               hidden_dim=128, bottleneck_dim=32,
+                               prefinal_dim=64, num_layers=5,
+                               subsample_layer=3,
+                               frame_subsampling_factor=3)
+    sub = cfg.frame_subsampling_factor
+    t0 = time.perf_counter()
+    den_graph, tokens, window_den = ctx_den_graph(
+        seg_windows, chain_tm, chain_tree, window_den)
+    stats["den"] = den_arcs(den_graph, cfg.num_pdfs,
+                            resolve_device(device)).slot_sizes()
+    stats["den_s"] = time.perf_counter() - t0
+    stats.update(tokens=len(tokens), window_den=window_den)
+    t0 = time.perf_counter()
+    chunks, num_graphs = ctx_chain_egs(feats, seg_windows, chain_tm,
+                                       chain_tree, opts, sub, ivectors)
+    stats["egs_s"] = time.perf_counter() - t0
+    stats["chunks"] = len(chunks)
+    cw = (opts.chunk_width // sub) * sub
+    _log.info("chain-ctx training: %d chunks of %d frames, tolerance %s, "
+              "%d context tokens", len(chunks), cw,
+              (opts.left_tolerance, opts.right_tolerance), len(tokens))
+    t0 = time.perf_counter()
+    model, variables = _fit_chain(cfg, den_graph, chunks, num_graphs,
+                                  opts, cw, dim, device=device, stats=stats,
+                                  use_ivectors=ivectors is not None)
+    stats["chain_s"] = time.perf_counter() - t0
+    return model, variables, den_graph, chain_tm, chain_tree

@@ -1,5 +1,6 @@
 """Context dependency: (phone window, pdf-class) -> pdf-id (port of
-`ContextDependency` and `monophone_context_dependency` of
+`ContextDependency` (with its reader and writer) and
+`monophone_context_dependency` of
 `kaldi_tpu/tree/context_dep.py`; parity: tree/context-dep.h:59,
 MonophoneContextDependency of context-dep.cc)."""
 
@@ -45,6 +46,16 @@ class ContextDependency:
         can map to over any context (GetPdfInfo, context-dep.cc)."""
         event = {PDF_CLASS_KEY: [pdf_class], self.P: [phone]}
         return sorted(self.to_pdf.multi_map(event))
+
+    def write(self, stream: BinaryIO, binary: bool = True) -> None:
+        iof.write_token(stream, binary, "ContextDependency")
+        iof.write_int32(stream, binary, self.N)
+        iof.write_int32(stream, binary, self.P)
+        iof.write_token(stream, binary, "ToPdf")
+        self.to_pdf.write(stream, binary)
+        iof.write_token(stream, binary, "EndContextDependency")
+        if not binary:
+            stream.write(b"\n")
 
     @classmethod
     def read(cls, stream: BinaryIO, binary: bool = True

@@ -1,4 +1,5 @@
-"""Whole-object reads of Kaldi files (port of `read_kaldi_object` of
+"""Whole-object reads and writes of Kaldi files (port of
+`read_kaldi_object` and `write_kaldi_object` of
 `kaldi_tpu/util/kaldi_io.py`, for plain file paths)."""
 
 from __future__ import annotations
@@ -12,3 +13,11 @@ def read_kaldi_object(read_fn, path: str):
     with open(path, "rb") as f:
         binary = io_funcs.init_input_stream(f)
         return read_fn(f, binary)
+
+
+def write_kaldi_object(write_fn, path: str, binary: bool = True) -> None:
+    """WriteKaldiObject (kaldi-io.h:226): the binary marker when binary,
+    then write_fn(stream, binary)."""
+    with open(path, "wb") as f:
+        io_funcs.init_output_stream(f, binary)
+        write_fn(f, binary)

@@ -7,7 +7,12 @@ d objf / d nnet_out (against `jax.value_and_grad`) within 1e-4 relative;
 and the properties of tests/test_chain.py hold for the port's forward
 pass: agreement with brute-force enumeration, gradient = occupancy,
 leaky-HMM only adds probability, gradient ascent improves the
-objective."""
+objective.  The bucketed in-arc layout keeps every arc once; at the
+--scale recipe's size (the 31,745-state window-LM denominator over the
+committed flagship_ng tree) and at the legacy recipe's (50 pdfs, 50
+frames) the objective and its gradient agree with JAX's within 1e-4."""
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +33,9 @@ from kaldi_tpu_torch.chain import supervision as tsup
 from kaldi_tpu_torch.hmm.topology import HmmTopology as TTopo
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel as TTm
 from kaldi_tpu_torch.recipes import chain as tchain
-from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
+from kaldi_tpu_torch.tree.context_dep import (ContextDependency,
+                                              monophone_context_dependency)
+from kaldi_tpu_torch.util.kaldi_io import read_kaldi_object
 
 PHONES = list(range(1, 8))     # 1 = silence
 
@@ -260,7 +267,7 @@ def test_gradient_ascent_improves_objective():
     assert float(objf2) > float(objf.detach())
 
 
-# ---- the padded in-arc layout
+# ---- the bucketed in-arc layout
 
 @pytest.mark.parametrize("seed", range(3))
 def test_in_arc_gathers_backward_match_gather(seed):
@@ -273,14 +280,32 @@ def test_in_arc_gathers_backward_match_gather(seed):
                          pg.final, 4, torch.device("cpu"))
     live = torch.isfinite(graphs.log_prob).to(torch.float64)
     w = torch.tensor(rng.normal(size=live.shape)) * live
-    for index, uses, n in ((graphs.src, graphs.src_uses, 5),
-                           (graphs.pdf, graphs.pdf_uses, 4)):
-        x = torch.tensor(rng.normal(size=(1, n)), requires_grad=True)
-        (tobj._Gather.apply(x, index, uses) * w).sum().backward()
-        y = x.detach().clone().requires_grad_(True)
+    for index, uses, n in ((graphs.src, graphs.from_src, graphs.num_states),
+                           (graphs.pdf, graphs.from_pdf, 4)):
+        y = torch.tensor(rng.normal(size=(1, n)), requires_grad=True)
         (y.gather(-1, index) * w).sum().backward()
-        np.testing.assert_allclose(x.grad.numpy(), y.grad.numpy(),
+        np.testing.assert_allclose(uses.sum(w).numpy(), y.grad.numpy(),
                                    rtol=1e-12, atol=1e-12)
+
+
+def layout_arcs(graphs, b: int) -> list:
+    """(src, dst, pdf, log_prob) of every finite slot of graph b, in the
+    graph's own state numbers."""
+    back = np.full(graphs.num_states, -1)
+    back[graphs.state_row[b]] = np.arange(graphs.state_row.shape[1])
+    src, pdf = graphs.src[b].numpy(), graphs.pdf[b].numpy()
+    lp = graphs.log_prob[b].numpy()
+    out, row, off = [], 0, 0
+    for n, k in graphs.buckets:
+        for i in range(n):
+            for j in range(k):
+                q = off + i * k + j
+                if np.isfinite(lp[q]):
+                    out.append((int(back[src[q]]), int(back[row + i]),
+                                int(pdf[q]), float(lp[q])))
+        row += n
+        off += n * k
+    return sorted(out)
 
 
 def test_in_arc_layout_of_a_padded_batch():
@@ -290,14 +315,8 @@ def test_in_arc_layout_of_a_padded_batch():
     pgs = [random_graph(s, S=3 + s, A=6 + 3 * s, P=4) for s in range(3)]
     packed = tgraphs.batch_pack(pgs)
     graphs = tobj.InArcs(*packed, 4, torch.device("cpu"))
-    S, K = graphs.num_states, graphs.slots
     for b, pg in enumerate(pgs):
-        lp = graphs.log_prob[b].view(S, K).numpy()
-        src = graphs.src[b].view(S, K).numpy()
-        pdf = graphs.pdf[b].view(S, K).numpy()
-        got = sorted((int(src[s, k]), s, int(pdf[s, k]), float(lp[s, k]))
-                     for s in range(S) for k in range(K)
-                     if np.isfinite(lp[s, k]))
+        got = layout_arcs(graphs, b)
         want = sorted((int(a), int(d), int(p), float(w)) for a, d, p, w in
                       zip(pg.src, pg.dst, pg.pdf, pg.log_prob))
         dead = {(pg.num_states, pg.num_states, 0, -1e30)} \
@@ -311,3 +330,115 @@ def test_in_arc_layout_of_a_padded_batch():
     for b, pg in enumerate(pgs):
         assert float(batch[b]) == pytest.approx(float(forward(pg, out[b])),
                                                 rel=1e-6, abs=1e-4)
+
+
+# ---- the denominators of the training recipes, at their sizes
+
+ART = os.path.join(os.path.dirname(__file__), "..", "egs", "bench_corpus")
+
+
+@pytest.fixture(scope="module")
+def scale_den():
+    """The --scale recipe's denominator over the committed flagship_ng
+    tree: the window LM over every word-internal window of its 31 phones
+    (seeded word sequences that use every phone), expanded through the
+    tree by the port."""
+    tm = read_kaldi_object(TTm.read, os.path.join(ART, "flagship_ng.tm"))
+    tree = read_kaldi_object(ContextDependency.read,
+                             os.path.join(ART, "flagship_ng.tree"))
+    phones = list(tm.get_phones())
+    rng = np.random.default_rng(0)
+    seqs = []
+    for _ in range(200):
+        seq = [(0, phones[0], 0)]
+        for _ in range(8):
+            pron = [int(p) for p in rng.choice(phones[1:],
+                                               int(rng.integers(1, 5)))]
+            pad = [0] + pron + [0]
+            seq += [tuple(pad[i:i + 3]) for i in range(len(pron))]
+            seq.append((0, phones[0], 0))
+        seqs.append(seq)
+    lm, info = tsup.estimate_window_lm(seqs)
+    return tsup.denominator_graph_from_phone_lm(lm, tm, tree,
+                                                ilabel_info=info), tm
+
+
+def chain_numerators(B, T, P, seed):
+    """B numerators of T frames, each a chain through random pdfs."""
+    rng = np.random.default_rng(seed)
+    nums = []
+    for _ in range(B):
+        init = np.full(T + 1, -1e30, np.float32)
+        init[0] = 0.0
+        final = np.full(T + 1, -1e30, np.float32)
+        final[-1] = 0.0
+        nums.append(jgraphs.PackedGraph(
+            np.arange(T, dtype=np.int32), np.arange(1, T + 1, dtype=np.int32),
+            rng.integers(0, P, T).astype(np.int32),
+            rng.uniform(-1, 0, T).astype(np.float32), init, final))
+    return jgraphs.batch_pack(nums)
+
+
+def assert_loss_matches(den_graph, nums, out, leaky=0.1, l2=5e-5):
+    jo = jobj.ChainTrainingOptions(l2_regularize=l2,
+                                   leaky_hmm_coefficient=leaky)
+    (j_objf, j_aux), j_grad = jax.value_and_grad(
+        lambda o: jobj.chain_loss(jo, den_graph, nums, o), has_aux=True)(
+            jnp.asarray(out))
+    x = torch.tensor(out, requires_grad=True)
+    t_objf, t_aux = tobj.chain_loss(tobj.ChainTrainingOptions(
+        l2_regularize=l2, leaky_hmm_coefficient=leaky), den_graph, nums, x)
+    t_objf.backward()
+    assert float(t_objf.detach()) == pytest.approx(float(j_objf), rel=1e-4)
+    for k in ("num", "den"):
+        assert float(t_aux[k].detach()) == pytest.approx(float(j_aux[k]),
+                                                         rel=1e-4, abs=1e-6)
+    j_grad = np.asarray(j_grad)
+    np.testing.assert_allclose(x.grad.numpy(), j_grad, rtol=1e-4,
+                               atol=1e-4 * np.abs(j_grad).max())
+
+
+def test_scale_denominator_layout(scale_den):
+    """31,745 states and 2,000,864 arcs: bucketed by in-degree (the
+    start state's 1 padded to 33) the in-arcs take 2,000,897 slots, where
+    one width for all would take 31.55M and power-of-two widths
+    2,983,937; the layout is built once."""
+    den, tm = scale_den
+    assert den.num_states == 31745 and den.graph.num_arcs == 2000864
+    arcs = tobj.den_arcs(den, tm.num_pdfs, torch.device("cpu"))
+    assert arcs.slot_sizes() == {"states": 31745, "arcs": 2000864,
+                                 "slots": 2000897,
+                                 "buckets": {33: 30753, 994: 992}}
+    assert tobj.den_arcs(den, tm.num_pdfs, torch.device("cpu")) is arcs
+    assert sum(n * k for n, k in arcs.from_src.buckets) < 1.1 * 2000864
+    assert sum(n * k for n, k in arcs.from_pdf.buckets) < 4 * 2000864
+    assert len(arcs.from_pdf.buckets) <= 4
+
+
+def test_scale_chain_loss_matches(scale_den):
+    """The bucketed objective and its gradient against JAX's chain_loss
+    on the full --scale denominator, B = 2, T = 6."""
+    den, tm = scale_den
+    P = tm.num_pdfs
+    out = np.random.default_rng(1).normal(size=(2, 6, P)).astype(
+        np.float32) * 2
+    assert_loss_matches(jgraphs.DenominatorGraph(jgraphs.PackedGraph(
+        *(getattr(den.graph, k) for k in ("src", "dst", "pdf", "log_prob",
+                                          "initial", "final")))),
+        chain_numerators(2, 6, P, 2), out)
+
+
+def test_legacy_size_chain_loss_matches():
+    """The legacy recipe's size: 25 phones (50 pdfs), a minibatch of 4
+    chunks of 50 output frames."""
+    phones = list(range(1, 26))
+    topo = JTopo.chain_topology(phones)
+    tree = jmono(phones, {p: 2 for p in phones})
+    ctm = JTm(topo, tree)
+    rng = np.random.default_rng(3)
+    seqs = [list(rng.integers(1, 26, size=int(rng.integers(8, 40))))
+            for _ in range(100)]
+    den = jsup.make_denominator_graph(seqs, ctm, tree)
+    assert ctm.num_pdfs == 50
+    out = rng.normal(size=(4, 50, 50)).astype(np.float32) * 2
+    assert_loss_matches(den, chain_numerators(4, 50, 50, 4), out)

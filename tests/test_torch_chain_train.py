@@ -6,8 +6,8 @@ and its schedule against optax's over 30 steps (within 1e-6); three
 `_fit_chain` steps from the JAX package's initial variables with the
 semi-orthogonal constraint running (each step's objective within 1e-4
 relative, the parameters within 1e-4); `train_system` end to end on a
-tiny bench corpus; and the saved weights read back by the JAX package's
-`load_params`."""
+tiny bench corpus, and with ctx=True and with i-vector inputs; and the
+saved weights read back by the JAX package's `load_params`."""
 
 import copy
 import os
@@ -279,9 +279,30 @@ def test_train_system_and_decode_end_to_end(tmp_path):
             np.testing.assert_array_equal(a, want, err_msg=p)
 
 
-def test_train_system_refuses_what_is_not_ported():
+def test_train_system_trains_ctx_and_ivectors():
+    """The calls the port refused before the --scale recipe came: the
+    triphone system (ctx=True, the default small TDNN-F) and i-vector
+    inputs over the monophone chain topology each train one epoch."""
     spec = tbc.BenchCorpusSpec(**TINY)
-    with pytest.raises(NotImplementedError, match="ctx"):
-        tbc.train_system(spec, ctx=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ivector"):
-        tbc.train_system(spec, ivector_dim=32, device="cpu")
+    opts = tchain.ChainTrainOptions(num_epochs=1, minibatch_size=16,
+                                    chunk_width=150, left_tolerance=5,
+                                    right_tolerance=5)
+    stats = {}
+    sysd = tbc.train_system(spec, chain_opts=opts, ctx=True, max_leaves=30,
+                            min_gain=5.0, device="cpu", stats=stats)
+    assert sysd["chain_tm"].num_pdfs == stats["leaves"] == 30
+    assert sysd["ivector_extractor"] is None and sysd["ivectors"] is None
+    assert np.isfinite(stats["step_objf"]).all() and stats["step_objf"]
+    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=32,
+                           num_pdfs=2 * (spec.num_phones + 1), hidden_dim=32,
+                           bottleneck_dim=8, prefinal_dim=16, num_layers=3,
+                           subsample_layer=2, frame_subsampling_factor=3)
+    stats = {}
+    sysd = tbc.train_system(spec, cfg=cfg, chain_opts=opts, ivector_dim=32,
+                            device="cpu", stats=stats)
+    assert sysd["ivector_extractor"].R == 32
+    assert {u: v.shape for u, v in sysd["ivectors"].items()} == {
+        u: (32,) for u in sysd["feats"]}
+    assert np.isfinite(stats["step_objf"]).all() and stats["step_objf"]
+    assert sysd["variables"]["params"]["input_affine"]["kernel"].shape[0] \
+        == 40 + 32

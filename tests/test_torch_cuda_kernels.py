@@ -397,3 +397,50 @@ def test_batched_viterbi_kernel_equals_plain(cuda, per_lane, with_deg):
     assert got == plain.run(ll, lengths)
     assert all(h is not None for h in got)
     assert [len(h[0]) for h in got] == lengths
+
+
+def test_bucketed_denominator_gradient_on_the_card(cuda):
+    """The chain objective over the bucketed in-arc layout (PyTorch ops,
+    no atomics) on the card: the gradient of a minibatch is bit-equal on
+    two runs, and objective and gradient match the CPU's float64 within
+    1e-5 relative (the gradient against its largest value)."""
+    from kaldi_tpu_torch.chain import graphs as cg
+    from kaldi_tpu_torch.chain import objective as obj
+    from kaldi_tpu_torch.chain.supervision import make_denominator_graph
+    from kaldi_tpu_torch.hmm.topology import HmmTopology
+    from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+    from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
+    phones = list(range(1, 26))
+    tree = monophone_context_dependency(phones, {p: 2 for p in phones})
+    tm = TransitionModel(HmmTopology.chain_topology(phones), tree)
+    rng = np.random.default_rng(0)
+    den = make_denominator_graph(
+        [list(rng.integers(1, 26, int(rng.integers(8, 40))))
+         for _ in range(100)], tm, tree)
+    B, T, P = 8, 50, tm.num_pdfs
+    nums = []
+    for _ in range(B):
+        init = np.full(T + 1, -1e30, np.float32)
+        init[0] = 0.0
+        final = np.full(T + 1, -1e30, np.float32)
+        final[-1] = 0.0
+        nums.append(cg.PackedGraph(
+            np.arange(T, dtype=np.int32), np.arange(1, T + 1, dtype=np.int32),
+            rng.integers(0, P, T).astype(np.int32),
+            np.zeros(T, np.float32), init, final))
+    packed = cg.batch_pack(nums)
+    out = rng.normal(size=(B, T, P)).astype(np.float32) * 2
+    opts = obj.ChainTrainingOptions(l2_regularize=5e-5,
+                                    leaky_hmm_coefficient=0.1)
+    runs = []
+    for dev, dt in ((cuda, torch.float32), (cuda, torch.float32),
+                    ("cpu", torch.float64)):
+        x = torch.tensor(out, dtype=dt, device=dev, requires_grad=True)
+        objf, _ = obj.chain_loss(opts, den, packed, x)
+        objf.backward()
+        runs.append((float(objf.detach()), x.grad.cpu().double().numpy()))
+    assert runs[0][0] == runs[1][0]
+    assert np.array_equal(runs[0][1], runs[1][1])
+    assert abs(runs[0][0] - runs[2][0]) <= 1e-5 * abs(runs[2][0])
+    ref = runs[2][1]
+    assert np.abs(runs[0][1] - ref).max() <= 1e-5 * np.abs(ref).max()
