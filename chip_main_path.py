@@ -48,8 +48,12 @@ recipes/train_scale.py, 16 epochs, the test set decoded through the main
 path to a WER) and train_scale_check (the card's gradient against the
 CPU's on real chunks through the bucketed window-LM denominator).
 
+With --nnet3 it runs chip_smoke.py's nnet3 phases alone (nnet3_phases,
+after the main path's graph and without its decode): nnet3_ref_golden,
+nnet3_import_flagship, nnet3_cli_batch and nnet3_recurrent.
+
 Run: python3 chip_main_path.py [--online | --legacy | --train |
-     --train-scale]  (needs CUDA)
+     --train-scale | --nnet3]  (needs CUDA)
 """
 
 from __future__ import annotations
@@ -158,6 +162,8 @@ def main() -> int:
     mode.add_argument("--train-scale", action="store_true",
                       help="run chip_smoke.py's --scale training phases "
                       "alone")
+    mode.add_argument("--nnet3", action="store_true",
+                      help="run chip_smoke.py's nnet3 phases alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -168,8 +174,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
-    if args.online or args.legacy or args.train or args.train_scale:
-        if args.online:
+    if args.online or args.legacy or args.train or args.train_scale \
+            or args.nnet3:
+        if args.nnet3:
+            cfg, variables, _model, ivec, fe = cs.flagship_am()
+            cs.emit("nnet3_summary", **cs.nnet3_phases(
+                cs.build_ng_path(), cfg, variables, ivec, fe))
+            done = "nnet3_done"
+        elif args.online:
             online()
             done = "online_done"
         elif args.legacy:

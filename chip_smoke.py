@@ -34,7 +34,11 @@ exact LexChainDecoder search over the bigram x monophone-chain graph
 --with-lattices runs it (J=4, lattice_beam=8, with the exact backward
 pass), and streaming (egs/bench_corpus/measure_online.py's configuration
 through BatchedDeviceOnlinePipelineLex); the host lattice functions run
-on the lattices of both lattice phases.
+on the lattices of both lattice phases.  Kaldi nnet3 models go through
+the port's reader, writer, compiled module (nnet3/torch_bridge.py) and
+nnet3-compute tools: the reference C++ golden, the flagship model
+imported from a .mdl and decoded through the main path's search, and a
+TDNN-LSTM through the module's frame loop.
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -90,6 +94,24 @@ Phases, one JSON line each (any failure exits nonzero):
      its WER), online_batcher_ng (OnlineDynamicBatcher on 32 lanes with
      the default endpoint rules: every utterance equal to decode_batch of
      the frames its lane consumed, endpoints, the history trimmed);
+     then Kaldi nnet3 models: nnet3_ref_golden (the reference C++
+     nnet3-compute output of tests/data/ref_golden, tdnn.raw and
+     tdnn_text.raw through compile_graph and tdnn.raw through the
+     nnet3-compute tool, within 1e-4), nnet3_import_flagship (the
+     flagship_ng TDNN-F written with flagship_ng.tm as a Kaldi .mdl, read
+     back and compiled; the 128 test utterances' features and i-vectors
+     scored in float32 as nnet3-compute-batch batches them: write, read
+     and compile seconds, the file's size, wall and device ms, xRT, peak
+     memory, launches a batch; interior frames of the subsampled output
+     within 1e-3 of the native model, 2 lanes within 1e-3 of the host
+     evaluator; the WER of the main path's search on it within half a
+     point and 8 words of 9.399%, 128/128 lanes), nnet3_cli_batch (8
+     utterances through `python -m kaldi_tpu_torch.cli
+     nnet3-compute-batch --ivectors=...` in a process of its own, its ark
+     torch.equal to the module under the same batching), nnet3_recurrent
+     (a TDNN-LSTM of three fast-lstmp layers at run_tdnn_lstm_1a's widths
+     through the frame loop, 32 lanes x 500 frames: wall, ms and launches
+     a frame, peak memory, 2 lanes within 1e-3 of the host evaluator);
      then the legacy path: lex_graph (corpus and graph build seconds, V,
      N, P, states, explicit bigrams, the corpus fingerprint against the
      JAX package's), slice_lex (one warm-up with no host sync in the frame
@@ -154,8 +176,8 @@ Phases, one JSON line each (any failure exits nonzero):
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
   8. the kernel table (kernel a's launches on the online path too, and
-     each kernel's launches on the legacy and the training phases, which
-     must be 0); the
+     each kernel's launches on the legacy, the training and the nnet3
+     phases, which must be 0); the
      last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
@@ -169,6 +191,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -176,6 +199,8 @@ import torch
 
 from kaldi_tpu_torch.chain.graphs import batch_pack
 from kaldi_tpu_torch.chain.objective import chain_loss, den_arcs
+from kaldi_tpu_torch.cli import get_tool
+from kaldi_tpu_torch.cli.nnet3_tools import pad_batch
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
 from kaldi_tpu_torch.decoder import batched_viterbi as tbv
@@ -197,9 +222,11 @@ from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.lat import functions as latf
+from kaldi_tpu_torch.nnet3 import mdl_io
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax,
                                           chain_tdnnf_to_flax)
+from kaldi_tpu_torch.nnet3.torch_bridge import compile_graph
 from kaldi_tpu_torch.online.batched_device_pipeline import (
     BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineLex,
     BatchedDeviceOnlinePipelineNg, OnlineDynamicBatcher)
@@ -218,6 +245,7 @@ from kaldi_tpu_torch.recipes.bench_corpus import (
     make_text, mfcc_options, wer_of)
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
 from kaldi_tpu_torch.util.kaldi_io import read_kaldi_object
+from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 ART = os.path.join(REPO, "egs", "bench_corpus")
@@ -321,6 +349,28 @@ SCALE_COMMITTED_PORT_WER = 100.0 * 147 / 1564
 SCALE_FINGERPRINT = "9fd542ef303e6a0d"
 # train_scale_check: the real chunks of its gradient check
 SCALE_CHECK_CHUNKS = 4
+# Kaldi nnet3 models (nnet3/mdl_io.py, nnet3/torch_bridge.py, cli/): the
+# reference C++ nnet3-compute output of tests/data/ref_golden (a 2-layer
+# TDNN on 13-dim features with 2 frames of context each side, which
+# nnet3-compute gave it by replicating the edge frames), within 1e-4
+GOLDEN = os.path.join(REPO, "tests", "data", "ref_golden")
+GOLDEN_PAD, GOLDEN_TOL = 2, 1e-4
+# the flagship imported from a .mdl, scored as nnet3-compute-batch batches
+# (32 lanes, zero-padded to a multiple of 8 frames) in float32 with TF32
+# off: interior frames within 1e-3 of the native model, 2 lanes within
+# 1e-3 of the host evaluator, and the WER of the subsampled output within
+# half a point and 8 words of the main path's (slice_ng: 147 of 1564
+# words; bf16 there, float32 here)
+NNET3_BATCH, NNET3_TOL = 32, 1e-3
+NNET3_WER, NNET3_WER_BAND, NNET3_WORDS_BAND = 100.0 * 147 / 1564, 0.5, 8
+NNET3_CLI_UTTS, NNET3_HOST_LANES = 8, 2
+# the recurrent graph: three fast-lstmp layers, each after a TDNN layer, at
+# the widths of Kaldi's egs/swbd/s5c/local/chain/tuning/run_tdnn_lstm_1a.sh
+# (TDNN 1024; cell 1024, recurrent and non-recurrent projections 256,
+# delay -3), 40-dim input, 32 lanes x 500 frames
+LSTM_SHAPE = dict(feat_dim=40, tdnn_dim=1024, cell_dim=1024, rec_proj=256,
+                  nonrec_proj=256, delay=-3, layers=3, num_pdfs=2000)
+LSTM_LANES, LSTM_FRAMES = 32, 500
 
 
 def emit(phase: str, **kw) -> None:
@@ -2882,6 +2932,388 @@ def train_scale_phases() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Kaldi nnet3 models: the reference golden, the flagship imported from a
+# .mdl, the CLI, a TDNN-LSTM through the frame loop
+
+
+def tdnn_lstm_graph(feat_dim: int, tdnn_dim: int, cell_dim: int,
+                    rec_proj: int, nonrec_proj: int, delay: int,
+                    layers: int, num_pdfs: int, seed: int = 0,
+                    later_taps=None) -> mdl_io.Nnet3Graph:
+    """A TDNN-LSTM in the skeleton that Kaldi's xconfig fast-lstmp-layer
+    generates (tests/test_mdl_recurrent.py make_lstmp_graph): `layers`
+    times a TDNN layer (affine, ReLU, batchnorm with statistics) and a
+    projected LSTM (W_all over Append(x, IfDefined(Offset(r_trunc,
+    delay))), the fused LstmNonlinearity over Append(W_all,
+    IfDefined(Offset(c_trunc, delay))), dim-ranges c_trunc and m, the
+    projection rp whose first rec_proj rows feed back as r_trunc), then
+    the output affine.  The first TDNN layer splices the input at -2..2;
+    the later ones, inside the recurrent group, splice the previous
+    projection at `later_taps`, by default `delay` and 0 (causal: the
+    group runs frame by frame, so it cannot look ahead; run_tdnn_lstm_1a's
+    -3, 0, 3 raises).  Weights are seeded normals over sqrt(fan-in)."""
+    rng = np.random.default_rng(seed)
+
+    def w(rows, cols):
+        return (rng.normal(size=(rows, cols)) / np.sqrt(cols)
+                ).astype(np.float32)
+
+    def vec(n, lo, hi):
+        return rng.uniform(lo, hi, size=n).astype(np.float32)
+
+    nodes = [mdl_io.Node("input", "input", dim=feat_dim)]
+    comps = {}
+
+    def add(name, comp, desc):
+        comps[name] = comp
+        nodes.append(mdl_io.Node("component", name, component=name,
+                                 desc=mdl_io.parse_descriptor(desc)))
+
+    def dim_range(name, src, offset, dim):
+        nodes.append(mdl_io.Node("dim-range", name, dim=dim,
+                                 dim_offset=offset,
+                                 desc=mdl_io.Desc("node", [src])))
+
+    ng = dict(LearningRate=0.001, RankIn=20, RankOut=80, UpdatePeriod=4,
+              NumSamplesHistory=2000.0, Alpha=4.0)
+    C, R = cell_dim, rec_proj
+    prev, prev_dim = "input", feat_dim
+    for i in range(1, layers + 1):
+        taps = ([-2, -1, 0, 1, 2] if i == 1 else
+                list(later_taps or (delay, 0)))
+        splice = ", ".join(prev if o == 0 else f"Offset({prev}, {o})"
+                           for o in taps)
+        add(f"tdnn{i}.affine", mdl_io.NaturalGradientAffineComponent(
+            LinearParams=w(tdnn_dim, len(taps) * prev_dim),
+            BiasParams=vec(tdnn_dim, -0.1, 0.1), **ng), f"Append({splice})")
+        add(f"tdnn{i}.relu", mdl_io.RectifiedLinearComponent(
+            Dim=tdnn_dim, Count=0.0), f"tdnn{i}.affine")
+        add(f"tdnn{i}.batchnorm", mdl_io.BatchNormComponent(
+            Dim=tdnn_dim, BlockDim=tdnn_dim, Epsilon=1e-3, TargetRms=1.0,
+            TestMode=True, Count=1000.0, StatsMean=vec(tdnn_dim, 0.2, 0.6),
+            StatsVar=vec(tdnn_dim, 0.2, 0.6)), f"tdnn{i}.relu")
+        lstm = f"lstm{i}"
+        add(f"{lstm}.W_all", mdl_io.NaturalGradientAffineComponent(
+            LinearParams=w(4 * C, tdnn_dim + R),
+            BiasParams=vec(4 * C, -0.1, 0.1), **ng),
+            f"Append(tdnn{i}.batchnorm, "
+            f"IfDefined(Offset({lstm}.r_trunc, {delay})))")
+        add(f"{lstm}.lstm_nonlin", mdl_io.LstmNonlinearityComponent(
+            LearningRate=0.001, Params=vec(3 * C, -0.3, 0.3).reshape(3, C),
+            ValueAvg=np.zeros((5, C), np.float32),
+            DerivAvg=np.zeros((5, C), np.float32),
+            SelfRepairConfig=np.asarray([0.05, 0.05, 0.2, 0.05, 0.2]
+                                        + [1e-5] * 5, np.float32),
+            SelfRepairProb=np.zeros(5, np.float32), Count=0.0),
+            f"Append({lstm}.W_all, "
+            f"IfDefined(Offset({lstm}.c_trunc, {delay})))")
+        dim_range(f"{lstm}.c_trunc", f"{lstm}.lstm_nonlin", 0, C)
+        dim_range(f"{lstm}.m", f"{lstm}.lstm_nonlin", C, C)
+        add(f"{lstm}.rp", mdl_io.LinearComponent(
+            Params=w(R + nonrec_proj, C), OrthonormalConstraint=0.0,
+            UseNaturalGradient=True), f"{lstm}.m")
+        dim_range(f"{lstm}.r_trunc", f"{lstm}.rp", 0, R)
+        prev, prev_dim = f"{lstm}.rp", R + nonrec_proj
+    add("output.affine", mdl_io.NaturalGradientAffineComponent(
+        LinearParams=w(num_pdfs, prev_dim),
+        BiasParams=np.zeros(num_pdfs, np.float32), **ng), prev)
+    nodes.append(mdl_io.Node("output", "output",
+                             desc=mdl_io.parse_descriptor("output.affine"),
+                             objective="linear"))
+    return mdl_io.Nnet3Graph(nodes, comps)
+
+
+def tdnnf_context(cfg: ChainTdnnfConfig) -> int:
+    """Frames of context each side of the exported TDNN-F at the input
+    rate (each layer of stride s reads s frames each side; strides after
+    the subsampling layer count at the subsampled rate)."""
+    return sum(s * (cfg.frame_subsampling_factor
+                    if i > cfg.subsample_layer else 1)
+               for i, s in enumerate(cfg.time_strides(), start=1))
+
+
+def read_ark(path: str) -> dict:
+    return dict(SequentialTableReader("matrix", f"ark:{path}"))
+
+
+def write_ark(path: str, entries, holder: str = "matrix") -> None:
+    with TableWriter(holder, f"ark:{path}") as w:
+        for key, value in entries:
+            w.write(key, value)
+
+
+def run_nnet3_ref_golden(tmp: str) -> dict:
+    """nnet3_ref_golden: the reference C++ nnet3-compute output
+    (tests/data/ref_golden/tdnn_out.ark) from the port on the card:
+    tdnn.raw and tdnn_text.raw through compile_graph, and tdnn.raw through
+    the nnet3-compute tool.  nnet3-compute gave the model its context by
+    replicating the first and last frame, so the inputs are padded so."""
+    feats, ref = read_ark(os.path.join(GOLDEN, "feats.ark")), \
+        read_ark(os.path.join(GOLDEN, "tdnn_out.ark"))
+    p = GOLDEN_PAD
+    padded = {k: np.concatenate([np.repeat(f[:1], p, 0), f,
+                                 np.repeat(f[-1:], p, 0)])
+              for k, f in feats.items()}
+    reset_kernel_counts()
+    err = {}
+    for name in ("tdnn.raw", "tdnn_text.raw"):
+        net = compile_graph(mdl_io.read_raw_nnet3(os.path.join(GOLDEN, name)),
+                            device="cuda")
+        err[name] = max(
+            float(np.abs(net(x[None])[0, p:p + feats[k].shape[0]].cpu()
+                         .numpy() - ref[k]).max())
+            for k, x in padded.items())
+    write_ark(os.path.join(tmp, "golden_feats.ark"), sorted(padded.items()))
+    rc = get_tool("nnet3-compute")(
+        ["nnet3-compute", os.path.join(GOLDEN, "tdnn.raw"),
+         f"ark:{os.path.join(tmp, 'golden_feats.ark')}",
+         f"ark:{os.path.join(tmp, 'golden_out.ark')}"])
+    out = read_ark(os.path.join(tmp, "golden_out.ark"))
+    err["nnet3-compute"] = max(
+        float(np.abs(out[k][p:p + f.shape[0]] - ref[k]).max())
+        for k, f in feats.items())
+    res = {"utterances": len(feats), "max_abs_err": err, "limit": GOLDEN_TOL,
+           "tool_rc": rc, "launches": kernel_launch_counts()}
+    emit("nnet3_ref_golden", **res)
+    if rc != 0 or not max(err.values()) <= GOLDEN_TOL:
+        raise SystemExit(f"the port is {err} from the reference golden")
+    return res
+
+
+def run_nnet3_import_flagship(ng: dict, cfg, variables, ivec, fe,
+                              tmp: str) -> dict:
+    """nnet3_import_flagship: the committed flagship_ng TDNN-F exported
+    with flagship_ng.tm to a .mdl, read back, compiled; the 128 test
+    utterances of the main path's features and i-vectors scored in float32
+    (TF32 off) as nnet3-compute-batch batches them; the subsampled output
+    against the native model's on the same batches (interior frames) and
+    decoded through the main path's search; 2 lanes against the host
+    evaluator."""
+    reset_kernel_counts()
+    native = chain_tdnnf_from_flax(cfg, variables, device="cuda")
+    ctx = tdnnf_context(cfg)
+    path = os.path.join(tmp, "flagship_ng.mdl")
+    t0 = time.perf_counter()
+    mdl_io.write_nnet3_am(path, ng["tm"],
+                          mdl_io.chain_tdnnf_to_nnet3(native, variables),
+                          left_context=ctx, right_context=ctx)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tm, graph, info = mdl_io.read_nnet3_am(path)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = compile_graph(graph, "output", device="cuda")
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    if tm.num_pdfs != cfg.num_pdfs or info["left_context"] != ctx:
+        raise SystemExit("the .mdl read back differs from what was written")
+
+    utts = sorted(ng["test_wav"])
+    waves = [mulaw_encode(np.clip(ng["test_wav"][u], -32767, 32767))
+             for u in utts]
+    with torch.inference_mode():
+        feats, nframes = fe.compute_batch_device(waves)
+        ivecs = ivec.extract_batch(feats, nframes).float()
+    feats_h, ivecs_h = feats.cpu().numpy(), ivecs.cpu().numpy()
+    batches = []
+    for s in range(0, len(utts), NNET3_BATCH):
+        lanes = range(s, min(s + NNET3_BATCH, len(utts)))
+        batch = pad_batch([feats_h[i, :nframes[i]] for i in lanes])
+        batches.append((lanes, torch.from_numpy(batch).cuda(),
+                        torch.from_numpy(ivecs_h[s:s + len(lanes)]).cuda()))
+    net(batches[0][1], batches[0][2])                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    outs = [net(b, iv) for _l, b, iv in batches]
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    audio_s = sum(len(w) for w in waves) / bench_scale_spec().fs
+    prof = profile_call(lambda: net(batches[0][1], batches[0][2]), top=8)
+
+    # the native model on the same batches; interior frames only: it
+    # clamps offsets at the subsampled rate, the exported graph at the
+    # input rate, so the frames within the context of a batch's edges
+    # differ by design
+    sub = cfg.frame_subsampling_factor
+    margin = -(-ctx // sub) + 1
+    worst = 0.0
+    T_out = max(-(-int(n) // sub) for n in nframes)
+    with torch.inference_mode(), full_f32():
+        loglikes = torch.zeros((len(utts), T_out, cfg.num_pdfs),
+                               device="cuda")
+        for (lanes, b, iv), out in zip(batches, outs):
+            got = out[:, ::sub]
+            want = native.chain(b, iv)
+            if got.shape != want.shape:
+                raise SystemExit(f"subsampled {tuple(got.shape)} against "
+                                 f"the native {tuple(want.shape)}")
+            inner = slice(margin, got.shape[1] - margin)
+            worst = max(worst, float((got[:, inner] - want[:, inner])
+                                     .abs().max()))
+            n = min(got.shape[1], T_out)
+            loglikes[lanes.start:lanes.stop, :n] = got[:, :n]
+    out_lens = -(-np.asarray(nframes, np.int64) // sub)
+    dec, graph_ng = ng["dec"], ng["graph"]
+    hyps = dec.decode_batch(loglikes, lengths=out_lens, **NG_SEARCH)
+    words = {u: ([] if h is None else [graph_ng.words[w] for w in h[0]])
+             for u, h in zip(utts, hyps)}
+    wer = wer_of(words, ng["test_txt"])
+    errors = word_errors(wer, ng["test_txt"])
+
+    # the host evaluator on 2 lanes of the first batch, padded alike
+    lanes0, b0, iv0 = batches[0]
+    host_err = 0.0
+    for i in range(NNET3_HOST_LANES):
+        want = graph.forward(b0[i].cpu().numpy(), ivector=iv0[i].cpu()
+                             .numpy())
+        host_err = max(host_err, float(np.abs(outs[0][i].cpu().numpy()
+                                              - want).max()))
+    res = {"mdl_bytes": os.path.getsize(path), "write_s": write_s,
+           "read_s": read_s, "compile_s": compile_s, "lanes": len(utts),
+           "batch": NNET3_BATCH, "batches": len(batches),
+           "frames": int(np.sum(nframes)), "audio_s": audio_s,
+           "wall_s": wall_s, "device_ms": device_ms,
+           "xrt": audio_s / wall_s, "peak_memory_gb": peak_gb,
+           "launches_a_batch": prof["kernel_launches"],
+           "profiled_batch_device_ms": prof["device_ms"],
+           "profile_top": prof["top"], "context": ctx,
+           "interior_margin": margin, "max_abs_err_native": worst,
+           "limit": NNET3_TOL, "host_lanes": NNET3_HOST_LANES,
+           "max_abs_err_host": host_err,
+           "lanes_decoded": sum(h is not None for h in hyps), "wer": wer,
+           "word_errors": errors, "wer_reference": NNET3_WER,
+           "launches": kernel_launch_counts()}
+    emit("nnet3_import_flagship", **res)
+    if not worst <= NNET3_TOL or not host_err <= NNET3_TOL:
+        raise SystemExit(f"imported model {worst} from the native one, "
+                         f"{host_err} from the host evaluator")
+    if res["lanes_decoded"] != len(utts):
+        raise SystemExit(f"{res['lanes_decoded']}/{len(utts)} lanes decoded")
+    ref_errors = word_errors(NNET3_WER, ng["test_txt"])
+    if not (abs(wer - NNET3_WER) <= NNET3_WER_BAND
+            and abs(errors - ref_errors) <= NNET3_WORDS_BAND):
+        raise SystemExit(f"imported model's WER {wer:.3f}% ({errors} "
+                         f"errors) against {NNET3_WER:.3f}% ({ref_errors})")
+    return {"res": res, "net": net, "path": path, "batch0": batches[0],
+            "nframes": nframes, "utts": utts, "feats": feats_h,
+            "ivecs": ivecs_h}
+
+
+def run_nnet3_cli_batch(imp: dict, tmp: str) -> dict:
+    """nnet3_cli_batch: NNET3_CLI_UTTS utterances of the main path to an
+    ark, `python -m kaldi_tpu_torch.cli nnet3-compute-batch` on the .mdl
+    in a process of its own, its output ark torch.equal to the compiled
+    module under the same batching."""
+    reset_kernel_counts()
+    utts, nframes = imp["utts"], imp["nframes"]
+    n = NNET3_CLI_UTTS
+    feats = [imp["feats"][i, :nframes[i]] for i in range(n)]
+    feats_ark, iv_ark, out_ark = (os.path.join(tmp, f) for f in (
+        "cli_feats.ark", "cli_ivecs.ark", "cli_out.ark"))
+    write_ark(feats_ark, zip(utts[:n], feats))
+    write_ark(iv_ark, zip(utts[:n], imp["ivecs"][:n]), holder="vector")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli", "nnet3-compute-batch",
+         f"--ivectors=ark:{iv_ark}", imp["path"], f"ark:{feats_ark}",
+         f"ark:{out_ark}"], cwd=REPO, capture_output=True, text=True,
+        timeout=300, env=dict(os.environ, PYTHONPATH=REPO))
+    tool_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"nnet3-compute-batch failed:\n{proc.stderr}")
+    got = read_ark(out_ark)
+    want = imp["net"](torch.from_numpy(pad_batch(feats)).cuda(),
+                      torch.from_numpy(imp["ivecs"][:n]).cuda())
+    equal = [bool(torch.equal(torch.from_numpy(got[u]),
+                              want[i, :feats[i].shape[0]].cpu()))
+             for i, u in enumerate(utts[:n])]
+    res = {"utterances": n, "tool_s": tool_s, "equal": equal,
+           "launches": kernel_launch_counts()}
+    emit("nnet3_cli_batch", **res)
+    if not all(equal) or sorted(got) != sorted(utts[:n]):
+        raise SystemExit("nnet3-compute-batch's ark differs from the module")
+    return res
+
+
+def run_nnet3_recurrent() -> dict:
+    """nnet3_recurrent: the TDNN-LSTM (tdnn_lstm_graph at LSTM_SHAPE)
+    through the compiled module's frame loop, LSTM_LANES x LSTM_FRAMES of
+    seeded 40-dim input; wall by CUDA events, launches a frame (two
+    profiled calls of different lengths), peak memory; 2 lanes against the
+    host evaluator."""
+    reset_kernel_counts()
+    graph = tdnn_lstm_graph(**LSTM_SHAPE, seed=SEED)
+    net = compile_graph(graph, "output", device="cuda")
+    rng = np.random.default_rng(SEED)
+    x = torch.from_numpy(rng.normal(size=(LSTM_LANES, LSTM_FRAMES,
+                                          LSTM_SHAPE["feat_dim"]))
+                         .astype(np.float32)).cuda()
+    net(x[:, :20])                                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    out = net(x)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    device_ms = start.elapsed_time(end)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    short = [profile_call(lambda k=k: net(x[:, :k]), top=6)
+             for k in (50, 100)]
+    per_frame = (short[1]["kernel_launches"]
+                 - short[0]["kernel_launches"]) / 50
+    host_err = 0.0
+    for i in range(NNET3_HOST_LANES):
+        want = graph.forward(x[i].cpu().numpy())
+        host_err = max(host_err, float(np.abs(out[i].cpu().numpy()
+                                              - want).max()))
+    res = {"lanes": LSTM_LANES, "frames": LSTM_FRAMES, **LSTM_SHAPE,
+           "group_nodes": len(net._group), "wall_s": wall_s,
+           "device_ms": device_ms, "ms_a_frame": device_ms / LSTM_FRAMES,
+           "launches_a_frame": per_frame,
+           "profiled_launches_50_100": [s["kernel_launches"] for s in short],
+           "peak_memory_gb": peak_gb, "max_abs_err_host": host_err,
+           "max_abs_out": float(out.abs().max()), "limit": NNET3_TOL,
+           "launches": kernel_launch_counts()}
+    emit("nnet3_recurrent", **res)
+    if not host_err <= NNET3_TOL or not bool(torch.isfinite(out).all()):
+        raise SystemExit(f"TDNN-LSTM {host_err} from the host evaluator")
+    return res
+
+
+def nnet3_phases(ng: dict, cfg, variables, ivec, fe) -> dict:
+    """The four nnet3 phases; kernels a-c launch 0 times in each."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        golden = run_nnet3_ref_golden(tmp)
+        imp = run_nnet3_import_flagship(ng, cfg, variables, ivec, fe, tmp)
+        cli = run_nnet3_cli_batch(imp, tmp)
+        rec = run_nnet3_recurrent()
+    launches = {"nnet3_ref_golden": golden["launches"],
+                "nnet3_import_flagship": imp["res"]["launches"],
+                "nnet3_cli_batch": cli["launches"],
+                "nnet3_recurrent": rec["launches"]}
+    if any(any(c.values()) for c in launches.values()):
+        raise SystemExit(f"a kernel of another path ran in the nnet3 "
+                         f"phases: {launches}")
+    r = imp["res"]
+    return {"nnet3_import_xrt": r["xrt"],
+            "nnet3_import_peak_gb": r["peak_memory_gb"],
+            "nnet3_import_wer": r["wer"],
+            "nnet3_recurrent_ms_a_frame": rec["ms_a_frame"],
+            "nnet3_seconds": time.perf_counter() - t0,
+            "launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3151,7 +3583,12 @@ def main() -> int:
                                     ng_res["out_lens"])
     ng_walls = sorted(r["wall_s"] for r in ng_res["runs"])
     ng_runs = ng_res["runs"]
-    del ng, ng_res
+    del ng_res
+    torch.cuda.empty_cache()
+    # 5a. Kaldi nnet3 models: the reference golden, the flagship from a
+    # .mdl through the main path's search, the CLI, a TDNN-LSTM ----------
+    nnet3 = nnet3_phases(ng, cfg, variables, ivec, fe)
+    del ng
     torch.cuda.empty_cache()
 
     # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
@@ -3473,6 +3910,7 @@ def main() -> int:
          **{k: v for k, v in legacy.items() if k != "launches"},
          train={k: v for k, v in train.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
+         **{k: v for k, v in nnet3.items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -3500,6 +3938,8 @@ def main() -> int:
                                   train["launches"].values())
         k["launches_train_scale"] = sum(counts[k["name"]] for counts in
                                         scale["launches"].values())
+        k["launches_nnet3"] = sum(counts[k["name"]] for counts in
+                                  nnet3["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

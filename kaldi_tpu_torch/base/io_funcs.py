@@ -1,6 +1,7 @@
 """Readers and writers of the Kaldi wire format (numpy copy of
-`kaldi_tpu/base/io_funcs.py`, as far as the transition model, the HMM
-topology and the decision tree need it).
+`kaldi_tpu/base/io_funcs.py`: the basic types, tokens, integer and pair
+vectors, vectors and matrices, binary and text, byte for byte as that
+module writes them).
 
 Binary streams open with the two-byte marker b"\\x00B"
 (base/io-funcs.h).  Basic types are written as a size byte and the
@@ -18,8 +19,65 @@ import numpy as np
 BINARY_MARKER = b"\x00B"
 
 
+class PeekableReader:
+    """A reader whose peek(n) returns n bytes unless the stream ends
+    first (read + pushback).  BufferedReader.peek(n) may return fewer
+    bytes mid-stream, so pipes and stdin, which cannot seek, are read
+    through this wrapper (util/kaldi_io.py open_input)."""
+
+    def __init__(self, raw: BinaryIO):
+        self._raw = raw
+        self._buf = b""
+
+    def peek(self, n: int = 1) -> bytes:
+        while len(self._buf) < n:
+            chunk = self._raw.read(n - len(self._buf))
+            if not chunk:
+                break
+            self._buf += chunk
+        return self._buf
+
+    def read(self, n: int = -1) -> bytes:
+        if n is None or n < 0:
+            data = self._buf + self._raw.read()
+            self._buf = b""
+            return data
+        take, self._buf = self._buf[:n], self._buf[n:]
+        if len(take) < n:
+            take += self._raw.read(n - len(take))
+        return take
+
+    def readline(self, limit: int = -1) -> bytes:
+        if b"\n" in self._buf:
+            i = self._buf.index(b"\n") + 1
+            line, self._buf = self._buf[:i], self._buf[i:]
+            return line
+        line, self._buf = self._buf, b""
+        return line + self._raw.readline(limit)
+
+    def readable(self) -> bool:
+        return True
+
+    def seekable(self) -> bool:
+        return False
+
+    def close(self) -> None:
+        self._raw.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def __getattr__(self, name):
+        return getattr(self._raw, name)
+
+
 def peek_bytes(stream: BinaryIO, n: int) -> bytes:
-    """n bytes ahead without consuming them (fewer only at EOF)."""
+    """n bytes ahead without consuming them (fewer only at EOF, or from
+    a non-seekable stream that is not a PeekableReader)."""
     peek = getattr(stream, "peek", None)
     if peek is not None:
         buf = peek(n)
@@ -29,6 +87,10 @@ def peek_bytes(stream: BinaryIO, n: int) -> bytes:
     data = stream.read(n)
     stream.seek(pos)
     return data
+
+
+def peek_byte(stream: BinaryIO) -> bytes:
+    return peek_bytes(stream, 1)
 
 
 def init_input_stream(stream: BinaryIO) -> bool:
@@ -113,6 +175,15 @@ def read_float(stream: BinaryIO, binary: bool) -> float:
     return float(read_token(stream, binary))
 
 
+def read_bool(stream: BinaryIO, binary: bool) -> bool:
+    c = stream.read(1) if binary else read_token(stream, binary).encode()
+    if c == b"T":
+        return True
+    if c == b"F":
+        return False
+    raise ValueError(f"read_bool: bad byte {c!r}")
+
+
 def read_int_vector(stream: BinaryIO, binary: bool) -> List[int]:
     """ReadIntegerVector of int32 (io-funcs-inl.h)."""
     if binary:
@@ -150,8 +221,94 @@ def read_vector(stream: BinaryIO, binary: bool) -> np.ndarray:
         vals.append(float(tok))
 
 
-# -- writers (the writing half of the same module, as far as the
-# transition model, the HMM topology and the decision tree need it) ------
+def read_int_pair_vector(stream: BinaryIO, binary: bool) -> List[tuple]:
+    if binary:
+        size = stream.read(1)
+        if size != b"\x04":
+            raise ValueError("read_int_pair_vector: bad size byte")
+        n = struct.unpack("<i", stream.read(4))[0]
+        arr = np.frombuffer(stream.read(8 * n), dtype="<i4").reshape(n, 2)
+        return [tuple(row) for row in arr.tolist()]
+    expect_token(stream, binary, "[")
+    out: List[tuple] = []
+    while True:
+        tok = read_token(stream, binary)
+        if tok == "]":
+            return out
+        if not tok.startswith("("):
+            raise ValueError(f"bad pair token {tok}")
+        a = int(tok[1:])
+        b_tok = read_token(stream, binary)
+        if not b_tok.endswith(")"):
+            raise ValueError(f"bad pair token {b_tok}")
+        out.append((a, int(b_tok[:-1])))
+
+
+def read_matrix(stream: BinaryIO, binary: bool) -> np.ndarray:
+    """A Kaldi Matrix: "FM"/"DM" + rows + cols + data in binary, " [ rows
+    ]" in text (float32).  Compressed matrices ("CM", "CM2", "CM3") need
+    the compressed-matrix codec, which is not ported yet."""
+    if binary:
+        tok = read_token(stream, binary)
+        if tok in ("CM", "CM2", "CM3"):
+            raise NotImplementedError(
+                f"read_matrix: compressed matrix {tok!r} needs "
+                "kaldi_tpu/matrix/compressed.py, not ported yet")
+        if tok not in ("FM", "DM"):
+            raise ValueError(f"read_matrix: bad token {tok!r}")
+        dt = "<f4" if tok == "FM" else "<f8"
+        rows = read_int32(stream, binary)
+        cols = read_int32(stream, binary)
+        data = stream.read(rows * cols * (4 if tok == "FM" else 8))
+        return np.frombuffer(data, dtype=dt).reshape(rows, cols).copy()
+    # Text: " [ \n r0 ... \n r1 ... ]".  Tokens are scanned without
+    # consuming their delimiter so that a row break is seen with or
+    # without a space before the newline, and through peek_byte only, so
+    # that a PeekableReader-wrapped pipe reads it too.
+    expect_token(stream, binary, "[")
+    rows: List[List[float]] = []
+    cur: List[float] = []
+    while True:
+        saw_nl = False
+        while True:                       # skip whitespace, note \n
+            c = peek_byte(stream)
+            if not c:
+                raise ValueError("read_matrix: unexpected EOF")
+            if not c.isspace():
+                break
+            if c == b"\n":
+                saw_nl = True
+            stream.read(1)
+        if saw_nl and cur:
+            rows.append(cur)
+            cur = []
+        chars = bytearray()               # read token, keep delimiter
+        while True:
+            c = peek_byte(stream)
+            if not c or c.isspace():
+                break
+            chars += stream.read(1)
+        tok = chars.decode("utf-8")
+        if tok == "]":
+            if (peek_byte(stream) or b" ").isspace():
+                stream.read(1)            # one trailing whitespace byte
+            if cur:
+                rows.append(cur)
+            break
+        if tok.endswith("]"):             # "4]": no space before close
+            cur.append(float(tok[:-1]))
+            rows.append(cur)
+            break
+        cur.append(float(tok))
+    if not rows:
+        return np.zeros((0, 0), dtype=np.float32)
+    ncol = len(rows[0])
+    if any(len(r) != ncol for r in rows):
+        raise ValueError("read_matrix: ragged text matrix")
+    return np.asarray(rows, dtype=np.float32)
+
+
+# -- writers -------------------------------------------------------------
 
 def init_output_stream(stream: BinaryIO, binary: bool) -> None:
     if binary:
@@ -192,6 +349,20 @@ def write_float(stream: BinaryIO, binary: bool, value: float) -> None:
         stream.write(_format_float(float(value)).encode() + b" ")
 
 
+def write_double(stream: BinaryIO, binary: bool, value: float) -> None:
+    if binary:
+        stream.write(b"\x08" + struct.pack("<d", float(value)))
+    else:
+        stream.write(repr(float(value)).encode() + b" ")
+
+
+def write_bool(stream: BinaryIO, binary: bool, value: bool) -> None:
+    if binary:
+        stream.write(b"T" if value else b"F")
+    else:
+        stream.write(b"T " if value else b"F ")
+
+
 def write_int_vector(stream: BinaryIO, binary: bool,
                      values: Sequence[int]) -> None:
     """WriteIntegerVector of int32 (io-funcs-inl.h)."""
@@ -219,3 +390,40 @@ def write_vector(stream: BinaryIO, binary: bool, vec: np.ndarray) -> None:
     else:
         stream.write(b" [ " + " ".join(_format_float(v) for v in vec).encode()
                      + b" ]\n")
+
+
+def write_int_pair_vector(stream: BinaryIO, binary: bool,
+                          pairs: Sequence[tuple]) -> None:
+    if binary:
+        stream.write(b"\x04" + struct.pack("<i", len(pairs)))
+        arr = np.asarray(pairs, dtype="<i4").reshape(len(pairs), 2)
+        stream.write(arr.tobytes())
+    else:
+        stream.write(b"[ ")
+        for a, b in pairs:
+            stream.write(f"({a} {b}) ".encode())
+        stream.write(b"]\n")
+
+
+def write_matrix(stream: BinaryIO, binary: bool, mat: np.ndarray) -> None:
+    """A Kaldi Matrix: "DM" for float64, else "FM" (float32)."""
+    mat = np.atleast_2d(np.asarray(mat))
+    if binary:
+        if mat.dtype == np.float64:
+            token, dt = "DM", "<f8"
+        else:
+            token, dt = "FM", "<f4"
+            mat = mat.astype(np.float32, copy=False)
+        write_token(stream, binary, token)
+        write_int32(stream, binary, mat.shape[0])
+        write_int32(stream, binary, mat.shape[1])
+        stream.write(np.ascontiguousarray(mat, dtype=dt).tobytes())
+    else:
+        if mat.shape[1] == 0:
+            stream.write(b" [ ]\n")
+            return
+        stream.write(b" [")
+        for row in mat:
+            stream.write(b"\n  " + " ".join(_format_float(v) for v in row)
+                         .encode() + b" ")
+        stream.write(b"]\n")

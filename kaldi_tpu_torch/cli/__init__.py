@@ -1,0 +1,21 @@
+"""Kaldi-compatible command-line tools of the port (the ported subset of
+`kaldi_tpu/cli`): each mirrors a reference binary's positional
+arguments, options and table specifiers.  Run one as
+`python -m kaldi_tpu_torch.cli <tool> [args...]`."""
+
+from __future__ import annotations
+
+import importlib
+from typing import Callable, Dict, List, Tuple
+
+# tool name -> (module, function)
+TOOLS: Dict[str, Tuple[str, str]] = {
+    "nnet3-compute": ("kaldi_tpu_torch.cli.nnet3_tools", "nnet3_compute"),
+    "nnet3-compute-batch": ("kaldi_tpu_torch.cli.nnet3_tools",
+                            "nnet3_compute_batch"),
+}
+
+
+def get_tool(name: str) -> Callable[[List[str]], int]:
+    module_name, func = TOOLS[name]
+    return getattr(importlib.import_module(module_name), func)

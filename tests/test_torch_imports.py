@@ -55,7 +55,9 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "decoder.native_viterbi", "hmm.hmm_utils", "gmm.diag_gmm",
                  "gmm.am_diag_gmm", "gmm.mle", "chain.graphs",
                  "chain.supervision", "chain.objective", "recipes.mono",
-                 "recipes.chain", "recipes.train_bench"):
+                 "recipes.chain", "recipes.train_bench", "base.logging",
+                 "util.table", "util.parse_options", "nnet3.mdl_io",
+                 "nnet3.torch_bridge", "cli", "cli.nnet3_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
