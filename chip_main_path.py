@@ -52,8 +52,13 @@ With --nnet3 it runs chip_smoke.py's nnet3 phases alone (nnet3_phases,
 after the main path's graph and without its decode): nnet3_ref_golden,
 nnet3_import_flagship, nnet3_cli_batch and nnet3_recurrent.
 
+With --online2 it runs chip_smoke.py's online2 phases alone
+(online2_phases, after the legacy graph and one decode of its test
+utterances on the int16 wire, slice_lex_int16's words):
+online2_graph, online2_wav and online2_tcp.
+
 Run: python3 chip_main_path.py [--online | --legacy | --train |
-     --train-scale | --nnet3]  (needs CUDA)
+     --train-scale | --nnet3 | --online2]  (needs CUDA)
 """
 
 from __future__ import annotations
@@ -164,6 +169,8 @@ def main() -> int:
                       "alone")
     mode.add_argument("--nnet3", action="store_true",
                       help="run chip_smoke.py's nnet3 phases alone")
+    mode.add_argument("--online2", action="store_true",
+                      help="run chip_smoke.py's online2 phases alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -175,8 +182,14 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
     if args.online or args.legacy or args.train or args.train_scale \
-            or args.nnet3:
-        if args.nnet3:
+            or args.nnet3 or args.online2:
+        if args.online2:
+            lex = cs.build_lex_path()
+            words16 = cs.lex_int16_words(lex, *cs.legacy_am(lex))
+            del lex
+            cs.emit("online2_summary", **cs.online2_phases(words16))
+            done = "online2_done"
+        elif args.nnet3:
             cfg, variables, _model, ivec, fe = cs.flagship_am()
             cs.emit("nnet3_summary", **cs.nnet3_phases(
                 cs.build_ng_path(), cfg, variables, ivec, fe))
@@ -185,7 +198,9 @@ def main() -> int:
             online()
             done = "online_done"
         elif args.legacy:
-            cs.emit("legacy_summary", **cs.legacy_phases())
+            legacy = cs.legacy_phases()
+            legacy.pop("words_int16")
+            cs.emit("legacy_summary", **legacy)
             done = "legacy_done"
         elif args.train_scale:
             cs.emit("train_scale_summary", **cs.train_scale_phases())

@@ -38,7 +38,11 @@ on the lattices of both lattice phases.  Kaldi nnet3 models go through
 the port's reader, writer, compiled module (nnet3/torch_bridge.py) and
 nnet3-compute tools: the reference C++ golden, the flagship model
 imported from a .mdl and decoded through the main path's search, and a
-TDNN-LSTM through the module's frame loop.
+TDNN-LSTM through the module's frame loop.  The legacy model and graph
+are also served as a Kaldi user serves them, a .mdl, an OpenFst HCLG.fst
+and a words.txt through the port's online2-wav-nnet3-latgen-faster and
+online2-tcp-nnet3-decode-faster (the model on the card in a streaming
+window, the search on the host).
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -141,7 +145,22 @@ Phases, one JSON line each (any failure exits nonzero):
      float64 tie), slice_online_lex (measure_online.py's configuration
      at 128 lanes: a warm-up, a timed and a staged round; xRT, chunk and
      finalize ms, WER, peak memory, each lane equal to decode_batch of
-     the loglikes its scorer produced); then the legacy training recipe:
+     the loglikes its scorer produced); then online2 serving:
+     online2_graph (the legacy TDNN-F written as a .mdl with its
+     contexts, read back and compiled; the legacy graph's flat form
+     written as an OpenFst HCLG.fst and read back, every arc equal;
+     words.txt; 16 test utterances on the int16 wire as a wav archive),
+     online2_wav (online2-wav-nnet3-latgen-faster in a process of its
+     own: each utterance's words equal to the offline reference, the
+     compiled module over the whole utterance's features and the host
+     FasterDecoder; RTF, WER, agreement with slice_lex_int16; the
+     streamed features and loglikes against the offline ones, the
+     scorer's device ms and launches a chunk), online2_tcp
+     (online2-tcp-nnet3-decode-faster in a process of its own, 16
+     clients 4 at a time: every client sees a partial and its finals
+     equal online2_wav's words; wall, final latency p50/p99, the
+     scorer's and the search's host ms, peak memory); then the legacy
+     training recipe:
      train_lex (recipes/train_bench.py, nothing cut: stage seconds, the
      aligner, each epoch's objective, step ms, peak memory, the WER of
      the test set within 2.0 points of the JAX package's),
@@ -149,9 +168,10 @@ Phases, one JSON line each (any failure exits nonzero):
      train_lex_check (the card against the CPU from one state and one
      minibatch: the step, the optimizer, every leaf's gradient, the
      chain loglikes, GMM loglikes and alignments); then the --scale
-     training recipe: train_scale (recipes/train_scale.py, nothing cut:
+     training recipe: train_scale (recipes/train_scale.py at full width,
      the i-vector extractor, the triphone tree, the window-LM
-     denominator's sizes, 16 epochs of the TDNN-F with i-vectors, stage
+     denominator's sizes, 8 of the recipe's 16 epochs of the TDNN-F with
+     i-vectors (all 16: chip_main_path.py --train-scale), stage
      seconds, step ms, peak memory, the test set through the main path,
      its WER within 2.0 points of the committed model's 9.53%),
      profile_train_scale_step (one step under torch.profiler) and
@@ -176,8 +196,8 @@ Phases, one JSON line each (any failure exits nonzero):
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
   8. the kernel table (kernel a's launches on the online path too, and
-     each kernel's launches on the legacy, the training and the nnet3
-     phases, which must be 0); the
+     each kernel's launches on the legacy, the online2, the training and
+     the nnet3 phases, which must be 0); the
      last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
@@ -185,13 +205,16 @@ Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -217,7 +240,9 @@ from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
 from kaldi_tpu_torch.device import full_f32
 from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
+from kaldi_tpu_torch.feat.wave import WaveData
 from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
+from kaldi_tpu_torch.fstext.openfst_io import read_fst_file, write_fst
 from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
@@ -226,12 +251,15 @@ from kaldi_tpu_torch.nnet3 import mdl_io
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax,
                                           chain_tdnnf_to_flax)
+from kaldi_tpu_torch.nnet3.streaming import OnlineNnetScorer
 from kaldi_tpu_torch.nnet3.torch_bridge import compile_graph
 from kaldi_tpu_torch.online.batched_device_pipeline import (
     BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineLex,
     BatchedDeviceOnlinePipelineNg, OnlineDynamicBatcher)
 from kaldi_tpu_torch.online.decoding import OnlineEndpointConfig
-from kaldi_tpu_torch.ops import _build
+from kaldi_tpu_torch.online.features import (OnlineFeature,
+                                             OnlineFeaturePipeline)
+from kaldi_tpu_torch.ops import _build, kernel_launch_counts
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
@@ -337,13 +365,18 @@ TRAIN_JAX_EPOCH_OBJF = [0.9396, 1.4081, 1.4991, 1.545, 1.58, 1.6063,
 # chunks of its one training step (one minibatch)
 TRAIN_CHECK_UTTS, TRAIN_CHECK_CHUNKS = 8, 32
 # the --scale training recipe (egs/bench_corpus/train.py main_scale, the
-# port's recipes/train_scale.py) at full width, nothing cut: 16 epochs of
+# port's recipes/train_scale.py) at full width: 16 epochs of
 # the 17 x 1536 TDNN-F with i-vectors over the triphone tree, the test set
 # decoded through the main path.  Its bar is the committed model's train
 # WER (flagship_ng_meta.json: 9.53%, a TPU run with approximate selection)
 # plus 2.0 points, train_lex's margin for other initial weights; beside it
 # the committed model through the port's main path (slice_ng: 147 of 1564)
 SCALE_EPOCHS = 16
+# this script trains SMOKE_SCALE_EPOCHS of them, so that it keeps a margin
+# under its time limit (train_scale is a third of its wall, and the host
+# speed of a call moves the whole by a fifth); the full 16 run under
+# chip_main_path.py --train-scale, with the same bars
+SMOKE_SCALE_EPOCHS = 8
 SCALE_META_WER, SCALE_WER_BAND = 9.53, 2.0
 SCALE_COMMITTED_PORT_WER = 100.0 * 147 / 1564
 SCALE_FINGERPRINT = "9fd542ef303e6a0d"
@@ -371,6 +404,15 @@ NNET3_CLI_UTTS, NNET3_HOST_LANES = 8, 2
 LSTM_SHAPE = dict(feat_dim=40, tdnn_dim=1024, cell_dim=1024, rec_proj=256,
                   nonrec_proj=256, delay=-3, layers=3, num_pdfs=2000)
 LSTM_LANES, LSTM_FRAMES = 32, 500
+# online2 serving (the online2-tcp-nnet3-decode-faster and
+# online2-wav-nnet3-latgen-faster tools) over the legacy graph's flat form
+# as an HCLG.fst and the legacy model as a .mdl: the first 16 test
+# utterances of BenchCorpusSpec() on the int16 wire, the tools' default
+# 180-ms chunks and the wav tool's default beam (its offline reference
+# searches with the same), 16 clients of the server, 4 connections at a
+# time.  The search is host Python (about 2 ms a frame on the CPU), so 16
+# utterances keep the three phases near 150 s
+ONLINE2_UTTS, ONLINE2_CONC, ONLINE2_CHUNK_S, ONLINE2_BEAM = 16, 4, 0.18, 15.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -1033,12 +1075,6 @@ def flagship_am():
         os.path.join(ART, "flagship_ng_ivec.npz")), device="cuda")
     fe = OfflineFeature(mfcc_options(bench_scale_spec()), device="cuda")
     return cfg, variables, model, ivec, fe
-
-
-def kernel_launch_counts() -> dict:
-    return {"block_chain_step": bcs.launches,
-            "block_chain_lattice_step": bcl.launches,
-            "viterbi_relax": vr.launches}
 
 
 def reset_kernel_counts() -> None:
@@ -2000,7 +2036,7 @@ def run_lex_slice(lex: dict, model, fe) -> dict:
                          f"differs from exact in lanes {differ}")
     return {"runs": runs, "loglikes": loglikes, "out_lens": out_lens,
             "frames": T_out, "wer_int16": wer16, "errors_int16": errors16,
-            "profile": prof}
+            "words_int16": lex_words(lex, utts, outs16), "profile": prof}
 
 
 def lex_cpu_check(lex: dict, loglikes, out_lens, lanes: int = 4) -> None:
@@ -2336,7 +2372,8 @@ def legacy_phases(ng_lattices=None) -> dict:
     slice_lex_lattice (with profile_lex_lattice), lex_lattice_cpu_check,
     lattice_functions (on slice_lex_lattice's lattices and on
     ng_lattices, slice_ng_lattice's, where given), cross_check_lex and
-    slice_online_lex -> their numbers."""
+    slice_online_lex -> their numbers, and slice_lex_int16's words of
+    each utterance (words_int16)."""
     lex = build_lex_path()
     model, fe = legacy_am(lex)
     res = run_lex_slice(lex, model, fe)
@@ -2370,6 +2407,7 @@ def legacy_phases(ng_lattices=None) -> dict:
            "online_lex_chunk_ms_p50": online["chunk_ms_p50"],
            "online_lex_finalize_ms_max": online["finalize_ms_max"],
            "online_lex_wer": online["wer"],
+           "words_int16": res["words_int16"],
            "launches": {"slice_lex": res["runs"][-1]["launches"],
                         "slice_lex_lattice": lat["launches"],
                         "slice_online_lex": online["launches"]}}
@@ -2761,12 +2799,12 @@ def _same_bytes(a: str, b: str) -> bool:
         return f.read() == g.read()
 
 
-def run_train_scale() -> dict:
-    """train_scale: the --scale training recipe on the card, nothing cut
+def run_train_scale(epochs: int) -> dict:
+    """train_scale: the --scale training recipe on the card
     (recipes/train_scale.py train_and_decode): the V=20,000 corpus, MFCC,
     the mono GMM, the alignment, the i-vector extractor, the triphone tree,
     the window-LM denominator and its bucketed layout, the chain examples,
-    SCALE_EPOCHS epochs of the 17 x 1536 TDNN-F with i-vectors, the decode
+    `epochs` epochs of the 17 x 1536 TDNN-F with i-vectors, the decode
     graph and the 128 test utterances through the main path.  The seconds
     of each stage, the leaves and tids, the denominator's states, arcs and
     slots by bucket, the chunks and steps, each epoch's objective, the
@@ -2780,7 +2818,7 @@ def run_train_scale() -> dict:
     stats: dict = {}
     t0 = time.perf_counter()
     meta = train_scale.train_and_decode(
-        os.path.join(REPO, "_chip", "train_scale"), SCALE_EPOCHS, "cuda",
+        os.path.join(REPO, "_chip", "train_scale"), epochs, "cuda",
         stats=stats)
     seconds = time.perf_counter() - t0
     launches = kernel_launch_counts()
@@ -2797,7 +2835,7 @@ def run_train_scale() -> dict:
            "window_den": stats["window_den"], "den": stats["den"],
            "segment_skipped": stats["segment_skipped"],
            "chunks": stats["chunks"], "steps": len(stats["step_objf"]),
-           "epochs": SCALE_EPOCHS, "epoch_objf": stats["epoch_objf"],
+           "epochs": epochs, "epoch_objf": stats["epoch_objf"],
            "step_ms_median": step_ms[len(step_ms) // 2],
            "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
            "chain_s_a_step": stats["chain_s"] / len(stats["step_objf"]),
@@ -2915,10 +2953,10 @@ def train_scale_check(trained: dict) -> dict:
     return out
 
 
-def train_scale_phases() -> dict:
+def train_scale_phases(epochs: int = SCALE_EPOCHS) -> dict:
     """train_scale and train_scale_check -> their summary, with kernels
     a-c's launches in each."""
-    trained = run_train_scale()
+    trained = run_train_scale(epochs)
     check = train_scale_check(trained)
     out = dict(trained["summary"])
     out["launches"] = {"train_scale": out["launches"],
@@ -3314,6 +3352,388 @@ def nnet3_phases(ng: dict, cfg, variables, ivec, fe) -> dict:
             "launches": launches}
 
 
+# -- online2 serving over an HCLG ---------------------------------------
+
+def online2_words_txt(path: str, words) -> None:
+    with open(path, "w") as f:
+        f.writelines(f"{w} {i}\n" for i, w in enumerate(words))
+
+
+def run_online2_graph(tmp: str) -> dict:
+    """online2_graph: what a Kaldi user brings to the online2 tools, made
+    as nnet3_import_flagship makes its .mdl: the legacy flagship_params.npz
+    TDNN-F (float32) written by chain_tdnnf_to_nnet3 and write_nnet3_am
+    with chain_tm_tree_for's transition model and the model's contexts,
+    read back and compiled; the legacy LexChainGraph's flat form written
+    as an OpenFst HCLG.fst and read back (every arc and final weight
+    equal); words.txt; the first ONLINE2_UTTS test utterances of
+    BenchCorpusSpec() on the int16 wire as a wav archive."""
+    spec = BenchCorpusSpec()
+    lexicon, _, _, test_txt, test_wav, lm_text = make_corpus(
+        spec, train_audio=False)
+    fingerprint = corpus_fingerprint(spec, lexicon, test_txt, test_wav,
+                                     lm_text)
+    if fingerprint != LEX_FINGERPRINT:
+        raise SystemExit(f"corpus fingerprint {fingerprint}, the JAX "
+                         f"package's {LEX_FINGERPRINT}")
+    lang, tm, tree = chain_tm_tree_for(lexicon)
+    flat = build_decode_graph(lexicon, lm_text, tm, tree,
+                              lang=lang).to_flat_graph()
+    fst = flat.to_vector_fst()
+    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=0, num_pdfs=tm.num_pdfs,
+                           hidden_dim=1536, bottleneck_dim=160,
+                           prefinal_dim=256, num_layers=17,
+                           subsample_layer=8, frame_subsampling_factor=3)
+    variables = load_params(os.path.join(ART, "flagship_params.npz"))
+    native = chain_tdnnf_from_flax(cfg, variables, device="cuda")
+    ctx = tdnnf_context(cfg)
+    mdl = os.path.join(tmp, "final.mdl")
+    t0 = time.perf_counter()
+    mdl_io.write_nnet3_am(mdl, tm, mdl_io.chain_tdnnf_to_nnet3(native,
+                                                                variables),
+                          left_context=ctx, right_context=ctx)
+    write_s = time.perf_counter() - t0
+    del native
+    t0 = time.perf_counter()
+    tm2, graph, info = mdl_io.read_nnet3_am(mdl)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = compile_graph(graph, "output", device="cuda")
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    hclg = os.path.join(tmp, "HCLG.fst")
+    t0 = time.perf_counter()
+    with open(hclg, "wb") as f:
+        write_fst(f, fst)
+    fst_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = read_fst_file(hclg)
+    fst_read_s = time.perf_counter() - t0
+    arcs_equal = (back.start == fst.start and back.finals == fst.finals
+                  and all([tuple(a) for a in x] == [tuple(a) for a in y]
+                          for x, y in zip(back.arcs, fst.arcs)))
+    online2_words_txt(os.path.join(tmp, "words.txt"), flat.words)
+    utts = sorted(test_wav)[:ONLINE2_UTTS]
+    waves = {u: np.clip(test_wav[u], -32767, 32767).astype(np.int16)
+             for u in utts}
+    with TableWriter("wave", f"ark:{os.path.join(tmp, 'wav.ark')}") as w:
+        for u in utts:
+            w.write(u, WaveData(spec.fs, waves[u]))
+    res = {"mdl_bytes": os.path.getsize(mdl), "write_s": write_s,
+           "read_s": read_s, "compile_s": compile_s,
+           "left_context": info["left_context"],
+           "right_context": info["right_context"],
+           "num_pdfs": tm2.num_pdfs, "hclg_bytes": os.path.getsize(hclg),
+           "states": back.num_states, "arcs": back.num_arcs(),
+           "arcs_equal_after_round_trip": arcs_equal,
+           "fst_write_s": fst_write_s, "fst_read_s": fst_read_s,
+           "words": len(flat.words) - 1, "utterances": len(utts),
+           "audio_s": sum(len(w) for w in waves.values()) / spec.fs}
+    emit("online2_graph", **res)
+    if not arcs_equal or back.num_arcs() != fst.num_arcs():
+        raise SystemExit("HCLG.fst read back differs from what was written")
+    if (info["left_context"], info["right_context"], tm2.num_pdfs) != \
+            (ctx, ctx, cfg.num_pdfs):
+        raise SystemExit("the .mdl read back differs from what was written")
+    return {"res": res, "dir": tmp, "mdl": mdl, "hclg": hclg, "net": net,
+            "fst": back, "tm": tm2, "info": info, "words": flat.words,
+            "utts": utts, "waves": waves, "test_txt": test_txt,
+            "spec": spec}
+
+
+def online2_args(sysd: dict) -> list:
+    """The legacy frontend (mfcc_options(spec, 40)) as the tools'
+    options, and the chain model's subsampling and scale."""
+    opts = mfcc_options(sysd["spec"], num_ceps=40)
+    return [f"--num-ceps={opts.num_ceps}",
+            f"--num-mel-bins={opts.mel_opts.num_bins}",
+            f"--sample-frequency={opts.frame_opts.samp_freq}",
+            f"--dither={opts.frame_opts.dither}",
+            "--frame-subsampling-factor=3", "--acoustic-scale=1.0"]
+
+
+def tool_stats(tool: str, stderr: str) -> dict:
+    """The `<tool> stats {...}` line an online2 tool logs at its end."""
+    tag = f"{tool} stats "
+    for line in stderr.splitlines():
+        if tag in line:
+            return json.loads(line.split(tag, 1)[1])
+    raise SystemExit(f"{tool} logged no stats line:\n{stderr[-4000:]}")
+
+
+def stream_scorer(sysd: dict, utts) -> dict:
+    """The online2 tools' scoring in this process: each utterance's
+    features through the streaming pipeline in 180-ms pieces of audio and
+    an OnlineNnetScorer over the compiled module (the tools' forward),
+    against OfflineFeature and the module over the whole utterance;
+    device ms and launches of one chunk's forward (the profiler over one
+    utterance's chunks, the forward in a range of its own) and the host ms
+    of a chunk's scorer call (perf_counter, no sync)."""
+    net, info, spec = sysd["net"], sysd["info"], sysd["spec"]
+    opts = mfcc_options(spec, num_ceps=40)
+    fe = OfflineFeature(opts, device="cuda")
+    chunk = int(ONLINE2_CHUNK_S * spec.fs)
+    calls = [0]
+
+    def forward(w):
+        calls[0] += 1
+        with torch.profiler.record_function("online2_forward"):
+            return net(w)[:, ::3]
+
+    def stream(u):
+        pipe = OnlineFeaturePipeline(OnlineFeature(opts, device="cuda"))
+        sc = OnlineNnetScorer(forward, info["left_context"],
+                              info["right_context"], 3, device="cuda")
+        outs, host_s, done = [], [], [0]
+
+        def step(last: bool) -> None:
+            ready = pipe.num_frames_ready()
+            t0 = time.perf_counter()
+            outs.append(sc.accept_features(pipe.get_frames(done[0], ready)))
+            if last:
+                outs.append(sc.finish())
+            host_s.append(time.perf_counter() - t0)
+            done[0] = ready
+
+        wave = sysd["waves"][u]
+        for a in range(0, len(wave), chunk):
+            pipe.accept_waveform(spec.fs, wave[a:a + chunk])
+            step(False)
+        pipe.input_finished()
+        step(True)
+        return (pipe.get_frames(0, done[0]),
+                torch.cat([o for o in outs if o.shape[0]]), host_s)
+
+    stream(utts[0])                                         # warm-up
+    feat_err = ll_err = 0.0
+    host_s = []
+    n_frames = 0
+    for u in utts:
+        f_stream, ll_stream, h = stream(u)
+        host_s += h
+        f, n = fe.compute_batch_device([sysd["waves"][u]])
+        f = f[0, :int(n[0])]
+        ll = net(f[None])[0, ::3]
+        n_frames += ll.shape[0]
+        if ll.shape != ll_stream.shape:
+            raise SystemExit(f"{u}: streamed {tuple(ll_stream.shape)} "
+                             f"against offline {tuple(ll.shape)}")
+        feat_err = max(feat_err, float((torch.from_numpy(f_stream).cuda()
+                                        - f).abs().max()))
+        ll_err = max(ll_err, float((ll_stream - ll).abs().max()))
+    calls[0] = 0
+    prof = profile_call(lambda: stream(utts[1]), top=6,
+                        ranges=("online2_forward",))
+    fwd, n = prof["ranges"]["online2_forward"], max(calls[0], 1)
+    return {"features_max_abs_err": feat_err,
+            "loglikes_max_abs_err": ll_err, "output_frames": n_frames,
+            "forward_calls_profiled": calls[0],
+            "device_ms_a_chunk": fwd["device_ms"] / n,
+            "launches_a_chunk": fwd["kernel_launches"] / n,
+            "features_device_ms_a_chunk": (prof["device_ms"]
+                                           - fwd["device_ms"]) / n,
+            "host_ms_a_chunk": ms_percentiles(host_s),
+            "profile_top": prof["top"]}
+
+
+def run_online2_wav(sysd: dict, lex_words16: dict) -> dict:
+    """online2_wav: `python -m kaldi_tpu_torch.cli
+    online2-wav-nnet3-latgen-faster` in a process of its own over the wav
+    archive (default chunk 0.18 s and beam); every utterance's words
+    equal to the offline reference (the compiled module over the whole
+    utterance's features, the host FasterDecoder over the same HCLG.fst
+    with the same beam); its RTF and WER, and the utterances agreeing
+    with slice_lex_int16's LexChainDecoder words."""
+    reset_kernel_counts()
+    d, utts = sysd["dir"], sysd["utts"]
+    out = os.path.join(d, "words.ark")
+    tool = "online2-wav-nnet3-latgen-faster"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli", tool,
+         *online2_args(sysd), sysd["mdl"], sysd["hclg"],
+         f"ark:{os.path.join(d, 'wav.ark')}", f"ark:{out}"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    tool_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"{tool} failed:\n{proc.stderr[-4000:]}")
+    stats = tool_stats(tool, proc.stderr)
+    got = {u: list(v) for u, v in
+           SequentialTableReader("int-vector", f"ark:{out}")}
+    # the offline reference
+    opts = mfcc_options(sysd["spec"], num_ceps=40)
+    fe = OfflineFeature(opts, device="cuda")
+    dec = FasterDecoder(sysd["fst"], FasterDecoderOptions(beam=ONLINE2_BEAM))
+    ref, search_s, frames = {}, 0.0, 0
+    for u in utts:
+        f, n = fe.compute_batch_device([sysd["waves"][u]])
+        ll = sysd["net"](f[:, :int(n[0])])[0, ::3].cpu().numpy()
+        t0 = time.perf_counter()
+        hyp = dec.decode(ll, sysd["tm"].id2pdf_id, 1.0)
+        search_s += time.perf_counter() - t0
+        frames += ll.shape[0]
+        ref[u] = None if hyp is None else hyp[1]
+    differ = [u for u in utts if got.get(u) != ref[u]]
+    words = sysd["words"]
+    names = {u: [words[w] for w in got.get(u, [])] for u in utts}
+    test_txt = {u: sysd["test_txt"][u] for u in utts}
+    wer = wer_of(names, test_txt)
+    scoring = stream_scorer(sysd, utts)
+    res = {"utterances": len(utts), "tool_s": tool_s,
+           "rtf": stats["wall_s"] / stats["audio_s"],
+           "audio_s": stats["audio_s"], "tool_stats": stats,
+           "utterances_equal_offline_reference": len(utts) - len(differ),
+           "differing": differ, "wer": wer,
+           "word_errors": word_errors(wer, test_txt),
+           "ref_words": sum(len(r) for r in test_txt.values()),
+           "agree_with_slice_lex_int16": sum(
+               names[u] == lex_words16[u] for u in utts),
+           "reference_search_ms_a_frame": 1e3 * search_s / max(frames, 1),
+           "beam": ONLINE2_BEAM, **scoring,
+           "launches": kernel_launch_counts(),
+           "tool_launches": stats["kernel_launches"]}
+    emit("online2_wav", **res)
+    if differ or len(got) != len(utts):
+        raise SystemExit(f"{tool}'s words differ from the offline "
+                         f"reference in {differ}")
+    return {"res": res, "names": names}
+
+
+def online2_client(host: str, port: int, wave: np.ndarray, chunk: int):
+    """One request: int16 PCM in chunk-byte pieces, a half-close, the
+    reply read to its end -> (reply, seconds from the last byte sent to
+    the first final '\\n')."""
+    pcm = wave.astype("<i2").tobytes()
+    with socket.create_connection((host, port), timeout=300) as sock:
+        sock.settimeout(300)
+        for a in range(0, len(pcm), chunk):
+            sock.sendall(pcm[a:a + chunk])
+        sock.shutdown(socket.SHUT_WR)
+        t_last = time.perf_counter()
+        reply, latency = b"", None
+        while True:
+            data = sock.recv(4096)
+            if not data:
+                break
+            reply += data
+            if latency is None and b"\n" in data:
+                latency = time.perf_counter() - t_last
+    return reply.decode(), latency
+
+
+def run_online2_tcp(sysd: dict, wav: dict) -> dict:
+    """online2_tcp: `python -m kaldi_tpu_torch.cli
+    online2-tcp-nnet3-decode-faster --num-connections=16` in a process of
+    its own; 16 clients stream the utterances of online2_wav, 4
+    connections at a time, in 180-ms chunks, half-close and collect the
+    reply.  Every client saw a '\\r' partial, and its joined '\\n' finals
+    are online2_wav's words."""
+    utts = sysd["utts"]
+    tool = "online2-tcp-nnet3-decode-faster"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli", tool,
+         f"--num-connections={len(utts)}", "--port-num=0",
+         f"--samp-freq={sysd['spec'].fs}", *online2_args(sysd),
+         sysd["mdl"], sysd["hclg"], os.path.join(sysd["dir"], "words.txt")],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    killer = threading.Timer(600, proc.kill)
+    killer.start()
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        start_s = time.perf_counter() - t0
+        if not line.startswith("# listening on"):
+            proc.kill()
+            raise SystemExit(f"{tool} did not start:\n"
+                             f"{proc.communicate()[1][-4000:]}")
+        host, port = line.split()[-1].rsplit(":", 1)
+        chunk = int(ONLINE2_CHUNK_S * sysd["spec"].fs) * 2
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(ONLINE2_CONC) as pool:
+            replies = dict(zip(utts, pool.map(
+                lambda u: online2_client(host, int(port), sysd["waves"][u],
+                                         chunk), utts)))
+        wall_s = time.perf_counter() - t0
+        _out, err = proc.communicate(timeout=120)
+    finally:
+        killer.cancel()
+    if proc.returncode != 0:
+        raise SystemExit(f"{tool} exited {proc.returncode}:\n{err[-4000:]}")
+    stats = tool_stats(tool, err)
+
+    def finals(reply):
+        return " ".join(seg.split("\r")[-1] for seg in reply.split("\n")
+                        if seg.split("\r")[-1]).split()
+
+    partials = [u for u in utts if "\r" in replies[u][0]]
+    equal = [u for u in utts if finals(replies[u][0]) == wav["names"][u]]
+    latency = [replies[u][1] for u in utts if replies[u][1] is not None]
+    res = {"clients": len(utts), "concurrent": ONLINE2_CONC,
+           "server_start_s": start_s, "wall_s": wall_s,
+           "audio_s": wav["res"]["audio_s"],
+           "xrt": wav["res"]["audio_s"] / wall_s,
+           "final_latency_ms": ms_percentiles(latency),
+           "clients_with_partials": len(partials),
+           "clients_finals_equal_online2_wav": len(equal),
+           "scorer_host_ms_a_chunk": 1e3 * stats["scorer_s"]
+           / max(stats["chunks"], 1),
+           "search_host_ms_a_frame": 1e3 * stats["search_s"]
+           / max(stats["frames"], 1),
+           "scorer_device_ms_a_chunk": wav["res"]["device_ms_a_chunk"],
+           "scorer_launches_a_chunk": wav["res"]["launches_a_chunk"],
+           "peak_memory_gb": stats.get("peak_memory_gb"),
+           "tool_stats": stats, "launches": stats["kernel_launches"]}
+    emit("online2_tcp", **res)
+    if len(partials) != len(utts) or len(equal) != len(utts) \
+            or len(latency) != len(utts) or stats["errors"]:
+        raise SystemExit(f"online2_tcp: {len(partials)} clients with "
+                         f"partials, {len(equal)} finals equal, "
+                         f"{stats['errors']} server errors")
+    return res
+
+
+def online2_phases(lex_words16: dict) -> dict:
+    """online2_graph, online2_wav and online2_tcp; kernels a-c launch 0
+    times in each (in this process and in the tools')."""
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        sysd = run_online2_graph(tmp)
+        graph_launches = kernel_launch_counts()
+        wav = run_online2_wav(sysd, lex_words16)
+        tcp = run_online2_tcp(sysd, wav)
+        del sysd
+    torch.cuda.empty_cache()
+    w = wav["res"]
+    launches = {"online2_graph": graph_launches,
+                "online2_wav": {k: v + w["tool_launches"][k]
+                                for k, v in w["launches"].items()},
+                "online2_tcp": tcp["launches"]}
+    if any(any(c.values()) for c in launches.values()):
+        raise SystemExit(f"a kernel of another path ran in the online2 "
+                         f"phases: {launches}")
+    return {"online2_wav_rtf": w["rtf"], "online2_wav_wer": w["wer"],
+            "online2_wav_agree_lex_int16": w["agree_with_slice_lex_int16"],
+            "online2_tcp_wall_s": tcp["wall_s"],
+            "online2_tcp_latency_ms_p50": tcp["final_latency_ms"]["p50"],
+            "online2_search_ms_a_frame": tcp["search_host_ms_a_frame"],
+            "online2_seconds": time.perf_counter() - t0,
+            "launches": launches}
+
+
+def lex_int16_words(lex: dict, model, fe) -> dict:
+    """slice_lex_int16's words, the test utterances on the int16 wire
+    through BatchedOfflinePipeline2 with the LexChain decoder."""
+    utts = sorted(lex["test_wav"])
+    pipe = BatchedOfflinePipeline2(model, lex["dec"], fe,
+                                   sample_rate=lex["spec"].fs, device="cuda")
+    outs = pipe.decode_batch([np.clip(lex["test_wav"][u], -32767, 32767)
+                              .astype(np.int16) for u in utts])
+    return lex_words(lex, utts, outs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3594,11 +4014,14 @@ def main() -> int:
     # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
     legacy = legacy_phases(ng_lat.pop("lattices"))
 
+    # 5b'. online2 serving over the legacy graph's HCLG.fst: the tools -----
+    online2 = online2_phases(legacy.pop("words_int16"))
+
     # 5c. the legacy training recipe, end to end, and its card-CPU check ---
     train = train_phases()
 
     # 5d. the --scale training recipe, decoded through the main path -------
-    scale = train_scale_phases()
+    scale = train_scale_phases(SMOKE_SCALE_EPOCHS)
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
@@ -3911,6 +4334,7 @@ def main() -> int:
          train={k: v for k, v in train.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
          **{k: v for k, v in nnet3.items() if k != "launches"},
+         **{k: v for k, v in online2.items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -3940,6 +4364,8 @@ def main() -> int:
                                         scale["launches"].values())
         k["launches_nnet3"] = sum(counts[k["name"]] for counts in
                                   nnet3["launches"].values())
+        k["launches_online2"] = sum(counts[k["name"]] for counts in
+                                    online2["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -13,6 +13,12 @@ TOOLS: Dict[str, Tuple[str, str]] = {
     "nnet3-compute": ("kaldi_tpu_torch.cli.nnet3_tools", "nnet3_compute"),
     "nnet3-compute-batch": ("kaldi_tpu_torch.cli.nnet3_tools",
                             "nnet3_compute_batch"),
+    "online2-tcp-nnet3-decode-faster": ("kaldi_tpu_torch.cli.online_tools2",
+                                        "online2_tcp_nnet3_decode_faster"),
+    "online2-wav-dump-features": ("kaldi_tpu_torch.cli.online_tools2",
+                                  "online2_wav_dump_features"),
+    "online2-wav-nnet3-latgen-faster": ("kaldi_tpu_torch.cli.online_tools",
+                                        "online2_wav_nnet3_latgen_faster"),
 }
 
 

@@ -11,8 +11,8 @@ data-dependent search.
 `align_equal` (bin/align-equal-compiled) gives the flat-start alignment
 of monophone training: a seeded random feasible path through the
 training graph, the spare frames spread evenly as self-loops.
-
-Not carried over yet: `best_path_through`.
+`best_path_through` is the exact search (no beam), the reference's
+SimpleDecoder.
 """
 
 from __future__ import annotations
@@ -154,6 +154,14 @@ class FasterDecoder:
                     tokens[a.nextstate] = _Token(c, tok, EPS, a.olabel)
                     queue.append(a.nextstate)
         return tokens
+
+
+def best_path_through(fst: VectorFst, loglikes: np.ndarray,
+                      tid_to_pdf: np.ndarray, acoustic_scale: float = 1.0
+                      ) -> Optional[Tuple[List[int], List[int], float]]:
+    """Exact Viterbi (no beam): the reference's SimpleDecoder."""
+    dec = FasterDecoder(fst, FasterDecoderOptions(beam=1e9))
+    return dec.decode(loglikes, tid_to_pdf, acoustic_scale)
 
 
 def _random_feasible_path(graph: VectorFst, num_frames: int,

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Iterator, Union
 
 import torch
@@ -23,18 +24,33 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+_f32_lock = threading.Lock()
+_f32_depth = 0
+_f32_saved = False
+
+
 @contextlib.contextmanager
 def full_f32() -> Iterator[None]:
     """Run float32 matmuls in full float32 (TF32 off) inside the block,
     restoring the caller's setting after.  The reference pins these
     products to `Precision.HIGHEST` for the same reason: MFCC and
-    i-vector statistics need the whole f32 mantissa."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    i-vector statistics need the whole f32 mantissa.  The switch is
+    process-wide, so blocks open in several threads at once (the TCP
+    server's connections) share one: the first to enter saves the
+    setting and the last to leave restores it."""
+    global _f32_depth, _f32_saved
+    with _f32_lock:
+        if _f32_depth == 0:
+            _f32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _f32_depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        with _f32_lock:
+            _f32_depth -= 1
+            if _f32_depth == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _f32_saved
 
 
 def same_device(a: torch.device, b: torch.device) -> bool:

@@ -7,7 +7,7 @@ warping is not ported yet."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -17,7 +17,7 @@ from kaldi_tpu_torch.feat.window import FrameExtractionOptions
 
 @dataclass
 class MelBanksOptions:
-    num_bins: int = 25
+    num_bins: int = field(default=25, metadata={"name": "num-mel-bins"})
     low_freq: float = 20.0
     high_freq: float = 0.0
     htk_mode: bool = False

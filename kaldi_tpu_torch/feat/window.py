@@ -8,7 +8,7 @@ frames with `snip_edges=True`, so the reflection path is not copied.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -23,11 +23,16 @@ def round_up_to_nearest_power_of_two(n: int) -> int:
 
 @dataclass
 class FrameExtractionOptions:
-    samp_freq: float = 16000.0
-    frame_shift_ms: float = 10.0
-    frame_length_ms: float = 25.0
+    # metadata "name": the command-line option of the reference's tools
+    samp_freq: float = field(default=16000.0,
+                             metadata={"name": "sample-frequency"})
+    frame_shift_ms: float = field(default=10.0,
+                                  metadata={"name": "frame-shift"})
+    frame_length_ms: float = field(default=25.0,
+                                   metadata={"name": "frame-length"})
     dither: float = 1.0
-    preemph_coeff: float = 0.97
+    preemph_coeff: float = field(
+        default=0.97, metadata={"name": "preemphasis-coefficient"})
     remove_dc_offset: bool = True
     window_type: str = "povey"
     round_to_power_of_two: bool = True

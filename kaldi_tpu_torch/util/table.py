@@ -15,8 +15,8 @@ rxfilename possibly with a byte offset ("foo.ark:1234"): the reference's
 own format, so either implementation reads what the other writes.
 
 Holders of types whose codec is not ported yet (compressed matrices,
-waves, posteriors, lattices, FSTs, sparse matrices) raise, naming the
-module they wait for.
+posteriors, lattices, sparse matrices) raise, naming the module they
+wait for.
 """
 
 from __future__ import annotations
@@ -259,6 +259,27 @@ class ObjectHolder(Holder):
         value.write(stream, binary)
 
 
+class WaveHolder(Holder):
+    """RIFF wave entries (feat/wave-reader.h:158).  An archive entry
+    carries the \\0B marker; a .wav named by a script starts with 'RIFF',
+    which init_input_stream leaves in place."""
+
+    def read(self, stream):
+        from kaldi_tpu_torch.feat.wave import WaveData
+        io_funcs.init_input_stream(stream)
+        return WaveData.read(stream)
+
+    def write(self, stream, binary, value):
+        if not binary:
+            raise KaldiTpuError("wave data requires binary mode")
+        value.write(stream)
+
+
+def _fst_holder() -> Holder:
+    from kaldi_tpu_torch.fstext.openfst_io import FstHolder
+    return FstHolder()
+
+
 _HOLDERS = {
     "matrix": MatrixHolder,
     "vector": VectorHolder,
@@ -271,16 +292,16 @@ _HOLDERS = {
     "int-pair-vector": IntPairVectorHolder,
     "token": TokenHolder,
     "token-vector": TokenVectorHolder,
+    "wave": WaveHolder,
+    "fst": _fst_holder,
 }
 
 # holder name -> the module of the JAX package whose codec it waits for
 _NOT_PORTED = {
     "compressed-matrix": "kaldi_tpu/matrix/compressed.py",
-    "wave": "kaldi_tpu/feat/wave.py",
     "posterior": "kaldi_tpu/hmm/posterior.py",
     "gauss-post": "kaldi_tpu/hmm/posterior.py",
-    "lattice": "kaldi_tpu/fstext/openfst_io.py",
-    "fst": "kaldi_tpu/fstext/openfst_io.py",
+    "lattice": "kaldi_tpu/lat/kaldi_lattice.py",
     "sparse-matrix": "kaldi_tpu/matrix/sparse.py",
 }
 

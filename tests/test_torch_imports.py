@@ -57,7 +57,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "chain.supervision", "chain.objective", "recipes.mono",
                  "recipes.chain", "recipes.train_bench", "base.logging",
                  "util.table", "util.parse_options", "nnet3.mdl_io",
-                 "nnet3.torch_bridge", "cli", "cli.nnet3_tools"):
+                 "nnet3.torch_bridge", "cli", "cli.nnet3_tools",
+                 "feat.wave", "feat.functions", "fstext.openfst_io",
+                 "nnet3.streaming", "online.server", "util.profile",
+                 "cli.online_tools", "cli.online_tools2"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
@@ -213,3 +216,26 @@ def test_training_entry_points_raise_without_cuda(tmp_path):
         train_bench.main([])                 # --out is required
     assert not os.listdir(tmp_path)
 
+
+
+def test_online2_entry_points_raise_without_cuda_and_run_on_cpu(tmp_path):
+    """The online2 serving path: the streaming scorer, the streaming
+    features and the online2 tools default to CUDA and raise without it;
+    the CPU when asked."""
+    from kaldi_tpu_torch.cli import get_tool
+    from kaldi_tpu_torch.feat.frontend import MfccOptions
+    from kaldi_tpu_torch.nnet3.streaming import OnlineNnetScorer
+    from kaldi_tpu_torch.online.features import OnlineFeature
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    opts = MfccOptions()
+    opts.frame_opts.dither = 0.0
+    for make in (lambda d: OnlineNnetScorer(lambda w: w, device=d),
+                 lambda d: OnlineFeature(opts, device=d)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(None)
+        make("cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_tool("online2-wav-dump-features")(
+            ["online2-wav-dump-features", "--dither=0",
+             f"ark:{tmp_path / 'w.ark'}", f"ark:{tmp_path / 'f.ark'}"])

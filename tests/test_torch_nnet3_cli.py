@@ -183,7 +183,10 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
         rc, err = cli("nnet3-compute", os.path.join(GOLDEN, "tdnn.raw"),
                       *io_args)
         assert rc != 0 and "CUDA" in err
-    assert sorted(TOOLS) == ["nnet3-compute", "nnet3-compute-batch"]
+    assert sorted(TOOLS) == ["nnet3-compute", "nnet3-compute-batch",
+                             "online2-tcp-nnet3-decode-faster",
+                             "online2-wav-dump-features",
+                             "online2-wav-nnet3-latgen-faster"]
 
 
 RSPECIFIERS = ["ark:foo.ark", "scp:foo.scp", "ark,s,cs:-", "ark,o,p:x.ark",
