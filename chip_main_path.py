@@ -55,10 +55,24 @@ nnet3_import_flagship, nnet3_cli_batch and nnet3_recurrent.
 With --online2 it runs chip_smoke.py's online2 phases alone
 (online2_phases, after the legacy graph and one decode of its test
 utterances on the int16 wire, slice_lex_int16's words):
-online2_graph, online2_wav and online2_tcp.
+online2_graph, online2_wav and online2_tcp (not the xconfig phases
+that chip_smoke.py runs after them).
+
+With --xconfig it runs chip_smoke.py's xconfig phases alone
+(xconfig_phases, after online2_graph, which makes the HCLG.fst and the
+16 utterances): xconfig_graph, xconfig_latgen, xconfig_latgen_variants
+and xconfig_zoo.
+
+With --latgen it runs chip_smoke.py's xconfig_graph and xconfig_latgen
+over all 128 test utterances of the legacy corpus (after online2_graph,
+which makes the HCLG.fst and the utterances): the legacy TDNN-F as an
+xconfig checkpoint directory, `nnet3-latgen-faster` at decode.sh's beams,
+the lattice tools and compute-wer; the WER must lie within 0.5 points
+and 8 words of slice_lex_int16's 6.088% (94 of 1544).
 
 Run: python3 chip_main_path.py [--online | --legacy | --train |
-     --train-scale | --nnet3 | --online2]  (needs CUDA)
+     --train-scale | --nnet3 | --online2 | --xconfig | --latgen]
+     (needs CUDA)
 """
 
 from __future__ import annotations
@@ -67,6 +81,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -154,6 +169,29 @@ def online() -> None:
     cs.run_online_batcher(ng, ll, lens)
 
 
+def latgen() -> dict:
+    """xconfig_graph and xconfig_latgen over the 128 test utterances;
+    the WER bar of slice_lex_int16."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sysd = cs.run_online2_graph(tmp, n_utts=None)
+        x = cs.run_xconfig_graph(sysd)
+        r = cs.run_xconfig_latgen(x, sysd)["res"]
+    out = {"utterances": r["utterances"], "wer": r["wer"],
+           "word_errors": r["word_errors"], "ref_words": r["ref_words"],
+           "bar_wer": cs.SLICE_LEX_INT16_WER,
+           "bar_word_errors": cs.SLICE_LEX_INT16_ERRORS,
+           "rtf": r["rtf"], "search_ms_a_frame": r["search_ms_a_frame"],
+           "seconds": time.perf_counter() - t0}
+    if abs(r["wer"] - cs.SLICE_LEX_INT16_WER) > 0.5 or \
+            abs(r["word_errors"] - cs.SLICE_LEX_INT16_ERRORS) > 8:
+        cs.emit("latgen_summary", **out)
+        raise SystemExit(f"latgen: WER {r['wer']:.3f}% ({r['word_errors']} "
+                         f"errors), outside 0.5 points and 8 words of "
+                         f"{cs.SLICE_LEX_INT16_WER:.3f}%")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -171,6 +209,11 @@ def main() -> int:
                       help="run chip_smoke.py's nnet3 phases alone")
     mode.add_argument("--online2", action="store_true",
                       help="run chip_smoke.py's online2 phases alone")
+    mode.add_argument("--xconfig", action="store_true",
+                      help="run chip_smoke.py's xconfig phases alone")
+    mode.add_argument("--latgen", action="store_true",
+                      help="run xconfig_graph and xconfig_latgen over the "
+                      "128 test utterances")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -182,12 +225,21 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
     if args.online or args.legacy or args.train or args.train_scale \
-            or args.nnet3 or args.online2:
-        if args.online2:
+            or args.nnet3 or args.online2 or args.xconfig or args.latgen:
+        if args.xconfig:
+            with tempfile.TemporaryDirectory() as tmp:
+                cs.emit("xconfig_summary", **cs.xconfig_phases(
+                    cs.run_online2_graph(tmp)))
+            done = "xconfig_done"
+        elif args.latgen:
+            cs.emit("latgen_summary", **latgen())
+            done = "latgen_done"
+        elif args.online2:
             lex = cs.build_lex_path()
             words16 = cs.lex_int16_words(lex, *cs.legacy_am(lex))
             del lex
-            cs.emit("online2_summary", **cs.online2_phases(words16))
+            cs.emit("online2_summary", **cs.online2_phases(words16,
+                                                            xconfig=False))
             done = "online2_done"
         elif args.nnet3:
             cfg, variables, _model, ivec, fe = cs.flagship_am()

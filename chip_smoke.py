@@ -42,7 +42,9 @@ TDNN-LSTM through the module's frame loop.  The legacy model and graph
 are also served as a Kaldi user serves them, a .mdl, an OpenFst HCLG.fst
 and a words.txt through the port's online2-wav-nnet3-latgen-faster and
 online2-tcp-nnet3-decode-faster (the model on the card in a streaming
-window, the search on the host).
+window, the search on the host), and as an xconfig checkpoint directory
+decoded into lattices by nnet3-latgen-faster, scored by the lattice
+tools and compute-wer.
 
 Phases, one JSON line each (any failure exits nonzero):
   1. the card's name and power limit (nvidia-smi);
@@ -160,7 +162,21 @@ Phases, one JSON line each (any failure exits nonzero):
      clients 4 at a time: every client sees a partial and its finals
      equal online2_wav's words; wall, final latency p50/p99, the
      scorer's and the search's host ms, peak memory); then the legacy
-     training recipe:
+     model as an xconfig checkpoint: xconfig_graph (chain_tdnnf_xconfig
+     text and a .npz checkpoint directory written, read back and built,
+     the module within 1e-4 of the native TDNN-F on every frame;
+     final.tm; the 16 utterances' MFCCs as feats.ark), xconfig_latgen
+     (nnet3-latgen-faster at decode.sh's beams in a process of its own,
+     then lattice-scale | lattice-add-penalty | lattice-best-path and
+     compute-wer as processes: 16/16 lattices, none undeterminized, each
+     best path the tool's words and the host FasterDecoder's at beam 15;
+     WER, the tool's stats line, the forward's device ms and launches),
+     xconfig_latgen_variants (-batch and -looped on 4 utterances: the
+     base tool's words; -batch's interior loglikes within 1e-4),
+     xconfig_zoo (a TDNN-LSTM, a GRU, attention, a CNN front end and an
+     x-vector network at their recipes' widths, seeded random weights,
+     32 x 500 frames on the card against float64 on the CPU); then the
+     legacy training recipe:
      train_lex (recipes/train_bench.py, nothing cut: stage seconds, the
      aligner, each epoch's objective, step ms, peak memory, the WER of
      the test set within 2.0 points of the JAX package's),
@@ -196,8 +212,8 @@ Phases, one JSON line each (any failure exits nonzero):
      must give the lane's tids and cost back); 8 lanes again with the
      plain relaxation;
   8. the kernel table (kernel a's launches on the online path too, and
-     each kernel's launches on the legacy, the online2, the training and
-     the nnet3 phases, which must be 0); the
+     each kernel's launches on the legacy, the online2, the xconfig, the
+     training and the nnet3 phases, which must be 0); the
      last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
@@ -207,6 +223,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import gc
 import json
 import os
@@ -223,6 +240,7 @@ import torch
 from kaldi_tpu_torch.chain.graphs import batch_pack
 from kaldi_tpu_torch.chain.objective import chain_loss, den_arcs
 from kaldi_tpu_torch.cli import get_tool
+from kaldi_tpu_torch.cli.nnet3_latgen_tools import _Forward, batch_loglikes
 from kaldi_tpu_torch.cli.nnet3_tools import pad_batch
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
@@ -253,6 +271,10 @@ from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_to_flax)
 from kaldi_tpu_torch.nnet3.streaming import OnlineNnetScorer
 from kaldi_tpu_torch.nnet3.torch_bridge import compile_graph
+from kaldi_tpu_torch.nnet3.xconfig import (build_xconfig_model,
+                                           chain_tdnnf_variables_to_xconfig,
+                                           chain_tdnnf_xconfig, parse_xconfig,
+                                           xconfig_from_flax)
 from kaldi_tpu_torch.online.batched_device_pipeline import (
     BatchedDeviceOnlinePipeline, BatchedDeviceOnlinePipelineLex,
     BatchedDeviceOnlinePipelineNg, OnlineDynamicBatcher)
@@ -263,6 +285,8 @@ from kaldi_tpu_torch.ops import _build, kernel_launch_counts
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
+from kaldi_tpu_torch.parallel.checkpoint import (restore_checkpoint,
+                                                 save_checkpoint)
 from kaldi_tpu_torch.recipes import chain as tchain
 from kaldi_tpu_torch.recipes import mono as tmono
 from kaldi_tpu_torch.recipes import train_bench, train_scale
@@ -272,7 +296,8 @@ from kaldi_tpu_torch.recipes.bench_corpus import (
     load_ivector_extractor, load_params, make_corpus, make_lexicon,
     make_text, mfcc_options, wer_of)
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
-from kaldi_tpu_torch.util.kaldi_io import read_kaldi_object
+from kaldi_tpu_torch.util.kaldi_io import (read_kaldi_object,
+                                           write_kaldi_object)
 from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -3359,14 +3384,14 @@ def online2_words_txt(path: str, words) -> None:
         f.writelines(f"{w} {i}\n" for i, w in enumerate(words))
 
 
-def run_online2_graph(tmp: str) -> dict:
+def run_online2_graph(tmp: str, n_utts: int = ONLINE2_UTTS) -> dict:
     """online2_graph: what a Kaldi user brings to the online2 tools, made
     as nnet3_import_flagship makes its .mdl: the legacy flagship_params.npz
     TDNN-F (float32) written by chain_tdnnf_to_nnet3 and write_nnet3_am
     with chain_tm_tree_for's transition model and the model's contexts,
     read back and compiled; the legacy LexChainGraph's flat form written
     as an OpenFst HCLG.fst and read back (every arc and final weight
-    equal); words.txt; the first ONLINE2_UTTS test utterances of
+    equal); words.txt; the first n_utts test utterances of
     BenchCorpusSpec() on the int16 wire as a wav archive."""
     spec = BenchCorpusSpec()
     lexicon, _, _, test_txt, test_wav, lm_text = make_corpus(
@@ -3413,7 +3438,7 @@ def run_online2_graph(tmp: str) -> dict:
                   and all([tuple(a) for a in x] == [tuple(a) for a in y]
                           for x, y in zip(back.arcs, fst.arcs)))
     online2_words_txt(os.path.join(tmp, "words.txt"), flat.words)
-    utts = sorted(test_wav)[:ONLINE2_UTTS]
+    utts = sorted(test_wav)[:n_utts]
     waves = {u: np.clip(test_wav[u], -32767, 32767).astype(np.int16)
              for u in utts}
     with TableWriter("wave", f"ark:{os.path.join(tmp, 'wav.ark')}") as w:
@@ -3694,9 +3719,11 @@ def run_online2_tcp(sysd: dict, wav: dict) -> dict:
     return res
 
 
-def online2_phases(lex_words16: dict) -> dict:
+def online2_phases(lex_words16: dict, xconfig: bool = True) -> dict:
     """online2_graph, online2_wav and online2_tcp; kernels a-c launch 0
-    times in each (in this process and in the tools')."""
+    times in each (in this process and in the tools').  With `xconfig`,
+    then the xconfig phases over online2_graph's HCLG.fst and
+    utterances (their summary under "xconfig")."""
     t0 = time.perf_counter()
     reset_kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3704,6 +3731,10 @@ def online2_phases(lex_words16: dict) -> dict:
         graph_launches = kernel_launch_counts()
         wav = run_online2_wav(sysd, lex_words16)
         tcp = run_online2_tcp(sysd, wav)
+        online2_s = time.perf_counter() - t0
+        xcfg = (xconfig_phases(sysd, {"wer": wav["res"]["wer"],
+                                      "names": wav["names"]})
+                if xconfig else None)
         del sysd
     torch.cuda.empty_cache()
     w = wav["res"]
@@ -3719,7 +3750,426 @@ def online2_phases(lex_words16: dict) -> dict:
             "online2_tcp_wall_s": tcp["wall_s"],
             "online2_tcp_latency_ms_p50": tcp["final_latency_ms"]["p50"],
             "online2_search_ms_a_frame": tcp["search_host_ms_a_frame"],
-            "online2_seconds": time.perf_counter() - t0,
+            "online2_seconds": online2_s, "xconfig": xcfg,
+            "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# xconfig phases: the legacy TDNN-F as an xconfig checkpoint directory,
+# decoded into lattices by nnet3-latgen-faster over online2_graph's
+# HCLG.fst, the lattice tools and compute-wer, the -batch and -looped
+# variants, and one small-depth model of each xconfig layer family
+
+# the beams of the reference's steps/nnet3/decode.sh; the search is host
+# Python (about 1 ms a frame on the CPU), so 16 utterances keep the tool
+# near 15 s of search and determinization
+XCONFIG_UTTS, XCONFIG_VARIANT_UTTS = 16, 4
+LATGEN_ARGS = ["--beam=15", "--lattice-beam=8", "--max-active=7000",
+               "--acoustic-scale=1.0"]
+# the legacy int16-wire WER of slice_lex_int16 (94 of 1544; PR 9-13) that
+# chip_main_path.py --latgen holds the 128 utterances to
+SLICE_LEX_INT16_WER, SLICE_LEX_INT16_ERRORS = 100.0 * 94 / 1544, 94
+# xconfig_zoo: lanes x frames on the card; the CPU float64 reference runs
+# the first ZOO_CPU_LANES lanes (lanes do not mix in eval mode)
+ZOO_LANES, ZOO_FRAMES, ZOO_CPU_LANES = 32, 500, 4
+# Kaldi's recipes' widths at small depth: run_tdnn_lstm_1a (TDNN-LSTM),
+# the GRU and attention variants of the swbd chain recipes, the CNN-TDNN
+# front end (cnn_tdnn_1a) and voxceleb's run_xvector.sh.  Tolerance:
+# max |card f32 - CPU f64| over max |CPU f64|
+ZOO = {
+    "tdnn_lstm": (1e-4, """
+input dim=40 name=input
+relu-batchnorm-layer name=tdnn1 dim=1024 input=Append(-2,-1,0,1,2)
+relu-batchnorm-layer name=tdnn2 dim=1024 input=Append(-1,0,1)
+fast-lstmp-layer name=lstm1 cell-dim=1024 recurrent-projection-dim=256 non-recurrent-projection-dim=256
+relu-batchnorm-layer name=tdnn3 dim=1024 input=Append(-3,0,3)
+fast-lstmp-layer name=lstm2 cell-dim=1024 recurrent-projection-dim=256 non-recurrent-projection-dim=256
+output-layer name=output dim=3456 include-log-softmax=false
+"""),
+    "gru": (1e-4, """
+input dim=40 name=input
+relu-batchnorm-layer name=tdnn1 dim=1024 input=Append(-2,-1,0,1,2)
+gru-layer name=gru1 cell-dim=1024 recurrent-projection-dim=256
+relu-batchnorm-layer name=tdnn2 dim=1024 input=Append(-3,0,3)
+gru-layer name=gru2 cell-dim=1024 recurrent-projection-dim=256
+output-layer name=output dim=3456 include-log-softmax=false
+"""),
+    "attention": (1e-4, """
+input dim=40 name=input
+relu-batchnorm-layer name=tdnn1 dim=1024 input=Append(-2,-1,0,1,2)
+attention-relu-renorm-layer name=att1 num-heads=15 key-dim=40 value-dim=80 num-left-inputs=5 num-right-inputs=2
+relu-batchnorm-layer name=tdnn2 dim=1024 input=Append(-3,0,3)
+attention-relu-renorm-layer name=att2 num-heads=15 key-dim=40 value-dim=80 num-left-inputs=5 num-right-inputs=2
+output-layer name=output dim=3456 include-log-softmax=false
+"""),
+    "cnn": (1e-4, """
+input dim=40 name=input
+conv-relu-batchnorm-layer name=cnn1 height-in=40 num-filters-out=64 time-kernel=3 height-kernel=3
+conv-relu-batchnorm-layer name=cnn2 height-in=40 num-filters-out=128 time-kernel=3 height-kernel=3 height-subsample-out=2
+relu-batchnorm-layer name=tdnn1 dim=1024 input=Append(-1,0,1)
+output-layer name=output dim=3456 include-log-softmax=false
+"""),
+    "xvector": (1e-4, """
+input dim=40 name=input
+relu-batchnorm-layer name=tdnn1 dim=512 input=Append(-2,-1,0,1,2)
+relu-batchnorm-layer name=tdnn2 dim=512 input=Append(-2,0,2)
+relu-batchnorm-layer name=tdnn3 dim=512 input=Append(-3,0,3)
+relu-batchnorm-layer name=tdnn4 dim=512
+relu-batchnorm-layer name=tdnn5 dim=1500
+stats-layer name=stats
+relu-batchnorm-layer name=tdnn6 dim=512
+relu-batchnorm-layer name=tdnn7 dim=512
+output-layer name=output dim=7323
+"""),
+}
+
+
+def cli(tool: str, *args, timeout: int = 600) -> subprocess.CompletedProcess:
+    """`python -m kaldi_tpu_torch.cli <tool> args` in a process of its
+    own; exits when it fails."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "kaldi_tpu_torch.cli", tool, *map(str, args)],
+        cwd=REPO, capture_output=True, text=True, timeout=timeout,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    if proc.returncode != 0:
+        raise SystemExit(f"{tool} failed:\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def int_words(path: str) -> dict:
+    return {u: list(v) for u, v in
+            SequentialTableReader("int-vector", f"ark:{path}")}
+
+
+def run_xconfig_graph(sysd: dict, dev: str = "cuda") -> dict:
+    """xconfig_graph: the legacy TDNN-F (flagship_params.npz) as
+    chain_tdnnf_xconfig text and a port checkpoint directory, written,
+    read back and built; chain_tm_tree_for's transition model as final.tm;
+    the MFCCs of online2_graph's utterances (int16 wire, the port's
+    frontend) as feats.ark.  On the card the xconfig module's output is
+    the native ChainTdnnf's chain head within 1e-4 on every frame."""
+    d = os.path.join(sysd["dir"], "xconfig")
+    os.makedirs(d, exist_ok=True)
+    tm, spec = sysd["tm"], sysd["spec"]
+    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=0, num_pdfs=tm.num_pdfs,
+                           hidden_dim=1536, bottleneck_dim=160,
+                           prefinal_dim=256, num_layers=17,
+                           subsample_layer=8, frame_subsampling_factor=3)
+    variables = load_params(os.path.join(ART, "flagship_params.npz"))
+    text = chain_tdnnf_xconfig(cfg)
+    ckpt = os.path.join(d, "nnet")
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, chain_tdnnf_variables_to_xconfig(variables), 0,
+                    extra={"xconfig": text})
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _, _ = restore_checkpoint(ckpt)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = xconfig_from_flax(text, state, device=dev)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    native = chain_tdnnf_from_flax(cfg, variables, device=dev)
+    tm_path = os.path.join(d, "final.tm")
+    write_kaldi_object(tm.write, tm_path)
+    fe = OfflineFeature(mfcc_options(spec, num_ceps=40), device=dev)
+    feats, loglikes, err = {}, {}, 0.0
+    with torch.no_grad(), full_f32():
+        for u in sysd["utts"]:
+            f, n = fe.compute_batch_device([sysd["waves"][u]])
+            f = f[:, :int(n[0])]
+            ll = model({"input": f})["output"][0]
+            err = max(err, float((ll - native.chain(f)[0]).abs().max()))
+            feats[u] = f[0].cpu().numpy()
+            loglikes[u] = ll.cpu().numpy()
+    del native
+    write_ark(os.path.join(d, "feats.ark"), feats.items())
+    res = {"xconfig_layers": len(parse_xconfig(text)),
+           "checkpoint_bytes": os.path.getsize(
+               os.path.join(ckpt, "step_0", "variables.npz")),
+           "write_s": write_s, "read_s": read_s, "build_s": build_s,
+           "utterances": len(feats),
+           "input_frames": sum(len(f) for f in feats.values()),
+           "output_frames": sum(len(v) for v in loglikes.values()),
+           "max_abs_err_vs_native": err, "tol": 1e-4}
+    emit("xconfig_graph", **res)
+    if err > 1e-4:
+        raise SystemExit(f"xconfig_graph: the xconfig module is {err} from "
+                         "the native TDNN-F")
+    return {"res": res, "dir": d, "ckpt": ckpt, "tm_path": tm_path,
+            "model": model, "feats": feats, "loglikes": loglikes,
+            "context": tdnnf_context(cfg)}
+
+
+def run_xconfig_latgen(x: dict, sysd: dict, online2: dict = None,
+                       gpu: str = "yes") -> dict:
+    """xconfig_latgen: `nnet3-latgen-faster` (decode.sh's beams) in a
+    process of its own over feats.ark, then `lattice-scale |
+    lattice-add-penalty | lattice-best-path` and `compute-wer` as
+    processes.  Every lattice written, none undeterminized, each
+    lattice-best-path equal to the tool's words, and each utterance's
+    words equal to the host FasterDecoder's at beam 15 on the same
+    loglikes (or the lattice's best path cheaper than FasterDecoder's)."""
+    reset_kernel_counts()
+    d, utts, words = x["dir"], sorted(x["feats"]), sysd["words"]
+    lat, hyp = os.path.join(d, "lat.ark"), os.path.join(d, "hyp.int")
+    tool = "nnet3-latgen-faster"
+    t0 = time.perf_counter()
+    proc = cli(tool, f"--use-gpu={gpu}", *LATGEN_ARGS, x["tm_path"],
+               x["ckpt"], sysd["hclg"], f"ark:{os.path.join(d, 'feats.ark')}",
+               f"ark:{lat}", f"ark,t:{hyp}")
+    tool_s = time.perf_counter() - t0
+    stats = tool_stats(tool, proc.stderr)
+    got = int_words(hyp)
+    lats = dict(SequentialTableReader("lattice", f"ark:{lat}"))
+    best = os.path.join(d, "best.int")
+    py = f"{sys.executable} -m kaldi_tpu_torch.cli"
+    t0 = time.perf_counter()
+    pipe = subprocess.run(
+        ["bash", "-o", "pipefail", "-c",
+         f"{py} lattice-scale --acoustic-scale=1.0 --lm-scale=1.0 "
+         f"ark:{lat} ark:- | {py} lattice-add-penalty --word-ins-penalty=0.0 "
+         f"ark:- ark:- | {py} lattice-best-path ark:- ark,t:{best}"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    pipeline_s = time.perf_counter() - t0
+    if pipe.returncode != 0:
+        raise SystemExit(f"lattice pipeline failed:\n{pipe.stderr[-4000:]}")
+    best_words = int_words(best)
+    names = {u: [words[w] for w in got.get(u, [])] for u in utts}
+    test_txt = {u: sysd["test_txt"][u] for u in utts}
+    with TableWriter("token-vector", f"ark,t:{os.path.join(d, 'ref.txt')}") \
+            as w:
+        for u in utts:
+            w.write(u, list(test_txt[u]))
+    with TableWriter("token-vector", f"ark,t:{os.path.join(d, 'hyp.txt')}") \
+            as w:
+        for u in utts:
+            w.write(u, names[u])
+    wer_line = cli("compute-wer", "--mode=present",
+                   f"ark:{os.path.join(d, 'ref.txt')}",
+                   f"ark:{os.path.join(d, 'hyp.txt')}").stdout.splitlines()[0]
+    errors = int(wer_line.split("[")[1].split("/")[0])
+    wer = wer_of(names, test_txt)
+    # the host best-path decoder on this process's loglikes
+    dec = FasterDecoder(sysd["fst"], FasterDecoderOptions(beam=15.0))
+    faults, costs, search_s, frames = [], {}, 0.0, 0
+    for u in utts:
+        t0 = time.perf_counter()
+        fd = dec.decode(x["loglikes"][u], sysd["tm"].id2pdf_id, 1.0)
+        search_s += time.perf_counter() - t0
+        frames += len(x["loglikes"][u])
+        lat_cost = latf.lattice_best_path(lats[u])[2] if u in lats else None
+        if fd is None or got.get(u) != fd[1]:
+            costs[u] = {"lattice": lat_cost,
+                        "faster_decoder": None if fd is None else fd[2]}
+            if fd is not None and (lat_cost is None
+                                   or not lat_cost < fd[2]):
+                faults.append(u)
+    f0 = torch.from_numpy(x["feats"][utts[0]][None]).to(x["model"].device)
+    prof = {"device_ms": None, "kernel_launches": None, "top": None}
+    if f0.is_cuda:
+        with torch.no_grad(), full_f32():
+            prof = profile_call(lambda: x["model"]({"input": f0}), top=4)
+    res = {"utterances": len(utts), "lattices": len(lats),
+           "det_fallbacks": stats["det_fallbacks"], "tool_s": tool_s,
+           "rtf": stats["rtf"], "tool_stats": stats,
+           "forward_span_ms_a_call": stats["forward_span_ms"]
+           / max(stats["forward_calls"], 1)
+           if stats["forward_span_ms"] is not None else None,
+           "forward_profiled": {"frames": len(x["feats"][utts[0]]),
+                                "device_ms": prof["device_ms"],
+                                "kernel_launches": prof["kernel_launches"],
+                                "top": prof["top"]},
+           "search_ms_a_frame": 1e3 * stats["search_s"]
+           / max(stats["frames"], 1),
+           "determinize_ms_a_lattice": 1e3 * stats["determinize_s"]
+           / max(stats["utterances"], 1),
+           "peak_memory_gb": stats.get("peak_memory_gb"),
+           "pipeline_s": pipeline_s,
+           "best_path_equal_tool_words": sum(best_words.get(u) == got.get(u)
+                                             for u in utts),
+           "compute_wer": wer_line, "wer": wer, "word_errors": errors,
+           "ref_words": sum(len(r) for r in test_txt.values()),
+           "equal_faster_decoder": len(utts) - len(costs),
+           "differ_faster_decoder": costs,
+           "faster_decoder_search_ms_a_frame": 1e3 * search_s
+           / max(frames, 1),
+           "launches": kernel_launch_counts(),
+           "tool_launches": stats["kernel_launches"]}
+    if online2 is not None:
+        res.update(online2_wav_wer=online2["wer"],
+                   agree_with_online2_wav=sum(names[u] == online2["names"][u]
+                                              for u in utts))
+    emit("xconfig_latgen", **res)
+    if len(lats) != len(utts) or len(got) != len(utts) \
+            or stats["det_fallbacks"] or faults \
+            or res["best_path_equal_tool_words"] != len(utts) \
+            or errors != word_errors(wer, test_txt):
+        raise SystemExit(f"xconfig_latgen: {len(lats)}/{len(utts)} "
+                         f"lattices, {stats['det_fallbacks']} fallbacks, "
+                         f"FasterDecoder faults {faults}, "
+                         f"{res['best_path_equal_tool_words']} best paths "
+                         f"equal, compute-wer {wer_line!r} against {wer}")
+    return {"res": res, "words": got}
+
+
+def run_xconfig_variants(x: dict, sysd: dict, base: dict,
+                         gpu: str = "yes") -> dict:
+    """xconfig_latgen_variants: nnet3-latgen-faster-batch
+    (--minibatch-size=8) and -looped (the model's 88 frames of context
+    each side, subsampling 3) over the first XCONFIG_VARIANT_UTTS
+    utterances: the base tool's words, and -batch's interior loglikes (the
+    output frames whose context stops before the zero-padded tail) within
+    1e-4 of the base forward's."""
+    reset_kernel_counts()
+    d = x["dir"]
+    utts = sorted(x["feats"])[:XCONFIG_VARIANT_UTTS]
+    feats4 = os.path.join(d, "feats4.ark")
+    write_ark(feats4, ((u, x["feats"][u]) for u in utts))
+    ctx = x["context"]
+    out, launches = {}, {}
+    for tool, extra in (
+            ("nnet3-latgen-faster-batch", ["--minibatch-size=8"]),
+            ("nnet3-latgen-faster-looped",
+             ["--frame-subsampling-factor=3", f"--extra-left-context={ctx}",
+              f"--extra-right-context={ctx}"])):
+        hyp = os.path.join(d, f"{tool}.int")
+        t0 = time.perf_counter()
+        proc = cli(tool, f"--use-gpu={gpu}", *LATGEN_ARGS, *extra,
+                   x["tm_path"], x["ckpt"], sysd["hclg"], f"ark:{feats4}",
+                   f"ark:{os.path.join(d, tool + '.lat')}", f"ark,t:{hyp}")
+        stats = tool_stats(tool, proc.stderr)
+        got = int_words(hyp)
+        out[tool] = {"tool_s": time.perf_counter() - t0,
+                     "equal_base_words": sum(got.get(u) == base[u]
+                                             for u in utts),
+                     "forward_calls": stats["forward_calls"],
+                     "forward_span_ms": stats["forward_span_ms"],
+                     "search_s": stats["search_s"],
+                     "det_fallbacks": stats["det_fallbacks"]}
+        launches[tool] = stats["kernel_launches"]
+    fwd = _Forward(x["model"])
+    err, interior = 0.0, 0
+    for key, ll, n_in in batch_loglikes(
+            fwd, [(u, x["feats"][u]) for u in utts]):
+        n_int = max(0, (n_in - 1 - ctx) // 3 + 1)
+        interior += n_int
+        err = max(err, float(np.abs(ll[:n_int]
+                                    - x["loglikes"][key][:n_int]).max()))
+    res = {"utterances": len(utts), **out,
+           "batch_interior_frames": interior,
+           "batch_interior_max_abs_err": err, "tol": 1e-4,
+           "launches": kernel_launch_counts(), "tool_launches": launches}
+    emit("xconfig_latgen_variants", **res)
+    if any(o["equal_base_words"] != len(utts) for o in out.values()) \
+            or err > 1e-4 or not interior:
+        raise SystemExit(f"xconfig_latgen_variants: {out}, interior "
+                         f"loglikes {err} from the base tool's")
+    return res
+
+
+def randomize_(model, gen: torch.Generator) -> None:
+    """Seeded random weights: each weight matrix normal over sqrt of its
+    fan-in, biases normal x 0.1, BatchNorm means normal x 0.1 and
+    variances uniform in [0.5, 1.5]."""
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            z = torch.randn(p.shape, generator=gen, dtype=p.dtype)
+            p.copy_(z / p[0].numel() ** 0.5 if p.dim() > 1 else 0.1 * z)
+        for name, b in model.named_buffers():
+            if name.endswith("mean"):
+                b.copy_(0.1 * torch.randn(b.shape, generator=gen))
+            elif name.endswith("var"):
+                b.copy_(0.5 + torch.rand(b.shape, generator=gen))
+
+
+def run_xconfig_zoo(dev: str = "cuda", lanes: int = ZOO_LANES,
+                    frames: int = ZOO_FRAMES,
+                    cpu_lanes: int = ZOO_CPU_LANES) -> dict:
+    """xconfig_zoo: one model per layer family at its recipe's widths,
+    seeded random weights, over lanes x frames on the card in float32
+    (TF32 off in matmuls and convolutions), held against the same module
+    in float64 on the CPU over the first cpu_lanes lanes.  ms of a
+    forward (CUDA events), launches (and launches a frame for the
+    recurrent ones) and peak memory (the profiler over one forward)."""
+    reset_kernel_counts()
+    out, bad = {}, []
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for i, (name, (tol, text)) in enumerate(ZOO.items()):
+            gen = torch.Generator().manual_seed(SEED + i)
+            ref = build_xconfig_model(text, device="cpu")
+            randomize_(ref, gen)
+            x = torch.randn(lanes, frames, 40, generator=gen)
+            card = copy.deepcopy(ref).to(dev)
+            xd = x.to(dev)
+            with torch.no_grad(), full_f32():
+                y = card({"input": xd})["output"]
+                if dev == "cuda":
+                    ms = cuda_ms(lambda: card({"input": xd}), 3)
+                    prof = profile_call(lambda: card({"input": xd}), top=3)
+                else:
+                    ms, prof = None, None
+                want = ref.double()({"input": x[:cpu_lanes].double()})[
+                    "output"]
+            err = float((y[:cpu_lanes].double().cpu() - want).abs().max()
+                        / want.abs().max())
+            recurrent = any(l.layer_type in ("fast-lstmp-layer", "gru-layer")
+                            for l in ref.layers)
+            out[name] = {
+                "params": sum(p.numel() for p in card.parameters()),
+                "shape": list(y.shape), "rel_err": err, "tol": tol,
+                "ms": ms, "launches": prof and prof["kernel_launches"],
+                "launches_a_frame": (prof["kernel_launches"] / frames
+                                     if prof and recurrent else None),
+                "peak_memory_gb": prof and prof["peak_memory_gb"],
+                "finite": bool(torch.isfinite(y).all())}
+            if not err <= tol or not out[name]["finite"]:
+                bad.append(name)
+            del card, ref, y, want
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    res = {"lanes": lanes, "frames": frames, "cpu_lanes": cpu_lanes,
+           "families": out, "launches": kernel_launch_counts()}
+    emit("xconfig_zoo", **res)
+    if bad:
+        raise SystemExit(f"xconfig_zoo: {bad} outside their tolerances")
+    return res
+
+
+def xconfig_phases(sysd: dict, online2: dict = None) -> dict:
+    """xconfig_graph, xconfig_latgen, xconfig_latgen_variants and
+    xconfig_zoo; kernels a-c launch 0 times in each (in this process and
+    in the tools')."""
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    x = run_xconfig_graph(sysd)
+    graph_launches = kernel_launch_counts()
+    lat = run_xconfig_latgen(x, sysd, online2)
+    var = run_xconfig_variants(x, sysd, lat["words"])
+    del x
+    torch.cuda.empty_cache()
+    zoo = run_xconfig_zoo()
+    r = lat["res"]
+    launches = {"xconfig_graph": graph_launches,
+                "xconfig_latgen": {k: v + r["tool_launches"][k]
+                                   for k, v in r["launches"].items()},
+                "xconfig_latgen_variants": {
+                    k: v + sum(t[k] for t in var["tool_launches"].values())
+                    for k, v in var["launches"].items()},
+                "xconfig_zoo": zoo["launches"]}
+    if any(any(c.values()) for c in launches.values()):
+        raise SystemExit(f"a kernel of another path ran in the xconfig "
+                         f"phases: {launches}")
+    return {"xconfig_latgen_wer": r["wer"],
+            "xconfig_latgen_rtf": r["rtf"],
+            "xconfig_search_ms_a_frame": r["search_ms_a_frame"],
+            "xconfig_seconds": time.perf_counter() - t0,
             "launches": launches}
 
 
@@ -4014,7 +4464,8 @@ def main() -> int:
     # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
     legacy = legacy_phases(ng_lat.pop("lattices"))
 
-    # 5b'. online2 serving over the legacy graph's HCLG.fst: the tools -----
+    # 5b'. online2 serving over the legacy graph's HCLG.fst: the tools;
+    # then the xconfig phases: nnet3-latgen-faster and the lattice tools --
     online2 = online2_phases(legacy.pop("words_int16"))
 
     # 5c. the legacy training recipe, end to end, and its card-CPU check ---
@@ -4334,7 +4785,9 @@ def main() -> int:
          train={k: v for k, v in train.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
          **{k: v for k, v in nnet3.items() if k != "launches"},
-         **{k: v for k, v in online2.items() if k != "launches"},
+         **{k: v for k, v in online2.items()
+            if k not in ("launches", "xconfig")},
+         **{k: v for k, v in online2["xconfig"].items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -4366,6 +4819,8 @@ def main() -> int:
                                   nnet3["launches"].values())
         k["launches_online2"] = sum(counts[k["name"]] for counts in
                                     online2["launches"].values())
+        k["launches_xconfig"] = sum(counts[k["name"]] for counts in
+                                    online2["xconfig"]["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -1,8 +1,14 @@
-"""nnet3-compute and nnet3-compute-batch (ports of
-`kaldi_tpu/cli/misc_tools.py` nnet3_compute, its model-file branch, and
-`kaldi_tpu/cli/tail15_tools.py` nnet3_compute_batch): features through a
-Kaldi nnet3 model file (.raw or .mdl) compiled by nnet3/torch_bridge.py,
-on the card unless --use-gpu=no.
+"""nnet3-compute, nnet3-compute-batch and nnet3-latgen-faster (ports of
+`kaldi_tpu/cli/misc_tools.py` nnet3_compute, `kaldi_tpu/cli/tail15_tools.py`
+nnet3_compute_batch and `kaldi_tpu/cli/nnet3_tools.py`
+nnet3_latgen_faster), on the card unless --use-gpu=no.
+
+nnet3-compute reads a Kaldi nnet3 model file (.raw or .mdl), compiled by
+nnet3/torch_bridge.py, or an xconfig checkpoint directory
+(parallel/checkpoint.py; a JAX package orbax directory is refused,
+naming tools/jax_checkpoint_to_torch.py).  nnet3-compute-batch reads
+model files.  nnet3-latgen-faster decodes an xconfig checkpoint's output
+into lattices over an HCLG (cli/nnet3_latgen_tools.py).
 
 Unlike the JAX package's tools, neither falls back to the host evaluator
 when a component has no device mapping: the compile error ends the tool
@@ -39,10 +45,36 @@ def _read_model(path: str):
     from kaldi_tpu_torch.nnet3.mdl_io import read_nnet3_any
     if os.path.isdir(path):
         raise KaldiTpuError(
-            f"{path} is a directory: the xconfig checkpoint branch of "
-            "nnet3-compute needs nnet3/xconfig.py and parallel/checkpoint.py, "
-            "not ported yet (a later slice); pass a .raw or .mdl file")
+            f"{path} is a directory: nnet3-compute-batch reads .raw or .mdl "
+            "files (nnet3-compute reads xconfig checkpoint directories)")
     return read_nnet3_any(path)[1]
+
+
+def _xconfig_forward(path: str, head: str, use_gpu: str):
+    """nnet3-compute's forward over an xconfig checkpoint directory: the
+    `head` output of (T, D) features (and an i-vector, when the model
+    has an "ivector" input), float32 with TF32 off."""
+    import torch
+
+    from kaldi_tpu_torch.device import full_f32
+    from kaldi_tpu_torch.parallel.checkpoint import load_xconfig_checkpoint
+    model, _text, _step = load_xconfig_checkpoint(path,
+                                                  device=_device(use_gpu))
+    if head not in {l.name for l in model.layers
+                    if l.layer_type == "output-layer"}:
+        raise KaldiTpuError(f"{path}: the model has no output {head!r}")
+    inputs = {l.name for l in model.layers if l.layer_type == "input"}
+
+    def fwd(feats, iv):
+        x = {"input": torch.from_numpy(feats[None])}
+        if "ivector" in inputs:
+            if iv is None:
+                raise KaldiTpuError("the model has an ivector input: pass "
+                                    "--ivectors")
+            x["ivector"] = torch.from_numpy(iv[None])
+        with torch.no_grad(), full_f32():
+            return model(x)[head][0].cpu().numpy()
+    return fwd
 
 
 def _register_common(po: ParseOptions):
@@ -60,10 +92,10 @@ def _register_common(po: ParseOptions):
 
 def nnet3_compute(argv: List[str]) -> int:
     po = ParseOptions(
-        "Propagate the features through a raw neural network model or the "
-        "network of an acoustic model.\n"
-        "Usage: nnet3-compute [options] <model-in> <features-rspecifier> "
-        "<matrix-wspecifier>")
+        "Propagate the features through a raw neural network model, the "
+        "network of an acoustic model, or an xconfig checkpoint directory.\n"
+        "Usage: nnet3-compute [options] <model-in|nnet-dir> "
+        "<features-rspecifier> <matrix-wspecifier>")
     use_xent, use_gpu, ivectors = _register_common(po)
     use_device = po.register_value(
         "use-device", True,
@@ -73,11 +105,13 @@ def nnet3_compute(argv: List[str]) -> int:
     if po.num_args() != 3:
         po.print_usage()
         return 1
-    graph = _read_model(po.get_arg(1))
     head = "output-xent" if use_xent[0] else "output"
     iv_reader = (RandomAccessTableReader("vector", ivectors[0])
                  if ivectors[0] else None)
-    if use_device[0]:
+    if os.path.isdir(po.get_arg(1)):
+        fwd = _xconfig_forward(po.get_arg(1), head, use_gpu[0])
+    elif use_device[0]:
+        graph = _read_model(po.get_arg(1))
         from kaldi_tpu_torch.nnet3.torch_bridge import compile_graph
         net = compile_graph(graph, head, device=_device(use_gpu[0]))
 
@@ -85,6 +119,8 @@ def nnet3_compute(argv: List[str]) -> int:
             return net(feats[None], None if iv is None else iv[None])[0] \
                 .cpu().numpy()
     else:
+        graph = _read_model(po.get_arg(1))
+
         def fwd(feats, iv):
             return graph.forward(feats, ivector=iv, output_name=head)
     writer = TableWriter("matrix", po.get_arg(3))
@@ -157,3 +193,29 @@ def nnet3_compute_batch(argv: List[str]) -> int:
     writer.close()
     log(f"batch-computed outputs for {n} utterances")
     return 0 if n else 1
+
+
+def nnet3_latgen_faster(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Generate lattices using neural net model.\n"
+        "Usage: nnet3-latgen-faster [options] <trans-model> <nnet-dir> "
+        "<fst-in> <features-rspecifier> <lattice-wspecifier> "
+        "[<words-wspecifier>]")
+    from kaldi_tpu_torch.cli.nnet3_latgen_tools import (_decode_loop,
+                                                         _load_tm_and_model,
+                                                         parse_args,
+                                                         register_latgen)
+    dopts, acoustic_scale, use_gpu = register_latgen(po)
+    if not parse_args(po, argv):
+        return 1
+    tm, forward = _load_tm_and_model(po.get_arg(1), po.get_arg(2),
+                                     use_gpu[0])
+
+    def items():
+        for key, feats in SequentialTableReader("matrix", po.get_arg(4)):
+            yield key, forward(feats[None])[0].cpu().numpy(), len(feats)
+
+    return _decode_loop(items(), po.get_arg(3), tm, forward,
+                        acoustic_scale[0], dopts, po.get_arg(5),
+                        po.get_arg(6) if po.num_args() >= 6 else None,
+                        "nnet3-latgen-faster")

@@ -5,7 +5,10 @@ Byte-level interop with Kaldi's graph files (HCLG.fst, L.fst, G.fst)
 and FST archives.  Arc types: "standard" (tropical) and "lattice4"
 (Kaldi LatticeWeight) are read and written; "compactlattice44" is read
 into Lattice form (each arc's transition-id string expanded into a
-chain of arcs).  FSTs with attached symbol tables are refused, as the
+chain of arcs) by `read_fst`, and into a CompactLattice, arc grouping
+kept, by `read_compact_fst`; `write_fst(..., as_compact_lattice=True)`
+writes a Lattice as compactlattice44 and `write_compact_fst` a
+CompactLattice.  FSTs with attached symbol tables are refused, as the
 reference refuses them (its decoding graphs never attach them).
 
 Layout (OpenFst FstHeader + VectorFst version 2 body, little-endian):
@@ -18,10 +21,7 @@ Strings are an int32 length and the bytes; weights are 1 float
 (standard), 2 floats (lattice4), or 2 floats + int32 n + n int32
 (compactlattice44).
 
-Not carried over yet: the CompactLattice readers and writers
-(`write_fst(..., as_compact_lattice=True)`, `write_compact_fst`,
-`read_compact_fst`), which come with `CompactLattice`; they raise,
-naming it.  Nor the port's own `<KtFst>` container, which
+Not carried over yet: the JAX package's own `<KtFst>` container, which
 `read_fst_file` refuses.
 """
 
@@ -41,8 +41,6 @@ from kaldi_tpu_torch.util.table import Holder
 FST_MAGIC = 2125659606
 _HAS_ISYMBOLS = 0x1
 _HAS_OSYMBOLS = 0x2
-_COMPACT = ("CompactLattice, kaldi_tpu/lat/kaldi_lattice.py "
-            "(not ported yet)")
 
 
 def _read_string(f: BinaryIO) -> str:
@@ -155,21 +153,21 @@ def read_fst(stream: BinaryIO) -> VectorFst:
 
 def write_fst(stream: BinaryIO, fst: VectorFst,
               as_compact_lattice: bool = False) -> None:
+    """An FST in OpenFst binary form; a Lattice as compactlattice44 when
+    `as_compact_lattice` (converted by lattice_to_compact first)."""
     if as_compact_lattice:
-        raise NotImplementedError(f"compactlattice44 output needs {_COMPACT}")
+        if fst.semiring is not LatticeWeight:
+            raise KaldiTpuError("unsupported semiring for OpenFst write")
+        from kaldi_tpu_torch.lat.kaldi_lattice import lattice_to_compact
+        write_compact_fst(stream, lattice_to_compact(fst))
+        return
     if fst.semiring is TropicalWeight:
         arctype, wsize = "standard", 1
     elif fst.semiring is LatticeWeight:
         arctype, wsize = "lattice4", 2
     else:
         raise KaldiTpuError("unsupported semiring for OpenFst write")
-    stream.write(struct.pack("<i", FST_MAGIC))
-    _write_string(stream, "vector")
-    _write_string(stream, arctype)
-    stream.write(struct.pack("<ii", 2, 0))          # version, flags
-    stream.write(struct.pack("<Q", 0))              # properties
-    stream.write(struct.pack("<qqq", fst.start, fst.num_states,
-                             fst.num_arcs()))
+    _write_header(stream, arctype, fst)
     zero = struct.pack(f"<{wsize}f", *([float("inf")] * wsize))
 
     def weight(w) -> bytes:
@@ -186,12 +184,75 @@ def write_fst(stream: BinaryIO, fst: VectorFst,
                          + struct.pack("<i", a.nextstate))
 
 
+def _write_header(stream: BinaryIO, arctype: str, fst: VectorFst) -> None:
+    stream.write(struct.pack("<i", FST_MAGIC))
+    _write_string(stream, "vector")
+    _write_string(stream, arctype)
+    stream.write(struct.pack("<ii", 2, 0))          # version, flags
+    stream.write(struct.pack("<Q", 0))              # properties
+    stream.write(struct.pack("<qqq", fst.start, fst.num_states,
+                             fst.num_arcs()))
+
+
 def write_compact_fst(stream: BinaryIO, clat) -> None:
-    raise NotImplementedError(f"write_compact_fst needs {_COMPACT}")
+    """A CompactLattice as OpenFst compactlattice44, its arc grouping
+    kept (one arc's string stays one arc)."""
+    _write_header(stream, "compactlattice44", clat)
+
+    def weight(w) -> bytes:
+        lw, string = w
+        if string is None:
+            return struct.pack("<2fi", float("inf"), float("inf"), 0)
+        return (struct.pack("<2fi", lw[0], lw[1], len(string))
+                + struct.pack(f"<{len(string)}i", *string))
+
+    for s in range(clat.num_states):
+        stream.write(weight(clat.finals[s]))
+        stream.write(struct.pack("<q", len(clat.arcs[s])))
+        for a in clat.arcs[s]:
+            stream.write(struct.pack("<ii", a.ilabel, a.olabel)
+                         + weight(a.weight)
+                         + struct.pack("<i", a.nextstate))
 
 
 def read_compact_fst(stream: BinaryIO):
-    raise NotImplementedError(f"read_compact_fst needs {_COMPACT}")
+    """OpenFst compactlattice44 into a CompactLattice, each arc's
+    transition-id string kept on it (read_fst expands them instead)."""
+    from kaldi_tpu_torch.lat.kaldi_lattice import (CompactLattice,
+                                                   CompactLatticeWeight)
+    magic = struct.unpack("<i", stream.read(4))[0]
+    if magic != FST_MAGIC:
+        raise KaldiTpuError(f"bad OpenFst magic {magic}")
+    fsttype = _read_string(stream)
+    arctype = _read_string(stream)
+    _version, flags = struct.unpack("<ii", stream.read(8))
+    _props = struct.unpack("<Q", stream.read(8))[0]
+    start, numstates, _numarcs = struct.unpack("<qqq", stream.read(24))
+    if fsttype != "vector" or arctype != "compactlattice44":
+        raise KaldiTpuError(f"read_compact_fst: got {fsttype}/{arctype}")
+    if flags & (_HAS_ISYMBOLS | _HAS_OSYMBOLS):
+        raise KaldiTpuError("FSTs with attached symbol tables unsupported")
+    clat = CompactLattice()
+    clat.add_states(max(numstates, 0))
+    clat.start = int(start)
+
+    def read_weight():
+        g, a, n = struct.unpack("<2fi", stream.read(12))
+        tids = tuple(struct.unpack(f"<{n}i", stream.read(4 * n))) \
+            if n else ()
+        if g == float("inf"):
+            return CompactLatticeWeight.zero
+        return ((float(g), float(a)), tids)
+
+    for s in range(numstates):
+        clat.finals[s] = read_weight()
+        narcs = struct.unpack("<q", stream.read(8))[0]
+        for _ in range(narcs):
+            il, ol = struct.unpack("<ii", stream.read(8))
+            w = read_weight()
+            (ns,) = struct.unpack("<i", stream.read(4))
+            clat.add_arc(s, Arc(il, ol, w, ns))
+    return clat
 
 
 class FstHolder(Holder):

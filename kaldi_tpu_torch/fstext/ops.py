@@ -1,5 +1,5 @@
 """WFST algorithms on the VectorFst core (port of `arcsort`, `connect`,
-`relabel`, `compose`, `rm_epsilon` and `determinize_star` of
+`invert`, `relabel`, `compose`, `rm_epsilon` and `determinize_star` of
 `kaldi_tpu/fstext/ops.py`: what lattice assembly and the training-graph
 compiler need).  Host-side.
 
@@ -68,6 +68,14 @@ def connect(fst: VectorFst) -> VectorFst:
     fst.arcs = new_arcs
     fst.finals = new_finals
     fst.start = remap.get(fst.start, -1)
+    return fst
+
+
+def invert(fst: VectorFst) -> VectorFst:
+    """Swap every arc's input and output label (in place; fstinvert)."""
+    for arcs in fst.arcs:
+        for a in arcs:
+            a.ilabel, a.olabel = a.olabel, a.ilabel
     return fst
 
 

@@ -10,12 +10,15 @@ lattice_prune          — lattice-prune (forward-backward cost pruning)
 lattice_state_times    — the frame index of each state
 lattice_forward_backward_post — arc posteriors (lattice-functions.h:84)
 lattice_nbest          — lattice-to-nbest (exact k-best, acyclic)
+determinize_lattice    — word-level determinization, unpruned, as the
+                         reference's nnet3-latgen-faster and
+                         lattice-determinize run it
 determinize_lattice_pruned — word-level determinization with beam
                          pruning and the max-states back-off
                          (lat/determinize-lattice-pruned.h)
 
-Not carried over yet: determinize_lattice (it needs `fstext/ops.py`
-`determinize_star` and `invert`) and the rest of the module.
+Not carried over yet: determinize_lattice_phone_pruned with the
+phone-label helpers, and lattice_forward_backward_mpe_variants.
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from kaldi_tpu_torch.base.logging import warn
 from kaldi_tpu_torch.fstext.fst import (EPS, INF, Arc, LatticeWeight,
                                         VectorFst)
-from kaldi_tpu_torch.fstext.ops import connect
+from kaldi_tpu_torch.fstext.ops import connect, determinize_star, invert
 from kaldi_tpu_torch.lat.kaldi_lattice import Lattice
 
 _log = logging.getLogger(__name__)
@@ -298,6 +302,23 @@ def lattice_nbest(lat: Lattice, n: int) -> List[Tuple[List[int], List[int], floa
         words = [a.olabel for a in arcs if a.olabel != EPS]
         out.append((ali, words, c))
     return out
+
+
+def determinize_lattice(lat: Lattice) -> Lattice:
+    """Word-level determinization: for each word sequence, the best path
+    (the capability of DeterminizeLatticePhonePrunedWrapper; the
+    algorithm is the reference's, inversion + determinize_star over the
+    lattice semiring + inversion back).  Unpruned: when determinize_star
+    exceeds 100,000 states, or its output strings blow up, it warns and
+    returns its input, the raw lattice itself, as the reference does
+    (so `determinize_lattice(lat) is lat` marks a fallback)."""
+    work = invert(lat.copy())  # words on input, tids on output
+    try:
+        det = determinize_star(work, max_states=100000, functional=False)
+    except RuntimeError as e:
+        warn(f"lattice determinization fell back to raw lattice: {e}")
+        return lat
+    return invert(det)
 
 
 class _DetOverflow(Exception):

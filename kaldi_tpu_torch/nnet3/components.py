@@ -1,6 +1,11 @@
-"""The chain TDNN-F building blocks, for inference and training (port of
-`kaldi_tpu/nnet3/components.py`: BatchNorm, TdnnfLayer, Prefinal and
-`constrain_orthonormal`).
+"""The nnet3 layer zoo, for inference and training (port of
+`kaldi_tpu/nnet3/components.py`): the chain TDNN-F blocks (BatchNorm,
+TdnnfLayer, Prefinal, `constrain_orthonormal`) and the layers the xconfig
+models build (LstmpLayer, StatisticsPooling, GruLayer,
+RestrictedAttention, Pnorm, ScaleAndOffset, SumBlock, and ConvSame for
+the CNN layers).  The recurrent layers run as a frame loop and take and
+return their carries as the flax layers do.  `spec_augment` (training
+only) is not carried over yet.
 
 Weights keep the reference's layouts so that flax variables load
 without reshuffling, except that Dense kernels are stored transposed
@@ -10,6 +15,10 @@ factors in the concatenated layout of its concat-free form
 flax in a reduced dtype: a matmul rounds to the working dtype, its bias
 add rounds again, and BatchNorm normalises in float32 against float32
 statistics and rounds its output back to the input's dtype.
+
+Each module with weights reads its flax subtrees with
+`load_flax(params, batch_stats)` and gives them back with `flax()` ->
+(params, batch_stats), numpy float32 (None where flax keeps none).
 
 In training mode (`module.train()`) BatchNorm normalises with the batch's
 statistics and updates its running ones as flax's BatchNorm does; the
@@ -21,7 +30,9 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from kaldi_tpu_torch.device import full_f32
@@ -59,6 +70,14 @@ def constrain_orthonormal(m: torch.Tensor, scale: float = 1.0,
     return m.T if transposed else m
 
 
+def _tensor(a) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32))
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
 class Dense(nn.Module):
     """flax.linen.Dense: y = x @ kernel (+ bias), kernel given (in, out)."""
 
@@ -74,6 +93,17 @@ class Dense(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y
+
+    def load_flax(self, p: dict, s=None) -> None:
+        self.weight.copy_(_tensor(p["kernel"]).T)
+        if self.bias is not None:
+            self.bias.copy_(_tensor(p["bias"]))
+
+    def flax(self):
+        d = {"kernel": _numpy(self.weight.T)}
+        if self.bias is not None:
+            d["bias"] = _numpy(self.bias)
+        return d, None
 
 
 class BatchNorm(nn.Module):
@@ -109,6 +139,14 @@ class BatchNorm(nn.Module):
                 self.var.copy_(m * self.var + (1 - m) * var)
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return y.to(x.dtype)
+
+    def load_flax(self, p, s: dict) -> None:
+        self.mean.copy_(_tensor(s["bn"]["mean"]))
+        self.var.copy_(_tensor(s["bn"]["var"]))
+
+    def flax(self):
+        return None, {"bn": {"mean": _numpy(self.mean),
+                             "var": _numpy(self.var)}}
 
 
 def _shift_right(x: torch.Tensor, ts: int) -> torch.Tensor:
@@ -174,6 +212,17 @@ class TdnnfLayer(nn.Module):
         return linear.reshape(bn, 2 * self.in_dim), affine.reshape(dim,
                                                                    2 * bn)
 
+    def load_flax(self, p: dict, s: dict) -> None:
+        self.load_reference(_tensor(p["linear"]), _tensor(p["affine"]))
+        self.bias.copy_(_tensor(p["bias"]))
+        self.norm.load_flax(None, s["BatchNorm_0"])
+
+    def flax(self):
+        linear, affine = self.reference_factors()
+        return ({"linear": _numpy(linear), "affine": _numpy(affine),
+                 "bias": _numpy(self.bias)},
+                {"BatchNorm_0": self.norm.flax()[1]})
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ts, bn = self.ts, self.bn
         if ts:
@@ -207,3 +256,265 @@ class Prefinal(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.bn1(torch.relu(self.affine(x)))
         return self.bn2(self.linear(x))
+
+    def load_flax(self, p: dict, s: dict) -> None:
+        self.affine.load_flax(p["affine"])
+        self.linear.load_flax(p["linear"])
+        self.bn1.load_flax(None, s["bn1"])
+        self.bn2.load_flax(None, s["bn2"])
+
+    def flax(self):
+        return ({"affine": self.affine.flax()[0],
+                 "linear": self.linear.flax()[0]},
+                {"bn1": self.bn1.flax()[1], "bn2": self.bn2.flax()[1]})
+
+
+class _FlaxParams:
+    """load_flax / flax for a module whose parameters are flax's, name for
+    name and layout for layout."""
+
+    def load_flax(self, p: dict, s=None) -> None:
+        for n, prm in self.named_parameters():
+            prm.copy_(_tensor(p[n]))
+
+    def flax(self):
+        return {n: _numpy(prm) for n, prm in self.named_parameters()}, None
+
+
+class LstmpLayer(_FlaxParams, nn.Module):
+    """LSTM with recurrent and non-recurrent projection (the reference's
+    LstmNonlinearityComponent + projection).  forward(x (B, T, D),
+    init_state=None) -> ((B, T, rd + nd) projections, (c, r) carries).
+    Flax's parameters: w_ifco (4cd, D + rd) over [x_t, r], b_ifco (4cd),
+    w_proj (rd + nd, cd); the gates split as i, f, g, o."""
+
+    def __init__(self, in_dim: int, cell_dim: int, recurrent_dim: int,
+                 nonrecurrent_dim: int):
+        super().__init__()
+        self.in_dim, self.cd = in_dim, cell_dim
+        self.rd, self.nd = recurrent_dim, nonrecurrent_dim
+        self.w_ifco = nn.Parameter(
+            torch.zeros(4 * cell_dim, in_dim + recurrent_dim),
+            requires_grad=False)
+        self.b_ifco = nn.Parameter(torch.zeros(4 * cell_dim),
+                                   requires_grad=False)
+        self.w_proj = nn.Parameter(
+            torch.zeros(recurrent_dim + nonrecurrent_dim, cell_dim),
+            requires_grad=False)
+
+    def forward(self, x: torch.Tensor, init_state=None):
+        B, T, D = x.shape
+        cd, rd = self.cd, self.rd
+        if init_state is None:
+            c = x.new_zeros(B, cd)
+            r = x.new_zeros(B, rd)
+        else:
+            c, r = init_state
+        # the input half of every frame's gates in one product
+        gx = x @ self.w_ifco[:, :D].T + self.b_ifco
+        w_r = self.w_ifco[:, D:].T
+        ys = []
+        for t in range(T):
+            i, f, g, o = (gx[:, t] + r @ w_r).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            proj = (torch.sigmoid(o) * torch.tanh(c)) @ self.w_proj.T
+            r = proj[:, :rd]
+            ys.append(proj)
+        return torch.stack(ys, dim=1), (c, r)
+
+
+class StatisticsPooling(nn.Module):
+    """Mean and standard deviation over time (the x-vector stats layer,
+    nnet-general-component.h:201/337): (B, T, D) -> (B, 2D).  The
+    variance is the population variance; with a (B, T) mask it is
+    E[x^2] - mean^2 over the frames the mask keeps.  Either is floored at
+    epsilon before the square root."""
+
+    def __init__(self, epsilon: float = 1e-10):
+        super().__init__()
+        self.epsilon = epsilon
+
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        if mask is not None:
+            m = mask[..., None].to(x.dtype)
+            count = torch.clamp_min(m.sum(dim=1), 1.0)
+            mean = (x * m).sum(dim=1) / count
+            var = (x * x * m).sum(dim=1) / count - mean ** 2
+        else:
+            mean = x.mean(dim=1)
+            var = x.var(dim=1, unbiased=False)
+        std = torch.sqrt(torch.clamp_min(var, self.epsilon))
+        return torch.cat([mean, std], dim=-1)
+
+
+class GruLayer(_FlaxParams, nn.Module):
+    """Projected GRU (the norm-OGRU family, nnet-combined-component.h:713):
+    forward(x (B, T, D), init_state=None) -> ((B, T, pd) projections,
+    final h).  Flax's parameters: w_zr (2cd, D + cd), b_zr, w_h
+    (cd, D + cd), b_h, w_proj (pd, cd)."""
+
+    def __init__(self, in_dim: int, cell_dim: int, projection_dim: int):
+        super().__init__()
+        self.in_dim, self.cd, self.pd = in_dim, cell_dim, projection_dim
+        self.w_zr = nn.Parameter(torch.zeros(2 * cell_dim,
+                                             in_dim + cell_dim),
+                                 requires_grad=False)
+        self.b_zr = nn.Parameter(torch.zeros(2 * cell_dim),
+                                 requires_grad=False)
+        self.w_h = nn.Parameter(torch.zeros(cell_dim, in_dim + cell_dim),
+                                requires_grad=False)
+        self.b_h = nn.Parameter(torch.zeros(cell_dim), requires_grad=False)
+        self.w_proj = nn.Parameter(torch.zeros(projection_dim, cell_dim),
+                                   requires_grad=False)
+
+    def forward(self, x: torch.Tensor, init_state=None):
+        B, T, D = x.shape
+        h = x.new_zeros(B, self.cd) if init_state is None else init_state
+        zx = x @ self.w_zr[:, :D].T + self.b_zr
+        hx = x @ self.w_h[:, :D].T + self.b_h
+        w_zh, w_hh = self.w_zr[:, D:].T, self.w_h[:, D:].T
+        ys = []
+        for t in range(T):
+            z, r = torch.sigmoid(zx[:, t] + h @ w_zh).chunk(2, dim=-1)
+            hb = torch.tanh(hx[:, t] + (r * h) @ w_hh)
+            h = (1 - z) * h + z * hb
+            ys.append(h @ self.w_proj.T)
+        return torch.stack(ys, dim=1), h
+
+
+def _shift_edge(x: torch.Tensor, k: int) -> torch.Tensor:
+    """out[:, t] = x[:, t + k] along the time axis, the edge frame
+    replicated."""
+    if k == 0:
+        return x
+    T = x.shape[1]
+    idx = torch.clamp(torch.arange(T, device=x.device) + k, 0, T - 1)
+    return x.index_select(1, idx)
+
+
+class RestrictedAttention(nn.Module):
+    """Restricted self-attention (nnet-attention-component.h:106): each
+    frame attends over [t - left * stride, t + right * stride], edges
+    replicated at each offset, the logits divided by sqrt(key_dim) and
+    the softmax taken over the window.  (B, T, D) -> (B, T, H * V)."""
+
+    def __init__(self, in_dim: int, num_heads: int = 4, key_dim: int = 40,
+                 value_dim: int = 40, num_left_inputs: int = 5,
+                 num_right_inputs: int = 2, time_stride: int = 1):
+        super().__init__()
+        self.H, self.K, self.V = num_heads, key_dim, value_dim
+        self.offsets = [o * time_stride for o in range(-num_left_inputs,
+                                                       num_right_inputs + 1)]
+        self.query = Dense(in_dim, num_heads * key_dim)
+        self.key = Dense(in_dim, num_heads * key_dim)
+        self.value = Dense(in_dim, num_heads * value_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, T, _ = x.shape
+        H, K, V = self.H, self.K, self.V
+        q = self.query(x).reshape(B, T, H, K)
+        k = self.key(x).reshape(B, T, H, K)
+        v = self.value(x).reshape(B, T, H, V)
+        scale = torch.sqrt(torch.tensor(float(K))).to(x.dtype)
+        logits = torch.stack([(q * _shift_edge(k, o)).sum(-1) / scale
+                              for o in self.offsets], dim=-1)   # B,T,H,W
+        att = torch.softmax(logits, dim=-1)
+        stacked = torch.stack([_shift_edge(v, o) for o in self.offsets],
+                              dim=3)                            # B,T,H,W,V
+        out = torch.einsum("bthw,bthwv->bthv", att, stacked)
+        return out.reshape(B, T, H * V)
+
+    def load_flax(self, p: dict, s=None) -> None:
+        for n in ("query", "key", "value"):
+            getattr(self, n).load_flax(p[n])
+
+    def flax(self):
+        return {n: getattr(self, n).flax()[0]
+                for n in ("query", "key", "value")}, None
+
+
+class Pnorm(nn.Module):
+    """PnormComponent: y_j = (sum over group j of |x_i|^p + 1e-20)^(1/p)
+    over consecutive groups of D / output_dim inputs."""
+
+    def __init__(self, output_dim: int, p: float = 2.0):
+        super().__init__()
+        self.output_dim, self.p = output_dim, p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        D = x.shape[-1]
+        if D % self.output_dim:
+            raise ValueError(f"pnorm: {D} not divisible by "
+                             f"{self.output_dim}")
+        xg = x.reshape(x.shape[:-1] + (self.output_dim,
+                                       D // self.output_dim))
+        return torch.pow(torch.pow(xg.abs(), self.p).sum(-1) + 1e-20,
+                         1.0 / self.p)
+
+
+class ScaleAndOffset(_FlaxParams, nn.Module):
+    """ScaleAndOffsetComponent: a learned scale and offset an element."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim), requires_grad=False)
+        self.offset = nn.Parameter(torch.zeros(dim), requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale + self.offset
+
+
+class SumBlock(nn.Module):
+    """SumBlockComponent: the sum of D / output_dim consecutive blocks of
+    output_dim inputs, times scale."""
+
+    def __init__(self, output_dim: int, scale: float = 1.0):
+        super().__init__()
+        self.output_dim, self.scale = output_dim, scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        D = x.shape[-1]
+        if D % self.output_dim:
+            raise ValueError("sum-block: dim mismatch")
+        xg = x.reshape(x.shape[:-1] + (D // self.output_dim,
+                                       self.output_dim))
+        return self.scale * xg.sum(dim=-2)
+
+
+class ConvSame(nn.Module):
+    """flax.linen.Conv over (time, height) with padding="SAME" and strides
+    (1, hsub), on (B, T, H, C) inputs (the CNN layers of
+    `kaldi_tpu/nnet3/xconfig.py:249-267`): the kernel is HWIO (tk, hk, cin,
+    nf) in flax and OIHW here.  SAME pads each axis by (out - 1) * stride
+    + kernel - size in total, the smaller half before, as XLA does; torch's
+    padding="same" refuses strides, so the padding is explicit."""
+
+    def __init__(self, cin: int, nf: int, kernel, strides):
+        super().__init__()
+        self.kernel, self.strides = tuple(kernel), tuple(strides)
+        self.weight = nn.Parameter(torch.zeros(nf, cin, *kernel),
+                                   requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(nf), requires_grad=False)
+
+    @staticmethod
+    def same_pads(size: int, k: int, s: int):
+        out = -(-size // s)
+        total = max((out - 1) * s + k - size, 0)
+        return total // 2, total - total // 2
+
+    def forward(self, x4: torch.Tensor) -> torch.Tensor:
+        x = x4.permute(0, 3, 1, 2)                          # B, C, T, H
+        (tk, hk), (st, sh) = self.kernel, self.strides
+        t0, t1 = self.same_pads(x.shape[2], tk, st)
+        h0, h1 = self.same_pads(x.shape[3], hk, sh)
+        y = F.conv2d(F.pad(x, (h0, h1, t0, t1)), self.weight, self.bias,
+                     stride=(st, sh))
+        return y.permute(0, 2, 3, 1)                        # B, T, H', nf
+
+    def load_flax(self, p: dict, s=None) -> None:
+        self.weight.copy_(_tensor(p["kernel"]).permute(3, 2, 0, 1))
+        self.bias.copy_(_tensor(p["bias"]))
+
+    def flax(self):
+        return {"kernel": _numpy(self.weight.permute(2, 3, 1, 0)),
+                "bias": _numpy(self.bias)}, None

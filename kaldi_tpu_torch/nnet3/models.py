@@ -160,35 +160,27 @@ def chain_tdnnf_init(cfg: ChainTdnnfConfig,
     return {"params": params, "batch_stats": batch_stats}
 
 
+def _heads(model: ChainTdnnf):
+    """(flax name, module) of each module with weights, in flax's names."""
+    yield "input_affine", model.input_affine
+    yield "input_bn", model.input_bn
+    for i, layer in enumerate(model.tdnnf, start=1):
+        yield f"tdnnf{i}", layer
+    for name in ("prefinal_chain", "prefinal_xent", "output_affine",
+                 "output_xent_affine"):
+        yield name, getattr(model, name)
+
+
 def chain_tdnnf_to_flax(model: ChainTdnnf) -> dict:
     """The model's {"params", "batch_stats"} in flax's layout, as numpy
     float32: the inverse of `chain_tdnnf_from_flax`."""
-    def a(t: torch.Tensor) -> np.ndarray:
-        return t.detach().to("cpu", torch.float32).numpy().copy()
-
-    def dense(mod: Dense) -> dict:
-        d = {"kernel": a(mod.weight.T)}
-        if mod.bias is not None:
-            d["bias"] = a(mod.bias)
-        return d
-
-    def bn(mod: BatchNorm) -> dict:
-        return {"bn": {"mean": a(mod.mean), "var": a(mod.var)}}
-
-    params = {"input_affine": dense(model.input_affine)}
-    stats = {"input_bn": bn(model.input_bn)}
-    for i, layer in enumerate(model.tdnnf, start=1):
-        linear, affine = layer.reference_factors()
-        params[f"tdnnf{i}"] = {"linear": a(linear), "affine": a(affine),
-                               "bias": a(layer.bias)}
-        stats[f"tdnnf{i}"] = {"BatchNorm_0": bn(layer.norm)}
-    for head in ("chain", "xent"):
-        pre = getattr(model, f"prefinal_{head}")
-        params[f"prefinal_{head}"] = {"affine": dense(pre.affine),
-                                      "linear": dense(pre.linear)}
-        stats[f"prefinal_{head}"] = {"bn1": bn(pre.bn1), "bn2": bn(pre.bn2)}
-    params["output_affine"] = dense(model.output_affine)
-    params["output_xent_affine"] = dense(model.output_xent_affine)
+    params, stats = {}, {}
+    for name, mod in _heads(model):
+        p, s = mod.flax()
+        if p is not None:
+            params[name] = p
+        if s is not None:
+            stats[name] = s
     return {"params": params, "batch_stats": stats}
 
 
@@ -202,39 +194,9 @@ def chain_tdnnf_from_flax(cfg: ChainTdnnfConfig, variables: dict,
     dev = resolve_device(device)
     params, stats = variables["params"], variables["batch_stats"]
     model = ChainTdnnf(cfg)
-
-    def t(a) -> torch.Tensor:
-        return torch.tensor(np.asarray(a, np.float32))
-
-    def dense(mod: Dense, p: dict) -> None:
-        mod.weight.copy_(t(p["kernel"]).T)
-        if mod.bias is not None:
-            mod.bias.copy_(t(p["bias"]))
-
-    def bn(mod: BatchNorm, s: dict) -> None:
-        mod.mean.copy_(t(s["bn"]["mean"]))
-        mod.var.copy_(t(s["bn"]["var"]))
-
-    def prefinal(mod: Prefinal, p: dict, s: dict) -> None:
-        dense(mod.affine, p["affine"])
-        dense(mod.linear, p["linear"])
-        bn(mod.bn1, s["bn1"])
-        bn(mod.bn2, s["bn2"])
-
     with torch.no_grad():
-        dense(model.input_affine, params["input_affine"])
-        bn(model.input_bn, stats["input_bn"])
-        for i, layer in enumerate(model.tdnnf, start=1):
-            p = params[f"tdnnf{i}"]
-            layer.load_reference(t(p["linear"]), t(p["affine"]))
-            layer.bias.copy_(t(p["bias"]))
-            bn(layer.norm, stats[f"tdnnf{i}"]["BatchNorm_0"])
-        prefinal(model.prefinal_chain, params["prefinal_chain"],
-                 stats["prefinal_chain"])
-        dense(model.output_affine, params["output_affine"])
-        prefinal(model.prefinal_xent, params["prefinal_xent"],
-                 stats["prefinal_xent"])
-        dense(model.output_xent_affine, params["output_xent_affine"])
+        for name, mod in _heads(model):
+            mod.load_flax(params.get(name), stats.get(name))
     model.eval()
     # parameters to `dtype`, BatchNorm buffers stay float32
     for p in model.parameters():

@@ -1,9 +1,40 @@
-"""Edit distance for WER (port of `edit_distance_counts` of
-`kaldi_tpu/util/edit_distance.py`; parity: bin/compute-wer.cc)."""
+"""Edit distance for WER (port of `WerStats` and `edit_distance_counts`
+of `kaldi_tpu/util/edit_distance.py`; parity: bin/compute-wer.cc)."""
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence, Tuple
+
+
+@dataclass
+class WerStats:
+    errors: int = 0
+    ref_words: int = 0
+    ins: int = 0
+    dels: int = 0
+    subs: int = 0
+    sentences: int = 0
+    wrong_sentences: int = 0
+
+    @property
+    def wer(self) -> float:
+        return 100.0 * self.errors / max(self.ref_words, 1)
+
+    def add(self, ref: Sequence[str], hyp: Sequence[str]) -> None:
+        i, d, s = edit_distance_counts(ref, hyp)
+        self.ins += i
+        self.dels += d
+        self.subs += s
+        self.errors += i + d + s
+        self.ref_words += len(ref)
+        self.sentences += 1
+        if i + d + s:
+            self.wrong_sentences += 1
+
+    def report(self) -> str:
+        return (f"%WER {self.wer:.2f} [ {self.errors} / {self.ref_words}, "
+                f"{self.ins} ins, {self.dels} del, {self.subs} sub ]")
 
 
 def edit_distance_counts(ref: Sequence, hyp: Sequence

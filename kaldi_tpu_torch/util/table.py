@@ -15,8 +15,7 @@ rxfilename possibly with a byte offset ("foo.ark:1234"): the reference's
 own format, so either implementation reads what the other writes.
 
 Holders of types whose codec is not ported yet (compressed matrices,
-posteriors, lattices, sparse matrices) raise, naming the module they
-wait for.
+posteriors, sparse matrices) raise, naming the module they wait for.
 """
 
 from __future__ import annotations
@@ -280,6 +279,16 @@ def _fst_holder() -> Holder:
     return FstHolder()
 
 
+def _lattice_holder() -> Holder:
+    from kaldi_tpu_torch.lat.kaldi_lattice import LatticeHolder
+    return LatticeHolder()
+
+
+def _compact_lattice_holder() -> Holder:
+    from kaldi_tpu_torch.lat.kaldi_lattice import CompactLatticeHolder
+    return CompactLatticeHolder()
+
+
 _HOLDERS = {
     "matrix": MatrixHolder,
     "vector": VectorHolder,
@@ -294,6 +303,8 @@ _HOLDERS = {
     "token-vector": TokenVectorHolder,
     "wave": WaveHolder,
     "fst": _fst_holder,
+    "lattice": _lattice_holder,
+    "compact-lattice": _compact_lattice_holder,
 }
 
 # holder name -> the module of the JAX package whose codec it waits for
@@ -301,7 +312,6 @@ _NOT_PORTED = {
     "compressed-matrix": "kaldi_tpu/matrix/compressed.py",
     "posterior": "kaldi_tpu/hmm/posterior.py",
     "gauss-post": "kaldi_tpu/hmm/posterior.py",
-    "lattice": "kaldi_tpu/lat/kaldi_lattice.py",
     "sparse-matrix": "kaldi_tpu/matrix/sparse.py",
 }
 

@@ -60,7 +60,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "nnet3.torch_bridge", "cli", "cli.nnet3_tools",
                  "feat.wave", "feat.functions", "fstext.openfst_io",
                  "nnet3.streaming", "online.server", "util.profile",
-                 "cli.online_tools", "cli.online_tools2"):
+                 "cli.online_tools", "cli.online_tools2", "nnet3.xconfig",
+                 "nnet3.components", "parallel.checkpoint",
+                 "decoder.lattice_decoder", "cli.nnet3_latgen_tools",
+                 "cli.lat_tools", "cli.ali_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

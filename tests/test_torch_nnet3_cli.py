@@ -146,8 +146,9 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                                                capsys):
     """A component without a device mapping ends the tool nonzero (the
     JAX tool would evaluate on the host); --use-device=false runs it on
-    the host; a checkpoint directory names the later slice; the card is
-    the default."""
+    the host; a directory that is not an xconfig checkpoint is refused
+    (tests/test_torch_cli_latgen.py runs one that is); the card is the
+    default."""
     comp = make(PM, "DropoutMaskComponent", dict(COMPONENTS)[
         "DropoutMaskComponent"])
     nodes = [PM.Node("input", "input", dim=4),
@@ -178,12 +179,19 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
     assert rc == 0
     assert read_ark(str(tmp_path / "o.ark"))["u"].shape == (5, 3)
     rc, err = cli("nnet3-compute", "--use-gpu=no", str(tmp_path), *io_args)
-    assert rc != 0 and "later slice" in err
+    assert rc != 0 and "not an xconfig checkpoint directory" in err
     if not __import__("torch").cuda.is_available():
         rc, err = cli("nnet3-compute", os.path.join(GOLDEN, "tdnn.raw"),
                       *io_args)
         assert rc != 0 and "CUDA" in err
-    assert sorted(TOOLS) == ["nnet3-compute", "nnet3-compute-batch",
+    assert sorted(TOOLS) == ["compute-wer", "lattice-1best",
+                             "lattice-add-penalty", "lattice-best-path",
+                             "lattice-copy", "lattice-determinize",
+                             "lattice-determinize-pruned", "lattice-prune",
+                             "lattice-scale", "nnet3-compute",
+                             "nnet3-compute-batch", "nnet3-latgen-faster",
+                             "nnet3-latgen-faster-batch",
+                             "nnet3-latgen-faster-looped",
                              "online2-tcp-nnet3-decode-faster",
                              "online2-wav-dump-features",
                              "online2-wav-nnet3-latgen-faster"]
