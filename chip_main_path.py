@@ -37,16 +37,17 @@ lattice phase does not run), cross_check_lex and slice_online_lex.
 With --train it runs chip_smoke.py's training phases alone (the same
 function chip_smoke.py calls, train_phases): train_lex (the legacy
 training recipe of egs/bench_corpus/train.py main() through the port's
-recipes/train_bench.py, every epoch, then the decode of the test set and
-one profiled step) and train_lex_check (the card against the CPU from
+recipes/train_bench.py, its 8 epochs or --epochs N, then the decode of
+the test set and one profiled step) and train_lex_check (the card against the CPU from
 one state and one minibatch).
 
 With --train-scale it runs chip_smoke.py's phases of the --scale
 training recipe alone (train_scale_phases): train_scale
 (egs/bench_corpus/train.py main_scale through the port's
-recipes/train_scale.py, 16 epochs, the test set decoded through the main
-path to a WER) and train_scale_check (the card's gradient against the
-CPU's on real chunks through the bucketed window-LM denominator).
+recipes/train_scale.py, 16 epochs or --epochs N, the test set
+decoded through the main path to a WER) and train_scale_check (the
+card's gradient against the CPU's on real chunks through the bucketed
+window-LM denominator).
 
 With --nnet3 it runs chip_smoke.py's nnet3 phases alone (nnet3_phases,
 after the main path's graph and without its decode): nnet3_ref_golden,
@@ -70,8 +71,15 @@ xconfig checkpoint directory, `nnet3-latgen-faster` at decode.sh's beams,
 the lattice tools and compute-wer; the WER must lie within 0.5 points
 and 8 words of slice_lex_int16's 6.088% (94 of 1544).
 
+With --chain-cli it runs chip_smoke.py's phases of chain training
+through the command-line tools alone (chain_cli_phases), after
+train_lex's system without its chain training (the corpus, MFCC, the
+mono GMM, the alignment, the chain transition model and tree):
+chain_cli, chain_cli_check, chain_cli_e2e and nnet3_train_cli.
+
 Run: python3 chip_main_path.py [--online | --legacy | --train |
-     --train-scale | --nnet3 | --online2 | --xconfig | --latgen]
+     --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
+     --chain-cli]
      (needs CUDA)
 """
 
@@ -205,12 +213,20 @@ def main() -> int:
     mode.add_argument("--train-scale", action="store_true",
                       help="run chip_smoke.py's --scale training phases "
                       "alone")
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="with --train or --train-scale: the epochs to "
+                    "train (the recipe's by default, 8 and 16; "
+                    "chip_smoke.py trains SMOKE_TRAIN_EPOCHS and "
+                    "SMOKE_SCALE_EPOCHS)")
     mode.add_argument("--nnet3", action="store_true",
                       help="run chip_smoke.py's nnet3 phases alone")
     mode.add_argument("--online2", action="store_true",
                       help="run chip_smoke.py's online2 phases alone")
     mode.add_argument("--xconfig", action="store_true",
                       help="run chip_smoke.py's xconfig phases alone")
+    mode.add_argument("--chain-cli", action="store_true",
+                      help="run chip_smoke.py's chain tool phases alone, "
+                      "after train_lex's system without its training")
     mode.add_argument("--latgen", action="store_true",
                       help="run xconfig_graph and xconfig_latgen over the "
                       "128 test utterances")
@@ -225,7 +241,8 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip(),
           flush=True)
     if args.online or args.legacy or args.train or args.train_scale \
-            or args.nnet3 or args.online2 or args.xconfig or args.latgen:
+            or args.nnet3 or args.online2 or args.xconfig or args.latgen \
+            or args.chain_cli:
         if args.xconfig:
             with tempfile.TemporaryDirectory() as tmp:
                 cs.emit("xconfig_summary", **cs.xconfig_phases(
@@ -255,10 +272,17 @@ def main() -> int:
             cs.emit("legacy_summary", **legacy)
             done = "legacy_done"
         elif args.train_scale:
-            cs.emit("train_scale_summary", **cs.train_scale_phases())
+            cs.emit("train_scale_summary",
+                    **cs.train_scale_phases(args.epochs
+                                            or cs.SCALE_EPOCHS))
             done = "train_scale_done"
+        elif args.chain_cli:
+            cs.emit("chain_cli_summary",
+                    **cs.chain_cli_phases(cs.chain_cli_system()))
+            done = "chain_cli_done"
         else:
-            cs.emit("train_summary", **cs.train_phases())
+            cs.emit("train_summary", **cs.train_phases(
+                args.epochs or cs.TRAIN_EPOCHS)[0])
             done = "train_done"
         cs.emit(done, seconds=time.perf_counter() - t_all)
         print(json.dumps({"ok": True, "device": {

@@ -177,13 +177,29 @@ Phases, one JSON line each (any failure exits nonzero):
      x-vector network at their recipes' widths, seeded random weights,
      32 x 500 frames on the card against float64 on the CPU); then the
      legacy training recipe:
-     train_lex (recipes/train_bench.py, nothing cut: stage seconds, the
+     train_lex (recipes/train_bench.py, 6 of its 8 epochs (all 8:
+     chip_main_path.py --train): stage seconds, the
      aligner, each epoch's objective, step ms, peak memory, the WER of
      the test set within 2.0 points of the JAX package's),
      profile_train_step (one step under torch.profiler) and
      train_lex_check (the card against the CPU from one state and one
      minibatch: the step, the optimizer, every leaf's gradient, the
-     chain loglikes, GMM loglikes and alignments); then the --scale
+     chain loglikes, GMM loglikes and alignments); then Kaldi chain
+     training through the tools over train_lex's system: chain_cli
+     (tree, 0.trans_mdl, feats.ark, the alignments and phones written;
+     chain-est-phone-lm, chain-make-den-fst, chain-get-supervision,
+     nnet3-chain-get-egs, -shuffle-egs, -subset-egs; nnet3-chain-train
+     of the 17 x 1536 TDNN-F and nnet3-chain-compute-prob each in a
+     process of its own; nnet3-chain-combine; the test set decoded with
+     the trained raw nnet through LexChainDecoder, its WER within 2.0
+     points of the JAX package's; the guard's rejects 0; one step under
+     torch.profiler), chain_cli_check (one trainer step on 4 egs on the
+     card and on the CPU in float64: objective, every gradient leaf,
+     the optimizer's move), chain_cli_e2e (flat-start egs of 16 test
+     utterances, compute-prob on the card equal to the CPU's) and
+     nnet3_train_cli (ali-to-pdf, ali-to-post, nnet3-get-egs, -shuffle,
+     -merge, nnet3-train at 1536/160, nnet3-compute-prob above the
+     uniform -log P, nnet3-average); then the --scale
      training recipe: train_scale (recipes/train_scale.py at full width,
      the i-vector extractor, the triphone tree, the window-LM
      denominator's sizes, 8 of the recipe's 16 epochs of the TDNN-F with
@@ -225,8 +241,10 @@ import concurrent.futures
 import contextlib
 import copy
 import gc
+import io
 import json
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -237,8 +255,10 @@ import time
 import numpy as np
 import torch
 
-from kaldi_tpu_torch.chain.graphs import batch_pack
-from kaldi_tpu_torch.chain.objective import chain_loss, den_arcs
+from kaldi_tpu_torch.chain.graphs import batch_pack, den_graph_from_fst_file
+from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions,
+                                             chain_loss, den_arcs)
+from kaldi_tpu_torch.chain.supervision import alignment_to_phone_segments
 from kaldi_tpu_torch.cli import get_tool
 from kaldi_tpu_torch.cli.nnet3_latgen_tools import _Forward, batch_loglikes
 from kaldi_tpu_torch.cli.nnet3_tools import pad_batch
@@ -266,6 +286,7 @@ from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
 from kaldi_tpu_torch.lat import functions as latf
 from kaldi_tpu_torch.nnet3 import mdl_io
+from kaldi_tpu_torch.nnet3.egs import merged_minibatches
 from kaldi_tpu_torch.nnet3.models import (ChainTdnnfConfig,
                                           chain_tdnnf_from_flax,
                                           chain_tdnnf_to_flax)
@@ -285,6 +306,8 @@ from kaldi_tpu_torch.ops import _build, kernel_launch_counts
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
 from kaldi_tpu_torch.ops import viterbi_relax as vr
+from kaldi_tpu_torch.parallel import optim
+from kaldi_tpu_torch.parallel import trainer as ptrainer
 from kaldi_tpu_torch.parallel.checkpoint import (restore_checkpoint,
                                                  save_checkpoint)
 from kaldi_tpu_torch.recipes import chain as tchain
@@ -294,13 +317,14 @@ from kaldi_tpu_torch.recipes.bench_corpus import (
     BenchCorpusSpec, bench_scale_spec, build_decode_graph,
     build_decode_graph_ng, build_lang, chain_tm_tree_for, corpus_fingerprint,
     load_ivector_extractor, load_params, make_corpus, make_lexicon,
-    make_text, mfcc_options, wer_of)
+    make_text, mfcc_options, train_system, wer_of)
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
 from kaldi_tpu_torch.util.kaldi_io import (read_kaldi_object,
                                            write_kaldi_object)
 from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+_T0 = time.perf_counter()
 ART = os.path.join(REPO, "egs", "bench_corpus")
 SEED = 0
 LANES, UTT_S, FS = 128, 5.0, 16000
@@ -382,6 +406,10 @@ LATF_SCALE, LATF_PENALTY = (0.5, 0.08), 1.5
 # plus 2.0 points (the initial weights alone move it by more than a point:
 # PERF.md)
 TRAIN_EPOCHS = 8
+# this script trains SMOKE_TRAIN_EPOCHS of them, with the same bars, to
+# keep a margin under its time limit (6 epochs held the WER bar on an H100,
+# 4 did not: PERF.md); the full 8 run under chip_main_path.py --train
+SMOKE_TRAIN_EPOCHS = 6
 TRAIN_JAX_WER, TRAIN_WER_BAND = 6.4119170984455955, 2.0
 # the JAX package's chain objective a frame, each epoch's mean
 TRAIN_JAX_EPOCH_OBJF = [0.9396, 1.4081, 1.4991, 1.545, 1.58, 1.6063,
@@ -407,6 +435,32 @@ SCALE_COMMITTED_PORT_WER = 100.0 * 147 / 1564
 SCALE_FINGERPRINT = "9fd542ef303e6a0d"
 # train_scale_check: the real chunks of its gradient check
 SCALE_CHECK_CHUNKS = 4
+# Kaldi chain training through the command-line tools (cli/chain_tools.py,
+# parallel/trainer.py) over train_lex's corpus, features, chain transition
+# model, tree and alignments: the egs tools at their defaults (chunk 140,
+# contexts 13, subsampling 3), nnet3-chain-train of the 17 x 1536 TDNN-F
+# (bottleneck 160; prefinal 768 and the subsampling at layer 8 by the
+# trainer's formula) at minibatch 32 for 4 epochs, compute-prob on a
+# subset of 64 egs.  Its bar is the JAX package's own run of the same tools
+# on the CPU, measured once by tools/chain_cli_jax_bar.py: the WER of the
+# 128 test utterances decoded with the trained raw nnet, its BatchNorm
+# statistics recomputed from the final weights as the port's trainer does
+# (547 errors of 1544; 4721 with the moving averages the JAX trainer
+# writes, ROADMAP §3), plus 2.0 points, train_lex's margin for other
+# initial weights
+CHAIN_CLI_WIDTHS = dict(hidden_dim=1536, bottleneck_dim=160, num_layers=17)
+CHAIN_CLI_TRAIN = ["--hidden-dim=1536", "--bottleneck-dim=160",
+                   "--num-layers=17", "--minibatch-size=32", "--num-epochs=4"]
+CHAIN_CLI_SUBSET, CHAIN_CLI_MB = 64, 32
+CHAIN_CLI_JAX_WER, CHAIN_CLI_WER_BAND = 100.0 * 547 / 1544, 2.0
+# chain_cli_check: the egs of its one step; chain_cli_e2e: the test
+# utterances of its flat-start egs
+CHAIN_CLI_CHECK_EGS, CHAIN_CLI_E2E_UTTS = 4, 16
+# nnet3_train_cli: the training utterances of its plain egs (about 3,500
+# egs of 8 frames), nnet3-train's options and the egs compute-prob reads
+NNET3_TRAIN_UTTS, NNET3_TRAIN_SUBSET = 64, 256
+NNET3_TRAIN_ARGS = ["--hidden-dim=1536", "--bottleneck-dim=160",
+                    "--num-epochs=1", "--minibatch-size=32"]
 # Kaldi nnet3 models (nnet3/mdl_io.py, nnet3/torch_bridge.py, cli/): the
 # reference C++ nnet3-compute output of tests/data/ref_golden (a 2-layer
 # TDNN on 13-dim features with 2 frames of context each side, which
@@ -441,7 +495,10 @@ ONLINE2_UTTS, ONLINE2_CONC, ONLINE2_CHUNK_S, ONLINE2_BEAM = 16, 4, 0.18, 15.0
 
 
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line of a phase; "t" is the seconds since this module
+    was imported."""
+    print(json.dumps({"phase": phase, **kw,
+                      "t": time.perf_counter() - _T0}), flush=True)
 
 
 def hbm_rate(name: str) -> float:
@@ -2441,11 +2498,12 @@ def legacy_phases(ng_lattices=None) -> dict:
     return out
 
 
-def run_train_lex() -> dict:
-    """train_lex: the legacy training recipe on the card, nothing cut
+def run_train_lex(epochs: int = TRAIN_EPOCHS) -> dict:
+    """train_lex: the legacy training recipe on the card
     (recipes/train_bench.py train_and_decode): the corpus, MFCC, the mono
-    GMM, the alignment, the chain examples, TRAIN_EPOCHS epochs of the
-    17 x 1536 TDNN-F, then the 128 test utterances decoded in bf16.  The
+    GMM, the alignment, the chain examples, `epochs` epochs of the
+    17 x 1536 TDNN-F (the recipe's TRAIN_EPOCHS by default), then the
+    128 test utterances decoded in bf16.  The
     seconds of each stage, the aligner, the steps, each epoch's
     objective, the median step ms by CUDA events, the peak memory, the
     WER and kernels a-c's launches (0); then one more step under the
@@ -2458,7 +2516,7 @@ def run_train_lex() -> dict:
     stats: dict = {}
     t0 = time.perf_counter()
     meta = train_bench.train_and_decode(
-        os.path.join(REPO, "_chip", "train_lex"), TRAIN_EPOCHS, "cuda",
+        os.path.join(REPO, "_chip", "train_lex"), epochs, "cuda",
         stats=stats)
     seconds = time.perf_counter() - t0
     launches = kernel_launch_counts()
@@ -2471,7 +2529,7 @@ def run_train_lex() -> dict:
                "corpus_s", "mfcc_s", "mono_s", "graphs_s", "align_s",
                "chain_s", "decode_s")},
            "aligner": stats["aligner"], "chunks": stats["chunks"],
-           "steps": len(stats["step_objf"]), "epochs": TRAIN_EPOCHS,
+           "steps": len(stats["step_objf"]), "epochs": epochs,
            "epoch_objf": stats["epoch_objf"],
            "jax_epoch_objf": TRAIN_JAX_EPOCH_OBJF,
            "mono_avg_loglike_last": stats["mono_avg_loglikes"][-1],
@@ -2582,6 +2640,37 @@ def _leaf_errors(grads: dict, ref: dict) -> dict:
     return out
 
 
+def gradient_agreement(grad_of, reproduce: bool = True) -> dict:
+    """The card's gradients against the CPU's float64: grad_of(dev,
+    dtype) -> {leaf: float64 array} run on the CPU and the card in
+    float64 and float32 (and the card's float32 once more if
+    `reproduce`).  Each leaf's error over its own largest value ->
+    {"g64": the CPU's float64 leaves, "grads": the other runs' leaves,
+    "worst", "worst_leaf": each run's worst leaf error and its name,
+    "f32_bar": the card's float32 bar (twice the CPU float32's worst, or
+    1e-3), "reproducible": the second float32 run bit for bit (True
+    unless `reproduce`), "bars": the card's float64 within 1e-6, its
+    float32 within f32_bar, reproducible}."""
+    grads = {f"{dev}_{str(dt)[6:]}": grad_of(dev, dt)
+             for dev in ("cpu", "cuda") for dt in (torch.float64,
+                                                   torch.float32)}
+    g64 = grads.pop("cpu_float64")
+    reproducible = True
+    if reproduce:
+        again = grad_of("cuda", torch.float32)
+        reproducible = all(np.array_equal(again[p], grads["cuda_float32"][p])
+                           for p in g64)
+    leaf_err = {k: _leaf_errors(g, g64) for k, g in grads.items()}
+    worst = {k: max(e.values()) for k, e in leaf_err.items()}
+    f32_bar = max(2.0 * worst["cpu_float32"], 1e-3)
+    return {"g64": g64, "grads": grads, "worst": worst,
+            "worst_leaf": {k: max(e, key=e.get) for k, e in leaf_err.items()},
+            "f32_bar": f32_bar, "reproducible": reproducible,
+            "bars": {"gradient float64": worst["cuda_float64"] <= 1e-6,
+                     "gradient float32": worst["cuda_float32"] <= f32_bar,
+                     "gradient reproducible": reproducible}}
+
+
 def adam_first_move(grads: dict, lr: float, max_norm: float,
                     eps: float = 1e-8) -> dict:
     """The plain first step of ChainOptimizer in float64 -> each leaf's
@@ -2661,17 +2750,9 @@ def train_lex_check(trained: dict) -> dict:
     packed = batch_pack([mb_nums[j] for j in order])
 
     # every parameter's gradient, in float64 and float32 on each device
-    grads = {f"{dev}_{str(dt)[6:]}": param_grads(
-        cfg, variables, feats_b, packed, den, opts, dev, dt)
-        for dev in ("cpu", "cuda") for dt in (torch.float64, torch.float32)}
-    g64 = grads.pop("cpu_float64")
-    again = param_grads(cfg, variables, feats_b, packed, den, opts, "cuda")
-    reproducible = all(np.array_equal(again[p], grads["cuda_float32"][p])
-                       for p in g64)
-    leaf_err = {k: _leaf_errors(g, g64) for k, g in grads.items()}
-    worst = {k: max(e.values()) for k, e in leaf_err.items()}
-    worst_leaf = {k: max(e, key=e.get) for k, e in leaf_err.items()}
-    f32_bar = max(2.0 * worst["cpu_float32"], 1e-3)
+    agree = gradient_agreement(lambda dev, dt: param_grads(
+        cfg, variables, feats_b, packed, den, opts, dev, dt))
+    g64, grads = agree["g64"], agree["grads"]
 
     # the optimizer on each device, fed one gradient
     g32 = {p: g.astype(np.float32) for p, g in g64.items()}
@@ -2765,8 +2846,10 @@ def train_lex_check(trained: dict) -> dict:
            "step_objf_cpu": steps["cpu"][0], "step_objf_rel": objf_rel,
            "first_step_lr": lr0,
            "parameters": sum(a.size for a in g64.values()),
-           "grad_worst_leaf_rel": worst, "grad_worst_leaf": worst_leaf,
-           "grad_f32_bar": f32_bar, "grad_reproducible": reproducible,
+           "grad_worst_leaf_rel": agree["worst"],
+           "grad_worst_leaf": agree["worst_leaf"],
+           "grad_f32_bar": agree["f32_bar"],
+           "grad_reproducible": agree["reproducible"],
            "optimizer_err_lr": opt_err, "step_err_lr": step_err,
            "step_moved_max": moved, "step_elements_apart": apart,
            "param_max_abs_diff": max(float(d.max())
@@ -2781,9 +2864,7 @@ def train_lex_check(trained: dict) -> dict:
            "launches": launches, "tolerance": 1e-4}
     emit("train_lex_check", **out)
     bars = {
-        "gradient float64": worst["cuda_float64"] <= 1e-6,
-        "gradient float32": worst["cuda_float32"] <= f32_bar,
-        "gradient reproducible": reproducible,
+        **agree["bars"],
         "optimizer": max(opt_err.values()) <= 1e-3,
         "step": max(step_err.values()) <= 1e-3,
         "step objective": objf_rel <= 1e-4,
@@ -2804,24 +2885,517 @@ def train_lex_check(trained: dict) -> dict:
     return out
 
 
-def train_phases() -> dict:
-    """train_lex, profile_train_step and train_lex_check -> their
-    summary, with kernels a-c's launches in each."""
-    trained = run_train_lex()
+def train_phases(epochs: int = TRAIN_EPOCHS) -> tuple:
+    """train_lex (`epochs` epochs), profile_train_step and
+    train_lex_check -> (their summary, with kernels a-c's launches in
+    each; train_lex's system)."""
+    trained = run_train_lex(epochs)
     check = train_lex_check(trained)
     out = dict(trained["summary"])
     out["launches"]["train_lex_check"] = check["launches"]
     out["check"] = {k: check[k] for k in (
         "step_objf_rel", "grad_worst_leaf_rel", "step_err_lr", "num_rel",
         "den_rel", "alignments_equal")}
+    sysd = trained["sysd"]
     del trained
     torch.cuda.empty_cache()
-    return out
+    return out, sysd
+
+
+def chain_cli_system() -> dict:
+    """train_lex's system without its chain training: the corpus, MFCC,
+    the mono GMM, the alignment, the chain transition model and tree
+    (what chain_cli_phases takes; chip_main_path.py --chain-cli)."""
+    spec = BenchCorpusSpec()
+    return train_system(spec, cfg=train_bench.flagship_config(spec),
+                        chain_opts=train_bench.train_options(0),
+                        num_ceps=40, device="cuda")
 
 
 def _same_bytes(a: str, b: str) -> bool:
     with open(a, "rb") as f, open(b, "rb") as g:
         return f.read() == g.read()
+
+
+def chain_ali_input_rate(ali, mono_tm, chain_tm) -> list:
+    """A mono alignment as chain transition-ids at the input frame rate
+    (`convert-ali` to the chain topology): each phone segment of d frames
+    becomes [forward, self-loop x (d - 1)]."""
+    tids = {}
+    for ts in range(1, chain_tm.num_transition_states + 1):
+        phone = chain_tm.transition_state_to_phone(ts)
+        if phone in tids:
+            continue
+        fwd = next(t for t in (chain_tm.pair_to_transition_id(ts, i)
+                               for i in range(
+                                   chain_tm.num_transition_indices(ts)))
+                   if not chain_tm.is_self_loop(t))
+        tids[phone] = (fwd, chain_tm.self_loop_of(ts))
+    out = []
+    for phone, s, e in alignment_to_phone_segments(ali, mono_tm):
+        fwd, loop = tids[phone]
+        out.extend([fwd] + [loop] * (e - s - 1))
+    return out
+
+
+def chain_ali_repeated(ali, mono_tm, chain_tm) -> list:
+    """A mono alignment as chain transition-ids as Kaldi's `convert-ali
+    --frame-subsampling-factor=3 --repeat-frames=true` gives it:
+    converted at the output rate (each phone at least one frame, its
+    forward transition first; `mono_ali_to_chain_ali`), each output frame
+    repeated 3 times.  nnet3-chain-get-egs subsamples the alignment it is
+    given as it is, so only this form keeps each phone's forward
+    transition at any chunk offset (the input-rate form keeps it for
+    about a third of the phones)."""
+    return [t for t in tchain.mono_ali_to_chain_ali(ali, mono_tm, chain_tm, 3)
+            for _ in range(3)]
+
+
+def timed_tool(seconds: dict, tool: str, *args, key: str = "") -> str:
+    """One tool in this process through get_tool -> its stderr and
+    stdout; its seconds go to seconds[key or tool] (summed over
+    calls)."""
+    # stdout with a byte buffer behind it: a tool may write bytes there
+    err, out = io.StringIO(), io.TextIOWrapper(io.BytesIO(), "utf-8")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err), contextlib.redirect_stdout(out):
+        rc = get_tool(tool)([tool] + [str(a) for a in args])
+    out.flush()
+    key = key or tool
+    seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"{tool} exited {rc}:\n{err.getvalue()[-4000:]}")
+    return err.getvalue() + out.buffer.getvalue().decode()
+
+
+def timed_cli(seconds: dict, tool: str, *args, dev: str = "cuda") -> str:
+    """`cli` (a process of its own, on `dev`) timed into seconds[tool] ->
+    stderr."""
+    t0 = time.perf_counter()
+    proc = cli(tool, *([] if dev == "cuda" else ["--use-gpu=no"]), *args)
+    seconds[tool] = time.perf_counter() - t0
+    return proc.stderr
+
+
+def chain_prob(log: str) -> float:
+    """nnet3-chain-compute-prob's objective a frame, from its log."""
+    m = re.findall(r"Overall log-probability for 'output' is (\S+) per "
+                   r"frame", log)
+    if not m:
+        raise SystemExit(f"no compute-prob line in:\n{log[-2000:]}")
+    return float(m[-1])
+
+
+def fields_max_diff(a, b) -> float:
+    """The largest |a - b| over two nnet3 graphs' float parameter
+    arrays, component by component."""
+    return max(
+        float(np.abs(np.asarray(b.components[n].fields[k], np.float64)
+                     - np.asarray(v, np.float64)).max())
+        for n, comp in a.components.items() for k, v in comp.fields.items()
+        if np.asarray(v).dtype.kind == "f" and np.asarray(v).size > 0)
+
+
+def chain_cli_inputs(sysd: dict, d: str) -> None:
+    """What a Kaldi user has after the GMM stage, from train_lex's
+    system: tree, 0.trans_mdl, feats.ark (the 384 training utterances),
+    ali.ark (their alignments as chain transition-ids at the input rate,
+    what chain-get-supervision segments into phones and nnet3-get-egs
+    takes as frame targets), ali_sub.ark (the same converted for frame
+    subsampling, what nnet3-chain-get-egs subsamples) and phones.ark
+    (their phone sequences)."""
+    os.makedirs(d, exist_ok=True)
+    mono_tm, chain_tm = sysd["gmm"].tm, sysd["chain_tm"]
+    write_kaldi_object(sysd["chain_tree"].write, f"{d}/tree")
+    write_kaldi_object(chain_tm.write, f"{d}/0.trans_mdl")
+    feats, alis = sysd["feats"], sysd["alignments"]
+    with TableWriter("matrix", f"ark:{d}/feats.ark") as w:
+        for u in sorted(feats):
+            w.write(u, np.asarray(feats[u], np.float32))
+    with TableWriter("int-vector", f"ark:{d}/ali.ark") as w, \
+            TableWriter("int-vector", f"ark:{d}/ali_sub.ark") as ws, \
+            TableWriter("int-vector", f"ark:{d}/phones.ark") as wp:
+        for u in sorted(alis):
+            w.write(u, chain_ali_input_rate(alis[u], mono_tm, chain_tm))
+            ws.write(u, chain_ali_repeated(alis[u], mono_tm, chain_tm))
+            wp.write(u, [s[0] for s in alignment_to_phone_segments(
+                alis[u], mono_tm)])
+
+
+def test_feats(sysd: dict, utts, dev: str = "cuda") -> list:
+    """The test utterances' MFCCs on `dev`, as train_lex decodes them ->
+    [(T, 40) numpy]."""
+    fe = OfflineFeature(mfcc_options(sysd["spec"]), device=dev)
+    feats, nframes = fe.compute_batch_device(
+        [sysd["test_wav"][u] for u in utts])
+    feats = feats.cpu().numpy()
+    return [feats[i, :nframes[i]] for i in range(len(utts))]
+
+
+def run_chain_cli(sysd: dict, d: str, dev: str = "cuda") -> dict:
+    """chain_cli: Kaldi chain training through the tools at full width,
+    from train_lex's corpus, features, chain transition model, tree and
+    alignments: chain-est-phone-lm, chain-make-den-fst,
+    chain-get-supervision, nnet3-chain-get-egs (the tool's defaults),
+    -shuffle-egs, -subset-egs (CHAIN_CLI_SUBSET egs) in this process;
+    nnet3-chain-train (CHAIN_CLI_TRAIN: the 17 x 1536 TDNN-F) and
+    nnet3-chain-compute-prob on the subset, each in a process of its
+    own; nnet3-chain-combine of two copies of the model (equal to it
+    within 1e-6); the 128 test utterances decoded with the trained raw
+    nnet (the compiled module at the input rate, every third frame)
+    through LexChainDecoder over train_lex's graph.  Then one training
+    step of CHAIN_CLI_MB egs in this process under the profiler.  Bars:
+    every step's objective finite, 0 guard rejects, the combine, the
+    compute-prob objective finite, the WER within CHAIN_CLI_WER_BAND of
+    the JAX package's, kernels a-c 0 launches."""
+    reset_kernel_counts()
+    t_phase = time.perf_counter()
+    seconds: dict = {}
+    t0 = time.perf_counter()
+    chain_cli_inputs(sysd, d)
+    seconds["inputs"] = time.perf_counter() - t0
+    timed_tool(seconds, "chain-est-phone-lm", f"ark:{d}/phones.ark",
+               f"{d}/phone_lm.fst")
+    timed_tool(seconds, "chain-make-den-fst", f"{d}/tree",
+               f"{d}/0.trans_mdl", f"{d}/phone_lm.fst", f"{d}/den.fst",
+               f"{d}/normalization.fst")
+    timed_tool(seconds, "chain-get-supervision", f"{d}/tree",
+               f"{d}/0.trans_mdl", f"ark:{d}/ali.ark", f"ark:{d}/sup.ark")
+    log = timed_tool(seconds, "nnet3-chain-get-egs", f"{d}/0.trans_mdl",
+                     f"ark:{d}/feats.ark", f"ark:{d}/ali_sub.ark",
+                     f"ark:{d}/egs.ark")
+    n_egs = int(re.search(r"(\d+) examples", log).group(1))
+    timed_tool(seconds, "nnet3-chain-shuffle-egs", f"ark:{d}/egs.ark",
+               f"ark:{d}/egs_shuf.ark")
+    timed_tool(seconds, "nnet3-chain-subset-egs", f"--n={CHAIN_CLI_SUBSET}",
+               f"ark:{d}/egs_shuf.ark", f"ark:{d}/egs_sub.ark")
+    log = timed_cli(seconds, "nnet3-chain-train", *CHAIN_CLI_TRAIN,
+                    f"{d}/den.fst", f"ark:{d}/egs_shuf.ark",
+                    f"{d}/final.raw", dev=dev)
+    train = tool_stats("nnet3-chain-train", log)
+    prob = chain_prob(timed_cli(seconds, "nnet3-chain-compute-prob",
+                                f"{d}/final.raw", f"{d}/den.fst",
+                                f"ark:{d}/egs_sub.ark", dev=dev))
+    timed_tool(seconds, "nnet3-chain-combine", f"{d}/final.raw",
+               f"{d}/final.raw", f"{d}/combined.raw")
+    raw = mdl_io.read_raw_nnet3(f"{d}/final.raw")
+    combine_err = fields_max_diff(raw, mdl_io.read_raw_nnet3(
+        f"{d}/combined.raw"))
+
+    # the test set through the legacy search with the trained raw nnet
+    t0 = time.perf_counter()
+    utts = sorted(sysd["test_wav"])
+    feats = test_feats(sysd, utts, dev)
+    net = compile_graph(raw, "output", device=dev)
+    outs = [net(f[None])[0, ::3] for f in feats]
+    lens = [int(o.shape[0]) for o in outs]
+    loglikes = torch.zeros((len(outs), max(lens), outs[0].shape[1]),
+                           device=dev)
+    for i, o in enumerate(outs):
+        loglikes[i, :lens[i]] = o
+    graph = build_decode_graph(sysd["lexicon"], sysd["lm_text"],
+                               sysd["chain_tm"], sysd["chain_tree"],
+                               lang=sysd["lang"])
+    hyps = LexChainDecoder(graph, device=dev).decode_batch(
+        loglikes, lengths=lens)
+    words = {u: ([] if h is None else [graph.words[w] for w in h[0]])
+             for u, h in zip(utts, hyps)}
+    wer = wer_of(words, sysd["test_txt"])
+    seconds["decode"] = time.perf_counter() - t0
+    del net, loglikes, outs
+
+    # one step of CHAIN_CLI_MB egs under the profiler, from fresh weights
+    first = next(merged_minibatches(f"ark:{d}/egs_shuf.ark", CHAIN_CLI_MB))
+    step_fn, state, batch, _m = chain_cli_step(
+        first, den_graph_from_fst_file(f"{d}/den.fst"), dev)
+    step_fn(state, batch)                                  # warm-up
+    prof = profile_call(lambda: step_fn(state, batch), top=8)
+    launches = kernel_launch_counts()
+    step_ms = sorted(train["step_ms"])
+    out = {"seconds": time.perf_counter() - t_phase, "tool_s": seconds,
+           "egs": n_egs, "steps": len(train["step_objf"]),
+           "train_s": train["seconds"],
+           "step_ms_median": step_ms[len(step_ms) // 2],
+           "step_ms_min": step_ms[0], "step_ms_max": step_ms[-1],
+           "peak_memory_gb": train["peak_memory_gb"],
+           "final_objf": train["step_objf"][-1],
+           "first_objf": train["step_objf"][0],
+           "objf_finite": bool(np.isfinite(train["step_objf"]).all()),
+           "guard_rejects": train["rejects"],
+           "compute_prob_objf": prob, "subset": CHAIN_CLI_SUBSET,
+           "combine_max_abs_err": combine_err,
+           "wer": wer, "word_errors": word_errors(wer, sysd["test_txt"]),
+           "ref_words": sum(len(r) for r in sysd["test_txt"].values()),
+           "lanes_decoded": sum(h is not None for h in hyps),
+           "jax_cpu_wer": CHAIN_CLI_JAX_WER, "wer_band": CHAIN_CLI_WER_BAND,
+           "profiled_step": {
+               "egs": CHAIN_CLI_MB, "launches": prof["kernel_launches"],
+               "device_ms": prof["device_ms"],
+               "wall_ms": 1e3 * prof["wall_s_profiled"],
+               "peak_memory_gb": prof["peak_memory_gb"],
+               "top": prof["top"]},
+           "launches": launches}
+    emit("chain_cli", **out)
+    bars = {"objectives finite": out["objf_finite"],
+            "guard rejects 0": train["rejects"] == 0,
+            "combine": combine_err <= 1e-6,
+            "compute-prob finite": bool(np.isfinite(prob)),
+            "WER": wer <= CHAIN_CLI_JAX_WER + CHAIN_CLI_WER_BAND,
+            "all lanes decoded": out["lanes_decoded"] == len(utts),
+            "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"chain_cli: {failed}")
+    return out
+
+
+def chain_cli_step(batch: dict, den, dev, dtype=torch.float32):
+    """The trainer's step over fresh flagship weights (nnet3-chain-train's
+    configuration under CHAIN_CLI_TRAIN, its initializer's seed 0) on
+    `dev` in `dtype`, and a merged minibatch trimmed as the trainer trims
+    it -> (step_fn, state, step batch, model)."""
+    lc, rc = int(batch["left_context"]), int(batch["right_context"])
+    feats = batch["feats"][:, lc:batch["feats"].shape[1] - rc]
+    cfg = ChainTdnnfConfig(
+        feat_dim=feats.shape[-1],
+        num_pdfs=max(int(den.graph.pdf.max()),
+                     int(batch["num_graphs"][2].max())) + 1,
+        prefinal_dim=max(CHAIN_CLI_WIDTHS["hidden_dim"] // 2,
+                         CHAIN_CLI_WIDTHS["bottleneck_dim"]),
+        subsample_layer=min(8, max(1, CHAIN_CLI_WIDTHS["num_layers"] // 2)),
+        frame_subsampling_factor=3, **CHAIN_CLI_WIDTHS)
+    state, model, tx = ptrainer.make_chain_train_state(
+        cfg, torch.Generator().manual_seed(0), device=dev)
+    if dtype != torch.float32:
+        state = optim.tree_map(lambda x: x.to(dtype), state)
+        model.to(dtype)
+    step_fn = ptrainer.make_sharded_train_step(
+        model, tx, ChainTrainingOptions(xent_regularize=0.1), den)
+    return step_fn, state, {
+        "feats": torch.from_numpy(np.ascontiguousarray(feats)).to(dev,
+                                                                   dtype),
+        "num_graphs": batch["num_graphs"]}, model
+
+
+def flax_leaves(model, tensors: dict, stats: dict) -> dict:
+    """Tensors by the model's names -> {path: float64 array} of their
+    flax layout's params."""
+    st = ptrainer.ChainTrainState(tensors, stats, None)
+    return {p: np.asarray(a, np.float64) for p, a in
+            _leaves(ptrainer.load_state(model, st)["params"])}
+
+
+def chain_cli_check(d: str, dev: str = "cuda") -> dict:
+    """chain_cli_check: one trainer step on the first CHAIN_CLI_CHECK_EGS
+    egs of chain_cli's shuffled archive at full width, on the card in
+    float32 and float64 and on the CPU in float64 and float32, from the
+    same fresh weights, held as train_lex_check holds its step: the
+    objective within 1e-4 relative; every gradient leaf against the CPU's
+    float64, each against its own largest value, the card's float64
+    within 1e-6 and its float32 at most twice the CPU float32's (or
+    1e-3); the card's step objective equal to its own value_and_grad; the
+    optimizer's move (clip, then Adam's first update) within 1e-3 lr of
+    the plain float64 update of the card's gradient."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    first = next(merged_minibatches(f"ark:{d}/egs_shuf.ark",
+                                    CHAIN_CLI_CHECK_EGS))
+    opts = ChainTrainingOptions(xent_regularize=0.1)
+    den = den_graph_from_fst_file(f"{d}/den.fst")
+    res = {}
+
+    def grad_of(on, dtype):
+        """The step's value_and_grad on `on` in `dtype` (on the card the
+        step itself too) -> the gradient's leaves; the objective into
+        res."""
+        step_fn, state, batch, model = chain_cli_step(
+            first, den, dev if on == "cuda" else on, dtype)
+
+        def fn(outputs):
+            objf, aux = chain_loss(opts, den, batch["num_graphs"], *outputs)
+            return -objf, aux
+        loss, _aux, _st, grads = ptrainer.value_and_grad(
+            model, state.params, state.batch_stats, batch["feats"], fn)
+        name = f"{on}_{str(dtype)[6:]}"
+        res[name] = {"objf": float(-loss)}
+        leaves = flax_leaves(model, grads, state.batch_stats)
+        if name == "cuda_float32":
+            new, met = step_fn(state, batch)
+            res[name].update(
+                grads=leaves, step_objf=float(met["objf"]),
+                old=flax_leaves(model, state.params, state.batch_stats),
+                new=flax_leaves(model, new.params, new.batch_stats))
+            del new
+        del step_fn, state, grads, model
+        torch.cuda.empty_cache()
+        return leaves
+
+    agree = gradient_agreement(grad_of, reproduce=False)
+    card, cpu = res["cuda_float32"], res["cpu_float64"]
+    objf_rel = abs(card["objf"] - cpu["objf"]) / abs(cpu["objf"])
+    lr = 1e-3
+    want = adam_first_move(card["grads"], lr, 2.0)
+    move_err = _move_error(card["new"], card["old"], want, lr)
+    launches = kernel_launch_counts()
+    out = {"egs": CHAIN_CLI_CHECK_EGS, "objf_cuda": card["objf"],
+           "objf_cpu_float64": cpu["objf"], "objf_rel": objf_rel,
+           "step_objf_equal": card["step_objf"] == card["objf"],
+           "grad_worst_leaf_rel": agree["worst"],
+           "grad_worst_leaf": agree["worst_leaf"],
+           "grad_f32_bar": agree["f32_bar"], "move_err_lr": move_err,
+           "parameters": sum(a.size for a in agree["g64"].values()),
+           "seconds": time.perf_counter() - t0, "launches": launches,
+           "tolerance": 1e-4}
+    emit("chain_cli_check", **out)
+    bars = {"objective": objf_rel <= 1e-4,
+            "step objective = value_and_grad": out["step_objf_equal"],
+            **agree["bars"],
+            "optimizer": move_err <= 1e-3,
+            "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"chain_cli_check: the card and the CPU disagree: "
+                         f"{failed}")
+    return out
+
+
+def run_chain_cli_e2e(sysd: dict, d: str, dev: str = "cuda") -> dict:
+    """chain_cli_e2e: nnet3-chain-e2e-get-egs on the first
+    CHAIN_CLI_E2E_UTTS test utterances (their phone transcripts from the
+    lexicon's first pronunciations, silence optional at every boundary),
+    then nnet3-chain-compute-prob of chain_cli's trained raw nnet on them
+    in this process, on the card and on the CPU (the host
+    evaluator).  Bar: the card's objective finite and the CPU's
+    within 1e-4 relative (each printed to 4 decimals)."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    seconds: dict = {}
+    utts = sorted(sysd["test_wav"])[:CHAIN_CLI_E2E_UTTS]
+    lang, lexicon = sysd["lang"], sysd["lexicon"]
+    with TableWriter("matrix", f"ark:{d}/test_feats.ark") as w:
+        for u, f in zip(utts, test_feats(sysd, utts, dev)):
+            w.write(u, f)
+    with TableWriter("int-vector", f"ark:{d}/test_phones.ark") as w:
+        for u in utts:
+            w.write(u, [lang.phones[p] for word in sysd["test_txt"][u]
+                        for p in lexicon[word][0]])
+    timed_tool(seconds, "nnet3-chain-e2e-get-egs",
+               f"--optional-silence-phone={lang.phones['SIL']}",
+               f"{d}/0.trans_mdl", f"ark:{d}/test_feats.ark",
+               f"ark:{d}/test_phones.ark", f"ark:{d}/e2e.ark")
+    args = (f"{d}/final.raw", f"{d}/den.fst", f"ark:{d}/e2e.ark")
+    card = chain_prob(timed_tool(
+        seconds, "nnet3-chain-compute-prob",
+        *([] if dev == "cuda" else ["--use-gpu=no"]), *args))
+    cpu = chain_prob(timed_tool(seconds, "nnet3-chain-compute-prob",
+                                "--use-gpu=no", *args,
+                                key="nnet3-chain-compute-prob --use-gpu=no"))
+    launches = kernel_launch_counts()
+    rel = abs(card - cpu) / max(abs(cpu), 1.0)
+    out = {"utts": len(utts), "objf_cuda": card, "objf_cpu": cpu,
+           "rel": rel, "seconds": time.perf_counter() - t0,
+           "tool_s": seconds, "launches": launches}
+    emit("chain_cli_e2e", **out)
+    if not (np.isfinite(card) and rel <= 1e-4):
+        raise SystemExit(f"chain_cli_e2e: card {card} against CPU {cpu}")
+    if any(launches.values()):
+        raise SystemExit(f"a hand kernel launched in chain_cli_e2e: "
+                         f"{launches}")
+    return out
+
+
+def run_nnet3_train_cli(sysd: dict, d: str, dev: str = "cuda") -> dict:
+    """nnet3_train_cli: the plain nnet3 tools on the first
+    NNET3_TRAIN_UTTS training utterances, in this process: ali-to-pdf ->
+    ali-to-post -> nnet3-get-egs (the tool's defaults: 8 frames, no
+    context) -> nnet3-shuffle-egs -> nnet3-merge-egs; ali-to-post of the
+    transition-ids -> post-to-pdf-post (the same archive as the pdf
+    route); nnet3-train at hidden 1536, bottleneck 160 (its default 4
+    layers) for 1 epoch on the card; nnet3-compute-prob on a subset of
+    NNET3_TRAIN_SUBSET egs on the card; nnet3-average of two copies.
+    Bars: the training objective finite, compute-prob above the uniform
+    -log(pdfs), the average equal to the model, the two posterior
+    routes equal, kernels a-c 0 launches."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    seconds: dict = {}
+    utts = sorted(sysd["feats"])[:NNET3_TRAIN_UTTS]
+    alis = dict(SequentialTableReader("int-vector", f"ark:{d}/ali.ark"))
+    with TableWriter("matrix", f"ark:{d}/nn_feats.ark") as wf, \
+            TableWriter("int-vector", f"ark:{d}/nn_ali.ark") as wa:
+        for u in utts:
+            wf.write(u, np.asarray(sysd["feats"][u], np.float32))
+            wa.write(u, alis[u])
+    timed_tool(seconds, "ali-to-pdf", f"{d}/0.trans_mdl",
+               f"ark:{d}/nn_ali.ark", f"ark:{d}/nn_pdf.ark")
+    timed_tool(seconds, "ali-to-post", f"ark:{d}/nn_pdf.ark",
+               f"ark:{d}/nn_post.ark")
+    timed_tool(seconds, "ali-to-post", f"ark:{d}/nn_ali.ark",
+               f"ark:{d}/nn_tid_post.ark")
+    timed_tool(seconds, "post-to-pdf-post", f"{d}/0.trans_mdl",
+               f"ark:{d}/nn_tid_post.ark", f"ark:{d}/nn_pdf_post.ark")
+    routes_equal = _same_bytes(f"{d}/nn_post.ark", f"{d}/nn_pdf_post.ark")
+    log = timed_tool(seconds, "nnet3-get-egs", f"ark:{d}/nn_feats.ark",
+                     f"ark:{d}/nn_post.ark", f"ark:{d}/nn_egs.ark")
+    n_egs = int(re.search(r"generated (\d+) examples", log).group(1))
+    timed_tool(seconds, "nnet3-shuffle-egs", f"ark:{d}/nn_egs.ark",
+               f"ark:{d}/nn_egs_shuf.ark")
+    log = timed_tool(seconds, "nnet3-merge-egs", f"ark:{d}/nn_egs_shuf.ark",
+                     f"ark:{d}/nn_egs_merged.ark")
+    n_merged = int(re.search(r"into (\d+) minibatches", log).group(1))
+    gpu = [] if dev == "cuda" else ["--use-gpu=no"]
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    log = timed_tool(seconds, "nnet3-train", *gpu, *NNET3_TRAIN_ARGS,
+                     f"ark:{d}/nn_egs_shuf.ark", f"{d}/nn_final.raw")
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev == "cuda"
+            else None)
+    m = re.search(r"nnet3-train: (\d+) steps, final objf (\S+)", log)
+    steps, objf = int(m.group(1)), float(m.group(2))
+    timed_tool(seconds, "nnet3-subset-egs", f"--n={NNET3_TRAIN_SUBSET}",
+               f"ark:{d}/nn_egs_shuf.ark", f"ark:{d}/nn_egs_sub.ark")
+    log = timed_tool(seconds, "nnet3-compute-prob", *gpu,
+                     f"{d}/nn_final.raw", f"ark:{d}/nn_egs_sub.ark")
+    prob = float(re.search(r"log-prob per frame: (\S+)", log).group(1))
+    timed_tool(seconds, "nnet3-average", f"{d}/nn_final.raw",
+               f"{d}/nn_final.raw", f"{d}/nn_avg.raw")
+    avg_err = fields_max_diff(*(mdl_io.read_raw_nnet3(f"{d}/nn_{n}.raw")
+                                for n in ("final", "avg")))
+    num_pdfs = sysd["chain_tm"].num_pdfs
+    launches = kernel_launch_counts()
+    out = {"utts": len(utts), "egs": n_egs, "merged_minibatches": n_merged,
+           "steps": steps, "final_objf": objf, "compute_prob": prob,
+           "subset": NNET3_TRAIN_SUBSET, "uniform": -float(np.log(num_pdfs)),
+           "average_max_abs_err": avg_err, "posterior_routes_equal":
+           routes_equal, "peak_memory_gb": peak,
+           "seconds": time.perf_counter() - t0, "tool_s": seconds,
+           "launches": launches}
+    emit("nnet3_train_cli", **out)
+    bars = {"objective finite": bool(np.isfinite(objf)),
+            "compute-prob above uniform": prob > out["uniform"],
+            "average": avg_err <= 1e-6,
+            "posterior routes": routes_equal,
+            "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"nnet3_train_cli: {failed}")
+    return out
+
+
+def chain_cli_phases(sysd: dict, dev: str = "cuda") -> dict:
+    """chain_cli, chain_cli_check, chain_cli_e2e and nnet3_train_cli over
+    train_lex's system on `dev` -> their summary, with kernels a-c's
+    launches in each."""
+    d = os.path.join(REPO, "_chip", "chain_cli")
+    res = {"chain_cli": run_chain_cli(sysd, d, dev)}
+    res["chain_cli_check"] = chain_cli_check(d, dev)
+    res["chain_cli_e2e"] = run_chain_cli_e2e(sysd, d, dev)
+    res["nnet3_train_cli"] = run_nnet3_train_cli(sysd, d, dev)
+    out = {k: {kk: vv for kk, vv in v.items()
+               if kk not in ("launches", "profiled_step", "tool_s")}
+           for k, v in res.items()}
+    out["launches"] = {k: v["launches"] for k, v in res.items()}
+    return out
 
 
 def run_train_scale(epochs: int) -> dict:
@@ -2943,34 +3517,22 @@ def train_scale_check(trained: dict) -> dict:
     packed = batch_pack(nums)
     den, variables = sysd["den"], sysd["variables"]
     t0 = time.perf_counter()
-    grads = {f"{dev}_{str(dt)[6:]}": param_grads(
-        cfg, variables, feats_b, packed, den, opts, dev, dt, ivecs_b)
-        for dev in ("cpu", "cuda") for dt in (torch.float64, torch.float32)}
-    g64 = grads.pop("cpu_float64")
-    again = param_grads(cfg, variables, feats_b, packed, den, opts, "cuda",
-                        ivecs_b=ivecs_b)
-    reproducible = all(np.array_equal(again[p], grads["cuda_float32"][p])
-                       for p in g64)
-    leaf_err = {k: _leaf_errors(g, g64) for k, g in grads.items()}
-    worst = {k: max(e.values()) for k, e in leaf_err.items()}
-    f32_bar = max(2.0 * worst["cpu_float32"], 1e-3)
+    agree = gradient_agreement(lambda dev, dt: param_grads(
+        cfg, variables, feats_b, packed, den, opts, dev, dt, ivecs_b))
     launches = kernel_launch_counts()
     out = {"chunks": len(chunks), "output_frames": feats_b.shape[1] // 3,
-           "parameters": sum(a.size for a in g64.values()),
-           "grad_worst_leaf_rel": worst,
-           "grad_worst_leaf": {k: max(e, key=e.get)
-                               for k, e in leaf_err.items()},
-           "grad_f32_bar": f32_bar, "grad_reproducible": reproducible,
+           "parameters": sum(a.size for a in agree["g64"].values()),
+           "grad_worst_leaf_rel": agree["worst"],
+           "grad_worst_leaf": agree["worst_leaf"],
+           "grad_f32_bar": agree["f32_bar"],
+           "grad_reproducible": agree["reproducible"],
            "den": den_arcs(den, cfg.num_pdfs, torch.device("cuda"))
            .slot_sizes(), "seconds": time.perf_counter() - t0,
            "launches": launches, "profile_launches": step_launches,
            "launches_a_step": step["kernel_launches"],
            "device_ms_a_step": step["device_ms"]}
     emit("train_scale_check", **out)
-    bars = {"gradient float64": worst["cuda_float64"] <= 1e-6,
-            "gradient float32": worst["cuda_float32"] <= f32_bar,
-            "gradient reproducible": reproducible,
-            "kernels a-c": not any(launches.values())}
+    bars = {**agree["bars"], "kernels a-c": not any(launches.values())}
     failed = [k for k, ok in bars.items() if not ok]
     if failed:
         raise SystemExit(f"train_scale_check: the card and the CPU "
@@ -4468,8 +5030,11 @@ def main() -> int:
     # then the xconfig phases: nnet3-latgen-faster and the lattice tools --
     online2 = online2_phases(legacy.pop("words_int16"))
 
-    # 5c. the legacy training recipe, end to end, and its card-CPU check ---
-    train = train_phases()
+    # 5c. the legacy training recipe, end to end, and its card-CPU check;
+    # then chain training through the tools over its system ---------------
+    train, sysd = train_phases(SMOKE_TRAIN_EPOCHS)
+    chain = chain_cli_phases(sysd)
+    del sysd
 
     # 5d. the --scale training recipe, decoded through the main path -------
     scale = train_scale_phases(SMOKE_SCALE_EPOCHS)
@@ -4783,6 +5348,7 @@ def main() -> int:
          online_batcher_endpointed=ng_batcher["endpointed"],
          **{k: v for k, v in legacy.items() if k != "launches"},
          train={k: v for k, v in train.items() if k != "launches"},
+         chain_cli={k: v for k, v in chain.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
          **{k: v for k, v in nnet3.items() if k != "launches"},
          **{k: v for k, v in online2.items()
@@ -4815,6 +5381,8 @@ def main() -> int:
                                   train["launches"].values())
         k["launches_train_scale"] = sum(counts[k["name"]] for counts in
                                         scale["launches"].values())
+        k["launches_chain_cli"] = sum(counts[k["name"]] for counts in
+                                      chain["launches"].values())
         k["launches_nnet3"] = sum(counts[k["name"]] for counts in
                                   nnet3["launches"].values())
         k["launches_online2"] = sum(counts[k["name"]] for counts in

@@ -3,17 +3,17 @@
 `make_denominator_graph`,
 `denominator_graph_from_phone_lm`, `alignment_to_phone_segments`,
 `_chain_pdfs_for_phone`, `make_tolerance_supervision`,
-`alignment_to_tolerance_numerator` and `alignment_to_numerator_graph` of
-`kaldi_tpu/chain/supervision.py`).  Host-side numpy.
+`alignment_to_tolerance_numerator`, `transcript_to_e2e_numerator` and
+`alignment_to_numerator_graph` of `kaldi_tpu/chain/supervision.py`).
+Host-side numpy.
 
 Parity: chain/chain-supervision.h (time-tolerant numerators from
 alignments), chain/language-model.h (the phone LM), chain-den-graph.h:159
 (the den graph: the phone LM expanded to an HMM acceptor over pdfs,
 initial probs from the stationary distribution).
 
-Not carried over yet: `union_graphs`, `lattice_to_tolerance_numerator`
-and `transcript_to_e2e_numerator` (the recipes ported so far do not
-reach them).
+Not carried over yet: `union_graphs` and `lattice_to_tolerance_numerator`
+(nothing ported so far reaches them).
 """
 
 from __future__ import annotations
@@ -443,6 +443,67 @@ def alignment_to_tolerance_numerator(alignment: Sequence[int],
     return make_tolerance_supervision(segs, len(alignment), chain_tm,
                                       subsample, left_tolerance,
                                       right_tolerance)
+
+
+def transcript_to_e2e_numerator(phones: Sequence[int],
+                                chain_tm: TransitionModel,
+                                optional_sil: Optional[int] = None
+                                ) -> PackedGraph:
+    """Flat-start ('end2end' / e2e) numerator: the full chain-topology
+    graph of the phone TRANSCRIPT with free durations — no alignment
+    needed (chain-supervision.cc TrainingGraphToSupervisionE2e; the
+    egs/wsj e2e flat-start recipes).  Each phone k contributes
+
+        I_{k-1} --fwd_pdf(k)--> I_k --self_pdf(k)--> I_k (loop)
+
+    and, when optional_sil is given, an optional silence may be
+    traversed at every phone boundary (and utterance edges).  Arc
+    log-probs are 0 (the reference normalizes its supervision FST;
+    the constant offset does not affect gradients)."""
+    phones = [int(p) for p in phones]
+    K = len(phones)
+    if K == 0:
+        raise ValueError("transcript_to_e2e_numerator: empty transcript")
+    pdfs = [_chain_pdfs_for_phone(chain_tm, p) for p in phones]
+    sil = (_chain_pdfs_for_phone(chain_tm, optional_sil)
+           if optional_sil is not None else None)
+    # states: 0 = start, 1..K = I_k, then one sil state per boundary
+    n_states = K + 1 + (K + 1 if sil else 0)
+    sil0 = K + 1
+
+    src: List[int] = []
+    dst: List[int] = []
+    pdf: List[int] = []
+
+    def arc(s, d, p):
+        src.append(s)
+        dst.append(d)
+        pdf.append(p)
+
+    for k in range(K):
+        fwd, slf = pdfs[k]
+        arc(k, k + 1, fwd)          # enter phone k+1 (first frame)
+        arc(k + 1, k + 1, slf)      # stay in it
+        if sil:
+            # boundary k silence: enterable from I_k, exits into
+            # phone k+1
+            arc(k, sil0 + k, sil[0])
+            arc(sil0 + k, sil0 + k, sil[1])
+            arc(sil0 + k, k + 1, fwd)
+    if sil:                         # trailing silence after phone K
+        arc(K, sil0 + K, sil[0])
+        arc(sil0 + K, sil0 + K, sil[1])
+    ninf = -1e30
+    initial = np.full(n_states, ninf, np.float32)
+    initial[0] = 0.0
+    final = np.full(n_states, ninf, np.float32)
+    final[K] = 0.0
+    if sil:
+        final[sil0 + K] = 0.0
+    return PackedGraph(np.asarray(src, np.int32),
+                       np.asarray(dst, np.int32),
+                       np.asarray(pdf, np.int32),
+                       np.zeros(len(src), np.float32), initial, final)
 
 
 def alignment_to_numerator_graph(alignment: Sequence[int],

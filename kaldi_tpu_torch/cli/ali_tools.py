@@ -1,10 +1,13 @@
-"""compute-wer (port of the tool of `kaldi_tpu/cli/ali_tools.py`;
-bin/compute-wer.cc): the WER and sentence error rate of hypotheses
-against references, both text tables of words.
+"""compute-wer, ali-to-pdf and ali-to-post (ports of the tools of
+`kaldi_tpu/cli/ali_tools.py`; bin/compute-wer.cc, bin/ali-to-pdf.cc,
+bin/ali-to-post.cc): the WER and sentence error rate of hypotheses
+against references, both text tables of words; alignments to pdf-ids
+and to posteriors.  ali-to-pdf reads the model's TransitionModel only, as
+Kaldi's does, so it takes a GMM .mdl and a chain 0.trans_mdl alike (the
+JAX package's tool reads a whole GMM model).
 
 Not carried over yet: the module's other tools (align-equal-compiled,
-ali-to-phones, ali-to-pdf, copy-int-vector, align-text, ali-to-post,
-weight-silence-post).
+ali-to-phones, copy-int-vector, align-text, weight-silence-post).
 """
 
 from __future__ import annotations
@@ -12,9 +15,10 @@ from __future__ import annotations
 import sys
 from typing import List
 
+from kaldi_tpu_torch.base.logging import log
 from kaldi_tpu_torch.util.edit_distance import WerStats
 from kaldi_tpu_torch.util.parse_options import ParseOptions
-from kaldi_tpu_torch.util.table import SequentialTableReader
+from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
 
 
 def compute_wer(argv: List[str]) -> int:
@@ -50,3 +54,42 @@ def compute_wer(argv: List[str]) -> int:
     if absent:
         print(f"{absent} absent sentences.", file=sys.stderr)
     return 0
+
+
+def ali_to_pdf(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Converts alignments (containing transition-ids) to pdf-ids, "
+        "zero-based.\n"
+        "Usage: ali-to-pdf [options] <model> <alignments-rspecifier> "
+        "<pdfs-wspecifier>")
+    po.read(argv)
+    if po.num_args() != 3:
+        po.print_usage()
+        return 1
+    from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+    from kaldi_tpu_torch.util.kaldi_io import read_kaldi_object
+    tm = read_kaldi_object(TransitionModel.read, po.get_arg(1))
+    writer = TableWriter("int-vector", po.get_arg(3))
+    for key, ali in SequentialTableReader("int-vector", po.get_arg(2)):
+        writer.write(key, [int(p) for p in tm.transition_ids_to_pdfs(ali)])
+    writer.close()
+    return 0
+
+
+def ali_to_post(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Convert alignments to posteriors (weight 1.0 per frame)\n"
+        "Usage: ali-to-post [options] <alignments-rspecifier> "
+        "<posteriors-wspecifier>")
+    po.read(argv)
+    if po.num_args() != 2:
+        po.print_usage()
+        return 1
+    writer = TableWriter("posterior", po.get_arg(2))
+    n = 0
+    for key, ali in SequentialTableReader("int-vector", po.get_arg(1)):
+        writer.write(key, [[(int(t), 1.0)] for t in ali])
+        n += 1
+    writer.close()
+    log(f"converted {n} alignments to posteriors")
+    return 0 if n else 1

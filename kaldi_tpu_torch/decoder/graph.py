@@ -221,11 +221,21 @@ class TrainingGraphCompiler:
         return self.compile_from_ids(word_ids)
 
     def compile_from_ids(self, word_ids: Sequence[int]) -> VectorFst:
+        return self.expand(self.word_graph(word_ids))
+
+    def word_graph(self, word_ids: Sequence[int]) -> VectorFst:
+        """The transcript's phone-level graph (L o G, determinized, the
+        disambiguation symbols and epsilons removed): the costly part of
+        a compile, which does not depend on the transition model."""
         g = make_linear_word_acceptor(word_ids)
         lg = compose(self._lex, arcsort(g, "ilabel"))
         lg = determinize_star(lg)
         lg = _remove_disambig(lg, self.lang)
-        lg = rm_epsilon(lg)
+        return rm_epsilon(lg)
+
+    def expand(self, lg: VectorFst) -> VectorFst:
+        """A `word_graph` expanded to HMM transitions with this compiler's
+        transition model and scales (lg is not changed)."""
         graph = expand_hmm(lg, self.tm, self.tree,
                            self.transition_scale, self.self_loop_scale)
         if graph.num_states == 0:

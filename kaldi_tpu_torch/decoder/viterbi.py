@@ -64,43 +64,17 @@ class FasterDecoder:
         word ids, total cost) for the best path reaching a final state,
         or None if decoding failed."""
         fst = self.fst
-        T = loglikes.shape[0]
         beam = self.opts.beam
+        emitting = self.emitting_arcs(tid_to_pdf)
         # active tokens: state -> _Token
         cur: Dict[int, _Token] = {fst.start: _Token(0.0, None, 0, 0)}
         cur = self._process_nonemitting(cur, beam, word_ins_penalty)
-        for t in range(T):
-            frame = loglikes[t]
-            nxt: Dict[int, _Token] = {}
-            # adaptive pruning cutoff
-            best = min(tok.cost for tok in cur.values())
-            cutoff = best + beam
-            if len(cur) > self.opts.max_active:
-                costs = sorted(tok.cost for tok in cur.values())
-                cutoff = min(cutoff, costs[self.opts.max_active - 1])
-            next_best = INF
-            for state, tok in cur.items():
-                if tok.cost > cutoff:
-                    continue
-                for a in fst.arcs[state]:
-                    if a.ilabel == EPS:
-                        continue
-                    ac = -acoustic_scale * float(frame[tid_to_pdf[a.ilabel]])
-                    c = tok.cost + a.weight + ac
-                    if word_ins_penalty and a.olabel != EPS:
-                        c += word_ins_penalty
-                    if c >= next_best + beam:
-                        continue
-                    old = nxt.get(a.nextstate)
-                    if old is None or c < old.cost:
-                        nxt[a.nextstate] = _Token(c, tok, a.ilabel, a.olabel)
-                        next_best = min(next_best, c)
+        for t in range(loglikes.shape[0]):
+            nxt = self._process_emitting(cur, emitting, loglikes[t],
+                                         acoustic_scale, word_ins_penalty)
             if not nxt:
                 _log.warning("no tokens survived at frame %d", t)
                 return None
-            # prune against updated best
-            cutoff2 = next_best + beam
-            nxt = {s: tok for s, tok in nxt.items() if tok.cost <= cutoff2}
             cur = self._process_nonemitting(nxt, beam, word_ins_penalty)
         # final
         best_tok: Optional[_Token] = None
@@ -128,6 +102,48 @@ class FasterDecoder:
         alignment.reverse()
         words.reverse()
         return alignment, words, best_cost
+
+    def emitting_arcs(self, tid_to_pdf: np.ndarray) -> list:
+        """Each state's emitting arcs as (ilabel, olabel, weight,
+        nextstate, pdf) tuples, the pdfs looked up once."""
+        return [[(a.ilabel, a.olabel, a.weight, a.nextstate,
+                  int(tid_to_pdf[a.ilabel]))
+                 for a in arcs if a.ilabel != EPS] for arcs in self.fst.arcs]
+
+    def _process_emitting(self, cur: Dict[int, _Token], emitting: list,
+                          frame: np.ndarray, acoustic_scale: float,
+                          word_ins_penalty: float) -> Dict[int, _Token]:
+        """ProcessEmitting for one frame: the tokens of `cur` within the
+        adaptive cutoff through their emitting arcs (`emitting_arcs`) ->
+        the new tokens within the beam of the best (empty if none)."""
+        beam = self.opts.beam
+        # the frame's acoustic costs, each -acoustic_scale * float(x)
+        ac = (-acoustic_scale * np.asarray(frame, np.float64)).tolist()
+        nxt: Dict[int, _Token] = {}
+        # adaptive pruning cutoff
+        cutoff = min(tok.cost for tok in cur.values()) + beam
+        if len(cur) > self.opts.max_active:
+            costs = sorted(tok.cost for tok in cur.values())
+            cutoff = min(cutoff, costs[self.opts.max_active - 1])
+        next_best = INF
+        for state, tok in cur.items():
+            cost = tok.cost
+            if cost > cutoff:
+                continue
+            for ilabel, olabel, weight, nextstate, pdf in emitting[state]:
+                c = cost + weight + ac[pdf]
+                if word_ins_penalty and olabel != EPS:
+                    c += word_ins_penalty
+                if c >= next_best + beam:
+                    continue
+                old = nxt.get(nextstate)
+                if old is None or c < old.cost:
+                    nxt[nextstate] = _Token(c, tok, ilabel, olabel)
+                    if c < next_best:
+                        next_best = c
+        # prune against the updated best
+        cutoff = next_best + beam
+        return {s: tok for s, tok in nxt.items() if tok.cost <= cutoff}
 
     def _process_nonemitting(self, tokens: Dict[int, _Token],
                              beam: float,

@@ -52,6 +52,7 @@ class OnlineFasterDecoder:
 
     def init_decoding(self) -> None:
         self._helper = FasterDecoder(self.fst, self.opts)
+        self._emitting, self._emitting_of = None, None
         self.cur: Dict[int, _Token] = self._helper._process_nonemitting(
             {self.fst.start: _Token(0.0, None, 0, 0)}, self.opts.beam)
         self.num_frames_decoded = 0
@@ -59,38 +60,19 @@ class OnlineFasterDecoder:
     def advance_decoding(self, loglikes: np.ndarray, tid_to_pdf: np.ndarray,
                          acoustic_scale: float = 1.0,
                          word_ins_penalty: float = 0.0) -> None:
-        fst, beam = self.fst, self.opts.beam
+        if tid_to_pdf is not self._emitting_of:
+            self._emitting = self._helper.emitting_arcs(tid_to_pdf)
+            self._emitting_of = tid_to_pdf
         for t in range(loglikes.shape[0]):
-            frame = loglikes[t]
-            nxt: Dict[int, _Token] = {}
-            cutoff = min(tok.cost for tok in self.cur.values()) + beam
-            if len(self.cur) > self.opts.max_active:
-                costs = sorted(tok.cost for tok in self.cur.values())
-                cutoff = min(cutoff, costs[self.opts.max_active - 1])
-            next_best = INF
-            for state, tok in self.cur.items():
-                if tok.cost > cutoff:
-                    continue
-                for a in fst.arcs[state]:
-                    if a.ilabel == EPS:
-                        continue
-                    ac = -acoustic_scale * float(frame[tid_to_pdf[a.ilabel]])
-                    c = tok.cost + a.weight + ac
-                    if word_ins_penalty and a.olabel != EPS:
-                        c += word_ins_penalty
-                    if c >= next_best + beam:
-                        continue
-                    old = nxt.get(a.nextstate)
-                    if old is None or c < old.cost:
-                        nxt[a.nextstate] = _Token(c, tok, a.ilabel, a.olabel)
-                        next_best = min(next_best, c)
+            nxt = self._helper._process_emitting(
+                self.cur, self._emitting, loglikes[t], acoustic_scale,
+                word_ins_penalty)
             if not nxt:
                 _log.warning("online decode: no tokens survived; keeping "
                              "the state")
                 return
-            nxt = {s: tok for s, tok in nxt.items()
-                   if tok.cost <= next_best + beam}
-            self.cur = self._helper._process_nonemitting(nxt, beam)
+            self.cur = self._helper._process_nonemitting(nxt,
+                                                         self.opts.beam)
             self.num_frames_decoded += 1
 
     def best_path(self, use_final_probs: bool = True

@@ -404,8 +404,11 @@ def train_system(spec: BenchCorpusSpec, cfg=None,
     stats["mono_s"] = time.perf_counter() - t0
     stats["mono_avg_loglikes"] = list(gmm.avg_loglikes)
     t0 = time.perf_counter()
+    # the trained transition model's graphs, expanded from the phone-level
+    # graphs train_mono made (the reference compiles them anew, to the
+    # same graphs)
     compiler = TrainingGraphCompiler(gmm.tm, gmm.tree, lang)
-    graphs = {u: compiler.compile(train_txt[u]) for u in feats}
+    graphs = {u: compiler.expand(gmm.word_graphs[u]) for u in feats}
     stats["graphs_s"] = time.perf_counter() - t0
     _log.info("bench_corpus: aligning")
     t0 = time.perf_counter()

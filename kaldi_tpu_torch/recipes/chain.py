@@ -48,6 +48,7 @@ from kaldi_tpu_torch.nnet3.models import (ChainTdnnf, ChainTdnnfConfig,
                                           chain_tdnnf_from_flax,
                                           chain_tdnnf_init,
                                           chain_tdnnf_to_flax)
+from kaldi_tpu_torch.parallel import optim
 from kaldi_tpu_torch.tree.build_tree import (BuildTreeOptions, build_tree,
                                              cluster_phones)
 from kaldi_tpu_torch.tree.clusterable import GaussClusterable
@@ -101,9 +102,9 @@ def lr_schedule(lr: float, final_lr: float, warmup: int,
 
 class ChainOptimizer:
     """optax.chain(clip_by_global_norm(max_norm), adam(schedule)) over a
-    list of float32 tensors, updated in place by `step(grads)` (a None
-    gradient counts as zeros, as optax sees a parameter that does not
-    reach the loss):
+    list of float32 tensors (`parallel/optim.py`), updated in place by
+    `step(grads)` (a None gradient counts as zeros, as optax sees a
+    parameter that does not reach the loss):
 
       g   <- g if |g| < max_norm else (g / |g|) * max_norm   (|g| global)
       mu  <- (1 - b1) g + b1 mu;  nu <- (1 - b2) g^2 + b2 nu
@@ -114,33 +115,18 @@ class ChainOptimizer:
     def __init__(self, params: Sequence[torch.Tensor],
                  schedule: Callable[[int], float], max_norm: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
-        self.params = list(params)
-        self.schedule = schedule
-        self.max_norm = max_norm
-        self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
+        self.params = dict(enumerate(params))
+        self.tx = optim.chain(optim.clip_by_global_norm(max_norm),
+                              optim.adam(schedule, b1, b2, eps))
+        self.state = self.tx.init(self.params)
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
-        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        keep = norm < self.max_norm
-        grads = [torch.where(keep, g, (g / norm) * self.max_norm)
-                 for g in grads]
-        n = self.count + 1
-        b1, b2 = self.b1, self.b2
-        c1 = np.float32(1) - np.float32(b1) ** np.float32(n)
-        c2 = np.float32(1) - np.float32(b2) ** np.float32(n)
-        lr = float(self.schedule(self.count))
-        for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
-            mu.copy_((1 - b1) * g + b1 * mu)
-            nu.copy_((1 - b2) * (g * g) + b2 * nu)
-            u = (mu / float(c1)) / (torch.sqrt(nu / float(c2)) + self.eps)
-            p.add_(-lr * u)
-        self.count = n
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(self.params.items(), grads)}
+        updates, self.state = self.tx.update(grads, self.state, self.params)
+        for k, p in self.params.items():
+            p.add_(updates[k])
 
 
 def apply_orthonormal(model: ChainTdnnf) -> None:

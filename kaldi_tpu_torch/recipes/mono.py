@@ -63,7 +63,9 @@ class MonoSystem:
     """A trained monophone system: lang + tree + transition model + GMMs.
     `aligner` names the aligner of the last `_align_all` (NATIVE or
     PYTHON); `avg_loglikes` holds each `_estimate`'s average loglike a
-    frame."""
+    frame; `word_graphs` the phone-level graphs of the training
+    transcripts (`TrainingGraphCompiler.word_graph`, by utterance), from
+    which a later compile with the trained transition model starts."""
 
     def __init__(self, lang: Lang, tree: ContextDependency,
                  tm: TransitionModel, am: AmDiagGmm):
@@ -73,6 +75,7 @@ class MonoSystem:
         self.am = am
         self.aligner: Optional[str] = None
         self.avg_loglikes: List[float] = []
+        self.word_graphs: Dict[str, VectorFst] = {}
 
 
 def init_mono(lang: Lang, feats: Sequence[np.ndarray],
@@ -105,7 +108,10 @@ def train_mono(lang: Lang, feats: Dict[str, np.ndarray],
     tm, tree, am = sys_.tm, sys_.tree, sys_.am
     compiler = TrainingGraphCompiler(tm, tree, lang, opts.transition_scale,
                                      opts.self_loop_scale)
-    graphs = {utt: compiler.compile(transcripts[utt]) for utt in feats}
+    sys_.word_graphs = {utt: compiler.word_graph(lang.word_ids(
+        transcripts[utt])) for utt in feats}
+    graphs = {utt: compiler.expand(g)
+              for utt, g in sys_.word_graphs.items()}
     _log.info("compiled %d training graphs", len(graphs))
 
     # iteration 0: equal alignment + first estimate

@@ -14,8 +14,8 @@ marker when binary); a script line is "<key> <rxfilename>", the
 rxfilename possibly with a byte offset ("foo.ark:1234"): the reference's
 own format, so either implementation reads what the other writes.
 
-Holders of types whose codec is not ported yet (compressed matrices,
-posteriors, sparse matrices) raise, naming the module they wait for.
+Holders of types whose codec is not ported yet (compressed and sparse
+matrices) raise, naming the module they wait for.
 """
 
 from __future__ import annotations
@@ -284,6 +284,16 @@ def _lattice_holder() -> Holder:
     return LatticeHolder()
 
 
+def _posterior_holder() -> Holder:
+    from kaldi_tpu_torch.hmm.posterior import PosteriorHolder
+    return PosteriorHolder()
+
+
+def _gauss_post_holder() -> Holder:
+    from kaldi_tpu_torch.hmm.posterior import GaussPostHolder
+    return GaussPostHolder()
+
+
 def _compact_lattice_holder() -> Holder:
     from kaldi_tpu_torch.lat.kaldi_lattice import CompactLatticeHolder
     return CompactLatticeHolder()
@@ -305,13 +315,13 @@ _HOLDERS = {
     "fst": _fst_holder,
     "lattice": _lattice_holder,
     "compact-lattice": _compact_lattice_holder,
+    "posterior": _posterior_holder,
+    "gauss-post": _gauss_post_holder,
 }
 
 # holder name -> the module of the JAX package whose codec it waits for
 _NOT_PORTED = {
     "compressed-matrix": "kaldi_tpu/matrix/compressed.py",
-    "posterior": "kaldi_tpu/hmm/posterior.py",
-    "gauss-post": "kaldi_tpu/hmm/posterior.py",
     "sparse-matrix": "kaldi_tpu/matrix/sparse.py",
 }
 

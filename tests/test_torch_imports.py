@@ -63,7 +63,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "cli.online_tools", "cli.online_tools2", "nnet3.xconfig",
                  "nnet3.components", "parallel.checkpoint",
                  "decoder.lattice_decoder", "cli.nnet3_latgen_tools",
-                 "cli.lat_tools", "cli.ali_tools"):
+                 "cli.lat_tools", "cli.ali_tools", "hmm.posterior",
+                 "nnet3.egs", "parallel.optim", "parallel.recovery",
+                 "parallel.trainer", "cli.chain_tools", "cli.nnet3_tools2",
+                 "cli.nnet3_tail2_tools", "cli.tail4_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

@@ -184,17 +184,32 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
         rc, err = cli("nnet3-compute", os.path.join(GOLDEN, "tdnn.raw"),
                       *io_args)
         assert rc != 0 and "CUDA" in err
-    assert sorted(TOOLS) == ["compute-wer", "lattice-1best",
+    assert sorted(TOOLS) == ["ali-to-pdf", "ali-to-post", "chain-est-phone-lm",
+                             "chain-get-supervision", "chain-make-den-fst",
+                             "compute-wer", "lattice-1best",
                              "lattice-add-penalty", "lattice-best-path",
                              "lattice-copy", "lattice-determinize",
                              "lattice-determinize-pruned", "lattice-prune",
-                             "lattice-scale", "nnet3-compute",
-                             "nnet3-compute-batch", "nnet3-latgen-faster",
+                             "lattice-scale", "nnet3-average",
+                             "nnet3-chain-combine", "nnet3-chain-combine2",
+                             "nnet3-chain-compute-prob",
+                             "nnet3-chain-copy-egs", "nnet3-chain-e2e-get-egs",
+                             "nnet3-chain-get-egs", "nnet3-chain-merge-egs",
+                             "nnet3-chain-normalize-egs",
+                             "nnet3-chain-shuffle-egs",
+                             "nnet3-chain-subset-egs", "nnet3-chain-train",
+                             "nnet3-chain-train2", "nnet3-combine",
+                             "nnet3-compute", "nnet3-compute-batch",
+                             "nnet3-compute-from-egs", "nnet3-compute-prob",
+                             "nnet3-copy", "nnet3-copy-egs", "nnet3-get-egs",
+                             "nnet3-latgen-faster",
                              "nnet3-latgen-faster-batch",
-                             "nnet3-latgen-faster-looped",
-                             "online2-tcp-nnet3-decode-faster",
+                             "nnet3-latgen-faster-looped", "nnet3-merge-egs",
+                             "nnet3-shuffle-egs", "nnet3-subset-egs",
+                             "nnet3-train", "online2-tcp-nnet3-decode-faster",
                              "online2-wav-dump-features",
-                             "online2-wav-nnet3-latgen-faster"]
+                             "online2-wav-nnet3-latgen-faster",
+                             "post-to-pdf-post"]
 
 
 RSPECIFIERS = ["ark:foo.ark", "scp:foo.scp", "ark,s,cs:-", "ark,o,p:x.ark",

@@ -378,8 +378,7 @@ def test_chain_tdnnf_export_equals_jax(ivector_dim):
         graph_bytes(pg, True)
 
 
-@pytest.mark.parametrize("name", ["compressed-matrix", "posterior",
-                                  "sparse-matrix"])
+@pytest.mark.parametrize("name", ["compressed-matrix", "sparse-matrix"])
 def test_unported_holders_raise_naming_their_module(name):
     from kaldi_tpu_torch.util.table import SequentialTableReader
     with pytest.raises(NotImplementedError, match="kaldi_tpu/"):

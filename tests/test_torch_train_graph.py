@@ -96,3 +96,55 @@ def test_native_aligner_fails_without_a_path(graphs):
     tg, _, ttm, _ = graphs
     ll = _loglikes(2, ttm.num_pdfs, 1)
     assert tnative.NativeViterbi(tg[0]).decode(ll, ttm.id2pdf_id) is None
+
+
+def _fst_rows(fst):
+    return (fst.start, list(fst.finals),
+            [[(a.ilabel, a.olabel, a.weight, a.nextstate) for a in arcs]
+             for arcs in fst.arcs])
+
+
+def test_word_graph_reused_with_another_transition_model():
+    """A word graph made with one transition model and expanded with
+    another (train_mono's graphs re-expanded with the trained model, as
+    train_system does) equals the JAX package's compile with the other
+    model from scratch, and the word graph is left as it was."""
+    spec = tbc.BenchCorpusSpec(**TINY)
+    lexicon = tbc.make_lexicon(spec)
+    sents = tbc.make_text(spec, 4, spec.seed + 1)
+    rng = np.random.default_rng(0)
+    tms, comps = [], []
+    for Lang, mono, Tm, Compiler in (
+            (tgraph.Lang, monophone_context_dependency, TTm,
+             tgraph.TrainingGraphCompiler),
+            (jgraph.Lang, jmono, JTm, jgraph.TrainingGraphCompiler)):
+        lang = Lang(lexicon, sil_phone="SIL", sil_prob=0.5)
+        topo = lang.make_topology()
+        phones = sorted(lang.phones.values())
+        tree = mono(phones, {p: topo.num_pdf_classes(p) for p in phones})
+        tms.append(Tm(topo, tree))
+        comps.append((Compiler, lang, tree))
+    first = tgraph.TrainingGraphCompiler(tms[0], comps[0][2], comps[0][1])
+    trained = [Tm(c[1].topo, c[2]) for c in comps]
+    log_probs = np.log(rng.uniform(0.05, 0.95, size=len(
+        trained[0].log_probs))).astype(np.float32)
+    for tm in trained:
+        tm.log_probs = log_probs.copy()
+    second = tgraph.TrainingGraphCompiler(trained[0], comps[0][2],
+                                          comps[0][1])
+    jax_second = jgraph.TrainingGraphCompiler(trained[1], comps[1][2],
+                                              comps[1][1])
+    for s in sents:
+        wg = first.word_graph(comps[0][1].word_ids(s))
+        before = _fst_rows(wg)
+        first.expand(wg)
+        got = second.expand(wg)
+        assert _fst_rows(wg) == before
+        assert _fst_rows(got) == _fst_rows(second.compile(s))
+        want = jax_second.compile(s)
+        assert got.num_states == want.num_states
+        for a, b in zip(got.arcs, want.arcs):
+            assert [(x.ilabel, x.olabel, x.nextstate) for x in a] == \
+                [(y.ilabel, y.olabel, y.nextstate) for y in b]
+            np.testing.assert_allclose([x.weight for x in a],
+                                       [y.weight for y in b], rtol=1e-6)
