@@ -77,9 +77,20 @@ train_lex's system without its chain training (the corpus, MFCC, the
 mono GMM, the alignment, the chain transition model and tree):
 chain_cli, chain_cli_check, chain_cli_e2e and nnet3_train_cli.
 
+With --template it runs chip_smoke.py's template_gmm phase alone: the
+generic corpus recipe (egs/template/run.py stages 0-5 through the
+port's recipes/template_run.py and tools) on the fabricated corpus,
+held to tools/template_jax_bar.py's WER and HCLG.
+
+With --profile-check it runs the main path's slice_ng and profile_ng
+with profile_ng's tables built twice: from the profiler's raw events (as
+chip_smoke.py builds them) and from torch's event tree (key_averages and
+the events' children, as chip_smoke.py built them before), the seconds
+of each reported, the two held equal.
+
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
-     --chain-cli]
+     --chain-cli | --template | --profile-check]
      (needs CUDA)
 """
 
@@ -230,6 +241,11 @@ def main() -> int:
     mode.add_argument("--latgen", action="store_true",
                       help="run xconfig_graph and xconfig_latgen over the "
                       "128 test utterances")
+    mode.add_argument("--template", action="store_true",
+                      help="run chip_smoke.py's template_gmm phase alone")
+    mode.add_argument("--profile-check", action="store_true",
+                      help="run slice_ng and profile_ng with profile_ng's "
+                      "tables also built from torch's event tree")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_main_path: torch.cuda.is_available() is False; this "
@@ -242,8 +258,16 @@ def main() -> int:
           flush=True)
     if args.online or args.legacy or args.train or args.train_scale \
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
-            or args.chain_cli:
-        if args.xconfig:
+            or args.chain_cli or args.template or args.profile_check:
+        if args.template:
+            cs.run_template_gmm()
+            done = "template_done"
+        elif args.profile_check:
+            cfg, _variables, model, ivec, fe = cs.flagship_am()
+            cs.run_ng_slice(cs.build_ng_path(), model, ivec, fe,
+                            cross_check=True)
+            done = "profile_check_done"
+        elif args.xconfig:
             with tempfile.TemporaryDirectory() as tmp:
                 cs.emit("xconfig_summary", **cs.xconfig_phases(
                     cs.run_online2_graph(tmp)))

@@ -210,6 +210,18 @@ Phases, one JSON line each (any failure exits nonzero):
      train_scale_check (4 real chunks through the bucketed denominator:
      every leaf's gradient on the card against the CPU's float64,
      bit-equal twice); kernels a-c launched 0 times in each;
+     then template_gmm: the generic corpus recipe (egs/template/run.py
+     stages 0-5, the port's recipes/template_run.py) over the port's
+     tools on a fabricated corpus of 112 train and 32 test utterances at
+     the recipe's widths (100 leaves, 200 Gaussians, 13 cepstra): the lang
+     dir, MFCC on the card, the mono GMM through the tools, tri1, the
+     HCLG from the ARPA bigram, gmm-latgen-faster and the lm-scale x
+     penalty sweep; the WER within 2.0 points and 3 words of the JAX
+     recipe's on the CPU (tools/template_jax_bar.py), the HCLG's states
+     and arcs equal to its, no alignment failure, no determinization
+     fallback, each stage's and tool's seconds, the device ms of MFCC
+     and GMM scoring, gmm-latgen-faster's RTF, peak memory; kernels a-c
+     launched 0 times;
   6. the block-chain lattice slice on 32 of the lanes: one timed
      decode_batch call in lattice mode, under torch.profiler (launch
      counts, the lattice stages' seconds, each lane's lattice best path
@@ -229,7 +241,8 @@ Phases, one JSON line each (any failure exits nonzero):
      plain relaxation;
   8. the kernel table (kernel a's launches on the online path too, and
      each kernel's launches on the legacy, the online2, the xconfig, the
-     training and the nnet3 phases, which must be 0); the
+     training, the nnet3 and the template_gmm phases, which must be 0);
+     the
      last line is {"ok": true, "device": ...}.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
@@ -237,6 +250,8 @@ Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 
 from __future__ import annotations
 
+import bisect
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -260,6 +275,7 @@ from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions,
                                              chain_loss, den_arcs)
 from kaldi_tpu_torch.chain.supervision import alignment_to_phone_segments
 from kaldi_tpu_torch.cli import get_tool
+from kaldi_tpu_torch.cli.gmm_tools import read_am_gmm
 from kaldi_tpu_torch.cli.nnet3_latgen_tools import _Forward, batch_loglikes
 from kaldi_tpu_torch.cli.nnet3_tools import pad_batch
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
@@ -312,7 +328,7 @@ from kaldi_tpu_torch.parallel.checkpoint import (restore_checkpoint,
                                                  save_checkpoint)
 from kaldi_tpu_torch.recipes import chain as tchain
 from kaldi_tpu_torch.recipes import mono as tmono
-from kaldi_tpu_torch.recipes import train_bench, train_scale
+from kaldi_tpu_torch.recipes import template_run, train_bench, train_scale
 from kaldi_tpu_torch.recipes.bench_corpus import (
     BenchCorpusSpec, bench_scale_spec, build_decode_graph,
     build_decode_graph_ng, build_lang, chain_tm_tree_for, corpus_fingerprint,
@@ -357,6 +373,15 @@ NG_LAT_POOL = 128
 BC_LAT_LANES = 32
 # the profiler's marker of a launch that waited for a full launch queue
 STALL = "Command Buffer Full"
+# template_gmm: the fabricated corpus's train and test utterances, and the
+# JAX package's run of egs/template/run.py stages 0-5 on it at the
+# recipe's defaults, measured once on the CPU by tools/template_jax_bar.py
+# (WER and word errors of the 128 test words, the HCLG's states and arcs,
+# the (pdfs, Gaussians) of mono/final.mdl and tri1/final.mdl)
+TEMPLATE_UTTS = (112, 32)
+TEMPLATE_BAR = dict(wer=0.0, word_errors=0, hclg_states=424, hclg_arcs=1176,
+                    mono=(17, 129), tri1=(16, 200))
+TEMPLATE_WER_BAND, TEMPLATE_WORDS_BAND = 2.0, 3
 # the n-gram decoder's blocks: four a frame, then the follow pass
 NG_BLOCKS = ("_forward", "_lm_fold", "_expand", "_rows", "_roots",
              "_follow")
@@ -993,36 +1018,200 @@ def time_relax(name: str, args, in_deg, rate: float, shape, **extra) -> dict:
 
 
 def profile_call(fn, per_launch_of: str = "", top: int = 10,
-                 ranges=()) -> dict:
+                 ranges=(), cross_check: bool = False) -> dict:
     """Where one call spends the card's time: device time by kernel and
     by the torch op that launched it (the `top` largest), the number of
     kernel launches and peak memory.  per_launch_of: a kernel name (or
     part of one) whose mean device ms a launch is reported too.  ranges:
     names of `record_function` ranges whose device time (their kernels'
-    and their children's) is reported."""
+    and their children's) is reported.
+
+    The tables come from the profiler's raw events in one pass
+    (`event_tables`); torch's own event tree (`key_averages`, the events'
+    children) takes about a minute to build for a call of 10^5 launches.
+    `profiler_s` reports the seconds of the profiled call, of the
+    profiler's stop and of the tables.  cross_check: also build the
+    tables from torch's event tree (`key_average_tables`), time that,
+    and fail unless both agree."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        prof_wall = time.perf_counter() - t0
-    # device-side events only (a host op's device time repeats its
-    # kernels')
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.start()
+    t0 = time.perf_counter()
+    fn()
+    prof_wall = time.perf_counter() - t0
+    prof.stop()
+    t1 = time.perf_counter()
+    out = event_tables(prof.profiler.kineto_results.events(), top, ranges)
+    t2 = time.perf_counter()
+    out = {"wall_s_profiled": prof_wall, **out,
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "profiler_s": {"call": prof_wall, "stop": t1 - t0 - prof_wall,
+                          "tables": t2 - t1}}
+    if cross_check:
+        want = key_average_tables(prof, top, ranges)
+        out["profiler_s"]["key_average_tables"] = time.perf_counter() - t2
+        differ = tables_differ(out, want)
+        emit("profile_cross_check", tables_differ=differ,
+             profiler_s=out["profiler_s"],
+             **{f"{key}_{side}": tables[key] for key in differ
+                for side, tables in (("key_averages", want),
+                                     ("raw_events", out))})
+        if differ:
+            raise SystemExit(f"profile_call: {differ} from the raw events "
+                             "differ from torch's tables")
+    if per_launch_of:
+        hits = [(t["ms"], t["calls"]) for t in out.pop("by_kernel")
+                if per_launch_of in t["name"]]
+        if len(hits) != 1:
+            raise SystemExit(f"{len(hits)} profiled kernels match "
+                             f"{per_launch_of!r}")
+        out["ms_per_launch"] = {per_launch_of: hits[0][0] / hits[0][1]}
+    else:
+        out.pop("by_kernel")
+    return out
+
+
+def same_tables(a, b, rel: float = 1e-6) -> bool:
+    """Two profile tables equal, their float times within rel."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        return a.keys() == b.keys() and all(same_tables(a[k], b[k], rel)
+                                            for k in a)
+    if isinstance(a, list) and isinstance(b, list):
+        return len(a) == len(b) and all(same_tables(x, y, rel)
+                                        for x, y in zip(a, b))
+    if isinstance(a, float) or isinstance(b, float):
+        return abs(a - b) <= rel * max(abs(a), abs(b)) + 1e-9
+    return a == b
+
+
+def tables_differ(raw: dict, tree: dict) -> list:
+    """The tables of event_tables (raw) that differ from those of
+    key_average_tables (tree) beyond event_tables' documented rule: an
+    op's calls at least torch's."""
+    out = []
+    for key, want in tree.items():
+        got = raw[key]
+        if key == "by_op":
+            ok = [x["op"] for x in got] == [x["op"] for x in want] and all(
+                same_tables(x["ms"], y["ms"]) and x["calls"] >= y["calls"]
+                for x, y in zip(got, want))
+        else:
+            ok = same_tables(got, want)
+        if not ok:
+            out.append(key)
+    return out
+
+
+def _ns(ev, which: str) -> int:
+    """An event's start or duration in ns (older torch has only us)."""
+    f = getattr(ev, f"{which}_ns", None)
+    return f() if f is not None else getattr(ev, f"{which}_us")() * 1000
+
+
+def event_tables(events, top: int, ranges=()) -> dict:
+    """profile_call's tables from the profiler's raw (kineto) events:
+    device events by name (device time, count), as torch's
+    `key_averages` gives them; the CPU ops that launched kernels by name
+    (the device time of the kernels linked to the op, the count of the
+    op's calls); for each range, its host ms and calls, its span on the
+    card, and the launches and device time of the kernels launched by
+    the range or by an op inside it (the same thread, inside its
+    interval).  As in torch's tables, a kernel counts once for each op
+    event that carries its correlation id (a runtime marker such as
+    cudaDeviceSynchronize may carry an op's), and a STALL marker's
+    kernels are left out.  One rule of torch's event tree is not
+    followed: it merges an op's only child of the same name into it (an
+    op called through its out= variant counts one call there, two
+    here)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    dev_ms, dev_n = collections.Counter(), collections.Counter()
+    op_ms, op_n = collections.Counter(), collections.Counter()
+    span_ms = collections.Counter()
+    # correlation id -> [(name, start, thread)] of the op events carrying
+    # it (a runtime marker may carry an op's id)
+    ops = collections.defaultdict(list)
+    spans = collections.defaultdict(list)   # range -> [(start, end, thread)]
+    kernels = []                   # (duration ns, linked correlation id)
+    for ev in events:
+        name, dt = ev.name(), ev.device_type()
+        # torch's rule: an asynchronous event has no device time of its
+        # own, and no kernels are linked to it; it still counts as a call
+        sync = not ev.is_async() and \
+            ev.start_thread_id() == ev.end_thread_id()
+        if dt == cuda:
+            dur = _ns(ev, "duration")
+            if name in ranges:
+                span_ms[name] += dur / 1e6 if sync else 0.0
+                continue
+            dev_n[name] += 1
+            dev_ms[name] += dur / 1e6 if sync else 0.0
+            kernels.append((dur, ev.linked_correlation_id()))
+        elif dt == cpu:
+            op_n[name] += 1
+            if name in ranges:
+                start = _ns(ev, "start")
+                spans[name].append((start, start + _ns(ev, "duration"),
+                                    ev.start_thread_id()))
+            if sync and ev.linked_correlation_id() == 0 and name != STALL:
+                ops[ev.correlation_id()].append((name, _ns(ev, "start"),
+                                                 ev.start_thread_id()))
+    by_name = sorted(((ms, dev_n[k], k) for k, ms in dev_ms.items()
+                      if ms > 0), reverse=True)
+    out = {"device_ms": sum(ms for ms, _, _ in by_name),
+           "copy_ms": sum(ms for ms, _, k in by_name if k.startswith("Mem")),
+           "kernel_launches": sum(c for _, c, k in by_name
+                                  if not k.startswith("Mem")),
+           "top": [{"ms": ms, "calls": c, "name": k[:70]}
+                   for ms, c, k in by_name[:top]],
+           "by_kernel": [{"ms": ms, "calls": c, "name": k}
+                         for ms, c, k in by_name]}
+    linked = [(dur, ops[corr]) for dur, corr in kernels if corr in ops]
+    for dur, owners in linked:
+        for name, _, _ in owners:
+            op_ms[name] += dur / 1e6
+    by_op = sorted(((ms, op_n[k], k) for k, ms in op_ms.items()
+                    if ms > 0 and k not in ranges), reverse=True)
+    out["by_op"] = [{"ms": ms, "calls": c, "op": k[:60]}
+                    for ms, c, k in by_op[:top]]
+    if ranges:
+        out["ranges"] = {}
+        for name, ivs in spans.items():
+            ivs.sort()
+            starts = [a for a, _, _ in ivs]
+            n, ns = 0, 0
+            for dur, owners in linked:
+                # ranges of one name do not nest: the latest start before
+                # an owner's start is the only candidate
+                for _, t, thread in owners:
+                    i = bisect.bisect_right(starts, t) - 1
+                    if i >= 0 and t <= ivs[i][1] and ivs[i][2] == thread:
+                        n += 1
+                        ns += dur
+            out["ranges"][name] = {
+                "host_ms": sum(b - a for a, b, _ in ivs) / 1e6,
+                "calls": len(ivs), "device_ms": ns / 1e6,
+                "kernel_launches": n}
+            if name in span_ms:
+                out["ranges"][name]["span_ms"] = span_ms[name]
+    return out
+
+
+def key_average_tables(prof, top: int, ranges=()) -> dict:
+    """event_tables' tables built from torch's event tree (key_averages
+    and the events' children), for profile_call's cross_check."""
     averages = prof.key_averages()
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
     by_name = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                       for e in averages
                       if e.device_type == cuda and e.key not in ranges
                       and e.self_device_time_total > 0), reverse=True)
-    device_ms = sum(ms for ms, _, _ in by_name)
-    copy_ms = sum(ms for ms, _, k in by_name if k.startswith("Mem"))
-    out = {"wall_s_profiled": prof_wall, "device_ms": device_ms,
-           "copy_ms": copy_ms,
+    out = {"device_ms": sum(ms for ms, _, _ in by_name),
+           "copy_ms": sum(ms for ms, _, k in by_name if k.startswith("Mem")),
            "kernel_launches": sum(c for _, c, k in by_name
                                   if not k.startswith("Mem")),
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
            "top": [{"ms": ms, "calls": c, "name": k[:70]}
                    for ms, c, k in by_name[:top]]}
     ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -1033,9 +1222,6 @@ def profile_call(fn, per_launch_of: str = "", top: int = 10,
     out["by_op"] = [{"ms": ms, "calls": c, "op": k[:60]}
                     for ms, c, k in ops[:top]]
     if ranges:
-        # a range's own host time, the number and device time of the
-        # kernels it and its children launched, and its span on the card
-        # (first kernel's start to last kernel's end, idle gaps included)
         out["ranges"] = {e.key: {"host_ms": e.cpu_time_total / 1e3,
                                  "calls": e.count, "device_ms": 0.0,
                                  "kernel_launches": 0}
@@ -1061,12 +1247,6 @@ def profile_call(fn, per_launch_of: str = "", top: int = 10,
                 n, us = kernels(ev)
                 out["ranges"][ev.name]["kernel_launches"] += n
                 out["ranges"][ev.name]["device_ms"] += us / 1e3
-    if per_launch_of:
-        hits = [(ms, c) for ms, c, k in by_name if per_launch_of in k]
-        if len(hits) != 1:
-            raise SystemExit(f"{len(hits)} profiled kernels match "
-                             f"{per_launch_of!r}")
-        out["ms_per_launch"] = {per_launch_of: hits[0][0] / hits[0][1]}
     return out
 
 
@@ -1211,12 +1391,14 @@ def build_ng_path() -> dict:
             "graph": graph, "dec": dec}
 
 
-def run_ng_slice(ng: dict, model, ivec, fe) -> dict:
+def run_ng_slice(ng: dict, model, ivec, fe, cross_check: bool = False
+                 ) -> dict:
     """slice_ng and profile_ng: the 128 bench test utterances on the
     mu-law wire through BatchedOfflinePipeline2 with the n-gram decoder
     (one warm-up, three timed calls; WER against the test text), then one
-    call under the profiler.  None of kernels a-c is on this path: their
-    counts must stay 0."""
+    call under the profiler (cross_check: its tables built from torch's
+    event tree too, profile_call's).  None of kernels a-c is on this path:
+    their counts must stay 0."""
     spec, graph, dec = ng["spec"], ng["graph"], ng["dec"]
     test_txt, test_wav = ng["test_txt"], ng["test_wav"]
     utts = sorted(test_wav)
@@ -1265,7 +1447,7 @@ def run_ng_slice(ng: dict, model, ivec, fe) -> dict:
     walls = sorted(r["wall_s"] for r in runs)
     with each_call_inside(dec, NG_BLOCKS, torch.profiler.record_function):
         prof = profile_call(lambda: pipe.decode_batch(waves), top=25,
-                            ranges=NG_BLOCKS)
+                            ranges=NG_BLOCKS, cross_check=cross_check)
     blocks = prof["ranges"]
     emit("profile_ng", busy_share_of_median_wall=prof["device_ms"] / 1e3
          / walls[1], frames=T_out,
@@ -3562,6 +3744,102 @@ def train_scale_phases(epochs: int = SCALE_EPOCHS) -> dict:
 # .mdl, the CLI, a TDNN-LSTM through the frame loop
 
 
+@contextlib.contextmanager
+def device_ms_of(cls, name: str, sink: list):
+    """Inside the block, each call of cls.name runs between two CUDA
+    events; sink gets the (start, end) pairs (read them after a sync)."""
+    inner = getattr(cls, name)
+
+    def wrapper(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        try:
+            return inner(*args, **kw)
+        finally:
+            ev[1].record()
+            sink.append(ev)
+
+    setattr(cls, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(cls, name, inner)
+
+
+def run_template_gmm() -> dict:
+    """template_gmm: egs/template/run.py stages 0-5 through the port's
+    recipe and tools, on the card, over the fabricated corpus at
+    TEMPLATE_UTTS and the recipe's default widths; held to TEMPLATE_BAR."""
+    from kaldi_tpu_torch.recipes.template_corpus import make_standard_corpus
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        make_standard_corpus(root, *TEMPLATE_UTTS)
+        report: dict = {}
+        mfcc_ev, gmm_ev = [], []
+        reset_kernel_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with device_ms_of(OfflineFeature, "_compute_frames", mfcc_ev), \
+                device_ms_of(AmDiagGmm, "log_likes_device", gmm_ev):
+            wer = template_run.main([
+                "--train", f"{root}/train", "--test", f"{root}/test",
+                "--lexicon", f"{root}/lexicon.txt",
+                "--arpa", f"{root}/lm.arpa", "--dir", f"{root}/exp"],
+                report=report)
+        torch.cuda.synchronize()
+        launches = kernel_launch_counts()
+        models = {}
+        for name in ("mono", "tri1"):
+            _tm, am = read_am_gmm(f"{root}/exp/{name}/final.mdl",
+                                  device="cpu")
+            models[name] = (am.num_pdfs, am.num_gauss())
+    latgen = report["tool_stats"]["gmm-latgen-faster"]
+    out = {"utterances": list(TEMPLATE_UTTS), "wer": wer,
+           "word_errors": report["word_errors"],
+           "ref_words": report["ref_words"], "bar": TEMPLATE_BAR,
+           "lm_scale": report["lm_scale"], "penalty": report["penalty"],
+           "hclg_states": report["hclg_states"],
+           "hclg_arcs": report["hclg_arcs"], "mono": models["mono"],
+           "tri1": models["tri1"], "aligned": report["aligned"],
+           "align_failures": report["align_failures"],
+           "lattices": report["lattices"],
+           "det_fallbacks": latgen["det_fallbacks"],
+           "latgen_rtf": latgen["rtf"], "latgen": latgen,
+           "mfcc_device_ms": sum(a.elapsed_time(b) for a, b in mfcc_ev),
+           "mfcc_calls": len(mfcc_ev),
+           "gmm_device_ms": sum(a.elapsed_time(b) for a, b in gmm_ev),
+           "gmm_calls": len(gmm_ev),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "stage_s": report["stage_s"], "tool_s": report["tool_s"],
+           "launches": {"template_gmm": launches},
+           "seconds": time.perf_counter() - t_phase}
+    emit("template_gmm", **out)
+    bar = TEMPLATE_BAR
+    if any(launches.values()):
+        raise SystemExit("a kernel of another path ran in template_gmm")
+    if abs(wer - bar["wer"]) > TEMPLATE_WER_BAND or \
+            abs(out["word_errors"] - bar["word_errors"]) > \
+            TEMPLATE_WORDS_BAND:
+        raise SystemExit(f"template_gmm: WER {wer:.3f}% "
+                         f"({out['word_errors']} errors) outside "
+                         f"{TEMPLATE_WER_BAND} points and "
+                         f"{TEMPLATE_WORDS_BAND} words of {bar['wer']}%")
+    if (out["hclg_states"], out["hclg_arcs"]) != (bar["hclg_states"],
+                                                  bar["hclg_arcs"]):
+        raise SystemExit(f"template_gmm: HCLG {out['hclg_states']} states "
+                         f"{out['hclg_arcs']} arcs, the JAX recipe's "
+                         f"{bar['hclg_states']} and {bar['hclg_arcs']}")
+    if out["align_failures"] or out["det_fallbacks"] or \
+            out["lattices"] != TEMPLATE_UTTS[1]:
+        raise SystemExit(f"template_gmm: {out['align_failures']} alignment "
+                         f"failures, {out['det_fallbacks']} determinization "
+                         f"fallbacks, {out['lattices']} lattices")
+    if models["mono"][0] != bar["mono"][0]:
+        raise SystemExit(f"template_gmm: mono has {models['mono'][0]} pdfs, "
+                         f"the JAX recipe's {bar['mono'][0]}")
+    return out
+
+
 def tdnn_lstm_graph(feat_dim: int, tdnn_dim: int, cell_dim: int,
                     rec_proj: int, nonrec_proj: int, delay: int,
                     layers: int, num_pdfs: int, seed: int = 0,
@@ -5039,6 +5317,9 @@ def main() -> int:
     # 5d. the --scale training recipe, decoded through the main path -------
     scale = train_scale_phases(SMOKE_SCALE_EPOCHS)
 
+    # 5e. the generic corpus recipe, stages 0-5, through the tools ---------
+    template = run_template_gmm()
+
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
     # one call, under the profiler, is the timed call (the host assembly
@@ -5350,6 +5631,8 @@ def main() -> int:
          train={k: v for k, v in train.items() if k != "launches"},
          chain_cli={k: v for k, v in chain.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
+         template_gmm={k: v for k, v in template.items()
+                       if k != "launches"},
          **{k: v for k, v in nnet3.items() if k != "launches"},
          **{k: v for k, v in online2.items()
             if k not in ("launches", "xconfig")},
@@ -5389,6 +5672,8 @@ def main() -> int:
                                     online2["launches"].values())
         k["launches_xconfig"] = sum(counts[k["name"]] for counts in
                                     online2["xconfig"]["launches"].values())
+        k["launches_template_gmm"] = sum(counts[k["name"]] for counts in
+                                         template["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -175,6 +175,9 @@ def read_float(stream: BinaryIO, binary: bool) -> float:
     return float(read_token(stream, binary))
 
 
+read_double = read_float
+
+
 def read_bool(stream: BinaryIO, binary: bool) -> bool:
     c = stream.read(1) if binary else read_token(stream, binary).encode()
     if c == b"T":

@@ -15,14 +15,41 @@ _LAT = "kaldi_tpu_torch.cli.lat_tools"
 _LATGEN = "kaldi_tpu_torch.cli.nnet3_latgen_tools"
 _NNET3 = "kaldi_tpu_torch.cli.nnet3_tools2"
 _TAIL2 = "kaldi_tpu_torch.cli.nnet3_tail2_tools"
+_FEAT = "kaldi_tpu_torch.cli.feat_tools"
+_GMM = "kaldi_tpu_torch.cli.gmm_tools"
+_MISC = "kaldi_tpu_torch.cli.misc_tools"
+_TREE = "kaldi_tpu_torch.cli.tree_tools"
 
 TOOLS: Dict[str, Tuple[str, str]] = {
+    "acc-tree-stats": (_TREE, "acc_tree_stats"),
+    "add-deltas": (_FEAT, "add_deltas"),
     "ali-to-pdf": (_ALI, "ali_to_pdf"),
+    "ali-to-phones": (_ALI, "ali_to_phones"),
     "ali-to-post": (_ALI, "ali_to_post"),
+    "align-equal-compiled": (_ALI, "align_equal_compiled"),
+    "apply-cmvn": (_FEAT, "apply_cmvn"),
+    "build-tree": (_TREE, "build_tree_cli"),
     "chain-est-phone-lm": (_CHAIN, "chain_est_phone_lm"),
     "chain-get-supervision": (_CHAIN, "chain_get_supervision"),
     "chain-make-den-fst": (_CHAIN, "chain_make_den_fst"),
+    "cluster-phones": (_TREE, "cluster_phones_cli"),
+    "compile-train-graphs": (_GMM, "compile_train_graphs"),
+    "compute-cmvn-stats": (_FEAT, "compute_cmvn_stats"),
+    "compute-mfcc-feats": (_FEAT, "compute_mfcc_feats"),
     "compute-wer": (_ALI, "compute_wer"),
+    "convert-ali": (_TREE, "convert_ali"),
+    "copy-feats": (_FEAT, "copy_feats"),
+    "copy-int-vector": (_ALI, "copy_int_vector"),
+    "extract-segments": (_FEAT, "extract_segments"),
+    "feat-to-dim": (_FEAT, "feat_to_dim"),
+    "feat-to-len": (_FEAT, "feat_to_len"),
+    "gmm-acc-stats-ali": (_GMM, "gmm_acc_stats_ali"),
+    "gmm-align-compiled": (_GMM, "gmm_align_compiled"),
+    "gmm-est": (_GMM, "gmm_est"),
+    "gmm-info": (_GMM, "gmm_info"),
+    "gmm-init-mono": (_GMM, "gmm_init_mono"),
+    "gmm-latgen-faster": (_GMM, "gmm_latgen_faster"),
+    "gmm-sum-accs": (_GMM, "gmm_sum_accs"),
     "lattice-1best": (_LAT, "lattice_1best"),
     "lattice-add-penalty": (_LAT, "lattice_add_penalty"),
     "lattice-best-path": (_LAT, "lattice_best_path_cli"),
@@ -69,6 +96,12 @@ TOOLS: Dict[str, Tuple[str, str]] = {
                                         "online2_wav_nnet3_latgen_faster"),
     "post-to-pdf-post": ("kaldi_tpu_torch.cli.tail4_tools",
                          "post_to_pdf_post"),
+    "prepare-lang": (_MISC, "prepare_lang"),
+    "splice-feats": (_FEAT, "splice_feats"),
+    "sum-tree-stats": (_TREE, "sum_tree_stats"),
+    "validate-data-dir": (_MISC, "validate_data_dir_cli"),
+    "validate-lang": (_MISC, "validate_lang_cli"),
+    "wav-to-duration": (_FEAT, "wav_to_duration"),
 }
 
 

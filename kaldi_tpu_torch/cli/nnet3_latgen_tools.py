@@ -73,7 +73,7 @@ class _Forward:
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
         with torch.no_grad(), full_f32():
-            out = self.model({"input": x})["output"]
+            out = self._output(x)
         if cuda:
             ev[1].record()
             ev[1].synchronize()
@@ -81,6 +81,9 @@ class _Forward:
         self.host_s += time.perf_counter() - t0
         self.calls += 1
         return out
+
+    def _output(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model({"input": x})["output"]
 
 
 def _load_tm_and_model(tm_arg: str, nnet_dir: str, use_gpu: str):
@@ -99,10 +102,10 @@ def _load_tm_and_model(tm_arg: str, nnet_dir: str, use_gpu: str):
 def _decode_loop(items: Iterable[Tuple[str, np.ndarray, int]],
                  hclg_arg: str, tm, forward: _Forward, acoustic_scale: float,
                  dopts, lat_wspec: str, words_wspec: Optional[str],
-                 name: str) -> int:
+                 name: str, ali_wspec: Optional[str] = None) -> int:
     """Decode each (key, loglikes, input frames) of `items` into a
     lattice (determinized unless --determinize-lattice=false) and its
-    best path's words; log the stats line."""
+    best path's words and transition-ids; log the stats line."""
     from kaldi_tpu_torch.cli.online_tools2 import stats_line
     from kaldi_tpu_torch.decoder.lattice_decoder import LatticeFasterDecoder
     from kaldi_tpu_torch.fstext.openfst_io import read_fst_file
@@ -114,6 +117,7 @@ def _decode_loop(items: Iterable[Tuple[str, np.ndarray, int]],
     lat_writer = TableWriter(LatticeHolder(), lat_wspec)
     word_writer = (TableWriter("int-vector", words_wspec)
                    if words_wspec else None)
+    ali_writer = TableWriter("int-vector", ali_wspec) if ali_wspec else None
     stats = dict(utterances=0, failed=0, input_frames=0, frames=0,
                  search_s=0.0, determinize_s=0.0, det_fallbacks=0,
                  lattice_states=0, lattice_arcs=0)
@@ -135,12 +139,16 @@ def _decode_loop(items: Iterable[Tuple[str, np.ndarray, int]],
         lat_writer.write(key, out_lat)
         stats["lattice_states"] += out_lat.num_states
         stats["lattice_arcs"] += out_lat.num_arcs()
-        if word_writer:
-            word_writer.write(key, lattice_best_path(lat)[1])
+        if word_writer or ali_writer:
+            ali, words, _ = lattice_best_path(lat)
+            if word_writer:
+                word_writer.write(key, words)
+            if ali_writer:
+                ali_writer.write(key, ali)
         stats["utterances"] += 1
-    lat_writer.close()
-    if word_writer:
-        word_writer.close()
+    for writer in (lat_writer, word_writer, ali_writer):
+        if writer:
+            writer.close()
     n = stats["utterances"]
     log(f"{name}: decoded {n} utterances ({stats['failed']} failed)")
     wall = time.perf_counter() - t_start

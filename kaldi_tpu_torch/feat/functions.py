@@ -1,25 +1,44 @@
-"""Feature post-processing on the host: CMVN and deltas (the part of
-`kaldi_tpu/feat/functions.py` that the streaming features need).
+"""Feature post-processing on the host: CMVN, deltas and splicing (port
+of `kaldi_tpu/feat/functions.py`, which is numpy there too).
 
 Parity: transform/cmvn.{h,cc} (stats are a float64 (2, dim+1) matrix:
 row 0 the per-dim sums with the frame count in the last column, row 1
 the per-dim sums of squares) and feat/feature-functions.cc:54
-DeltaFeatures (edge frames replicated).
+DeltaFeatures (edge frames replicated) and featbin/splice-feats (edge
+frames replicated).
 
-Not carried over yet: `acc_cmvn_stats`, `apply_cmvn`'s reverse mode,
-`compute_deltas`, `splice_frames` and the sliding-window CMN.
+Not carried over yet: the sliding-window CMN.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
 
+def acc_cmvn_stats(feats: np.ndarray, weights: Optional[np.ndarray] = None,
+                   stats: Optional[np.ndarray] = None) -> np.ndarray:
+    """Accumulate CMVN stats (float64, the reference's layout)."""
+    feats = np.asarray(feats, dtype=np.float64)
+    dim = feats.shape[1]
+    if stats is None:
+        stats = np.zeros((2, dim + 1), dtype=np.float64)
+    if weights is None:
+        stats[0, :dim] += feats.sum(axis=0)
+        stats[1, :dim] += (feats ** 2).sum(axis=0)
+        stats[0, dim] += feats.shape[0]
+    else:
+        w = np.asarray(weights, dtype=np.float64)[:, None]
+        stats[0, :dim] += (feats * w).sum(axis=0)
+        stats[1, :dim] += (feats ** 2 * w).sum(axis=0)
+        stats[0, dim] += w.sum()
+    return stats
+
+
 def apply_cmvn(feats: np.ndarray, stats: np.ndarray,
-               norm_vars: bool = False) -> np.ndarray:
+               norm_vars: bool = False, reverse: bool = False) -> np.ndarray:
     stats = np.asarray(stats, dtype=np.float64)
     dim = stats.shape[1] - 1
     count = stats[0, dim]
@@ -31,7 +50,11 @@ def apply_cmvn(feats: np.ndarray, stats: np.ndarray,
     if norm_vars:
         var = np.maximum(stats[1, :dim] / count - mean ** 2, 1.0e-20)
         scale = (1.0 / np.sqrt(var)).astype(np.float32)
+        if reverse:
+            return (feats / scale + mean32).astype(np.float32)
         return ((feats - mean32) * scale).astype(np.float32)
+    if reverse:
+        return (feats + mean32).astype(np.float32)
     return (feats - mean32).astype(np.float32)
 
 
@@ -58,3 +81,38 @@ def delta_scales(opts: DeltaFeaturesOptions) -> List[np.ndarray]:
         cur /= normalizer
         scales.append(cur)
     return scales
+
+
+def compute_deltas(feats: np.ndarray,
+                   opts: Optional[DeltaFeaturesOptions] = None) -> np.ndarray:
+    """(T, D) -> (T, D*(order+1)) with edge replication."""
+    if opts is None:
+        opts = DeltaFeaturesOptions()
+    feats = np.asarray(feats, dtype=np.float32)
+    T = feats.shape[0]
+    if T == 0:
+        return np.zeros((0, feats.shape[1] * (opts.order + 1)), np.float32)
+    outs = []
+    for scales in delta_scales(opts):
+        max_offset = (len(scales) - 1) // 2
+        acc = np.zeros_like(feats)
+        for j in range(-max_offset, max_offset + 1):
+            s = scales[j + max_offset]
+            if s == 0.0:
+                continue
+            idx = np.clip(np.arange(T) + j, 0, T - 1)
+            acc += s * feats[idx]
+        outs.append(acc)
+    return np.concatenate(outs, axis=1)
+
+
+def splice_frames(feats: np.ndarray, left_context: int,
+                  right_context: int) -> np.ndarray:
+    """(T, D) -> (T, D*(l+r+1)) with edge replication (splice-feats)."""
+    feats = np.asarray(feats, dtype=np.float32)
+    T = feats.shape[0]
+    cols = []
+    for off in range(-left_context, right_context + 1):
+        idx = np.clip(np.arange(T) + off, 0, T - 1)
+        cols.append(feats[idx])
+    return np.concatenate(cols, axis=1)

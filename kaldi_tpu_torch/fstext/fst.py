@@ -7,8 +7,9 @@ floats (tropical) or tuples (lattice: (graph_cost, acoustic_cost));
 each semiring class provides plus/times/zero/one as static methods so
 algorithms are generic without per-arc object overhead.
 
-Not carried over yet: the log semiring, `to_csr` and the binary
-container I/O (`write` / `read`).
+`VectorFst.write` / `read` are the reference's own binary container
+(`<KtFst>`, the holder of compiled training graphs in an archive), byte
+for byte.  Not carried over yet: the log semiring and `to_csr`.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from typing import List, Tuple
+
+import numpy as np
 
 EPS = 0  # epsilon label
 INF = float("inf")
@@ -211,4 +214,72 @@ class VectorFst:
             else:
                 w = parse_w(parts[1]) if len(parts) > 1 else semiring.one
                 fst.finals[s] = w
+        return fst
+
+    # -- the binary container of the reference (<KtFst>) ------------------
+
+    def write(self, stream, binary: bool = True) -> None:
+        from kaldi_tpu_torch.base import io_funcs as iof
+        sr_name = {TropicalWeight: "standard",
+                   LatticeWeight: "lattice"}[self.semiring]
+        iof.write_token(stream, binary, "<KtFst>")
+        iof.write_token(stream, binary, sr_name)
+        iof.write_int32(stream, binary, self.num_states)
+        iof.write_int32(stream, binary, self.start)
+        nfloats = 2 if self.semiring is LatticeWeight else 1
+        fin = np.array([list(w) if nfloats == 2 else [w]
+                        for w in self.finals], np.float32).reshape(
+                            -1, nfloats) \
+            if self.num_states else np.zeros((0, nfloats), np.float32)
+        stream.write(fin.astype("<f4").tobytes())
+        counts = np.array([len(a) for a in self.arcs], "<i4")
+        stream.write(counts.tobytes())
+        rows = []
+        for arcs in self.arcs:
+            for a in arcs:
+                w = list(a.weight) if nfloats == 2 else [a.weight]
+                rows.append([a.ilabel, a.olabel, a.nextstate] + w)
+        if rows:
+            arr = np.array(rows, np.float64)
+            stream.write(arr[:, :3].astype("<i4").tobytes())
+            stream.write(arr[:, 3:].astype("<f4").tobytes())
+        iof.write_token(stream, binary, "</KtFst>")
+
+    @classmethod
+    def read(cls, stream, binary: bool = True) -> "VectorFst":
+        from kaldi_tpu_torch.base import io_funcs as iof
+        iof.expect_token(stream, binary, "<KtFst>")
+        sr_name = iof.read_token(stream, binary)
+        if sr_name == "log":
+            raise NotImplementedError(
+                "a <KtFst> in the log semiring: LogWeight of "
+                "kaldi_tpu/fstext/fst.py is not ported")
+        semiring = {"standard": TropicalWeight,
+                    "lattice": LatticeWeight}[sr_name]
+        fst = cls(semiring)
+        n = iof.read_int32(stream, binary)
+        start = iof.read_int32(stream, binary)
+        nfloats = 2 if semiring is LatticeWeight else 1
+        fin = np.frombuffer(stream.read(4 * nfloats * n),
+                            "<f4").reshape(n, nfloats)
+        counts = np.frombuffer(stream.read(4 * n), "<i4")
+        total = int(counts.sum())
+        ints = np.frombuffer(stream.read(12 * total),
+                             "<i4").reshape(total, 3)
+        ws = np.frombuffer(stream.read(4 * nfloats * total),
+                           "<f4").reshape(total, nfloats)
+        fst.add_states(n)
+        fst.start = start
+        for s in range(n):
+            fst.finals[s] = (tuple(map(float, fin[s])) if nfloats == 2
+                             else float(fin[s, 0]))
+        pos = 0
+        for s in range(n):
+            for _ in range(counts[s]):
+                il, ol, ns = map(int, ints[pos])
+                w = (tuple(map(float, ws[pos])) if nfloats == 2
+                     else float(ws[pos, 0]))
+                fst.add_arc(s, Arc(il, ol, w, ns))
+                pos += 1
+        iof.expect_token(stream, binary, "</KtFst>")
         return fst

@@ -1,12 +1,13 @@
 """WFST algorithms on the VectorFst core (port of `arcsort`, `connect`,
-`invert`, `relabel`, `compose`, `rm_epsilon` and `determinize_star` of
-`kaldi_tpu/fstext/ops.py`: what lattice assembly and the training-graph
-compiler need).  Host-side.
+`invert`, `relabel`, `compose`, `rm_epsilon`, `determinize_star` and
+`minimize_encoded` of `kaldi_tpu/fstext/ops.py`: what lattice assembly
+and the graph builds need).  Host-side.
 
 Parity: the OpenFst operations of the reference's graph builds
 (fstarcsort, fsttablecompose, fstrmepslocal, fstdeterminizestar).
-Not carried over yet: `minimize_encoded` (the decoding-graph build of
-`make_decoding_graph`), shortest paths, `replace_fst` and `push_special`.
+`minimize_encoded` (fstminimizeencoded) serves the decoding-graph build
+of `decoder/graph.py` `make_decoding_graph`.  Not carried over yet:
+shortest paths, `replace_fst` and `push_special`.
 """
 
 from __future__ import annotations
@@ -384,4 +385,77 @@ def determinize_star(fst: VectorFst, delta: float = 1e-4,
             expanded = eps_expand(pairs)
             dest, w, prefix = get_out_state(expanded)
             emit(cur, ilabel, w, prefix, dest)
+    return out
+
+
+# fstminimizeencoded: encode (ilabel, olabel, weight) -> label, Moore
+# partition refinement, decode
+
+def minimize_encoded(fst: VectorFst, delta: float = 1e-4) -> VectorFst:
+    n = fst.num_states
+    if n == 0:
+        return fst
+    sr = fst.semiring
+
+    def qw(w):
+        if sr is LatticeWeight:
+            return (round(w[0] / delta) if w[0] != INF else INF,
+                    round(w[1] / delta) if w[1] != INF else INF)
+        return round(w / delta) if w != INF else INF
+
+    # encode arcs
+    enc: Dict[Tuple, int] = {}
+
+    def code(a: Arc) -> int:
+        k = (a.ilabel, a.olabel, qw(a.weight))
+        if k not in enc:
+            enc[k] = len(enc)
+        return k and enc[k]
+
+    coded: List[List[Tuple[int, int]]] = []
+    for s in range(n):
+        coded.append([(code(a), a.nextstate) for a in fst.arcs[s]])
+
+    # initial partition: by final weight
+    part = {}
+    blocks: Dict[Tuple, int] = {}
+    for s in range(n):
+        k = qw(fst.finals[s])
+        if k not in blocks:
+            blocks[k] = len(blocks)
+        part[s] = blocks[k]
+    # Moore refinement to fixpoint
+    while True:
+        sig: Dict[Tuple, int] = {}
+        new_part = {}
+        for s in range(n):
+            signature = (part[s],
+                         tuple(sorted((c, part[ns]) for c, ns in coded[s])))
+            if signature not in sig:
+                sig[signature] = len(sig)
+            new_part[s] = sig[signature]
+        if len(sig) == len(set(part.values())):
+            part = new_part
+            break
+        part = new_part
+
+    nblocks = len(set(part.values()))
+    if nblocks == n:
+        return fst
+    out = VectorFst(sr)
+    out.add_states(nblocks)
+    rep: Dict[int, int] = {}
+    for s in range(n):
+        rep.setdefault(part[s], s)
+    for b, s in rep.items():
+        out.finals[b] = fst.finals[s]
+        seen = set()
+        for a in fst.arcs[s]:
+            k = (a.ilabel, a.olabel, qw(a.weight), part[a.nextstate])
+            if k in seen:
+                continue
+            seen.add(k)
+            out.add_arc(b, Arc(a.ilabel, a.olabel, a.weight, part[a.nextstate]))
+    out.start = part[fst.start]
+    connect(out)
     return out

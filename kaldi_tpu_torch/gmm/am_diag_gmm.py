@@ -11,17 +11,18 @@ the (frames x pdfs) matrix that the aligner reads.  The Gaussians are
 laid out (pdf, slot) with unused slots at -inf, so the segment logsumexp
 is a dense `logsumexp` over the slot axis, free of atomics.
 
-Not carried over yet: the I/O of am-diag-gmm.cc and
+`write` / `read` follow am-diag-gmm.cc.  Not carried over yet:
 `cluster_gaussians_to_ubm`.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import BinaryIO, List
 
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.base import io_funcs as iof
 from kaldi_tpu_torch.device import DeviceLike, full_f32, resolve_device
 from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
 
@@ -88,3 +89,25 @@ class AmDiagGmm:
         x = torch.as_tensor(np.asarray(feats, np.float32), device=self.device)
         with torch.inference_mode():
             return self.log_likes_device(x).cpu().numpy()
+
+    # -- I/O (format of am-diag-gmm.cc) -------------------------------------
+
+    def write(self, stream: BinaryIO, binary: bool = True) -> None:
+        iof.write_token(stream, binary, "<DIMENSION>")
+        iof.write_int32(stream, binary, self.dim)
+        iof.write_token(stream, binary, "<NUMPDFS>")
+        iof.write_int32(stream, binary, self.num_pdfs)
+        for g in self.densities:
+            g.write(stream, binary)
+
+    @classmethod
+    def read(cls, stream: BinaryIO, binary: bool = True,
+             device: DeviceLike = None) -> "AmDiagGmm":
+        am = cls(device=device)
+        iof.expect_token(stream, binary, "<DIMENSION>")
+        iof.read_int32(stream, binary)
+        iof.expect_token(stream, binary, "<NUMPDFS>")
+        n = iof.read_int32(stream, binary)
+        for _ in range(n):
+            am.add_pdf(DiagGmm.read(stream, binary))
+        return am

@@ -5,18 +5,19 @@ gmm/mle-diag-gmm.h:106, mle-am-diag-gmm.h:34).  Host-side numpy, as in
 the reference: given per-frame posteriors over components (or Viterbi
 one-hots over pdfs) the sufficient statistics are weighted matmuls.
 
-Not carried over yet: the accumulators' I/O and `accumulate_posterior`
-(lattice posteriors, the denominator side of MMI).
+The accumulators serialize as the reference's do (gmm-acc-stats-ali /
+gmm-sum-accs files), byte for byte.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import BinaryIO, List, Optional, Tuple
 
 import numpy as np
 
+from kaldi_tpu_torch.base import io_funcs as iof
 from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
 from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
 
@@ -74,6 +75,48 @@ class AccumDiagGmm:
         return float(ll.sum())
 
 
+    def add(self, other: "AccumDiagGmm") -> None:
+        self.occupancy += other.occupancy
+        self.mean_accs += other.mean_accs
+        self.var_accs += other.var_accs
+
+    # -- serialization (gmm-acc-stats / gmm-sum-accs) -----------------------
+
+    def write(self, stream: BinaryIO, binary: bool = True) -> None:
+        iof.write_token(stream, binary, "<GMMACCS>")
+        iof.write_token(stream, binary, "<VECSIZE>")
+        iof.write_int32(stream, binary, self.dim)
+        iof.write_token(stream, binary, "<NUMCOMPONENTS>")
+        iof.write_int32(stream, binary, self.num_comp)
+        iof.write_token(stream, binary, "<FLAGS>")
+        iof.write_token(stream, binary, self.flags)
+        iof.write_token(stream, binary, "<OCCUPANCY>")
+        iof.write_vector(stream, binary, self.occupancy)
+        iof.write_token(stream, binary, "<MEANACCS>")
+        iof.write_matrix(stream, binary, self.mean_accs)
+        iof.write_token(stream, binary, "<DIAGVARACCS>")
+        iof.write_matrix(stream, binary, self.var_accs)
+        iof.write_token(stream, binary, "</GMMACCS>")
+
+    @classmethod
+    def read(cls, stream: BinaryIO, binary: bool = True) -> "AccumDiagGmm":
+        iof.expect_token(stream, binary, "<GMMACCS>")
+        iof.expect_token(stream, binary, "<VECSIZE>")
+        dim = iof.read_int32(stream, binary)
+        iof.expect_token(stream, binary, "<NUMCOMPONENTS>")
+        n = iof.read_int32(stream, binary)
+        iof.expect_token(stream, binary, "<FLAGS>")
+        flags = iof.read_token(stream, binary)
+        acc = cls(n, dim, flags)
+        iof.expect_token(stream, binary, "<OCCUPANCY>")
+        acc.occupancy = iof.read_vector(stream, binary).astype(np.float64)
+        iof.expect_token(stream, binary, "<MEANACCS>")
+        acc.mean_accs = iof.read_matrix(stream, binary).astype(np.float64)
+        iof.expect_token(stream, binary, "<DIAGVARACCS>")
+        acc.var_accs = iof.read_matrix(stream, binary).astype(np.float64)
+        iof.expect_token(stream, binary, "</GMMACCS>")
+        return acc
+
 def mle_diag_gmm_update(opts: MleDiagGmmOptions, acc: AccumDiagGmm,
                         gmm: DiagGmm) -> Tuple[float, float]:
     """In-place MLE update (mle-diag-gmm.cc MleDiagGmmUpdate).
@@ -126,6 +169,14 @@ class AccumAmDiagGmm:
         self.total_loglike = 0.0
         self.total_frames = 0.0
 
+    def accumulate_for_pdf(self, am: AmDiagGmm, pdf: int, frame: np.ndarray,
+                           weight: float = 1.0) -> float:
+        ll = self.accs[pdf].accumulate_from_gmm(
+            am.get_pdf(pdf), frame[None, :], np.array([weight]))
+        self.total_loglike += ll
+        self.total_frames += weight
+        return ll
+
     def accumulate_alignment(self, am: AmDiagGmm, trans_model,
                              feats: np.ndarray,
                              alignment: List[int]) -> float:
@@ -145,6 +196,70 @@ class AccumAmDiagGmm:
         self.total_frames += len(alignment)
         return total
 
+
+    def accumulate_posterior(self, am: AmDiagGmm, trans_model,
+                             feats: np.ndarray, post) -> float:
+        """Accumulate from per-frame (transition-id, weight) posteriors
+        (gmm-acc-stats2 with lattice posteriors, the denominator side of
+        MMI training), grouped by pdf so each GMM sees one batched
+        weighted accumulate."""
+        by_pdf: dict = {}
+        for t, entries in enumerate(post):
+            if t >= feats.shape[0]:
+                break
+            for tid, w in entries:
+                if tid <= 0 or w == 0.0:
+                    continue
+                pdf = trans_model.transition_id_to_pdf(tid)
+                by_pdf.setdefault(pdf, ([], []))
+                by_pdf[pdf][0].append(t)
+                by_pdf[pdf][1].append(w)
+                self.transition_accs[tid] += w
+        total = 0.0
+        frames = 0.0
+        for pdf, (idx, w) in by_pdf.items():
+            wa = np.asarray(w, np.float64)
+            ll = self.accs[pdf].accumulate_from_gmm(
+                am.get_pdf(pdf), feats[np.asarray(idx)], wa)
+            total += ll
+            frames += wa.sum()
+        self.total_loglike += total
+        self.total_frames += frames
+        return total
+
+    def add(self, other: "AccumAmDiagGmm") -> None:
+        for a, b in zip(self.accs, other.accs):
+            a.add(b)
+        self.transition_accs += other.transition_accs
+        self.total_loglike += other.total_loglike
+        self.total_frames += other.total_frames
+
+    def write(self, stream: BinaryIO, binary: bool = True) -> None:
+        iof.write_token(stream, binary, "<AMDIAGGMMACCS>")
+        iof.write_int32(stream, binary, len(self.accs))
+        for a in self.accs:
+            a.write(stream, binary)
+        iof.write_token(stream, binary, "<TRANSACCS>")
+        iof.write_vector(stream, binary, self.transition_accs)
+        iof.write_token(stream, binary, "<TOTALS>")
+        iof.write_double(stream, binary, self.total_loglike)
+        iof.write_double(stream, binary, self.total_frames)
+        iof.write_token(stream, binary, "</AMDIAGGMMACCS>")
+
+    @classmethod
+    def read(cls, stream: BinaryIO, binary: bool = True) -> "AccumAmDiagGmm":
+        obj = cls()
+        iof.expect_token(stream, binary, "<AMDIAGGMMACCS>")
+        n = iof.read_int32(stream, binary)
+        obj.accs = [AccumDiagGmm.read(stream, binary) for _ in range(n)]
+        iof.expect_token(stream, binary, "<TRANSACCS>")
+        obj.transition_accs = iof.read_vector(stream,
+                                              binary).astype(np.float64)
+        iof.expect_token(stream, binary, "<TOTALS>")
+        obj.total_loglike = iof.read_double(stream, binary)
+        obj.total_frames = iof.read_double(stream, binary)
+        iof.expect_token(stream, binary, "</AMDIAGGMMACCS>")
+        return obj
 
 def mle_am_diag_gmm_update(opts: MleDiagGmmOptions, acc: AccumAmDiagGmm,
                            am: AmDiagGmm, trans_model=None,

@@ -16,8 +16,11 @@ objective is its formula row by row.  The gains are bit-equal and the
 first best candidate wins as in the reference, so the same statistics
 give the same tree.
 
-Not carried over yet: `accumulate_tree_stats` (acc-tree-stats) and
-leaf post-clustering (`cluster_thresh`).
+`accumulate_tree_stats` (acc-tree-stats) is the reference's, event for
+event.  Leaf post-clustering: the reference's `BuildTreeOptions` has
+`cluster_thresh` but its `build_tree` never reads it, so a tree built
+with any value is the unclustered one; the port raises for a value >= 0
+rather than accept an option that does nothing.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import heapq
 import logging
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -39,6 +42,59 @@ _log = logging.getLogger(__name__)
 
 Event = Tuple[Tuple[int, int], ...]  # sorted ((key, value), ...)
 _MISSING = -(2 ** 31)                # an event's value for a key it lacks
+
+
+def accumulate_tree_stats(tm, topo, feats: np.ndarray,
+                          alignment: Sequence[int], N: int, P: int,
+                          stats: Optional[Dict[Event, GaussClusterable]] = None,
+                          ci_phones: Sequence[int] = (),
+                          var_floor: float = 0.01
+                          ) -> Dict[Event, GaussClusterable]:
+    """acc-tree-stats: per frame, event = context window + pdf-class.
+    ci_phones (e.g. silence) get context-independent events."""
+    if stats is None:
+        stats = {}
+    ci = set(ci_phones)
+    phone_bounds = []  # (start, end, phone)
+    cur_start = 0
+    cur_phone = None
+    infos = []
+    for i, tid in enumerate(alignment):
+        phone = tm.transition_id_to_phone(tid)
+        hmm_state = tm.transition_id_to_hmm_state(tid)
+        pdf_class = topo.topology_for_phone(phone)[hmm_state].forward_pdf_class
+        is_start = (hmm_state == 0 and not tm.is_self_loop(tid))
+        if is_start and cur_phone is not None:
+            phone_bounds.append((cur_start, i, cur_phone))
+            cur_start = i
+        if is_start or cur_phone is None:
+            cur_phone = phone
+            if i == 0:
+                cur_start = 0
+        infos.append((phone, pdf_class))
+    if cur_phone is not None:
+        phone_bounds.append((cur_start, len(alignment), cur_phone))
+    phone_seq = [p for _, _, p in phone_bounds]
+    dim = feats.shape[1]
+    for seg_idx, (start, end, phone) in enumerate(phone_bounds):
+        window = []
+        for offset in range(-P, N - P):
+            j = seg_idx + offset
+            if phone in ci and offset != 0:
+                window.append(0)
+            elif 0 <= j < len(phone_seq):
+                window.append(phone_seq[j])
+            else:
+                window.append(0)
+        for i in range(start, min(end, feats.shape[0])):
+            _, pdf_class = infos[i]
+            event_list = [(PDF_CLASS_KEY, pdf_class)]
+            event_list += [(k, window[k]) for k in range(N)]
+            event = tuple(sorted(event_list))
+            if event not in stats:
+                stats[event] = GaussClusterable(dim, var_floor)
+            stats[event].add_stats(feats[i].astype(np.float64))
+    return stats
 
 
 def cluster_phones(stats: Dict[Event, GaussClusterable], phones: List[int],
@@ -123,6 +179,11 @@ def build_tree(stats: Dict[Event, GaussClusterable],
     allow decision-tree splitting below the root."""
     if opts is None:
         opts = BuildTreeOptions()
+    if opts.cluster_thresh >= 0:
+        raise NotImplementedError(
+            "cluster_thresh >= 0: the reference's build_tree does no leaf "
+            "post-clustering (kaldi_tpu/tree/build_tree.py never reads "
+            "the option), so there is nothing to hold a port to")
     phone_to_root: Dict[int, int] = {}
     for ri, (phone_set, _shared, _split) in enumerate(roots):
         for p in phone_set:

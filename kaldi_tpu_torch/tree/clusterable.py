@@ -3,7 +3,8 @@ of `GaussClusterable` and `sum_clusterables` of
 `kaldi_tpu/tree/clusterable.py`; parity: tree/clusterable-classes.h
 GaussClusterable).  Host numpy, float64.
 
-Not carried over yet: the GCL/BTS stats I/O.
+The GCL/BTS stats files of acc-tree-stats are written and read as the
+reference writes them, byte for byte.
 """
 
 from __future__ import annotations
@@ -92,3 +93,71 @@ def sum_clusterables(items) -> GaussClusterable:
         total.stats_sum += c.stats_sum
         total.stats_sumsq += c.stats_sumsq
     return total
+
+# ---------------------------------------------------------------------------
+# Wire format (reference-compatible): GaussClusterable::Write
+# (tree/clusterable-classes.cc:173 — "GCL" + count + var_floor + 2xdim
+# double matrix of [x-sum; x^2-sum]), and Write/ReadBuildTreeStats
+# (tree/build-tree-utils.cc:29 — "BTS" + size + per-entry EventType
+# ("EV" + pairs, tree/event-map.cc:228) + nonNull bool + clusterable).
+
+def write_gauss_clusterable(stream, binary: bool, c: "GaussClusterable"):
+    from kaldi_tpu_torch.base import io_funcs as iof
+    iof.write_token(stream, binary, "GCL")
+    iof.write_double(stream, binary, c.count)
+    iof.write_double(stream, binary, c.var_floor)
+    iof.write_matrix(stream, binary,
+                     np.stack([c.stats_sum, c.stats_sumsq]).astype(np.float64))
+
+
+def read_gauss_clusterable(stream, binary: bool) -> "GaussClusterable":
+    from kaldi_tpu_torch.base import io_funcs as iof
+    iof.expect_token(stream, binary, "GCL")
+    count = iof.read_double(stream, binary)
+    var_floor = iof.read_double(stream, binary)
+    stats = iof.read_matrix(stream, binary)
+    c = GaussClusterable(stats.shape[1], var_floor)
+    c.count = count
+    c.stats_sum = stats[0].astype(np.float64)
+    c.stats_sumsq = stats[1].astype(np.float64)
+    return c
+
+
+def write_build_tree_stats(stream, binary: bool, stats) -> None:
+    """stats: dict {event tuple -> GaussClusterable} or list of pairs."""
+    from kaldi_tpu_torch.base import io_funcs as iof
+    items = sorted(stats.items()) if hasattr(stats, "items") else list(stats)
+    iof.write_token(stream, binary, "BTS")
+    iof.write_uint32(stream, binary, len(items))
+    for event, clus in items:
+        iof.write_token(stream, binary, "EV")
+        iof.write_uint32(stream, binary, len(event))
+        for key, value in event:
+            iof.write_int32(stream, binary, key)
+            iof.write_int32(stream, binary, value)
+        if not binary:
+            stream.write(b"\n")
+        iof.write_bool(stream, binary, clus is not None)
+        if clus is not None:
+            write_gauss_clusterable(stream, binary, clus)
+    if not binary:
+        stream.write(b"\n")
+
+
+def read_build_tree_stats(stream, binary: bool):
+    """Returns dict {event tuple -> GaussClusterable}; duplicate events
+    (e.g. when summing multiple acc files) are added together."""
+    from kaldi_tpu_torch.base import io_funcs as iof
+    iof.expect_token(stream, binary, "BTS")
+    n = iof.read_uint32(stream, binary)
+    stats = {}
+    for _ in range(n):
+        iof.expect_token(stream, binary, "EV")
+        npairs = iof.read_uint32(stream, binary)
+        event = tuple((iof.read_int32(stream, binary),
+                       iof.read_int32(stream, binary))
+                      for _ in range(npairs))
+        if iof.read_bool(stream, binary):
+            c = read_gauss_clusterable(stream, binary)
+            stats[event] = stats[event].add(c) if event in stats else c
+    return stats

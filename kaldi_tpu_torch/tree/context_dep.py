@@ -1,6 +1,7 @@
 """Context dependency: (phone window, pdf-class) -> pdf-id (port of
-`ContextDependency` (with its reader and writer) and
-`monophone_context_dependency` of
+`ContextDependency` (with its reader and writer),
+`monophone_context_dependency` and `monophone_context_dependency_shared`
+of
 `kaldi_tpu/tree/context_dep.py`; parity: tree/context-dep.h:59,
 MonophoneContextDependency of context-dep.cc)."""
 
@@ -87,4 +88,24 @@ def monophone_context_dependency(phones: Sequence[int],
             sub.append(ConstantEventMap(pdf))
             pdf += 1
         table[phone] = TableEventMap(PDF_CLASS_KEY, sub)
+    return ContextDependency(1, 0, TableEventMap(0, table))
+
+
+def monophone_context_dependency_shared(
+        phone_sets: Sequence[Sequence[int]],
+        phone2num_pdf_classes: Dict[int, int]) -> ContextDependency:
+    """Monophone tree with tied phone sets (--shared-phones)."""
+    table: List[Optional[EventMap]] = [None] * (
+        max(p for s in phone_sets for p in s) + 1)
+    pdf = 0
+    for phone_set in phone_sets:
+        npc_set = {phone2num_pdf_classes[p] for p in phone_set}
+        if len(npc_set) != 1:
+            raise ValueError("shared phones must have same #pdf-classes")
+        npc = npc_set.pop()
+        shared = TableEventMap(PDF_CLASS_KEY, [ConstantEventMap(pdf + i)
+                                               for i in range(npc)])
+        pdf += npc
+        for p in phone_set:
+            table[p] = shared
     return ContextDependency(1, 0, TableEventMap(0, table))

@@ -460,6 +460,36 @@ class RandomAccessTableReader:
         return self._table().keys()
 
 
+class RandomAccessTableReaderMapped:
+    """RandomAccessTableReaderMapped (kaldi-table.h:432): looks up
+    through a key map (classically utt2spk) when provided."""
+
+    def __init__(self, holder, rspecifier: str, map_rspecifier: str = ""):
+        self.reader = RandomAccessTableReader(holder, rspecifier)
+        self.key_map: Optional[Dict[str, str]] = None
+        if map_rspecifier:
+            self.key_map = {
+                k: v[0] for k, v in SequentialTableReader("token-vector",
+                                                          map_rspecifier)
+            }
+
+    def _map(self, key: str) -> str:
+        if self.key_map is None:
+            return key
+        if key not in self.key_map:
+            raise KeyError(f"no map entry for {key}")
+        return self.key_map[key]
+
+    def __contains__(self, key):
+        try:
+            return self._map(key) in self.reader
+        except KeyError:
+            return False
+
+    def __getitem__(self, key):
+        return self.reader[self._map(key)]
+
+
 class TableWriter:
     """(key, value) entries to ark, or ark,scp (kaldi-table.h:368)."""
 

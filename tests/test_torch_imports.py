@@ -66,7 +66,11 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "cli.lat_tools", "cli.ali_tools", "hmm.posterior",
                  "nnet3.egs", "parallel.optim", "parallel.recovery",
                  "parallel.trainer", "cli.chain_tools", "cli.nnet3_tools2",
-                 "cli.nnet3_tail2_tools", "cli.tail4_tools"):
+                 "cli.nnet3_tail2_tools", "cli.tail4_tools",
+                 "decoder.lang_dir", "util.validation", "cli.misc_tools",
+                 "cli.feat_tools", "cli.gmm_tools", "cli.tree_tools",
+                 "fstext.context", "recipes.deltas", "lm.arpa",
+                 "recipes.template_run", "recipes.template_corpus"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

@@ -184,9 +184,19 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
         rc, err = cli("nnet3-compute", os.path.join(GOLDEN, "tdnn.raw"),
                       *io_args)
         assert rc != 0 and "CUDA" in err
-    assert sorted(TOOLS) == ["ali-to-pdf", "ali-to-post", "chain-est-phone-lm",
+    assert sorted(TOOLS) == ["acc-tree-stats", "add-deltas", "ali-to-pdf",
+                             "ali-to-phones", "ali-to-post",
+                             "align-equal-compiled", "apply-cmvn",
+                             "build-tree", "chain-est-phone-lm",
                              "chain-get-supervision", "chain-make-den-fst",
-                             "compute-wer", "lattice-1best",
+                             "cluster-phones", "compile-train-graphs",
+                             "compute-cmvn-stats", "compute-mfcc-feats",
+                             "compute-wer", "convert-ali", "copy-feats",
+                             "copy-int-vector", "extract-segments",
+                             "feat-to-dim", "feat-to-len", "gmm-acc-stats-ali",
+                             "gmm-align-compiled", "gmm-est", "gmm-info",
+                             "gmm-init-mono", "gmm-latgen-faster",
+                             "gmm-sum-accs", "lattice-1best",
                              "lattice-add-penalty", "lattice-best-path",
                              "lattice-copy", "lattice-determinize",
                              "lattice-determinize-pruned", "lattice-prune",
@@ -209,7 +219,10 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "nnet3-train", "online2-tcp-nnet3-decode-faster",
                              "online2-wav-dump-features",
                              "online2-wav-nnet3-latgen-faster",
-                             "post-to-pdf-post"]
+                             "post-to-pdf-post", "prepare-lang",
+                             "splice-feats", "sum-tree-stats",
+                             "validate-data-dir", "validate-lang",
+                             "wav-to-duration"]
 
 
 RSPECIFIERS = ["ark:foo.ark", "scp:foo.scp", "ark,s,cs:-", "ark,o,p:x.ark",

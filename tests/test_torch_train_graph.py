@@ -20,6 +20,8 @@ from kaldi_tpu_torch.hmm.transition_model import TransitionModel as TTm
 from kaldi_tpu_torch.recipes import bench_corpus as tbc
 from kaldi_tpu_torch.tree.context_dep import monophone_context_dependency
 
+from jax_native_private import private_jax_native_build  # noqa: F401
+
 TINY = dict(vocab=30, num_phone_groups=5, phones_per_group=2,
             words_per_utt=8, num_train=10, num_test=4, num_lm_sents=60,
             noise=850.0, f2_gap=120.0, seed=11)
