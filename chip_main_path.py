@@ -77,10 +77,14 @@ train_lex's system without its chain training (the corpus, MFCC, the
 mono GMM, the alignment, the chain transition model and tree):
 chain_cli, chain_cli_check, chain_cli_e2e and nnet3_train_cli.
 
-With --template it runs chip_smoke.py's template_gmm phase alone: the
-generic corpus recipe (egs/template/run.py stages 0-5 through the
-port's recipes/template_run.py and tools) on the fabricated corpus,
-held to tools/template_jax_bar.py's WER and HCLG.
+With --template it runs chip_smoke.py's generic corpus recipe phases
+alone (template_phases): egs/template/run.py through the port's
+recipes/template_run.py and tools on the fabricated corpus, one call at
+the recipe's defaults (stages 0-7: template_gmm and template_lda_sat,
+the card's statistics against the CPU's, the transform tools against the
+in-process matrices), then --stage 8 --chain-epochs N
+(template_chain_e2e; N is TEMPLATE_CHAIN_EPOCHS, or --epochs), each held
+to tools/template_jax_bar.py's bars.
 
 With --profile-check it runs the main path's slice_ng and profile_ng
 with profile_ng's tables built twice: from the profiler's raw events (as
@@ -228,7 +232,8 @@ def main() -> int:
                     help="with --train or --train-scale: the epochs to "
                     "train (the recipe's by default, 8 and 16; "
                     "chip_smoke.py trains SMOKE_TRAIN_EPOCHS and "
-                    "SMOKE_SCALE_EPOCHS)")
+                    "SMOKE_SCALE_EPOCHS); with --template: stage 8's "
+                    "(TEMPLATE_CHAIN_EPOCHS by default)")
     mode.add_argument("--nnet3", action="store_true",
                       help="run chip_smoke.py's nnet3 phases alone")
     mode.add_argument("--online2", action="store_true",
@@ -260,7 +265,10 @@ def main() -> int:
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
             or args.chain_cli or args.template or args.profile_check:
         if args.template:
-            cs.run_template_gmm()
+            cs.emit("template_summary", **{
+                name: {k: v for k, v in phase.items() if k != "launches"}
+                for name, phase in cs.template_phases(
+                    args.epochs or cs.TEMPLATE_CHAIN_EPOCHS).items()})
             done = "template_done"
         elif args.profile_check:
             cfg, _variables, model, ivec, fe = cs.flagship_am()

@@ -210,18 +210,33 @@ Phases, one JSON line each (any failure exits nonzero):
      train_scale_check (4 real chunks through the bucketed denominator:
      every leaf's gradient on the card against the CPU's float64,
      bit-equal twice); kernels a-c launched 0 times in each;
-     then template_gmm: the generic corpus recipe (egs/template/run.py
-     stages 0-5, the port's recipes/template_run.py) over the port's
-     tools on a fabricated corpus of 112 train and 32 test utterances at
-     the recipe's widths (100 leaves, 200 Gaussians, 13 cepstra): the lang
-     dir, MFCC on the card, the mono GMM through the tools, tri1, the
-     HCLG from the ARPA bigram, gmm-latgen-faster and the lm-scale x
-     penalty sweep; the WER within 2.0 points and 3 words of the JAX
-     recipe's on the CPU (tools/template_jax_bar.py), the HCLG's states
-     and arcs equal to its, no alignment failure, no determinization
-     fallback, each stage's and tool's seconds, the device ms of MFCC
-     and GMM scoring, gmm-latgen-faster's RTF, peak memory; kernels a-c
-     launched 0 times;
+     then the generic corpus recipe (egs/template/run.py through the
+     port's recipes/template_run.py and tools) on a fabricated corpus of
+     112 train and 32 test utterances at the recipe's widths (100
+     leaves, 200 Gaussians, 13 cepstra), one call at its defaults
+     (stages 0-7) and one of stage 8 over the same directory, each
+     held to the JAX recipe's on the CPU (tools/template_jax_bar.py):
+     template_gmm (stages 0-5: the lang dir, MFCC on the card, the mono
+     GMM through the tools, tri1, the HCLG from the ARPA bigram,
+     gmm-latgen-faster and the lm-scale x penalty sweep; the WER within
+     2.0 points and 3 words, the HCLG's states and arcs equal, no
+     alignment failure, no determinization fallback, each stage's and
+     tool's seconds, the device ms of MFCC and GMM scoring,
+     gmm-latgen-faster's RTF, peak memory), template_lda_sat (stages
+     6-7: tri2 LDA+MLLT and tri3 SAT with the two-pass fMLLR decode,
+     each WER within 2.0 points and 3 words, final.mat (20, 66), a
+     transform for every train and test speaker; the device ms of GMM
+     scoring, of the statistics and of the feature transforms; the LDA,
+     MLLT and fMLLR statistics rebuilt from tri2 and tri3 on the card
+     and on the CPU, within 1e-9 of their largest magnitude; acc-lda,
+     est-lda, gmm-acc-mllt, est-mllt, compose-transforms,
+     transform-feats and gmm-est-fmllr over the run's files within 1e-6
+     of the in-process matrices) and template_chain_e2e (stage 8: the
+     flat-start e2e TDNN-F trained TEMPLATE_CHAIN_EPOCHS epochs on the
+     card and decoded, the WER within 5.0 points of the JAX recipe's at
+     the same epochs, the last epoch's objective above the first's, step
+     ms by CUDA events, peak memory, one step under torch.profiler);
+     kernels a-c launched 0 times in each;
   6. the block-chain lattice slice on 32 of the lanes: one timed
      decode_batch call in lattice mode, under torch.profiler (launch
      counts, the lattice stages' seconds, each lane's lattice best path
@@ -241,7 +256,8 @@ Phases, one JSON line each (any failure exits nonzero):
      plain relaxation;
   8. the kernel table (kernel a's launches on the online path too, and
      each kernel's launches on the legacy, the online2, the xconfig, the
-     training, the nnet3 and the template_gmm phases, which must be 0);
+     training, the nnet3 and the three template phases, which must be
+     0);
      the
      last line is {"ok": true, "device": ...}.
 
@@ -257,6 +273,7 @@ import contextlib
 import copy
 import gc
 import io
+import itertools
 import json
 import os
 import re
@@ -335,6 +352,9 @@ from kaldi_tpu_torch.recipes.bench_corpus import (
     load_ivector_extractor, load_params, make_corpus, make_lexicon,
     make_text, mfcc_options, train_system, wer_of)
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
+from kaldi_tpu_torch.transform.fmllr import FmllrDiagGmmAccs
+from kaldi_tpu_torch.transform.lda import LdaEstimate, LdaOptions
+from kaldi_tpu_torch.transform.mllt import MlltAccs
 from kaldi_tpu_torch.util.kaldi_io import (read_kaldi_object,
                                            write_kaldi_object)
 from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
@@ -382,6 +402,29 @@ TEMPLATE_UTTS = (112, 32)
 TEMPLATE_BAR = dict(wer=0.0, word_errors=0, hclg_states=424, hclg_arcs=1176,
                     mono=(17, 129), tri1=(16, 200))
 TEMPLATE_WER_BAND, TEMPLATE_WORDS_BAND = 2.0, 3
+# template_lda_sat: stages 6-7 of the same JAX run (tri2 LDA+MLLT, tri3
+# SAT with the two-pass fMLLR decode: WER and word errors, the (pdfs,
+# Gaussians) of tri2/final.mdl and tri3/final.mdl, final.mat's shape);
+# the card's statistics against the CPU's, relative to their largest
+# magnitude, and the tools' matrices against the in-process ones
+TEMPLATE_LDA_SAT_BAR = dict(tri2=dict(wer=0.0, word_errors=0, pdfs=39,
+                                      gaussians=108),
+                            tri3=dict(wer=0.0, word_errors=0, pdfs=18,
+                                      gaussians=74),
+                            final_mat=(20, 66))
+TEMPLATE_STATS_TOL, TEMPLATE_TOOLS_TOL = 1e-9, 1e-6
+# template_chain_e2e: stage 8 of the JAX recipe over the same directory
+# with --chain-epochs N (tools/template_jax_bar.py), by N; the smoke
+# trains TEMPLATE_CHAIN_EPOCHS (PERF.md §6 says why not the smallest N
+# whose WER is under 15%, 2)
+TEMPLATE_CHAIN_BAR = {1: dict(wer=24.21875, word_errors=31),
+                      2: dict(wer=14.84375, word_errors=19),
+                      3: dict(wer=0.0, word_errors=0),
+                      4: dict(wer=0.0, word_errors=0),
+                      6: dict(wer=0.0, word_errors=0),
+                      8: dict(wer=0.0, word_errors=0)}
+TEMPLATE_CHAIN_EPOCHS = 4
+TEMPLATE_CHAIN_WER_BAND = 5.0
 # the n-gram decoder's blocks: four a frame, then the follow pass
 NG_BLOCKS = ("_forward", "_lm_fold", "_expand", "_rows", "_roots",
              "_follow")
@@ -3745,9 +3788,11 @@ def train_scale_phases(epochs: int = SCALE_EPOCHS) -> dict:
 
 
 @contextlib.contextmanager
-def device_ms_of(cls, name: str, sink: list):
+def device_ms_of(cls, name: str, sink, key=None):
     """Inside the block, each call of cls.name runs between two CUDA
-    events; sink gets the (start, end) pairs (read them after a sync)."""
+    events; sink gets the (start, end) pairs (read them after a sync).
+    With `key`, sink is a dict and each pair goes to the list under
+    key() at the call."""
     inner = getattr(cls, name)
 
     def wrapper(*args, **kw):
@@ -3758,7 +3803,7 @@ def device_ms_of(cls, name: str, sink: list):
             return inner(*args, **kw)
         finally:
             ev[1].record()
-            sink.append(ev)
+            (sink if key is None else sink.setdefault(key(), [])).append(ev)
 
     setattr(cls, name, wrapper)
     try:
@@ -3767,54 +3812,113 @@ def device_ms_of(cls, name: str, sink: list):
         setattr(cls, name, inner)
 
 
-def run_template_gmm() -> dict:
-    """template_gmm: egs/template/run.py stages 0-5 through the port's
-    recipe and tools, on the card, over the fabricated corpus at
-    TEMPLATE_UTTS and the recipe's default widths; held to TEMPLATE_BAR."""
+def _template_args(root: str, *extra) -> list:
+    return ["--train", f"{root}/train", "--test", f"{root}/test",
+            "--lexicon", f"{root}/lexicon.txt", "--arpa", f"{root}/lm.arpa",
+            "--dir", f"{root}/exp", *extra]
+
+
+def run_template_recipe(root: str) -> dict:
+    """One call of template_run.main at its defaults (egs/template/run.py
+    stages 0-7) on the card over the fabricated corpus at TEMPLATE_UTTS
+    and the recipe's default widths.  Returns its WER and report, the
+    device ms and calls of each measured function by stage (CUDA events a
+    call: MFCC, GMM scoring, the LDA, MLLT and fMLLR statistics and the
+    feature transforms), and the kernel launches and peak memory of
+    stages 0-5 and of stages 6-7 (split where stage 6 reads tri1)."""
+    from kaldi_tpu_torch.recipes import lda_mllt
     from kaldi_tpu_torch.recipes.template_corpus import make_standard_corpus
-    t_phase = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        make_standard_corpus(root, *TEMPLATE_UTTS)
-        report: dict = {}
-        mfcc_ev, gmm_ev = [], []
-        reset_kernel_counts()
-        torch.cuda.reset_peak_memory_stats()
-        with device_ms_of(OfflineFeature, "_compute_frames", mfcc_ev), \
-                device_ms_of(AmDiagGmm, "log_likes_device", gmm_ev):
-            wer = template_run.main([
-                "--train", f"{root}/train", "--test", f"{root}/test",
-                "--lexicon", f"{root}/lexicon.txt",
-                "--arpa", f"{root}/lm.arpa", "--dir", f"{root}/exp"],
-                report=report)
-        torch.cuda.synchronize()
-        launches = kernel_launch_counts()
-        models = {}
-        for name in ("mono", "tri1"):
-            _tm, am = read_am_gmm(f"{root}/exp/{name}/final.mdl",
-                                  device="cpu")
-            models[name] = (am.num_pdfs, am.num_gauss())
+    make_standard_corpus(root, *TEMPLATE_UTTS)
+    report: dict = {"stage_s": {}}
+    sinks = {"mfcc": {}, "gmm": {}, "stats": {}, "transform": {}}
+    split: dict = {}
+    tri1_system = template_run._tri1_system
+
+    def stage6_starts(*a, **kw):
+        if not split:
+            torch.cuda.synchronize()
+            split.update(launches=kernel_launch_counts(),
+                         peak_memory_gb=torch.cuda.max_memory_allocated()
+                         / 1e9)
+            torch.cuda.reset_peak_memory_stats()
+        return tri1_system(*a, **kw)
+
+    def stage():
+        return str(len(report["stage_s"]))
+
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    template_run._tri1_system = stage6_starts
+    try:
+        with device_ms_of(OfflineFeature, "_compute_frames", sinks["mfcc"],
+                          stage), \
+                device_ms_of(AmDiagGmm, "log_likes_device", sinks["gmm"],
+                             stage), \
+                device_ms_of(LdaEstimate, "accumulate_tensors",
+                             sinks["stats"], stage), \
+                device_ms_of(MlltAccs, "accumulate_rows", sinks["stats"],
+                             stage), \
+                device_ms_of(FmllrDiagGmmAccs, "accumulate_rows",
+                             sinks["stats"], stage), \
+                device_ms_of(lda_mllt, "apply_affine_transform",
+                             sinks["transform"], stage):
+            wer = template_run.main(_template_args(root), report=report)
+    finally:
+        template_run._tri1_system = tri1_system
+    torch.cuda.synchronize()
+    end = kernel_launch_counts()
+    return {"wer": wer, "report": report,
+            "device_ms": {name: {st: sum(a.elapsed_time(b) for a, b in evs)
+                                 for st, evs in by_stage.items()}
+                          for name, by_stage in sinks.items()},
+            "device_calls": {name: {st: len(evs)
+                                    for st, evs in by_stage.items()}
+                             for name, by_stage in sinks.items()},
+            "launches_0_5": split["launches"],
+            "launches_6_7": {k: end[k] - split["launches"][k] for k in end},
+            "peak_memory_gb_0_5": split["peak_memory_gb"],
+            "peak_memory_gb_6_7": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def _stage_sum(by_stage: dict, stages) -> float:
+    return sum(by_stage.get(str(s), 0) for s in stages)
+
+
+def run_template_gmm(run: dict) -> dict:
+    """template_gmm: stages 0-5 of the recipe's call (run_template_recipe),
+    held to TEMPLATE_BAR."""
+    report = run["report"]
+    tri1 = report["tri1"]
     latgen = report["tool_stats"]["gmm-latgen-faster"]
-    out = {"utterances": list(TEMPLATE_UTTS), "wer": wer,
-           "word_errors": report["word_errors"],
-           "ref_words": report["ref_words"], "bar": TEMPLATE_BAR,
-           "lm_scale": report["lm_scale"], "penalty": report["penalty"],
+    models = {}
+    for name in ("mono", "tri1"):
+        _tm, am = read_am_gmm(f"{run['root']}/exp/{name}/final.mdl",
+                              device="cpu")
+        models[name] = (am.num_pdfs, am.num_gauss())
+    launches = run["launches_0_5"]
+    stage_s = {k: v for k, v in report["stage_s"].items() if int(k) <= 5}
+    out = {"utterances": list(TEMPLATE_UTTS), "wer": tri1["wer"],
+           "word_errors": tri1["word_errors"],
+           "ref_words": tri1["ref_words"], "bar": TEMPLATE_BAR,
+           "lm_scale": tri1["lm_scale"], "penalty": tri1["penalty"],
            "hclg_states": report["hclg_states"],
            "hclg_arcs": report["hclg_arcs"], "mono": models["mono"],
-           "tri1": models["tri1"], "aligned": report["aligned"],
+           "tri1": models["tri1"], "aligned": report["aligned"][:7],
            "align_failures": report["align_failures"],
-           "lattices": report["lattices"],
+           "lattices": tri1["lattices"],
            "det_fallbacks": latgen["det_fallbacks"],
            "latgen_rtf": latgen["rtf"], "latgen": latgen,
-           "mfcc_device_ms": sum(a.elapsed_time(b) for a, b in mfcc_ev),
-           "mfcc_calls": len(mfcc_ev),
-           "gmm_device_ms": sum(a.elapsed_time(b) for a, b in gmm_ev),
-           "gmm_calls": len(gmm_ev),
-           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "stage_s": report["stage_s"], "tool_s": report["tool_s"],
+           "mfcc_device_ms": _stage_sum(run["device_ms"]["mfcc"], range(6)),
+           "mfcc_calls": _stage_sum(run["device_calls"]["mfcc"], range(6)),
+           "gmm_device_ms": _stage_sum(run["device_ms"]["gmm"], range(6)),
+           "gmm_calls": _stage_sum(run["device_calls"]["gmm"], range(6)),
+           "peak_memory_gb": run["peak_memory_gb_0_5"],
+           "stage_s": stage_s, "tool_s": report["tool_s"],
            "launches": {"template_gmm": launches},
-           "seconds": time.perf_counter() - t_phase}
+           "seconds": sum(stage_s.values())}
     emit("template_gmm", **out)
     bar = TEMPLATE_BAR
+    wer = out["wer"]
     if any(launches.values()):
         raise SystemExit("a kernel of another path ran in template_gmm")
     if abs(wer - bar["wer"]) > TEMPLATE_WER_BAND or \
@@ -3838,6 +3942,328 @@ def run_template_gmm() -> dict:
         raise SystemExit(f"template_gmm: mono has {models['mono'][0]} pdfs, "
                          f"the JAX recipe's {bar['mono'][0]}")
     return out
+
+
+def _rel_to_largest(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-300))
+
+
+def template_systems(root: str, device) -> dict:
+    """tri2 and tri3 of the recipe's run read back on `device`, the train
+    set's features (raw, spliced, in tri2's space), texts and speakers,
+    and each system's alignments of the train set (the recipe's aligner
+    on the card)."""
+    from kaldi_tpu_torch.base import io_funcs as iof
+    from kaldi_tpu_torch.decoder.graph import Lang, TrainingGraphCompiler
+    from kaldi_tpu_torch.feat.functions import splice_frames
+    from kaldi_tpu_torch.recipes.lda_mllt import transform_all
+    from kaldi_tpu_torch.recipes.mono import MonoSystem, _align_all
+    exp = f"{root}/exp"
+    lexicon = template_run.read_lexicon(f"{root}/lexicon.txt")
+    feats = dict(SequentialTableReader("matrix",
+                                       f"ark:{root}/train/feats.ark"))
+    texts = template_run.read_texts(f"{root}/train")
+    mat = read_kaldi_object(iof.read_matrix, f"{exp}/tri2/final.mat")
+    spliced = {u: splice_frames(f, 2, 2) for u, f in feats.items()}
+    out = {"feats": feats, "spliced": spliced, "mat": mat,
+           "feats2": transform_all(spliced, mat, "cuda"),
+           "utt2spk": template_run.read_utt2spk(f"{root}/train")}
+    for name, fs in (("tri2", out["feats2"]), ("tri3", feats)):
+        lang = Lang(lexicon, sil_phone="SIL", sil_prob=0.5)
+        tm, am = read_am_gmm(f"{exp}/{name}/final.mdl", device=device)
+        lang.topo = tm.topo
+        tree = read_kaldi_object(ContextDependency.read, f"{exp}/{name}/tree")
+        sys_ = MonoSystem(lang, tree, tm, am)
+        compiler = TrainingGraphCompiler(tm, tree, lang)
+        out[name] = sys_
+        out[f"ali_{name[-1]}"] = _align_all(
+            sys_, {u: compiler.compile(texts[u]) for u in fs}, fs, 10.0,
+            0.1, 1.0)
+    return out
+
+
+def template_stats(s: dict, device) -> dict:
+    """The LDA, MLLT and fMLLR statistics of the recipe's passes, from
+    the systems and alignments of `template_systems`, accumulated on
+    `device`: LDA over the spliced features by tri2's pdfs, MLLT in
+    tri2's space, each train speaker's fMLLR under tri3."""
+    from kaldi_tpu_torch.recipes import lda_mllt
+    tri2 = s["tri2"] if device == "cuda" else s["tri2_cpu"]
+    tri3 = s["tri3"] if device == "cuda" else s["tri3_cpu"]
+    lda = lda_mllt.lda_estimate(tri2, s["spliced"], s["ali_2"])
+    mllt = MlltAccs(s["mat"].shape[0], device=device)
+    mllt.accumulate_groups(lda_mllt.mllt_groups(tri2, s["feats2"],
+                                                s["ali_2"]))
+    fmllr = lda_mllt.speaker_fmllr_accs(tri3, s["feats"], s["ali_3"],
+                                        s["utt2spk"])
+    return {"lda": lda, "mllt": mllt, "fmllr": fmllr}
+
+
+def template_tools_check(root: str, s: dict, stats: dict) -> dict:
+    """The tools of steps/train_lda_mllt.sh and steps/train_sat.sh over
+    the run's files, in process on the card, against the in-process
+    matrices: acc-lda -> est-lda, gmm-acc-mllt -> est-mllt ->
+    compose-transforms, transform-feats, gmm-est-fmllr --spk2utt.
+    Returns each comparison's largest difference relative to the
+    in-process matrix's largest magnitude, and the tools' seconds."""
+    from kaldi_tpu_torch.base import io_funcs as iof
+    from kaldi_tpu_torch.cli import get_tool
+    from kaldi_tpu_torch.recipes import lda_mllt
+    exp, d = f"{root}/exp", f"{root}/exp/tools"
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    for name, table in (("spliced", s["spliced"]), ("feats2", s["feats2"])):
+        with TableWriter("matrix", f"ark:{d}/{name}.ark") as w:
+            for u in s["ali_2"]:
+                w.write(u, table[u])
+    for n in ("2", "3"):
+        with TableWriter("int-vector", f"ark:{d}/ali{n}.ark") as w:
+            for u, a in s[f"ali_{n}"].items():
+                w.write(u, a)
+    spk2utt: dict = {}
+    for u in s["ali_3"]:
+        spk2utt.setdefault(s["utt2spk"].get(u, u), []).append(u)
+    with open(f"{d}/spk2utt", "w") as f:
+        for spk, us in spk2utt.items():
+            f.write(f"{spk} {' '.join(us)}\n")
+
+    def sh(tool, *args):
+        rc = get_tool(tool)([tool, *map(str, args)])
+        if rc != 0:
+            raise SystemExit(f"template_lda_sat: {tool} failed ({rc})")
+
+    def mat(path):
+        return read_kaldi_object(iof.read_matrix, path)
+
+    sh("ali-to-post", f"ark:{d}/ali2.ark", f"ark:{d}/post2.ark")
+    sh("ali-to-post", f"ark:{d}/ali3.ark", f"ark:{d}/post3.ark")
+    sh("acc-lda", f"{exp}/tri2/final.mdl", f"ark:{d}/spliced.ark",
+       f"ark:{d}/ali2.ark", f"{d}/lda.acc")
+    sh("est-lda", f"--dim={s['mat'].shape[0]}", f"{d}/lda.mat",
+       f"{d}/lda.acc")
+    sh("gmm-acc-mllt", f"{exp}/tri2/final.mdl", f"ark:{d}/feats2.ark",
+       f"ark:{d}/post2.ark", f"{d}/mllt.acc")
+    sh("est-mllt", f"{d}/mllt.mat", f"{d}/mllt.acc")
+    sh("compose-transforms", f"{d}/mllt.mat", f"{exp}/tri2/final.mat",
+       f"{d}/composed.mat")
+    sh("transform-feats", f"{exp}/tri2/final.mat", f"ark:{d}/spliced.ark",
+       f"ark:{d}/transformed.ark")
+    sh("gmm-est-fmllr", f"--spk2utt=ark:{d}/spk2utt",
+       f"{exp}/tri3/final.mdl", f"ark:{root}/train/feats.ark",
+       f"ark:{d}/post3.ark", f"ark:{d}/fmllr.ark")
+    tools_s = time.perf_counter() - t0
+    lda, _ = stats["lda"].estimate(LdaOptions(dim=s["mat"].shape[0]))
+    M, _ = stats["mllt"].update()
+    W = s["mat"]
+    composed = np.concatenate([M @ W[:, :-1], (M @ W[:, -1])[:, None]],
+                              axis=1)
+    transformed = dict(SequentialTableReader("matrix",
+                                             f"ark:{d}/transformed.ark"))
+    fmllr = dict(SequentialTableReader("matrix", f"ark:{d}/fmllr.ark"))
+    want_fmllr = {spk: a.update()[0] for spk, a in stats["fmllr"].items()}
+    out = {"est-lda": _rel_to_largest(mat(f"{d}/lda.mat"), lda),
+           "est-mllt": _rel_to_largest(mat(f"{d}/mllt.mat"), M),
+           "compose-transforms": _rel_to_largest(mat(f"{d}/composed.mat"),
+                                                 composed),
+           "transform-feats": max(_rel_to_largest(transformed[u], s["feats2"][u])
+                                  for u in s["feats2"]),
+           "gmm-est-fmllr": max(_rel_to_largest(fmllr[spk], want_fmllr[spk])
+                                for spk in want_fmllr),
+           "fmllr_speakers": sorted(fmllr) == sorted(want_fmllr),
+           "transformed_utterances": len(transformed),
+           "tools_s": tools_s}
+    return out
+
+
+def run_template_lda_sat(run: dict) -> dict:
+    """template_lda_sat: stages 6-7 of the recipe's call
+    (run_template_recipe), held to TEMPLATE_LDA_SAT_BAR; then the LDA,
+    MLLT and fMLLR statistics rebuilt from the run's tri2 and tri3 and
+    their alignments on the card and on the CPU (agreeing to
+    TEMPLATE_STATS_TOL of their largest magnitude), and the transform
+    tools over the run's files against the in-process matrices (to
+    TEMPLATE_TOOLS_TOL)."""
+    root, report = run["root"], run["report"]
+    t0 = time.perf_counter()
+    reset_kernel_counts()
+    s = template_systems(root, "cuda")
+    for name in ("tri2", "tri3"):
+        tm, am = read_am_gmm(f"{root}/exp/{name}/final.mdl", device="cpu")
+        s[f"{name}_cpu"] = tmono.MonoSystem(s[name].lang, s[name].tree, tm,
+                                            am)
+    stats_ev: list = []
+    with device_ms_of(MlltAccs, "accumulate_rows", stats_ev), \
+            device_ms_of(FmllrDiagGmmAccs, "accumulate_rows", stats_ev), \
+            device_ms_of(LdaEstimate, "accumulate_tensors", stats_ev):
+        card = template_stats(s, "cuda")
+    torch.cuda.synchronize()
+    t_cpu = time.perf_counter()
+    cpu = template_stats(s, "cpu")
+    cpu_s = time.perf_counter() - t_cpu
+    agree = {
+        "lda": max(_rel_to_largest(getattr(card["lda"], k),
+                                   getattr(cpu["lda"], k))
+                   for k in ("zero_acc", "first_acc", "total_second_acc")),
+        "mllt": max(_rel_to_largest(card["mllt"].G, cpu["mllt"].G),
+                    _rel_to_largest(card["mllt"].beta, cpu["mllt"].beta)),
+        "fmllr": max(max(_rel_to_largest(getattr(card["fmllr"][spk], k),
+                                         getattr(cpu["fmllr"][spk], k))
+                         for k in ("beta", "K", "G"))
+                     for spk in cpu["fmllr"])}
+    check_s = time.perf_counter() - t0
+    tools = template_tools_check(root, s, card)
+    launches = {k: run["launches_6_7"][k] + v
+                for k, v in kernel_launch_counts().items()}
+    tri2, tri3 = report["tri2"], report["tri3"]
+    speakers = {split: len(set(template_run.read_utt2spk(
+        f"{root}/{split}").values())) for split in ("train", "test")}
+    stages = (6, 7)
+    out = {"utterances": list(TEMPLATE_UTTS),
+           "tri2": tri2, "tri3": tri3, "bar": TEMPLATE_LDA_SAT_BAR,
+           "speakers": speakers, "aligned": report["aligned"][7:],
+           "align_failures": report["align_failures"],
+           "decode_failures": report["decode_failures"],
+           "stage_s": {str(st): report["stage_s"][str(st)] for st in stages},
+           "gmm_device_ms": _stage_sum(run["device_ms"]["gmm"], stages),
+           "gmm_calls": _stage_sum(run["device_calls"]["gmm"], stages),
+           "stats_device_ms": _stage_sum(run["device_ms"]["stats"], stages),
+           "stats_calls": _stage_sum(run["device_calls"]["stats"], stages),
+           "transform_device_ms": _stage_sum(run["device_ms"]["transform"],
+                                             stages),
+           "transform_calls": _stage_sum(run["device_calls"]["transform"],
+                                         stages),
+           "peak_memory_gb": run["peak_memory_gb_6_7"],
+           "check": {"card_vs_cpu": agree, "tol": TEMPLATE_STATS_TOL,
+                     "card_stats_device_ms": sum(a.elapsed_time(b)
+                                                 for a, b in stats_ev),
+                     "cpu_stats_s": cpu_s, "seconds": check_s,
+                     "pdfs_aligned": {n: s[n].am.num_pdfs
+                                      for n in ("tri2", "tri3")}},
+           "tools": {**tools, "tol": TEMPLATE_TOOLS_TOL},
+           "launches": {"template_lda_sat": launches},
+           "seconds": sum(report["stage_s"][str(st)] for st in stages)
+           + time.perf_counter() - t0}
+    emit("template_lda_sat", **out)
+    bar = TEMPLATE_LDA_SAT_BAR
+    if any(launches.values()):
+        raise SystemExit(f"a hand kernel launched in template_lda_sat: "
+                         f"{launches}")
+    for name in ("tri2", "tri3"):
+        got, want = out[name], bar[name]
+        if abs(got["wer"] - want["wer"]) > TEMPLATE_WER_BAND or \
+                abs(got["word_errors"] - want["word_errors"]) > \
+                TEMPLATE_WORDS_BAND:
+            raise SystemExit(
+                f"template_lda_sat: {name} WER {got['wer']:.3f}% "
+                f"({got['word_errors']} errors) outside {TEMPLATE_WER_BAND} "
+                f"points and {TEMPLATE_WORDS_BAND} words of the JAX "
+                f"recipe's {want['wer']}%")
+    if tuple(tri2["final_mat"]) != bar["final_mat"]:
+        raise SystemExit(f"template_lda_sat: final.mat {tri2['final_mat']}, "
+                         f"the JAX recipe's {bar['final_mat']}")
+    if (tri3["train_speakers"], tri3["test_speakers"]) != \
+            (speakers["train"], speakers["test"]):
+        raise SystemExit(f"template_lda_sat: {tri3['train_speakers']} train "
+                         f"and {tri3['test_speakers']} test speaker "
+                         f"transforms for {speakers}")
+    if out["align_failures"] or out["decode_failures"] or \
+            any(n != TEMPLATE_UTTS[0] for n in out["aligned"]):
+        raise SystemExit(f"template_lda_sat: {out['align_failures']} "
+                         f"alignment failures, {out['decode_failures']} "
+                         f"decode failures, aligned {out['aligned']}")
+    if max(agree.values()) > TEMPLATE_STATS_TOL:
+        raise SystemExit(f"template_lda_sat: the card's statistics against "
+                         f"the CPU's: {agree}")
+    bad = {k: v for k, v in tools.items() if k in (
+        "est-lda", "est-mllt", "compose-transforms", "transform-feats",
+        "gmm-est-fmllr") and not v <= TEMPLATE_TOOLS_TOL}
+    if bad or not tools["fmllr_speakers"] or \
+            tools["transformed_utterances"] != TEMPLATE_UTTS[0]:
+        raise SystemExit(f"template_lda_sat: the tools against the "
+                         f"in-process matrices: {tools}")
+    return out
+
+
+def run_template_chain_e2e(root: str, epochs: int) -> dict:
+    """template_chain_e2e: `--stage 8 --chain-epochs epochs` over the
+    recipe's directory (the flat-start e2e TDNN-F trained on the card, the
+    test set decoded), its WER held within TEMPLATE_CHAIN_WER_BAND of the
+    JAX recipe's at the same epochs; then one step under torch.profiler."""
+    from kaldi_tpu_torch.decoder.graph import Lang
+    if epochs not in TEMPLATE_CHAIN_BAR:
+        raise SystemExit(f"template_chain_e2e: no JAX bar at {epochs} "
+                         f"epochs (TEMPLATE_CHAIN_BAR: "
+                         f"{sorted(TEMPLATE_CHAIN_BAR)})")
+    t0 = time.perf_counter()
+    report: dict = {}
+    reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    wer = template_run.main(_template_args(
+        root, "--stage", "8", "--chain-epochs", str(epochs)), report=report)
+    torch.cuda.synchronize()
+    launches = kernel_launch_counts()
+    chain = report["chain"]
+    train = chain["train"]
+    # one step more, under the profiler: the first 4 utterances, one epoch
+    feats = dict(itertools.islice(SequentialTableReader(
+        "matrix", f"ark:{root}/train/feats.ark"), 4))
+    lang = Lang(template_run.read_lexicon(f"{root}/lexicon.txt"),
+                sil_phone="SIL", sil_prob=0.5)
+    prof = profile_call(lambda: tchain.train_chain_e2e(
+        lang, feats, template_run.read_texts(f"{root}/train"),
+        opts=tchain.ChainTrainOptions(num_epochs=1, learning_rate=2e-3,
+                                      minibatch_size=4), device="cuda"),
+        ranges=(tchain.STEP_RANGE,))
+    step = prof["ranges"][tchain.STEP_RANGE]
+    step_launches = kernel_launch_counts()
+    bar = TEMPLATE_CHAIN_BAR[epochs]
+    out = {"utterances": list(TEMPLATE_UTTS), "epochs": epochs,
+           "wer": wer, "word_errors": chain["word_errors"],
+           "ref_words": chain["ref_words"],
+           "acoustic_scale": chain["acoustic_scale"], "bar": bar,
+           "hclg_states": chain["hclg_states"],
+           "hclg_arcs": chain["hclg_arcs"],
+           "epoch_objf": train["epoch_objf"],
+           "steps": len(train["step_objf"]),
+           "step_ms_median": float(np.median(train["step_ms"])),
+           "step_ms_p90": float(np.percentile(train["step_ms"], 90)),
+           "train_s": train["train_s"],
+           "launches_a_step": step["kernel_launches"],
+           "device_ms_a_step": step["device_ms"],
+           "host_ms_a_step": step["host_ms"],
+           "peak_memory_gb": train["peak_memory_gb"],
+           "stage_s": report["stage_s"],
+           "launches": {"template_chain_e2e": launches,
+                        "profile_template_chain_step": step_launches},
+           "seconds": time.perf_counter() - t0}
+    emit("template_chain_e2e", **out)
+    if any(launches.values()) or any(step_launches.values()):
+        raise SystemExit(f"a hand kernel launched in template_chain_e2e: "
+                         f"{launches} {step_launches}")
+    if abs(wer - bar["wer"]) > TEMPLATE_CHAIN_WER_BAND:
+        raise SystemExit(f"template_chain_e2e: WER {wer:.3f}% outside "
+                         f"{TEMPLATE_CHAIN_WER_BAND} points of the JAX "
+                         f"recipe's {bar['wer']}% at {epochs} epochs")
+    if not train["epoch_objf"][-1] > train["epoch_objf"][0]:
+        raise SystemExit("template_chain_e2e: the last epoch's objective "
+                         "is not above the first's")
+    if not step["kernel_launches"] or not step["device_ms"]:
+        raise SystemExit("template_chain_e2e: the profiled step launched "
+                         "nothing on the card")
+    return out
+
+
+def template_phases(epochs: int = TEMPLATE_CHAIN_EPOCHS) -> dict:
+    """The generic corpus recipe's three phases over one directory:
+    template_gmm (stages 0-5) and template_lda_sat (stages 6-7) from one
+    call at the recipe's defaults, then template_chain_e2e (stage 8)."""
+    with tempfile.TemporaryDirectory() as root:
+        run = run_template_recipe(root)
+        run["root"] = root
+        return {"template_gmm": run_template_gmm(run),
+                "template_lda_sat": run_template_lda_sat(run),
+                "template_chain_e2e": run_template_chain_e2e(root, epochs)}
 
 
 def tdnn_lstm_graph(feat_dim: int, tdnn_dim: int, cell_dim: int,
@@ -5317,8 +5743,9 @@ def main() -> int:
     # 5d. the --scale training recipe, decoded through the main path -------
     scale = train_scale_phases(SMOKE_SCALE_EPOCHS)
 
-    # 5e. the generic corpus recipe, stages 0-5, through the tools ---------
-    template = run_template_gmm()
+    # 5e. the generic corpus recipe: stages 0-7 at its defaults, then
+    # stage 8, over one directory ----------------------------------------
+    template = template_phases()
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
@@ -5631,8 +6058,8 @@ def main() -> int:
          train={k: v for k, v in train.items() if k != "launches"},
          chain_cli={k: v for k, v in chain.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
-         template_gmm={k: v for k, v in template.items()
-                       if k != "launches"},
+         **{name: {k: v for k, v in phase.items() if k != "launches"}
+            for name, phase in template.items()},
          **{k: v for k, v in nnet3.items() if k != "launches"},
          **{k: v for k, v in online2.items()
             if k not in ("launches", "xconfig")},
@@ -5672,8 +6099,9 @@ def main() -> int:
                                     online2["launches"].values())
         k["launches_xconfig"] = sum(counts[k["name"]] for counts in
                                     online2["xconfig"]["launches"].values())
-        k["launches_template_gmm"] = sum(counts[k["name"]] for counts in
-                                         template["launches"].values())
+        for phase, res in template.items():
+            k[f"launches_{phase}"] = sum(counts[k["name"]] for counts in
+                                         res["launches"].values())
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -19,8 +19,10 @@ _FEAT = "kaldi_tpu_torch.cli.feat_tools"
 _GMM = "kaldi_tpu_torch.cli.gmm_tools"
 _MISC = "kaldi_tpu_torch.cli.misc_tools"
 _TREE = "kaldi_tpu_torch.cli.tree_tools"
+_XFORM = "kaldi_tpu_torch.cli.transform_tools"
 
 TOOLS: Dict[str, Tuple[str, str]] = {
+    "acc-lda": (_XFORM, "acc_lda"),
     "acc-tree-stats": (_TREE, "acc_tree_stats"),
     "add-deltas": (_FEAT, "add_deltas"),
     "ali-to-pdf": (_ALI, "ali_to_pdf"),
@@ -34,22 +36,28 @@ TOOLS: Dict[str, Tuple[str, str]] = {
     "chain-make-den-fst": (_CHAIN, "chain_make_den_fst"),
     "cluster-phones": (_TREE, "cluster_phones_cli"),
     "compile-train-graphs": (_GMM, "compile_train_graphs"),
+    "compose-transforms": (_XFORM, "compose_transforms"),
     "compute-cmvn-stats": (_FEAT, "compute_cmvn_stats"),
     "compute-mfcc-feats": (_FEAT, "compute_mfcc_feats"),
     "compute-wer": (_ALI, "compute_wer"),
     "convert-ali": (_TREE, "convert_ali"),
     "copy-feats": (_FEAT, "copy_feats"),
     "copy-int-vector": (_ALI, "copy_int_vector"),
+    "est-lda": (_XFORM, "est_lda"),
+    "est-mllt": (_XFORM, "est_mllt"),
     "extract-segments": (_FEAT, "extract_segments"),
     "feat-to-dim": (_FEAT, "feat_to_dim"),
     "feat-to-len": (_FEAT, "feat_to_len"),
+    "gmm-acc-mllt": (_XFORM, "gmm_acc_mllt"),
     "gmm-acc-stats-ali": (_GMM, "gmm_acc_stats_ali"),
     "gmm-align-compiled": (_GMM, "gmm_align_compiled"),
     "gmm-est": (_GMM, "gmm_est"),
+    "gmm-est-fmllr": (_XFORM, "gmm_est_fmllr"),
     "gmm-info": (_GMM, "gmm_info"),
     "gmm-init-mono": (_GMM, "gmm_init_mono"),
     "gmm-latgen-faster": (_GMM, "gmm_latgen_faster"),
     "gmm-sum-accs": (_GMM, "gmm_sum_accs"),
+    "gmm-transform-means": (_XFORM, "gmm_transform_means"),
     "lattice-1best": (_LAT, "lattice_1best"),
     "lattice-add-penalty": (_LAT, "lattice_add_penalty"),
     "lattice-best-path": (_LAT, "lattice_best_path_cli"),
@@ -99,6 +107,7 @@ TOOLS: Dict[str, Tuple[str, str]] = {
     "prepare-lang": (_MISC, "prepare_lang"),
     "splice-feats": (_FEAT, "splice_feats"),
     "sum-tree-stats": (_TREE, "sum_tree_stats"),
+    "transform-feats": (_XFORM, "transform_feats"),
     "validate-data-dir": (_MISC, "validate_data_dir_cli"),
     "validate-lang": (_MISC, "validate_lang_cli"),
     "wav-to-duration": (_FEAT, "wav_to_duration"),

@@ -1,8 +1,9 @@
 """Chain (LF-MMI) training over the monophone chain topology and over a
 context-dependent (triphone) tree (port of `ChainTrainOptions`,
 `make_chain_system`, `mono_ali_to_chain_ali`, `train_chain_topo`,
-`segment_alignment_words`, `build_ctx_chain_system`, `train_chain_ctx`
-and `_fit_chain` of `kaldi_tpu/recipes/chain.py`).
+`segment_alignment_words`, `build_ctx_chain_system`, `train_chain_ctx`,
+`_fit_chain`, the flat-start `train_chain_e2e` and `nnet_log_likes` of
+`kaldi_tpu/recipes/chain.py`).
 
 Parity: steps/chain/train.py (den graph from the alignments' phone LM,
 time-tolerant numerators from the alignments, SGD on the chain
@@ -18,8 +19,7 @@ every TDNN-F `linear` factor, in the reference's layout, every
 on the card too one seed gives one model.  With per-utterance i-vectors
 each chunk carries its utterance's i-vector as the model's second input.
 
-Not carried over yet: the frame-rate `train_chain`, `nnet_log_likes` and
-the flat-start `train_chain_e2e`.
+Not carried over yet: the frame-rate `train_chain`.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from kaldi_tpu_torch.chain.supervision import (
     alignment_to_numerator_graph, alignment_to_phone_segments,
     alignment_to_tolerance_numerator, denominator_graph_from_phone_lm,
     estimate_phone_lm, estimate_window_lm, make_denominator_graph,
-    make_tolerance_supervision)
+    make_tolerance_supervision, transcript_to_e2e_numerator)
 from kaldi_tpu_torch.device import DeviceLike, full_f32, resolve_device
 from kaldi_tpu_torch.hmm.topology import HmmTopology
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
@@ -299,12 +299,91 @@ def train_chain_topo(sys_mono, feats: Dict[str, np.ndarray],
     return model, variables, den_graph, chain_tm, chain_tree
 
 
+class _ChainFit:
+    """The state of a chain SGD run (the train_one_iteration body of
+    steps/chain/train.py, single-process): the model in training mode on
+    the device, `ChainOptimizer` over `lr_schedule`'s warm-up and fall,
+    and what the run records in `stats`.  `step` takes one minibatch;
+    `end_epoch` closes an epoch; `finish` -> (model, variables)."""
+
+    def __init__(self, cfg, den_graph: DenominatorGraph,
+                 opts: ChainTrainOptions, n_items: int,
+                 variables: Optional[dict], device: DeviceLike,
+                 stats: Optional[dict]):
+        self.dev = resolve_device(device)
+        if variables is None:
+            variables = chain_tdnnf_init(
+                cfg, torch.Generator().manual_seed(opts.seed))
+        self.cfg, self.den_graph, self.opts = cfg, den_graph, opts
+        self.model = chain_tdnnf_from_flax(cfg, variables, torch.float32,
+                                           self.dev)
+        self.model.train()
+        self.model.requires_grad_(True)
+        self.params = list(self.model.parameters())
+        steps_per_epoch = max(1, n_items // opts.minibatch_size)
+        total_steps = steps_per_epoch * opts.num_epochs
+        warmup = min(max(total_steps // 20, 10), total_steps // 2 or 1)
+        self.opt = ChainOptimizer(self.params, lr_schedule(
+            opts.learning_rate, opts.final_learning_rate, warmup,
+            total_steps), opts.max_param_change)
+        self.stats = {} if stats is None else stats
+        self.stats.update(step_objf=[], epoch_objf=[], step_ms=[])
+        self.events = []
+        self.objfs: List[float] = []
+        self.it = 0
+
+    def step(self, feats_b: np.ndarray, num_graphs,
+             ivecs_b: Optional[np.ndarray] = None) -> None:
+        dev, model = self.dev, self.model
+        x = torch.from_numpy(feats_b).to(dev)
+        iv = None if ivecs_b is None else torch.from_numpy(ivecs_b).to(dev)
+        # the numerators' layout, copied to the card before the forward
+        # pass is queued
+        num_arcs = InArcs(*batch_pack(num_graphs), self.cfg.num_pdfs, dev)
+        if dev.type == "cuda":
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        with full_f32():
+            with torch.profiler.record_function(STEP_RANGE):
+                chain_out, xent_out = model(x, iv)
+                objf, _aux = chain_loss(self.opts.chain, self.den_graph,
+                                        num_arcs, chain_out, xent_out)
+                grads = torch.autograd.grad(-objf, self.params,
+                                            allow_unused=True)
+                self.opt.step(grads)
+            if dev.type == "cuda":
+                ev[1].record()
+                self.events.append(ev)
+            self.objfs.append(float(objf.detach()))
+            self.it += 1
+            if self.it % self.opts.orthonormal_interval == 0:
+                apply_orthonormal(model)
+
+    def end_epoch(self, epoch: int) -> None:
+        self.stats["step_objf"].extend(self.objfs)
+        self.stats["epoch_objf"].append(float(np.mean(self.objfs)))
+        self.objfs = []
+        _log.info("chain epoch %d: objf/frame %.4f", epoch,
+                  self.stats["epoch_objf"][-1])
+
+    def finish(self):
+        if self.events:
+            torch.cuda.synchronize(self.dev)
+            self.stats["step_ms"] = [a.elapsed_time(b)
+                                     for a, b in self.events]
+            self.stats["peak_memory_gb"] = \
+                torch.cuda.max_memory_allocated(self.dev) / 1e9
+        self.model.eval()
+        self.model.requires_grad_(False)
+        return self.model, chain_tdnnf_to_flax(self.model)
+
+
 def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
                opts: ChainTrainOptions, cw: int, dim: int,
                variables: Optional[dict] = None, device: DeviceLike = None,
                stats: Optional[dict] = None, use_ivectors: bool = False):
-    """The chain SGD loop (the train_one_iteration body of
-    steps/chain/train.py, single-process) -> (model, variables).
+    """The chain SGD loop over chunks -> (model, variables).
     use_ivectors: each chunk's third item, its utterance's i-vector, is
     the model's second input.
 
@@ -315,73 +394,21 @@ def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
     step's milliseconds on the card by CUDA events, from the forward
     pass to the end of the update ("step_ms"), and the card's peak
     allocation since its last reset ("peak_memory_gb")."""
-    dev = resolve_device(device)
-    if variables is None:
-        variables = chain_tdnnf_init(
-            cfg, torch.Generator().manual_seed(opts.seed))
-    model = chain_tdnnf_from_flax(cfg, variables, torch.float32, dev)
-    model.train()
-    model.requires_grad_(True)
-    params = list(model.parameters())
-    steps_per_epoch = max(1, len(chunks) // opts.minibatch_size)
-    total_steps = steps_per_epoch * opts.num_epochs
-    warmup = min(max(total_steps // 20, 10), total_steps // 2 or 1)
-    opt = ChainOptimizer(params, lr_schedule(
-        opts.learning_rate, opts.final_learning_rate, warmup, total_steps),
-        opts.max_param_change)
-    if stats is None:
-        stats = {}
-    stats.update(step_objf=[], epoch_objf=[], step_ms=[])
-    events = []
-
+    fit = _ChainFit(cfg, den_graph, opts, len(chunks), variables, device,
+                    stats)
     rng_np = np.random.default_rng(opts.seed)
     order = np.arange(len(chunks))
-    it = 0
-    with full_f32():
-        for epoch in range(opts.num_epochs):
-            rng_np.shuffle(order)
-            objfs = []
-            for i in range(0, len(order) - opts.minibatch_size + 1,
-                           opts.minibatch_size):
-                idx = order[i:i + opts.minibatch_size]
-                feats_b = torch.from_numpy(
-                    np.stack([chunks[j][0] for j in idx])).to(dev)
-                ivecs_b = (torch.from_numpy(
-                    np.stack([chunks[j][2] for j in idx])).to(dev)
-                    if use_ivectors else None)
-                # the numerators' layout, copied to the card before the
-                # forward pass is queued
-                num_arcs = InArcs(*batch_pack([num_graphs[j] for j in idx]),
-                                  cfg.num_pdfs, dev)
-                if dev.type == "cuda":
-                    ev = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                    ev[0].record()
-                with torch.profiler.record_function(STEP_RANGE):
-                    chain_out, xent_out = model(feats_b, ivecs_b)
-                    objf, _aux = chain_loss(opts.chain, den_graph,
-                                            num_arcs, chain_out, xent_out)
-                    grads = torch.autograd.grad(-objf, params,
-                                                allow_unused=True)
-                    opt.step(grads)
-                if dev.type == "cuda":
-                    ev[1].record()
-                    events.append(ev)
-                objfs.append(float(objf.detach()))
-                it += 1
-                if it % opts.orthonormal_interval == 0:
-                    apply_orthonormal(model)
-            stats["step_objf"].extend(objfs)
-            stats["epoch_objf"].append(float(np.mean(objfs)))
-            _log.info("chain epoch %d: objf/frame %.4f", epoch,
-                      stats["epoch_objf"][-1])
-    if events:
-        torch.cuda.synchronize(dev)
-        stats["step_ms"] = [a.elapsed_time(b) for a, b in events]
-        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    model.eval()
-    model.requires_grad_(False)
-    return model, chain_tdnnf_to_flax(model)
+    for epoch in range(opts.num_epochs):
+        rng_np.shuffle(order)
+        for i in range(0, len(order) - opts.minibatch_size + 1,
+                       opts.minibatch_size):
+            idx = order[i:i + opts.minibatch_size]
+            fit.step(np.stack([chunks[j][0] for j in idx]),
+                     [num_graphs[j] for j in idx],
+                     np.stack([chunks[j][2] for j in idx])
+                     if use_ivectors else None)
+        fit.end_epoch(epoch)
+    return fit.finish()
 
 
 # ----------------------------------------------------------------------
@@ -631,4 +658,129 @@ def train_chain_ctx(sys_mono, feats: Dict[str, np.ndarray],
                                   opts, cw, dim, device=device, stats=stats,
                                   use_ivectors=ivectors is not None)
     stats["chain_s"] = time.perf_counter() - t0
+    return model, variables, den_graph, chain_tm, chain_tree
+
+
+def nnet_log_likes(model: ChainTdnnf, variables: dict,
+                   feats: Dict[str, np.ndarray],
+                   ivectors: Optional[Dict[str, np.ndarray]] = None,
+                   device: DeviceLike = None) -> Dict[str, np.ndarray]:
+    """Batched AM scores for decoding (pseudo-loglikes; chain models need
+    no prior division): the utterances padded into one batch through the
+    eval-mode model of `variables`, in float32 with TF32 off, on `device`
+    (by default the device of `model`'s weights) -> each utterance's
+    (ceil(T / sub), num_pdfs) scores."""
+    dev = (next(model.parameters()).device if device is None
+           else resolve_device(device))
+    eval_model = chain_tdnnf_from_flax(model.cfg, variables, torch.float32,
+                                       dev)
+    utts = list(feats)
+    lens = [feats[u].shape[0] for u in utts]
+    batch = np.zeros((len(utts), max(lens), feats[utts[0]].shape[1]),
+                     np.float32)
+    for i, u in enumerate(utts):
+        batch[i, :lens[i]] = feats[u]
+    iv_b = (torch.from_numpy(np.stack([np.asarray(ivectors[u], np.float32)
+                                       for u in utts])).to(dev)
+            if ivectors is not None else None)
+    with torch.inference_mode(), full_f32():
+        out = eval_model.chain(torch.from_numpy(batch).to(dev),
+                               iv_b).cpu().numpy()
+    sub = model.cfg.frame_subsampling_factor
+    return {u: out[i, : (lens[i] + sub - 1) // sub]
+            for i, u in enumerate(utts)}
+
+
+def e2e_chain_system(lang) -> Tuple[TransitionModel, object]:
+    """The flat-start system over the lang's phones: the chain topology
+    and a monophone tree with 2 pdfs a phone -> (chain_tm, chain_tree)."""
+    phone_ids = sorted(lang.phones.values())
+    chain_tree = monophone_context_dependency(
+        phone_ids, {p: 2 for p in phone_ids})
+    return (TransitionModel(HmmTopology.chain_topology(phone_ids),
+                            chain_tree), chain_tree)
+
+
+def e2e_chain_egs(lang, feats: Dict[str, np.ndarray],
+                  transcripts: Dict[str, List[str]], chain_tm, chain_tree,
+                  sub: int):
+    """The denominator and examples of `train_chain_e2e` -> (den_graph,
+    buckets): the den graph from the silence-padded transcripts' phone
+    LM, and whole utterances bucketed by input length rounded down to a
+    multiple of sub, {T_in: [(feats[:T_in], e2e numerator)]}, skipping
+    those too short to traverse their transcript."""
+    sil = lang.phones[lang.sil_phone]
+
+    def phones_of(words: List[str]) -> List[int]:
+        seq: List[int] = []
+        for w in words:
+            seq.extend(lang.phones[p] for p in lang.lexicon[w][0])
+        return seq
+
+    utts = [u for u in feats if u in transcripts and transcripts[u]]
+    seqs = {u: phones_of(list(transcripts[u])) for u in utts}
+    den_graph = make_denominator_graph(
+        [[sil] + s + [sil] for s in seqs.values()], chain_tm, chain_tree)
+    buckets: Dict[int, list] = {}
+    for u in utts:
+        f = np.asarray(feats[u])
+        T_in = (f.shape[0] // sub) * sub
+        if T_in == 0 or (T_in // sub) < len(seqs[u]):
+            continue        # too short to traverse the transcript
+        g = transcript_to_e2e_numerator(seqs[u], chain_tm, optional_sil=sil)
+        buckets.setdefault(T_in, []).append((f[:T_in], g))
+    if not buckets:
+        raise ValueError("train_chain_e2e: no usable utterances")
+    return den_graph, buckets
+
+
+def train_chain_e2e(lang, feats: Dict[str, np.ndarray],
+                    transcripts: Dict[str, List[str]],
+                    cfg: Optional[ChainTdnnfConfig] = None,
+                    opts: Optional[ChainTrainOptions] = None,
+                    variables: Optional[dict] = None,
+                    device: DeviceLike = None,
+                    stats: Optional[dict] = None):
+    """FLAT-START ('end2end') LF-MMI: no bootstrap GMM, no alignments
+    (egs/wsj/s5 local/e2e recipes; chain-supervision.cc
+    TrainingGraphToSupervisionE2e).  The numerator of each utterance is
+    its whole transcript's graph with free phone durations and optional
+    silences at every boundary (`transcript_to_e2e_numerator`); the
+    denominator's phone LM comes from the silence-padded transcripts.
+    Each epoch takes each length bucket in turn, shuffled by one
+    `default_rng(opts.seed)`, in minibatches of min(minibatch_size, the
+    bucket's size).  variables, device and stats as `_fit_chain` takes
+    them; stats also receives the utterances and buckets.  Returns
+    (model, variables, den_graph, chain_tm, chain_tree)."""
+    if opts is None:
+        opts = ChainTrainOptions()
+    dev = resolve_device(device)
+    chain_tm, chain_tree = e2e_chain_system(lang)
+    dim = next(iter(feats.values())).shape[1]
+    if cfg is None:
+        cfg = ChainTdnnfConfig(feat_dim=dim, num_pdfs=chain_tm.num_pdfs,
+                               hidden_dim=128, bottleneck_dim=32,
+                               prefinal_dim=64, num_layers=5,
+                               subsample_layer=3,
+                               frame_subsampling_factor=3)
+    den_graph, buckets = e2e_chain_egs(lang, feats, transcripts, chain_tm,
+                                       chain_tree,
+                                       cfg.frame_subsampling_factor)
+    n_items = sum(len(v) for v in buckets.values())
+    _log.info("chain-e2e training: %d utterances in %d length buckets",
+              n_items, len(buckets))
+    fit = _ChainFit(cfg, den_graph, opts, n_items, variables, dev, stats)
+    fit.stats.update(utterances=n_items, buckets=len(buckets))
+    rng_np = np.random.default_rng(opts.seed)
+    for epoch in range(opts.num_epochs):
+        for items in buckets.values():
+            order = np.arange(len(items))
+            rng_np.shuffle(order)
+            mb = min(opts.minibatch_size, len(items))
+            for i in range(0, len(order) - mb + 1, mb):
+                idx = order[i:i + mb]
+                fit.step(np.stack([items[j][0] for j in idx]),
+                         [items[j][1] for j in idx])
+        fit.end_epoch(epoch)
+    model, variables = fit.finish()
     return model, variables, den_graph, chain_tm, chain_tree

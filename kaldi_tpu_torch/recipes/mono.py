@@ -1,6 +1,6 @@
 """Monophone GMM training (port of `TrainMonoOptions`, `MonoSystem`,
-`init_mono`, `train_mono`, `_align_all` and `_estimate` of
-`kaldi_tpu/recipes/mono.py`).
+`init_mono`, `train_mono`, `_align_all`, `_estimate`, `decode` and
+`make_hclg` of `kaldi_tpu/recipes/mono.py`).
 
 Parity: steps/train_mono.sh (flat start, equal alignment, EM with
 realignment and Gaussian mixing-up, train_mono.sh:73-120 conventions).
@@ -9,10 +9,8 @@ The GMM statistics stay on the host in numpy; the loglikes of every
 (`AmDiagGmm.log_likes_batch`), and the host's native beam Viterbi
 (`decoder/native_viterbi.py`) aligns each utterance against its training
 graph, falling back to the Python `FasterDecoder` where the native
-library cannot be built.
-
-Not carried over yet: `decode` and `make_hclg` (monophone decoding over
-an HCLG).
+library cannot be built.  `decode` searches an HCLG the same way, one
+utterance at a time, over loglikes scored on the card in one batch.
 """
 
 from __future__ import annotations
@@ -23,7 +21,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from kaldi_tpu_torch.decoder.graph import Lang, TrainingGraphCompiler
+from kaldi_tpu_torch.decoder.graph import (Lang, TrainingGraphCompiler,
+                                           make_decoding_graph)
 from kaldi_tpu_torch.decoder.native_viterbi import NativeViterbi, get_lib
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions,
@@ -143,6 +142,19 @@ def train_mono(lang: Lang, feats: Dict[str, np.ndarray],
     return sys_
 
 
+def _batch_loglikes(sys_: MonoSystem, feats: Dict[str, np.ndarray]
+                    ) -> np.ndarray:
+    """The utterances padded into one (B, Tmax, dim) batch, scored on the
+    GMMs' device -> (B, Tmax, num_pdfs)."""
+    utts = list(feats.keys())
+    lens = [feats[u].shape[0] for u in utts]
+    batch = np.zeros((len(utts), max(lens), feats[utts[0]].shape[1]),
+                     np.float32)
+    for i, u in enumerate(utts):
+        batch[i, :lens[i]] = feats[u]
+    return sys_.am.log_likes_batch(batch)
+
+
 def _align_all(sys_: MonoSystem, graphs: Dict[str, VectorFst],
                feats: Dict[str, np.ndarray], beam: float,
                acoustic_scale: float, transition_scale: float,
@@ -154,12 +166,7 @@ def _align_all(sys_: MonoSystem, graphs: Dict[str, VectorFst],
     out: Dict[str, List[int]] = {}
     utts = list(feats.keys())
     lens = [feats[u].shape[0] for u in utts]
-    dim = feats[utts[0]].shape[1]
-    Tmax = max(lens)
-    batch = np.zeros((len(utts), Tmax, dim), np.float32)
-    for i, u in enumerate(utts):
-        batch[i, :lens[i]] = feats[u]
-    loglikes = sys_.am.log_likes_batch(batch)  # (B, Tmax, P)
+    loglikes = _batch_loglikes(sys_, feats)  # (B, Tmax, P)
     use_native = get_lib() is not None
     sys_.aligner = NATIVE if use_native else PYTHON
     id2pdf = sys_.tm.id2pdf_id
@@ -202,3 +209,40 @@ def _estimate(sys_: MonoSystem, feats: Dict[str, np.ndarray],
         _log.info("avg loglike/frame %.4f over %d frames; %d gaussians",
                   sys_.avg_loglikes[-1], int(acc.total_frames),
                   sys_.am.num_gauss())
+
+
+def decode(sys_: MonoSystem, hclg: VectorFst, feats: Dict[str, np.ndarray],
+           acoustic_scale: float = 0.1, beam: float = 16.0
+           ) -> Dict[str, List[str]]:
+    """gmm-latgen-faster, best path only: every utterance's loglikes in
+    one batch on the card, then a host search of the HCLG an utterance
+    (native where it builds, else the Python `FasterDecoder`).  An
+    utterance with no surviving path decodes to no words."""
+    out: Dict[str, List[str]] = {}
+    utts = list(feats.keys())
+    if not utts:
+        return out
+    lens = [feats[u].shape[0] for u in utts]
+    loglikes = _batch_loglikes(sys_, feats)
+    nat = NativeViterbi(hclg) if get_lib() is not None else None
+    dec = FasterDecoder(hclg, FasterDecoderOptions(beam=beam))
+    for i, utt in enumerate(utts):
+        if nat is not None:
+            res = nat.decode(loglikes[i, :lens[i]], sys_.tm.id2pdf_id,
+                             acoustic_scale, beam=beam)
+        else:
+            res = dec.decode(loglikes[i, :lens[i]], sys_.tm.id2pdf_id,
+                             acoustic_scale)
+        if res is None:
+            _log.warning("decode failed for %s", utt)
+            out[utt] = []
+            continue
+        out[utt] = [sys_.lang.word_names[w] for w in res[1]]
+    return out
+
+
+def make_hclg(sys_: MonoSystem, g_fst: VectorFst,
+              transition_scale: float = 1.0,
+              self_loop_scale: float = 0.1) -> VectorFst:
+    return make_decoding_graph(sys_.lang, g_fst, sys_.tree, sys_.tm,
+                               transition_scale, self_loop_scale)

@@ -70,7 +70,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "decoder.lang_dir", "util.validation", "cli.misc_tools",
                  "cli.feat_tools", "cli.gmm_tools", "cli.tree_tools",
                  "fstext.context", "recipes.deltas", "lm.arpa",
-                 "recipes.template_run", "recipes.template_corpus"):
+                 "recipes.template_run", "recipes.template_corpus",
+                 "transform", "transform.lda", "transform.mllt",
+                 "transform.fmllr", "transform.gauss_rows",
+                 "recipes.lda_mllt", "cli.transform_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

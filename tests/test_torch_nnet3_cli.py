@@ -184,21 +184,24 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
         rc, err = cli("nnet3-compute", os.path.join(GOLDEN, "tdnn.raw"),
                       *io_args)
         assert rc != 0 and "CUDA" in err
-    assert sorted(TOOLS) == ["acc-tree-stats", "add-deltas", "ali-to-pdf",
-                             "ali-to-phones", "ali-to-post",
+    assert sorted(TOOLS) == ["acc-lda", "acc-tree-stats", "add-deltas",
+                             "ali-to-pdf", "ali-to-phones", "ali-to-post",
                              "align-equal-compiled", "apply-cmvn",
                              "build-tree", "chain-est-phone-lm",
                              "chain-get-supervision", "chain-make-den-fst",
                              "cluster-phones", "compile-train-graphs",
-                             "compute-cmvn-stats", "compute-mfcc-feats",
-                             "compute-wer", "convert-ali", "copy-feats",
-                             "copy-int-vector", "extract-segments",
-                             "feat-to-dim", "feat-to-len", "gmm-acc-stats-ali",
-                             "gmm-align-compiled", "gmm-est", "gmm-info",
+                             "compose-transforms", "compute-cmvn-stats",
+                             "compute-mfcc-feats", "compute-wer",
+                             "convert-ali", "copy-feats", "copy-int-vector",
+                             "est-lda", "est-mllt", "extract-segments",
+                             "feat-to-dim", "feat-to-len", "gmm-acc-mllt",
+                             "gmm-acc-stats-ali", "gmm-align-compiled",
+                             "gmm-est", "gmm-est-fmllr", "gmm-info",
                              "gmm-init-mono", "gmm-latgen-faster",
-                             "gmm-sum-accs", "lattice-1best",
-                             "lattice-add-penalty", "lattice-best-path",
-                             "lattice-copy", "lattice-determinize",
+                             "gmm-sum-accs", "gmm-transform-means",
+                             "lattice-1best", "lattice-add-penalty",
+                             "lattice-best-path", "lattice-copy",
+                             "lattice-determinize",
                              "lattice-determinize-pruned", "lattice-prune",
                              "lattice-scale", "nnet3-average",
                              "nnet3-chain-combine", "nnet3-chain-combine2",
@@ -221,8 +224,8 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "online2-wav-nnet3-latgen-faster",
                              "post-to-pdf-post", "prepare-lang",
                              "splice-feats", "sum-tree-stats",
-                             "validate-data-dir", "validate-lang",
-                             "wav-to-duration"]
+                             "transform-feats", "validate-data-dir",
+                             "validate-lang", "wav-to-duration"]
 
 
 RSPECIFIERS = ["ark:foo.ark", "scp:foo.scp", "ark,s,cs:-", "ark,o,p:x.ark",
