@@ -77,6 +77,16 @@ train_lex's system without its chain training (the corpus, MFCC, the
 mono GMM, the alignment, the chain transition model and tree):
 chain_cli, chain_cli_check, chain_cli_e2e and nnet3_train_cli.
 
+With --disc it runs chip_smoke.py's disc_smbr alone, after
+online2_graph, xconfig_graph and xconfig_latgen (the untuned WER), and
+copies the archives tools/disc_jax_bar.py reads (the training
+utterances' features, their alignments and lattices, the test features,
+final.tm, HCLG.fst) to _chip/disc_smbr/.
+
+With --chain-frame it runs chip_smoke.py's train_chain_frame and
+ng_precondition alone (chain_frame_phases), after train_lex's system
+without its chain training (as --chain-cli).
+
 With --template it runs chip_smoke.py's generic corpus recipe phases
 alone (template_phases): egs/template/run.py through the port's
 recipes/template_run.py and tools on the fabricated corpus, one call at
@@ -94,7 +104,8 @@ of each reported, the two held equal.
 
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
-     --chain-cli | --template | --profile-check]
+     --chain-cli | --disc | --chain-frame | --template |
+     --profile-check]
      (needs CUDA)
 """
 
@@ -102,6 +113,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -243,6 +255,12 @@ def main() -> int:
     mode.add_argument("--chain-cli", action="store_true",
                       help="run chip_smoke.py's chain tool phases alone, "
                       "after train_lex's system without its training")
+    mode.add_argument("--disc", action="store_true",
+                      help="run chip_smoke.py's disc_smbr alone and export "
+                      "tools/disc_jax_bar.py's inputs")
+    mode.add_argument("--chain-frame", action="store_true",
+                      help="run chip_smoke.py's train_chain_frame and "
+                      "ng_precondition alone")
     mode.add_argument("--latgen", action="store_true",
                       help="run xconfig_graph and xconfig_latgen over the "
                       "128 test utterances")
@@ -263,7 +281,8 @@ def main() -> int:
           flush=True)
     if args.online or args.legacy or args.train or args.train_scale \
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
-            or args.chain_cli or args.template or args.profile_check:
+            or args.chain_cli or args.template or args.profile_check \
+            or args.disc or args.chain_frame:
         if args.template:
             cs.emit("template_summary", **{
                 name: {k: v for k, v in phase.items() if k != "launches"}
@@ -283,6 +302,19 @@ def main() -> int:
         elif args.latgen:
             cs.emit("latgen_summary", **latgen())
             done = "latgen_done"
+        elif args.disc:
+            with tempfile.TemporaryDirectory() as tmp:
+                sysd = cs.run_online2_graph(tmp)
+                x = cs.run_xconfig_graph(sysd)
+                lat = cs.run_xconfig_latgen(x, sysd)
+                cs.run_disc_smbr(x, sysd, lat["res"]["wer"],
+                                 export=os.path.join(cs.REPO, "_chip",
+                                                     "disc_smbr"))
+            done = "disc_done"
+        elif args.chain_frame:
+            cs.emit("chain_frame_summary",
+                    **cs.chain_frame_phases(cs.chain_cli_system()))
+            done = "chain_frame_done"
         elif args.online2:
             lex = cs.build_lex_path()
             words16 = cs.lex_int16_words(lex, *cs.legacy_am(lex))

@@ -175,7 +175,15 @@ Phases, one JSON line each (any failure exits nonzero):
      base tool's words; -batch's interior loglikes within 1e-4),
      xconfig_zoo (a TDNN-LSTM, a GRU, attention, a CNN front end and an
      x-vector network at their recipes' widths, seeded random weights,
-     32 x 500 frames on the card against float64 on the CPU); then the
+     32 x 500 frames on the card against float64 on the CPU), disc_smbr
+     (sMBR fine-tuning of the same checkpoint through the tools over 32
+     training utterances: compile-train-graphs, nnet3-align-compiled at
+     the output rate, nnet3-latgen-faster's denominator lattices, the
+     discriminative egs tools, compute-objf before and after,
+     nnet3-discriminative-train in a process of its own, the tuned WER
+     within 0.5 points of tools/disc_jax_bar.py's and of the untuned
+     one's, one step's gradient on the card against the CPU's float64,
+     one profiled step); then the
      legacy training recipe:
      train_lex (recipes/train_bench.py, 6 of its 8 epochs (all 8:
      chip_main_path.py --train): stage seconds, the
@@ -199,7 +207,14 @@ Phases, one JSON line each (any failure exits nonzero):
      utterances, compute-prob on the card equal to the CPU's) and
      nnet3_train_cli (ali-to-pdf, ali-to-post, nnet3-get-egs, -shuffle,
      -merge, nnet3-train at 1536/160, nnet3-compute-prob above the
-     uniform -log P, nnet3-average); then the --scale
+     uniform -log P, nnet3-average), train_chain_frame (the frame-rate
+     train_chain over train_lex's mono system, 32 utterances, 17 x 1536,
+     dropout 0.1: the objective rising, the keep rate within 3 sigma of
+     0.9, the first step's gradient against the CPU's float64 with the
+     same masks, step ms) and ng_precondition (online_natural_gradient,
+     rank 32, over 10 of its gradients on the card in float32 against
+     the CPU in float64; spec_augment's draws on a (8, 300, 40) batch);
+     then the --scale
      training recipe: train_scale (recipes/train_scale.py at full width,
      the i-vector extractor, the triphone tree, the window-LM
      denominator's sizes, 8 of the recipe's 16 epochs of the TDNN-F with
@@ -288,7 +303,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.chain.graphs import batch_pack, den_graph_from_fst_file
-from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions,
+from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions, InArcs,
                                              chain_loss, den_arcs)
 from kaldi_tpu_torch.chain.supervision import alignment_to_phone_segments
 from kaldi_tpu_torch.cli import get_tool
@@ -3623,6 +3638,269 @@ def chain_cli_phases(sysd: dict, dev: str = "cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# train_chain_frame and ng_precondition: the frame-rate chain trainer at
+# the legacy TDNN-F's widths over train_lex's mono system, dropout on; the
+# online natural-gradient preconditioner over its gradients; SpecAugment
+
+# the first CHAIN_FRAME_UTTS training utterances, one epoch of chunks of
+# ChainTrainOptions' defaults (60 frames, minibatches of 8): ~30 steps
+CHAIN_FRAME_UTTS = 32
+CHAIN_FRAME_DROPOUT = 0.1
+NG_RANK, NG_STEPS = 32, 10
+# the card's float32 preconditioned gradient against the CPU's float64,
+# max |card - CPU| over max |CPU|, each tensor and step
+NG_REL_BAR = 1e-4
+NG_NORM_BAR = 1e-5
+NG_TENSORS = ("input_affine.weight", "tdnnf.0.w_down", "tdnnf.8.w_up",
+              "prefinal_chain.affine.weight", "output_affine.weight")
+SPEC_AUGMENT_SHAPE = (8, 300, 40)
+
+
+class _FedMasks:
+    """components.dropout_mask replaced: each call returns the next of
+    `masks` (boolean CPU tensors) on the generator's device."""
+
+    def __init__(self, masks):
+        self.masks, self.i = masks, 0
+
+    def __call__(self, shape, keep, gen):
+        m = self.masks[self.i]
+        self.i += 1
+        if tuple(m.shape) != tuple(shape):
+            raise SystemExit(f"dropout mask {tuple(m.shape)} for {shape}")
+        return m.to(gen.device)
+
+
+def chain_frame_grad_of(cfg, variables, feats_b, num_graphs, den, opts,
+                        masks):
+    """grad_of for gradient_agreement: the first step's gradient of minus
+    the chain objective, the model from `variables` in training mode with
+    the dropout masks `masks` fed in -> {leaf: float64 array}."""
+    from kaldi_tpu_torch.nnet3 import components as tcomp
+
+    def grad_of(dev, dtype):
+        saved = tcomp.dropout_mask
+        tcomp.dropout_mask = _FedMasks(masks)
+        try:
+            model = chain_tdnnf_from_flax(cfg, variables, dtype, dev)
+            model.train()
+            model.requires_grad_(True)
+            model.dropout_gen = torch.Generator(dev)
+            arcs = InArcs(*batch_pack(num_graphs), cfg.num_pdfs, dev)
+            with full_f32():
+                chain_out, xent_out = model(
+                    torch.from_numpy(feats_b).to(dev, dtype))
+                objf, _ = chain_loss(opts.chain, den, arcs, chain_out,
+                                     xent_out)
+                objf.neg().backward()
+        finally:
+            tcomp.dropout_mask = saved
+        for prm in model.parameters():
+            prm.data = torch.zeros_like(prm) if prm.grad is None else prm.grad
+        return {k: v.astype(np.float64) for k, v in
+                _leaves(chain_tdnnf_to_flax(model)["params"])}
+    return grad_of
+
+
+def run_train_chain_frame(sysd: dict) -> dict:
+    """train_chain_frame: `train_chain` (recipes/chain.py) over train_lex's
+    mono GMM system, its alignments and features of the first
+    CHAIN_FRAME_UTTS training utterances, at the 17 x 1536 widths with
+    frame_subsampling_factor 1 and dropout CHAIN_FRAME_DROPOUT, one epoch
+    of ChainTrainOptions' defaults.  Records the dropout masks' keep rate,
+    the first NG_STEPS gradients of the NG_TENSORS (for ng_precondition)
+    and the first minibatch; then that step's gradient on the card
+    against the CPU's float64 with the same masks."""
+    from kaldi_tpu_torch.nnet3 import components as tcomp
+    from kaldi_tpu_torch.nnet3.models import ChainTdnnf, chain_tdnnf_init
+    reset_kernel_counts()
+    gmm = sysd["gmm"]
+    utts = sorted(sysd["feats"])[:CHAIN_FRAME_UTTS]
+    feats = {u: np.asarray(sysd["feats"][u], np.float32) for u in utts}
+    alis = {u: list(sysd["alignments"][u]) for u in utts}
+    cfg = ChainTdnnfConfig(feat_dim=40, num_pdfs=gmm.tm.num_pdfs,
+                           hidden_dim=1536, bottleneck_dim=160,
+                           prefinal_dim=256, num_layers=17,
+                           subsample_layer=8, frame_subsampling_factor=1,
+                           dropout=CHAIN_FRAME_DROPOUT)
+    opts = tchain.ChainTrainOptions(num_epochs=1)
+    names = [n for n, _ in ChainTdnnf(cfg).named_parameters()]
+    want = [names.index(n) for n in NG_TENSORS]
+    spy = {"kept": 0, "drawn": 0, "grads": [], "first": None}
+    draw, opt_step, fit_step = (tcomp.dropout_mask,
+                                tchain.ChainOptimizer.step,
+                                tchain._ChainFit.step)
+
+    def counted_mask(shape, keep, gen):
+        m = draw(shape, keep, gen)
+        spy["kept"] += m.sum()
+        spy["drawn"] += m.numel()
+        return m
+
+    def grads_spy(self, grads):
+        if len(spy["grads"]) < NG_STEPS:
+            spy["grads"].append({n: grads[i].detach().clone()
+                                 for n, i in zip(NG_TENSORS, want)})
+        return opt_step(self, grads)
+
+    def first_step(self, feats_b, num_graphs, ivecs_b=None):
+        if spy["first"] is None:
+            spy["first"] = (feats_b, num_graphs, self.den_graph)
+        return fit_step(self, feats_b, num_graphs, ivecs_b)
+    tcomp.dropout_mask = counted_mask
+    tchain.ChainOptimizer.step = grads_spy
+    tchain._ChainFit.step = first_step
+    stats: dict = {}
+    t0 = time.perf_counter()
+    try:
+        model, variables, den = tchain.train_chain(
+            gmm, feats, alis, cfg, opts, device="cuda", stats=stats)
+    finally:
+        tcomp.dropout_mask = draw
+        tchain.ChainOptimizer.step = opt_step
+        tchain._ChainFit.step = fit_step
+    train_s = time.perf_counter() - t0
+    del model, variables
+    steps = stats["step_objf"]
+    keep = float(spy["kept"]) / spy["drawn"]
+    sigma = (0.9 * 0.1 / spy["drawn"]) ** 0.5
+    # the first step: its initial weights (chain_tdnnf_init from the
+    # trainer's seed), its minibatch, masks drawn once on the CPU
+    feats_b, num_graphs, den0 = spy["first"]
+    init = chain_tdnnf_init(cfg, torch.Generator().manual_seed(opts.seed))
+    gen = torch.Generator().manual_seed(1)
+    B, T = feats_b.shape[:2]
+    masks = [torch.rand((B, T, cfg.hidden_dim), generator=gen)
+             < 1.0 - CHAIN_FRAME_DROPOUT for _ in range(cfg.num_layers)]
+    agree = gradient_agreement(chain_frame_grad_of(
+        cfg, init, feats_b, num_graphs, den0, opts, masks))
+    k = max(1, len(steps) // 6)
+    res = {"utterances": len(utts), "chunks": stats["chunks"],
+           "steps": len(steps), "train_s": train_s,
+           "first_steps_objf": float(np.mean(steps[:k])),
+           "last_steps_objf": float(np.mean(steps[-k:])),
+           "step_objf": steps,
+           "step_ms": ms_percentiles(np.asarray(stats["step_ms"]) / 1e3),
+           "peak_memory_gb": stats.get("peak_memory_gb"),
+           "dropout_keep_rate": keep, "dropout_drawn": spy["drawn"],
+           "dropout_keep_sigma": sigma,
+           "grad_worst": agree["worst"],
+           "grad_worst_leaf": agree["worst_leaf"],
+           "grad_f32_bar": agree["f32_bar"],
+           "grad_reproducible": agree["reproducible"],
+           "launches": kernel_launch_counts()}
+    emit("train_chain_frame", **res)
+    bad = [name for name, ok in (
+        ("objective finite", bool(np.isfinite(steps).all())),
+        ("objective rises", res["last_steps_objf"] > res["first_steps_objf"]),
+        ("keep rate within 3 sigma of 0.9", abs(keep - 0.9) <= 3 * sigma),
+        *agree["bars"].items()) if not ok]
+    if bad:
+        raise SystemExit(f"train_chain_frame: {bad}")
+    return {"res": res, "grads": spy["grads"]}
+
+
+def run_ng_precondition(grads: list) -> dict:
+    """ng_precondition: online_natural_gradient (rank NG_RANK) over the
+    first NG_STEPS gradients of train_chain_frame's NG_TENSORS, on the card
+    in float32 and on the CPU in float64 from the same initial state: each
+    step's preconditioned gradient within NG_REL_BAR of the CPU's, its
+    norm the gradient's within NG_NORM_BAR; the card's ms an update (CUDA
+    events).  Then spec_augment on a SPEC_AUGMENT_SHAPE batch on the
+    card: its draws within their bounds, its output the CPU's on the same
+    draws, whole bands and spans zeroed."""
+    from kaldi_tpu_torch.nnet3.components import (apply_spec_augment,
+                                                  spec_augment_draws)
+    from kaldi_tpu_torch.nnet3.natural_gradient import online_natural_gradient
+    reset_kernel_counts()
+    tx = online_natural_gradient(rank=NG_RANK)
+    cpu = [{k: g.cpu().double() for k, g in step.items()} for step in grads]
+    s_card, s_cpu = tx.init(grads[0]), tx.init(cpu[0])
+    kinds = {k: "low rank" if isinstance(f, tuple) else "dense"
+             for k, f in s_card.fisher.items()}
+    rel, norm_err, ms = 0.0, 0.0, []
+    worst = {}
+    for g_card, g_cpu in zip(grads, cpu):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with full_f32():
+            ev[0].record()
+            o_card, s_card = tx.update(g_card, s_card)
+            ev[1].record()
+            o_cpu, s_cpu = tx.update(g_cpu, s_cpu)
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+        for k in o_card:
+            a, b = o_card[k].double().cpu(), o_cpu[k]
+            e = float((a - b).abs().max() / b.abs().max())
+            worst[k] = max(worst.get(k, 0.0), e)
+            rel = max(rel, e)
+            n = float(torch.linalg.norm(o_card[k].double())
+                      / torch.linalg.norm(g_card[k].double()))
+            norm_err = max(norm_err, abs(n - 1.0))
+    # SpecAugment on the card
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    x = torch.randn(SPEC_AUGMENT_SHAPE, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED + 1))
+    f0, widths, t0, tw = spec_augment_draws(x.shape, gen)
+    B, T, D = x.shape
+    max_w = max(int(T * 0.1), 1)
+    in_bounds = bool(((f0 >= 0) & (f0 < max(D - 10, 1))).all()
+                     and ((widths >= 0) & (widths <= 10)).all()
+                     and ((t0 >= 0) & (t0 < max(T - max_w, 1))).all()
+                     and ((tw >= 0) & (tw <= max_w)).all())
+    y = apply_spec_augment(x, f0, widths, t0, tw)
+    y_cpu = apply_spec_augment(x.cpu(), f0.cpu(), widths.cpu(), t0.cpu(),
+                               tw.cpu())
+    zero = y == 0
+    whole = bool(torch.equal(zero, zero.all(dim=1)[:, None, :]
+                             | zero.all(dim=2)[:, :, None]))
+    res = {"tensors": {k: list(g.shape) for k, g in grads[0].items()},
+           "paths": kinds, "steps": len(grads), "rank": NG_RANK,
+           "rel_err": rel, "rel_err_by_tensor": worst,
+           "rel_bar": NG_REL_BAR, "norm_err": norm_err,
+           "norm_bar": NG_NORM_BAR,
+           "update_ms": ms_percentiles(np.asarray(ms) / 1e3),
+           "spec_augment": {"shape": list(SPEC_AUGMENT_SHAPE),
+                            "draws_in_bounds": in_bounds,
+                            "equal_cpu": bool(torch.equal(y.cpu(), y_cpu)),
+                            "whole_bands_and_spans": whole,
+                            "masked_share": float(zero.float().mean())},
+           "launches": kernel_launch_counts()}
+    emit("ng_precondition", **res)
+    bad = [name for name, ok in (
+        ("low-rank path", "low rank" in kinds.values()),
+        ("preconditioned gradient", rel <= NG_REL_BAR),
+        ("norm kept", norm_err <= NG_NORM_BAR),
+        ("spec_augment bounds", in_bounds),
+        ("spec_augment card = CPU", res["spec_augment"]["equal_cpu"]),
+        ("spec_augment bands and spans", whole)) if not ok]
+    if bad:
+        raise SystemExit(f"ng_precondition: {bad}")
+    return res
+
+
+def chain_frame_phases(sysd: dict) -> dict:
+    """train_chain_frame and ng_precondition over train_lex's system ->
+    their summary, with kernels a-c's launches in each."""
+    t0 = time.perf_counter()
+    frame = run_train_chain_frame(sysd)
+    ng = run_ng_precondition(frame.pop("grads"))
+    torch.cuda.empty_cache()
+    r = frame["res"]
+    launches = {"train_chain_frame": r["launches"],
+                "ng_precondition": ng["launches"]}
+    if any(any(c.values()) for c in launches.values()):
+        raise SystemExit(f"a kernel of another path ran in the chain "
+                         f"frame phases: {launches}")
+    return {"train_chain_frame": {k: r[k] for k in (
+                "steps", "train_s", "first_steps_objf", "last_steps_objf",
+                "step_ms", "dropout_keep_rate", "peak_memory_gb")},
+            "ng_precondition": {k: ng[k] for k in (
+                "rel_err", "norm_err", "update_ms")},
+            "seconds": time.perf_counter() - t0, "launches": launches}
+
+
 def run_train_scale(epochs: int) -> dict:
     """train_scale: the --scale training recipe on the card
     (recipes/train_scale.py train_and_decode): the V=20,000 corpus, MFCC,
@@ -4729,7 +5007,7 @@ def run_online2_graph(tmp: str, n_utts: int = ONLINE2_UTTS) -> dict:
     return {"res": res, "dir": tmp, "mdl": mdl, "hclg": hclg, "net": net,
             "fst": back, "tm": tm2, "info": info, "words": flat.words,
             "utts": utts, "waves": waves, "test_txt": test_txt,
-            "spec": spec}
+            "spec": spec, "lexicon": lexicon, "lang": lang, "tree": tree}
 
 
 def online2_args(sysd: dict) -> list:
@@ -5408,6 +5686,293 @@ def run_xconfig_zoo(dev: str = "cuda", lanes: int = ZOO_LANES,
     return res
 
 
+# ---------------------------------------------------------------------------
+# disc_smbr: sequence-discriminative training of the legacy TDNN-F as an
+# xconfig checkpoint through the tools, steps/nnet3/align.sh and
+# train_discriminative.sh's stages over DISC_UTTS training utterances
+
+DISC_UTTS = 32
+DISC_EPOCHS = 2
+# Adam's rate for the fine-tuning: at the tool's default (1e-4) both the
+# JAX package and the port drive the legacy TDNN-F to a WER near 100%
+# (PERF.md section 6)
+DISC_LEARNING_RATE = 1e-6
+# tools/disc_jax_bar.py: JAX's nnet3-discriminative-train (CPU) over this
+# phase's alignment, lattice and feature archives from the same
+# checkpoint, its tuned weights decoded by the port's nnet3-latgen-faster
+# over the 16 test utterances: 15 errors of 185 words, the untuned
+# checkpoint's too
+DISC_JAX_BAR = dict(wer=100.0 * 15 / 185, word_errors=15)
+DISC_WER_BAND = 0.5
+
+
+def legacy_train_waves(spec, lexicon, n: int):
+    """The first n training utterances of make_corpus(spec) -> (text,
+    int16 waves), without synthesising the other ones."""
+    from kaldi_tpu_torch.recipes.bench_corpus import (phone_inventory,
+                                                      speaker_params,
+                                                      synth_utterance)
+    inv = phone_inventory(spec)
+    sents = make_text(spec, spec.num_train, spec.seed + 1)[:n]
+    warps, gains = speaker_params(spec)
+    S = len(warps)
+    txt = {f"tr{i:04d}": s for i, s in enumerate(sents)}
+    waves = {u: np.clip(synth_utterance(s, lexicon, inv, spec, 10_000 + i,
+                                        warps[i % S], gains[i % S]),
+                        -32767, 32767).astype(np.int16)
+             for i, (u, s) in enumerate(txt.items())}
+    return txt, waves
+
+
+def objf_of(out: str) -> tuple:
+    """(objective a frame, frames) of nnet3-discriminative-compute-objf."""
+    m = re.search(r"objective per frame is (\S+) over (\S+) frames", out)
+    if not m:
+        raise SystemExit(f"no objective line in:\n{out[-2000:]}")
+    return float(m.group(1)), float(m.group(2))
+
+
+def disc_grad_of(text: str, state: dict, feats_u: np.ndarray,
+                 g: np.ndarray, kappa: float, l2: float):
+    """grad_of for gradient_agreement: one discriminative step's gradient
+    (step_loss with G = g held constant) of the xconfig model of `state`
+    built in `dtype` on `dev` -> {parameter name: float64 array}."""
+    from kaldi_tpu_torch.nnet3.discriminative_train import step_loss
+
+    def grad_of(dev, dtype):
+        model = xconfig_from_flax(text, state, device=dev, dtype=dtype)
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.requires_grad_(True)
+        with full_f32():
+            ll = model({"input": torch.from_numpy(feats_u[None]).to(
+                dev, dtype)})["output"][0]
+            loss = step_loss(ll, torch.from_numpy(g).to(dev, dtype),
+                             list(params.values()), kappa, l2)
+            grads = torch.autograd.grad(loss, list(params.values()))
+        return {k: v.detach().cpu().double().numpy()
+                for k, v in zip(params, grads)}
+    return grad_of
+
+
+def run_disc_smbr(x: dict, sysd: dict, untuned_wer: float,
+                  export: str = None) -> dict:
+    """disc_smbr: over the first DISC_UTTS training utterances of the
+    legacy corpus (int16 wire, the port's MFCC on the card),
+    compile-train-graphs (L.fst, the chain tree, final.tm),
+    nnet3-align-compiled --frame-subsampling-factor=3 with online2_graph's
+    final.mdl (the numerator alignments, at the output rate),
+    nnet3-latgen-faster with LATGEN_ARGS over xconfig_graph's checkpoint
+    (the denominator lattices), nnet3-discriminative-get-egs (whole
+    utterances), -copy-egs, -shuffle-egs, -subset-egs, -merge-egs,
+    -compute-objf --criterion=smbr, nnet3-discriminative-train
+    --criterion=smbr --num-epochs=DISC_EPOCHS
+    --learning-rate=DISC_LEARNING_RATE at the lattices' acoustic scale
+    (1.0) in a process of its own, -compute-objf again, and
+    nnet3-latgen-faster and the WER of the 16 test utterances with the
+    tuned checkpoint.  The other tools run in this process.  Then
+    one step's gradient on the card against the CPU's float64 with the
+    same G (gradient_agreement) and one profiled step.  export: a
+    directory to copy the archives tools/disc_jax_bar.py reads to."""
+    from kaldi_tpu_torch.decoder.graph import make_lexicon_fst
+    from kaldi_tpu_torch.nnet3.discriminative import DiscriminativeOptions
+    from kaldi_tpu_torch.nnet3.discriminative_train import (
+        DiscTrainOptions, step_loss, utterance_gradient)
+    reset_kernel_counts()
+    d = os.path.join(x["dir"], "disc")
+    os.makedirs(d, exist_ok=True)
+    spec, tm, lang = sysd["spec"], sysd["tm"], sysd["lang"]
+    t0 = time.perf_counter()
+    txt, waves = legacy_train_waves(spec, sysd["lexicon"], DISC_UTTS)
+    fe = OfflineFeature(mfcc_options(spec, num_ceps=40), device="cuda")
+    feats = {}
+    for u in sorted(waves):
+        f, n = fe.compute_batch_device([waves[u]])
+        feats[u] = f[0, :int(n[0])].cpu().numpy()
+    p = {name: os.path.join(d, name) for name in (
+        "feats.ark", "text.int", "L.fst", "tree", "graphs.ark", "ali.ark",
+        "lat.ark", "egs.ark", "copy.egs", "shuf.egs", "sub.egs",
+        "merged.egs", "tuned", "tuned_lat.ark", "tuned.int")}
+    write_ark(p["feats.ark"], sorted(feats.items()))
+    write_ark(p["text.int"], [(u, [lang.words[w] for w in txt[u]])
+                              for u in sorted(txt)], "int-vector")
+    with open(p["L.fst"], "wb") as f:
+        write_fst(f, make_lexicon_fst(lang, with_disambig=True))
+    write_kaldi_object(sysd["tree"].write, p["tree"])
+    inputs_s = time.perf_counter() - t0
+    sec: dict = {}
+    ark = {k: f"ark:{v}" for k, v in p.items()}
+    timed_tool(sec, "compile-train-graphs", p["tree"], x["tm_path"],
+               p["L.fst"], ark["text.int"], ark["graphs.ark"])
+    align_log = timed_tool(sec, "nnet3-align-compiled",
+                           "--frame-subsampling-factor=3",
+                           "--acoustic-scale=1.0", sysd["mdl"],
+                           ark["graphs.ark"], ark["feats.ark"],
+                           ark["ali.ark"])
+    align_stats = tool_stats("nnet3-align-compiled", align_log)
+    den_log = timed_tool(sec, "nnet3-latgen-faster", *LATGEN_ARGS,
+                         x["tm_path"], x["ckpt"], sysd["hclg"],
+                         ark["feats.ark"], ark["lat.ark"])
+    den_stats = tool_stats("nnet3-latgen-faster", den_log)
+    timed_tool(sec, "nnet3-discriminative-get-egs", "--num-frames=1000",
+               ark["feats.ark"], ark["ali.ark"], ark["lat.ark"],
+               ark["egs.ark"])
+    timed_tool(sec, "nnet3-discriminative-copy-egs", ark["egs.ark"],
+               ark["copy.egs"])
+    timed_tool(sec, "nnet3-discriminative-shuffle-egs", "--srand=0",
+               ark["copy.egs"], ark["shuf.egs"])
+    timed_tool(sec, "nnet3-discriminative-subset-egs", f"--n={DISC_UTTS}",
+               ark["shuf.egs"], ark["sub.egs"])
+    timed_tool(sec, "nnet3-discriminative-merge-egs",
+               f"--minibatch-size={DISC_UTTS}", ark["sub.egs"],
+               ark["merged.egs"])
+    objf_args = ["--criterion=smbr", "--acoustic-scale=1.0"]
+    before = objf_of(timed_tool(
+        sec, "nnet3-discriminative-compute-objf", *objf_args, x["ckpt"],
+        x["tm_path"], ark["merged.egs"], key="compute-objf (before)"))
+    train_log = timed_cli(sec, "nnet3-discriminative-train",
+                          "--criterion=smbr", f"--num-epochs={DISC_EPOCHS}",
+                          f"--learning-rate={DISC_LEARNING_RATE}",
+                          "--acoustic-scale=1.0", x["ckpt"], x["tm_path"],
+                          ark["feats.ark"], ark["ali.ark"], ark["lat.ark"],
+                          p["tuned"])
+    train_stats = tool_stats("nnet3-discriminative-train", train_log)
+    after = objf_of(timed_tool(
+        sec, "nnet3-discriminative-compute-objf", *objf_args, p["tuned"],
+        x["tm_path"], ark["merged.egs"], key="compute-objf (after)"))
+    dec_stats = tool_stats("nnet3-latgen-faster", timed_tool(
+        sec, "nnet3-latgen-faster", *LATGEN_ARGS, x["tm_path"], p["tuned"],
+        sysd["hclg"], f"ark:{os.path.join(x['dir'], 'feats.ark')}",
+        ark["tuned_lat.ark"], f"ark,t:{p['tuned.int']}",
+        key="nnet3-latgen-faster (tuned)"))
+    test_utts = sorted(x["feats"])
+    got = int_words(p["tuned.int"])
+    test_txt = {u: sysd["test_txt"][u] for u in test_utts}
+    names = {u: [sysd["words"][w] for w in got.get(u, [])]
+             for u in test_utts}
+    wer = wer_of(names, test_txt)
+    # what the bars read: alignments at the output rate, one lattice and
+    # one whole-utterance example an utterance
+    alis = int_words(p["ali.ark"])
+    lats = dict(SequentialTableReader("lattice", ark["lat.ark"]))
+    egs = dict(SequentialTableReader("degs", ark["merged.egs"]))
+    state, meta, _ = restore_checkpoint(x["ckpt"])
+    text = meta["xconfig"]
+    model = x["model"]
+    out_frames = {}
+    with torch.no_grad(), full_f32():
+        for u in sorted(feats):
+            out_frames[u] = int(model({"input": torch.from_numpy(
+                feats[u][None]).cuda()})["output"].shape[1])
+    lat_frames = {u: max(latf.lattice_state_times(lats[u])) for u in lats}
+    rate_ok = sum(len(alis.get(u, [])) == out_frames[u] == lat_frames.get(u)
+                  == -(-len(feats[u]) // 3) for u in feats)
+    whole = sum(eg.left_context == eg.right_context == 0
+                and len(eg.feats) == len(feats[k])
+                and eg.num_ali == alis[k] for k, eg in egs.items())
+    # one step's gradient: the card's float32 and float64 against the
+    # CPU's float64, G from the card's float32 forward of the shortest
+    # utterance
+    u0 = min(feats, key=lambda u: len(feats[u]))
+    d_opts = DiscriminativeOptions(criterion="smbr", acoustic_scale=1.0)
+    with torch.no_grad(), full_f32():
+        ll0 = model({"input": torch.from_numpy(feats[u0][None]).cuda()})[
+            "output"][0].cpu().numpy()
+    t0 = time.perf_counter()
+    objf0, _T, g0 = utterance_gradient(tm, ll0, alis[u0], lats[u0],
+                                       tm.num_pdfs, d_opts)
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    l2 = DiscTrainOptions().l2
+    agree = gradient_agreement(disc_grad_of(text, state, feats[u0], g0, 1.0,
+                                            l2))
+    # one step of the trainer, profiled: the forward, the backward and
+    # the update
+    step_model = xconfig_from_flax(text, state, device="cuda")
+    params = dict(step_model.named_parameters())
+    for prm in params.values():
+        prm.requires_grad_(True)
+    tx = optim.adam(DISC_LEARNING_RATE)
+    opt_state = tx.init(params)
+    f0 = torch.from_numpy(feats[u0][None]).cuda()
+    g0_t = torch.from_numpy(g0).cuda().float()
+
+    def one_step():
+        with full_f32():
+            ll = step_model({"input": f0})["output"][0]
+            loss = step_loss(ll, g0_t, list(params.values()), 1.0, l2)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            with torch.no_grad():
+                upd, _ = tx.update(dict(zip(params, grads)), opt_state,
+                                   params)
+                for k in params:
+                    params[k].add_(upd[k])
+        torch.cuda.synchronize()
+    one_step()
+    prof = profile_call(one_step, top=4)
+    del step_model, params, opt_state
+    if export:
+        import shutil
+        os.makedirs(export, exist_ok=True)
+        for name in ("feats.ark", "ali.ark", "lat.ark"):
+            shutil.copy(p[name], os.path.join(export, name))
+        shutil.copy(os.path.join(x["dir"], "feats.ark"),
+                    os.path.join(export, "test_feats.ark"))
+        shutil.copy(x["tm_path"], os.path.join(export, "final.tm"))
+        shutil.copy(sysd["hclg"], os.path.join(export, "HCLG.fst"))
+        with open(os.path.join(export, "train_meta.json"), "w") as f:
+            json.dump({"tuned_wer": wer, "untuned_wer": untuned_wer,
+                       "epoch_objf": train_stats["epoch_objf"]}, f)
+    res = {"utterances": len(feats),
+           "input_frames": sum(len(f) for f in feats.values()),
+           "aligned": len(alis), "align_failed": align_stats["failed"],
+           "output_rate_equal": rate_ok, "lattices": len(lats),
+           "lattice_arcs": sum(lat.num_arcs() for lat in lats.values()),
+           "den_det_fallbacks": den_stats["det_fallbacks"],
+           "egs": len(egs), "whole_utterance_egs": whole,
+           "objf_before": before[0], "objf_after": after[0],
+           "objf_frames": before[1],
+           "train_epoch_objf": train_stats["epoch_objf"],
+           "train_steps": train_stats["steps"],
+           "train_host_lattice_s": train_stats["host_s"],
+           "train_forward_ms_median": train_stats["forward_ms_median"],
+           "train_backward_ms_median": train_stats["backward_ms_median"],
+           "train_peak_memory_gb": train_stats.get("peak_memory_gb"),
+           "tool_s": sec, "inputs_s": inputs_s,
+           "align_stats": align_stats, "den_latgen_rtf": den_stats["rtf"],
+           "tuned_latgen_rtf": dec_stats["rtf"],
+           "wer": wer, "word_errors": word_errors(wer, test_txt),
+           "untuned_wer": untuned_wer, "jax_bar": DISC_JAX_BAR,
+           "band": DISC_WER_BAND,
+           "step_host_lattice_ms": host_ms, "step_utterance": u0,
+           "step_objf": objf0,
+           "step_profiled": {k: prof[k] for k in (
+               "device_ms", "kernel_launches", "peak_memory_gb", "top")},
+           "grad_worst": agree["worst"], "grad_worst_leaf":
+               agree["worst_leaf"], "grad_f32_bar": agree["f32_bar"],
+           "grad_reproducible": agree["reproducible"],
+           "launches": kernel_launch_counts(),
+           "tool_launches": {k: train_stats["kernel_launches"][k]
+                             + align_stats["kernel_launches"][k]
+                             + den_stats["kernel_launches"][k]
+                             + dec_stats["kernel_launches"][k]
+                             for k in train_stats["kernel_launches"]}}
+    emit("disc_smbr", **res)
+    bad = [name for name, ok in (
+        ("every utterance aligned", len(alis) == len(feats)),
+        ("alignments at the output rate", rate_ok == len(feats)),
+        ("every lattice written", len(lats) == len(feats)),
+        ("whole-utterance egs", whole == len(feats)),
+        ("objective after >= before", after[0] >= before[0]),
+        ("tuned WER within the band of JAX's",
+         abs(wer - DISC_JAX_BAR["wer"]) <= DISC_WER_BAND),
+        ("tuned WER within the band above the untuned",
+         wer <= untuned_wer + DISC_WER_BAND),
+        *agree["bars"].items()) if not ok]
+    if bad:
+        raise SystemExit(f"disc_smbr: {bad}")
+    return res
+
+
 def xconfig_phases(sysd: dict, online2: dict = None) -> dict:
     """xconfig_graph, xconfig_latgen, xconfig_latgen_variants and
     xconfig_zoo; kernels a-c launch 0 times in each (in this process and
@@ -5418,6 +5983,7 @@ def xconfig_phases(sysd: dict, online2: dict = None) -> dict:
     graph_launches = kernel_launch_counts()
     lat = run_xconfig_latgen(x, sysd, online2)
     var = run_xconfig_variants(x, sysd, lat["words"])
+    disc = run_disc_smbr(x, sysd, lat["res"]["wer"])
     del x
     torch.cuda.empty_cache()
     zoo = run_xconfig_zoo()
@@ -5428,13 +5994,19 @@ def xconfig_phases(sysd: dict, online2: dict = None) -> dict:
                 "xconfig_latgen_variants": {
                     k: v + sum(t[k] for t in var["tool_launches"].values())
                     for k, v in var["launches"].items()},
-                "xconfig_zoo": zoo["launches"]}
+                "xconfig_zoo": zoo["launches"],
+                "disc_smbr": {k: v + disc["tool_launches"][k]
+                              for k, v in disc["launches"].items()}}
     if any(any(c.values()) for c in launches.values()):
         raise SystemExit(f"a kernel of another path ran in the xconfig "
                          f"phases: {launches}")
     return {"xconfig_latgen_wer": r["wer"],
             "xconfig_latgen_rtf": r["rtf"],
             "xconfig_search_ms_a_frame": r["search_ms_a_frame"],
+            "disc_smbr": {k: disc[k] for k in (
+                "wer", "untuned_wer", "objf_before", "objf_after",
+                "tool_s", "train_forward_ms_median",
+                "train_backward_ms_median", "train_host_lattice_s")},
             "xconfig_seconds": time.perf_counter() - t0,
             "launches": launches}
 
@@ -5738,6 +6310,7 @@ def main() -> int:
     # then chain training through the tools over its system ---------------
     train, sysd = train_phases(SMOKE_TRAIN_EPOCHS)
     chain = chain_cli_phases(sysd)
+    frame = chain_frame_phases(sysd)
     del sysd
 
     # 5d. the --scale training recipe, decoded through the main path -------
@@ -6057,6 +6630,7 @@ def main() -> int:
          **{k: v for k, v in legacy.items() if k != "launches"},
          train={k: v for k, v in train.items() if k != "launches"},
          chain_cli={k: v for k, v in chain.items() if k != "launches"},
+         chain_frame={k: v for k, v in frame.items() if k != "launches"},
          train_scale={k: v for k, v in scale.items() if k != "launches"},
          **{name: {k: v for k, v in phase.items() if k != "launches"}
             for name, phase in template.items()},
@@ -6093,6 +6667,10 @@ def main() -> int:
                                         scale["launches"].values())
         k["launches_chain_cli"] = sum(counts[k["name"]] for counts in
                                       chain["launches"].values())
+        for phase, counts in frame["launches"].items():
+            k[f"launches_{phase}"] = counts[k["name"]]
+        k["launches_disc_smbr"] = \
+            online2["xconfig"]["launches"]["disc_smbr"][k["name"]]
         k["launches_nnet3"] = sum(counts[k["name"]] for counts in
                                   nnet3["launches"].values())
         k["launches_online2"] = sum(counts[k["name"]] for counts in

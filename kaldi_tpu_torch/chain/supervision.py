@@ -3,7 +3,8 @@
 `make_denominator_graph`,
 `denominator_graph_from_phone_lm`, `alignment_to_phone_segments`,
 `_chain_pdfs_for_phone`, `make_tolerance_supervision`,
-`alignment_to_tolerance_numerator`, `transcript_to_e2e_numerator` and
+`alignment_to_tolerance_numerator`, `union_graphs`,
+`lattice_to_tolerance_numerator`, `transcript_to_e2e_numerator` and
 `alignment_to_numerator_graph` of `kaldi_tpu/chain/supervision.py`).
 Host-side numpy.
 
@@ -11,9 +12,6 @@ Parity: chain/chain-supervision.h (time-tolerant numerators from
 alignments), chain/language-model.h (the phone LM), chain-den-graph.h:159
 (the den graph: the phone LM expanded to an HMM acceptor over pdfs,
 initial probs from the stationary distribution).
-
-Not carried over yet: `union_graphs` and `lattice_to_tolerance_numerator`
-(nothing ported so far reaches them).
 """
 
 from __future__ import annotations
@@ -443,6 +441,63 @@ def alignment_to_tolerance_numerator(alignment: Sequence[int],
     return make_tolerance_supervision(segs, len(alignment), chain_tm,
                                       subsample, left_tolerance,
                                       right_tolerance)
+
+
+def union_graphs(graphs: Sequence[PackedGraph],
+                 log_weights: Optional[Sequence[float]] = None
+                 ) -> PackedGraph:
+    """Union of numerator graphs (alternative supervision paths), with
+    optional per-path initial log-weights (lattice posteriors)."""
+    if len(graphs) == 1 and not log_weights:
+        return graphs[0]
+    offs = np.cumsum([0] + [g.num_states for g in graphs])
+    if log_weights is None:
+        log_weights = [0.0] * len(graphs)
+    return PackedGraph(
+        np.concatenate([g.src + offs[i] for i, g in enumerate(graphs)]),
+        np.concatenate([g.dst + offs[i] for i, g in enumerate(graphs)]),
+        np.concatenate([g.pdf for g in graphs]),
+        np.concatenate([g.log_prob for g in graphs]),
+        np.concatenate([g.initial + np.float32(log_weights[i])
+                        for i, g in enumerate(graphs)]),
+        np.concatenate([g.final for g in graphs]))
+
+
+def lattice_to_tolerance_numerator(lat, ali_tm: TransitionModel,
+                                   chain_tm: TransitionModel,
+                                   subsample: int = 3,
+                                   left_tolerance: int = 5,
+                                   right_tolerance: int = 5,
+                                   num_paths: int = 4,
+                                   acoustic_scale: float = 0.1
+                                   ) -> PackedGraph:
+    """Lattice-derived chain supervision (chain-supervision.cc
+    PhoneLatticeToProtoSupervision): the n best alignment paths of the
+    lattice become alternative numerator paths, weighted by their
+    normalized posteriors.  Paths with the same phone segments keep the
+    cheaper one (the first on a tie), in the order the n-best list first
+    reaches each segmentation."""
+    from kaldi_tpu_torch.lat.functions import lattice_nbest, lattice_scale
+    scaled = lattice_scale(lat, lm_scale=1.0, acoustic_scale=acoustic_scale)
+    paths = lattice_nbest(scaled, num_paths)
+    if not paths:
+        raise ValueError("empty lattice")
+    seen = {}
+    for ali, _words, cost in paths:
+        if not ali:
+            continue
+        segs = tuple(alignment_to_phone_segments(ali, ali_tm))
+        if segs not in seen or cost < seen[segs][1]:
+            seen[segs] = (ali, cost)
+    graphs, costs = [], []
+    for segs, (ali, cost) in seen.items():
+        graphs.append(make_tolerance_supervision(
+            list(segs), len(ali), chain_tm, subsample,
+            left_tolerance, right_tolerance))
+        costs.append(-cost)
+    w = np.asarray(costs, np.float64)
+    w = w - (np.max(w) + np.log(np.sum(np.exp(w - np.max(w)))))
+    return union_graphs(graphs, list(w))
 
 
 def transcript_to_e2e_numerator(phones: Sequence[int],

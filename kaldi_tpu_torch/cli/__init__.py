@@ -15,6 +15,7 @@ _LAT = "kaldi_tpu_torch.cli.lat_tools"
 _LATGEN = "kaldi_tpu_torch.cli.nnet3_latgen_tools"
 _NNET3 = "kaldi_tpu_torch.cli.nnet3_tools2"
 _TAIL2 = "kaldi_tpu_torch.cli.nnet3_tail2_tools"
+_TAIL3 = "kaldi_tpu_torch.cli.tail3_tools"
 _FEAT = "kaldi_tpu_torch.cli.feat_tools"
 _GMM = "kaldi_tpu_torch.cli.gmm_tools"
 _MISC = "kaldi_tpu_torch.cli.misc_tools"
@@ -66,6 +67,8 @@ TOOLS: Dict[str, Tuple[str, str]] = {
     "lattice-determinize-pruned": (_LAT, "lattice_determinize_pruned_cli"),
     "lattice-prune": (_LAT, "lattice_prune_cli"),
     "lattice-scale": (_LAT, "lattice_scale_cli"),
+    "nnet3-align-compiled": ("kaldi_tpu_torch.cli.online_tools2",
+                             "nnet3_align_compiled"),
     "nnet3-average": (_NNET3, "nnet3_average"),
     "nnet3-chain-combine": (_CHAIN, "nnet3_chain_combine"),
     "nnet3-chain-combine2": (_TAIL2, "nnet3_chain_combine2"),
@@ -87,6 +90,21 @@ TOOLS: Dict[str, Tuple[str, str]] = {
     "nnet3-compute-prob": (_NNET3, "nnet3_compute_prob"),
     "nnet3-copy": (_NNET3, "nnet3_copy"),
     "nnet3-copy-egs": (_NNET3, "nnet3_copy_egs"),
+    "nnet3-discriminative-compute-from-egs": (
+        _TAIL2, "nnet3_discriminative_compute_from_egs"),
+    "nnet3-discriminative-compute-objf": (_TAIL2,
+                                          "nnet3_discriminative_compute_objf"),
+    "nnet3-discriminative-copy-egs": (_TAIL3,
+                                      "nnet3_discriminative_copy_egs"),
+    "nnet3-discriminative-get-egs": (_TAIL3, "nnet3_discriminative_get_egs"),
+    "nnet3-discriminative-merge-egs": (_TAIL2,
+                                       "nnet3_discriminative_merge_egs"),
+    "nnet3-discriminative-shuffle-egs": (_TAIL2,
+                                         "nnet3_discriminative_shuffle_egs"),
+    "nnet3-discriminative-subset-egs": (_TAIL2,
+                                        "nnet3_discriminative_subset_egs"),
+    "nnet3-discriminative-train": ("kaldi_tpu_torch.cli.tail9_tools",
+                                   "nnet3_discriminative_train"),
     "nnet3-get-egs": (_NNET3, "nnet3_get_egs"),
     "nnet3-latgen-faster": ("kaldi_tpu_torch.cli.nnet3_tools",
                             "nnet3_latgen_faster"),

@@ -1,6 +1,6 @@
-"""online2-tcp-nnet3-decode-faster and online2-wav-dump-features (ports
-of `kaldi_tpu/cli/online_tools2.py`; the reference's online2bin tools of
-those names).
+"""online2-tcp-nnet3-decode-faster, online2-wav-dump-features and
+nnet3-align-compiled (ports of `kaldi_tpu/cli/online_tools2.py`; the
+reference's online2bin and nnet3bin tools of those names).
 
 The TCP server scores a `.mdl` through the compiled module
 (nnet3/torch_bridge.py), on the card unless --use-gpu=no, a streaming
@@ -10,6 +10,12 @@ JAX package's tool scores each chunk of features alone, so every chunk
 boundary is an utterance boundary to the model and the subsampling
 phase restarts at each chunk; the window gives the offline forward's
 outputs instead, as upstream's looped decodable does.
+
+nnet3-align-compiled scores each utterance with the `.mdl`'s compiled
+module, on the card unless --use-gpu=no, takes every
+--frame-subsampling-factor-th output frame (the alignment is at the
+output rate), and searches each compiled training graph with the host
+FasterDecoder.
 """
 
 from __future__ import annotations
@@ -177,4 +183,75 @@ def online2_wav_dump_features(argv: List[str]) -> int:
         n += 1
     writer.close()
     log(f"dumped online features for {n} utterances")
+    return 0 if n else 1
+
+
+def nnet3_align_compiled(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Viterbi-align features to compiled training graphs using an "
+        "nnet3 model (nnet3-align-compiled.cc).  Chain models: "
+        "--frame-subsampling-factor=3 (the alignment is at the "
+        "subsampled rate, like the reference).\n"
+        "Usage: nnet3-align-compiled [options] <nnet3-in> "
+        "<graphs-rspecifier> <feats-rspecifier> "
+        "<alignments-wspecifier>")
+    from kaldi_tpu_torch.cli.nnet3_tools import _device
+    from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
+                                                 FasterDecoderOptions)
+    from kaldi_tpu_torch.device import full_f32, resolve_device
+    from kaldi_tpu_torch.fstext.fst import VectorFst
+    from kaldi_tpu_torch.nnet3.mdl_io import read_nnet3_any
+    from kaldi_tpu_torch.nnet3.torch_bridge import compile_graph
+    from kaldi_tpu_torch.util.table import RandomAccessTableReader
+    beam = po.register_value("beam", 10.0, "Decoding beam")
+    retry_beam = po.register_value("retry-beam", 40.0,
+                                   "Beam for the second attempt")
+    acoustic_scale = po.register_value(
+        "acoustic-scale", 1.0, "Scaling factor for acoustic likelihoods")
+    sub = po.register_value("frame-subsampling-factor", 1,
+                            "Frame subsampling factor of the model")
+    use_gpu = register_use_gpu(po)
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    device = resolve_device(_device(use_gpu[0]))
+    tm, graph_model, _info = read_nnet3_any(po.get_arg(1))
+    if tm is None:
+        warn("raw model given (no transition model); an .mdl is needed")
+        return 1
+    net = compile_graph(graph_model, "output", device=device)
+    graphs = RandomAccessTableReader(VectorFst, po.get_arg(2))
+    writer = TableWriter("int-vector", po.get_arg(4))
+    n = err = 0
+    stats = {"forward_s": 0.0, "search_s": 0.0, "frames": 0}
+    for key, feats in SequentialTableReader("matrix", po.get_arg(3)):
+        if key not in graphs:
+            warn(f"no graph for {key}")
+            err += 1
+            continue
+        t0 = time.perf_counter()
+        x = torch.from_numpy(np.asarray(feats, np.float32)[None]).to(device)
+        with torch.no_grad(), full_f32():
+            ll = net(x)[0, ::sub[0]].cpu().numpy()
+        t1 = time.perf_counter()
+        res = FasterDecoder(graphs[key], FasterDecoderOptions(
+            beam=beam[0])).decode(ll, tm.id2pdf_id, acoustic_scale[0])
+        if res is None and retry_beam[0] > beam[0]:
+            res = FasterDecoder(graphs[key], FasterDecoderOptions(
+                beam=retry_beam[0])).decode(ll, tm.id2pdf_id,
+                                            acoustic_scale[0])
+        stats["forward_s"] += t1 - t0
+        stats["search_s"] += time.perf_counter() - t1
+        stats["frames"] += ll.shape[0]
+        if res is None:
+            warn(f"alignment failed for {key}")
+            err += 1
+            continue
+        writer.write(key, res[0])
+        n += 1
+    writer.close()
+    log(f"aligned {n} utterances ({err} failed)")
+    stats_line("nnet3-align-compiled",
+               dict(stats, utterances=n, failed=err), device)
     return 0 if n else 1

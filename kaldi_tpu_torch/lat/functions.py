@@ -16,9 +16,12 @@ determinize_lattice    — word-level determinization, unpruned, as the
 determinize_lattice_pruned — word-level determinization with beam
                          pruning and the max-states back-off
                          (lat/determinize-lattice-pruned.h)
+lattice_forward_backward_mpe_variants — the MPFE / sMBR forward-backward
+                         of discriminative training
+                         (lattice-functions.cc:798)
 
 Not carried over yet: determinize_lattice_phone_pruned with the
-phone-label helpers, and lattice_forward_backward_mpe_variants.
+phone-label helpers.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from kaldi_tpu_torch.base.logging import warn
+from kaldi_tpu_torch.base.logging import KaldiTpuError, warn
 from kaldi_tpu_torch.fstext.fst import (EPS, INF, Arc, LatticeWeight,
                                         VectorFst)
 from kaldi_tpu_torch.fstext.ops import connect, determinize_star, invert
@@ -536,3 +539,130 @@ def determinize_lattice_pruned(lat: Lattice, beam: float = 10.0,
     _log.warning("determinize_lattice_pruned: giving up, returning "
                  "tight-pruned non-deterministic lattice")
     return lattice_prune(lat, b)
+
+
+_LOG_ZERO = -1e30
+
+
+def _logadd(a: float, b: float) -> float:
+    """log(exp(a) + exp(b)), a term at or below half of -1e30 dropped
+    (the JAX package's `lat/sausages.py` helper)."""
+    if a < b:
+        a, b = b, a
+    if b <= _LOG_ZERO / 2:
+        return a
+    return a + math.log1p(math.exp(b - a))
+
+
+def lattice_forward_backward_mpe_variants(
+        tm, silence_phones, lat: Lattice, num_ali,
+        criterion: str = "smbr", one_silence_class: bool = True):
+    """MPE/sMBR-style forward-backward: per-frame posteriors over
+    transition-ids weighted by (expected accuracy difference), the
+    objective gradients of MPFE / sMBR discriminative training
+    (lat/lattice-functions.cc:798 LatticeForwardBackwardMpeVariants).
+
+    Returns (tot_objf, post) where post[t] = [(tid, weight), ...]
+    (weights may be negative) and tot_objf is the expected frame
+    accuracy of the lattice under its own posterior."""
+    if criterion not in ("mpfe", "smbr"):
+        raise KaldiTpuError(f"bad criterion {criterion!r}")
+    is_mpfe = criterion == "mpfe"
+    sil = set(int(p) for p in silence_phones)
+    order = _topsort(lat)
+    times = lattice_state_times(lat)
+    max_time = len(num_ali)
+    n = lat.num_states
+    NEG = -1e100
+    alpha = [NEG] * n
+    beta = [NEG] * n
+    alpha_s = [0.0] * n
+    beta_s = [0.0] * n
+    alpha[lat.start] = 0.0
+    zero = lat.semiring.zero
+
+    def frame_acc_of(arc, t):
+        if arc.ilabel == 0:
+            return 0.0
+        phone = tm.transition_id_to_phone(arc.ilabel)
+        ref_phone = tm.transition_id_to_phone(int(num_ali[t]))
+        p_sil, r_sil = phone in sil, ref_phone in sil
+        both_sil = p_sil and r_sil
+        if not is_mpfe:
+            pdf = tm.transition_id_to_pdf(arc.ilabel)
+            ref_pdf = tm.transition_id_to_pdf(int(num_ali[t]))
+            if not one_silence_class:
+                return 1.0 if (pdf == ref_pdf and not p_sil) else 0.0
+            return 1.0 if (pdf == ref_pdf or both_sil) else 0.0
+        if not one_silence_class:
+            return 1.0 if (phone == ref_phone and not p_sil) else 0.0
+        return 1.0 if (phone == ref_phone or both_sil) else 0.0
+
+    # first pass: alpha/beta over log-likelihood (-total cost)
+    tot_fwd = NEG
+    for s in order:
+        a = alpha[s]
+        if a <= NEG:
+            continue
+        for arc in lat.arcs[s]:
+            like = -(arc.weight[0] + arc.weight[1])
+            alpha[arc.nextstate] = _logadd(alpha[arc.nextstate], a + like)
+        f = lat.finals[s]
+        if f != zero:
+            if times[s] != max_time:
+                raise KaldiTpuError("final-prob not at max_time")
+            tot_fwd = _logadd(tot_fwd, a - (f[0] + f[1]))
+    for s in reversed(order):
+        f = lat.finals[s]
+        b = -(f[0] + f[1]) if f != zero else NEG
+        for arc in lat.arcs[s]:
+            like = -(arc.weight[0] + arc.weight[1])
+            b = _logadd(b, beta[arc.nextstate] + like)
+        beta[s] = b
+    if not math.isfinite(tot_fwd):
+        raise KaldiTpuError("no successful path in lattice")
+    if abs(tot_fwd - beta[lat.start]) > 1e-4 * max(1.0, abs(tot_fwd)):
+        raise KaldiTpuError(
+            f"forward {tot_fwd} != backward {beta[lat.start]}")
+    # second pass: accuracy expectations
+    tot_score = 0.0
+    for s in order:
+        for arc in lat.arcs[s]:
+            like = -(arc.weight[0] + arc.weight[1])
+            acc = frame_acc_of(arc, times[s]) if times[s] < max_time \
+                else 0.0
+            scale = math.exp(alpha[s] + like - alpha[arc.nextstate]) \
+                if alpha[arc.nextstate] > NEG / 2 else 0.0
+            alpha_s[arc.nextstate] += scale * (alpha_s[s] + acc)
+        f = lat.finals[s]
+        if f != zero:
+            scale = math.exp(alpha[s] - (f[0] + f[1]) - tot_fwd)
+            tot_score += scale * alpha_s[s]
+    post: List[List] = [[] for _ in range(max_time)]
+    for s in reversed(order):
+        for arc in lat.arcs[s]:
+            like = -(arc.weight[0] + arc.weight[1])
+            arc_beta = beta[arc.nextstate] + like
+            acc = frame_acc_of(arc, times[s]) if times[s] < max_time \
+                else 0.0
+            scale = math.exp(arc_beta - beta[s]) \
+                if beta[s] > NEG / 2 else 0.0
+            if math.isnan(scale):
+                scale = 0.0
+            beta_s[s] += scale * (beta_s[arc.nextstate] + acc)
+            if arc.ilabel != 0:
+                posterior = math.exp(alpha[s] + arc_beta - tot_fwd)
+                acc_diff = (alpha_s[s] + acc + beta_s[arc.nextstate]
+                            - tot_score)
+                post[times[s]].append((arc.ilabel, posterior * acc_diff))
+    if abs(tot_score - beta_s[lat.start]) > 1e-3 * max(1.0, abs(tot_score)):
+        raise KaldiTpuError(
+            f"forward score {tot_score} != backward {beta_s[lat.start]}")
+    # merge duplicate tids per frame (summing)
+    merged: List[List] = []
+    for row in post:
+        acc_d: Dict[int, float] = {}
+        for tid, w in row:
+            acc_d[tid] = acc_d.get(tid, 0.0) + w
+        merged.append(sorted(acc_d.items()))
+    return tot_score, merged

@@ -3,9 +3,10 @@
 TdnnfLayer, Prefinal, `constrain_orthonormal`) and the layers the xconfig
 models build (LstmpLayer, StatisticsPooling, GruLayer,
 RestrictedAttention, Pnorm, ScaleAndOffset, SumBlock, and ConvSame for
-the CNN layers).  The recurrent layers run as a frame loop and take and
-return their carries as the flax layers do.  `spec_augment` (training
-only) is not carried over yet.
+the CNN layers), and the training-time draws: `dropout` (flax's
+nn.Dropout) and `spec_augment`, each from an explicit torch.Generator.
+The recurrent layers run as a frame loop and take and return their
+carries as the flax layers do.
 
 Weights keep the reference's layouts so that flax variables load
 without reshuffling, except that Dense kernels are stored transposed
@@ -518,3 +519,70 @@ class ConvSame(nn.Module):
     def flax(self):
         return {"kernel": _numpy(self.weight.permute(2, 3, 1, 0)),
                 "bias": _numpy(self.bias)}, None
+
+
+def dropout_mask(shape, keep: float, gen: torch.Generator) -> torch.Tensor:
+    """A Bernoulli(keep) boolean mask of `shape`, drawn from `gen` on
+    its device."""
+    return torch.rand(shape, generator=gen, device=gen.device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float,
+            gen: torch.Generator) -> torch.Tensor:
+    """flax's nn.Dropout in training: each element kept with
+    probability 1 - rate and divided by it, the others 0."""
+    keep = 1.0 - rate
+    mask = dropout_mask(x.shape, keep, gen).to(x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def spec_augment_draws(shape, gen: torch.Generator,
+                       freq_mask_width: int = 10, num_freq_masks: int = 2,
+                       time_mask_frac: float = 0.1, num_time_masks: int = 2):
+    """The draws of `spec_augment` for features of `shape` (B, T, D),
+    from `gen` on its device -> (f0, widths, t0, tw), each (B, masks):
+    band starts in [0, max(D - width, 1)), band widths in [0, width],
+    span starts in [0, max(T - max_w, 1)) and span lengths in [0, max_w],
+    max_w = max(int(T * time_mask_frac), 1)."""
+    B, T, D = shape
+    dev = gen.device
+
+    def randint(high, n):
+        return torch.randint(0, high, (B, n), generator=gen, device=dev)
+    f0 = randint(max(D - freq_mask_width, 1), num_freq_masks)
+    widths = randint(freq_mask_width + 1, num_freq_masks)
+    max_w = max(int(T * time_mask_frac), 1)
+    t0 = randint(max(T - max_w, 1), num_time_masks)
+    tw = randint(max_w + 1, num_time_masks)
+    return f0, widths, t0, tw
+
+
+def apply_spec_augment(feats: torch.Tensor, f0, widths, t0,
+                       tw) -> torch.Tensor:
+    """Zero the frequency bands [f0, f0 + widths) and the time spans
+    [t0, t0 + tw) of each sequence of feats (B, T, D)."""
+    B, T, D = feats.shape
+    dev = feats.device
+    f0, widths, t0, tw = (torch.as_tensor(a, device=dev)
+                          for a in (f0, widths, t0, tw))
+    d_idx = torch.arange(D, device=dev)[None, None, :]
+    fmask = ((d_idx >= f0[..., None])
+             & (d_idx < (f0 + widths)[..., None])).any(dim=1)     # (B, D)
+    out = feats * (1.0 - fmask[:, None, :].to(feats.dtype))
+    t_idx = torch.arange(T, device=dev)[None, None, :]
+    tmask = ((t_idx >= t0[..., None])
+             & (t_idx < (t0 + tw)[..., None])).any(dim=1)         # (B, T)
+    return out * (1.0 - tmask[:, :, None].to(feats.dtype))
+
+
+def spec_augment(feats: torch.Tensor, gen: torch.Generator,
+                 freq_mask_width: int = 10, num_freq_masks: int = 2,
+                 time_mask_frac: float = 0.1,
+                 num_time_masks: int = 2) -> torch.Tensor:
+    """SpecAugment-style masking (the reference's
+    SpecAugmentTimeMaskComponent + GeneralDropout freq masking,
+    nnet-general-component.h:1017): zero random frequency bands and
+    time spans of feats (B, T, D), drawn from `gen`."""
+    return apply_spec_augment(feats, *spec_augment_draws(
+        feats.shape, gen, freq_mask_width, num_freq_masks, time_mask_frac,
+        num_time_masks))

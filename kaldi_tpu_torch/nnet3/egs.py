@@ -8,10 +8,9 @@ targets or a packed chain numerator graph). Examples serialize into
 ark archives via the table system, shuffle on disk, merge into
 minibatches, and stream into training — the same disk-mediated
 pipeline the reference uses, with the merged minibatch shaped for one
-device step.  Archives are byte for byte the JAX package's.
-
-Not carried over yet: the discriminative examples
-(`NnetDiscriminativeExample`, `DiscriminativeExampleHolder`)."""
+device step.  Archives are byte for byte the JAX package's, the
+discriminative examples' (`NnetDiscriminativeExample`: features, a
+numerator alignment and a denominator lattice) included."""
 
 from __future__ import annotations
 
@@ -286,3 +285,120 @@ def _merge(group: Sequence[NnetChainExample]) -> Dict[str, np.ndarray]:
     return {"feats": feats, "num_graphs": num_arrays,
             "left_context": group[0].left_context,
             "right_context": group[0].right_context}
+
+
+@dataclass
+class NnetDiscriminativeExample:
+    """Discriminative (sMBR/MMI/MPFE) training example: a feature
+    chunk with its numerator alignment and denominator lattice
+    (parity: nnet3/nnet-discriminative-example.h NnetDiscriminativeExample;
+    the container nnet3/discriminative_train.py's tools consume).  The
+    lattice is written as an OpenFst compactlattice44 inside
+    `<Degs>` ... `</Degs>`."""
+    feats: np.ndarray                  # (T, D)
+    num_ali: List[int]                 # transition-ids, output rate
+    den_lat: object                    # Lattice
+    left_context: int = 0
+    right_context: int = 0
+
+    def write(self, stream: BinaryIO, binary: bool = True) -> None:
+        from kaldi_tpu_torch.fstext.openfst_io import write_fst
+        iof.write_token(stream, binary, "<Degs>")
+        iof.write_matrix(stream, binary, self.feats)
+        iof.write_int_vector(stream, binary, list(self.num_ali))
+        iof.write_int32(stream, binary, self.left_context)
+        iof.write_int32(stream, binary, self.right_context)
+        write_fst(stream, self.den_lat, as_compact_lattice=True)
+        iof.write_token(stream, binary, "</Degs>")
+
+    @classmethod
+    def read(cls, stream: BinaryIO, binary: bool = True
+             ) -> "NnetDiscriminativeExample":
+        from kaldi_tpu_torch.fstext.openfst_io import read_fst
+        iof.expect_token(stream, binary, "<Degs>")
+        feats = iof.read_matrix(stream, binary)
+        ali = iof.read_int_vector(stream, binary)
+        left = iof.read_int32(stream, binary)
+        right = iof.read_int32(stream, binary)
+        lat = read_fst(stream)
+        iof.expect_token(stream, binary, "</Degs>")
+        return cls(feats, list(ali), lat, left, right)
+
+
+class DiscriminativeExampleHolder(Holder):
+    binary_container = True
+
+    def read(self, stream):
+        binary = iof.init_input_stream(stream)
+        return NnetDiscriminativeExample.read(stream, binary)
+
+    def write(self, stream, binary, value):
+        value.write(stream, binary)
+
+
+def den_lattice_range(lat, t0: int, t1: int):
+    """The part of a denominator lattice between frames t0 and t1, as
+    its own lattice of t1 - t0 frames (upstream's
+    DiscriminativeSupervisionSplitter): the arcs that leave a state of
+    time t0..t1-1; a new start state with an epsilon arc to each state
+    that an emitting arc of frame t0 - 1 enters, weighted by the forward
+    log-probability of that arc's path (the lattice's start itself when
+    t0 = 0); each state that an emitting arc of frame t1 - 1 enters final
+    with its backward log-probability.  Those boundary weights, the
+    frames outside the range, sit in the graph cost, so a rescoring of
+    the acoustic costs leaves them alone, and the range's total
+    log-probability is the whole lattice's."""
+    from kaldi_tpu_torch.fstext.fst import Arc, LatticeWeight, VectorFst
+    from kaldi_tpu_torch.fstext.ops import connect
+    from kaldi_tpu_torch.lat.functions import (_logadd, _topsort,
+                                               lattice_state_times)
+    times = lattice_state_times(lat)
+    order = _topsort(lat)
+    n = lat.num_states
+    neg = -1e30
+
+    def like(w):
+        return -(w[0] + w[1])
+    alpha = [neg] * n
+    alpha[lat.start] = 0.0
+    for s in order:
+        if alpha[s] > neg / 2:
+            for a in lat.arcs[s]:
+                alpha[a.nextstate] = _logadd(alpha[a.nextstate],
+                                             alpha[s] + like(a.weight))
+    beta = [neg] * n
+    for s in reversed(order):
+        b = like(lat.finals[s]) if lat.is_final(s) else neg
+        for a in lat.arcs[s]:
+            b = _logadd(b, like(a.weight) + beta[a.nextstate])
+        beta[s] = b
+    enter = {}                   # state -> log-prob of entering at t0
+    leave = {}                   # state -> log-prob after entering at t1
+    if t0 == 0:
+        enter[lat.start] = 0.0
+    for s in range(n):
+        if times[s] < 0:
+            continue
+        for a in lat.arcs[s]:
+            if a.ilabel == 0:
+                continue
+            if times[s] == t0 - 1:
+                enter[a.nextstate] = _logadd(
+                    enter.get(a.nextstate, neg), alpha[s] + like(a.weight))
+            if times[s] == t1 - 1:
+                leave[a.nextstate] = beta[a.nextstate]
+    out = VectorFst(LatticeWeight)
+    out.add_states(n + 1)
+    start = n
+    out.set_start(start)
+    for s in range(n):
+        if t0 <= times[s] < t1:
+            for a in lat.arcs[s]:
+                out.add_arc(s, Arc(a.ilabel, a.olabel, tuple(a.weight),
+                                   a.nextstate))
+    for s, lp in enter.items():
+        out.add_arc(start, Arc(0, 0, (-lp, 0.0), s))
+    for s, lp in leave.items():
+        if lp > neg / 2:
+            out.set_final(s, (-lp, 0.0))
+    return connect(out)

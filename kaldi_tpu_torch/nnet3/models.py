@@ -8,6 +8,11 @@ default initialisers, `recipes.bench_corpus.load_params` reads one, and
 `chain_tdnnf_from_flax` builds the model from one (eval mode; a trainer
 calls `.train()` and turns the gradients on).  `chain_tdnnf_to_flax`
 gives the dict back.
+
+With `dropout` > 0 the model drops each TDNN-F layer's outputs in
+training mode, as flax's nn.Dropout does (a Bernoulli keep mask divided
+by 1 - p), the masks drawn from the generator in `dropout_gen` (on the
+model's device), which a trainer sets; eval mode is the identity.
 """
 
 from __future__ import annotations
@@ -19,9 +24,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from kaldi_tpu_torch.base.logging import KaldiTpuError
 from kaldi_tpu_torch.device import DeviceLike, resolve_device
 from kaldi_tpu_torch.nnet3.components import (BatchNorm, Dense, Prefinal,
-                                              TdnnfLayer)
+                                              TdnnfLayer, dropout)
 
 
 @dataclass(frozen=True)
@@ -36,6 +42,8 @@ class ChainTdnnfConfig:
     # layer index (1-based among tdnnf layers) after which to subsample
     subsample_layer: int = 8
     frame_subsampling_factor: int = 3
+    # dropout after each TDNN-F layer, in training mode only
+    dropout: float = 0.0
 
     def time_strides(self) -> Sequence[int]:
         out = []
@@ -69,6 +77,7 @@ class ChainTdnnf(nn.Module):
         self.output_affine = Dense(cfg.prefinal_dim, cfg.num_pdfs)
         self.prefinal_xent = Prefinal(H, H, cfg.prefinal_dim)
         self.output_xent_affine = Dense(cfg.prefinal_dim, cfg.num_pdfs)
+        self.dropout_gen: Optional[torch.Generator] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -76,6 +85,10 @@ class ChainTdnnf(nn.Module):
 
     def body(self, feats: torch.Tensor,
              ivectors: Optional[torch.Tensor] = None) -> torch.Tensor:
+        drop = self.cfg.dropout > 0 and self.training
+        if drop and self.dropout_gen is None:
+            raise KaldiTpuError("ChainTdnnf: dropout in training mode draws "
+                                "from `dropout_gen`; set a torch.Generator")
         x = feats.to(self.dtype)
         if ivectors is not None and self.cfg.ivector_dim:
             iv = ivectors.to(self.dtype)[:, None, :].expand(
@@ -84,6 +97,8 @@ class ChainTdnnf(nn.Module):
         x = self.input_bn(torch.relu(self.input_affine(x)))
         for layer in self.tdnnf:
             x = layer(x)
+            if drop:
+                x = dropout(x, self.cfg.dropout, self.dropout_gen)
         return x
 
     def chain(self, feats: torch.Tensor,

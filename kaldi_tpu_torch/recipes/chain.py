@@ -2,7 +2,8 @@
 context-dependent (triphone) tree (port of `ChainTrainOptions`,
 `make_chain_system`, `mono_ali_to_chain_ali`, `train_chain_topo`,
 `segment_alignment_words`, `build_ctx_chain_system`, `train_chain_ctx`,
-`_fit_chain`, the flat-start `train_chain_e2e` and `nnet_log_likes` of
+`_fit_chain`, the frame-rate `train_chain` with `make_chunks`, the
+flat-start `train_chain_e2e` and `nnet_log_likes` of
 `kaldi_tpu/recipes/chain.py`).
 
 Parity: steps/chain/train.py (den graph from the alignments' phone LM,
@@ -11,15 +12,16 @@ objective), single-process.  The TDNN-F trains in float32 with TF32 off,
 as the reference's float32 parameters do.  The optimizer is optax's
 `chain(clip_by_global_norm(max_param_change), adam(schedule))` written
 out (`ChainOptimizer`), the schedule optax's `join_schedules` of a
-warm-up and a linear fall (`lr_schedule`), the chunk order numpy's
+warm-up and a linear fall (`lr_schedule`; `train_chain` falls linearly
+from the first step, `linear_schedule`), the chunk order numpy's
 `default_rng(seed).shuffle`, and the semi-orthogonal constraint runs on
 every TDNN-F `linear` factor, in the reference's layout, every
 `orthonormal_interval` steps.  Every op of a step adds in a fixed order
 (the chain objective's gathers included, `chain.objective.InArcs`), so
 on the card too one seed gives one model.  With per-utterance i-vectors
 each chunk carries its utterance's i-vector as the model's second input.
-
-Not carried over yet: the frame-rate `train_chain`.
+A config with `dropout` trains with masks drawn from a generator on the
+device seeded with opts.seed.
 """
 
 from __future__ import annotations
@@ -82,21 +84,29 @@ class ChainTrainOptions:
     right_tolerance: int = 0
 
 
+def _linear(init: float, end: float, steps: int, count: int) -> np.float32:
+    c = np.float32(min(max(count, 0), steps))
+    frac = np.float32(1) - c / np.float32(steps)
+    return np.float32(init - end) * frac + np.float32(end)
+
+
+def linear_schedule(lr: float, final_lr: float,
+                    steps: int) -> Callable[[int], np.float32]:
+    """optax.linear_schedule(lr, final_lr, steps), in float32 as optax
+    computes it."""
+    return lambda count: _linear(lr, final_lr, steps, count)
+
+
 def lr_schedule(lr: float, final_lr: float, warmup: int,
                 total_steps: int) -> Callable[[int], np.float32]:
     """optax.join_schedules([linear_schedule(0.1 lr, lr, warmup),
     linear_schedule(lr, final_lr, max(total - warmup, 1))], [warmup]),
     in float32 as optax computes it."""
-    def linear(init: float, end: float, steps: int, count: int):
-        c = np.float32(min(max(count, 0), steps))
-        frac = np.float32(1) - c / np.float32(steps)
-        return np.float32(init - end) * frac + np.float32(end)
-
     def at(count: int) -> np.float32:
         if count < warmup:
-            return linear(lr * 0.1, lr, warmup, count)
-        return linear(lr, final_lr, max(total_steps - warmup, 1),
-                      count - warmup)
+            return _linear(lr * 0.1, lr, warmup, count)
+        return _linear(lr, final_lr, max(total_steps - warmup, 1),
+                       count - warmup)
     return at
 
 
@@ -304,12 +314,14 @@ class _ChainFit:
     steps/chain/train.py, single-process): the model in training mode on
     the device, `ChainOptimizer` over `lr_schedule`'s warm-up and fall,
     and what the run records in `stats`.  `step` takes one minibatch;
-    `end_epoch` closes an epoch; `finish` -> (model, variables)."""
+    `end_epoch` closes an epoch; `finish` -> (model, variables).
+    schedule: count -> learning rate, by default `lr_schedule`'s."""
 
     def __init__(self, cfg, den_graph: DenominatorGraph,
                  opts: ChainTrainOptions, n_items: int,
                  variables: Optional[dict], device: DeviceLike,
-                 stats: Optional[dict]):
+                 stats: Optional[dict],
+                 schedule: Optional[Callable[[int], float]] = None):
         self.dev = resolve_device(device)
         if variables is None:
             variables = chain_tdnnf_init(
@@ -319,13 +331,19 @@ class _ChainFit:
                                            self.dev)
         self.model.train()
         self.model.requires_grad_(True)
+        if cfg.dropout > 0:
+            self.model.dropout_gen = torch.Generator(
+                self.dev).manual_seed(opts.seed)
         self.params = list(self.model.parameters())
-        steps_per_epoch = max(1, n_items // opts.minibatch_size)
-        total_steps = steps_per_epoch * opts.num_epochs
-        warmup = min(max(total_steps // 20, 10), total_steps // 2 or 1)
-        self.opt = ChainOptimizer(self.params, lr_schedule(
-            opts.learning_rate, opts.final_learning_rate, warmup,
-            total_steps), opts.max_param_change)
+        if schedule is None:
+            steps_per_epoch = max(1, n_items // opts.minibatch_size)
+            total_steps = steps_per_epoch * opts.num_epochs
+            warmup = min(max(total_steps // 20, 10), total_steps // 2 or 1)
+            schedule = lr_schedule(opts.learning_rate,
+                                   opts.final_learning_rate, warmup,
+                                   total_steps)
+        self.opt = ChainOptimizer(self.params, schedule,
+                                  opts.max_param_change)
         self.stats = {} if stats is None else stats
         self.stats.update(step_objf=[], epoch_objf=[], step_ms=[])
         self.events = []
@@ -409,6 +427,90 @@ def _fit_chain(cfg, den_graph: DenominatorGraph, chunks, num_graphs,
                      if use_ivectors else None)
         fit.end_epoch(epoch)
     return fit.finish()
+
+
+def make_chunks(feats: Dict[str, np.ndarray],
+                alignments: Dict[str, List[int]],
+                chunk_width: int, subsample: int
+                ) -> List[Tuple[np.ndarray, List[int]]]:
+    """Cut utterances into fixed-width chunks with matching alignment
+    slices (the egs-generation equivalent, chain-supervision.h:448
+    SplitIntoRanges — simple non-overlapping version)."""
+    chunks = []
+    for utt, f in feats.items():
+        if utt not in alignments:
+            continue
+        ali = alignments[utt]
+        T = min(f.shape[0], len(ali))
+        for start in range(0, T - chunk_width + 1, chunk_width):
+            chunks.append((f[start:start + chunk_width],
+                           ali[start:start + chunk_width]))
+    return chunks
+
+
+def train_chain(sys_, feats: Dict[str, np.ndarray],
+                alignments: Dict[str, List[int]],
+                cfg: Optional[ChainTdnnfConfig] = None,
+                opts: Optional[ChainTrainOptions] = None,
+                variables: Optional[dict] = None,
+                device: DeviceLike = None,
+                stats: Optional[dict] = None):
+    """Chain training at the frame rate over a GMM system's own topology
+    and tree (sys_: a MonoSystem): the den graph from the alignments'
+    phone sequences, exact linear numerators of each chunk, chunks of
+    opts.chunk_width frames in the order of one `default_rng(opts.seed)`,
+    the learning rate falling linearly from the first step
+    (`linear_schedule`).  variables, device and stats as `_fit_chain`
+    takes them.  Returns (model, variables, den_graph)."""
+    if opts is None:
+        opts = ChainTrainOptions()
+    tm, tree = sys_.tm, sys_.tree
+    dim = next(iter(feats.values())).shape[1]
+    if cfg is None:
+        cfg = ChainTdnnfConfig(feat_dim=dim, num_pdfs=tm.num_pdfs,
+                               hidden_dim=128, bottleneck_dim=32,
+                               prefinal_dim=64, num_layers=5,
+                               subsample_layer=3,
+                               frame_subsampling_factor=1)
+    sub = cfg.frame_subsampling_factor
+
+    # denominator graph from training phone sequences
+    phone_seqs = []
+    for utt, ali in alignments.items():
+        phones = []
+        for tid in ali:
+            # a phone starts at a non-self-loop transition out of state 0
+            if (tm.transition_id_to_hmm_state(tid) == 0
+                    and not tm.is_self_loop(tid)):
+                phones.append(tm.transition_id_to_phone(tid))
+        if phones:
+            phone_seqs.append(phones)
+    den_graph = make_denominator_graph(phone_seqs, tm, tree)
+
+    chunks = make_chunks(feats, alignments, opts.chunk_width, sub)
+    if not chunks:
+        raise ValueError("no training chunks")
+    _log.info("chain training: %d chunks of %d frames", len(chunks),
+              opts.chunk_width)
+    total_steps = max(1, len(chunks) // opts.minibatch_size) * opts.num_epochs
+    fit = _ChainFit(cfg, den_graph, opts, len(chunks), variables, device,
+                    stats, schedule=linear_schedule(
+                        opts.learning_rate, opts.final_learning_rate,
+                        total_steps))
+    fit.stats.update(chunks=len(chunks))
+    rng_np = np.random.default_rng(opts.seed)
+    order = np.arange(len(chunks))
+    for epoch in range(opts.num_epochs):
+        rng_np.shuffle(order)
+        for start in range(0, len(order) - opts.minibatch_size + 1,
+                           opts.minibatch_size):
+            idx = order[start:start + opts.minibatch_size]
+            fit.step(np.stack([chunks[i][0] for i in idx]),
+                     [alignment_to_numerator_graph(chunks[i][1], tm, sub)
+                      for i in idx])
+        fit.end_epoch(epoch)
+    model, variables = fit.finish()
+    return model, variables, den_graph
 
 
 # ----------------------------------------------------------------------

@@ -299,6 +299,11 @@ def _compact_lattice_holder() -> Holder:
     return CompactLatticeHolder()
 
 
+def _degs_holder() -> Holder:
+    from kaldi_tpu_torch.nnet3.egs import DiscriminativeExampleHolder
+    return DiscriminativeExampleHolder()
+
+
 _HOLDERS = {
     "matrix": MatrixHolder,
     "vector": VectorHolder,
@@ -317,6 +322,7 @@ _HOLDERS = {
     "compact-lattice": _compact_lattice_holder,
     "posterior": _posterior_holder,
     "gauss-post": _gauss_post_holder,
+    "degs": _degs_holder,
 }
 
 # holder name -> the module of the JAX package whose codec it waits for

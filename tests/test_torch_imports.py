@@ -73,7 +73,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "recipes.template_run", "recipes.template_corpus",
                  "transform", "transform.lda", "transform.mllt",
                  "transform.fmllr", "transform.gauss_rows",
-                 "recipes.lda_mllt", "cli.transform_tools"):
+                 "recipes.lda_mllt", "cli.transform_tools",
+                 "nnet3.discriminative", "nnet3.discriminative_train",
+                 "nnet3.natural_gradient", "cli.tail3_tools",
+                 "cli.tail9_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

@@ -203,7 +203,8 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "lattice-best-path", "lattice-copy",
                              "lattice-determinize",
                              "lattice-determinize-pruned", "lattice-prune",
-                             "lattice-scale", "nnet3-average",
+                             "lattice-scale", "nnet3-align-compiled",
+                             "nnet3-average",
                              "nnet3-chain-combine", "nnet3-chain-combine2",
                              "nnet3-chain-compute-prob",
                              "nnet3-chain-copy-egs", "nnet3-chain-e2e-get-egs",
@@ -214,7 +215,15 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "nnet3-chain-train2", "nnet3-combine",
                              "nnet3-compute", "nnet3-compute-batch",
                              "nnet3-compute-from-egs", "nnet3-compute-prob",
-                             "nnet3-copy", "nnet3-copy-egs", "nnet3-get-egs",
+                             "nnet3-copy", "nnet3-copy-egs",
+                             "nnet3-discriminative-compute-from-egs",
+                             "nnet3-discriminative-compute-objf",
+                             "nnet3-discriminative-copy-egs",
+                             "nnet3-discriminative-get-egs",
+                             "nnet3-discriminative-merge-egs",
+                             "nnet3-discriminative-shuffle-egs",
+                             "nnet3-discriminative-subset-egs",
+                             "nnet3-discriminative-train", "nnet3-get-egs",
                              "nnet3-latgen-faster",
                              "nnet3-latgen-faster-batch",
                              "nnet3-latgen-faster-looped", "nnet3-merge-egs",
