@@ -96,6 +96,11 @@ in-process matrices), then --stage 8 --chain-epochs N
 (template_chain_e2e; N is TEMPLATE_CHAIN_EPOCHS, or --epochs), each held
 to tools/template_jax_bar.py's bars.
 
+With --ivector it runs chip_smoke.py's i-vector phases alone
+(ivector_phases): the --scale corpus made and featurized here (not
+trained), then ivector_train, ivector_sid and ivector_flagship, each held
+to tools/ivector_jax_bar.py's bars.
+
 With --profile-check it runs the main path's slice_ng and profile_ng
 with profile_ng's tables built twice: from the profiler's raw events (as
 chip_smoke.py builds them) and from torch's event tree (key_averages and
@@ -104,7 +109,7 @@ of each reported, the two held equal.
 
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
-     --chain-cli | --disc | --chain-frame | --template |
+     --chain-cli | --disc | --chain-frame | --template | --ivector |
      --profile-check]
      (needs CUDA)
 """
@@ -266,6 +271,8 @@ def main() -> int:
                       "128 test utterances")
     mode.add_argument("--template", action="store_true",
                       help="run chip_smoke.py's template_gmm phase alone")
+    mode.add_argument("--ivector", action="store_true",
+                      help="run chip_smoke.py's i-vector phases alone")
     mode.add_argument("--profile-check", action="store_true",
                       help="run slice_ng and profile_ng with profile_ng's "
                       "tables also built from torch's event tree")
@@ -282,8 +289,13 @@ def main() -> int:
     if args.online or args.legacy or args.train or args.train_scale \
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
             or args.chain_cli or args.template or args.profile_check \
-            or args.disc or args.chain_frame:
-        if args.template:
+            or args.disc or args.chain_frame or args.ivector:
+        if args.ivector:
+            cs.emit("ivector_summary", **{
+                name: {k: v for k, v in phase.items() if k != "launches"}
+                for name, phase in cs.ivector_phases().items()})
+            done = "ivector_done"
+        elif args.template:
             cs.emit("template_summary", **{
                 name: {k: v for k, v in phase.items() if k != "launches"}
                 for name, phase in cs.template_phases(

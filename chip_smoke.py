@@ -276,22 +276,36 @@ Phases, one JSON line each (any failure exits nonzero):
      the
      last line is {"ok": true, "device": ...}.
 
+The online2, xconfig and training phases (online2_graph to
+xconfig_zoo, after a decode of the legacy test utterances on the int16
+wire as slice_lex_int16's; train_lex to ng_precondition, then the
+generic corpus recipe; train_scale, then the i-vector tools) run in
+three processes of their own on the same card (`--worker online2`,
+`--worker train`, `--worker scale`) at a lower host priority (nice 10),
+started once 3, 4 and slice_ng with profile_ng are done, beside the rest
+of 5 and 6-7; their lines are printed when they end, before 8.  The
+walls from ng_cpu_check on are measured beside them.
+
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 """
 
 from __future__ import annotations
 
+import atexit
 import bisect
 import collections
 import concurrent.futures
 import contextlib
 import copy
+import ctypes
 import gc
 import io
 import itertools
 import json
 import os
 import re
+import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -575,6 +589,44 @@ LSTM_LANES, LSTM_FRAMES = 32, 500
 # time.  The search is host Python (about 2 ms a frame on the CPU), so 16
 # utterances keep the three phases near 150 s
 ONLINE2_UTTS, ONLINE2_CONC, ONLINE2_CHUNK_S, ONLINE2_BEAM = 16, 4, 0.18, 15.0
+# the i-vector tool chain (cli/ivector_tools.py) over the --scale corpus
+# (384 training and 128 test utterances, 24 speakers round-robin) at the
+# widths of Kaldi's chain recipes (steps/online/nnet2/train_diag_ubm.sh,
+# sid/train_full_ubm.sh, train_ivector_extractor.sh): a 512-Gaussian UBM
+# from 20 EM iterations on up to 500,000 frames, 4 diagonal and 4 full EM
+# iterations, a 100-dim extractor with 10 iterations over 4 splits,
+# online i-vectors every 10 frames; the sre v1 back end with a 23-dim LDA
+# (the speakers less one).  IVECTOR_JAX_BAR is what tools/ivector_jax_bar.py
+# printed for the same tools and options over the same corpus made and
+# featurized by the JAX package on the CPU
+IVECTOR_UBM = dict(num_gauss=512, init_iters=20, num_frames=500000,
+                   diag_iters=4, full_iters=4)
+IVECTOR_DIM, IVECTOR_ITERS, IVECTOR_SPLITS, IVECTOR_PERIOD = 100, 10, 4, 10
+IVECTOR_LDA_DIM, IVECTOR_CHECK_UTTS = 23, 16
+IVECTOR_JAX_BAR = dict(
+    ubm_avg_loglike=dict(
+        init=-106.75430435368402,
+        diag1=-106.75077827173743,
+        diag2=-106.74718219108262,
+        diag3=-106.74390569078574,
+        diag4=-106.74083743649867,
+        full1=-103.05275161632117,
+        full2=-102.66437771328539,
+        full3=-102.46734563531993,
+        full4=-102.34934363117807),
+    eer_plda=31.4708, eer_dot=12.449,
+    flagship_offline_gap=0.00020560555445570117,
+    flagship_online_gap=0.010546028785690787,
+    test_ivector_norm_mean=0.178918121088242,
+    seconds=3680.6844349780004)
+# bars: the UBM's log-likelihood a frame within 1e-3 of JAX's after every
+# stage (the card's MFCC differs from JAX's by up to about 2e-3), each EER
+# within two of the 128 target trials, the flagship's i-vectors within
+# twice the gap JAX shows between its own host and batched extractors;
+# card against CPU within 1e-9 of the largest element (statistics) and
+# 1e-6 (i-vectors)
+IVECTOR_LL_BAND, IVECTOR_EER_BAND = 1e-3, 100.0 * 2 / 128
+IVECTOR_STATS_TOL, IVECTOR_IVEC_TOL = 1e-9, 1e-6
 
 
 def emit(phase: str, **kw) -> None:
@@ -4043,10 +4095,14 @@ def train_scale_check(trained: dict) -> dict:
     return out
 
 
-def train_scale_phases(epochs: int = SCALE_EPOCHS) -> dict:
+def train_scale_phases(epochs: int = SCALE_EPOCHS,
+                       keep: dict = None) -> dict:
     """train_scale and train_scale_check -> their summary, with kernels
-    a-c's launches in each."""
+    a-c's launches in each.  `keep`, when given, receives the system's
+    training features and test waves (the i-vector phases read them)."""
     trained = run_train_scale(epochs)
+    if keep is not None:
+        keep.update({k: trained["sysd"][k] for k in ("feats", "test_wav")})
     check = train_scale_check(trained)
     out = dict(trained["summary"])
     out["launches"] = {"train_scale": out["launches"],
@@ -4542,6 +4598,428 @@ def template_phases(epochs: int = TEMPLATE_CHAIN_EPOCHS) -> dict:
         return {"template_gmm": run_template_gmm(run),
                 "template_lda_sat": run_template_lda_sat(run),
                 "template_chain_e2e": run_template_chain_e2e(root, epochs)}
+
+
+# ---------------------------------------------------------------------------
+# the i-vector tool chain: the UBMs, the extractor, extraction and the sid
+# back end through the port's tools, and the flagship extractor through them
+
+
+def mfcc_of(fe, waves: dict) -> dict:
+    """{utt: (T, D) float32} of the waves, 64 utterances a batch."""
+    keys = sorted(waves)
+    out = {}
+    for i in range(0, len(keys), 64):
+        part = keys[i:i + 64]
+        f, n = fe.compute_batch_device([waves[u] for u in part])
+        f = f.cpu().numpy()
+        out.update((u, f[j, :n[j]]) for j, u in enumerate(part))
+    return out
+
+
+def ivec_tool(sec: dict, dev: str, tool: str, *args, key: str = "") -> str:
+    """timed_tool of an i-vector tool, on the CPU with dev "cpu"."""
+    from kaldi_tpu_torch.cli.ivector_tools import DEVICE_TOOLS
+    extra = ["--use-gpu=no"] if dev == "cpu" and tool in DEVICE_TOOLS else []
+    return timed_tool(sec, tool, *extra, *args, key=key)
+
+
+def ivector_data(d: str, feats: dict = None, test_wav: dict = None,
+                 dev: str = "cuda") -> dict:
+    """The --scale corpus's features as archives under d: the training
+    utterances' (train_scale's, or the corpus made and featurized here),
+    the test utterances' (the main path's frontend on the card),
+    IVECTOR_SPLITS splits of the training set, each set's spk2utt and
+    utt2spk (speaker i mod 24), the trials of the 24 speakers against the
+    128 test utterances."""
+    spec = bench_scale_spec()
+    t0 = time.perf_counter()
+    fe = OfflineFeature(mfcc_options(spec), device=dev)
+    if feats is None or test_wav is None:
+        _, _, train_wav, _, test_wav, _ = make_corpus(spec)
+        feats = mfcc_of(fe, train_wav)
+        del train_wav
+    test = mfcc_of(fe, test_wav)
+    mfcc_s = time.perf_counter() - t0
+
+    def spk(u):
+        return f"spk{int(u[2:]) % spec.num_speakers:02d}"
+
+    def write(name, fs, keys):
+        with TableWriter("matrix", f"ark:{os.path.join(d, name)}") as w:
+            for u in keys:
+                w.write(u, fs[u])
+
+    def lines(name, rows):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("".join(r + "\n" for r in rows))
+
+    sets = {"train": feats, "test": test}
+    for name, fs in sets.items():
+        keys = sorted(fs)
+        write(f"{name}.ark", fs, keys)
+        s2u = {}
+        for u in keys:
+            s2u.setdefault(spk(u), []).append(u)
+        lines(f"{name}.spk2utt", [f"{s} {' '.join(us)}"
+                                  for s, us in sorted(s2u.items())])
+        lines(f"{name}.utt2spk", [f"{u} {spk(u)}" for u in keys])
+    keys = sorted(feats)
+    for j in range(IVECTOR_SPLITS):
+        write(f"train.{j}.ark", feats, keys[j::IVECTOR_SPLITS])
+    write("check.ark", feats, keys[:IVECTOR_CHECK_UTTS])
+    models = sorted({spk(u) for u in keys})
+    trials = [(s, u) for s in models for u in sorted(test)]
+    lines("trials", [f"{s} {u}" for s, u in trials])
+    lines("flagship.utt2utt", [f"{u} {u}" for u in sorted(test)])
+    return {"train": feats, "test": test, "mfcc_s": mfcc_s,
+            "targets": {(s, u) for s, u in trials if spk(u) == s},
+            "trials": len(trials), "frames": int(sum(
+                f.shape[0] for f in feats.values()))}
+
+
+def ubm_avg_loglike(path: str, full: bool, feats: dict,
+                    dev: str = "cuda") -> float:
+    """The UBM's average log-likelihood a frame over the training frames
+    on the card, scored as its acc-stats tool scores them."""
+    from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
+    from kaldi_tpu_torch.gmm.full_gmm import FullGmm
+    from kaldi_tpu_torch.gmm.ubm import UbmScorer
+    sc = UbmScorer(read_kaldi_object(FullGmm.read if full else DiagGmm.read,
+                                     path), dev)
+    x = sc.frames(np.concatenate([feats[u] for u in sorted(feats)]))
+    return float(sc.log_likelihood(x).to(torch.float64).mean())
+
+
+def read_npz(path: str) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def peak_gb(dev: str):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda"
+            else None)
+
+
+def run_ivector_train(d: str, data: dict, dev: str = "cuda") -> dict:
+    """ivector_train: the diagonal UBM (gmm-global-init-from-feats, then
+    4 x gmm-global-acc-stats / gmm-global-est), the full UBM
+    (gmm-global-to-fgmm, 4 x fgmm-global-acc-stats over the 4 splits,
+    fgmm-global-sum-accs, fgmm-global-est), the extractor
+    (ivector-extractor-init --use-full-ubm, 10 x acc-stats over the 4
+    splits, sum-accs, est), ivector-extract-online2 of both sets over
+    their spk2utt; all in this process on the card.  The UBM's average
+    log-likelihood a frame after each of its 9 files, the seconds of each
+    EM iteration, the mean norm of each utterance's last online i-vector
+    (offset removed), the peak memory, kernels a-c's launches (0).  Then
+    the check: fgmm-global-acc-stats, ivector-extractor-acc-stats and
+    ivector-extract of IVECTOR_CHECK_UTTS utterances with --use-gpu=no and
+    on the card.  Bars: each log-likelihood within IVECTOR_LL_BAND of
+    IVECTOR_JAX_BAR's, the card's statistics within IVECTOR_STATS_TOL of
+    the CPU's largest element, its i-vectors within IVECTOR_IVEC_TOL."""
+    from kaldi_tpu_torch.ivector.extractor import IvectorExtractorStats
+    reset_kernel_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    u = IVECTOR_UBM
+    sec: dict = {}
+    iter_s: dict = {"diag": [], "full": [], "extractor": []}
+    ll = {}
+
+    def p(name):
+        return os.path.join(d, name)
+
+    tr = "ark:" + p("train.ark")
+    t_all = time.perf_counter()
+    ivec_tool(sec, dev, "gmm-global-init-from-feats",
+              f"--num-gauss={u['num_gauss']}",
+              f"--num-iters={u['init_iters']}",
+              f"--num-frames={u['num_frames']}", tr, p("0.dubm"))
+    ll["init"] = ubm_avg_loglike(p("0.dubm"), False, data["train"], dev)
+    for it in range(u["diag_iters"]):
+        t0 = time.perf_counter()
+        ivec_tool(sec, dev, "gmm-global-acc-stats", p(f"{it}.dubm"), tr,
+                  p(f"{it}.dacc"))
+        ivec_tool(sec, dev, "gmm-global-est", p(f"{it}.dubm"), p(f"{it}.dacc"),
+                  p(f"{it + 1}.dubm"))
+        iter_s["diag"].append(time.perf_counter() - t0)
+        ll[f"diag{it + 1}"] = ubm_avg_loglike(p(f"{it + 1}.dubm"), False,
+                                              data["train"], dev)
+    ivec_tool(sec, dev, "gmm-global-to-fgmm", p(f"{u['diag_iters']}.dubm"),
+              p("0.ubm"))
+    for it in range(u["full_iters"]):
+        t0 = time.perf_counter()
+        accs = [p(f"{it}.{j}.facc") for j in range(IVECTOR_SPLITS)]
+        for j, acc in enumerate(accs):
+            ivec_tool(sec, dev, "fgmm-global-acc-stats", p(f"{it}.ubm"),
+                      "ark:" + p(f"train.{j}.ark"), acc)
+        ivec_tool(sec, dev, "fgmm-global-sum-accs", p(f"{it}.facc"), *accs)
+        ivec_tool(sec, dev, "fgmm-global-est", p(f"{it}.ubm"), p(f"{it}.facc"),
+                  p(f"{it + 1}.ubm"))
+        iter_s["full"].append(time.perf_counter() - t0)
+        ll[f"full{it + 1}"] = ubm_avg_loglike(p(f"{it + 1}.ubm"), True,
+                                              data["train"], dev)
+    ubm = p(f"{u['full_iters']}.ubm")
+    ivec_tool(sec, dev, "ivector-extractor-init", "--use-full-ubm",
+              f"--ivector-dim={IVECTOR_DIM}", ubm, p("0.ie"))
+    for it in range(IVECTOR_ITERS):
+        t0 = time.perf_counter()
+        accs = [p(f"{it}.{j}.iacc") for j in range(IVECTOR_SPLITS)]
+        for j, acc in enumerate(accs):
+            ivec_tool(sec, dev, "ivector-extractor-acc-stats", p(f"{it}.ie"),
+                      "ark:" + p(f"train.{j}.ark"), acc)
+        ivec_tool(sec, dev, "ivector-extractor-sum-accs", p(f"{it}.iacc"),
+                  *accs)
+        ivec_tool(sec, dev, "ivector-extractor-est", p(f"{it}.ie"),
+                  p(f"{it}.iacc"), p(f"{it + 1}.ie"))
+        iter_s["extractor"].append(time.perf_counter() - t0)
+        for f in accs + [p(f"{it}.iacc"), p(f"{it}.ie")]:
+            os.remove(f)
+    final = p(f"{IVECTOR_ITERS}.ie")
+    norms = {}
+    for name in ("train", "test"):
+        ivec_tool(sec, dev, "ivector-extract-online2",
+                  f"--ivector-period={IVECTOR_PERIOD}",
+                  "ark:" + p(f"{name}.spk2utt"), final,
+                  "ark:" + p(f"{name}.ark"), "ark:" + p(f"{name}.online"),
+                  key=f"ivector-extract-online2 {name}")
+        last = np.stack([np.asarray(m[-1], np.float64) for _, m in
+                         SequentialTableReader("matrix", "ark:" +
+                                               p(f"{name}.online"))])
+        last[:, 0] -= 100.0      # ivector-extractor-init's prior offset
+        norms[name] = float(np.linalg.norm(last, axis=1).mean())
+    seconds = time.perf_counter() - t_all
+    launches = kernel_launch_counts()
+    peak = peak_gb(dev)
+    # the card against the CPU on the same files
+    ck = "ark:" + p("check.ark")
+    sides = (("card", "yes" if dev == "cuda" else "no"), ("cpu", "no"))
+    for side, use_gpu in sides:
+        timed_tool(sec, "fgmm-global-acc-stats", f"--use-gpu={use_gpu}", ubm,
+                   ck, p(f"check.{side}.facc"), key=f"check {side}")
+        timed_tool(sec, "ivector-extractor-acc-stats", f"--use-gpu={use_gpu}",
+                   final, ck, p(f"check.{side}.iacc"), key=f"check {side}")
+        timed_tool(sec, "ivector-extract", f"--use-gpu={use_gpu}", final, ck,
+                   "ark:" + p(f"check.{side}.ivec"), key=f"check {side}")
+    fy, fn = read_npz(p("check.card.facc")), read_npz(p("check.cpu.facc"))
+    iy, inn = (read_kaldi_object(IvectorExtractorStats.read,
+                                 p(f"check.{g}.iacc"))
+               for g in ("card", "cpu"))
+    vy, vn = (np.stack([np.asarray(v) for _, v in SequentialTableReader(
+        "vector", "ark:" + p(f"check.{g}.ivec"))]) for g in ("card", "cpu"))
+    check = {f"full_ubm_{k}": _rel_to_largest(fy[k], fn[k]) for k in fn}
+    check["extractor_A"] = _rel_to_largest(iy.A, inn.A)
+    check["extractor_B"] = _rel_to_largest(iy.B, inn.B)
+    check["ivectors_max_abs"] = float(np.abs(vy - vn).max())
+    bar = IVECTOR_JAX_BAR["ubm_avg_loglike"]
+    ll_diff = {k: abs(v - bar[k]) for k, v in ll.items()}
+    out = {"seconds": seconds, "tool_s": sec, "em_iter_s": iter_s,
+           "ubm_avg_loglike": ll, "jax_ubm_avg_loglike": bar,
+           "ubm_loglike_diff": ll_diff, "frames": data["frames"],
+           "mfcc_s": data["mfcc_s"], "online_last_norm_mean": norms,
+           "check": check, "check_utts": IVECTOR_CHECK_UTTS,
+           "peak_memory_gb": peak, "launches": launches}
+    emit("ivector_train", **out)
+    bars = {"ubm loglike": max(ll_diff.values()) <= IVECTOR_LL_BAND,
+            "card statistics": max(v for k, v in check.items()
+                                   if k != "ivectors_max_abs")
+            <= IVECTOR_STATS_TOL,
+            "card i-vectors": check["ivectors_max_abs"] <= IVECTOR_IVEC_TOL,
+            "online norms finite": all(np.isfinite(list(norms.values()))),
+            "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"ivector_train: {failed}")
+    out["final"] = final
+    return out
+
+
+def eer_from_scores(path: str, targets: set, d: str, name: str) -> float:
+    """compute-eer (in this process) of a scores file's trials labelled
+    by `targets`."""
+    lab = os.path.join(d, name + ".labeled")
+    with open(path) as f, open(lab, "w") as g:
+        for line in f:
+            a, b, sc = line.split()
+            g.write(f"{sc} {'target' if (a, b) in targets else 'nontarget'}"
+                    "\n")
+    out = timed_tool({}, "compute-eer", lab)
+    return float(re.findall(r"^(\S+)%$", out, re.M)[-1])
+
+
+def run_ivector_sid(d: str, data: dict, final: str,
+                    dev: str = "cuda") -> dict:
+    """ivector_sid: the sre v1 back end over ivector_train's extractor:
+    compute-vad, select-voiced-frames, ivector-extract of both sets,
+    ivector-mean over the training spk2utt (24 models), ivector-compute-lda
+    --dim=23, then ivector-transform, ivector-subtract-global-mean and
+    ivector-normalize-length of the training i-vectors, the models and the
+    test i-vectors, ivector-compute-plda over the training ones,
+    ivector-plda-scoring of the 3,072 trials and compute-eer,
+    ivector-compute-dot-products and compute-eer.  Bars: each EER within
+    IVECTOR_EER_BAND of IVECTOR_JAX_BAR's; kernels a-c 0 launches."""
+    reset_kernel_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sec: dict = {}
+
+    def p(name):
+        return os.path.join(d, name)
+
+    def a(name):
+        return "ark:" + p(name)
+
+    t_all = time.perf_counter()
+    voiced = {}
+    for name in ("train", "test"):
+        ivec_tool(sec, dev, "compute-vad", a(f"{name}.ark"), a(f"{name}.vad"))
+        ivec_tool(sec, dev, "select-voiced-frames", a(f"{name}.ark"),
+                  a(f"{name}.vad"), a(f"{name}.voiced"))
+        v = [np.asarray(x) for _, x in SequentialTableReader(
+            "vector", a(f"{name}.vad"))]
+        voiced[name] = float(np.concatenate(v).mean())
+        ivec_tool(sec, dev, "ivector-extract", final, a(f"{name}.voiced"),
+                  a(f"{name}.ivec"))
+    ivec_tool(sec, dev, "ivector-mean", a("train.spk2utt"), a("train.ivec"),
+              a("spk.ivec"), a("num_utts"))
+    ivec_tool(sec, dev, "ivector-compute-lda", f"--dim={IVECTOR_LDA_DIM}",
+              a("train.ivec"), a("train.utt2spk"), p("lda.mat"))
+    for name in ("train", "spk", "test"):
+        ivec_tool(sec, dev, "ivector-transform", p("lda.mat"),
+                  a(f"{name}.ivec"), a(f"{name}.lda"))
+        ivec_tool(sec, dev, "ivector-subtract-global-mean", a(f"{name}.lda"),
+                  a(f"{name}.cen"))
+        ivec_tool(sec, dev, "ivector-normalize-length", a(f"{name}.cen"),
+                  a(f"{name}.norm"))
+    ivec_tool(sec, dev, "ivector-compute-plda", a("train.spk2utt"),
+              a("train.norm"), p("plda"))
+    ivec_tool(sec, dev, "ivector-plda-scoring", "--num-utts=" + a("num_utts"),
+              p("plda"), a("spk.norm"), a("test.norm"), p("trials"),
+              p("scores.plda"))
+    ivec_tool(sec, dev, "ivector-compute-dot-products", p("trials"),
+              a("spk.norm"), a("test.norm"), p("scores.dot"))
+    eer = {"plda": eer_from_scores(p("scores.plda"), data["targets"], d,
+                                   "plda"),
+           "dot": eer_from_scores(p("scores.dot"), data["targets"], d,
+                                  "dot")}
+    test_norm = float(np.mean([np.linalg.norm(v) for _, v in
+                               SequentialTableReader("vector",
+                                                     a("test.ivec"))]))
+    seconds = time.perf_counter() - t_all
+    launches = kernel_launch_counts()
+    jax = {"plda": IVECTOR_JAX_BAR["eer_plda"],
+           "dot": IVECTOR_JAX_BAR["eer_dot"]}
+    out = {"seconds": seconds, "tool_s": sec, "eer": eer, "jax_eer": jax,
+           "eer_band": IVECTOR_EER_BAND, "trials": data["trials"],
+           "target_trials": len(data["targets"]), "voiced_share": voiced,
+           "test_ivector_norm_mean": test_norm,
+           "jax_test_ivector_norm_mean":
+               IVECTOR_JAX_BAR["test_ivector_norm_mean"],
+           "peak_memory_gb": peak_gb(dev),
+           "launches": launches}
+    emit("ivector_sid", **out)
+    bars = {f"eer {k}": abs(eer[k] - jax[k]) <= IVECTOR_EER_BAND
+            for k in eer}
+    bars["kernels a-c"] = not any(launches.values())
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"ivector_sid: {failed}")
+    return out
+
+
+def run_ivector_flagship(d: str, data: dict, dev: str = "cuda") -> dict:
+    """ivector_flagship: the committed flagship_ng_ivec.npz written as an
+    .ie file through the port's extractor I/O; ivector-extract of the main
+    path's 128 test utterances against `BatchedIvectorExtractor.
+    extract_batch`, and ivector-extract-online2 --ivector-period=10 (each
+    utterance its own speaker) against init_state / acc_chunk / ivector
+    fed the same 10-frame chunks.  Bars: the largest difference of each
+    within twice the gap the JAX package shows between its own host and
+    batched extractors (IVECTOR_JAX_BAR); kernels a-c 0 launches."""
+    from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
+    reset_kernel_counts()
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    sec: dict = {}
+
+    def p(name):
+        return os.path.join(d, name)
+
+    t_all = time.perf_counter()
+    arrays = load_ivector_extractor(os.path.join(ART, "flagship_ng_ivec.npz"))
+    ex = IvectorExtractor.from_arrays(arrays)
+    write_kaldi_object(ex.write, p("flagship.ie"))
+    ivec_tool(sec, dev, "ivector-extract", p("flagship.ie"),
+              "ark:" + p("test.ark"), "ark:" + p("flagship.ivec"))
+    ivec_tool(sec, dev, "ivector-extract-online2",
+              f"--ivector-period={IVECTOR_PERIOD}",
+              "ark:" + p("flagship.utt2utt"), p("flagship.ie"),
+              "ark:" + p("test.ark"), "ark:" + p("flagship.online"))
+    tool_iv = dict(SequentialTableReader("vector",
+                                         "ark:" + p("flagship.ivec")))
+    tool_on = dict(SequentialTableReader("matrix",
+                                         "ark:" + p("flagship.online")))
+    utts = sorted(data["test"])
+    lens = np.asarray([data["test"][u].shape[0] for u in utts])
+    T = int(-(-lens.max() // IVECTOR_PERIOD) * IVECTOR_PERIOD)
+    padded = np.zeros((len(utts), T, ex.dim), np.float32)
+    for i, u in enumerate(utts):
+        padded[i, :lens[i]] = data["test"][u]
+    bat = BatchedIvectorExtractor(arrays, device=dev)
+    feats = torch.from_numpy(padded).to(dev)
+    t0 = time.perf_counter()
+    got = bat.extract_batch(feats, lens).double().cpu().numpy()
+    batched_s = time.perf_counter() - t0
+    offline = float(np.abs(np.stack([tool_iv[u] for u in utts]) - got).max())
+    state = bat.init_state(len(utts))
+    frames = torch.arange(T, device=dev)
+    lens_d = torch.from_numpy(lens).to(dev)
+    online, rows = 0.0, 0
+    for k, t0 in enumerate(range(0, T, IVECTOR_PERIOD)):
+        mask = frames[None, t0:t0 + IVECTOR_PERIOD] < lens_d[:, None]
+        state = bat.acc_chunk(state, feats[:, t0:t0 + IVECTOR_PERIOD], mask)
+        cur = bat.ivector(state).double().cpu().numpy()
+        for i, u in enumerate(utts):
+            if t0 < lens[i]:
+                want = np.asarray(tool_on[u][k], np.float64)
+                want[0] -= ex.prior_offset
+                online = max(online, float(np.abs(cur[i] - want).max()))
+                rows += 1
+    launches = kernel_launch_counts()
+    bar = {"offline": 2 * IVECTOR_JAX_BAR["flagship_offline_gap"],
+           "online": 2 * IVECTOR_JAX_BAR["flagship_online_gap"]}
+    out = {"seconds": time.perf_counter() - t_all, "tool_s": sec,
+           "batched_s": batched_s, "offline_max_diff": offline,
+           "online_max_diff": online, "online_rows": rows, "bars": bar,
+           "utterances": len(utts), "mean_norm": float(np.linalg.norm(
+               got, axis=1).mean()), "peak_memory_gb": peak_gb(dev),
+           "launches": launches}
+    emit("ivector_flagship", **out)
+    bars = {"offline": offline <= bar["offline"],
+            "online": online <= bar["online"],
+            "kernels a-c": not any(launches.values())}
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"ivector_flagship: {failed}")
+    return out
+
+
+def ivector_phases(feats: dict = None, test_wav: dict = None,
+                   dev: str = "cuda") -> dict:
+    """ivector_train, ivector_sid and ivector_flagship over one directory;
+    `feats` and `test_wav` are train_scale's (else the corpus is made and
+    featurized here).  dev "cpu" runs them on the CPU (the tools with
+    --use-gpu=no), to try them at small widths."""
+    with tempfile.TemporaryDirectory() as d:
+        data = ivector_data(d, feats, test_wav, dev)
+        train = run_ivector_train(d, data, dev)
+        out = {"ivector_train": train,
+               "ivector_sid": run_ivector_sid(d, data, train.pop("final"),
+                                              dev),
+               "ivector_flagship": run_ivector_flagship(d, data, dev)}
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def tdnn_lstm_graph(feat_dim: int, tdnn_dim: int, cell_dim: int,
@@ -6022,6 +6500,129 @@ def lex_int16_words(lex: dict, model, fe) -> dict:
     return lex_words(lex, utts, outs)
 
 
+# ---------------------------------------------------------------------------
+# the training and the online2 phases beside the main path: three groups,
+# each in a process of its own on the same card, whose phases read nothing
+# of the main process's
+
+WORKER_GROUPS = ("train", "scale", "online2")
+
+
+def run_worker_group(group: str) -> dict:
+    """The phases of one group -> their results by name: "train" is
+    train_lex, the chain tools and the chain frame phases over its system,
+    then the generic corpus recipe; "scale" is train_scale, then the
+    i-vector tool chain over its features; "online2" is the online2 and
+    xconfig phases over the legacy graph, after slice_lex_int16's decode
+    (lex_int16_words: the words online2_wav agrees with)."""
+    if group == "online2":
+        lex = build_lex_path()
+        words16 = lex_int16_words(lex, *legacy_am(lex))
+        del lex
+        torch.cuda.empty_cache()
+        return {"online2": online2_phases(words16)}
+    if group == "train":
+        train, sysd = train_phases(SMOKE_TRAIN_EPOCHS)
+        chain = chain_cli_phases(sysd)
+        frame = chain_frame_phases(sysd)
+        del sysd
+        torch.cuda.empty_cache()
+        return {"train": train, "chain": chain, "frame": frame,
+                "template": template_phases()}
+    keep: dict = {}
+    scale = train_scale_phases(SMOKE_SCALE_EPOCHS, keep=keep)
+    return {"scale": scale, "ivector": ivector_phases(**keep)}
+
+
+class PhaseWorker:
+    """`python3 chip_smoke.py --worker GROUP` leading a process group of
+    its own (stop() ends it and every tool it started, and prints the
+    JSON lines it had written).  Its JSON lines and its stderr go to files in `d`,
+    copied to this process's streams by join(), which returns the
+    group's results or exits if it failed.  It keeps torch's default
+    host threads: the card-CPU checks' float32 bars are twice the CPU's
+    own float32 error, which depends on them."""
+
+    def __init__(self, group: str, d: str):
+        self.group = group
+        self.paths = {k: os.path.join(d, f"{group}.{k}")
+                      for k in ("out", "err", "json")}
+        self.joined = False
+        with open(self.paths["out"], "w") as out, \
+                open(self.paths["err"], "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--worker",
+                 group, self.paths["json"], repr(_T0)],
+                stdout=out, stderr=err, cwd=REPO, start_new_session=True)
+
+    def poll(self) -> None:
+        """Exits now if the worker has already failed."""
+        if self.proc.poll() not in (None, 0):
+            self.join()
+
+    def join(self) -> dict:
+        rc = self.proc.wait()
+        self.joined = True
+        with open(self.paths["out"]) as f:
+            sys.stdout.write(f.read())
+        with open(self.paths["err"]) as f:
+            sys.stderr.write(f.read())
+        sys.stdout.flush()
+        sys.stderr.flush()
+        if rc != 0:
+            raise SystemExit(f"the {self.group} phases failed (exit {rc})")
+        with open(self.paths["json"]) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        if not self.joined:
+            self.joined = True
+            with open(self.paths["out"]) as f:
+                sys.stdout.write(f.read())
+            sys.stdout.flush()
+
+
+def start_workers() -> dict:
+    """One PhaseWorker a group, stopped when this process exits (also on
+    SIGTERM)."""
+    d = tempfile.mkdtemp(prefix="chip_smoke_")
+    workers = {g: PhaseWorker(g, d) for g in WORKER_GROUPS}
+
+    def stop_all():
+        for w in workers.values():
+            w.stop()
+        shutil.rmtree(d, ignore_errors=True)
+
+    atexit.register(stop_all)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    return workers
+
+
+def worker_main(group: str, result: str, t0: str) -> int:
+    """A worker's process: the group's phases on the card, timed on the
+    main process's clock (time.perf_counter is the system's monotonic
+    clock), at a lower host priority than the main process's (nice 10),
+    whose walls are measured beside it; dies with its parent."""
+    global _T0
+    _T0 = float(t0)
+    os.nice(10)
+    with contextlib.suppress(OSError, AttributeError):   # PR_SET_PDEATHSIG
+        ctypes.CDLL(None, use_errno=True).prctl(1, signal.SIGKILL)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device for the worker", file=sys.stderr)
+        return 2
+    emit("worker", group=group, pid=os.getpid(),
+         host_threads=torch.get_num_threads())
+    res = run_worker_group(group)
+    with open(result, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -6038,7 +6639,7 @@ def main() -> int:
     rate = hbm_rate(kind)
     emit("card", name=kind, nvidia_smi=smi, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda,
-         hbm_bytes_per_s=rate)
+         hbm_bytes_per_s=rate, host_threads=torch.get_num_threads())
 
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -6277,6 +6878,10 @@ def main() -> int:
     # 5. the main path: the n-gram search over the V=20,000 graph ----------
     ng = build_ng_path()
     ng_res = run_ng_slice(ng, model, ivec, fe)
+    # the online2, xconfig and training phases (5b'-5f below) start now,
+    # beside the rest, once the kernels' and the main path's times are
+    # taken
+    workers = start_workers()
     ng_cpu_check(ng, ng_res["loglikes"], ng_res["out_lens"])
     cross_check_ng(ng)
     ng_lat = run_ng_lattice(ng, model, ivec, fe, ng_res["loglikes"],
@@ -6293,6 +6898,7 @@ def main() -> int:
     ng_runs = ng_res["runs"]
     del ng_res
     torch.cuda.empty_cache()
+
     # 5a. Kaldi nnet3 models: the reference golden, the flagship from a
     # .mdl through the main path's search, the CLI, a TDNN-LSTM ----------
     nnet3 = nnet3_phases(ng, cfg, variables, ivec, fe)
@@ -6302,23 +6908,11 @@ def main() -> int:
     # 5b. the legacy path: LexChainDecoder over the V=200 bigram graph -----
     legacy = legacy_phases(ng_lat.pop("lattices"))
 
-    # 5b'. online2 serving over the legacy graph's HCLG.fst: the tools;
-    # then the xconfig phases: nnet3-latgen-faster and the lattice tools --
-    online2 = online2_phases(legacy.pop("words_int16"))
+    # (5b'. online2 serving and the xconfig phases: the "online2" worker)
+    del legacy["words_int16"]
 
-    # 5c. the legacy training recipe, end to end, and its card-CPU check;
-    # then chain training through the tools over its system ---------------
-    train, sysd = train_phases(SMOKE_TRAIN_EPOCHS)
-    chain = chain_cli_phases(sysd)
-    frame = chain_frame_phases(sysd)
-    del sysd
-
-    # 5d. the --scale training recipe, decoded through the main path -------
-    scale = train_scale_phases(SMOKE_SCALE_EPOCHS)
-
-    # 5e. the generic corpus recipe: stages 0-7 at its defaults, then
-    # stage 8, over one directory ----------------------------------------
-    template = template_phases()
+    for w in workers.values():
+        w.poll()
 
     # 6. block-chain lattice mode, BC_LAT_LANES of the lanes ---------------
     del k_hyps, p_hyps, plain_dec, pipe32, ll32
@@ -6610,6 +7204,23 @@ def main() -> int:
     if not all(same) or vr.launches:
         raise SystemExit("kernel and plain relaxation decode differently")
 
+    # 5b'-5f, from the workers (run_worker_group): "online2" is online2
+    # serving over the legacy graph's HCLG.fst through the tools, then the
+    # xconfig phases (nnet3-latgen-faster, the lattice tools, disc_smbr);
+    # "train" is the legacy training recipe end to end and its card-CPU
+    # check, chain training through the tools over its system, then the
+    # generic corpus recipe (stages 0-7 at its defaults, then stage 8, over
+    # one directory); "scale" is the --scale training recipe decoded
+    # through the main path, then the i-vector tool chain over its corpus
+    # (the UBMs and the extractor, the sid back end, the flagship extractor
+    # through the tools)
+    res = {}
+    for w in workers.values():
+        res.update(w.join())
+    online2, train, chain, frame, template, scale, ivector = (
+        res[k] for k in ("online2", "train", "chain", "frame", "template",
+                         "scale", "ivector"))
+
     # 8. tables -------------------------------------------------------------
     emit("summary", wall_s_median=walls[1], xrt_median=runs[0]["audio_s"]
          / walls[1], lattice_wall_s=[r["wall_s"] for r in lat_runs],
@@ -6634,6 +7245,8 @@ def main() -> int:
          train_scale={k: v for k, v in scale.items() if k != "launches"},
          **{name: {k: v for k, v in phase.items() if k != "launches"}
             for name, phase in template.items()},
+         **{name: {k: v for k, v in phase.items() if k != "launches"}
+            for name, phase in ivector.items()},
          **{k: v for k, v in nnet3.items() if k != "launches"},
          **{k: v for k, v in online2.items()
             if k not in ("launches", "xconfig")},
@@ -6680,6 +7293,8 @@ def main() -> int:
         for phase, res in template.items():
             k[f"launches_{phase}"] = sum(counts[k["name"]] for counts in
                                          res["launches"].values())
+        for phase, res in ivector.items():
+            k[f"launches_{phase}"] = res["launches"][k["name"]]
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],
@@ -6701,4 +7316,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(worker_main(*sys.argv[2:5]))
     sys.exit(main())

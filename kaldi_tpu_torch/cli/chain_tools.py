@@ -24,6 +24,7 @@ from typing import List
 import numpy as np
 
 from kaldi_tpu_torch.base.logging import KaldiTpuError, log, warn
+from kaldi_tpu_torch.cli.online_tools2 import use_gpu_device as _device
 from kaldi_tpu_torch.util.parse_options import ParseOptions
 from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
 
@@ -382,12 +383,6 @@ def nnet3_chain_normalize_egs(argv: List[str]) -> int:
             n += 1
     log(f"nnet3-chain-normalize-egs: {n} normalized, {n_fail} failed")
     return 0 if n else 1
-
-
-def _device(use_gpu: str):
-    from kaldi_tpu_torch.cli.nnet3_tools import _device as device_of
-    from kaldi_tpu_torch.device import resolve_device
-    return resolve_device(device_of(use_gpu))
 
 
 def nnet3_chain_compute_prob(argv: List[str]) -> int:

@@ -1,7 +1,8 @@
 """featbin tools (port of the tools of `kaldi_tpu/cli/feat_tools.py` that
 a corpus recipe's feature stage runs): compute-mfcc-feats, copy-feats,
-compute-cmvn-stats, apply-cmvn, add-deltas, splice-feats, feat-to-dim,
-feat-to-len, wav-to-duration and extract-segments.  Same positional
+compute-cmvn-stats, apply-cmvn, apply-cmvn-sliding, add-deltas,
+splice-feats, feat-to-dim, feat-to-len, wav-to-duration and
+extract-segments.  Same positional
 arguments, option names and table specifiers as the reference's.
 
 compute-mfcc-feats computes a batch of utterances at a time on the card
@@ -11,7 +12,7 @@ that the port does not carry (VTLN, --subtract-mean, dither other than
 0, --compress) raises instead of being ignored.
 
 Not carried over yet: compute-fbank-feats, -spectrogram-feats and
--plp-feats, the pitch tools, apply-cmvn-sliding, paste-feats and the
+-plp-feats, the pitch tools, paste-feats and the
 other feature tools of the reference's module.
 """
 
@@ -200,6 +201,27 @@ def apply_cmvn(argv: List[str]) -> int:
     writer.close()
     log(f"Applied CMVN to {n} utterances; {err} errors.")
     return 0 if n else 1
+
+
+def apply_cmvn_sliding(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Apply sliding-window cepstral mean (and optionally variance)\n"
+        "normalization per utterance.\n"
+        "Usage: apply-cmvn-sliding [options] <feats-rspecifier> <feats-wspecifier>")
+    opts = ff.SlidingWindowCmnOptions()
+    po.register_struct(opts)
+    po.read(argv)
+    if po.num_args() != 2:
+        po.print_usage()
+        return 1
+    writer = TableWriter("matrix", po.get_arg(2))
+    n = 0
+    for key, feats in SequentialTableReader("matrix", po.get_arg(1)):
+        writer.write(key, ff.sliding_window_cmn(feats, opts))
+        n += 1
+    writer.close()
+    log(f"Applied sliding-window CMVN to {n} utterances.")
+    return 0
 
 
 def add_deltas(argv: List[str]) -> int:

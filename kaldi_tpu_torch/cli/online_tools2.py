@@ -49,6 +49,14 @@ def register_use_gpu(po: ParseOptions):
                              "one); no: on the CPU")
 
 
+def use_gpu_device(use_gpu: str):
+    """--use-gpu's value -> the torch device (yes: the card, raising
+    without one; no: the CPU)."""
+    from kaldi_tpu_torch.cli.nnet3_tools import _device
+    from kaldi_tpu_torch.device import resolve_device
+    return resolve_device(_device(use_gpu))
+
+
 def load_streaming_model(path: str, use_gpu: str, sub: int):
     """-> (transition model, scorer factory, device) of a .mdl: each
     scorer an OnlineNnetScorer over the compiled module's subsampled

@@ -6,6 +6,7 @@ import contextlib
 import threading
 from typing import Iterator, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Union[None, str, torch.device]
@@ -62,3 +63,24 @@ def same_device(a: torch.device, b: torch.device) -> bool:
     ia = a.index if a.index is not None else torch.cuda.current_device()
     ib = b.index if b.index is not None else torch.cuda.current_device()
     return ia == ib
+
+
+# frames a device pass scores at once (the (T, D*D) outer products of a
+# 40-dim chunk take 210 MB in float64)
+CHUNK_FRAMES = 16384
+
+
+def frame_chunks(feats_list, device, chunk: int = CHUNK_FRAMES):
+    """Concatenated float64 frames of the host (T, D) arrays of
+    `feats_list` on `device`, in chunks of at most `chunk` rows (an
+    array longer than that is its own chunk)."""
+    buf, n = [], 0
+    for f in feats_list:
+        f = np.asarray(f, np.float64)
+        if n and n + f.shape[0] > chunk:
+            yield torch.from_numpy(np.concatenate(buf)).to(device)
+            buf, n = [], 0
+        buf.append(f)
+        n += f.shape[0]
+    if buf:
+        yield torch.from_numpy(np.concatenate(buf)).to(device)

@@ -1,13 +1,12 @@
-"""Feature post-processing on the host: CMVN, deltas and splicing (port
-of `kaldi_tpu/feat/functions.py`, which is numpy there too).
+"""Feature post-processing on the host: CMVN, the sliding-window CMN,
+deltas and splicing (port of `kaldi_tpu/feat/functions.py`, which is
+numpy there too).
 
 Parity: transform/cmvn.{h,cc} (stats are a float64 (2, dim+1) matrix:
 row 0 the per-dim sums with the frame count in the last column, row 1
 the per-dim sums of squares) and feat/feature-functions.cc:54
 DeltaFeatures (edge frames replicated) and featbin/splice-feats (edge
 frames replicated).
-
-Not carried over yet: the sliding-window CMN.
 """
 
 from __future__ import annotations
@@ -116,3 +115,51 @@ def splice_frames(feats: np.ndarray, left_context: int,
         idx = np.clip(np.arange(T) + off, 0, T - 1)
         cols.append(feats[idx])
     return np.concatenate(cols, axis=1)
+
+
+@dataclass
+class SlidingWindowCmnOptions:
+    cmn_window: int = field(default=600, metadata={"doc": "Window in frames for running average CMN computation"})
+    min_window: int = field(default=100, metadata={"doc": "Minimum CMN window used at start of decoding"})
+    max_warnings: int = 5
+    normalize_variance: bool = field(default=False, metadata={"doc": "If true, normalize variance to one"})
+    center: bool = field(default=False, metadata={"doc": "If true, use a window centered on the current frame"})
+
+
+def sliding_window_cmn(feats: np.ndarray,
+                       opts: Optional[SlidingWindowCmnOptions] = None
+                       ) -> np.ndarray:
+    """Sliding-window cepstral mean (and optionally variance)
+    normalization (feat/feature-functions.cc SlidingWindowCmn), with the
+    reference package's window placement."""
+    if opts is None:
+        opts = SlidingWindowCmnOptions()
+    x = np.asarray(feats, dtype=np.float64)
+    T, D = x.shape
+    out = np.empty_like(x, dtype=np.float64)
+    # prefix sums for O(T) windowed means
+    cs = np.vstack([np.zeros((1, D)), np.cumsum(x, axis=0)])
+    cs2 = np.vstack([np.zeros((1, D)), np.cumsum(x * x, axis=0)])
+    for t in range(T):
+        if opts.center:
+            lo = t - opts.cmn_window // 2
+            hi = lo + opts.cmn_window
+        else:
+            lo = t - opts.cmn_window
+            hi = t + 1
+            if hi - lo < opts.min_window:
+                hi = min(T, lo + opts.min_window)
+                hi = max(hi, t + 1)
+        if lo < 0:
+            hi = min(T, hi - lo)
+            lo = 0
+        if hi > T:
+            lo = max(0, lo - (hi - T))
+            hi = T
+        n = hi - lo
+        mean = (cs[hi] - cs[lo]) / n
+        out[t] = x[t] - mean
+        if opts.normalize_variance:
+            var = (cs2[hi] - cs2[lo]) / n - mean ** 2
+            out[t] /= np.sqrt(np.maximum(var, 1e-10))
+    return out.astype(np.float32)

@@ -4,6 +4,8 @@
 gmm/mle-diag-gmm.h:106, mle-am-diag-gmm.h:34).  Host-side numpy, as in
 the reference: given per-frame posteriors over components (or Viterbi
 one-hots over pdfs) the sufficient statistics are weighted matmuls.
+`AccumDiagGmm.accumulate_device` accumulates a global UBM's statistics
+on a device (the gmm-global-* tools).
 
 The accumulators serialize as the reference's do (gmm-acc-stats-ali /
 gmm-sum-accs files), byte for byte.
@@ -16,8 +18,10 @@ from dataclasses import dataclass, field
 from typing import BinaryIO, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from kaldi_tpu_torch.base import io_funcs as iof
+from kaldi_tpu_torch.device import frame_chunks
 from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
 from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
 
@@ -74,6 +78,33 @@ class AccumDiagGmm:
         self.accumulate(data, post)
         return float(ll.sum())
 
+    def accumulate_device(self, scorer, feats_list) -> Tuple[float, int]:
+        """`accumulate_from_gmm` of every utterance of `feats_list` (host
+        (T, D) arrays) against the diagonal UBM of `scorer`
+        (`gmm.ubm.UbmScorer`) on its device: float32 scores and
+        posteriors as the reference computes them, float64 statistics ->
+        (total log-likelihood, frames)."""
+        dev = scorer.device
+        M, D = self.num_comp, self.dim
+        occ = torch.zeros(M, dtype=torch.float64, device=dev)
+        mean = torch.zeros((M, D), dtype=torch.float64, device=dev)
+        var = torch.zeros((M, D), dtype=torch.float64, device=dev)
+        like = torch.zeros((), dtype=torch.float64, device=dev)
+        frames = 0
+        for x in frame_chunks(feats_list, dev):
+            x32 = x.to(torch.float32)
+            post = scorer.posteriors(x32).to(torch.float64)
+            like += scorer.log_likelihood(x32).to(torch.float64).sum()
+            occ += post.sum(dim=0)
+            if "m" in self.flags:
+                mean += post.T @ x
+            if "v" in self.flags:
+                var += post.T @ (x * x)
+            frames += x.shape[0]
+        self.occupancy += occ.cpu().numpy()
+        self.mean_accs += mean.cpu().numpy()
+        self.var_accs += var.cpu().numpy()
+        return float(like), frames
 
     def add(self, other: "AccumDiagGmm") -> None:
         self.occupancy += other.occupancy

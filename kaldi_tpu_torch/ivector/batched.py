@@ -11,8 +11,9 @@ Two modes:
 Everything is float32 with TF32 off: the quadratic term x^2 @ inv_vars
 is O(1e4-1e6) for raw MFCCs while the logit differences that pick the
 component are O(1), so a reduced mantissa destroys the posteriors.
-`train_bench_extractor` trains the extractor on the host in float64, as
-the reference does.
+`train_bench_extractor` trains the UBM and the extractor through
+`gmm.ubm.init_diag_ubm` and `ivector.extractor.train_ivector_extractor`,
+the code of the gmm-global-init-from-feats and ivector-extractor-* tools.
 """
 
 from __future__ import annotations
@@ -23,9 +24,7 @@ import numpy as np
 import torch
 
 from kaldi_tpu_torch.device import DeviceLike, full_f32, resolve_device
-from kaldi_tpu_torch.gmm.diag_gmm import DiagGmm
-from kaldi_tpu_torch.gmm.mle import (AccumDiagGmm, MleDiagGmmOptions,
-                                     mle_diag_gmm_update)
+from kaldi_tpu_torch.gmm.ubm import init_diag_ubm
 from kaldi_tpu_torch.ivector.extractor import (IvectorExtractor,
                                                IvectorExtractorOptions,
                                                train_ivector_extractor)
@@ -156,27 +155,17 @@ class BatchedIvectorExtractor:
 def train_bench_extractor(feats_dict, num_gauss: int = 64,
                           ivector_dim: int = 32, seed: int = 0,
                           num_em_iters: int = 4,
-                          max_frames: int = 200_000) -> IvectorExtractor:
-    """UBM + T-matrix training for the bench corpus: a diagonal UBM from
-    the pooled frames of the utterances in sorted order
-    (gmm-global-init-from-feats: Gaussians seeded on frames drawn by
-    `default_rng(seed)`, then EM), then the extractor's EM.  Deterministic
-    in `seed`."""
+                          max_frames: int = 200_000,
+                          device: DeviceLike = None) -> IvectorExtractor:
+    """UBM + T-matrix training for the bench corpus on `device`: a
+    diagonal UBM from the pooled frames of the utterances in sorted order
+    (`init_diag_ubm`, as gmm-global-init-from-feats), then 5 passes of the
+    extractor's EM.  Deterministic in `seed`."""
     feats_list = [np.asarray(feats_dict[u], np.float32)
                   for u in sorted(feats_dict)]
     pooled = np.concatenate(feats_list)[:max_frames]
-    rng = np.random.default_rng(seed)
-    G = min(num_gauss, len(pooled))
-    gmm = DiagGmm(G, pooled.shape[1])
-    sel = pooled[rng.choice(len(pooled), G, replace=False)]
-    gmm.set_from_means_and_vars(
-        np.ones(G) / G, sel,
-        np.tile(np.maximum(pooled.var(0), 1e-4), (G, 1)))
-    for _ in range(num_em_iters):
-        acc = AccumDiagGmm(gmm.num_gauss, gmm.dim)
-        acc.accumulate_from_gmm(gmm, pooled)
-        mle_diag_gmm_update(
-            MleDiagGmmOptions(min_gaussian_occupancy=1.0), acc, gmm)
+    ubm, _ = init_diag_ubm(pooled, num_gauss, num_em_iters, seed, device)
     return train_ivector_extractor(
-        gmm, feats_list,
-        IvectorExtractorOptions(ivector_dim=ivector_dim, num_iters=5))
+        ubm, feats_list,
+        IvectorExtractorOptions(ivector_dim=ivector_dim, num_iters=5),
+        device)

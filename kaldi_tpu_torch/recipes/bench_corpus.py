@@ -45,6 +45,7 @@ from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.lm.bigram import BigramBackoffLm
 from kaldi_tpu_torch.lm.trigram import TrigramBackoffLm
 from kaldi_tpu_torch.ivector.batched import train_bench_extractor
+from kaldi_tpu_torch.ivector.extractor import ExtractorOnDevice
 from kaldi_tpu_torch.recipes.chain import (ChainTrainOptions,
                                            train_chain_ctx, train_chain_topo)
 from kaldi_tpu_torch.recipes.mono import (TrainMonoOptions, _align_all,
@@ -419,10 +420,12 @@ def train_system(spec: BenchCorpusSpec, cfg=None,
     if ivector_dim > 0:
         _log.info("bench_corpus: training i-vector extractor")
         t0 = time.perf_counter()
-        ivec_ex = train_bench_extractor(feats, ivector_dim=ivector_dim)
-        ivectors = {u: ivec_ex.extract_offset_removed(
-            np.asarray(f, np.float64)).astype(np.float32)
-            for u, f in feats.items()}
+        ivec_ex = train_bench_extractor(feats, ivector_dim=ivector_dim,
+                                        device=device)
+        utts = list(feats)
+        ivs = ExtractorOnDevice(ivec_ex, device).extract(
+            [feats[u] for u in utts], remove_offset=True)
+        ivectors = {u: iv.astype(np.float32) for u, iv in zip(utts, ivs)}
         stats["ivector_s"] = time.perf_counter() - t0
     _log.info("bench_corpus: chain training")
     if chain_opts is None:

@@ -1,7 +1,7 @@
 """Port parity: i-vector extractor training and extraction of
 kaldi_tpu_torch against the JAX package's, on the CPU, in float64:
-IvectorExtractor (initial projections, stats, extract,
-extract_offset_removed), IvectorExtractorStats and
+IvectorExtractor (initial projections) and ExtractorOnDevice (stats,
+extract, with and without the offset), IvectorExtractorStats and
 train_ivector_extractor from the same UBM, train_bench_extractor from
 the same features (UBM and projections), each within 1e-6 relative to
 the reference array's largest value; and the extractor written by
@@ -61,17 +61,21 @@ def test_extractor_and_stats_match():
     close(te.M, je.M, 0)
     close(te.sigma_inv, je.sigma_inv, 0)
     feats = utterances(1, means)
-    for f in feats:
-        for a, b in zip(te.acc_utt_stats(f), je.acc_utt_stats(f)):
+    on = text.ExtractorOnDevice(te, "cpu")
+    gamma, x = on.utt_stats(feats)
+    for i, f in enumerate(feats):
+        for a, b in zip((gamma[i].numpy(), x[i].numpy()),
+                        je.acc_utt_stats(f)):
             close(a, b)
-        close(te.extract(f), je.extract(f))
-        close(te.extract_offset_removed(f), je.extract_offset_removed(f))
+    close(on.extract(feats), np.stack([je.extract(f) for f in feats]))
+    close(on.extract(feats, remove_offset=True),
+          np.stack([je.extract_offset_removed(f) for f in feats]))
     js, ts = jext.IvectorExtractorStats(je), text.IvectorExtractorStats(te)
     for f in feats:
         js.acc_stats(je, f)
-        ts.acc_stats(te, f)
+    ts.acc_device(on, feats)
     other = text.IvectorExtractorStats(te)
-    other.acc_stats(te, feats[0])
+    other.acc_device(on, feats[:1])
     ts.add(other)
     js.acc_stats(je, feats[0])
     assert ts.num_utts == js.num_utts == len(feats) + 1
@@ -89,10 +93,11 @@ def test_train_ivector_extractor_matches():
     je = jext.train_ivector_extractor(
         jubm, feats, jext.IvectorExtractorOptions(**opts))
     te = text.train_ivector_extractor(
-        tubm, feats, text.IvectorExtractorOptions(**opts))
+        tubm, feats, text.IvectorExtractorOptions(**opts), device="cpu")
     close(te.M, je.M)
-    for f in feats:
-        close(te.extract_offset_removed(f), je.extract_offset_removed(f))
+    close(text.ExtractorOnDevice(te, "cpu").extract(feats,
+                                                    remove_offset=True),
+          np.stack([je.extract_offset_removed(f) for f in feats]))
 
 
 @pytest.fixture(scope="module")
@@ -107,7 +112,7 @@ def bench_extractors():
     kw = dict(num_gauss=8, ivector_dim=R, seed=3, num_em_iters=3,
               max_frames=500)
     return (feats, jbatched.train_bench_extractor(feats, **kw),
-            tbatched.train_bench_extractor(feats, **kw))
+            tbatched.train_bench_extractor(feats, device="cpu", **kw))
 
 
 def test_train_bench_extractor_matches(bench_extractors):
@@ -119,9 +124,9 @@ def test_train_bench_extractor_matches(bench_extractors):
     close(te.ubm.inv_vars, je.ubm.inv_vars)
     close(te.M, je.M)
     assert te.prior_offset == je.prior_offset
-    for f in feats.values():
-        close(te.extract_offset_removed(np.asarray(f, np.float64)),
-              je.extract_offset_removed(np.asarray(f, np.float64)))
+    x = [np.asarray(f, np.float64) for f in feats.values()]
+    close(text.ExtractorOnDevice(te, "cpu").extract(x, remove_offset=True),
+          np.stack([je.extract_offset_removed(f) for f in x]))
 
 
 def test_saved_extractor_reads_back(tmp_path, bench_extractors):

@@ -187,24 +187,53 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
     assert sorted(TOOLS) == ["acc-lda", "acc-tree-stats", "add-deltas",
                              "ali-to-pdf", "ali-to-phones", "ali-to-post",
                              "align-equal-compiled", "apply-cmvn",
-                             "build-tree", "chain-est-phone-lm",
-                             "chain-get-supervision", "chain-make-den-fst",
-                             "cluster-phones", "compile-train-graphs",
-                             "compose-transforms", "compute-cmvn-stats",
-                             "compute-mfcc-feats", "compute-wer",
-                             "convert-ali", "copy-feats", "copy-int-vector",
-                             "est-lda", "est-mllt", "extract-segments",
-                             "feat-to-dim", "feat-to-len", "gmm-acc-mllt",
+                             "apply-cmvn-sliding", "build-tree",
+                             "chain-est-phone-lm", "chain-get-supervision",
+                             "chain-make-den-fst", "cluster-phones",
+                             "compile-train-graphs", "compose-transforms",
+                             "compute-cmvn-stats", "compute-eer",
+                             "compute-mfcc-feats", "compute-vad",
+                             "compute-vad-from-frame-likes", "compute-wer",
+                             "convert-ali", "copy-feats", "copy-gselect",
+                             "copy-int-vector", "est-lda", "est-mllt",
+                             "extract-segments", "feat-to-dim", "feat-to-len",
+                             "fgmm-global-acc-stats",
+                             "fgmm-global-acc-stats-post", "fgmm-global-copy",
+                             "fgmm-global-est", "fgmm-global-get-frame-likes",
+                             "fgmm-global-gselect-to-post", "fgmm-global-info",
+                             "fgmm-global-init-from-accs", "fgmm-global-merge",
+                             "fgmm-global-sum-accs", "fgmm-global-to-gmm",
+                             "fgmm-gselect", "gmm-acc-mllt",
                              "gmm-acc-stats-ali", "gmm-align-compiled",
-                             "gmm-est", "gmm-est-fmllr", "gmm-info",
-                             "gmm-init-mono", "gmm-latgen-faster",
-                             "gmm-sum-accs", "gmm-transform-means",
-                             "lattice-1best", "lattice-add-penalty",
-                             "lattice-best-path", "lattice-copy",
-                             "lattice-determinize",
+                             "gmm-est", "gmm-est-fmllr",
+                             "gmm-global-acc-stats", "gmm-global-copy",
+                             "gmm-global-est", "gmm-global-get-frame-likes",
+                             "gmm-global-get-post",
+                             "gmm-global-gselect-to-post", "gmm-global-info",
+                             "gmm-global-init-from-feats",
+                             "gmm-global-sum-accs", "gmm-global-to-fgmm",
+                             "gmm-gselect", "gmm-info", "gmm-init-mono",
+                             "gmm-latgen-faster", "gmm-sum-accs",
+                             "gmm-transform-means", "ivector-adapt-plda",
+                             "ivector-compute-dot-products",
+                             "ivector-compute-lda", "ivector-compute-plda",
+                             "ivector-copy-plda", "ivector-extract",
+                             "ivector-extract-online",
+                             "ivector-extract-online2",
+                             "ivector-extractor-acc-stats",
+                             "ivector-extractor-copy", "ivector-extractor-est",
+                             "ivector-extractor-init",
+                             "ivector-extractor-sum-accs", "ivector-mean",
+                             "ivector-normalize-length",
+                             "ivector-plda-scoring",
+                             "ivector-plda-scoring-dense", "ivector-randomize",
+                             "ivector-subtract-global-mean",
+                             "ivector-transform", "lattice-1best",
+                             "lattice-add-penalty", "lattice-best-path",
+                             "lattice-copy", "lattice-determinize",
                              "lattice-determinize-pruned", "lattice-prune",
-                             "lattice-scale", "nnet3-align-compiled",
-                             "nnet3-average",
+                             "lattice-scale", "merge-vads",
+                             "nnet3-align-compiled", "nnet3-average",
                              "nnet3-chain-combine", "nnet3-chain-combine2",
                              "nnet3-chain-compute-prob",
                              "nnet3-chain-copy-egs", "nnet3-chain-e2e-get-egs",
@@ -232,8 +261,9 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "online2-wav-dump-features",
                              "online2-wav-nnet3-latgen-faster",
                              "post-to-pdf-post", "prepare-lang",
-                             "splice-feats", "sum-tree-stats",
-                             "transform-feats", "validate-data-dir",
+                             "select-voiced-frames", "splice-feats",
+                             "sum-tree-stats", "transform-feats",
+                             "transform-vec", "validate-data-dir",
                              "validate-lang", "wav-to-duration"]
 
 
