@@ -101,6 +101,13 @@ With --ivector it runs chip_smoke.py's i-vector phases alone
 trained), then ivector_train, ivector_sid and ivector_flagship, each held
 to tools/ivector_jax_bar.py's bars.
 
+With --backend it runs chip_smoke.py's back-end, VTLN and MMI phases
+alone (backend_phases: backend_lid, backend_diar, gmm_vtln over the
+flagship extractor's data, then gmm_mmi over the generic recipe's
+corpus), each held to tools/backend_jax_bar.py's and
+tools/mmi_synthetic_jax_bar.py's bars; with --synthetic the synthetic
+demo recipe alone (synthetic_run).
+
 With --profile-check it runs the main path's slice_ng and profile_ng
 with profile_ng's tables built twice: from the profiler's raw events (as
 chip_smoke.py builds them) and from torch's event tree (key_averages and
@@ -110,13 +117,14 @@ of each reported, the two held equal.
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
      --chain-cli | --disc | --chain-frame | --template | --ivector |
-     --profile-check]
+     --backend | --synthetic | --profile-check]
      (needs CUDA)
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -273,6 +281,10 @@ def main() -> int:
                       help="run chip_smoke.py's template_gmm phase alone")
     mode.add_argument("--ivector", action="store_true",
                       help="run chip_smoke.py's i-vector phases alone")
+    mode.add_argument("--backend", action="store_true",
+                      help="the back-end, VTLN and MMI phases alone")
+    mode.add_argument("--synthetic", action="store_true",
+                      help="the synthetic demo recipe alone")
     mode.add_argument("--profile-check", action="store_true",
                       help="run slice_ng and profile_ng with profile_ng's "
                       "tables also built from torch's event tree")
@@ -289,8 +301,21 @@ def main() -> int:
     if args.online or args.legacy or args.train or args.train_scale \
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
             or args.chain_cli or args.template or args.profile_check \
-            or args.disc or args.chain_frame or args.ivector:
-        if args.ivector:
+            or args.disc or args.chain_frame or args.ivector \
+            or args.backend or args.synthetic:
+        if args.backend:
+            cs.emit("backend_summary", **{
+                name: {k: v for k, v in phase.items() if k != "launches"}
+                for name, phase in cs.backend_phases().items()})
+            done = "backend_done"
+        elif args.synthetic:
+            with tempfile.TemporaryDirectory() as root:
+                with contextlib.redirect_stdout(sys.stderr):
+                    out = cs.run_synthetic(root)
+            cs.emit("synthetic_summary", **{k: v for k, v in out.items()
+                                            if k != "launches"})
+            done = "synthetic_done"
+        elif args.ivector:
             cs.emit("ivector_summary", **{
                 name: {k: v for k, v in phase.items() if k != "launches"}
                 for name, phase in cs.ivector_phases().items()})

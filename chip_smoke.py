@@ -276,10 +276,32 @@ Phases, one JSON line each (any failure exits nonzero):
      the
      last line is {"ok": true, "device": ...}.
 
+After the xconfig phases, over the --scale corpus (384 training and 128
+test utterances, 24 speakers) with the committed flagship extractor's
+i-vectors (ivector-extract), the speaker and language back ends and
+VTLN: backend_lid (logistic-regression-train at its defaults and with
+--mix-up=48, -eval, -copy: top-1 accuracy within 2 test utterances of
+tools/backend_jax_bar.py's, the card's weights within 1e-5 of the
+CPU's), backend_diar (PLDA, ivector-plda-scoring-dense of 8 recordings
+of 3 speakers, agglomerative-cluster with the true counts and with a
+threshold: each recording's speaker errors within one segment of
+JAX's), gmm_vtln (compute-mfcc-feats --vtln-warp/--vtln-map card
+against CPU, the 31 LVTLN classes over the flagship UBM, each
+speaker's warp within one class of JAX's, the twofeats statistics card
+against CPU, gmm-global-est-fmllr), then gmm_mmi over the generic
+recipe's corpus made again (boosted MMI of the JAX recipe's tri1 over
+24 training utterances, in process and one iteration through the
+train_mmi.sh tools: objectives within 2e-3 of JAX's, the tools within
+1e-6 of the in-process model, the test WER no worse and JAX's); after
+the template phases, synthetic_run (egs/synthetic/run.py's stages 0-7
+through the port's tools, each stage's word errors within 3 of JAX's);
+kernels a-c launched 0 times in each.
+
 The online2, xconfig and training phases (online2_graph to
 xconfig_zoo, after a decode of the legacy test utterances on the int16
-wire as slice_lex_int16's; train_lex to ng_precondition, then the
-generic corpus recipe; train_scale, then the i-vector tools) run in
+wire as slice_lex_int16's, then the back ends, VTLN and MMI; train_lex
+to ng_precondition, then the generic corpus recipe and the synthetic
+recipe; train_scale, then the i-vector tools) run in
 three processes of their own on the same card (`--worker online2`,
 `--worker train`, `--worker scale`) at a lower host priority (nice 10),
 started once 3, 4 and slice_ng with profile_ng are done, beside the rest
@@ -379,7 +401,7 @@ from kaldi_tpu_torch.recipes.bench_corpus import (
     BenchCorpusSpec, bench_scale_spec, build_decode_graph,
     build_decode_graph_ng, build_lang, chain_tm_tree_for, corpus_fingerprint,
     load_ivector_extractor, load_params, make_corpus, make_lexicon,
-    make_text, mfcc_options, train_system, wer_of)
+    make_text, mfcc_options, speaker_params, train_system, wer_of)
 from kaldi_tpu_torch.tree.context_dep import ContextDependency
 from kaldi_tpu_torch.transform.fmllr import FmllrDiagGmmAccs
 from kaldi_tpu_torch.transform.lda import LdaEstimate, LdaOptions
@@ -4591,13 +4613,17 @@ def run_template_chain_e2e(root: str, epochs: int) -> dict:
 def template_phases(epochs: int = TEMPLATE_CHAIN_EPOCHS) -> dict:
     """The generic corpus recipe's three phases over one directory:
     template_gmm (stages 0-5) and template_lda_sat (stages 6-7) from one
-    call at the recipe's defaults, then template_chain_e2e (stage 8)."""
+    call at the recipe's defaults, then template_chain_e2e (stage 8);
+    then the synthetic demo recipe (synthetic_run)."""
     with tempfile.TemporaryDirectory() as root:
         run = run_template_recipe(root)
         run["root"] = root
-        return {"template_gmm": run_template_gmm(run),
-                "template_lda_sat": run_template_lda_sat(run),
-                "template_chain_e2e": run_template_chain_e2e(root, epochs)}
+        out = {"template_gmm": run_template_gmm(run),
+               "template_lda_sat": run_template_lda_sat(run),
+               "template_chain_e2e": run_template_chain_e2e(root, epochs)}
+    with tempfile.TemporaryDirectory() as root:
+        out["synthetic_run"] = run_synthetic(root)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4618,9 +4644,12 @@ def mfcc_of(fe, waves: dict) -> dict:
 
 
 def ivec_tool(sec: dict, dev: str, tool: str, *args, key: str = "") -> str:
-    """timed_tool of an i-vector tool, on the CPU with dev "cpu"."""
-    from kaldi_tpu_torch.cli.ivector_tools import DEVICE_TOOLS
-    extra = ["--use-gpu=no"] if dev == "cpu" and tool in DEVICE_TOOLS else []
+    """timed_tool of an i-vector, VTLN or back-end tool, on the CPU with
+    dev "cpu"."""
+    from kaldi_tpu_torch.cli.ivector_tools import DEVICE_TOOLS as IV
+    from kaldi_tpu_torch.cli.vtln_tools import DEVICE_TOOLS as VT
+    on_card = IV + VT + ("compute-mfcc-feats",)
+    extra = ["--use-gpu=no"] if dev == "cpu" and tool in on_card else []
     return timed_tool(sec, tool, *extra, *args, key=key)
 
 
@@ -6505,22 +6534,729 @@ def lex_int16_words(lex: dict, model, fe) -> dict:
 # each in a process of its own on the same card, whose phases read nothing
 # of the main process's
 
+# ---------------------------------------------------------------------------
+# the speaker and language back ends, VTLN and GMM MMI (the online2
+# worker, after its phases), and the synthetic recipe (the train worker,
+# after the template phases)
+
+# backend_lid: logistic-regression-train at its defaults and with mix-up;
+# the card's weights within LR_WEIGHT_REL of the largest weight of the
+# CPU port's (tests/test_torch_backend.py's tolerance against JAX)
+BACKEND_MIX_UP = 48
+LR_WEIGHT_REL = 1e-5
+# backend_diar: 8 recordings, each the test utterances of 3 speakers
+# (the 16 utterances after one another hold 16 speakers: the corpus
+# assigns speakers round-robin)
+DIAR_SPEAKERS_A_RECORDING = 3
+DIAR_THRESHOLD = 0.0
+# gmm_vtln: the 31 classes of gmm-init-lvtln (warps 0.85-1.15), each fit
+# on LVTLN_UTTS training utterances (4 a speaker); compute-mfcc-feats
+# --vtln-warp on VTLN_TOOL_UTTS test utterances, card against CPU
+LVTLN_CLASSES, LVTLN_DEFAULT_CLASS, LVTLN_UTTS = 31, 15, 96
+VTLN_TOOL_UTTS = 16
+VTLN_TOOL_WARPS = (0.85, 0.93, 1.07, 1.15)
+# each speaker's LVTLN class: JAX's for all but VTLN_WARP_MISMATCHES
+# speakers (a speaker between two classes may fall either side from MFCC
+# 2e-3 apart; an H100 run read none), the rest within one class; and
+# the warps' correlation with the corpus's own (speaker_params) at most
+# VTLN_CORPUS_CORR: the warp that undoes a spectrum stretched by a is
+# about 1/a, so the correlation is negative (-0.916 on an H100).  A model
+# that put every speaker in one class fails both: 13 of JAX's 24 speakers
+# are away from the default class, and a constant has no correlation.
+VTLN_WARP_MISMATCHES, VTLN_CORPUS_CORR = 2, -0.8
+# the twofeats statistics are float64 sums of float32 posteriors (the
+# reference's diagonal-UBM scoring): card against CPU within 1e-6, the
+# i-vector tools' bar for a diagonal UBM (tests/test_torch_cuda_ivector.py)
+VTLN_MFCC_ATOL, VTLN_MFCC_RTOL, VTLN_STATS_TOL = 2e-3, 1e-4, 1e-6
+FMLLR_SPEAKERS = 6
+# gmm_mmi: boosted MMI from the JAX recipe's tri1 (tests/data/
+# template_tri1, the same system as the bar's) over the port's features of
+# MMI_UTTS of the 112 training utterances; the tool chain's first
+# iteration against the in-process one's.  synthetic_run trains its chain
+# model from the reference recipe's initial draw (SYNTHETIC_CHAIN_INIT):
+# each stage's word errors of the 16 test words within
+# SYNTHETIC_WORDS_BAND of JAX's, the largest spread read from that draw
+# (stage 6: the port 0 on the CPU and on an H100, JAX 1; one word is
+# 6.25 points); the port's training adds in a fixed order, so the card
+# gives one model.  Stage 6's raw lattices then go through
+# lattice-determinize-pruned at the recipe's lattice beam, each best path
+# kept.
+MMI_UTTS, MMI_BOOST = 24, 0.1
+MMI_OBJF_BAND, MMI_TOOL_REL = 2e-3, 1e-6
+MMI_TRI1 = os.path.join(REPO, "tests", "data", "template_tri1")
+SYNTHETIC_WORDS_BAND, SYNTHETIC_LATTICE_BEAM = 1, 4.0
+SYNTHETIC_CHAIN_INIT = os.path.join(REPO, "tests", "data",
+                                    "synthetic_chain_init.npz")
+# tools/backend_jax_bar.py and tools/mmi_synthetic_jax_bar.py: the JAX
+# package on the CPU, the same corpora, options and systems
+BACKEND_JAX_BAR = dict(
+    lid=dict(final_objf={"default": -2.2808, "mix_up": -2.4359},
+             accuracy={"default": 65, "mix_up": 66}),
+    diar=dict(num_spk={"reco0": 0, "reco1": 0, "reco2": 0, "reco3": 1,
+                       "reco4": 0, "reco5": 0, "reco6": 0, "reco7": 0},
+              threshold={"reco0": 1, "reco1": 2, "reco2": 0, "reco3": 1,
+                         "reco4": 2, "reco5": 2, "reco6": 0, "reco7": 1}),
+    vtln={"spk00": 0.99, "spk01": 0.99, "spk02": 1.01, "spk03": 1.01,
+          "spk04": 1.0, "spk05": 1.0, "spk06": 1.01, "spk07": 1.0,
+          "spk08": 1.01, "spk09": 1.0, "spk10": 1.0, "spk11": 0.99,
+          "spk12": 1.0, "spk13": 1.0, "spk14": 1.0, "spk15": 1.0,
+          "spk16": 0.99, "spk17": 1.0, "spk18": 1.0, "spk19": 1.01,
+          "spk20": 1.0, "spk21": 1.01, "spk22": 0.99, "spk23": 1.01})
+MMI_JAX_BAR = dict(objf=[0.008636209695964282, 0.015699057695676682,
+                         0.018502020978607564, 0.0199859386699894],
+                   wer_before=dict(wer=0.0, word_errors=0, ref_words=128),
+                   wer_after=dict(wer=0.0, word_errors=0, ref_words=128))
+SYNTHETIC_JAX_BAR = dict(gmm=dict(wer=0.0, word_errors=0, ref_words=16),
+                         chain=dict(wer=6.25, word_errors=1, ref_words=16),
+                         online=dict(wer=25.0, word_errors=4, ref_words=16))
+
+
+def speaker_errors(labels, truth) -> int:
+    """Segments whose cluster maps to another speaker under the best
+    one-to-one mapping of clusters to speakers."""
+    from scipy.optimize import linear_sum_assignment
+    clusters, speakers = sorted(set(labels)), sorted(set(truth))
+    count = np.zeros((len(clusters), len(speakers)))
+    for c, s in zip(labels, truth):
+        count[clusters.index(c), speakers.index(s)] += 1
+    rows, cols = linear_sum_assignment(-count)
+    return int(len(labels) - count[rows, cols].sum())
+
+
+def backend_data(d: str) -> dict:
+    """The --scale corpus (bench_scale_spec(): 384 training and 128 test
+    utterances, 24 speakers round-robin) featurized on the card (40-dim
+    MFCC), written under d with each set's spk2utt and utt2spk and
+    utt2class (the speaker's index); the committed flagship extractor as
+    flagship.ie and its 64-Gaussian diagonal UBM as flagship.dubm; each
+    set's i-vectors through ivector-extract."""
+    from kaldi_tpu_torch.ivector.extractor import IvectorExtractor
+    spec = bench_scale_spec()
+    sec: dict = {}
+    t0 = time.perf_counter()
+    _, _, train_wav, _, test_wav, _ = make_corpus(spec)
+    sec["corpus"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fe = OfflineFeature(mfcc_options(spec), device="cuda")
+    feats = {"train": mfcc_of(fe, train_wav), "test": mfcc_of(fe, test_wav)}
+    sec["mfcc"] = time.perf_counter() - t0
+    S = spec.num_speakers
+
+    def spk(u):
+        return int(u[2:]) % S
+
+    for name, fs in feats.items():
+        keys = sorted(fs)
+        write_ark(os.path.join(d, f"{name}.ark"), ((u, fs[u]) for u in keys))
+        by: dict = {}
+        for u in keys:
+            by.setdefault(f"spk{spk(u):02d}", []).append(u)
+        with open(os.path.join(d, f"{name}.spk2utt"), "w") as f:
+            f.writelines(f"{s} {' '.join(us)}\n" for s, us in sorted(
+                by.items()))
+        with open(os.path.join(d, f"{name}.utt2class"), "w") as f:
+            f.writelines(f"{u} {spk(u)}\n" for u in keys)
+    arrays = load_ivector_extractor(os.path.join(ART, "flagship_ng_ivec.npz"))
+    ex = IvectorExtractor.from_arrays(arrays)
+    write_kaldi_object(ex.write, os.path.join(d, "flagship.ie"))
+    write_kaldi_object(ex.ubm.write, os.path.join(d, "flagship.dubm"))
+    for name in ("train", "test"):
+        timed_tool(sec, "ivector-extract",
+                   os.path.join(d, "flagship.ie"),
+                   f"ark:{d}/{name}.ark", f"ark:{d}/{name}.ivec")
+    return {"feats": feats, "train_wav": train_wav, "test_wav": test_wav,
+            "spk": spk, "true_warps": speaker_params(spec)[0], "sec": sec,
+            "fe": fe}
+
+
+def lr_objf(log: str) -> float:
+    return float(re.findall(r"final objf (\S+)", log)[-1])
+
+
+def run_backend_lid(d: str, data: dict) -> dict:
+    """backend_lid: the lre07 back end as speaker id over the flagship
+    i-vectors: logistic-regression-train on the training i-vectors with
+    the speakers as classes, at its defaults (on the card and on the
+    CPU) and with --mix-up=BACKEND_MIX_UP; logistic-regression-eval on
+    the test i-vectors (top-1 accuracy); logistic-regression-copy to text
+    and back to binary.  Bars: each accuracy within 2 test utterances of
+    BACKEND_JAX_BAR's; the card's weights within LR_WEIGHT_REL of the
+    CPU port's; the copies' weights those of the model; kernels a-c 0
+    launches."""
+    from kaldi_tpu_torch.ivector.logistic_regression import \
+        LogisticRegression
+    reset_kernel_counts()
+    sec: dict = {}
+    t_all = time.perf_counter()
+
+    def p(name):
+        return os.path.join(d, name)
+
+    train = ["ark:" + p("train.ivec"), "ark:" + p("train.utt2class")]
+    objf = {
+        "default": lr_objf(timed_tool(sec, "logistic-regression-train",
+                                      *train, p("lid.mdl"))),
+        "mix_up": lr_objf(timed_tool(sec, "logistic-regression-train",
+                                     f"--mix-up={BACKEND_MIX_UP}", *train,
+                                     p("lid48.mdl")))}
+    t0 = time.perf_counter()
+    ivec_tool(sec, "cpu", "logistic-regression-train", *train,
+              p("lid_cpu.mdl"))
+    cpu_s = time.perf_counter() - t0
+    truth = {u: data["spk"](u) for u in data["feats"]["test"]}
+    accuracy, components = {}, {}
+    for name, mdl in (("default", "lid.mdl"), ("mix_up", "lid48.mdl")):
+        timed_tool(sec, "logistic-regression-eval", p(mdl),
+                   "ark:" + p("test.ivec"), "ark:" + p(f"{mdl}.post"))
+        post = dict(SequentialTableReader("vector", "ark:" + p(f"{mdl}.post")))
+        accuracy[name] = sum(int(np.argmax(v)) == truth[u]
+                             for u, v in post.items())
+        components[name] = len(read_kaldi_object(LogisticRegression.read,
+                                                 p(mdl)).class_of)
+    timed_tool(sec, "logistic-regression-copy", "--binary=false",
+               p("lid.mdl"), p("lid.txt"))
+    timed_tool(sec, "logistic-regression-copy", p("lid.txt"),
+               p("lid.bin"))
+    model = read_kaldi_object(LogisticRegression.read, p("lid.mdl"))
+    cpu = read_kaldi_object(LogisticRegression.read, p("lid_cpu.mdl"))
+    copied = read_kaldi_object(LogisticRegression.read, p("lid.bin"))
+    card_cpu = _rel_to_largest(model.weights, cpu.weights)
+    copy_err = _rel_to_largest(copied.weights, model.weights)
+    launches = kernel_launch_counts()
+    bar = BACKEND_JAX_BAR["lid"]
+    out = {"seconds": time.perf_counter() - t_all, "tool_s": sec,
+           "cpu_train_s": cpu_s, "final_objf": objf,
+           "jax_final_objf": bar["final_objf"], "accuracy": accuracy,
+           "jax_accuracy": bar["accuracy"], "test_utterances": len(truth),
+           "components": components, "card_cpu_weight_rel": card_cpu,
+           "copy_weight_rel": copy_err, "launches": launches}
+    emit("backend_lid", **out)
+    bars = {f"accuracy {k}": abs(accuracy[k] - bar["accuracy"][k]) <= 2
+            for k in accuracy}
+    bars["card = cpu"] = card_cpu <= LR_WEIGHT_REL
+    bars["copy"] = copy_err <= 1e-6
+    bars["kernels a-c"] = not any(launches.values())
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"backend_lid: {failed}")
+    return out
+
+
+def diar_recordings(test_keys, spk) -> dict:
+    """recording -> its utterances: the test utterances of speakers
+    r*3 .. r*3+2 for recording r."""
+    recos: dict = {}
+    for u in sorted(test_keys):
+        r = spk(u) // DIAR_SPEAKERS_A_RECORDING
+        recos.setdefault(f"reco{r}", []).append(u)
+    return recos
+
+
+def run_backend_diar(d: str, data: dict) -> dict:
+    """backend_diar: the callhome diarization back end over the flagship
+    i-vectors: ivector-subtract-global-mean and ivector-normalize-length
+    of both sets, ivector-compute-plda on the training set's,
+    ivector-plda-scoring-dense of each recording (diar_recordings: 8
+    recordings of 3 speakers each), agglomerative-cluster with the true
+    speaker counts (--reco2num-spk-rspecifier) and with
+    --threshold=DIAR_THRESHOLD; the segments whose cluster maps to
+    another speaker (speaker_errors), each recording.  Bars: the tool's
+    labels equal the in-process agglomerative_cluster's on the same
+    archive; each recording's errors within one segment of
+    BACKEND_JAX_BAR's; kernels a-c 0 launches."""
+    from kaldi_tpu_torch.ivector.cluster import agglomerative_cluster
+    reset_kernel_counts()
+    sec: dict = {}
+    t_all = time.perf_counter()
+
+    def a(name):
+        return "ark:" + os.path.join(d, name)
+
+    for name in ("train", "test"):
+        timed_tool(sec, "ivector-subtract-global-mean",
+                   a(f"{name}.ivec"), a(f"{name}.dcen"))
+        timed_tool(sec, "ivector-normalize-length", a(f"{name}.dcen"),
+                   a(f"{name}.dnorm"))
+    timed_tool(sec, "ivector-compute-plda", a("train.spk2utt"),
+               a("train.dnorm"), os.path.join(d, "diar.plda"))
+    recos = diar_recordings(data["feats"]["test"], data["spk"])
+    with open(os.path.join(d, "reco2utt"), "w") as f:
+        f.writelines(f"{r} {' '.join(us)}\n" for r, us in recos.items())
+    with open(os.path.join(d, "reco2num"), "w") as f:
+        f.writelines(f"{r} {len({data['spk'](u) for u in us})}\n"
+                     for r, us in recos.items())
+    timed_tool(sec, "ivector-plda-scoring-dense",
+               os.path.join(d, "diar.plda"), a("reco2utt"), a("test.dnorm"),
+               a("scores"))
+    scores = dict(SequentialTableReader("matrix", a("scores")))
+    errors, same = {}, True
+    for mode, opts, k_of in (
+            ("num_spk", ["--reco2num-spk-rspecifier=" + a("reco2num")],
+             lambda us: len({data["spk"](u) for u in us})),
+            ("threshold", [f"--threshold={DIAR_THRESHOLD}"], lambda us: 0)):
+        timed_tool(sec, "agglomerative-cluster", *opts, a("scores"),
+                   a("reco2utt"), a(f"labels.{mode}"))
+        labels = {u: int(v[0]) for u, v in SequentialTableReader(
+            "int-vector", a(f"labels.{mode}"))}
+        errors[mode] = {}
+        for r, us in recos.items():
+            k = k_of(us)
+            mine = agglomerative_cluster(
+                np.asarray(scores[r]), threshold=DIAR_THRESHOLD,
+                num_clusters=k if k > 0 else None)
+            same &= [labels[u] for u in us] == [int(x) + 1 for x in mine]
+            errors[mode][r] = speaker_errors([labels[u] for u in us],
+                                             [data["spk"](u) for u in us])
+    launches = kernel_launch_counts()
+    bar = BACKEND_JAX_BAR["diar"]
+    out = {"seconds": time.perf_counter() - t_all, "tool_s": sec,
+           "recordings": {r: sorted({data["spk"](u) for u in us})
+                          for r, us in recos.items()},
+           "segments": {r: len(us) for r, us in recos.items()},
+           "speaker_errors": errors, "jax_speaker_errors": bar,
+           "error_share": {m: sum(e.values()) / len(data["feats"]["test"])
+                           for m, e in errors.items()},
+           "labels_equal_in_process": same, "launches": launches}
+    emit("backend_diar", **out)
+    bars = {f"{m} {r}": abs(errors[m][r] - bar[m][r]) <= 1
+            for m in errors for r in errors[m]}
+    bars["labels"] = same
+    bars["kernels a-c"] = not any(launches.values())
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"backend_diar: {failed}")
+    return out
+
+
+def lvtln_warps() -> list:
+    return [1.0 + 0.01 * (c - LVTLN_DEFAULT_CLASS)
+            for c in range(LVTLN_CLASSES)]
+
+
+def run_gmm_vtln(d: str, data: dict) -> dict:
+    """gmm_vtln: compute-mfcc-feats --vtln-warp (VTLN_TOOL_WARPS) and
+    --vtln-map (a warp an utterance, one batch of mixed warps) of
+    VTLN_TOOL_UTTS test utterances on the card and on the CPU; the linear
+    VTLN model over the flagship's diagonal UBM: gmm-init-lvtln --dim=40
+    (31 classes), gmm-train-lvtln-special of each class from the
+    unwarped and that class's warped MFCC of LVTLN_UTTS training
+    utterances (the frontend on the card), gmm-global-est-lvtln-trans of
+    each of the 24 training speakers; gmm-global-acc-stats-twofeats
+    (unwarped and 0.9-warped MFCC), on the card and on the CPU, and
+    gmm-global-est-fmllr of FMLLR_SPEAKERS speakers' 0.9-warped MFCC.
+    Bars: the card's
+    MFCC within VTLN_MFCC_ATOL/RTOL of the CPU's; each speaker's warp
+    within one class of BACKEND_JAX_BAR's and equal to it for all but
+    VTLN_WARP_MISMATCHES speakers; the warps' correlation with the
+    corpus's at most VTLN_CORPUS_CORR; the twofeats statistics
+    within VTLN_STATS_TOL of their largest element; kernels a-c 0
+    launches."""
+    from kaldi_tpu_torch.gmm.mle import AccumDiagGmm
+    reset_kernel_counts()
+    sec: dict = {}
+    t_all = time.perf_counter()
+
+    def p(name):
+        return os.path.join(d, name)
+
+    def a(name):
+        return "ark:" + p(name)
+
+    # compute-mfcc-feats with VTLN, card against CPU
+    tool_utts = sorted(data["test_wav"])[:VTLN_TOOL_UTTS]
+    fs = bench_scale_spec().fs
+    with open(p("vtln_wav.scp"), "w") as scp:
+        for u in tool_utts:
+            with open(p(f"{u}.wav"), "wb") as f:
+                WaveData(fs, data["test_wav"][u][None, :]).write(f)
+            scp.write(f"{u} {p(u + '.wav')}\n")
+    warps = lvtln_warps()
+    with open(p("utt2warp"), "w") as f:
+        f.writelines(f"{u} {VTLN_TOOL_WARPS[i % len(VTLN_TOOL_WARPS)]}\n"
+                     for i, u in enumerate(tool_utts))
+    mfcc_opts = ["--sample-frequency=16000", "--num-mel-bins=40",
+                 "--num-ceps=40", "--dither=0"]
+    mfcc_err = 0.0
+    for tag, opt in [(f"w{w}", [f"--vtln-warp={w}"])
+                     for w in VTLN_TOOL_WARPS] + [
+            ("map", ["--vtln-map=" + a("utt2warp")])]:
+        got = {}
+        for side in ("cuda", "cpu"):
+            ivec_tool(sec, side, "compute-mfcc-feats", *mfcc_opts, *opt,
+                      "scp:" + p("vtln_wav.scp"), a(f"{tag}.{side}"))
+            got[side] = dict(SequentialTableReader("matrix",
+                                                   a(f"{tag}.{side}")))
+        for u in tool_utts:
+            x, y = np.asarray(got["cuda"][u]), np.asarray(got["cpu"][u])
+            over = np.abs(x - y) - VTLN_MFCC_RTOL * np.abs(y)
+            mfcc_err = max(mfcc_err, float(over.max()))
+    # the LVTLN classes over the flagship UBM
+    sub = sorted(data["train_wav"])[:LVTLN_UTTS]
+    write_ark(p("sub.ark"), ((u, data["feats"]["train"][u]) for u in sub))
+    spk2utt: dict = {}
+    for u in sub:
+        spk2utt.setdefault(f"spk{data['spk'](u):02d}", []).append(u)
+    with open(p("sub.spk2utt"), "w") as f:
+        f.writelines(f"{s} {' '.join(us)}\n" for s, us in sorted(
+            spk2utt.items()))
+    timed_tool(sec, "gmm-init-lvtln", "--dim=40", p("lvtln"))
+    t0 = time.perf_counter()
+    fe = data["fe"]
+    for c, w in enumerate(warps):
+        t1 = time.perf_counter()
+        f, n = fe.compute_batch_device([data["train_wav"][u] for u in sub],
+                                       vtln_warp=w)
+        f = f.cpu().numpy()
+        write_ark(p("warped.ark"), ((u, f[i, :n[i]])
+                                    for i, u in enumerate(sub)))
+        sec["warped_mfcc"] = sec.get("warped_mfcc", 0.0) + \
+            time.perf_counter() - t1
+        timed_tool(sec, "gmm-train-lvtln-special", f"--warp={w}", c,
+                   p("lvtln"), p("lvtln"), a("sub.ark"), a("warped.ark"))
+        if c == warps.index(0.9):
+            shutil.copy(p("warped.ark"), p("warped09.ark"))
+    classes_s = time.perf_counter() - t0
+    timed_tool(sec, "gmm-global-est-lvtln-trans",
+               "--spk2utt=" + a("train.spk2utt"), p("flagship.dubm"),
+               p("lvtln"), a("train.ark"), a("lvtln.trans"),
+               "ark,t:" + p("spk.warp"))
+    spk_warp = {s: float(v) for s, v in SequentialTableReader(
+        "float", a("spk.warp"))}
+    # the twofeats statistics and the global fMLLR, card against CPU
+    stats = {}
+    for side in ("cuda", "cpu"):
+        ivec_tool(sec, side, "gmm-global-acc-stats-twofeats",
+                  p("flagship.dubm"), a("sub.ark"), a("warped09.ark"),
+                  p(f"twofeats.{side}"))
+        stats[side] = read_kaldi_object(AccumDiagGmm.read,
+                                        p(f"twofeats.{side}"))
+    stats_err = max(_rel_to_largest(getattr(stats["cuda"], k),
+                                    getattr(stats["cpu"], k))
+                    for k in ("occupancy", "mean_accs", "var_accs"))
+    # the fMLLR update is the reference's host row iteration (~0.5 s a
+    # speaker): FMLLR_SPEAKERS of them
+    with open(p("fmllr.spk2utt"), "w") as f:
+        f.writelines(f"{s} {' '.join(us)}\n" for s, us in sorted(
+            spk2utt.items())[:FMLLR_SPEAKERS])
+    timed_tool(sec, "gmm-global-est-fmllr",
+               "--spk2utt=" + a("fmllr.spk2utt"), p("flagship.dubm"),
+               a("warped09.ark"), a("fmllr"))
+    fmllr = dict(SequentialTableReader("matrix", a("fmllr")))
+    fmllr_dev = max(float(np.abs(W[:, :-1] - np.eye(W.shape[0])).max())
+                    for W in fmllr.values())
+    launches = kernel_launch_counts()
+    bar = BACKEND_JAX_BAR["vtln"]
+    true = {f"spk{s:02d}": float(w) for s, w in enumerate(data["true_warps"])}
+    out = {"seconds": time.perf_counter() - t_all, "tool_s": sec,
+           "classes_s": classes_s, "lvtln_utterances": len(sub),
+           "speaker_warps": spk_warp, "jax_speaker_warps": bar,
+           "corpus_warps": true,
+           "warp_mismatches": sum(abs(spk_warp[s] - bar[s]) > 1e-6
+                                  for s in bar),
+           "warp_vs_corpus_corr": float(np.corrcoef(
+               [spk_warp[s] for s in sorted(true)],
+               [true[s] for s in sorted(true)])[0, 1]),
+           "mfcc_excess_over_rtol": mfcc_err,
+           "twofeats_card_cpu_rel": stats_err,
+           "fmllr_speakers": len(fmllr),
+           "fmllr_max_offdiag_from_identity": fmllr_dev,
+           "launches": launches}
+    emit("gmm_vtln", **out)
+    bars = {"mfcc": mfcc_err <= VTLN_MFCC_ATOL,
+            "twofeats": stats_err <= VTLN_STATS_TOL,
+            "kernels a-c": not any(launches.values())}
+    bars.update({f"warp {s}": abs(spk_warp[s] - bar[s]) <= 0.01 + 1e-6
+                 for s in bar})
+    bars["warps as JAX's"] = out["warp_mismatches"] <= VTLN_WARP_MISMATCHES
+    bars["warps vs corpus"] = out["warp_vs_corpus_corr"] <= VTLN_CORPUS_CORR
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"gmm_vtln: {failed}")
+    return out
+
+
+def run_synthetic(root: str) -> dict:
+    """synthetic_run: recipes/synthetic_run.py (egs/synthetic/run.py)
+    stages 0-7 on the card, the chain model from SYNTHETIC_CHAIN_INIT
+    (the reference recipe's initial draw): the WER of stage 4 (the mono
+    GMM), 6 (the
+    exported chain .mdl through nnet3-compute and latgen-faster-mapped,
+    the lattice scoring sweep) and 7 (online2-wav-nnet3-latgen-faster),
+    each stage's and tool's seconds; then stage 6's raw lattices through
+    lattice-determinize-pruned --beam=SYNTHETIC_LATTICE_BEAM.  Bars: each
+    stage's word errors within SYNTHETIC_WORDS_BAND of
+    SYNTHETIC_JAX_BAR's (on the 16 test words one word is 6.25 points,
+    so a band of 2.0 points would admit none); each determinized
+    lattice with its raw one's best path; kernels a-c 0 launches."""
+    from kaldi_tpu_torch.lat.functions import lattice_best_path
+    from kaldi_tpu_torch.lat.kaldi_lattice import LatticeHolder
+    from kaldi_tpu_torch.recipes import synthetic_run
+    reset_kernel_counts()
+    report: dict = {}
+    t0 = time.perf_counter()
+    synthetic_run.main(["--dir", root, "--chain-init", SYNTHETIC_CHAIN_INIT],
+                       report=report)
+    launches = {"synthetic_run": kernel_launch_counts()}
+    chain = os.path.join(root, "exp", "chain")
+    det_s: dict = {}
+    timed_tool(det_s, "lattice-determinize-pruned",
+               f"--beam={SYNTHETIC_LATTICE_BEAM}", f"ark:{chain}/lat.ark",
+               f"ark:{chain}/det.lat")
+    raw, det = (dict(SequentialTableReader(LatticeHolder(),
+                                           f"ark:{chain}/{name}"))
+                for name in ("lat.ark", "det.lat"))
+    det_kept = list(det) == list(raw) and all(
+        lattice_best_path(det[u])[1] == lattice_best_path(raw[u])[1]
+        for u in raw)
+    res = {k: report[k] for k in ("gmm", "chain", "online")}
+    out = {"seconds": time.perf_counter() - t0,
+           "stage_s": report["stage_s"], "tool_s": report["tool_s"],
+           "wer": res, "jax": SYNTHETIC_JAX_BAR,
+           "latgen_mapped": report["tool_stats"].get("latgen-faster-mapped"),
+           "determinized": {
+               "seconds": det_s["lattice-determinize-pruned"],
+               "raw_arcs": sum(lat.num_arcs() for lat in raw.values()),
+               "det_arcs": sum(lat.num_arcs() for lat in det.values()),
+               "best_paths_kept": det_kept},
+           "chain_train": report.get("chain_train"), "launches": launches}
+    emit("synthetic_run", **out)
+    bars = {k: abs(res[k]["word_errors"] -
+                   SYNTHETIC_JAX_BAR[k]["word_errors"]) <=
+            SYNTHETIC_WORDS_BAND for k in res}
+    bars["determinized"] = det_kept
+    bars["kernels a-c"] = not any(launches["synthetic_run"].values())
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"synthetic_run: {failed}")
+    return out
+
+
+def backend_phases() -> dict:
+    """backend_lid, backend_diar and gmm_vtln over one directory of the
+    flagship extractor's data, then gmm_mmi over the generic recipe's
+    corpus (mmi_data)."""
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        data = backend_data(d)
+        emit("backend_data", seconds=time.perf_counter() - t0,
+             tool_s=data["sec"], train=len(data["feats"]["train"]),
+             test=len(data["feats"]["test"]))
+        out = {"backend_lid": run_backend_lid(d, data),
+               "backend_diar": run_backend_diar(d, data),
+               "gmm_vtln": run_gmm_vtln(d, data)}
+        del data
+    with tempfile.TemporaryDirectory() as d:
+        mmi_data(d)
+        out["gmm_mmi"] = run_gmm_mmi(d)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mmi_data(root: str) -> None:
+    """What gmm_mmi reads of the generic recipe's run, made here: the
+    fabricated corpus at TEMPLATE_UTTS, the lang dir, each set's MFCC
+    (the card) and stage 4's G from the ARPA bigram."""
+    from kaldi_tpu_torch.decoder.lang_dir import read_symbol_table
+    from kaldi_tpu_torch.lm.arpa import arpa_to_fst, parse_arpa
+    from kaldi_tpu_torch.recipes.template_corpus import make_standard_corpus
+    sec: dict = {}
+    t0 = time.perf_counter()
+    make_standard_corpus(root, *TEMPLATE_UTTS)
+    lang = os.path.join(root, "exp", "lang")
+    timed_tool(sec, "prepare-lang", f"{root}/lexicon.txt", lang)
+    for split in ("train", "test"):
+        timed_tool(sec, "compute-mfcc-feats", "--sample-frequency=8000",
+                   "--dither=0", f"scp:{root}/{split}/wav.scp",
+                   f"ark:{root}/{split}/feats.ark")
+    with open(f"{root}/lm.arpa") as f:
+        g = arpa_to_fst(parse_arpa(f.read()),
+                        read_symbol_table(os.path.join(lang, "words.txt")))
+    with open(os.path.join(lang, "G.fst"), "wb") as f:
+        write_fst(f, g)
+    emit("mmi_data", seconds=time.perf_counter() - t0, tool_s=sec)
+
+
+def unigram_g(lang, texts: dict) -> VectorFst:
+    """make_denlats.sh's weak LM: a one-state G over the training text's
+    words, each at -log of its relative count."""
+    from kaldi_tpu_torch.fstext.fst import TropicalWeight
+    counts = collections.Counter(w for t in texts.values() for w in t)
+    total = sum(counts.values())
+    g = VectorFst(TropicalWeight)
+    s = g.add_state()
+    g.set_start(s)
+    g.set_final(s)
+    for w in sorted(counts):
+        g.add_arc(s, Arc(lang.words[w], lang.words[w],
+                         float(-np.log(counts[w] / total)), s))
+    return g
+
+
+def mmi_system(root: str):
+    """The JAX recipe's tri1 (MMI_TRI1) over the generic recipe's lang,
+    read on the card -> (MonoSystem, its TransitionModel file's path)."""
+    from kaldi_tpu_torch.decoder.graph import Lang
+    lang = Lang(template_run.read_lexicon(f"{root}/lexicon.txt"),
+                sil_phone="SIL", sil_prob=0.5)
+    tm, am = read_am_gmm(os.path.join(MMI_TRI1, "final.mdl"), device="cuda")
+    lang.topo = tm.topo
+    tree = read_kaldi_object(ContextDependency.read,
+                             os.path.join(MMI_TRI1, "tree"))
+    return tmono.MonoSystem(lang, tree, tm, am)
+
+
+def mmi_wer(sys_, hclg, feats: dict, refs: dict) -> dict:
+    hyps = tmono.decode(sys_, hclg, feats, acoustic_scale=0.1)
+    w = wer_of(hyps, refs)
+    return dict(wer=w, word_errors=word_errors(w, refs))
+
+
+def gauss_params(am) -> np.ndarray:
+    return np.concatenate([np.concatenate([g.get_means().ravel(),
+                                           g.get_vars().ravel()])
+                           for g in (am.get_pdf(p)
+                                     for p in range(am.num_pdfs))])
+
+
+def run_gmm_mmi(root: str) -> dict:
+    """gmm_mmi: boosted MMI (b=MMI_BOOST, TrainMmiOptions' defaults: 4
+    iterations, E=2, tau=100) of the JAX recipe's tri1 over the generic
+    recipe's features of MMI_UTTS training utterances, the denominator
+    lattices over a unigram G of the training text: in process
+    (recipes/mmi.py train_mmi, the GMM scored on the card, the lattice
+    work on the host), then one iteration from the same model through
+    steps/train_mmi.sh's tools (gmm-latgen-faster
+    --determinize-lattice=false, gmm-rescore-lattice, lattice-boost-ali,
+    lattice-to-post, ali-to-post with the denominator posteriors negated
+    beside them as sum-post gives them, gmm-acc-stats2,
+    gmm-ismooth-stats, gmm-est-gaussians-ebw, gmm-est-weights-ebw); the
+    test set's WER before and after (the recipe's HCLG).  Bars: each
+    iteration's objective within MMI_OBJF_BAND of MMI_JAX_BAR's and not
+    falling; the WER after no worse than before and within 2.0 points and
+    3 words of JAX's (stage 4's G, the recipe's HCLG over this tri1); the
+    tools' means and variances within MMI_TOOL_REL
+    of the in-process first iteration's (the weights differ: the tools
+    update them, train_mmi does not by default); kernels a-c 0
+    launches."""
+    from kaldi_tpu_torch.cli.gmm_tools import write_am_gmm
+    from kaldi_tpu_torch.recipes.mmi import TrainMmiOptions, train_mmi
+    reset_kernel_counts()
+    sec: dict = {}
+    t_all = time.perf_counter()
+    d = os.path.join(root, "mmi")
+    os.makedirs(d, exist_ok=True)
+
+    def p(name):
+        return os.path.join(d, name)
+
+    sys_ = mmi_system(root)
+    feats_all = dict(SequentialTableReader("matrix",
+                                           f"ark:{root}/train/feats.ark"))
+    texts_all = template_run.read_texts(f"{root}/train")
+    utts = sorted(feats_all)[:MMI_UTTS]
+    feats = {u: feats_all[u] for u in utts}
+    texts = {u: texts_all[u] for u in utts}
+    test = dict(SequentialTableReader("matrix", f"ark:{root}/test/feats.ark"))
+    refs = template_run.read_texts(f"{root}/test")
+    g = unigram_g(sys_.lang, texts_all)
+    # the recipe's G (stage 4's ARPA bigram) over this tri1
+    hclg = tmono.make_hclg(sys_, read_fst_file(f"{root}/exp/lang/G.fst"))
+    before = mmi_wer(sys_, hclg, test, refs)
+    write_am_gmm(p("0.mdl"), sys_.tm, sys_.am)
+    timing: dict = {}
+    t0 = time.perf_counter()
+    objs = train_mmi(sys_, feats, texts, g, TrainMmiOptions(
+        num_iters=1, boost=MMI_BOOST), timing=timing)
+    first = gauss_params(sys_.am)
+    objs += train_mmi(sys_, feats, texts, g, TrainMmiOptions(
+        num_iters=3, boost=MMI_BOOST), timing=timing)
+    train_s = time.perf_counter() - t0
+    after = mmi_wer(sys_, hclg, test, refs)
+    # one iteration through the tools, from 0.mdl
+    tsys = mmi_system(root)
+    compiler = TrainingGraphCompiler(tsys.tm, tsys.tree, tsys.lang)
+    ali = tmono._align_all(tsys, {u: compiler.compile(texts[u])
+                                  for u in utts}, feats, 10.0, 0.1, 1.0)
+    write_ark(p("feats.ark"), ((u, feats[u]) for u in utts))
+    write_ark(p("ali.ark"), ((u, ali[u]) for u in utts), "int-vector")
+    with open(p("HCLG.fst"), "wb") as f:
+        write_fst(f, tmono.make_hclg(tsys, g))
+    gpu = "--use-gpu=yes"
+    t0 = time.perf_counter()
+    timed_tool(sec, "gmm-latgen-faster", gpu, "--acoustic-scale=0.1",
+               "--beam=16", "--lattice-beam=10", "--determinize-lattice=false",
+               p("0.mdl"), p("HCLG.fst"), "ark:" + p("feats.ark"),
+               "ark:" + p("den.lat"))
+    timed_tool(sec, "gmm-rescore-lattice", gpu, p("0.mdl"),
+               "ark:" + p("den.lat"), "ark:" + p("feats.ark"),
+               "ark:" + p("rescored.lat"))
+    timed_tool(sec, "lattice-boost-ali", f"--b={MMI_BOOST}", p("0.mdl"),
+               "ark:" + p("rescored.lat"), "ark:" + p("ali.ark"),
+               "ark:" + p("boosted.lat"))
+    timed_tool(sec, "lattice-to-post", "--acoustic-scale=0.1",
+               "ark:" + p("boosted.lat"), "ark:" + p("den.post"))
+    timed_tool(sec, "ali-to-post", "ark:" + p("ali.ark"),
+               "ark:" + p("num.post"))
+    num = dict(SequentialTableReader("posterior", "ark:" + p("num.post")))
+    den = dict(SequentialTableReader("posterior", "ark:" + p("den.post")))
+    write_ark(p("signed.post"), ((u, [list(n) + [(t, -w) for t, w in dn]
+                                      for n, dn in zip(num[u], den[u])])
+                                 for u in utts if u in den), "posterior")
+    timed_tool(sec, "gmm-acc-stats2", p("0.mdl"), "ark:" + p("feats.ark"),
+               "ark:" + p("signed.post"), p("num.acc"), p("den.acc"))
+    timed_tool(sec, "gmm-ismooth-stats", "--tau=100", p("num.acc"),
+               p("num.acc"), p("snum.acc"))
+    timed_tool(sec, "gmm-est-gaussians-ebw", "--E=2", p("0.mdl"),
+               p("snum.acc"), p("den.acc"), p("1g.mdl"))
+    timed_tool(sec, "gmm-est-weights-ebw", p("1g.mdl"), p("num.acc"),
+               p("den.acc"), p("1.mdl"))
+    tools_s = time.perf_counter() - t0
+    _, tools_am = read_am_gmm(p("1.mdl"), device="cpu")
+    tool_rel = _rel_to_largest(gauss_params(tools_am), first)
+    launches = kernel_launch_counts()
+    bar = MMI_JAX_BAR
+    out = {"seconds": time.perf_counter() - t_all, "train_s": train_s,
+           "timing": timing, "tools_s": tools_s, "tool_s": sec,
+           "utterances": len(utts), "objf": objs, "jax_objf": bar["objf"],
+           "wer_before": before, "wer_after": after,
+           "jax_wer_before": bar["wer_before"],
+           "jax_wer_after": bar["wer_after"],
+           "tools_vs_in_process_rel": tool_rel, "launches": launches}
+    emit("gmm_mmi", **out)
+    bars = {f"objf {i}": abs(o - j) <= MMI_OBJF_BAND
+            for i, (o, j) in enumerate(zip(objs, bar["objf"]))}
+    bars["objf not falling"] = objs[-1] >= objs[0] - 1e-3
+    bars["wer no worse"] = after["word_errors"] <= before["word_errors"]
+    bars["wer jax"] = abs(after["wer"] - bar["wer_after"]["wer"]) <= \
+        TEMPLATE_WER_BAND and abs(after["word_errors"] - bar["wer_after"][
+            "word_errors"]) <= TEMPLATE_WORDS_BAND
+    bars["tools"] = tool_rel <= MMI_TOOL_REL
+    bars["kernels a-c"] = not any(launches.values())
+    failed = [k for k, ok in bars.items() if not ok]
+    if failed:
+        raise SystemExit(f"gmm_mmi: {failed}")
+    return out
+
+
 WORKER_GROUPS = ("train", "scale", "online2")
 
 
 def run_worker_group(group: str) -> dict:
     """The phases of one group -> their results by name: "train" is
     train_lex, the chain tools and the chain frame phases over its system,
-    then the generic corpus recipe; "scale" is train_scale, then the
-    i-vector tool chain over its features; "online2" is the online2 and
-    xconfig phases over the legacy graph, after slice_lex_int16's decode
-    (lex_int16_words: the words online2_wav agrees with)."""
+    then the generic corpus recipe and the synthetic recipe; "scale" is
+    train_scale, then the i-vector tool chain over its features;
+    "online2" is the online2 and xconfig phases over the legacy graph,
+    after slice_lex_int16's decode (lex_int16_words: the words
+    online2_wav agrees with), then the back ends, VTLN and GMM MMI
+    (backend_phases)."""
     if group == "online2":
         lex = build_lex_path()
         words16 = lex_int16_words(lex, *legacy_am(lex))
         del lex
         torch.cuda.empty_cache()
-        return {"online2": online2_phases(words16)}
+        return {"online2": online2_phases(words16),
+                "backend": backend_phases()}
     if group == "train":
         train, sysd = train_phases(SMOKE_TRAIN_EPOCHS)
         chain = chain_cli_phases(sysd)
@@ -7210,16 +7946,19 @@ def main() -> int:
     # "train" is the legacy training recipe end to end and its card-CPU
     # check, chain training through the tools over its system, then the
     # generic corpus recipe (stages 0-7 at its defaults, then stage 8, over
-    # one directory); "scale" is the --scale training recipe decoded
+    # one directory) and the synthetic recipe; "scale" is the --scale
+    # training recipe decoded
     # through the main path, then the i-vector tool chain over its corpus
     # (the UBMs and the extractor, the sid back end, the flagship extractor
-    # through the tools)
+    # through the tools); "online2" ends with the speaker and language
+    # back ends and VTLN over the flagship extractor's data, then GMM
+    # MMI
     res = {}
     for w in workers.values():
         res.update(w.join())
-    online2, train, chain, frame, template, scale, ivector = (
+    online2, train, chain, frame, template, scale, ivector, backend = (
         res[k] for k in ("online2", "train", "chain", "frame", "template",
-                         "scale", "ivector"))
+                         "scale", "ivector", "backend"))
 
     # 8. tables -------------------------------------------------------------
     emit("summary", wall_s_median=walls[1], xrt_median=runs[0]["audio_s"]
@@ -7247,6 +7986,8 @@ def main() -> int:
             for name, phase in template.items()},
          **{name: {k: v for k, v in phase.items() if k != "launches"}
             for name, phase in ivector.items()},
+         **{name: {k: v for k, v in phase.items() if k != "launches"}
+            for name, phase in backend.items()},
          **{k: v for k, v in nnet3.items() if k != "launches"},
          **{k: v for k, v in online2.items()
             if k not in ("launches", "xconfig")},
@@ -7293,7 +8034,7 @@ def main() -> int:
         for phase, res in template.items():
             k[f"launches_{phase}"] = sum(counts[k["name"]] for counts in
                                          res["launches"].values())
-        for phase, res in ivector.items():
+        for phase, res in (*ivector.items(), *backend.items()):
             k[f"launches_{phase}"] = res["launches"][k["name"]]
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,

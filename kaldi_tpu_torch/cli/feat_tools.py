@@ -7,9 +7,12 @@ arguments, option names and table specifiers as the reference's.
 
 compute-mfcc-feats computes a batch of utterances at a time on the card
 (`feat/frontend.py` `OfflineFeature`) unless --use-gpu=no; the other
-tools are host numpy, as in the reference.  An option of the reference
-that the port does not carry (VTLN, --subtract-mean, dither other than
-0, --compress) raises instead of being ignored.
+tools are host numpy, as in the reference.  Its VTLN options
+(--vtln-warp, --vtln-map with --utt2spk, --vtln-low, --vtln-high) warp
+the mel bins an utterance; a batch of mixed warps takes one mel matrix a
+warp.  An option of the reference that the port does not carry
+(--subtract-mean, dither other than 0, --compress) raises instead of
+being ignored.
 
 Not carried over yet: compute-fbank-feats, -spectrogram-feats and
 -plp-feats, the pitch tools, paste-feats and the
@@ -52,29 +55,30 @@ def compute_mfcc_feats(argv: List[str]) -> int:
     if po.num_args() != 2:
         po.print_usage()
         return 1
-    if vtln_map[0] or utt2spk[0] or vtln_warp[0] != 1.0:
-        raise NotImplementedError(
-            "VTLN (--vtln-warp, --vtln-map, --utt2spk) is not ported")
     if subtract_mean[0]:
         raise NotImplementedError(
             "--subtract-mean is not ported (the reference only warns); "
             "use apply-cmvn")
     computer = OfflineFeature(opts, device=_device(use_gpu[0]))
+    vtln_reader = (RandomAccessTableReaderMapped("float", vtln_map[0],
+                                                 utt2spk[0])
+                   if vtln_map[0] else None)
     reader = SequentialTableReader("wave", po.get_arg(1))
     writer = TableWriter("matrix", po.get_arg(2))
     dur_writer = (TableWriter("float", write_utt2dur[0])
                   if write_utt2dur[0] else None)
     num_done = num_err = 0
-    pending = []  # (key, wave)
+    pending = []  # (key, wave, warp)
 
     def flush():
         nonlocal num_done
         if not pending:
             return
         feats, nframes = computer.compute_batch_device(
-            [w for _, w in pending])
+            [w for _, w, _ in pending],
+            vtln_warp=[warp for _, _, warp in pending])
         feats = feats.cpu().numpy()
-        for i, (key, _) in enumerate(pending):
+        for i, (key, _, _) in enumerate(pending):
             writer.write(key, feats[i, :nframes[i]])
             num_done += 1
         pending.clear()
@@ -96,12 +100,21 @@ def compute_mfcc_feats(argv: List[str]) -> int:
             warn(f"{key}: no channel {ch}")
             num_err += 1
             continue
+        warp = 1.0
+        if vtln_reader is not None:
+            if key not in vtln_reader:
+                warn(f"no vtln-map entry for {key}")
+                num_err += 1
+                continue
+            warp = float(vtln_reader[key])
+        elif vtln_warp[0] != 1.0:
+            warp = vtln_warp[0]
         if abs(wave_data.samp_freq - opts.frame_opts.samp_freq) > 0.01:
             warn(f"{key}: sample rate {wave_data.samp_freq} != "
                  f"--sample-frequency {opts.frame_opts.samp_freq}")
             num_err += 1
             continue
-        pending.append((key, wave_data.channel(ch)))
+        pending.append((key, wave_data.channel(ch), warp))
         if len(pending) >= batch_size[0]:
             flush()
     flush()

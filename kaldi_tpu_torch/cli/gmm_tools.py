@@ -1,19 +1,25 @@
 """gmmbin tools (port of the tools of `kaldi_tpu/cli/gmm_tools.py` that
 GMM training and decoding run): gmm-init-mono, compile-train-graphs,
-gmm-align-compiled, gmm-acc-stats-ali, gmm-sum-accs, gmm-est, gmm-info
-and gmm-latgen-faster.  Same positional arguments, options and table
+gmm-align-compiled, gmm-acc-stats-ali, gmm-sum-accs, gmm-est, gmm-info,
+gmm-latgen-faster, the MMI tools (gmm-acc-stats2, gmm-ismooth-stats,
+gmm-est-gaussians-ebw, gmm-est-weights-ebw, gmm-rescore-lattice) and the
+decoders of log-likelihood matrices (latgen-faster-mapped,
+decode-faster-mapped).  Same positional arguments, options and table
 specifiers as the reference's.
 
 Model files follow the reference's convention: the TransitionModel,
 then the AmDiagGmm, in one binary stream (`read_am_gmm` /
 `write_am_gmm`), so a `final.mdl` of either package reads in the other.
-The GMM log-likelihoods of gmm-align-compiled and gmm-latgen-faster run
-on the card (`AmDiagGmm.log_likes_device`) unless --use-gpu=no; the
-statistics, the updates and the searches (the host `FasterDecoder`,
+The GMM log-likelihoods of gmm-align-compiled, gmm-latgen-faster and
+gmm-rescore-lattice run on the card (`AmDiagGmm.log_likes_device`)
+unless --use-gpu=no; the statistics, the EBW updates (host float64,
+`gmm/ebw.py`) and the searches (the host `FasterDecoder`,
 `LatticeFasterDecoder`) stay on the host, as in the reference.
+latgen-faster-mapped shares nnet3-latgen-faster's decode loop: the
+determinization, the `det_fallbacks` count and the stats line.
 
-Not carried over yet: the EBW tools, latgen-faster-mapped and the
-global-GMM tools of the reference's module.
+The global-GMM tools are in `cli/ivector_tools.py` and
+`cli/vtln_tools.py`.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
 
 from kaldi_tpu_torch.base import io_funcs as iof
 from kaldi_tpu_torch.base.logging import log, warn
@@ -352,3 +359,246 @@ def gmm_latgen_faster(argv: List[str]) -> int:
                         po.get_arg(5) if po.num_args() >= 5 else None,
                         "gmm-latgen-faster",
                         po.get_arg(6) if po.num_args() >= 6 else None)
+
+
+# ---------------------------------------------------------------------------
+# discriminative (MMI) training: kaldi_tpu/cli/gmm_tools.py
+# gmm-est-gaussians-ebw (:335), gmm-est-weights-ebw (:356),
+# gmm-ismooth-stats (:382); kaldi_tpu/cli/tail10_tools.py gmm-acc-stats2
+# (:195); kaldi_tpu/cli/tail5_tools.py gmm-rescore-lattice (:592)
+
+
+def gmm_est_gaussians_ebw(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Update GMM means and variances with Extended Baum-Welch from\n"
+        "numerator and denominator stats (discriminative MMI/MPE)\n"
+        "Usage: gmm-est-gaussians-ebw [options] <model-in> <num-stats-in> "
+        "<den-stats-in> <model-out>")
+    from kaldi_tpu_torch.gmm.ebw import EbwOptions, update_ebw_am_diag_gmm
+    opts = EbwOptions()
+    po.register_struct(opts)
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    tm, am = read_am_gmm(po.get_arg(1), device="cpu")
+    num = kaldi_io.read_kaldi_object(AccumAmDiagGmm.read, po.get_arg(2))
+    den = kaldi_io.read_kaldi_object(AccumAmDiagGmm.read, po.get_arg(3))
+    update_ebw_am_diag_gmm(num, den, am, opts)
+    write_am_gmm(po.get_arg(4), tm, am)
+    return 0
+
+
+def gmm_est_weights_ebw(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Update GMM weights with Extended Baum-Welch\n"
+        "Usage: gmm-est-weights-ebw [options] <model-in> <num-stats-in> "
+        "<den-stats-in> <model-out>")
+    from kaldi_tpu_torch.gmm.ebw import update_ebw_weights_diag_gmm
+    weight_iters = po.register_value(
+        "weight-iters", 1, "Iterations of the weight auxiliary solve")
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    tm, am = read_am_gmm(po.get_arg(1), device="cpu")
+    num = kaldi_io.read_kaldi_object(AccumAmDiagGmm.read, po.get_arg(2))
+    den = kaldi_io.read_kaldi_object(AccumAmDiagGmm.read, po.get_arg(3))
+    impr = 0.0
+    for pdf in range(am.num_pdfs):
+        impr += update_ebw_weights_diag_gmm(num.accs[pdf], den.accs[pdf],
+                                            am.get_pdf(pdf),
+                                            weight_iters[0])
+    am.invalidate_pack()
+    log(f"EBW weight update: total auxf impr {impr:.2f}")
+    write_am_gmm(po.get_arg(4), tm, am)
+    return 0
+
+
+def gmm_ismooth_stats(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Apply I-smoothing to GMM stats (add tau frames of the source\n"
+        "stats' per-Gaussian average to the destination)\n"
+        "Usage: gmm-ismooth-stats [options] <src-stats-in> <dst-stats-in> "
+        "<stats-out>")
+    from kaldi_tpu_torch.gmm.ebw import ismooth_stats_diag_gmm
+    tau = po.register_value("tau", 100.0, "I-smoothing constant")
+    po.read(argv)
+    if po.num_args() != 3:
+        po.print_usage()
+        return 1
+    src = kaldi_io.read_kaldi_object(AccumAmDiagGmm.read, po.get_arg(1))
+    dst = kaldi_io.read_kaldi_object(AccumAmDiagGmm.read, po.get_arg(2))
+    for pdf in range(len(dst.accs)):
+        ismooth_stats_diag_gmm(src.accs[pdf], tau[0], dst.accs[pdf])
+    kaldi_io.write_kaldi_object(dst.write, po.get_arg(3), binary=True)
+    return 0
+
+
+def gmm_acc_stats2(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Accumulate numerator and denominator GMM stats in one pass "
+        "from SIGNED posteriors (gmm-acc-stats2.cc; positive weights "
+        "feed the num accs, negative the den accs — the MMI "
+        "accumulation contract).\n"
+        "Usage: gmm-acc-stats2 [options] <model-in> "
+        "<feats-rspecifier> <posteriors-rspecifier> <num-stats-out> "
+        "<den-stats-out>")
+    binary = po.register_value("binary", True, "Write output in binary mode")
+    po.read(argv)
+    if po.num_args() != 5:
+        po.print_usage()
+        return 1
+    tm, am = read_am_gmm(po.get_arg(1), device="cpu")
+    post_reader = RandomAccessTableReader("posterior", po.get_arg(3))
+    num = AccumAmDiagGmm(am, num_transition_ids=tm.num_transition_ids)
+    den = AccumAmDiagGmm(am, num_transition_ids=tm.num_transition_ids)
+    n = err = 0
+    for key, feats in SequentialTableReader("matrix", po.get_arg(2)):
+        if key not in post_reader:
+            warn(f"no posteriors for {key}")
+            err += 1
+            continue
+        post = post_reader[key]
+        pos = [[(tid, w) for tid, w in frame if w > 0]
+               for frame in post]
+        neg = [[(tid, -w) for tid, w in frame if w < 0]
+               for frame in post]
+        num.accumulate_posterior(am, tm, np.asarray(feats), pos)
+        den.accumulate_posterior(am, tm, np.asarray(feats), neg)
+        n += 1
+    kaldi_io.write_kaldi_object(num.write, po.get_arg(4), binary[0])
+    kaldi_io.write_kaldi_object(den.write, po.get_arg(5), binary[0])
+    log(f"accumulated num/den stats from {n} utterances ({err} "
+        "errors)")
+    return 0 if n else 1
+
+
+def gmm_rescore_lattice(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Replace lattice acoustic scores with a (new) GMM model's.\n"
+        "Usage: gmm-rescore-lattice [options] <model-in> "
+        "<lattice-rspecifier> <feats-rspecifier> <lattice-wspecifier>")
+    use_gpu = register_use_gpu(po)
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    from kaldi_tpu_torch.lat.kaldi_lattice import LatticeHolder
+    from kaldi_tpu_torch.nnet3.discriminative_train import \
+        rescore_lattice_acoustics
+    tm, am = read_am_gmm(po.get_arg(1), device=_device(use_gpu[0]))
+    feats_reader = RandomAccessTableReader("matrix", po.get_arg(3))
+    writer = TableWriter(LatticeHolder(), po.get_arg(4))
+    n = err = 0
+    for key, lat in SequentialTableReader(LatticeHolder(),
+                                          po.get_arg(2)):
+        if key not in feats_reader:
+            warn(f"no feats for {key}")
+            err += 1
+            continue
+        ll = am.log_likes_batch(feats_reader[key])
+        writer.write(key, rescore_lattice_acoustics(lat, tm, ll))
+        n += 1
+    writer.close()
+    log(f"rescored {n} lattices ({err} errors)")
+    return 0 if n else 1
+
+
+# ---------------------------------------------------------------------------
+# decoding from log-likelihood matrices: kaldi_tpu/cli/gmm_tools.py
+# latgen-faster-mapped (:402); kaldi_tpu/cli/tail5_tools.py
+# decode-faster-mapped (:623)
+
+
+def _read_tm(rxfilename: str) -> TransitionModel:
+    """Just the TransitionModel of a model file (it leads every .mdl)."""
+    with kaldi_io.input_stream(rxfilename) as f:
+        return TransitionModel.read(f, iof.init_input_stream(f))
+
+
+class _NoForward:
+    """The stats line's forward fields for a tool that reads its
+    log-likelihoods instead of computing them."""
+    device = torch.device("cpu")
+    host_s = 0.0
+    span_ms = 0.0
+    calls = 0
+
+
+def latgen_faster_mapped(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Generate lattices, reading log-likelihoods as matrices\n"
+        "(model is needed only for the integer mappings in its "
+        "transition-model)\n"
+        "Usage: latgen-faster-mapped [options] <model-in> <fst-in> "
+        "<loglikes-rspecifier> <lattice-wspecifier> "
+        "[<words-wspecifier> [<alignments-wspecifier>]]")
+    from kaldi_tpu_torch.cli.nnet3_latgen_tools import _decode_loop
+    from kaldi_tpu_torch.decoder.lattice_decoder import \
+        LatticeFasterDecoderOptions
+    dopts = LatticeFasterDecoderOptions()
+    po.register_struct(dopts)
+    acoustic_scale = po.register_value(
+        "acoustic-scale", 0.1, "Scaling factor for acoustic likelihoods")
+    po.read(argv)
+    if po.num_args() < 4 or po.num_args() > 6:
+        po.print_usage()
+        return 1
+    tm = _read_tm(po.get_arg(1))
+
+    def items():
+        for key, loglikes in SequentialTableReader("matrix",
+                                                   po.get_arg(3)):
+            loglikes = np.asarray(loglikes)
+            yield key, loglikes, len(loglikes)
+
+    return _decode_loop(items(), po.get_arg(2), tm, _NoForward(),
+                        acoustic_scale[0], dopts, po.get_arg(4),
+                        po.get_arg(5) if po.num_args() >= 5 else None,
+                        "latgen-faster-mapped",
+                        po.get_arg(6) if po.num_args() >= 6 else None)
+
+
+def decode_faster_mapped(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Best-path decode from loglike matrices (rows indexed by "
+        "transition-id via the model's pdf map).\n"
+        "Usage: decode-faster-mapped [options] <model-in> <fst-in> "
+        "<loglikes-rspecifier> <words-wspecifier> "
+        "[<alignments-wspecifier>]")
+    from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
+                                                 FasterDecoderOptions)
+    from kaldi_tpu_torch.fstext.openfst_io import read_fst_file
+    dopts = FasterDecoderOptions()
+    po.register_struct(dopts)
+    acoustic_scale = po.register_value(
+        "acoustic-scale", 0.1, "Scaling factor for acoustic likelihoods")
+    po.read(argv)
+    if po.num_args() < 4 or po.num_args() > 5:
+        po.print_usage()
+        return 1
+    tm = _read_tm(po.get_arg(1))
+    hclg = read_fst_file(po.get_arg(2))
+    word_writer = TableWriter("int-vector", po.get_arg(4))
+    ali_writer = (TableWriter("int-vector", po.get_arg(5))
+                  if po.num_args() >= 5 else None)
+    dec = FasterDecoder(hclg, dopts)
+    n = err = 0
+    for key, ll in SequentialTableReader("matrix", po.get_arg(3)):
+        res = dec.decode(np.asarray(ll), tm.id2pdf_id,
+                         acoustic_scale=acoustic_scale[0])
+        if res is None:
+            warn(f"decode failed for {key}")
+            err += 1
+            continue
+        ali, words, _cost = res
+        word_writer.write(key, words)
+        if ali_writer:
+            ali_writer.write(key, ali)
+        n += 1
+    word_writer.close()
+    if ali_writer:
+        ali_writer.close()
+    log(f"decoded {n} utterances ({err} failed)")
+    return 0 if n else 1

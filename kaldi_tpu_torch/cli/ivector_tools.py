@@ -36,16 +36,20 @@ and table specifiers:
   kaldi_tpu/cli/tail9_tools.py: ivector-adapt-plda (:19),
     ivector-copy-plda (:52), ivector-compute-dot-products (:74),
     ivector-extract-online (:169);
-  kaldi_tpu/cli/latrnnlm_tools.py: ivector-extract-online2 (:428).
+  kaldi_tpu/cli/latrnnlm_tools.py: ivector-extract-online2 (:428);
+  kaldi_tpu/cli/tail7_tools.py: logistic-regression-train (:18),
+    logistic-regression-eval (:57), logistic-regression-copy (:85);
+  kaldi_tpu/cli/tail3_tools.py: agglomerative-cluster (:202).
 
 The tools that work on frames or on the extractor run on the card unless
 --use-gpu=no: the UBMs' scores, posteriors and statistics (float32 scores
 for a diagonal UBM and float64 for a full one, as the reference computes
 them; float64 statistics), Gaussian selection, the extractor's E-step and
-M-step and the extraction (float64, batched over the utterances), and the
-LDA statistics.  The model updates of the GMMs, the file copies and sums,
-VAD and the PLDA back end (i-vector-sized matrices) are host numpy, as in
-the reference.
+M-step and the extraction (float64, batched over the utterances), the
+LDA statistics, and the logistic regression's training (float32).  The
+model updates of the GMMs, the file copies and sums, VAD, the PLDA back
+end (i-vector-sized matrices) and the agglomerative clustering are host
+numpy, as in the reference.
 
 Kept from the reference package rather than upstream Kaldi: a FullGmm
 file stores each inverse covariance as a full matrix, the fgmm stats
@@ -72,9 +76,12 @@ from kaldi_tpu_torch.gmm.full_gmm import (AccumFullGmm, FullGmm,
 from kaldi_tpu_torch.gmm.mle import (AccumDiagGmm, MleDiagGmmOptions,
                                      mle_diag_gmm_update)
 from kaldi_tpu_torch.gmm.ubm import UbmScorer, init_diag_ubm
+from kaldi_tpu_torch.ivector.cluster import agglomerative_cluster
 from kaldi_tpu_torch.ivector.extractor import (ExtractorOnDevice,
                                                IvectorExtractor,
                                                IvectorExtractorStats)
+from kaldi_tpu_torch.ivector.logistic_regression import (
+    LogisticRegression, LogisticRegressionConfig, train_logistic_regression)
 from kaldi_tpu_torch.ivector.plda import Plda, train_plda
 from kaldi_tpu_torch.ivector.vad import VadEnergyOptions, compute_vad_energy
 from kaldi_tpu_torch.util import kaldi_io
@@ -92,7 +99,7 @@ DEVICE_TOOLS = (
     "fgmm-global-gselect-to-post", "fgmm-global-acc-stats-post",
     "ivector-extractor-acc-stats", "ivector-extractor-est",
     "ivector-extract", "ivector-extract-online", "ivector-extract-online2",
-    "ivector-compute-lda")
+    "ivector-compute-lda", "logistic-regression-train")
 
 
 def _read_feats(rspecifier: str) -> Tuple[List[str], List[np.ndarray]]:
@@ -1445,4 +1452,152 @@ def compute_eer(argv: List[str]) -> int:
     print(f"{eer * 100:.4f}%")
     log(f"compute-eer: EER {eer * 100:.4f}% threshold {thr:.4f} "
         f"({len(target)} target / {len(nontarget)} nontarget)")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# the language-id and diarization back ends (kaldi_tpu/cli/tail7_tools.py
+# logistic-regression-train (:18), -eval (:57), -copy (:85);
+# kaldi_tpu/cli/tail3_tools.py agglomerative-cluster (:202))
+
+
+def logistic_regression_train(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Train a multinomial logistic regression model on vectors "
+        "(e.g. i-vectors for language id).\n"
+        "Usage: logistic-regression-train [options] "
+        "<vector-rspecifier> <utt2class-rspecifier> <model-out>")
+    binary = po.register_value("binary", True, "Write output in binary mode")
+    max_steps = po.register_value("max-steps", 200,
+                                  "Optimization steps")
+    normalizer = po.register_value("normalizer", 0.0025,
+                                   "L2 regularization weight")
+    mix_up = po.register_value("mix-up", 0,
+                               "Target number of mixture components")
+    use_gpu = register_use_gpu(po)
+    po.read(argv)
+    if po.num_args() != 3:
+        po.print_usage()
+        return 1
+    dev = use_gpu_device(use_gpu[0])
+    cls_reader = RandomAccessTableReader("int", po.get_arg(2))
+    xs, ys = [], []
+    for key, vec in SequentialTableReader("vector", po.get_arg(1)):
+        if key not in cls_reader:
+            warn(f"no class for {key}")
+            continue
+        xs.append(np.asarray(vec, np.float64))
+        ys.append(int(cls_reader[key]))
+    if not xs:
+        warn("no training vectors")
+        return 1
+    cfg = LogisticRegressionConfig(max_steps=max_steps[0],
+                                   normalizer=normalizer[0],
+                                   mix_up=mix_up[0])
+    model = train_logistic_regression(np.stack(xs), np.asarray(ys), cfg,
+                                      device=dev)
+    kaldi_io.write_kaldi_object(model.write, po.get_arg(3), binary[0])
+    return 0
+
+
+def logistic_regression_eval(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Evaluate a logistic regression model: write per-utterance "
+        "class log-posterior vectors (apply --apply-log=false for "
+        "posteriors).\n"
+        "Usage: logistic-regression-eval [options] <model-in> "
+        "<vector-rspecifier> <log-posterior-wspecifier>")
+    apply_log = po.register_value("apply-log", True,
+                                  "Write log-posteriors (else "
+                                  "posteriors)")
+    po.read(argv)
+    if po.num_args() != 3:
+        po.print_usage()
+        return 1
+    model = kaldi_io.read_kaldi_object(LogisticRegression.read,
+                                       po.get_arg(1))
+    writer = TableWriter("vector", po.get_arg(3))
+    n = 0
+    for key, vec in SequentialTableReader("vector", po.get_arg(2)):
+        lp = model.log_posteriors(np.asarray(vec)[None, :])[0]
+        writer.write(key, lp if apply_log[0] else np.exp(lp))
+        n += 1
+    writer.close()
+    log(f"evaluated {n} vectors")
+    return 0 if n else 1
+
+
+def logistic_regression_copy(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Copy a logistic regression model, optionally scaling the "
+        "class priors out of the offsets.\n"
+        "Usage: logistic-regression-copy [options] <model-in> "
+        "<model-out>")
+    binary = po.register_value("binary", True, "Write output in binary mode")
+    scale_priors = po.register_value(
+        "scale-priors", "", "Colon-separated per-class prior scales "
+        "applied to the offsets (log is added)")
+    po.read(argv)
+    if po.num_args() != 2:
+        po.print_usage()
+        return 1
+    model = kaldi_io.read_kaldi_object(LogisticRegression.read,
+                                       po.get_arg(1))
+    if scale_priors[0]:
+        scales = [float(s) for s in scale_priors[0].split(":")]
+        if len(scales) != model.num_classes:
+            print("logistic-regression-copy: #scales must equal "
+                  "#classes", flush=True)
+            return 1
+        for comp, cls in enumerate(model.class_of):
+            model.weights[comp, -1] += np.log(max(scales[cls], 1e-30))
+    kaldi_io.write_kaldi_object(model.write, po.get_arg(2), binary[0])
+    return 0
+
+
+def agglomerative_cluster_cli(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Cluster utterances by similarity score (diarization).\n"
+        "Takes a table of score matrices (one per recording, utterances "
+        "in reco2utt order) and clusters agglomeratively to a stopping "
+        "threshold or a known number of speakers.\n"
+        "Usage: agglomerative-cluster <scores-rspecifier> "
+        "<reco2utt-rspecifier> <labels-wspecifier>")
+    threshold = po.register_value("threshold", 0.0,
+                                  "Merging stops when the best score "
+                                  "falls below this")
+    num_spk = po.register_value("num-speakers", 0,
+                                "If > 0, cluster to this many speakers "
+                                "(reco2num-spk mode uses the table "
+                                "variant)")
+    reco2num = po.register_value("reco2num-spk-rspecifier", "",
+                                 "Table of recording -> num speakers")
+    po.read(argv)
+    if po.num_args() != 3:
+        po.print_usage()
+        return 1
+    r2n = {}
+    if reco2num[0]:
+        for k, v in SequentialTableReader("int-vector", reco2num[0]):
+            r2n[k] = int(v[0])
+    n = 0
+    with TableWriter("int-vector", po.get_arg(3)) as w:
+        reco2utt = {k: list(v) for k, v in
+                    SequentialTableReader("token-vector",
+                                          po.get_arg(2))}
+        for reco, scores in SequentialTableReader("matrix",
+                                                  po.get_arg(1)):
+            utts = reco2utt.get(reco)
+            k = r2n.get(reco, num_spk[0])
+            labels = agglomerative_cluster(np.asarray(scores),
+                                           threshold=float(threshold[0]),
+                                           num_clusters=k if k > 0
+                                           else None)
+            if utts is not None:
+                for u, lab in zip(utts, labels):
+                    w.write(u, [int(lab) + 1])
+            else:
+                w.write(reco, [int(x) + 1 for x in labels])
+            n += 1
+    log(f"agglomerative-cluster: {n} recordings")
     return 0

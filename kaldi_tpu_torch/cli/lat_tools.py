@@ -1,12 +1,16 @@
 """Lattice archive tools (port of the first tools of
 `kaldi_tpu/cli/lat_tools.py`; the reference's latbin): lattice-copy,
 lattice-scale, lattice-add-penalty, lattice-prune, lattice-determinize,
-lattice-determinize-pruned, lattice-best-path and lattice-1best, over
-Lattice tables (OpenFst compactlattice44 binary, or the reference's
-text).
+lattice-determinize-pruned, lattice-best-path, lattice-1best and
+lattice-to-post, and lattice-boost-ali (`kaldi_tpu/cli/lat_tools2.py`
+:440), over Lattice tables (OpenFst compactlattice44 binary, or the
+reference's text).  lattice-boost-ali scores a silence phone as Kaldi's
+LatticeBoost does (no error where it matches the alignment, --max-silence
+where not), where the reference counts every silence arc as an error
+(ROADMAP.md §3).
 
 Not carried over yet: the module's other tools (lattice-to-nbest,
-nbest-to-linear, lattice-to-post and the rest).
+nbest-to-linear and the rest).
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ from typing import List
 
 from kaldi_tpu_torch.base.logging import log, warn
 from kaldi_tpu_torch.lat.functions import (add_word_ins_penalty,
+                                           boost_lattice_phone_errors,
                                            determinize_lattice,
                                            determinize_lattice_pruned,
                                            lattice_best_path,
                                            lattice_best_path_lattice,
+                                           lattice_forward_backward_post,
                                            lattice_prune, lattice_scale)
 from kaldi_tpu_torch.lat.kaldi_lattice import LatticeHolder
 from kaldi_tpu_torch.util.parse_options import ParseOptions
@@ -206,3 +212,65 @@ def lattice_1best(argv: List[str]) -> int:
     writer.close()
     log(f"found best paths for {n} lattices ({err} failed)")
     return 0 if n else 1
+
+
+def lattice_to_post(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Do forward-backward and collect posteriors over lattices.\n"
+        "Usage: lattice-to-post [options] lats-rspecifier posts-wspecifier")
+    acoustic_scale = po.register_value("acoustic-scale", 1.0, "Scaling factor for acoustic likelihoods")
+    po.read(argv)
+    if po.num_args() != 2:
+        po.print_usage()
+        return 1
+    writer = TableWriter("posterior", po.get_arg(2))
+    n = 0
+    for key, lat in SequentialTableReader(LatticeHolder(), po.get_arg(1)):
+        writer.write(key, lattice_forward_backward_post(lat,
+                                                        acoustic_scale[0]))
+        n += 1
+    writer.close()
+    log(f"posteriors for {n} lattices")
+    return 0
+
+
+def lattice_boost_ali(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Boost graph likelihoods (decrease graph costs) by b * "
+        "frame-phone-accuracy relative to the alignment (for boosted "
+        "MMI training).\n"
+        "Usage: lattice-boost-ali [options] <model> "
+        "<lattice-rspecifier> <ali-rspecifier> <lattice-wspecifier>")
+    b = po.register_value("b", 0.05, "Boosting factor")
+    max_silence = po.register_value(
+        "max-silence", 0.0, "Maximum error assigned to silence phones "
+        "[c.f. --silence-phones option]. 0.0 or 1.0 are the only "
+        "sensible values")
+    silence_phones = po.register_value(
+        "silence-phones", "", "Colon-separated list of integer ids of "
+        "silence phones. The error on silence phones is computed more "
+        "leniently")
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    if not 0.0 <= max_silence[0] <= 1.0:
+        warn(f"lattice-boost-ali: --max-silence={max_silence[0]} is not "
+             "in [0, 1]")
+        return 1
+    from kaldi_tpu_torch.hmm.transition_model import TransitionModel
+    from kaldi_tpu_torch.util.kaldi_io import read_kaldi_object
+    from kaldi_tpu_torch.util.table import RandomAccessTableReader
+    tm = read_kaldi_object(TransitionModel.read, po.get_arg(1))
+    ali_reader = RandomAccessTableReader("int-vector", po.get_arg(3))
+    sil = frozenset(int(p) for p in silence_phones[0].split(":") if p)
+
+    def fn(key, lat):
+        if key not in ali_reader:
+            warn(f"lattice-boost-ali: no alignment for {key}")
+            return None
+        ref = [tm.transition_id_to_phone(t) for t in ali_reader[key]]
+        return boost_lattice_phone_errors(lat, tm, ref, b[0], sil,
+                                          max_silence[0])
+
+    return _each(po.get_arg(2), po.get_arg(4), fn, "lattice-boost-ali")

@@ -12,13 +12,18 @@ are widened on the device.  Frame counts are bucketed to a power of
 two >= 16, exactly as the reference does, because the padded frames
 feed the acoustic model's right context.
 
-fbank, spectrogram, PLP, dither and VTLN are not ported yet.
+A VTLN warp factor selects a warped mel matrix, built once a warp and
+kept (the reference's per-warp bank cache).  A batch whose utterances
+carry different warps groups its lanes by warp at the mel product, one
+matrix a group.
+
+fbank, spectrogram, PLP and dither are not ported yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -97,8 +102,7 @@ class OfflineFeature:
         # of the reference's tables does
         self._window = torch.from_numpy(
             win.feature_window_function(fo)).to(dev)
-        self._mel = torch.from_numpy(
-            melmod.mel_banks_matrix(opts.mel_opts, fo)[0]).to(dev)
+        self._mel_cache: Dict[float, torch.Tensor] = {}
         self._dct = torch.from_numpy(
             melmod.compute_dct_matrix(opts.num_ceps, nb)).to(dev)
         self._lifter = (torch.from_numpy(melmod.compute_lifter_coeffs(
@@ -108,9 +112,22 @@ class OfflineFeature:
     def dim(self) -> int:
         return self.opts.dim()
 
+    def mel_matrix(self, vtln_warp: float = 1.0) -> torch.Tensor:
+        """The (num_bins, num_fft_bins) mel matrix of a warp factor on
+        the device, built at its first use."""
+        vtln_warp = float(vtln_warp)
+        if vtln_warp not in self._mel_cache:
+            self._mel_cache[vtln_warp] = torch.from_numpy(
+                melmod.mel_banks_matrix(self.opts.mel_opts,
+                                        self.opts.frame_opts,
+                                        vtln_warp)[0]).to(self.device)
+        return self._mel_cache[vtln_warp]
+
     # -- the fused device program ---------------------------------------
-    def _compute_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames: (B, F, window_size) float32 -> (B, F, num_ceps)."""
+    def _compute_frames(self, frames: torch.Tensor,
+                        warps: Sequence[float] = (1.0,)) -> torch.Tensor:
+        """frames: (B, F, window_size) float32 -> (B, F, num_ceps);
+        warps: one VTLN warp for the batch, or one a lane."""
         opts = self.opts
         fo = opts.frame_opts
         padded = fo.padded_window_size()
@@ -132,7 +149,16 @@ class OfflineFeature:
         power = spectrum.real ** 2 + spectrum.imag ** 2
         ps = power[..., :padded // 2]             # Nyquist bin dropped
         with full_f32():
-            mel_energies = ps @ self._mel.T
+            if len(set(warps)) == 1:
+                mel_energies = ps @ self.mel_matrix(warps[0]).T
+            else:
+                mel_energies = ps.new_empty(ps.shape[:-1] + (
+                    self.opts.mel_opts.num_bins,))
+                for w in sorted(set(warps)):
+                    lanes = torch.tensor([i for i, x in enumerate(warps)
+                                          if x == w], device=ps.device)
+                    mel_energies[lanes] = (ps[lanes]
+                                           @ self.mel_matrix(w).T)
             mel_log = torch.log(torch.clamp_min(mel_energies, _FLT_EPS))
             feat = mel_log @ self._dct.T
         if self._lifter is not None:
@@ -189,11 +215,14 @@ class OfflineFeature:
         return batch, lengths, nframes, bucket_f
 
     def compute_batch_device(self, waves: Sequence[np.ndarray] = (),
-                             staged=None) -> Tuple[torch.Tensor, np.ndarray]:
+                             staged=None,
+                             vtln_warp: Union[float, Sequence[float]] = 1.0
+                             ) -> Tuple[torch.Tensor, np.ndarray]:
         """Returns (feats (B, F_bucket, dim) on the device, nframes (B,)
         numpy).  Rows past nframes[i] are computed from the zero padding
         and consumers mask them by length.  staged: the output of
-        stage_batch()."""
+        stage_batch().  vtln_warp: one warp factor for the batch or one
+        an utterance."""
         if staged is None:
             staged = self.stage_batch(waves)
         batch, _lengths, nframes, bucket_f = staged
@@ -207,5 +236,10 @@ class OfflineFeature:
                 wb = _widen_mulaw(wb)
             elif wb.dtype == torch.int16:
                 wb = _widen_i16(wb)
+            warps = ([float(vtln_warp)] if np.isscalar(vtln_warp)
+                     else [float(w) for w in vtln_warp])
+            if len(warps) not in (1, wb.shape[0]):
+                raise ValueError(f"{len(warps)} warps for a batch of "
+                                 f"{wb.shape[0]}")
             frames = self._gather_frames(wb, bucket_f)
-            return self._compute_frames(frames), nframes
+            return self._compute_frames(frames, warps), nframes

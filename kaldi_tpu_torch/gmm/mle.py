@@ -13,6 +13,7 @@ gmm-sum-accs files), byte for byte.
 
 from __future__ import annotations
 
+import itertools
 import logging
 from dataclasses import dataclass, field
 from typing import BinaryIO, List, Optional, Tuple
@@ -78,12 +79,19 @@ class AccumDiagGmm:
         self.accumulate(data, post)
         return float(ll.sum())
 
-    def accumulate_device(self, scorer, feats_list) -> Tuple[float, int]:
+    def accumulate_device(self, scorer, feats_list, stats_list=None,
+                          weights_list=None) -> Tuple[float, int]:
         """`accumulate_from_gmm` of every utterance of `feats_list` (host
         (T, D) arrays) against the diagonal UBM of `scorer`
         (`gmm.ubm.UbmScorer`) on its device: float32 scores and
         posteriors as the reference computes them, float64 statistics ->
-        (total log-likelihood, frames)."""
+        (total log-likelihood, frames).  With `stats_list` (arrays of the
+        same lengths as `feats_list`'s) the posteriors of `feats_list`'s
+        frames weight the statistics of `stats_list`'s
+        (gmm-global-acc-stats-twofeats).  With `weights_list` ((T,)
+        arrays) each frame's posteriors and log-likelihood are scaled by
+        its weight, as `accumulate_from_gmm`'s frame_weights
+        (gmm-acc-stats-twofeats)."""
         dev = scorer.device
         M, D = self.num_comp, self.dim
         occ = torch.zeros(M, dtype=torch.float64, device=dev)
@@ -91,10 +99,19 @@ class AccumDiagGmm:
         var = torch.zeros((M, D), dtype=torch.float64, device=dev)
         like = torch.zeros((), dtype=torch.float64, device=dev)
         frames = 0
-        for x in frame_chunks(feats_list, dev):
-            x32 = x.to(torch.float32)
+        chunks = frame_chunks(feats_list, dev)
+        pairs = (((x, x) for x in chunks) if stats_list is None
+                 else zip(chunks, frame_chunks(stats_list, dev)))
+        weights = (itertools.repeat(None) if weights_list is None
+                   else frame_chunks(weights_list, dev))
+        for (x_post, x), w in zip(pairs, weights):
+            x32 = x_post.to(torch.float32)
             post = scorer.posteriors(x32).to(torch.float64)
-            like += scorer.log_likelihood(x32).to(torch.float64).sum()
+            ll = scorer.log_likelihood(x32).to(torch.float64)
+            if w is not None:
+                post = post * w[:, None]
+                ll = ll * w
+            like += ll.sum()
             occ += post.sum(dim=0)
             if "m" in self.flags:
                 mean += post.T @ x

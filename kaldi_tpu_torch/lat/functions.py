@@ -279,6 +279,36 @@ def lattice_forward_backward_post(lat: Lattice, acoustic_scale: float = 1.0
     return [sorted(d.items()) for d in post]
 
 
+def boost_lattice_phone_errors(lat, tm, ref_phones, b: float,
+                               silence_phones=frozenset(),
+                               max_silence_error: float = 0.0):
+    """A copy of `lat` with each emitting arc's graph cost lowered by
+    b x its frame's phone error against `ref_phones`: 0 where the arc's
+    phone is the reference's at that frame, else `max_silence_error` on
+    a silence phone and 1 on any other (Kaldi's LatticeBoost, the
+    boosting of lattice-boost-ali for boosted MMI)."""
+    times = lattice_state_times(lat)
+    out = VectorFst(LatticeWeight)
+    for _ in range(lat.num_states):
+        out.add_state()
+    out.set_start(lat.start)
+    for s in range(lat.num_states):
+        out.finals[s] = lat.finals[s]
+        for a in lat.arcs[s]:
+            g, ac = a.weight
+            if a.ilabel != 0 and times[s] < len(ref_phones):
+                phone = tm.transition_id_to_phone(a.ilabel)
+                if phone == ref_phones[times[s]]:
+                    err = 0.0
+                elif phone in silence_phones:
+                    err = max_silence_error
+                else:
+                    err = 1.0
+                g = g - b * err
+            out.add_arc(s, Arc(a.ilabel, a.olabel, (g, ac), a.nextstate))
+    return out
+
+
 def lattice_nbest(lat: Lattice, n: int) -> List[Tuple[List[int], List[int], float]]:
     """Exact n-best paths for an acyclic lattice: DP keeping n best
     (cost, path) per state."""

@@ -279,12 +279,15 @@ def train_chain_topo(sys_mono, feats: Dict[str, np.ndarray],
                      opts: Optional[ChainTrainOptions] = None,
                      ivectors: Optional[Dict[str, np.ndarray]] = None,
                      device: DeviceLike = None,
-                     stats: Optional[dict] = None):
+                     stats: Optional[dict] = None,
+                     variables: Optional[dict] = None):
     """Chain training with the chain topology and frame subsampling.
     Returns (model, variables, den_graph, chain_tm, chain_tree); the
     model trains on `device`, and `stats` (when given) receives what
     `_fit_chain` records plus the chunk count.  ivectors: per-utterance
-    i-vectors, the model's second input (cfg.ivector_dim of them)."""
+    i-vectors, the model's second input (cfg.ivector_dim of them).
+    variables: the initial weights (`_fit_chain`'s), by default the
+    port's seeded draw."""
     if opts is None:
         opts = ChainTrainOptions()
     chain_tm, chain_tree = make_chain_system(sys_mono.lang, sys_mono.tm)
@@ -304,7 +307,8 @@ def train_chain_topo(sys_mono, feats: Dict[str, np.ndarray],
     if stats is not None:
         stats["chunks"] = len(chunks)
     model, variables = _fit_chain(cfg, den_graph, chunks, num_graphs,
-                                  opts, cw, dim, device=device, stats=stats,
+                                  opts, cw, dim, variables=variables,
+                                  device=device, stats=stats,
                                   use_ivectors=ivectors is not None)
     return model, variables, den_graph, chain_tm, chain_tree
 

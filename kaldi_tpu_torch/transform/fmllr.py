@@ -116,6 +116,29 @@ class FmllrDiagGmmAccs:
         self.G += third_moment(a, ext, ext).cpu().numpy()
         self.beta += float(r.post.sum())
 
+    def accumulate_from_ubm(self, scorer, gmm: DiagGmm,
+                            data: np.ndarray) -> None:
+        """`accumulate_from_posteriors` of one utterance against a global
+        diagonal GMM, its posteriors from `scorer` (`gmm/ubm.py`
+        `UbmScorer` of `gmm`: float32, as the reference's
+        `component_posteriors`), the statistics in float64 on the
+        scorer's device (gmm-global-est-fmllr,
+        gmm-global-est-lvtln-trans)."""
+        dev = scorer.device
+        x = torch.as_tensor(np.asarray(data, np.float64), device=dev)
+        post = scorer.posteriors(scorer.frames(data)).to(dev, torch.float64)
+        post[:, post.sum(dim=0) < MIN_TOTAL] = 0.0
+        means = torch.as_tensor(gmm.get_means().astype(np.float64),
+                                device=dev)
+        inv_vars = torch.as_tensor(gmm.inv_vars.astype(np.float64),
+                                   device=dev)
+        ext = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+        a = post @ inv_vars
+        b = post @ (inv_vars * means)
+        self.K += (b.T @ ext).cpu().numpy()
+        self.G += third_moment(a, ext, ext).cpu().numpy()
+        self.beta += float(post.sum())
+
     def accumulate_from_alignment(self, am, tm, data: np.ndarray,
                                   alignment) -> None:
         """Viterbi-style accumulation using 1-best state posteriors."""

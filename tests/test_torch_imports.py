@@ -76,7 +76,9 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "recipes.lda_mllt", "cli.transform_tools",
                  "nnet3.discriminative", "nnet3.discriminative_train",
                  "nnet3.natural_gradient", "cli.tail3_tools",
-                 "cli.tail9_tools"):
+                 "cli.tail9_tools", "ivector.logistic_regression",
+                 "ivector.cluster", "transform.lvtln", "gmm.ebw",
+                 "recipes.mmi", "recipes.synthetic_run", "cli.vtln_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 
@@ -255,3 +257,31 @@ def test_online2_entry_points_raise_without_cuda_and_run_on_cpu(tmp_path):
         get_tool("online2-wav-dump-features")(
             ["online2-wav-dump-features", "--dither=0",
              f"ark:{tmp_path / 'w.ark'}", f"ark:{tmp_path / 'f.ark'}"])
+
+
+def test_slice19_entry_points_raise_without_cuda_and_run_on_cpu():
+    """The logistic regression's training, the LVTLN Gram matrices and
+    the warped frontend: CUDA by default (raising without it), the CPU
+    when asked."""
+    from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
+    from kaldi_tpu_torch.ivector.logistic_regression import \
+        train_logistic_regression
+    from kaldi_tpu_torch.transform.lvtln import LvtlnGram
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    x = np.random.default_rng(0).normal(size=(6, 3))
+    y = np.array([0, 1, 0, 1, 0, 1])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_logistic_regression(x, y)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LvtlnGram(3)
+    assert train_logistic_regression(x, y, device="cpu").weights.shape == \
+        (2, 4)
+    gram = LvtlnGram(3, device="cpu")
+    gram.add(x[:, :3], 2 * x[:, :3])
+    np.testing.assert_allclose(gram.solve()[0], 2 * np.eye(3), atol=1e-5)
+    opts = MfccOptions()
+    opts.frame_opts.dither = 0.0
+    feats, n = OfflineFeature(opts, device="cpu").compute_batch_device(
+        [np.zeros(4000, np.int16)] * 2, vtln_warp=[0.9, 1.1])
+    assert feats.device.type == "cpu" and list(n) == [23, 23]

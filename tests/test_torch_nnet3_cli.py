@@ -185,7 +185,8 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                       *io_args)
         assert rc != 0 and "CUDA" in err
     assert sorted(TOOLS) == ["acc-lda", "acc-tree-stats", "add-deltas",
-                             "ali-to-pdf", "ali-to-phones", "ali-to-post",
+                             "agglomerative-cluster", "ali-to-pdf",
+                             "ali-to-phones", "ali-to-post",
                              "align-equal-compiled", "apply-cmvn",
                              "apply-cmvn-sliding", "build-tree",
                              "chain-est-phone-lm", "chain-get-supervision",
@@ -195,8 +196,9 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "compute-mfcc-feats", "compute-vad",
                              "compute-vad-from-frame-likes", "compute-wer",
                              "convert-ali", "copy-feats", "copy-gselect",
-                             "copy-int-vector", "est-lda", "est-mllt",
-                             "extract-segments", "feat-to-dim", "feat-to-len",
+                             "copy-int-vector", "decode-faster-mapped",
+                             "est-lda", "est-mllt", "extract-segments",
+                             "feat-to-dim", "feat-to-len",
                              "fgmm-global-acc-stats",
                              "fgmm-global-acc-stats-post", "fgmm-global-copy",
                              "fgmm-global-est", "fgmm-global-get-frame-likes",
@@ -204,16 +206,24 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "fgmm-global-init-from-accs", "fgmm-global-merge",
                              "fgmm-global-sum-accs", "fgmm-global-to-gmm",
                              "fgmm-gselect", "gmm-acc-mllt",
-                             "gmm-acc-stats-ali", "gmm-align-compiled",
-                             "gmm-est", "gmm-est-fmllr",
-                             "gmm-global-acc-stats", "gmm-global-copy",
-                             "gmm-global-est", "gmm-global-get-frame-likes",
+                             "gmm-acc-stats-ali", "gmm-acc-stats-twofeats",
+                             "gmm-acc-stats2", "gmm-align-compiled", "gmm-est",
+                             "gmm-est-fmllr", "gmm-est-gaussians-ebw",
+                             "gmm-est-lvtln-trans", "gmm-est-weights-ebw",
+                             "gmm-global-acc-stats",
+                             "gmm-global-acc-stats-twofeats",
+                             "gmm-global-copy", "gmm-global-est",
+                             "gmm-global-est-fmllr",
+                             "gmm-global-est-lvtln-trans",
+                             "gmm-global-get-frame-likes",
                              "gmm-global-get-post",
                              "gmm-global-gselect-to-post", "gmm-global-info",
                              "gmm-global-init-from-feats",
                              "gmm-global-sum-accs", "gmm-global-to-fgmm",
-                             "gmm-gselect", "gmm-info", "gmm-init-mono",
-                             "gmm-latgen-faster", "gmm-sum-accs",
+                             "gmm-gselect", "gmm-info", "gmm-init-lvtln",
+                             "gmm-init-mono", "gmm-ismooth-stats",
+                             "gmm-latgen-faster", "gmm-rescore-lattice",
+                             "gmm-sum-accs", "gmm-train-lvtln-special",
                              "gmm-transform-means", "ivector-adapt-plda",
                              "ivector-compute-dot-products",
                              "ivector-compute-lda", "ivector-compute-plda",
@@ -228,11 +238,15 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "ivector-plda-scoring",
                              "ivector-plda-scoring-dense", "ivector-randomize",
                              "ivector-subtract-global-mean",
-                             "ivector-transform", "lattice-1best",
-                             "lattice-add-penalty", "lattice-best-path",
+                             "ivector-transform", "latgen-faster-mapped",
+                             "lattice-1best", "lattice-add-penalty",
+                             "lattice-best-path", "lattice-boost-ali",
                              "lattice-copy", "lattice-determinize",
                              "lattice-determinize-pruned", "lattice-prune",
-                             "lattice-scale", "merge-vads",
+                             "lattice-scale", "lattice-to-post",
+                             "logistic-regression-copy",
+                             "logistic-regression-eval",
+                             "logistic-regression-train", "merge-vads",
                              "nnet3-align-compiled", "nnet3-average",
                              "nnet3-chain-combine", "nnet3-chain-combine2",
                              "nnet3-chain-compute-prob",
