@@ -103,10 +103,18 @@ to tools/ivector_jax_bar.py's bars.
 
 With --backend it runs chip_smoke.py's back-end, VTLN and MMI phases
 alone (backend_phases: backend_lid, backend_diar, gmm_vtln over the
-flagship extractor's data, then gmm_mmi over the generic recipe's
-corpus), each held to tools/backend_jax_bar.py's and
+flagship extractor's data, then mmi_phases: gmm_mmi over the generic
+recipe's corpus), each held to tools/backend_jax_bar.py's and
 tools/mmi_synthetic_jax_bar.py's bars; with --synthetic the synthetic
 demo recipe alone (synthetic_run).
+
+With --mkgraph it runs chip_smoke.py's graph and scoring tool phases
+alone: mkgraph_legacy and scoring_legacy (mkgraph_phases, after the
+legacy graph's int16-wire decode, online2_graph and xconfig_graph, which
+make the .mdl, words and the xconfig checkpoint that
+nnet3-latgen-faster reads), then mkgraph_template after one call of the
+generic recipe at its defaults (stages 0-7), each held to
+tools/mkgraph_jax_bar.py's and tools/template_jax_bar.py's bars.
 
 With --profile-check it runs the main path's slice_ng and profile_ng
 with profile_ng's tables built twice: from the profiler's raw events (as
@@ -117,7 +125,7 @@ of each reported, the two held equal.
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
      --chain-cli | --disc | --chain-frame | --template | --ivector |
-     --backend | --synthetic | --profile-check]
+     --backend | --synthetic | --mkgraph | --profile-check]
      (needs CUDA)
 """
 
@@ -240,6 +248,27 @@ def latgen() -> dict:
     return out
 
 
+def mkgraph() -> dict:
+    """mkgraph_legacy, scoring_legacy and mkgraph_template."""
+    lex = cs.build_lex_path()
+    words16 = cs.lex_int16_words(lex, *cs.legacy_am(lex))
+    del lex
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        sysd = cs.run_online2_graph(tmp)
+        cs.run_xconfig_graph(sysd)
+        out = cs.mkgraph_phases(sysd, words16)
+    with tempfile.TemporaryDirectory() as root:
+        with contextlib.redirect_stdout(sys.stderr):
+            run = cs.run_template_recipe(root)
+        run["root"] = root
+        tmpl = cs.run_mkgraph_template(run)
+    out.pop("launches")
+    out["mkgraph_template"] = {k: v for k, v in tmpl.items()
+                               if k != "launches"}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     mode = ap.add_mutually_exclusive_group()
@@ -285,6 +314,8 @@ def main() -> int:
                       help="the back-end, VTLN and MMI phases alone")
     mode.add_argument("--synthetic", action="store_true",
                       help="the synthetic demo recipe alone")
+    mode.add_argument("--mkgraph", action="store_true",
+                      help="the graph and scoring tool phases alone")
     mode.add_argument("--profile-check", action="store_true",
                       help="run slice_ng and profile_ng with profile_ng's "
                       "tables also built from torch's event tree")
@@ -302,11 +333,15 @@ def main() -> int:
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
             or args.chain_cli or args.template or args.profile_check \
             or args.disc or args.chain_frame or args.ivector \
-            or args.backend or args.synthetic:
-        if args.backend:
+            or args.backend or args.synthetic or args.mkgraph:
+        if args.mkgraph:
+            cs.emit("mkgraph_summary", **mkgraph())
+            done = "mkgraph_done"
+        elif args.backend:
             cs.emit("backend_summary", **{
                 name: {k: v for k, v in phase.items() if k != "launches"}
-                for name, phase in cs.backend_phases().items()})
+                for name, phase in {**cs.backend_phases(),
+                                    **cs.mmi_phases()}.items()})
             done = "backend_done"
         elif args.synthetic:
             with tempfile.TemporaryDirectory() as root:

@@ -288,25 +288,49 @@ threshold: each recording's speaker errors within one segment of
 JAX's), gmm_vtln (compute-mfcc-feats --vtln-warp/--vtln-map card
 against CPU, the 31 LVTLN classes over the flagship UBM, each
 speaker's warp within one class of JAX's, the twofeats statistics card
-against CPU, gmm-global-est-fmllr), then gmm_mmi over the generic
+against CPU, gmm-global-est-fmllr); gmm_mmi over the generic
 recipe's corpus made again (boosted MMI of the JAX recipe's tri1 over
 24 training utterances, in process and one iteration through the
 train_mmi.sh tools: objectives within 2e-3 of JAX's, the tools within
-1e-6 of the in-process model, the test WER no worse and JAX's); after
-the template phases, synthetic_run (egs/synthetic/run.py's stages 0-7
-through the port's tools, each stage's word errors within 3 of JAX's);
-kernels a-c launched 0 times in each.
+1e-6 of the in-process model, the test WER no worse and JAX's), in the
+train worker after synthetic_run; after the template phases,
+synthetic_run (egs/synthetic/run.py's stages 0-7 through the port's
+tools, each stage's word errors within 3 of JAX's); kernels a-c
+launched 0 times in each.
+
+After the xconfig phases, the graph and scoring tool chains over the
+legacy corpus: mkgraph_legacy (utils/format_lm.sh and utils/mkgraph.sh
+through the port's tools, tools/mkgraph_steps.py, over the legacy
+lexicon, its bigram written by to_arpa and online2_graph's .mdl: the
+HCLG's size equal to the tools' on the CPU; the 128 test utterances on
+the int16 wire through nnet3-latgen-faster on the card, the WER within
+0.5 points and 8 words of tools/mkgraph_jax_bar.py's, 0 determinization
+fallbacks; the tool graph, the tool graph built tropical and without
+fstpushspecial, and the flat form decoded on one set of loglikes, each
+difference in their words covered by the cost terms that part the
+graphs) and scoring_legacy (score_kaldi.sh's sweep with
+lattice-mbr-decode, MBR within 0.5 points of the best path and 8 words
+of JAX's; get_ctm.sh's chain and lattice-to-ctm-conf, every CTM's words
+the 1-best's; lattice-determinize-phone-pruned and the rescoring
+identity through lattice-lmrescore, -const-arpa and -pruned, every best
+path kept, and lowered by its words' ARPA cost without the LM); after
+template_gmm, mkgraph_template (the recipe's tri1
+graph through the same steps, gmm-latgen-faster on the card, JAX's
+0.000% and the in-process graph's words); kernels a-c launched 0 times
+in each.
 
 The online2, xconfig and training phases (online2_graph to
 xconfig_zoo, after a decode of the legacy test utterances on the int16
-wire as slice_lex_int16's, then the back ends, VTLN and MMI; train_lex
-to ng_precondition, then the generic corpus recipe and the synthetic
-recipe; train_scale, then the i-vector tools) run in
-three processes of their own on the same card (`--worker online2`,
-`--worker train`, `--worker scale`) at a lower host priority (nice 10),
-started once 3, 4 and slice_ng with profile_ng are done, beside the rest
-of 5 and 6-7; their lines are printed when they end, before 8.  The
-walls from ng_cpu_check on are measured beside them.
+wire as slice_lex_int16's, then mkgraph_legacy and scoring_legacy;
+train_lex to ng_precondition, then the generic corpus recipe with
+mkgraph_template, the synthetic recipe and MMI; train_scale, then the
+i-vector tools) run in three processes of their own on the same card
+(`--worker online2`, `--worker train`, `--worker scale`) at a lower
+host priority (nice 10), started once 3, 4 and slice_ng with profile_ng
+are done, beside the rest of 5 and 6-7; their lines are printed when
+they end, before 8.  The back ends and VTLN run in this process after
+7, beside the workers.  The walls from ng_cpu_check on are measured
+beside them.
 
 Run: python3 chip_smoke.py   (needs CUDA; exits nonzero without it)
 """
@@ -344,6 +368,7 @@ from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions, InArcs,
 from kaldi_tpu_torch.chain.supervision import alignment_to_phone_segments
 from kaldi_tpu_torch.cli import get_tool
 from kaldi_tpu_torch.cli.gmm_tools import read_am_gmm
+from kaldi_tpu_torch.cli.lat_tools2 import compose_lattice_fst_op
 from kaldi_tpu_torch.cli.nnet3_latgen_tools import _Forward, batch_loglikes
 from kaldi_tpu_torch.cli.nnet3_tools import pad_batch
 from kaldi_tpu_torch.decoder.batched_pipeline2 import (
@@ -354,7 +379,10 @@ from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
                                                   synth_bigram, synth_lexicon)
-from kaldi_tpu_torch.decoder.graph import TrainingGraphCompiler
+from kaldi_tpu_torch.decoder.graph import (TrainingGraphCompiler,
+                                           add_lex_disambig,
+                                           make_linear_word_acceptor)
+from kaldi_tpu_torch.decoder.lang_dir import read_symbol_table
 from kaldi_tpu_torch.decoder.lexchain import LexChainDecoder
 from kaldi_tpu_torch.decoder.lexchain_ng import NgramLexDecoder
 from kaldi_tpu_torch.decoder.native_viterbi import NativeViterbi
@@ -363,11 +391,13 @@ from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
 from kaldi_tpu_torch.device import full_f32
 from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
 from kaldi_tpu_torch.feat.wave import WaveData
-from kaldi_tpu_torch.fstext.fst import Arc, VectorFst
+from kaldi_tpu_torch.fstext.fst import Arc, LogWeight, VectorFst
 from kaldi_tpu_torch.fstext.openfst_io import read_fst_file, write_fst
+from kaldi_tpu_torch.fstext.ops import compose
 from kaldi_tpu_torch.gmm.am_diag_gmm import AmDiagGmm
 from kaldi_tpu_torch.hmm.transition_model import TransitionModel
 from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
+from kaldi_tpu_torch.lm.arpa import parse_arpa
 from kaldi_tpu_torch.lat import functions as latf
 from kaldi_tpu_torch.nnet3 import mdl_io
 from kaldi_tpu_torch.nnet3.egs import merged_minibatches
@@ -409,6 +439,10 @@ from kaldi_tpu_torch.transform.mllt import MlltAccs
 from kaldi_tpu_torch.util.kaldi_io import (read_kaldi_object,
                                            write_kaldi_object)
 from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tools"))
+import mkgraph_steps  # noqa: E402  (tools/mkgraph_steps.py)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 _T0 = time.perf_counter()
@@ -4619,6 +4653,7 @@ def template_phases(epochs: int = TEMPLATE_CHAIN_EPOCHS) -> dict:
         run = run_template_recipe(root)
         run["root"] = root
         out = {"template_gmm": run_template_gmm(run),
+               "mkgraph_template": run_mkgraph_template(run),
                "template_lda_sat": run_template_lda_sat(run),
                "template_chain_e2e": run_template_chain_e2e(root, epochs)}
     with tempfile.TemporaryDirectory() as root:
@@ -5514,7 +5549,8 @@ def run_online2_graph(tmp: str, n_utts: int = ONLINE2_UTTS) -> dict:
     return {"res": res, "dir": tmp, "mdl": mdl, "hclg": hclg, "net": net,
             "fst": back, "tm": tm2, "info": info, "words": flat.words,
             "utts": utts, "waves": waves, "test_txt": test_txt,
-            "spec": spec, "lexicon": lexicon, "lang": lang, "tree": tree}
+            "test_wav": test_wav, "lm_text": lm_text, "spec": spec,
+            "lexicon": lexicon, "lang": lang, "tree": tree}
 
 
 def online2_args(sysd: dict) -> list:
@@ -5774,7 +5810,9 @@ def online2_phases(lex_words16: dict, xconfig: bool = True) -> dict:
     """online2_graph, online2_wav and online2_tcp; kernels a-c launch 0
     times in each (in this process and in the tools').  With `xconfig`,
     then the xconfig phases over online2_graph's HCLG.fst and
-    utterances (their summary under "xconfig")."""
+    utterances (their summary under "xconfig"), then mkgraph_legacy and
+    scoring_legacy over online2_graph's files and xconfig_graph's
+    checkpoint (under "mkgraph")."""
     t0 = time.perf_counter()
     reset_kernel_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5786,6 +5824,7 @@ def online2_phases(lex_words16: dict, xconfig: bool = True) -> dict:
         xcfg = (xconfig_phases(sysd, {"wer": wav["res"]["wer"],
                                       "names": wav["names"]})
                 if xconfig else None)
+        mkg = mkgraph_phases(sysd, lex_words16) if xconfig else None
         del sysd
     torch.cuda.empty_cache()
     w = wav["res"]
@@ -5801,7 +5840,7 @@ def online2_phases(lex_words16: dict, xconfig: bool = True) -> dict:
             "online2_tcp_wall_s": tcp["wall_s"],
             "online2_tcp_latency_ms_p50": tcp["final_latency_ms"]["p50"],
             "online2_search_ms_a_frame": tcp["search_host_ms_a_frame"],
-            "online2_seconds": online2_s, "xconfig": xcfg,
+            "online2_seconds": online2_s, "xconfig": xcfg, "mkgraph": mkg,
             "launches": launches}
 
 
@@ -6518,6 +6557,602 @@ def xconfig_phases(sysd: dict, online2: dict = None) -> dict:
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the graph and scoring tool chains: utils/format_lm.sh and
+# utils/mkgraph.sh through the port's tools (tools/mkgraph_steps.py) over
+# the legacy lexicon and bigram and online2_graph's .mdl (mkgraph_legacy),
+# the 128 legacy test utterances decoded through that HCLG by
+# nnet3-latgen-faster on the card, then the tools of steps/score_kaldi.sh,
+# steps/get_ctm.sh and steps/lmrescore{,_const_arpa}.sh over the lattices
+# (scoring_legacy); the generic recipe's tri1 graph through the same steps
+# (mkgraph_template, in the train worker)
+
+# tools/mkgraph_jax_bar.py (JAX CPU): the HCLG that the port's tools build
+# on the CPU from the same files (and graph_t, the same built tropical and
+# without fstpushspecial), and the JAX package's float32 TDNN-F and
+# LatticeFasterDecoder over it on the 128 test utterances (int16 wire):
+# the WER of the raw lattices' best paths and of lattice-mbr-decode
+MKGRAPH_JAX_BAR = dict(hclg_states=14710, hclg_arcs=68373,
+                       graph_t=[14712, 68379],
+                       wer=100.0 * 101 / 1544, word_errors=101,
+                       mbr_wer=100.0 * 100 / 1544, mbr_word_errors=100,
+                       ref_words=1544)
+MKGRAPH_WER_BAND, MKGRAPH_WORDS_BAND = 0.5, 8
+# score_kaldi.sh's sweep, cut to the chain model's neighbourhood of its
+# decoding scale (--acwt 1.0): LM weights and word insertion penalties
+SCORE_LM_SCALES, SCORE_PENALTIES = (0.5, 1.0, 1.5), (0.0, 0.5)
+# each best path's cost after the rescoring identity and phone-pruned
+# determinization, relative
+SCORE_COST_REL = 1e-4
+# mkgraph_legacy's graphs of one language on the same loglikes: the gaps
+# between their best words against the cost terms that part the graphs
+# (cost_terms), in the float32 weights of their lattices (on an H100 the
+# terms matched the gaps within 2.4e-6; one LG arc of fstpushspecial's
+# push is 0.020, so the bar tells a missing arc apart)
+GRAPH_TERMS_TOL = 1e-3
+CHAIN_FRAME_SHIFT = 0.03
+
+
+def _names(lang: str) -> dict:
+    return {i: w for w, i in
+            read_symbol_table(os.path.join(lang, "words.txt")).items()}
+
+
+def best_path_words(lats: dict, names: dict, lm_scale: float = 1.0,
+                    penalty: float = 0.0) -> dict:
+    return {u: [names[w] for w in latf.lattice_best_path(
+        latf.add_word_ins_penalty(latf.lattice_scale(lat, lm_scale=lm_scale),
+                                  penalty))[1]]
+            for u, lat in lats.items()}
+
+
+def words_cost(lat, ids) -> float:
+    """The cost of the lattice's best path whose words are ids
+    (lattice-compose with their linear acceptor); inf where it has
+    none."""
+    comp = compose_lattice_fst_op(lat, make_linear_word_acceptor(ids))
+    return latf.lattice_best_path(comp)[2] if comp.num_states else np.inf
+
+
+def crossed_gaps(lat_a, lat_b, names_a: dict, names_b: dict) -> dict:
+    """Two lattices of one utterance over two graphs of one language, on
+    the same loglikes: each best path (alignment, words, cost) and how far
+    above each lattice's best path lies its best path with the other's
+    words (inf where it has none)."""
+    best_a, best_b = latf.lattice_best_path(lat_a), latf.lattice_best_path(
+        lat_b)
+    words_a = [names_a[w] for w in best_a[1]]
+    words_b = [names_b[w] for w in best_b[1]]
+    id_a = {w: i for i, w in names_a.items()}
+    id_b = {w: i for i, w in names_b.items()}
+    return {"a": best_a, "b": best_b, "words_a": words_a, "words_b": words_b,
+            "gap_a": words_cost(lat_a, [id_a[w] for w in words_b])
+            - best_a[2],
+            "gap_b": words_cost(lat_b, [id_b[w] for w in words_a])
+            - best_b[2]}
+
+
+def g_log_gain(g: VectorFst, ids) -> float:
+    """What the log semiring takes off a word sequence's G cost: the log
+    sum of G's paths of the words (explicit and epsilon-backoff bigrams)
+    less the least of them, <= 0."""
+    comp = compose(make_linear_word_acceptor(ids), g)
+    n = comp.num_states
+    indeg = [0] * n
+    for arcs in comp.arcs:
+        for a in arcs:
+            indeg[a.nextstate] += 1
+    order, stack = [], [q for q in range(n) if not indeg[q]]
+    while stack:
+        q = stack.pop()
+        order.append(q)
+        for a in comp.arcs[q]:
+            indeg[a.nextstate] -= 1
+            if not indeg[a.nextstate]:
+                stack.append(a.nextstate)
+    if len(order) != n:
+        raise SystemExit("G composed with a word sequence has a cycle")
+    log_d, min_d = [np.inf] * n, [np.inf] * n
+    log_d[comp.start] = min_d[comp.start] = 0.0
+    total_log = total_min = np.inf
+    for q in order:
+        for a in comp.arcs[q]:
+            d = a.nextstate
+            log_d[d] = LogWeight.plus(log_d[d], log_d[q] + a.weight)
+            min_d[d] = min(min_d[d], min_d[q] + a.weight)
+        if comp.is_final(q):
+            total_log = LogWeight.plus(total_log, log_d[q] + comp.finals[q])
+            total_min = min(total_min, min_d[q] + comp.finals[q])
+    return total_log - total_min
+
+
+def push_log_rate(before: VectorFst, after: VectorFst) -> float:
+    """fstpushspecial's log(lambda): the push adds (n + 1) log(lambda) to
+    a path of n arcs (fstext/ops.py push_special), and keeps every arc in
+    place; read off the first path that a breadth-first walk from the
+    start finds."""
+    prev = {before.start: None}
+    queue = collections.deque([before.start])
+    while queue:
+        q = queue.popleft()
+        if before.is_final(q):
+            break
+        for i, a in enumerate(before.arcs[q]):
+            if a.nextstate not in prev:
+                prev[a.nextstate] = (q, i)
+                queue.append(a.nextstate)
+    added, n = after.finals[q] - before.finals[q], 0
+    while prev[q] is not None:
+        q, i = prev[q]
+        added += after.arcs[q][i].weight - before.arcs[q][i].weight
+        n += 1
+    return added / (n + 1)
+
+
+def cost_terms(lats: dict, lats_t: dict, lats_flat: dict, names: dict,
+               flat_names: dict, lexicon: dict, tm, phones: dict,
+               g_fst: VectorFst, push_rate: float) -> dict:
+    """run_mkgraph_legacy's comparison of the tool graph's lattices
+    (lats), graph_t's (lats_t) and the flat form's (lats_flat), on the
+    same loglikes.  A path's cost in graph_t is its flat-form cost plus
+    ln 2 where it ends without silence (L charges every exit, the flat
+    form only the silence) less ln(n) for each word of n pronunciations
+    (the flat form's pronunciation cost); in the tool graph it is its
+    graph_t cost plus G's log gain of its words (g_log_gain:
+    --use-log=true sums G's paths of a word sequence) and
+    (m + 1) push_rate, m its arcs in LG (fstpushspecial).  For two of
+    these graphs whose best paths' words differ, the gaps of
+    crossed_gaps sum to at most the difference of the two best paths'
+    terms; an utterance where they exceed it by GRAPH_TERMS_TOL is
+    unexplained."""
+    sil = phones["SIL"]
+    disambig, _ = add_lex_disambig(lexicon)
+
+    def exit_cost(ali) -> float:
+        last = [t for t in ali if t][-1]
+        return 0.0 if tm.transition_id_to_phone(last) == sil else LN2
+
+    def pron_cost(words) -> float:
+        return sum(np.log(len(lexicon[w])) for w in words)
+
+    def lg_arcs(ali, words) -> int:
+        """L_disambig's input symbols on the path: its phones, the
+        silence disambiguation symbol after each silence, and the #k
+        of each pronunciation that has one."""
+        segs = [p for p, _, _ in alignment_to_phone_segments(
+            [t for t in ali if t], tm)]
+        said = [p for p in segs if p != sil]
+        m, at = len(segs) + segs.count(sil), 0
+        for w in words:
+            pron, k = next((pron, k) for pron, k in disambig[w] if
+                           said[at:at + len(pron)] == [phones[p]
+                                                       for p in pron])
+            m += k > 0
+            at += len(pron)
+        return m
+
+    def log_terms(ali, words) -> float:
+        return g_log_gain(g_fst, [word_id[w] for w in words]) + \
+            (lg_arcs(ali, words) + 1) * push_rate
+
+    word_id = {w: i for i, w in names.items()}
+    out = {"lexicon_costs": {}, "log_semiring": {}, "unexplained": [],
+           "flat_words": {}}
+    for u in sorted(lats):
+        # graph_t (a) against the flat form (b)
+        x = crossed_gaps(lats_t[u], lats_flat[u], names, flat_names)
+        out["flat_words"][u] = x["words_b"]
+        if x["words_a"] != x["words_b"]:
+            cover = exit_cost(x["b"][0]) - exit_cost(x["a"][0]) + \
+                pron_cost(x["words_a"]) - pron_cost(x["words_b"])
+            out["lexicon_costs"][u] = {
+                "graph_t": x["words_a"], "flat_form": x["words_b"],
+                "gaps": [x["gap_a"], x["gap_b"]], "cover": cover}
+            if x["gap_a"] + x["gap_b"] > cover + GRAPH_TERMS_TOL:
+                out["unexplained"].append(u)
+        # the tool graph (a) against graph_t (b)
+        y = crossed_gaps(lats[u], lats_t[u], names, names)
+        if y["words_a"] != y["words_b"]:
+            cover = log_terms(y["b"][0], y["words_b"]) - \
+                log_terms(y["a"][0], y["words_a"])
+            out["log_semiring"][u] = {
+                "tool_graph": y["words_a"], "graph_t": y["words_b"],
+                "gaps": [y["gap_a"], y["gap_b"]], "cover": cover}
+            if y["gap_a"] + y["gap_b"] > cover + GRAPH_TERMS_TOL and \
+                    u not in out["unexplained"]:
+                out["unexplained"].append(u)
+    return out
+
+
+def run_mkgraph_legacy(sysd: dict, lex_words16: dict) -> dict:
+    """mkgraph_legacy: format_lm.sh and mkgraph.sh through the tools
+    (to_arpa of the legacy bigram, prepare-lang, arpa2fst, then
+    mkgraph_steps at the chain model's scales over online2_graph's .mdl),
+    the HCLG's size held to the port's tools on the CPU; the 128 test
+    utterances on the int16 wire (the port's MFCC on the card) through
+    nnet3-latgen-faster --use-gpu=yes --determinize-lattice=false at
+    decode.sh's beams over the xconfig checkpoint of xconfig_graph, then
+    lattice-determinize (unpruned, as nnet3-latgen-faster determinizes;
+    a fallback is the raw lattice kept, logged); the WER held to
+    tools/mkgraph_jax_bar.py's, 0 determinization fallbacks.
+
+    The flat form's words: the same language weighed three ways on the
+    same forward: the tool graph's lattices above, and, on
+    nnet3-compute --use-gpu=yes's output through latgen-faster-mapped at
+    the same beams, the tool graph built with tropical determinization
+    and no fstpushspecial (graph_t) and online2_graph's flat form; where
+    two of them differ in their words, the gaps must be covered by the
+    cost terms that part the graphs (cost_terms).  The words against
+    lex_int16_words, the batched flat-form decode of slice_lex_int16 (its
+    lanes padded to a bucket, whose padding is the acoustic model's right
+    context), are reported with the step that parts them."""
+    reset_kernel_counts()
+    d = os.path.join(sysd["dir"], "mkgraph")
+    xdir = os.path.join(sysd["dir"], "xconfig")
+    t0 = time.perf_counter()
+    inp = mkgraph_steps.legacy_inputs(d, sysd["lexicon"], sysd["lm_text"],
+                                      sysd["tm"], sysd["tree"])
+    format_s = time.perf_counter() - t0
+    graph_in = (inp["lang"], inp["G"], inp["tree"], sysd["mdl"])
+    rep = mkgraph_steps.mkgraph(*graph_in, os.path.join(d, "graph"),
+                                transition_scale=1.0, self_loop_scale=1.0)
+    hclg = os.path.join(d, "graph", "HCLG.fst")
+    states, arcs = rep["sizes"]["HCLG.fst"]
+    names = _names(inp["lang"])
+    utts = sorted(sysd["test_wav"])
+    fe = OfflineFeature(mfcc_options(sysd["spec"], num_ceps=40),
+                        device="cuda")
+    feats = {}
+    for u in utts:
+        f, n = fe.compute_batch_device(
+            [np.clip(sysd["test_wav"][u], -32767, 32767).astype(np.int16)])
+        feats[u] = f[0, :int(n[0])].cpu().numpy()
+    feats_ark = f"ark:{os.path.join(d, 'feats.ark')}"
+    write_ark(os.path.join(d, "feats.ark"), feats.items())
+    raw, lat = os.path.join(d, "raw.ark"), os.path.join(d, "lat.ark")
+    tool = "nnet3-latgen-faster"
+    t0 = time.perf_counter()
+    proc = cli(tool, "--use-gpu=yes", "--determinize-lattice=false",
+               *LATGEN_ARGS, os.path.join(xdir, "final.tm"),
+               os.path.join(xdir, "nnet"), hclg, feats_ark, f"ark:{raw}",
+               f"ark,t:{os.path.join(d, 'words.int')}")
+    latgen_s = time.perf_counter() - t0
+    stats = tool_stats(tool, proc.stderr)
+    seconds: dict = {}
+    det_log = timed_tool(seconds, "lattice-determinize", f"ark:{raw}",
+                         f"ark:{lat}")
+    fallbacks = det_log.count("fell back to raw lattice")
+    lats = dict(SequentialTableReader("lattice", f"ark:{lat}"))
+    got = {u: [names[w] for w in ws] for u, ws in
+           int_words(os.path.join(d, "words.int")).items()}
+    refs = {u: sysd["test_txt"][u] for u in utts}
+    wer = wer_of(got, refs)
+    errors = word_errors(wer, refs)
+    # graph_t and the flat form on nnet3-compute's loglikes
+    rep_t = mkgraph_steps.mkgraph(*graph_in, os.path.join(d, "graph_t"),
+                                  transition_scale=1.0, self_loop_scale=1.0,
+                                  use_log=False)
+    loglikes = f"ark:{os.path.join(d, 'loglikes.ark')}"
+    timed_tool(seconds, "nnet3-compute", "--use-gpu=yes",
+               os.path.join(xdir, "nnet"), feats_ark, loglikes)
+    same_ll = {}
+    for key, fst in (("graph_t", os.path.join(d, "graph_t", "HCLG.fst")),
+                     ("flat", sysd["hclg"])):
+        out = os.path.join(d, f"lat_{key}.ark")
+        timed_tool(seconds, "latgen-faster-mapped", *LATGEN_ARGS,
+                   os.path.join(xdir, "final.tm"), fst, loglikes,
+                   f"ark:{out}", key=f"latgen-faster-mapped {key}")
+        same_ll[key] = dict(SequentialTableReader("lattice", f"ark:{out}"))
+    graph_dir = os.path.join(d, "graph")
+    push_rate = push_log_rate(read_fst_file(f"{graph_dir}/LG2.fst"),
+                              read_fst_file(f"{graph_dir}/LG.fst"))
+    terms = cost_terms(
+        lats, same_ll["graph_t"], same_ll["flat"], names,
+        dict(enumerate(sysd["words"])), sysd["lexicon"], sysd["tm"],
+        read_symbol_table(os.path.join(inp["lang"], "phones.txt")),
+        read_fst_file(inp["G"]), push_rate)
+    lexicon_costs = terms["lexicon_costs"]
+    log_semiring = terms["log_semiring"]
+    differ = {}
+    for u in utts:
+        if got.get(u) != lex_words16.get(u):
+            differ[u] = {"tool_graph": got.get(u),
+                         "flat_form": lex_words16.get(u),
+                         "parted_by": [
+                             step for step, parted in (
+                                 ("log_semiring", u in log_semiring),
+                                 ("lexicon_costs", u in lexicon_costs),
+                                 ("batched_acoustics",
+                                  terms["flat_words"][u]
+                                  != lex_words16.get(u)))
+                             if parted]}
+    bar = MKGRAPH_JAX_BAR
+    res = {"utterances": len(utts), "lattices": len(lats),
+           "hclg_states": states, "hclg_arcs": arcs,
+           "cpu_tools_hclg": [bar["hclg_states"], bar["hclg_arcs"]],
+           "sizes": rep["sizes"], "context": rep["context"],
+           "graph_t": rep_t["sizes"]["HCLG.fst"],
+           "cpu_tools_graph_t": bar["graph_t"],
+           "format_lm_s": format_s, "format_lm_tool_s": inp["tool_s"],
+           "mkgraph_tool_s": rep["tool_s"], "mkgraph_s": rep["total_s"],
+           "mkgraph_t_s": rep_t["total_s"],
+           "latgen_s": latgen_s, "search_s": stats["search_s"],
+           "search_ms_a_frame": 1e3 * stats["search_s"]
+           / max(stats["frames"], 1),
+           "frames": stats["frames"], "rtf": stats["rtf"],
+           "forward_span_ms": stats["forward_span_ms"], "tool_s": seconds,
+           "det_fallbacks": fallbacks, "wer": wer, "word_errors": errors,
+           "ref_words": sum(len(r) for r in refs.values()),
+           "jax_bar": {k: bar[k] for k in ("wer", "word_errors")},
+           "equal_graph_t_flat_form": len(utts) - len(lexicon_costs),
+           "equal_tool_graph_graph_t": len(utts) - len(log_semiring),
+           "push_log_rate": push_rate,
+           "lexicon_costs": lexicon_costs, "log_semiring": log_semiring,
+           "unexplained": terms["unexplained"],
+           "equal_flat_form": len(utts) - len(differ),
+           "differ_flat_form": differ,
+           "launches": {k: v + stats["kernel_launches"][k]
+                        for k, v in kernel_launch_counts().items()}}
+    emit("mkgraph_legacy", **res)
+    if (states, arcs) != (bar["hclg_states"], bar["hclg_arcs"]) or \
+            res["graph_t"] != bar["graph_t"]:
+        raise SystemExit(f"mkgraph_legacy: HCLG {states} states {arcs} "
+                         f"arcs, graph_t {res['graph_t']}, the port's "
+                         f"tools on the CPU {bar['hclg_states']} and "
+                         f"{bar['hclg_arcs']}, {bar['graph_t']}")
+    if len(lats) != len(utts) or fallbacks or stats["failed"] or any(
+            len(v) != len(utts) for v in same_ll.values()):
+        raise SystemExit(f"mkgraph_legacy: {len(lats)}/{len(utts)} "
+                         f"lattices, {fallbacks} determinization fallbacks")
+    if abs(wer - bar["wer"]) > MKGRAPH_WER_BAND or \
+            abs(errors - bar["word_errors"]) > MKGRAPH_WORDS_BAND:
+        raise SystemExit(f"mkgraph_legacy: WER {wer:.3f}% ({errors} "
+                         f"errors), tools/mkgraph_jax_bar.py's "
+                         f"{bar['wer']:.3f}% ({bar['word_errors']})")
+    if terms["unexplained"]:
+        raise SystemExit(f"mkgraph_legacy: words differ between the graphs "
+                         f"of one language beyond their cost terms in "
+                         f"{terms['unexplained']}")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in mkgraph_legacy: "
+                         f"{res['launches']}")
+    return {"res": res, "dir": d, "inp": inp, "raw": raw, "lat": lat,
+            "lats": lats, "names": names, "refs": refs, "words": got,
+            "model": sysd["mdl"], "lexicon": sysd["lexicon"]}
+
+
+def _same_best_paths(before: dict, after: dict) -> list:
+    """Keys whose best path's words change or whose cost moves by more
+    than SCORE_COST_REL relative."""
+    bad = []
+    for u, lat in before.items():
+        a = latf.lattice_best_path(lat)
+        b = latf.lattice_best_path(after[u]) if u in after else None
+        if b is None or b[1] != a[1] or \
+                abs(b[2] - a[2]) > SCORE_COST_REL * abs(a[2]):
+            bad.append(u)
+    return bad
+
+
+def check_ctm(text: str, best: dict, frames: dict) -> list:
+    """Utterances whose CTM words (ids) are not their 1-best's, or whose
+    start times fall or leave the utterance."""
+    rows: dict = {}
+    for line in text.splitlines():
+        utt, _ch, start, dur, word = line.split()[:5]
+        rows.setdefault(utt, []).append((float(start), float(dur), word))
+    bad = []
+    for u, words in best.items():
+        r = rows.get(u, [])
+        starts = [s for s, _, _ in r]
+        end = CHAIN_FRAME_SHIFT * frames[u] + 1e-6
+        if [w for *_, w in r] != words or starts != sorted(starts) or \
+                any(s < 0 or s + dur > end for s, dur, _ in r):
+            bad.append(u)
+    return bad
+
+
+def run_scoring_legacy(m: dict) -> dict:
+    """scoring_legacy over mkgraph_legacy's lattices, with the tools in
+    this process: score_kaldi.sh's sweep (lattice-scale |
+    lattice-add-penalty | lattice-best-path) with lattice-mbr-decode at
+    each LM weight; get_ctm.sh's chain (lattice-1best,
+    lattice-align-words-lexicon over an align lexicon as prepare_lang.sh
+    writes phones/align_lexicon.int, nbest-to-ctm) and
+    lattice-to-ctm-conf; lattice-determinize-phone-pruned on the raw
+    lattices; the rescoring identity (lattice-lmrescore --lm-scale=-1
+    with the bigram ARPA, then lattice-lmrescore-const-arpa --lm-scale=1
+    with arpa-to-const-arpa of the same ARPA) and lattice-lmrescore-pruned
+    with the same pair.  MBR within half a point of the best path and 8
+    words of JAX's; every CTM's words the 1-best's, start times
+    non-decreasing inside the utterance; every best path kept by the
+    rescoring and by phone-pruned determinization, and its cost after
+    lattice-lmrescore --lm-scale=-1 lowered by its words' ARPA cost."""
+    reset_kernel_counts()
+    d, inp, names, refs = m["dir"], m["inp"], m["names"], m["refs"]
+    lat, raw = m["lat"], m["raw"]
+    seconds: dict = {}
+
+    def wer_of_ark(path: str) -> dict:
+        ws = {u: [names[w] for w in v] for u, v in int_words(path).items()}
+        wer = wer_of(ws, refs)
+        return {"wer": wer, "word_errors": word_errors(wer, refs)}
+
+    sweep, mbr = {}, {}
+    for lm in SCORE_LM_SCALES:
+        for wip in SCORE_PENALTIES:
+            out = os.path.join(d, f"best_{lm}_{wip}.int")
+            timed_tool(seconds, "lattice-scale", f"--lm-scale={lm}",
+                       f"ark:{lat}", f"ark:{d}/scaled.ark")
+            timed_tool(seconds, "lattice-add-penalty",
+                       f"--word-ins-penalty={wip}", f"ark:{d}/scaled.ark",
+                       f"ark:{d}/pen.ark")
+            timed_tool(seconds, "lattice-best-path", f"ark:{d}/pen.ark",
+                       f"ark,t:{out}")
+            sweep[f"{lm}/{wip}"] = wer_of_ark(out)
+        out = os.path.join(d, f"mbr_{lm}.int")
+        timed_tool(seconds, "lattice-mbr-decode", f"--lm-scale={lm}",
+                   f"ark:{lat}", f"ark,t:{out}",
+                   f"ark,t:{d}/risk_{lm}.txt")
+        mbr[str(lm)] = wer_of_ark(out)
+    best, mbr1 = sweep["1.0/0.0"], mbr["1.0"]
+    # get_ctm.sh
+    align_lex = mkgraph_steps.align_lexicon(
+        m["lexicon"], inp["lang"], os.path.join(d, "align_lexicon.int"))
+    timed_tool(seconds, "lattice-1best", f"ark:{lat}", f"ark:{d}/1best.ark")
+    timed_tool(seconds, "lattice-align-words-lexicon", align_lex, m["model"],
+               f"ark:{d}/1best.ark", f"ark:{d}/aligned.ark")
+    timed_tool(seconds, "nbest-to-ctm",
+               f"--frame-shift={CHAIN_FRAME_SHIFT}", f"ark:{d}/aligned.ark",
+               f"{d}/ctm")
+    timed_tool(seconds, "lattice-to-ctm-conf",
+               f"--frame-shift={CHAIN_FRAME_SHIFT}", f"ark:{lat}",
+               f"{d}/ctm_conf")
+    lats = m["lats"]
+    best_ids, frames = {}, {}
+    for u, one in lats.items():
+        ali, ws, _ = latf.lattice_best_path(one)
+        best_ids[u] = [str(w) for w in ws]
+        frames[u] = sum(1 for t in ali if t)
+    bad_ctm = check_ctm(open(f"{d}/ctm").read(), best_ids, frames)
+    bad_conf = check_ctm(open(f"{d}/ctm_conf").read(), best_ids, frames)
+    # phone-pruned determinization of the raw lattices
+    timed_tool(seconds, "lattice-determinize-phone-pruned", m["model"],
+               f"ark:{raw}", f"ark:{d}/phone_det.ark")
+    raws = dict(SequentialTableReader("lattice", f"ark:{raw}"))
+    phone_det = dict(SequentialTableReader("lattice",
+                                           f"ark:{d}/phone_det.ark"))
+    bad_phone = _same_best_paths(raws, phone_det)
+    # the rescoring identity
+    lm_words = mkgraph_steps.const_arpa_symbols(
+        os.path.join(inp["lang"], "words.txt"),
+        os.path.join(d, "words_lm.txt"))
+    carpa = os.path.join(d, "G.carpa")
+    words_txt = os.path.join(inp["lang"], "words.txt")
+    timed_tool(seconds, "arpa-to-const-arpa",
+               f"--read-symbol-table={lm_words}", inp["arpa"], carpa)
+    timed_tool(seconds, "lattice-lmrescore", "--lm-scale=-1", f"ark:{lat}",
+               inp["arpa"], words_txt, f"ark:{d}/nolm.ark")
+    timed_tool(seconds, "lattice-lmrescore-const-arpa", "--lm-scale=1",
+               f"ark:{d}/nolm.ark", carpa, f"ark:{d}/relm.ark")
+    timed_tool(seconds, "lattice-lmrescore-pruned", f"ark:{lat}",
+               inp["arpa"], words_txt, carpa, f"ark:{d}/pruned.ark")
+    bad_relm = _same_best_paths(lats, dict(SequentialTableReader(
+        "lattice", f"ark:{d}/relm.ark")))
+    bad_pruned = _same_best_paths(lats, dict(SequentialTableReader(
+        "lattice", f"ark:{d}/pruned.ark")))
+    # between the two: each best path's cost less its words' cost in the
+    # ARPA (backoff where a bigram is absent, </s> included)
+    arpa = parse_arpa(open(inp["arpa"]).read())
+    nolm = dict(SequentialTableReader("lattice", f"ark:{d}/nolm.ark"))
+    bad_nolm = []
+    for u, one in lats.items():
+        _ali, ws, cost = latf.lattice_best_path(one)
+        lm_cost = -np.log(10.0) * arpa.score_sentence_log10(
+            [names[w] for w in ws])
+        if abs(words_cost(nolm[u], ws) - (cost - lm_cost)) > \
+                SCORE_COST_REL * abs(cost):
+            bad_nolm.append(u)
+    jbar = MKGRAPH_JAX_BAR
+    res = {"lattices": len(lats), "sweep": sweep, "mbr": mbr,
+           "best_path_wer": best["wer"], "mbr_wer": mbr1["wer"],
+           "mbr_word_errors": mbr1["word_errors"],
+           "jax_mbr": {k: jbar[k] for k in ("mbr_wer", "mbr_word_errors")},
+           "ctm_faults": bad_ctm, "ctm_conf_faults": bad_conf,
+           "ctm_lines": len(open(f"{d}/ctm").read().splitlines()),
+           "phone_pruned_faults": bad_phone, "rescore_faults": bad_relm,
+           "rescore_no_lm_faults": bad_nolm,
+           "rescore_pruned_faults": bad_pruned, "tool_s": seconds,
+           "seconds": sum(seconds.values()),
+           "launches": kernel_launch_counts()}
+    emit("scoring_legacy", **res)
+    if abs(mbr1["wer"] - best["wer"]) > MKGRAPH_WER_BAND or abs(
+            mbr1["word_errors"] - jbar["mbr_word_errors"]) \
+            > MKGRAPH_WORDS_BAND:
+        raise SystemExit(f"scoring_legacy: MBR WER {mbr1['wer']:.3f}% "
+                         f"({mbr1['word_errors']}), best path "
+                         f"{best['wer']:.3f}%, JAX's MBR "
+                         f"{jbar['mbr_word_errors']} errors")
+    if bad_ctm or bad_conf or bad_phone or bad_relm or bad_pruned or \
+            bad_nolm:
+        raise SystemExit(f"scoring_legacy: CTM {bad_ctm} {bad_conf}, "
+                         f"phone-pruned {bad_phone}, rescoring {bad_relm} "
+                         f"{bad_pruned}, without the LM {bad_nolm}")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in scoring_legacy: "
+                         f"{res['launches']}")
+    return res
+
+
+def mkgraph_phases(sysd: dict, lex_words16: dict) -> dict:
+    """mkgraph_legacy and scoring_legacy over online2_graph's files."""
+    t0 = time.perf_counter()
+    m = run_mkgraph_legacy(sysd, lex_words16)
+    s = run_scoring_legacy(m)
+    r = m["res"]
+    return {"mkgraph_legacy_wer": r["wer"],
+            "mkgraph_legacy_hclg": [r["hclg_states"], r["hclg_arcs"]],
+            "mkgraph_legacy_equal_flat_form": r["equal_flat_form"],
+            "scoring_legacy_mbr_wer": s["mbr_wer"],
+            "mkgraph_seconds": time.perf_counter() - t0,
+            "launches": {"mkgraph_legacy": r["launches"],
+                         "scoring_legacy": s["launches"]}}
+
+
+def run_mkgraph_template(run: dict) -> dict:
+    """mkgraph_template: the generic recipe's tri1 graph (context width
+    3) through mkgraph_steps from the recipe's lang, G.fst, tree and
+    final.mdl, the test set through gmm-latgen-faster --use-gpu=yes at
+    stage 5's options; WER and each utterance's words (at stage 5's LM
+    weight and penalty) against the in-process HCLG's lattices of stage
+    5."""
+    reset_kernel_counts()
+    root = run["root"]
+    exp, tri1 = f"{root}/exp", f"{root}/exp/tri1"
+    rep = mkgraph_steps.mkgraph(f"{exp}/lang", f"{exp}/lang/G.fst",
+                                f"{tri1}/tree", f"{tri1}/final.mdl",
+                                f"{tri1}/graph_tools")
+    seconds: dict = {}
+    log = timed_tool(seconds, "gmm-latgen-faster", "--use-gpu=yes",
+                     "--acoustic-scale=0.1", "--beam=16", "--lattice-beam=6",
+                     f"{tri1}/final.mdl", f"{tri1}/graph_tools/HCLG.fst",
+                     f"ark:{root}/test/feats.ark",
+                     f"ark:{tri1}/lat_tools.ark")
+    stats = tool_stats("gmm-latgen-faster", log)
+    names = _names(f"{exp}/lang")
+    tri1_res = run["report"]["tri1"]
+    lm, wip = tri1_res["lm_scale"], tri1_res["penalty"]
+    new = best_path_words(dict(SequentialTableReader(
+        "lattice", f"ark:{tri1}/lat_tools.ark")), names, lm, wip)
+    old = best_path_words(dict(SequentialTableReader(
+        "lattice", f"ark:{tri1}/lat.ark")), names, lm, wip)
+    refs = template_run.read_texts(f"{root}/test")
+    wer = wer_of(new, refs)
+    differ = sorted(u for u in old if new.get(u) != old[u])
+    res = {"hclg_states": rep["sizes"]["HCLG.fst"][0],
+           "hclg_arcs": rep["sizes"]["HCLG.fst"][1],
+           "in_process_hclg": [run["report"]["hclg_states"],
+                               run["report"]["hclg_arcs"]],
+           "sizes": rep["sizes"], "context": rep["context"],
+           "mkgraph_tool_s": rep["tool_s"], "mkgraph_s": rep["total_s"],
+           "latgen_s": seconds["gmm-latgen-faster"],
+           "det_fallbacks": stats["det_fallbacks"], "rtf": stats["rtf"],
+           "lm_scale": lm, "penalty": wip, "wer": wer,
+           "word_errors": word_errors(wer, refs), "bar": TEMPLATE_BAR["wer"],
+           "utterances": len(new), "differ_in_process": differ,
+           "launches": {"mkgraph_template": kernel_launch_counts()}}
+    emit("mkgraph_template", **res)
+    if abs(wer - TEMPLATE_BAR["wer"]) > 1e-9 or differ or \
+            len(new) != len(old) or stats["det_fallbacks"]:
+        raise SystemExit(f"mkgraph_template: WER {wer:.3f}%, JAX's "
+                         f"{TEMPLATE_BAR['wer']:.3f}%; words differ from "
+                         f"the in-process graph's in {differ}")
+    if any(res["launches"]["mkgraph_template"].values()):
+        raise SystemExit(f"a kernel ran in mkgraph_template: "
+                         f"{res['launches']}")
+    return res
+
+
 def lex_int16_words(lex: dict, model, fe) -> dict:
     """slice_lex_int16's words, the test utterances on the int16 wire
     through BatchedOfflinePipeline2 with the LexChain decoder."""
@@ -6535,9 +7170,9 @@ def lex_int16_words(lex: dict, model, fe) -> dict:
 # of the main process's
 
 # ---------------------------------------------------------------------------
-# the speaker and language back ends, VTLN and GMM MMI (the online2
-# worker, after its phases), and the synthetic recipe (the train worker,
-# after the template phases)
+# the speaker and language back ends and VTLN (the main process, after
+# its phases, beside the workers), the synthetic recipe and GMM MMI (the
+# train worker, after the template phases)
 
 # backend_lid: logistic-regression-train at its defaults and with mix-up;
 # the card's weights within LR_WEIGHT_REL of the largest weight of the
@@ -7033,8 +7668,7 @@ def run_synthetic(root: str) -> dict:
 
 def backend_phases() -> dict:
     """backend_lid, backend_diar and gmm_vtln over one directory of the
-    flagship extractor's data, then gmm_mmi over the generic recipe's
-    corpus (mmi_data)."""
+    flagship extractor's data."""
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
         data = backend_data(d)
@@ -7045,9 +7679,15 @@ def backend_phases() -> dict:
                "backend_diar": run_backend_diar(d, data),
                "gmm_vtln": run_gmm_vtln(d, data)}
         del data
+    torch.cuda.empty_cache()
+    return out
+
+
+def mmi_phases() -> dict:
+    """gmm_mmi over the generic recipe's corpus (mmi_data)."""
     with tempfile.TemporaryDirectory() as d:
         mmi_data(d)
-        out["gmm_mmi"] = run_gmm_mmi(d)
+        out = {"gmm_mmi": run_gmm_mmi(d)}
     torch.cuda.empty_cache()
     return out
 
@@ -7244,19 +7884,18 @@ WORKER_GROUPS = ("train", "scale", "online2")
 def run_worker_group(group: str) -> dict:
     """The phases of one group -> their results by name: "train" is
     train_lex, the chain tools and the chain frame phases over its system,
-    then the generic corpus recipe and the synthetic recipe; "scale" is
-    train_scale, then the i-vector tool chain over its features;
-    "online2" is the online2 and xconfig phases over the legacy graph,
-    after slice_lex_int16's decode (lex_int16_words: the words
-    online2_wav agrees with), then the back ends, VTLN and GMM MMI
-    (backend_phases)."""
+    then the generic corpus recipe, the synthetic recipe and GMM MMI
+    (mmi_phases); "scale" is train_scale, then the i-vector tool chain
+    over its features; "online2" is the online2, xconfig and graph tool
+    phases over the legacy graph, after slice_lex_int16's decode
+    (lex_int16_words: the words online2_wav and mkgraph_legacy compare
+    with)."""
     if group == "online2":
         lex = build_lex_path()
         words16 = lex_int16_words(lex, *legacy_am(lex))
         del lex
         torch.cuda.empty_cache()
-        return {"online2": online2_phases(words16),
-                "backend": backend_phases()}
+        return {"online2": online2_phases(words16)}
     if group == "train":
         train, sysd = train_phases(SMOKE_TRAIN_EPOCHS)
         chain = chain_cli_phases(sysd)
@@ -7264,7 +7903,7 @@ def run_worker_group(group: str) -> dict:
         del sysd
         torch.cuda.empty_cache()
         return {"train": train, "chain": chain, "frame": frame,
-                "template": template_phases()}
+                "template": template_phases(), "mmi": mmi_phases()}
     keep: dict = {}
     scale = train_scale_phases(SMOKE_SCALE_EPOCHS, keep=keep)
     return {"scale": scale, "ivector": ivector_phases(**keep)}
@@ -7950,15 +8589,19 @@ def main() -> int:
     # training recipe decoded
     # through the main path, then the i-vector tool chain over its corpus
     # (the UBMs and the extractor, the sid back end, the flagship extractor
-    # through the tools); "online2" ends with the speaker and language
-    # back ends and VTLN over the flagship extractor's data, then GMM
-    # MMI
+    # through the tools); the train worker ends with GMM MMI.  Meanwhile
+    # this process runs the speaker and language back ends and VTLN over
+    # the flagship extractor's data (backend_phases)
+    for w in workers.values():
+        w.poll()
+    backend = backend_phases()
     res = {}
     for w in workers.values():
         res.update(w.join())
-    online2, train, chain, frame, template, scale, ivector, backend = (
+    online2, train, chain, frame, template, scale, ivector = (
         res[k] for k in ("online2", "train", "chain", "frame", "template",
-                         "scale", "ivector", "backend"))
+                         "scale", "ivector"))
+    backend = {**backend, **res["mmi"]}
 
     # 8. tables -------------------------------------------------------------
     emit("summary", wall_s_median=walls[1], xrt_median=runs[0]["audio_s"]
@@ -7990,8 +8633,9 @@ def main() -> int:
             for name, phase in backend.items()},
          **{k: v for k, v in nnet3.items() if k != "launches"},
          **{k: v for k, v in online2.items()
-            if k not in ("launches", "xconfig")},
+            if k not in ("launches", "xconfig", "mkgraph")},
          **{k: v for k, v in online2["xconfig"].items() if k != "launches"},
+         **{k: v for k, v in online2["mkgraph"].items() if k != "launches"},
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -8031,6 +8675,8 @@ def main() -> int:
                                     online2["launches"].values())
         k["launches_xconfig"] = sum(counts[k["name"]] for counts in
                                     online2["xconfig"]["launches"].values())
+        for phase, counts in online2["mkgraph"]["launches"].items():
+            k[f"launches_{phase}"] = counts[k["name"]]
         for phase, res in template.items():
             k[f"launches_{phase}"] = sum(counts[k["name"]] for counts in
                                          res["launches"].values())

@@ -1,7 +1,8 @@
 """Lang-directory interop (port of `kaldi_tpu/decoder/lang_dir.py`;
 parity: the utils/prepare_lang.sh data contract: phones.txt, words.txt,
 L.fst, L_disambig.fst, topo, phones/*).  Host-side; the files equal the
-reference's byte for byte.
+reference's byte for byte, but for the disambiguation symbols that
+phones.txt and phones/disambig.int list (`write_lang_dir`).
 
 write_lang_dir produces a directory the reference tools can consume
 (symbol tables as text, L.fst in raw OpenFst binary, topo in text
@@ -39,18 +40,26 @@ def read_symbol_table(path: str) -> Dict[str, int]:
 
 
 def write_lang_dir(lang: Lang, dirname: str) -> None:
+    """Every disambiguation symbol that L_disambig.fst uses is listed,
+    as #0 to #k in phones.txt and phones/disambig.int, k being the count
+    `make_lexicon_fst(with_disambig=True)` sets, optional silence's
+    symbol included (upstream prepare_lang.sh's contract).  The
+    reference names them from the count before L_disambig is built and
+    after L.fst has reset it, and so lists #0 alone (ROADMAP.md
+    section 3); the other files are the reference's byte for byte."""
     os.makedirs(dirname, exist_ok=True)
     os.makedirs(os.path.join(dirname, "phones"), exist_ok=True)
+    L = make_lexicon_fst(lang, with_disambig=True)
+    disambig = [lang.first_disambig + k
+                for k in range(lang.num_disambig + 1)]
     phone_names = dict(lang.phone_names)
-    # disambiguation symbols get #k names
-    for k in range(lang.num_disambig + 1):
-        phone_names[lang.first_disambig + k] = f"#{k}"
+    for k, sym in enumerate(disambig):
+        phone_names[sym] = f"#{k}"
     write_symbol_table(os.path.join(dirname, "phones.txt"), phone_names)
     write_symbol_table(os.path.join(dirname, "words.txt"), lang.word_names)
     topo = lang.topo or lang.make_topology()
     kaldi_io.write_kaldi_object(topo.write, os.path.join(dirname, "topo"),
                                 binary=False)
-    L = make_lexicon_fst(lang, with_disambig=True)
     with open(os.path.join(dirname, "L_disambig.fst"), "wb") as f:
         write_fst(f, L)
     L_plain = make_lexicon_fst(lang, with_disambig=False)
@@ -65,8 +74,8 @@ def write_lang_dir(lang: Lang, dirname: str) -> None:
     with open(os.path.join(dirname, "phones", "nonsilence.csl"), "w") as f:
         f.write(":".join(str(i) for i in nonsil) + "\n")
     with open(os.path.join(dirname, "phones", "disambig.int"), "w") as f:
-        for k in range(lang.num_disambig + 1):
-            f.write(f"{lang.first_disambig + k}\n")
+        for sym in disambig:
+            f.write(f"{sym}\n")
     log(f"wrote lang directory {dirname}")
 
 

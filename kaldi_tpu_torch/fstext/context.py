@@ -12,7 +12,14 @@ remaining pending windows are flushed with right 0-padding.
 
 Returns (clg, ilabel_info): ilabel_info[i] is the phone window of CLG
 input label i (entry 0 = epsilon, the reference's ilabel_info
-convention).
+convention).  A disambiguation symbol d of `disambig_syms` gets the
+entry (-d,), as upstream's context FST writes it at every width and as
+`make_h_transducer` and `fstcomposecontext --write-disambig-syms` read
+it: at N == 1 in place (label d keeps index d), at N > 1 after every
+window, in the order of `disambig_syms`, and the CLG's disambiguation
+arcs carry those indices.  The reference keeps `(d,)` at N == 1 and the
+raw symbol d, which names a window, at N > 1 (ROADMAP.md section 3);
+without `disambig_syms` the output is the reference's.
 """
 
 from __future__ import annotations
@@ -32,8 +39,9 @@ def context_expand(lg: VectorFst, N: int = 3, P: int = 1,
         for arcs in lg.arcs:
             for a in arcs:
                 max_l = max(max_l, a.ilabel)
-        info: List[Tuple[int, ...]] = [()] + [(l,)
-                                              for l in range(1, max_l + 1)]
+        dset = set(disambig_syms)
+        info: List[Tuple[int, ...]] = [()] + [
+            (-l,) if l in dset else (l,) for l in range(1, max_l + 1)]
         return lg, info
     R = N - 1 - P
     if R < 0:
@@ -59,6 +67,7 @@ def context_expand(lg: VectorFst, N: int = 3, P: int = 1,
             work.append(key)
         return state_map[key]
 
+    disambig_arcs: List[Arc] = []
     start_key = (lg.start, (0,) * (N - 1), 0)
     out.set_start(get_state(start_key))
 
@@ -84,6 +93,8 @@ def context_expand(lg: VectorFst, N: int = 3, P: int = 1,
             if a.ilabel == EPS or a.ilabel in disambig:
                 ns = get_state((a.nextstate, hist, pending))
                 out.add_arc(cur, Arc(a.ilabel, a.olabel, a.weight, ns))
+                if a.ilabel != EPS:
+                    disambig_arcs.append(out.arcs[cur][-1])
                 continue
             p = a.ilabel
             new_hist = hist[1:] + (p,)
@@ -94,4 +105,10 @@ def context_expand(lg: VectorFst, N: int = 3, P: int = 1,
                 lbl = get_label(hist + (p,))
                 ns = get_state((a.nextstate, new_hist, pending))
                 out.add_arc(cur, Arc(lbl, a.olabel, a.weight, ns))
+    index = {}
+    for d in dict.fromkeys(disambig_syms):
+        index[d] = len(ilabel_info)
+        ilabel_info.append((-d,))
+    for a in disambig_arcs:
+        a.ilabel = index[a.ilabel]
     return out, ilabel_info

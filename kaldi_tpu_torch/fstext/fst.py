@@ -55,6 +55,34 @@ class TropicalWeight:
         return not math.isnan(a)
 
 
+class LogWeight:
+    """log semiring: plus = -log(e^-a + e^-b), times = +."""
+    zero = INF
+    one = 0.0
+
+    @staticmethod
+    def plus(a: float, b: float) -> float:
+        if a == INF:
+            return b
+        if b == INF:
+            return a
+        if a > b:
+            a, b = b, a
+        return a - math.log1p(math.exp(a - b))
+
+    @staticmethod
+    def times(a: float, b: float) -> float:
+        return a + b
+
+    @staticmethod
+    def divide(a: float, b: float) -> float:
+        return a - b
+
+    @staticmethod
+    def approx_equal(a, b, delta: float = KDELTA) -> bool:
+        return TropicalWeight.approx_equal(a, b, delta)
+
+
 class LatticeWeight:
     """Lattice semiring: pairs (graph_cost, acoustic_cost); plus = min by
     total cost (tie-break on graph cost), times = componentwise +."""
@@ -220,7 +248,7 @@ class VectorFst:
 
     def write(self, stream, binary: bool = True) -> None:
         from kaldi_tpu_torch.base import io_funcs as iof
-        sr_name = {TropicalWeight: "standard",
+        sr_name = {TropicalWeight: "standard", LogWeight: "log",
                    LatticeWeight: "lattice"}[self.semiring]
         iof.write_token(stream, binary, "<KtFst>")
         iof.write_token(stream, binary, sr_name)
@@ -250,11 +278,7 @@ class VectorFst:
         from kaldi_tpu_torch.base import io_funcs as iof
         iof.expect_token(stream, binary, "<KtFst>")
         sr_name = iof.read_token(stream, binary)
-        if sr_name == "log":
-            raise NotImplementedError(
-                "a <KtFst> in the log semiring: LogWeight of "
-                "kaldi_tpu/fstext/fst.py is not ported")
-        semiring = {"standard": TropicalWeight,
+        semiring = {"standard": TropicalWeight, "log": LogWeight,
                     "lattice": LatticeWeight}[sr_name]
         fst = cls(semiring)
         n = iof.read_int32(stream, binary)

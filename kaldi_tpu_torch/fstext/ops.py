@@ -1,20 +1,22 @@
-"""WFST algorithms on the VectorFst core (port of `arcsort`, `connect`,
-`invert`, `relabel`, `compose`, `rm_epsilon`, `determinize_star` and
-`minimize_encoded` of `kaldi_tpu/fstext/ops.py`: what lattice assembly
-and the graph builds need).  Host-side.
+"""WFST algorithms on the VectorFst core (port of
+`kaldi_tpu/fstext/ops.py`, whole).  Host-side.
 
 Parity: the OpenFst operations of the reference's graph builds
-(fstarcsort, fsttablecompose, fstrmepslocal, fstdeterminizestar).
-`minimize_encoded` (fstminimizeencoded) serves the decoding-graph build
-of `decoder/graph.py` `make_decoding_graph`.  Not carried over yet:
-shortest paths, `replace_fst` and `push_special`.
+(fstarcsort, fsttablecompose, fstrmepslocal, fstdeterminizestar,
+fstminimizeencoded, fstpushspecial, fstshortestpath, fstreplace).
+`minimize_encoded` serves the decoding-graph build of
+`decoder/graph.py` `make_decoding_graph`; the graph tools of
+`cli/fst_tools.py` run the rest as mkgraph.sh does.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 from collections import defaultdict, deque
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from kaldi_tpu_torch.fstext.fst import (EPS, INF, Arc, LatticeWeight,
                                         VectorFst)
@@ -69,6 +71,16 @@ def connect(fst: VectorFst) -> VectorFst:
     fst.arcs = new_arcs
     fst.finals = new_finals
     fst.start = remap.get(fst.start, -1)
+    return fst
+
+
+def project(fst: VectorFst, project_output: bool = False) -> VectorFst:
+    for arcs in fst.arcs:
+        for a in arcs:
+            if project_output:
+                a.ilabel = a.olabel
+            else:
+                a.olabel = a.ilabel
     return fst
 
 
@@ -193,6 +205,14 @@ def rm_epsilon(fst: VectorFst) -> VectorFst:
         out.finals[s] = final
         out.arcs[s] = seen_arcs
     return connect(out)
+
+
+def remove_eps_local(fst: VectorFst) -> VectorFst:
+    """Equivalent of fstrmepslocal: removes epsilons where possible
+    without increasing the FST size. This implementation performs full
+    epsilon removal (always correct; size growth is not a concern at
+    decoding-graph scale after determinization)."""
+    return rm_epsilon(fst)
 
 
 def determinize_star(fst: VectorFst, delta: float = 1e-4,
@@ -458,4 +478,256 @@ def minimize_encoded(fst: VectorFst, delta: float = 1e-4) -> VectorFst:
             out.add_arc(b, Arc(a.ilabel, a.olabel, a.weight, part[a.nextstate]))
     out.start = part[fst.start]
     connect(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Shortest distance / path (tropical)
+
+def shortest_distance(fst: VectorFst, reverse: bool = False) -> List[float]:
+    """Single-source shortest distances over the tropical semiring
+    (label-correcting; handles negative arcs, assumes no negative cycles)."""
+    n = fst.num_states
+    dist = [INF] * n
+    if n == 0:
+        return dist
+    if not reverse:
+        adj = fst.arcs
+        init = {fst.start: 0.0}
+    else:
+        adj_r: List[List[Arc]] = [[] for _ in range(n)]
+        for s in range(n):
+            for a in fst.arcs[s]:
+                adj_r[a.nextstate].append(Arc(a.ilabel, a.olabel, a.weight, s))
+        adj = adj_r
+        init = {s: fst.finals[s] for s in range(n) if fst.is_final(s)}
+    inq = [False] * n
+    queue = deque()
+    for s, w in init.items():
+        dist[s] = min(dist[s], w)
+        queue.append(s)
+        inq[s] = True
+    while queue:
+        s = queue.popleft()
+        inq[s] = False
+        for a in adj[s]:
+            nd = dist[s] + a.weight
+            if nd < dist[a.nextstate] - 1e-12:
+                dist[a.nextstate] = nd
+                if not inq[a.nextstate]:
+                    queue.append(a.nextstate)
+                    inq[a.nextstate] = True
+    return dist
+
+
+def shortest_path(fst: VectorFst) -> VectorFst:
+    """Single best path (tropical), returned as a linear FST."""
+    sr = fst.semiring
+    n = fst.num_states
+    out = VectorFst(sr)
+    if n == 0 or fst.start < 0:
+        return out
+    if sr is LatticeWeight:
+        tot = lambda w: w[0] + w[1]
+    else:
+        tot = lambda w: w
+    dist = [INF] * n
+    back: List[Optional[Tuple[int, Arc]]] = [None] * n
+    dist[fst.start] = 0.0
+    inq = [False] * n
+    queue = deque([fst.start])
+    inq[fst.start] = True
+    while queue:
+        s = queue.popleft()
+        inq[s] = False
+        for a in fst.arcs[s]:
+            nd = dist[s] + tot(a.weight)
+            if nd < dist[a.nextstate] - 1e-12:
+                dist[a.nextstate] = nd
+                back[a.nextstate] = (s, a)
+                if not inq[a.nextstate]:
+                    queue.append(a.nextstate)
+                    inq[a.nextstate] = True
+    best_state, best_cost = -1, INF
+    for s in range(n):
+        if fst.is_final(s):
+            c = dist[s] + tot(fst.finals[s])
+            if c < best_cost:
+                best_cost, best_state = c, s
+    if best_state < 0:
+        return out
+    # trace back
+    path = []
+    s = best_state
+    while s != fst.start:
+        p, a = back[s]
+        path.append(a)
+        s = p
+    path.reverse()
+    cur = out.add_state()
+    out.set_start(cur)
+    for a in path:
+        ns = out.add_state()
+        out.add_arc(cur, Arc(a.ilabel, a.olabel, a.weight, ns))
+        cur = ns
+    out.finals[cur] = fst.finals[best_state]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Path-language comparison for tests (replaces OpenFst Equivalent for
+# the small random FSTs used in unit tests)
+
+def _all_paths(fst: VectorFst, max_len: int = 8, max_paths: int = 20000):
+    """Enumerate (ilabels, olabels) -> total weight for paths up to
+    max_len arcs (tropical aggregation)."""
+    sr = fst.semiring
+    results: Dict[Tuple[Tuple, Tuple], object] = {}
+    if fst.start < 0:
+        return results
+    stack = [(fst.start, (), (), sr.one, 0)]
+    count = 0
+    while stack:
+        s, ils, ols, w, depth = stack.pop()
+        count += 1
+        if count > max_paths:
+            raise RuntimeError("too many paths")
+        if fst.is_final(s):
+            k = (ils, ols)
+            tw = sr.times(w, fst.finals[s])
+            results[k] = sr.plus(results.get(k, sr.zero), tw)
+        if depth < max_len:
+            for a in fst.arcs[s]:
+                nil = ils if a.ilabel == EPS else ils + (a.ilabel,)
+                nol = ols if a.olabel == EPS else ols + (a.olabel,)
+                stack.append((a.nextstate, nil, nol,
+                              sr.times(w, a.weight), depth + 1))
+    return results
+
+
+def equal_paths(fst1: VectorFst, fst2: VectorFst, max_len: int = 8,
+                delta: float = 1e-3) -> bool:
+    """True if the two FSTs assign the same weights to all transduction
+    pairs with paths up to max_len arcs (test helper)."""
+    sr = fst1.semiring
+    p1 = _all_paths(fst1, max_len)
+    p2 = _all_paths(fst2, max_len)
+    # compare only pairs fully represented on both sides (truncation-safe):
+    keys = set(p1) | set(p2)
+    for k in keys:
+        a = p1.get(k, sr.zero)
+        b = p2.get(k, sr.zero)
+        if a == sr.zero or b == sr.zero:
+            if a != b:
+                # might be truncation; only fail if path short
+                if len(k[0]) < max_len - 1:
+                    return False
+            continue
+        if not sr.approx_equal(a, b, delta):
+            return False
+    return True
+
+
+def replace_fst(root: VectorFst, replacements: Dict[int, VectorFst]
+                ) -> VectorFst:
+    """FST replacement (the GrammarFst capability, decoder/grammar-fst.h:101,
+    realized eagerly like fstreplace): arcs whose ilabel is a
+    nonterminal key in `replacements` are spliced with a copy of the
+    corresponding sub-FST (entering at its start, exiting to the arc's
+    destination from its final states). The reference defers this to
+    decode time; graphs at our scale can be expanded up front, and the
+    on-demand variant remains an optimization."""
+    sr = root.semiring
+    out = VectorFst(sr)
+    out.add_states(root.num_states)
+    out.start = root.start
+    for s in range(root.num_states):
+        out.finals[s] = root.finals[s]
+    for s in range(root.num_states):
+        for a in root.arcs[s]:
+            if a.ilabel not in replacements:
+                out.add_arc(s, Arc(a.ilabel, a.olabel, a.weight, a.nextstate))
+                continue
+            sub = replacements[a.ilabel]
+            if sub.start < 0:
+                continue
+            offset = out.num_states
+            out.add_states(sub.num_states)
+            # enter the sub-FST, carrying the arc's weight and olabel
+            out.add_arc(s, Arc(EPS, a.olabel, a.weight, offset + sub.start))
+            for t in range(sub.num_states):
+                for b in sub.arcs[t]:
+                    out.add_arc(offset + t, Arc(b.ilabel, b.olabel, b.weight,
+                                                offset + b.nextstate))
+                if sub.finals[t] != sr.zero:
+                    out.add_arc(offset + t, Arc(EPS, EPS, sub.finals[t],
+                                                a.nextstate))
+    return connect(out)
+
+
+def push_special(fst: VectorFst, delta: float = 1e-4,
+                 max_iters: int = 200) -> VectorFst:
+    """Special weight pushing (fstext/push-special.cc PushSpecial):
+    reweights so every state's total outgoing probability mass —
+    counting the final-prob as an arc back to the start state — equals
+    one, WITHOUT requiring the whole FST to sum to one (regular pushing
+    diverges on such graphs, e.g. HCLG).
+
+    Solve M v = lam v by power iteration, where
+    M[i]·v = sum_{arcs i->j} w(a) v[j] + f(i) v[start] (prob domain),
+    then set  cost'(a) = cost(a) + log v[i] - log v[j] + log lam  and
+    final'(i) = final(i) + log v[i] - log v[start] + log lam.  Each
+    path's weight changes by lam^(arcs+1) — a per-frame constant, which
+    is why this is safe on decoding graphs."""
+    n = fst.num_states
+    if n == 0 or fst.start < 0:
+        return fst
+    src, dst, w = [], [], []
+    for s in range(n):
+        for a in fst.arcs[s]:
+            src.append(s)
+            dst.append(a.nextstate)
+            w.append(math.exp(-min(float(a.weight), 700.0)))
+    src = np.asarray(src, np.int64)
+    dst = np.asarray(dst, np.int64)
+    w = np.asarray(w, np.float64)
+    finals = np.array([math.exp(-min(float(fw), 700.0))
+                       if fw != fst.semiring.zero else 0.0
+                       for fw in fst.finals], np.float64)
+    v = np.ones(n, np.float64)
+    lam = 1.0
+    # power iteration on (M + I): periodic graphs (e.g. a simple
+    # start->final->start cycle) make pure power iteration oscillate
+    # between eigenvectors of +/-lambda; the +I shift breaks the
+    # periodicity without changing eigenvectors (lambda_M =
+    # lambda_{M+I} - 1)
+    for _ in range(max_iters):
+        nv = np.zeros(n, np.float64)
+        np.add.at(nv, src, w * v[dst])
+        nv += finals * v[fst.start]
+        nv += v
+        lam_new = float(np.max(nv))
+        if lam_new <= 1.0 + 1e-12:
+            raise ValueError("push_special: FST has a dead state")
+        nv = nv / lam_new
+        if (abs(lam_new - lam) < delta * lam_new
+                and float(np.max(np.abs(nv - v))) < delta):
+            v, lam = nv, lam_new
+            break
+        v, lam = nv, lam_new
+    lam = lam - 1.0
+    log_v = np.log(np.maximum(v, 1e-290))
+    log_lam = math.log(lam)
+    out = VectorFst(fst.semiring)
+    for _ in range(n):
+        out.add_state()
+    out.set_start(fst.start)
+    for s in range(n):
+        for a in fst.arcs[s]:
+            out.add_arc(s, Arc(a.ilabel, a.olabel,
+                               float(a.weight) + log_v[s] - log_v[a.nextstate]
+                               + log_lam, a.nextstate))
+        if fst.finals[s] != fst.semiring.zero:
+            out.finals[s] = (float(fst.finals[s]) + log_v[s]
+                             - log_v[fst.start] + log_lam)
     return out

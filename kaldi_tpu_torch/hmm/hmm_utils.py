@@ -12,8 +12,8 @@ outgoing arcs and finals of a state are scaled by the predecessor
 state's non-self-loop probability and the self-loop arc is attached
 (hmm-utils.cc:527-548).
 
-Not carried over yet: `make_h_transducer` and `add_self_loops` (the
-by-hand mkgraph route).
+`make_h_transducer` and `add_self_loops` are the by-hand mkgraph route
+(`make-h-transducer`, `fsttablecompose`, ..., `add-self-loops`).
 """
 
 from __future__ import annotations
@@ -147,3 +147,151 @@ def expand_hmm(clg: VectorFst, tm: TransitionModel, ctx_dep,
             out.add_arc(gs, Arc(sl, EPS, -self_loop_scale * lp, gs))
 
     return connect(out)
+
+
+def make_h_transducer(ilabel_info: List[Tuple[int, ...]],
+                      ctx_dep, tm: TransitionModel,
+                      transition_scale: float = 1.0
+                      ) -> Tuple[VectorFst, List[int]]:
+    """Ha (hmm/hmm-utils.cc GetHTransducer): a one-loop-state
+    transducer mapping transition-id sequences (self-loops EXCLUDED,
+    probabilities renormalized by 1-p_self) to CLG ilabel-info
+    indices.  Disambiguation entries (-sym,) pass through on fresh
+    input ids past the transition-id range.  Returns (Ha,
+    disambig_syms_left) — compose with CLG, optimize, then
+    add_self_loops() for the full HCLG (mkgraph.sh's by-hand route)."""
+    P = ctx_dep.central_position()
+    out = VectorFst(TropicalWeight)
+    loop = out.add_state()
+    out.set_start(loop)
+    out.set_final(loop, TropicalWeight.one)
+    next_disambig = tm.num_transition_ids + 1
+    disambig_out: List[int] = []
+    for i, window in enumerate(ilabel_info):
+        if len(window) == 0:
+            continue
+        if len(window) == 1 and window[0] < 0:    # disambig entry
+            out.add_arc(loop, Arc(next_disambig, i, TropicalWeight.one,
+                                  loop))
+            disambig_out.append(next_disambig)
+            next_disambig += 1
+            continue
+        phone = window[P]
+        entry = tm.topo.topology_for_phone(phone)
+        pdfs = [ctx_dep.compute(list(window), pc)
+                for pc in range(tm.topo.num_pdf_classes(phone))]
+
+        def tid_for(j: int, idx: int) -> Tuple[int, float]:
+            st = entry[j]
+            ts = tm.tuple_to_transition_state(
+                phone, j, pdfs[st.forward_pdf_class],
+                pdfs[st.self_loop_pdf_class])
+            tid = tm.pair_to_transition_id(ts, idx)
+            lp = (tm.get_transition_log_prob(tid)
+                  - _non_self_loop_log_prob(tm, ts))
+            return tid, lp
+
+        # one fst state per HMM TRANSITION (j -> k), so every state
+        # has a unique incoming transition-state class — the invariant
+        # add_self_loops' reorder pass needs (the reference establishes
+        # it with MakePrecedingInputSymbolsSameClass)
+        trans_states: Dict[Tuple[int, int], int] = {}
+
+        def emit_from(j: int, src: int, first: bool) -> List[Tuple]:
+            created = []
+            for idx, (k, _p) in enumerate(entry[j].transitions):
+                if k == j:
+                    continue               # self-loops come later
+                tid, lp = tid_for(j, idx)
+                # even the transition into the final topo state gets a
+                # dedicated (j, k) state (with an eps exit to the
+                # loop): the reorder self-loop of state j attaches at
+                # its forward arc's DESTINATION, which must therefore
+                # have a unique incoming transition-state class
+                if (j, k) in trans_states:
+                    dest = trans_states[(j, k)]
+                else:
+                    dest = out.add_state()
+                    trans_states[(j, k)] = dest
+                    created.append((j, k))
+                out.add_arc(src, Arc(
+                    tid, i if first else EPS,
+                    -transition_scale * lp, dest))
+            return created
+
+        work = emit_from(0, loop, True)
+        while work:
+            (j, k) = work.pop()
+            src = trans_states[(j, k)]
+            if entry[k].forward_pdf_class == NO_PDF:
+                out.add_arc(src, Arc(EPS, EPS, TropicalWeight.one,
+                                     loop))
+            else:
+                work.extend(emit_from(k, src, False))
+    return out, disambig_out
+
+
+def add_self_loops(fst: VectorFst, tm: TransitionModel,
+                   self_loop_scale: float = 0.1) -> VectorFst:
+    """AddSelfLoops with reorder=true (hmm/hmm-utils.cc
+    AddSelfLoopsReorder): each state's transition-state class is
+    propagated from its incoming arcs' transition-ids; the
+    renormalization 1-p_self is undone at self_loop_scale on the
+    state's outgoing arcs and final weight, and the self-loop arc is
+    attached AFTER the forward transition.
+
+    A state whose incoming arcs carry more than one class (epsilon and
+    disambiguation symbols are class 0, and so is the start state's
+    implicit entry) is first split into one copy per class, as
+    upstream's MakePrecedingInputSymbolsSameClass does: the state keeps
+    its id for its least class, each other class gets a new state at
+    the end with the same outgoing arcs and final weight, and the arcs
+    of that class are pointed at it.  `fstminimizeencoded` merges such
+    states in HCLGa.  The reference raises where two transition-states
+    meet and gives every state the class of its transition-ids
+    (ROADMAP.md section 3); where no state mixes classes the result is
+    the reference's."""
+    n_tids = tm.num_transition_ids
+
+    def cls(label: int) -> int:
+        if label == EPS or label > n_tids:
+            return 0
+        return tm.transition_id_to_transition_state(label)
+
+    incoming: Dict[int, set] = {}
+    if fst.start >= 0:
+        incoming[fst.start] = {0}
+    for s in range(fst.num_states):
+        for a in fst.arcs[s]:
+            incoming.setdefault(a.nextstate, set()).add(cls(a.ilabel))
+    copy_of: Dict[Tuple[int, int], int] = {}
+    state_class: Dict[int, int] = {}
+    for s in sorted(incoming):
+        classes = sorted(incoming[s])
+        state_class[s] = classes[0]
+        for c in classes[1:]:
+            t = fst.add_state()
+            fst.finals[t] = fst.finals[s]
+            fst.arcs[t] = [Arc(a.ilabel, a.olabel, a.weight, a.nextstate)
+                           for a in fst.arcs[s]]
+            copy_of[(s, c)] = t
+            state_class[t] = c
+    if copy_of:
+        for arcs in fst.arcs:
+            for a in arcs:
+                a.nextstate = copy_of.get((a.nextstate, cls(a.ilabel)),
+                                          a.nextstate)
+    for gs, ts in state_class.items():
+        if ts == 0:
+            continue
+        sl = tm.self_loop_of(ts)
+        if sl == 0:
+            continue
+        corr = -self_loop_scale * _non_self_loop_log_prob(tm, ts)
+        for a in fst.arcs[gs]:
+            a.weight = TropicalWeight.times(a.weight, corr)
+        if fst.finals[gs] != TropicalWeight.zero:
+            fst.finals[gs] = TropicalWeight.times(fst.finals[gs], corr)
+        lp = tm.get_transition_log_prob(sl)
+        fst.add_arc(gs, Arc(sl, EPS, -self_loop_scale * lp, gs))
+    return fst

@@ -16,12 +16,12 @@ determinize_lattice    — word-level determinization, unpruned, as the
 determinize_lattice_pruned — word-level determinization with beam
                          pruning and the max-states back-off
                          (lat/determinize-lattice-pruned.h)
+determinize_lattice_phone_pruned — the two-pass form with phone labels
+                         spliced in at phone starts
+                         (lattice-determinize-phone-pruned)
 lattice_forward_backward_mpe_variants — the MPFE / sMBR forward-backward
                          of discriminative training
                          (lattice-functions.cc:798)
-
-Not carried over yet: determinize_lattice_phone_pruned with the
-phone-label helpers.
 """
 
 from __future__ import annotations
@@ -569,6 +569,77 @@ def determinize_lattice_pruned(lat: Lattice, beam: float = 10.0,
     _log.warning("determinize_lattice_pruned: giving up, returning "
                  "tight-pruned non-deterministic lattice")
     return lattice_prune(lat, b)
+
+
+def _insert_phone_labels(lat: Lattice, tm) -> Tuple[Lattice, int]:
+    """Insert phone symbols on the word side at phone starts
+    (determinize-lattice-pruned.cc:1292 DeterminizeLatticeInsertPhones;
+    our convention: ilabel = transition-id, olabel = word).  Returns
+    (new lattice, first_phone_label)."""
+    out = VectorFst(lat.semiring)
+    out.add_states(lat.num_states)
+    out.start = lat.start
+    for s in range(lat.num_states):
+        out.finals[s] = lat.finals[s]
+    first_phone = max((a.olabel for arcs in lat.arcs for a in arcs),
+                      default=0) + 1
+    one = lat.semiring.one
+    for s in range(lat.num_states):
+        for arc in lat.arcs[s]:
+            if (s != lat.start and arc.ilabel != 0
+                    and tm.transition_id_to_hmm_state(arc.ilabel) == 0
+                    and not tm.is_self_loop(arc.ilabel)):
+                phone = tm.transition_id_to_phone(arc.ilabel)
+                if arc.olabel == 0:
+                    out.add_arc(s, Arc(arc.ilabel,
+                                       first_phone + phone,
+                                       arc.weight, arc.nextstate))
+                else:
+                    extra = out.add_state()
+                    out.add_arc(s, Arc(arc.ilabel, arc.olabel,
+                                       arc.weight, extra))
+                    out.add_arc(extra, Arc(0, first_phone + phone,
+                                           one, arc.nextstate))
+            else:
+                out.add_arc(s, Arc(arc.ilabel, arc.olabel,
+                                   arc.weight, arc.nextstate))
+    return out, first_phone
+
+
+def _delete_phone_labels(lat: Lattice, first_phone: int) -> Lattice:
+    """Map inserted phone word-labels back to epsilon
+    (determinize-lattice-pruned.cc:1348)."""
+    for arcs in lat.arcs:
+        for i, arc in enumerate(arcs):
+            if arc.olabel >= first_phone:
+                arcs[i] = Arc(arc.ilabel, 0, arc.weight, arc.nextstate)
+    return lat
+
+
+def determinize_lattice_phone_pruned(
+        lat: Lattice, tm, beam: float = 10.0,
+        phone_determinize: bool = True, word_determinize: bool = True,
+        max_states: int = 50000) -> Lattice:
+    """Two-pass pruned determinization
+    (determinize-lattice-pruned.cc:1412
+    DeterminizeLatticePhonePruned): first determinize with phone
+    symbols spliced in at phone starts — phone boundaries make the
+    intermediate determinization much less blow-up-prone on long
+    lattices — then remove them and determinize at the word level."""
+    if not (phone_determinize or word_determinize):
+        _log.warning("determinize_lattice_phone_pruned: both passes "
+                     "disabled, copying lattice")
+        return lat
+    work = lat
+    if phone_determinize:
+        work, first_phone = _insert_phone_labels(work, tm)
+        work = determinize_lattice_pruned(work, beam,
+                                          max_states=max_states)
+        work = _delete_phone_labels(work, first_phone)
+        if not word_determinize:
+            return work
+    return determinize_lattice_pruned(work, beam,
+                                      max_states=max_states)
 
 
 _LOG_ZERO = -1e30

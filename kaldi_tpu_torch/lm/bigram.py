@@ -1,6 +1,7 @@
 """Sparse backoff bigram LM in flat arrays, the LexChain decoder's LM
 (numpy copy of `BigramBackoffLm` of `kaldi_tpu/lm/bigram.py`: the
-fields, `dense_cost`, `cost` and `from_counts`).
+fields, `dense_cost`, `cost`, `from_counts`, `from_arpa` and
+`to_arpa`).
 
 The decoder keeps the lexicon and the LM factored at decode time
 (decoder/lexchain.py): the LM it needs is an ARPA bigram in backoff
@@ -26,6 +27,8 @@ import numpy as np
 BIG = 1e10          # cost of an impossible event (finite: stays exact
 #                     under +, unlike inf, and never wins a min)
 _log = logging.getLogger(__name__)
+
+M_LN10 = math.log(10.0)
 
 
 @dataclass
@@ -137,3 +140,87 @@ class BigramBackoffLm:
         _log.info("BigramBackoffLm.from_counts: V=%d, %d explicit bigrams",
                   V, len(expl))
         return lm
+
+    @classmethod
+    def from_arpa(cls, lm, vocab: Optional[Sequence[str]] = None,
+                  bos: str = "<s>", eos: str = "</s>"
+                  ) -> "BigramBackoffLm":
+        """From a parsed ArpaLm (lm/arpa.py).  Orders > 2 are cut to
+        their bigram level (the device decoder's LM; rescore lattices
+        with the full-order LM afterwards, lm/rescore.py —
+        the tgsmall-decode/fglarge-rescore split of
+        egs/librispeech/s5/local/chain/tuning/run_tdnn_1d.sh)."""
+        uni_tab = lm.ngrams[0]
+        if vocab is None:
+            vocab = sorted(w for (w,) in uni_tab
+                           if w not in (bos, eos, "<unk>", "<UNK>"))
+        words = list(vocab)
+        V = len(words)
+        wid = {w: i for i, w in enumerate(words)}
+        uni = np.full(V, 99.0 * M_LN10, np.float32)
+        bo = np.zeros(V + 1, np.float32)
+        eos_cost = np.full(V + 1, 99.0 * M_LN10, np.float32)
+        eos_uni = 99.0 * M_LN10
+        if (eos,) in uni_tab:
+            eos_uni = -uni_tab[(eos,)][0] * M_LN10
+        for (w,), (lp, b) in uni_tab.items():
+            if w == eos:
+                continue
+            i = wid.get(w)
+            if i is None:
+                if w != bos:
+                    continue
+                bo[V] = -b * M_LN10
+                continue
+            uni[i] = -lp * M_LN10
+            bo[i] = -b * M_LN10
+        expl: List[Tuple[int, int, float]] = []
+        if lm.order >= 2:
+            for (u, w), (lp, _b) in lm.ngrams[1].items():
+                ui = V if u == bos else wid.get(u)
+                if ui is None:
+                    continue
+                c = -lp * M_LN10
+                if w == eos:
+                    eos_cost[ui] = c
+                    continue
+                i = wid.get(w)
+                if i is None:
+                    continue
+                expl.append((ui, i, c))
+        eos_cost = np.minimum(eos_cost, bo + eos_uni)
+        expl.sort(key=lambda t: (t[1], t[0]))
+        return cls(words=words, uni=uni, bo=bo,
+                   expl_src=np.asarray([e[0] for e in expl], np.int32),
+                   expl_dst=np.asarray([e[1] for e in expl], np.int32),
+                   expl_cost=np.asarray([e[2] for e in expl],
+                                        np.float32),
+                   eos=eos_cost.astype(np.float32),
+                   eos_uni=float(eos_uni))
+
+    # ------------------------------------------------------------------
+    def to_arpa(self) -> str:
+        """ARPA text (round-trip tests; feeding the lang-dir G build).
+        Explicit-bigram probabilities are written as the TOTAL
+        (already-interpolated) probability this object assigns."""
+        V = len(self.words)
+        # explicit </s> bigrams only where cheaper than the backoff path
+        eos_expl = [u for u in range(V + 1)
+                    if self.eos[u] < self.bo[u] + self.eos_uni - 1e-6]
+        lines = ["\\data\\", f"ngram 1={V + 2}",
+                 f"ngram 2={self.num_explicit + len(eos_expl)}",
+                 "", "\\1-grams:"]
+        lines.append(f"-99\t<s>\t{-self.bo[V] / M_LN10:.6f}")
+        lines.append(f"{-self.eos_uni / M_LN10:.6f}\t</s>")
+        for i, w in enumerate(self.words):
+            lines.append(f"{-self.uni[i] / M_LN10:.6f}\t{w}\t"
+                         f"{-self.bo[i] / M_LN10:.6f}")
+        lines += ["", "\\2-grams:"]
+        name = lambda u: "<s>" if u == V else self.words[u]
+        for s, d, c in zip(self.expl_src, self.expl_dst, self.expl_cost):
+            lines.append(f"{-c / M_LN10:.6f}\t{name(int(s))} "
+                         f"{self.words[int(d)]}")
+        for u in eos_expl:
+            lines.append(f"{-self.eos[u] / M_LN10:.6f}\t{name(u)} </s>")
+        lines += ["", "\\end\\", ""]
+        return "\n".join(lines)

@@ -78,7 +78,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "nnet3.natural_gradient", "cli.tail3_tools",
                  "cli.tail9_tools", "ivector.logistic_regression",
                  "ivector.cluster", "transform.lvtln", "gmm.ebw",
-                 "recipes.mmi", "recipes.synthetic_run", "cli.vtln_tools"):
+                 "recipes.mmi", "recipes.synthetic_run", "cli.vtln_tools",
+                 "cli.fst_tools", "cli.graph_tools", "cli.lat_tools2",
+                 "lm.const_arpa", "lm.rescore", "lat.compose_pruned",
+                 "lat.sausages", "lat.word_align"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

@@ -185,27 +185,32 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                       *io_args)
         assert rc != 0 and "CUDA" in err
     assert sorted(TOOLS) == ["acc-lda", "acc-tree-stats", "add-deltas",
-                             "agglomerative-cluster", "ali-to-pdf",
-                             "ali-to-phones", "ali-to-post",
+                             "add-self-loops", "agglomerative-cluster",
+                             "ali-to-pdf", "ali-to-phones", "ali-to-post",
                              "align-equal-compiled", "apply-cmvn",
-                             "apply-cmvn-sliding", "build-tree",
-                             "chain-est-phone-lm", "chain-get-supervision",
-                             "chain-make-den-fst", "cluster-phones",
-                             "compile-train-graphs", "compose-transforms",
-                             "compute-cmvn-stats", "compute-eer",
-                             "compute-mfcc-feats", "compute-vad",
-                             "compute-vad-from-frame-likes", "compute-wer",
-                             "convert-ali", "copy-feats", "copy-gselect",
-                             "copy-int-vector", "decode-faster-mapped",
-                             "est-lda", "est-mllt", "extract-segments",
-                             "feat-to-dim", "feat-to-len",
+                             "apply-cmvn-sliding", "arpa-to-const-arpa",
+                             "arpa2fst", "build-tree", "chain-est-phone-lm",
+                             "chain-get-supervision", "chain-make-den-fst",
+                             "cluster-phones", "compile-train-graphs",
+                             "compose-transforms", "compute-cmvn-stats",
+                             "compute-eer", "compute-mfcc-feats",
+                             "compute-vad", "compute-vad-from-frame-likes",
+                             "compute-wer", "convert-ali", "copy-feats",
+                             "copy-gselect", "copy-int-vector",
+                             "decode-faster-mapped", "est-lda", "est-mllt",
+                             "extract-segments", "feat-to-dim", "feat-to-len",
                              "fgmm-global-acc-stats",
                              "fgmm-global-acc-stats-post", "fgmm-global-copy",
                              "fgmm-global-est", "fgmm-global-get-frame-likes",
                              "fgmm-global-gselect-to-post", "fgmm-global-info",
                              "fgmm-global-init-from-accs", "fgmm-global-merge",
                              "fgmm-global-sum-accs", "fgmm-global-to-gmm",
-                             "fgmm-gselect", "gmm-acc-mllt",
+                             "fgmm-gselect", "fstaddselfloops",
+                             "fstcomposecontext", "fstcopy",
+                             "fstdeterminizestar", "fstisstochastic",
+                             "fstminimizeencoded", "fstpushspecial",
+                             "fstrmepslocal", "fstrmsymbols",
+                             "fsttablecompose", "gmm-acc-mllt",
                              "gmm-acc-stats-ali", "gmm-acc-stats-twofeats",
                              "gmm-acc-stats2", "gmm-align-compiled", "gmm-est",
                              "gmm-est-fmllr", "gmm-est-gaussians-ebw",
@@ -240,13 +245,21 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "ivector-subtract-global-mean",
                              "ivector-transform", "latgen-faster-mapped",
                              "lattice-1best", "lattice-add-penalty",
+                             "lattice-align-words",
+                             "lattice-align-words-lexicon",
                              "lattice-best-path", "lattice-boost-ali",
-                             "lattice-copy", "lattice-determinize",
-                             "lattice-determinize-pruned", "lattice-prune",
-                             "lattice-scale", "lattice-to-post",
-                             "logistic-regression-copy",
+                             "lattice-compose", "lattice-copy",
+                             "lattice-determinize",
+                             "lattice-determinize-phone-pruned",
+                             "lattice-determinize-pruned", "lattice-lmrescore",
+                             "lattice-lmrescore-const-arpa",
+                             "lattice-lmrescore-pruned", "lattice-mbr-decode",
+                             "lattice-prune", "lattice-scale",
+                             "lattice-to-ctm-conf", "lattice-to-nbest",
+                             "lattice-to-post", "logistic-regression-copy",
                              "logistic-regression-eval",
-                             "logistic-regression-train", "merge-vads",
+                             "logistic-regression-train", "make-h-transducer",
+                             "merge-vads", "nbest-to-ctm", "nbest-to-linear",
                              "nnet3-align-compiled", "nnet3-average",
                              "nnet3-chain-combine", "nnet3-chain-combine2",
                              "nnet3-chain-compute-prob",
