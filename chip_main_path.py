@@ -116,6 +116,14 @@ nnet3-latgen-faster reads), then mkgraph_template after one call of the
 generic recipe at its defaults (stages 0-7), each held to
 tools/mkgraph_jax_bar.py's and tools/template_jax_bar.py's bars.
 
+With --decoders it runs chip_smoke.py's decoders group alone
+(decoders_phases): decoders_graph (the tool HCLG, HCL, the xconfig
+checkpoint, the .mdl, the 128 utterances' MFCCs and nnet3-compute's
+loglikes), dense_hclg, beam_sparse_hclg, lazy_lm (with the template tri1
+system), incremental and grammar, each held to
+tools/decoders_jax_bar.py's bars (dense_flat reads slice_viterbi's decode
+and runs in chip_smoke.py's main process only).
+
 With --profile-check it runs the main path's slice_ng and profile_ng
 with profile_ng's tables built twice: from the profiler's raw events (as
 chip_smoke.py builds them) and from torch's event tree (key_averages and
@@ -125,7 +133,7 @@ of each reported, the two held equal.
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
      --chain-cli | --disc | --chain-frame | --template | --ivector |
-     --backend | --synthetic | --mkgraph | --profile-check]
+     --backend | --synthetic | --mkgraph | --decoders | --profile-check]
      (needs CUDA)
 """
 
@@ -316,6 +324,11 @@ def main() -> int:
                       help="the synthetic demo recipe alone")
     mode.add_argument("--mkgraph", action="store_true",
                       help="the graph and scoring tool phases alone")
+    mode.add_argument("--decoders", action="store_true",
+                      help="the decoders group alone: the dense and "
+                      "beam-sparse device decoders, on-the-fly LM "
+                      "composition, incremental determinization and "
+                      "grammar FSTs over the tool HCLG")
     mode.add_argument("--profile-check", action="store_true",
                       help="run slice_ng and profile_ng with profile_ng's "
                       "tables also built from torch's event tree")
@@ -333,8 +346,14 @@ def main() -> int:
             or args.nnet3 or args.online2 or args.xconfig or args.latgen \
             or args.chain_cli or args.template or args.profile_check \
             or args.disc or args.chain_frame or args.ivector \
-            or args.backend or args.synthetic or args.mkgraph:
-        if args.mkgraph:
+            or args.backend or args.synthetic or args.mkgraph \
+            or args.decoders:
+        if args.decoders:
+            cs.emit("decoders_summary", **{
+                name: {k: v for k, v in phase.items() if k != "launches"}
+                for name, phase in cs.decoders_phases().items()})
+            done = "decoders_done"
+        elif args.mkgraph:
             cs.emit("mkgraph_summary", **mkgraph())
             done = "mkgraph_done"
         elif args.backend:

@@ -319,13 +319,33 @@ graph through the same steps, gmm-latgen-faster on the card, JAX's
 0.000% and the in-process graph's words); kernels a-c launched 0 times
 in each.
 
+The other decoders over an HCLG: dense_flat (in this process, after
+slice_viterbi: DenseViterbiDecoder over the V=64 flat graph on the same
+loglikes, every lane's cost within 1e-4 of kernel c's decode and its
+words equal, a tie reported), then the decoders group over the legacy
+tool HCLG and the test utterances' nnet3-compute loglikes: dense_hclg
+(DenseViterbiDecoder, no cost above latgen-faster-mapped's, the WER
+within 0.5 points of tools/decoders_jax_bar.py's, 16 lanes bit-equal on
+the CPU twin, no epsilon closure cut), beam_sparse_hclg
+(BeamSparseDecoder exact, equal to dense_hclg, and at its defaults, the
+WER held to JAX's; no traceback failure), lazy_lm
+(nnet3-latgen-faster-lookahead over HCL composed on demand with G, its
+WER held to JAX's; gmm-latgen-biglm-faster over the template tri1
+system, old G = new G byte for byte gmm-latgen-faster's),
+incremental (latgen-incremental-mapped's best paths against
+latgen-faster-mapped's, online2-wav-nnet3-latgen-incremental, no
+marker label leaked) and grammar (make-grammar-fst and
+nnet3-latgen-grammar byte for byte nnet3-latgen-faster's); kernels a-c
+launched 0 times in each.
+
 The online2, xconfig and training phases (online2_graph to
 xconfig_zoo, after a decode of the legacy test utterances on the int16
 wire as slice_lex_int16's, then mkgraph_legacy and scoring_legacy;
 train_lex to ng_precondition, then the generic corpus recipe with
 mkgraph_template, the synthetic recipe and MMI; train_scale, then the
-i-vector tools) run in three processes of their own on the same card
-(`--worker online2`, `--worker train`, `--worker scale`) at a lower
+i-vector tools) and the decoders group run in four processes of their
+own on the same card (`--worker online2`, `--worker train`, `--worker
+scale`, `--worker decoders`) at a lower
 host priority (nice 10), started once 3, 4 and slice_ng with profile_ng
 are done, beside the rest of 5 and 6-7; their lines are printed when
 they end, before 8.  The back ends and VTLN run in this process after
@@ -375,10 +395,15 @@ from kaldi_tpu_torch.decoder.batched_pipeline2 import (
     BatchedOfflinePipeline2, PipelineStats)
 from kaldi_tpu_torch.decoder import batched_viterbi as tbv
 from kaldi_tpu_torch.decoder.batched_viterbi import BatchedViterbi
+from kaldi_tpu_torch.decoder.beam_sparse import (BeamSparseDecoder,
+                                                 SparseDeviceGraph)
 from kaldi_tpu_torch.decoder.block_chain import (BlockChainDecoder,
                                                  BlockChainGraph)
+from kaldi_tpu_torch.decoder.dense_relax import (DenseDeviceGraph,
+                                                 DenseViterbiDecoder)
 from kaldi_tpu_torch.decoder.graph_direct import (DirectGraphSpec,
-                                                  synth_bigram, synth_lexicon)
+                                                  synth_bigram, synth_lexicon,
+                                                  to_dense_device_graph)
 from kaldi_tpu_torch.decoder.graph import (TrainingGraphCompiler,
                                            add_lex_disambig,
                                            make_linear_word_acceptor)
@@ -7878,7 +7903,655 @@ def run_gmm_mmi(root: str) -> dict:
     return out
 
 
-WORKER_GROUPS = ("train", "scale", "online2")
+# ---------------------------------------------------------------------------
+# the other decoders over an HCLG: the dense and beam-sparse device
+# decoders, on-the-fly LM composition, incremental determinization and
+# grammar FSTs ("decoders" worker group; dense_flat runs in main)
+
+# tools/decoders_jax_bar.py on the CPU: the JAX package's searches over the
+# tool HCLG of the 128 legacy test utterances (dense, beam_sparse at its
+# defaults, lookahead over HCL o G with the periodic link pruning off:
+# the reference's pruning loses 8 best paths there, 100 errors, and the
+# port's is upstream's) and the template tri1 system
+# (gmm-latgen-biglm-faster from G to its unigrams)
+DEC_JAX_BAR = dict(dense=dict(wer=100.0 * 101 / 1544, word_errors=101),
+                   beam_sparse=dict(wer=100.0 * 102 / 1544, word_errors=102),
+                   lookahead=dict(wer=100.0 * 92 / 1544, word_errors=92),
+                   template_biglm=dict(wer=0.0, word_errors=0))
+DEC_WER_BAND, DEC_WORDS_BAND = 0.5, 8
+DEC_REL = 1e-4              # cost agreement, relative
+DEC_CPU_LANES = 16          # dense_hclg's lanes again on the CPU twin
+DEC_INC_UTTS = 32           # incremental's utterances (the first, sorted)
+DEC_ONLINE_UTTS = 16        # online2-wav-nnet3-latgen-incremental's
+DEC_GRAMMAR_UTTS = 32       # grammar's
+HOST_SEARCH_MS = 0.710      # the host search's ms a frame (PERF.md §5)
+
+
+def run_dense_flat(flat64, graph64, loglikes: torch.Tensor, out_lens,
+                   dense_hyps) -> dict:
+    """dense_flat: DenseViterbiDecoder over the V=64 flat graph
+    (graph_direct.to_dense_device_graph), every lane, on slice_viterbi's
+    loglikes at its acoustic scale (1.0), against slice_viterbi's decode
+    of them (BatchedViterbi, kernel c, launched in slice_viterbi's run and
+    counted there; this phase launches no kernel): in every
+    lane the cost within DEC_REL relative and the words equal; a lane
+    whose two paths cost the same within DEC_REL in float64 (path_cost)
+    is reported as a tie, not failed."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    dg = to_dense_device_graph(flat64)
+    build_s = time.perf_counter() - t0
+    dec = DenseViterbiDecoder(dg, device="cuda")
+    lens = np.asarray(out_lens)
+    dec.decode_batch(loglikes[:2], 1.0, lengths=lens[:2])     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dec.decode_batch(loglikes, 1.0, lengths=lens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = dict(dec.stats)
+    busy = profile_call(lambda: dec.decode_batch(loglikes, 1.0,
+                                                 lengths=lens))["device_ms"]
+    ll_host = loglikes.cpu().numpy()
+    equal, ties, bad = 0, [], []
+    for lane, (r, h) in enumerate(zip(out, dense_hyps)):
+        tol = DEC_REL * max(1.0, abs(h[2]))
+        if r is None or abs(r[2] - h[2]) > tol:
+            bad.append(lane)
+        elif r[0] == h[1] and r[1] == h[0]:
+            equal += 1
+        else:
+            gap = abs(path_cost(graph64, r[0], r[1], ll_host[lane])
+                      - path_cost(graph64, h[1], h[0], ll_host[lane]))
+            (ties if gap <= tol else bad).append(lane)
+    res = {"lanes": len(out), "lanes_equal": equal, "lanes_tied": ties,
+           "lanes_failed": bad, "states": dg.num_states,
+           "tiers": [list(t[0].shape) for t in dg.tiers],
+           "padded_slots": stats["padded_slots"], "arcs": stats["arcs"],
+           "chosen_arcs": stats["chosen_arcs"],
+           "frames_padded": stats["frames"], "build_s": build_s,
+           "wall_s": wall, "device_busy_ms": busy,
+           "ms_a_frame_of_batch": 1e3 * wall / stats["frames"],
+           "rel_tolerance": DEC_REL,
+           "launches": kernel_launch_counts()}
+    emit("dense_flat", **res)
+    if bad:
+        raise SystemExit(f"dense_flat: lanes {bad} differ from "
+                         "BatchedViterbi's beyond a tie")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in dense_flat: {res['launches']}")
+    return res
+
+
+def decoders_system(d: str) -> dict:
+    """decoders_graph: the legacy corpus's HCLG through mkgraph.sh's steps
+    (mkgraph_legacy's graph), HCL (the same steps over mkgraph_steps.flat_g)
+    and the legacy G for the lookahead tool; the legacy TDNN-F as an
+    xconfig checkpoint with final.tm (as xconfig_graph writes it) and as a
+    .mdl (as online2_graph writes it); the test utterances' MFCCs on the
+    int16 wire (the port's frontend) and nnet3-compute's loglikes of them
+    (the ones mkgraph_legacy decodes); a wav archive of the first
+    DEC_ONLINE_UTTS."""
+    spec = BenchCorpusSpec()
+    lexicon, _, _, test_txt, test_wav, lm_text = make_corpus(
+        spec, train_audio=False)
+    fingerprint = corpus_fingerprint(spec, lexicon, test_txt, test_wav,
+                                     lm_text)
+    if fingerprint != LEX_FINGERPRINT:
+        raise SystemExit(f"corpus fingerprint {fingerprint}, the JAX "
+                         f"package's {LEX_FINGERPRINT}")
+    _lang, tm, tree = chain_tm_tree_for(lexicon)
+    utts = sorted(test_wav)
+    t0 = time.perf_counter()
+    inp = mkgraph_steps.legacy_inputs(os.path.join(d, "lm"), lexicon,
+                                      lm_text, tm, tree)
+    graph_in = (inp["tree"], inp["tm"])
+    rep = mkgraph_steps.mkgraph(inp["lang"], inp["G"], *graph_in,
+                                os.path.join(d, "graph"),
+                                transition_scale=1.0, self_loop_scale=1.0)
+    gflat = mkgraph_steps.flat_g(inp["lang"], os.path.join(d, "G_flat.fst"))
+    rep_hcl = mkgraph_steps.mkgraph(inp["lang"], gflat, *graph_in,
+                                    os.path.join(d, "hcl"),
+                                    transition_scale=1.0,
+                                    self_loop_scale=1.0)
+    graph_s = time.perf_counter() - t0
+    cfg = ChainTdnnfConfig(feat_dim=40, ivector_dim=0, num_pdfs=tm.num_pdfs,
+                           hidden_dim=1536, bottleneck_dim=160,
+                           prefinal_dim=256, num_layers=17,
+                           subsample_layer=8, frame_subsampling_factor=3)
+    variables = load_params(os.path.join(ART, "flagship_params.npz"))
+    t0 = time.perf_counter()
+    nnet = os.path.join(d, "nnet")
+    save_checkpoint(nnet, chain_tdnnf_variables_to_xconfig(variables), 0,
+                    extra={"xconfig": chain_tdnnf_xconfig(cfg)})
+    write_kaldi_object(tm.write, os.path.join(d, "final.tm"))
+    native = chain_tdnnf_from_flax(cfg, variables, device="cuda")
+    ctx = tdnnf_context(cfg)
+    mdl = os.path.join(d, "final.mdl")
+    mdl_io.write_nnet3_am(mdl, tm, mdl_io.chain_tdnnf_to_nnet3(native,
+                                                                variables),
+                          left_context=ctx, right_context=ctx)
+    del native
+    model_s = time.perf_counter() - t0
+    fe = OfflineFeature(mfcc_options(spec, num_ceps=40), device="cuda")
+    waves = {u: np.clip(test_wav[u], -32767, 32767).astype(np.int16)
+             for u in utts}
+    feats = {}
+    for u in utts:
+        f, n = fe.compute_batch_device([waves[u]])
+        feats[u] = f[0, :int(n[0])].cpu().numpy()
+    write_ark(os.path.join(d, "feats.ark"), feats.items())
+    seconds: dict = {}
+    timed_tool(seconds, "nnet3-compute", "--use-gpu=yes", nnet,
+               f"ark:{os.path.join(d, 'feats.ark')}",
+               f"ark:{os.path.join(d, 'loglikes.ark')}")
+    loglikes = read_ark(os.path.join(d, "loglikes.ark"))
+    with TableWriter("wave", f"ark:{os.path.join(d, 'wav.ark')}") as w:
+        for u in utts[:DEC_ONLINE_UTTS]:
+            w.write(u, WaveData(spec.fs, waves[u]))
+    res = {"hclg": rep["sizes"]["HCLG.fst"], "hcl": rep_hcl["sizes"][
+               "HCLG.fst"], "graph_s": graph_s, "model_s": model_s,
+           "nnet3_compute_s": seconds["nnet3-compute"],
+           "utterances": len(utts),
+           "frames": sum(len(v) for v in loglikes.values()),
+           "num_pdfs": tm.num_pdfs, "corpus_fingerprint": fingerprint}
+    emit("decoders_graph", **res)
+    if tuple(res["hclg"]) != (MKGRAPH_JAX_BAR["hclg_states"],
+                              MKGRAPH_JAX_BAR["hclg_arcs"]):
+        raise SystemExit(f"decoders_graph: HCLG {res['hclg']}, the port's "
+                         "tools on the CPU "
+                         f"{MKGRAPH_JAX_BAR['hclg_states']} states and "
+                         f"{MKGRAPH_JAX_BAR['hclg_arcs']} arcs")
+    return {"res": res, "dir": d, "hclg": os.path.join(d, "graph",
+                                                       "HCLG.fst"),
+            "hcl": os.path.join(d, "hcl", "HCLG.fst"), "G": inp["G"],
+            "lang": inp["lang"], "names": _names(inp["lang"]),
+            "tm": tm, "tm_path": os.path.join(d, "final.tm"), "nnet": nnet,
+            "mdl": mdl, "spec": spec, "utts": utts,
+            "refs": {u: test_txt[u] for u in utts}, "loglikes": loglikes,
+            "feats": f"ark:{os.path.join(d, 'feats.ark')}",
+            "loglikes_ark": f"ark:{os.path.join(d, 'loglikes.ark')}",
+            "wav": f"ark:{os.path.join(d, 'wav.ark')}"}
+
+
+def _subset_ark(path: str, src: dict, keys) -> str:
+    write_ark(path, ((k, src[k]) for k in keys))
+    return f"ark:{path}"
+
+
+def _wer_bar(phase: str, wer: float, errors: int, bar: dict) -> None:
+    if abs(wer - bar["wer"]) > DEC_WER_BAND or \
+            abs(errors - bar["word_errors"]) > DEC_WORDS_BAND:
+        raise SystemExit(f"{phase}: WER {wer:.3f}% ({errors} errors), "
+                         f"tools/decoders_jax_bar.py's {bar['wer']:.3f}% "
+                         f"({bar['word_errors']})")
+
+
+def _lane_batch(sysd: dict):
+    utts = sysd["utts"]
+    lens = np.array([len(sysd["loglikes"][u]) for u in utts])
+    batch = np.zeros((len(utts), int(lens.max()), sysd["tm"].num_pdfs),
+                     np.float32)
+    for i, u in enumerate(utts):
+        batch[i, :lens[i]] = sysd["loglikes"][u]
+    return batch, lens
+
+
+def run_dense_hclg(sysd: dict) -> dict:
+    """dense_hclg: DenseViterbiDecoder on the tool HCLG over the test
+    utterances' loglikes (all lanes, with their lengths; acoustic scale
+    1.0), beside latgen-faster-mapped at decode.sh's beams over the same
+    loglikes (the host search): an exact search costs at most the beam
+    search's best path (plus DEC_REL), the words equal where the two costs
+    agree within DEC_REL; the WER held to tools/decoders_jax_bar.py's;
+    DEC_CPU_LANES lanes again on the CPU twin bit-equal (costs and chosen
+    arcs); no epsilon closure cut."""
+    reset_kernel_counts()
+    d = sysd["dir"]
+    hclg, tm = read_fst_file(sysd["hclg"]), sysd["tm"]
+    t0 = time.perf_counter()
+    dg = DenseDeviceGraph.build(hclg, tm.id2pdf_id, num_pdfs=tm.num_pdfs)
+    build_s = time.perf_counter() - t0
+    batch, lens = _lane_batch(sysd)
+    dec = DenseViterbiDecoder(dg, device="cuda")
+    dec.decode_batch(batch[:2], 1.0, lengths=lens[:2])       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = dec.decode_batch(batch, 1.0, lengths=lens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats, arcs_all = dict(dec.stats), dec.last_arcs
+    busy = profile_call(lambda: dec.decode_batch(batch, 1.0,
+                                                 lengths=lens))["device_ms"]
+    # the CPU twin
+    n = min(DEC_CPU_LANES, len(lens))
+    t0 = time.perf_counter()
+    cpu = DenseViterbiDecoder(dg, device="cpu")
+    got_cpu = cpu.decode_batch(batch[:n], 1.0, lengths=lens[:n])
+    cpu_s = time.perf_counter() - t0
+    card = dec.decode_batch(batch[:n], 1.0, lengths=lens[:n])
+    twin_equal = card == got_cpu and np.array_equal(cpu.last_arcs,
+                                                    dec.last_arcs)
+    # the host search over the same loglikes
+    seconds: dict = {}
+    lat_path = os.path.join(d, "latgen.ark")
+    log = timed_tool(seconds, "latgen-faster-mapped", *LATGEN_ARGS,
+                     sysd["tm_path"], sysd["hclg"], sysd["loglikes_ark"],
+                     f"ark:{lat_path}")
+    lstats = tool_stats("latgen-faster-mapped", log)
+    lats = dict(SequentialTableReader("lattice", f"ark:{lat_path}"))
+    names, utts = sysd["names"], sysd["utts"]
+    host = {u: latf.lattice_best_path(lats[u]) for u in utts if u in lats}
+    hyps, above, differ, ties = {}, [], [], []
+    for u, r in zip(utts, out):
+        if r is None:
+            raise SystemExit(f"dense_hclg: {u} has no final state")
+        hyps[u] = [names[w] for w in r[0]]
+        h = host.get(u)
+        if h is None:
+            continue
+        tol = DEC_REL * max(1.0, abs(h[2]))
+        if r[2] > h[2] + tol:
+            above.append(u)
+        elif abs(r[2] - h[2]) <= tol and r[0] != h[1]:
+            differ.append(u)
+        elif r[0] != h[1]:
+            ties.append({"utt": u, "dense": r[2], "latgen": h[2]})
+    wer = wer_of(hyps, sysd["refs"])
+    errors = word_errors(wer, sysd["refs"])
+    frames = int(lens.sum())
+    res = {"utterances": len(utts), "lanes": len(lens),
+           "frames_padded": stats["frames"], "frames": frames,
+           "tiers": [list(t[0].shape) for t in dg.tiers],
+           "padded_slots": stats["padded_slots"], "arcs": stats["arcs"],
+           "chosen_arcs": stats["chosen_arcs"],
+           "eps_truncated": stats["eps_truncated"], "build_s": build_s,
+           "wall_s": wall, "device_busy_ms": busy,
+           "ms_a_frame_of_batch": 1e3 * wall / stats["frames"],
+           "ms_an_utterance_frame": 1e3 * wall / frames,
+           "host_search_ms_a_frame": 1e3 * lstats["search_s"]
+           / max(lstats["frames"], 1),
+           "host_search_ms_a_frame_pr21": HOST_SEARCH_MS,
+           "latgen_s": seconds["latgen-faster-mapped"],
+           "above_latgen": above, "equal_cost_other_words": differ,
+           "cheaper_than_latgen_other_words": ties,
+           "cpu_twin_lanes": n, "cpu_twin_equal": twin_equal,
+           "cpu_twin_s": cpu_s, "wer": wer, "word_errors": errors,
+           "jax_bar": DEC_JAX_BAR["dense"],
+           "launches": kernel_launch_counts()}
+    emit("dense_hclg", **res)
+    if above or differ:
+        raise SystemExit(f"dense_hclg: costs above the beam search's in "
+                         f"{above}, other words at the same cost in "
+                         f"{differ}")
+    if not twin_equal:
+        raise SystemExit("dense_hclg: the CPU twin decodes differently")
+    if stats["eps_truncated"] or len(lats) != len(utts) or \
+            lstats["failed"]:
+        raise SystemExit(f"dense_hclg: {stats['eps_truncated']} closures "
+                         f"cut, {len(lats)}/{len(utts)} host lattices")
+    _wer_bar("dense_hclg", wer, errors, DEC_JAX_BAR["dense"])
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in dense_hclg: {res['launches']}")
+    return {"res": res, "out": dict(zip(utts, out)), "hyps": hyps,
+            "host": host, "arcs": arcs_all}
+
+
+def _sparse_groups(sysd: dict) -> dict:
+    by_len: dict = {}
+    for u in sysd["utts"]:
+        by_len.setdefault(len(sysd["loglikes"][u]), []).append(u)
+    return by_len
+
+
+def _sparse_run(dec, sysd: dict, groups: dict) -> tuple:
+    out, fails = {}, 0
+    for _T, group in sorted(groups.items()):
+        res = dec.decode_batch(np.stack([sysd["loglikes"][u]
+                                         for u in group]), 1.0)
+        fails += dec.stats["traceback_failures"]
+        out.update(zip(group, res))
+    return out, fails
+
+
+def run_beam_sparse_hclg(sysd: dict, dense: dict) -> dict:
+    """beam_sparse_hclg: BeamSparseDecoder on the same graph and loglikes,
+    the lanes grouped by length (the reference has no lane lengths): with
+    a capacity of the degree-capped graph's states and an unbounded beam
+    it is the exact search (costs within DEC_REL of dense_hclg's, the
+    words equal; where the words differ at costs within DEC_REL the two
+    paths tie, reported); at the reference's defaults (beam 16, capacity
+    2048) no cost lies below the exact one less DEC_REL and the WER is
+    held to tools/decoders_jax_bar.py's; no traceback gives up.  The
+    card's busy time is read on the longest length group alone."""
+    reset_kernel_counts()
+    hclg, tm = read_fst_file(sysd["hclg"]), sysd["tm"]
+    t0 = time.perf_counter()
+    sg = SparseDeviceGraph.build(hclg, tm.id2pdf_id)
+    build_s = time.perf_counter() - t0
+    groups = _sparse_groups(sysd)
+    names, exact = sysd["names"], dense["out"]
+    longest = groups[max(groups)]
+    ac_long = torch.from_numpy(-np.stack([sysd["loglikes"][u]
+                                          for u in longest])).cuda()
+    runs = {}
+    for key, kw in (("exact", dict(beam=1e9, capacity=sg.num_states)),
+                    ("defaults", {})):
+        dec = BeamSparseDecoder(sg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, fails = _sparse_run(dec, sysd, groups)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the card's share: the longest group's device pass alone, then
+        # under the profiler (profiling all 68 groups' 10^5-10^6 launches
+        # takes minutes)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            dec._decode_device(ac_long)
+            torch.cuda.synchronize()
+            long_s = time.perf_counter() - t0
+            busy = profile_call(lambda: dec._decode_device(ac_long))[
+                "device_ms"]
+        hyps = {u: [names[w] for w in r[0]] if r else [] for u, r in
+                out.items()}
+        worse, below, other, ties = [], [], [], []
+        for u, r in out.items():
+            e = exact[u]
+            tol = DEC_REL * max(1.0, abs(e[2]))
+            if r is None:
+                worse.append(u)
+                continue
+            if r[2] < e[2] - tol:
+                below.append(u)
+            if key != "exact":
+                continue
+            if abs(r[2] - e[2]) > tol:
+                other.append(u)
+            elif r[0] != e[0]:
+                # two paths within DEC_REL: a tie that the two searches'
+                # float32 sums break apart (beam_sparse keeps costs
+                # relative to each frame's minimum)
+                ties.append({"utt": u, "beam_sparse": r[2],
+                             "dense": e[2]})
+        wer = wer_of(hyps, sysd["refs"])
+        frames = sum(len(sysd["loglikes"][u]) for u in out)
+        runs[key] = {"beam": dec.beam, "capacity": dec.capacity,
+                     "wall_s": wall, "longest_group": [len(longest),
+                                                       ac_long.shape[1]],
+                     "longest_group_device_pass_s": long_s,
+                     "longest_group_device_busy_ms": busy,
+                     "ms_an_utterance_frame": 1e3 * wall / frames,
+                     "traceback_failures": fails, "no_result": worse,
+                     "below_exact": below, "differ_from_exact": other,
+                     "ties_with_exact": ties,
+                     "equal_to_exact": sum(out[u] is not None
+                                           and out[u][0] == exact[u][0]
+                                           for u in out),
+                     "wer": wer, "word_errors": word_errors(
+                         wer, sysd["refs"])}
+    res = {"states": sg.num_states, "De": sg.e_dst.shape[1],
+           "Dn": sg.n_dst.shape[1], "eps_depth": sg.eps_depth,
+           "build_s": build_s, "length_groups": len(groups),
+           "utterances": len(sysd["utts"]), **runs,
+           "jax_bar": DEC_JAX_BAR["beam_sparse"],
+           "launches": kernel_launch_counts()}
+    emit("beam_sparse_hclg", **res)
+    for key, r in runs.items():
+        if r["traceback_failures"] or r["below_exact"] or r["no_result"] \
+                or (key == "exact" and r["differ_from_exact"]):
+            raise SystemExit(f"beam_sparse_hclg ({key}): {r}")
+    _wer_bar("beam_sparse_hclg", runs["defaults"]["wer"],
+             runs["defaults"]["word_errors"], DEC_JAX_BAR["beam_sparse"])
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in beam_sparse_hclg: "
+                         f"{res['launches']}")
+    return res
+
+
+def _interned(log: str) -> int:
+    m = re.search(r"(\d+) product states interned", log)
+    if m is None:
+        raise SystemExit("nnet3-latgen-faster-lookahead logged no interned "
+                         "count")
+    return int(m.group(1))
+
+
+def run_lazy_lm(sysd: dict, dense: dict) -> dict:
+    """lazy_lm: nnet3-latgen-faster-lookahead over the tool-built HCL
+    composed on demand with the legacy G (its WER held to
+    tools/decoders_jax_bar.py's, its best paths beside dense_hclg's, the
+    product states it interned against the product's bound); then the
+    template tri1 system (mkgraph_steps.template_graphs):
+    gmm-latgen-biglm-faster with old G = new G writes gmm-latgen-faster's
+    lattices byte for byte, and from G to its unigrams its WER is held to
+    the JAX tool's."""
+    reset_kernel_counts()
+    d = sysd["dir"]
+    seconds: dict = {}
+    words = os.path.join(d, "lookahead.words")
+    log = timed_tool(seconds, "nnet3-latgen-faster-lookahead", "--use-gpu=yes",
+                     *LATGEN_ARGS, sysd["tm_path"], sysd["nnet"],
+                     sysd["hcl"], sysd["G"], sysd["feats"],
+                     f"ark:{os.path.join(d, 'lookahead.lat')}",
+                     f"ark,t:{words}")
+    stats = tool_stats("nnet3-latgen-faster-lookahead", log)
+    interned = _interned(log)
+    hcl, g = read_fst_file(sysd["hcl"]), read_fst_file(sysd["G"])
+    bound = hcl.num_states * g.num_states
+    names = sysd["names"]
+    got = {u: [names[w] for w in ws] for u, ws in int_words(words).items()}
+    wer = wer_of(got, sysd["refs"])
+    errors = word_errors(wer, sysd["refs"])
+    differ_dense = sorted(u for u in got if got[u] != dense["hyps"][u])
+    # the template tri1 system
+    t = mkgraph_steps.template_graphs(os.path.join(d, "template"), "yes")
+    tdir = os.path.dirname(t["lang"])
+    tnames = _names(t["lang"])
+    dec_args = ["--acoustic-scale=0.1", "--beam=16", "--lattice-beam=6"]
+    out = {}
+    for key, tool, lms in (("plain", "gmm-latgen-faster", []),
+                           ("same_lm", "gmm-latgen-biglm-faster",
+                            [t["G"], t["G"]]),
+                           ("unigram", "gmm-latgen-biglm-faster",
+                            [t["G"], t["G2"]])):
+        lat = os.path.join(tdir, f"{key}.lat")
+        timed_tool(seconds, tool, "--use-gpu=yes", *dec_args, t["model"],
+                   t["hclg"], *lms, t["feats"], f"ark:{lat}",
+                   f"ark,t:{lat}.words", key=f"{tool} {key}")
+        hyp = {u: [tnames[w] for w in ws]
+               for u, ws in int_words(f"{lat}.words").items()}
+        out[key] = {"lat": lat, "wer": wer_of(hyp, t["test_txt"]),
+                    "utterances": len(hyp)}
+    with open(out["plain"]["lat"], "rb") as a, \
+            open(out["same_lm"]["lat"], "rb") as b:
+        same_bytes = a.read() == b.read()
+    bi = out["unigram"]
+    res = {"lookahead": {"wer": wer, "word_errors": errors,
+                         "utterances": len(got),
+                         "interned": interned, "product_bound": bound,
+                         "hcl_states": hcl.num_states,
+                         "g_states": g.num_states,
+                         "equal_dense_words": len(got) - len(differ_dense),
+                         "differ_dense_words": differ_dense,
+                         "search_ms_a_frame": 1e3 * stats["search_s"]
+                         / max(stats["frames"], 1),
+                         "forward_span_ms": stats["forward_span_ms"],
+                         "det_fallbacks": stats["det_fallbacks"],
+                         "jax_bar": DEC_JAX_BAR["lookahead"]},
+           "template": {"hclg": t["report"]["sizes"]["HCLG.fst"],
+                        "same_lm_lattices_equal_plain": same_bytes,
+                        "plain_wer": out["plain"]["wer"],
+                        "biglm_unigram_wer": bi["wer"],
+                        "biglm_unigram_word_errors": word_errors(
+                            bi["wer"], t["test_txt"]),
+                        "utterances": bi["utterances"],
+                        "jax_bar": DEC_JAX_BAR["template_biglm"]},
+           "tool_s": seconds, "launches": kernel_launch_counts()}
+    emit("lazy_lm", **res)
+    if not same_bytes:
+        raise SystemExit("lazy_lm: gmm-latgen-biglm-faster with old G = new "
+                         "G writes other lattices than gmm-latgen-faster")
+    if interned >= bound or stats["failed"] or stats["det_fallbacks"] or \
+            len(got) != len(sysd["utts"]):
+        raise SystemExit(f"lazy_lm: {interned} product states interned of "
+                         f"{bound}, {stats['failed']} failed, "
+                         f"{len(got)}/{len(sysd['utts'])} decoded")
+    _wer_bar("lazy_lm lookahead", wer, errors, DEC_JAX_BAR["lookahead"])
+    _wer_bar("lazy_lm biglm", bi["wer"],
+             res["template"]["biglm_unigram_word_errors"],
+             DEC_JAX_BAR["template_biglm"])
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in lazy_lm: {res['launches']}")
+    return res
+
+
+def _markers(lats: dict) -> int:
+    from kaldi_tpu_torch.decoder.incremental import _LABEL_BASE
+    return sum(a.olabel >= _LABEL_BASE for lat in lats.values()
+               for r in lat.arcs for a in r)
+
+
+def run_incremental(sysd: dict, dense: dict) -> dict:
+    """incremental: latgen-incremental-mapped at decode.sh's beams over the
+    first DEC_INC_UTTS utterances' loglikes: each best path (words and
+    alignment) equals latgen-faster-mapped's (dense_hclg's host search,
+    the same beams; the tokens' costs cross chunks as upstream's do,
+    ROADMAP §3); then online2-wav-nnet3-latgen-incremental over the .mdl
+    on the first DEC_ONLINE_UTTS waves: each best path's words equal
+    latgen-faster-mapped's.  A differing path is reported with its cost
+    gap and fails the phase.  No marker label leaks into a lattice;
+    max_chunk_links is recorded."""
+    reset_kernel_counts()
+    d = sysd["dir"]
+    utts = sysd["utts"][:DEC_INC_UTTS]
+    ll = _subset_ark(os.path.join(d, "ll_inc.ark"), sysd["loglikes"], utts)
+    seconds: dict = {}
+    lat = os.path.join(d, "inc.lat")
+    log = timed_tool(seconds, "latgen-incremental-mapped", *LATGEN_ARGS,
+                     sysd["tm_path"], sysd["hclg"], ll, f"ark:{lat}")
+    m = re.search(r"max_chunk_links (\d+)", log)
+    lats = dict(SequentialTableReader("lattice", f"ark:{lat}"))
+    host = dense["host"]
+    equal, differ = [], []
+    for u in utts:
+        a = latf.lattice_best_path(lats[u])
+        h = host[u]
+        if a[:2] == h[:2]:
+            equal.append(u)
+        else:
+            differ.append({"utt": u, "cost_gap": a[2] - h[2]})
+    # the online tool
+    olat = os.path.join(d, "online_inc.lat")
+    opts = online2_args({"spec": sysd["spec"]})
+    olog = timed_tool(seconds, "online2-wav-nnet3-latgen-incremental",
+                      "--use-gpu=yes", *opts, "--beam=15", sysd["mdl"],
+                      sysd["hclg"], sysd["wav"], f"ark:{olat}")
+    om = re.search(r"max_chunk_links (\d+)", olog)
+    olats = dict(SequentialTableReader("lattice", f"ark:{olat}"))
+    names = sysd["names"]
+    online_differ = {}
+    for u, l in olats.items():
+        a = latf.lattice_best_path(l)
+        if a[1] != host[u][1]:
+            online_differ[u] = {"words": [names[w] for w in a[1]],
+                                "cost_gap": a[2] - host[u][2]}
+    res = {"utterances": len(utts), "equal_latgen": len(equal),
+           "differ_latgen": differ,
+           "max_chunk_links": int(m.group(1)) if m else None,
+           "leaked_markers": _markers(lats) + _markers(olats),
+           "online_utterances": len(olats),
+           "online_max_chunk_links": int(om.group(1)) if om else None,
+           "online_differ_latgen": online_differ,
+           "tool_s": seconds,
+           "ms_an_utterance_frame": 1e3 * seconds[
+               "latgen-incremental-mapped"] / sum(
+               len(sysd["loglikes"][u]) for u in utts),
+           "launches": kernel_launch_counts()}
+    emit("incremental", **res)
+    if differ or online_differ or res["leaked_markers"] or \
+            len(lats) != len(utts) or len(olats) != DEC_ONLINE_UTTS:
+        raise SystemExit(f"incremental: best paths other than "
+                         f"latgen-faster-mapped's {differ}, online "
+                         f"{sorted(online_differ)}, "
+                         f"{res['leaked_markers']} marker labels, "
+                         f"{len(lats)} + {len(olats)} lattices")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in incremental: {res['launches']}")
+    return res
+
+
+def run_grammar(sysd: dict) -> dict:
+    """grammar: make-grammar-fst prepares the tool HCLG as a grammar of one
+    FST (--nonterm-phones-offset after the lang's last phone);
+    nnet3-latgen-grammar decodes it and nnet3-latgen-faster the HCLG, on
+    the first DEC_GRAMMAR_UTTS utterances: the lattices and words equal
+    byte for byte."""
+    reset_kernel_counts()
+    d = sysd["dir"]
+    phones = read_symbol_table(os.path.join(sysd["lang"], "phones.txt"))
+    offset = max(phones.values()) + 1
+    seconds: dict = {}
+    prep = os.path.join(d, "HCLG_grammar.fst")
+    timed_tool(seconds, "make-grammar-fst",
+               f"--nonterm-phones-offset={offset}", sysd["hclg"], prep)
+    feats = dict(SequentialTableReader("matrix", sysd["feats"]))
+    utts = sysd["utts"][:DEC_GRAMMAR_UTTS]
+    sub = _subset_ark(os.path.join(d, "feats_grammar.ark"), feats, utts)
+    outs = {}
+    for tool, fst in (("nnet3-latgen-grammar", prep),
+                      ("nnet3-latgen-faster", sysd["hclg"])):
+        lat = os.path.join(d, f"{tool}.lat")
+        log = timed_tool(seconds, tool, "--use-gpu=yes", *LATGEN_ARGS,
+                         sysd["tm_path"], sysd["nnet"], fst, sub,
+                         f"ark:{lat}", f"ark,t:{lat}.words")
+        with open(lat, "rb") as f, open(f"{lat}.words", "rb") as w:
+            outs[tool] = (f.read(), w.read(), tool_stats(tool, log))
+    g, f = outs["nnet3-latgen-grammar"], outs["nnet3-latgen-faster"]
+    res = {"utterances": len(utts), "nonterm_phones_offset": offset,
+           "lattices_equal": g[0] == f[0], "words_equal": g[1] == f[1],
+           "lattice_bytes": len(g[0]),
+           "search_ms_a_frame": 1e3 * g[2]["search_s"]
+           / max(g[2]["frames"], 1), "tool_s": seconds,
+           "launches": kernel_launch_counts()}
+    emit("grammar", **res)
+    if not (res["lattices_equal"] and res["words_equal"]) or \
+            g[2]["utterances"] != len(utts):
+        raise SystemExit("grammar: nnet3-latgen-grammar over the prepared "
+                         "HCLG differs from nnet3-latgen-faster")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in grammar: {res['launches']}")
+    return res
+
+
+def decoders_phases() -> dict:
+    """The decoders group: decoders_graph, dense_hclg, beam_sparse_hclg,
+    lazy_lm, incremental and grammar, each phase's wall beside it."""
+    walls = {}
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        sysd = decoders_system(d)
+        walls["decoders_graph"] = time.perf_counter() - t0
+        out = {"decoders_graph": sysd["res"]}
+        t0 = time.perf_counter()
+        dense = run_dense_hclg(sysd)
+        walls["dense_hclg"] = time.perf_counter() - t0
+        out["dense_hclg"] = dense["res"]
+        for name, fn in (("beam_sparse_hclg", lambda: run_beam_sparse_hclg(
+                             sysd, dense)),
+                         ("lazy_lm", lambda: run_lazy_lm(sysd, dense)),
+                         ("incremental", lambda: run_incremental(sysd,
+                                                                 dense)),
+                         ("grammar", lambda: run_grammar(sysd))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            walls[name] = time.perf_counter() - t0
+    emit("decoders_walls", **walls)
+    out["walls"] = walls
+    return out
+
+
+WORKER_GROUPS = ("train", "scale", "online2", "decoders")
 
 
 def run_worker_group(group: str) -> dict:
@@ -7889,7 +8562,9 @@ def run_worker_group(group: str) -> dict:
     over its features; "online2" is the online2, xconfig and graph tool
     phases over the legacy graph, after slice_lex_int16's decode
     (lex_int16_words: the words online2_wav and mkgraph_legacy compare
-    with)."""
+    with); "decoders" is decoders_phases (the dense and beam-sparse
+    device decoders, lazy LM composition, incremental determinization and
+    grammar FSTs over the tool HCLG)."""
     if group == "online2":
         lex = build_lex_path()
         words16 = lex_int16_words(lex, *legacy_am(lex))
@@ -7904,6 +8579,13 @@ def run_worker_group(group: str) -> dict:
         torch.cuda.empty_cache()
         return {"train": train, "chain": chain, "frame": frame,
                 "template": template_phases(), "mmi": mmi_phases()}
+    if group == "decoders":
+        # this group ends long before the others (PERF.md §5), and its
+        # host work (host searches, the CPU twin's bit-equal check,
+        # which no thread count changes) slows them: it yields the host
+        os.nice(9)
+        torch.set_num_threads(2)
+        return {"decoders": decoders_phases()}
     keep: dict = {}
     scale = train_scale_phases(SMOKE_SCALE_EPOCHS, keep=keep)
     return {"scale": scale, "ivector": ivector_phases(**keep)}
@@ -8523,6 +9205,8 @@ def main() -> int:
         raise SystemExit(f"block_chain_step launched {chain_launches} times")
     if 2 * verdicts.count("equal") <= LANES:
         raise SystemExit("most lanes differ between the two decoders")
+    dense_flat = run_dense_flat(flat64, graph64, loglikes, out_lens,
+                                dense_hyps)
 
     # forced alignment: one graph a lane, cut from the flat graph along the
     # lane's decoded words.  It holds the lane's best path, so the
@@ -8598,9 +9282,9 @@ def main() -> int:
     res = {}
     for w in workers.values():
         res.update(w.join())
-    online2, train, chain, frame, template, scale, ivector = (
+    online2, train, chain, frame, template, scale, ivector, decoders = (
         res[k] for k in ("online2", "train", "chain", "frame", "template",
-                         "scale", "ivector"))
+                         "scale", "ivector", "decoders"))
     backend = {**backend, **res["mmi"]}
 
     # 8. tables -------------------------------------------------------------
@@ -8636,6 +9320,10 @@ def main() -> int:
             if k not in ("launches", "xconfig", "mkgraph")},
          **{k: v for k, v in online2["xconfig"].items() if k != "launches"},
          **{k: v for k, v in online2["mkgraph"].items() if k != "launches"},
+         dense_flat={k: v for k, v in dense_flat.items() if k != "launches"},
+         **{name: {k: v for k, v in phase.items() if k != "launches"}
+            for name, phase in decoders.items() if name != "walls"},
+         decoders_walls=decoders["walls"],
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -8682,6 +9370,10 @@ def main() -> int:
                                          res["launches"].values())
         for phase, res in (*ivector.items(), *backend.items()):
             k[f"launches_{phase}"] = res["launches"][k["name"]]
+        k["launches_dense_flat"] = dense_flat["launches"][k["name"]]
+        for phase, res in decoders.items():
+            if "launches" in res:
+                k[f"launches_{phase}"] = res["launches"][k["name"]]
     kernels[-1].update(
         ms_clock=time_c["clock"], run_device_ms=run_device_ms,
         first_version_ms=time_c["first_version_ms"],

@@ -1,9 +1,10 @@
 """nnet3-latgen-faster's variants -batch (the forward minibatched across
-utterances) and -looped (a streaming forward, a chunk of frames at a
-time), and the loading and decode loop they share with
-nnet3-latgen-faster (cli/nnet3_tools.py): port of
-`kaldi_tpu/cli/nnet3_latgen_tools.py`; parity:
-src/nnet3bin/nnet3-latgen-faster{,-batch,-looped}.cc.
+utterances), -looped (a streaming forward, a chunk of frames at a
+time) and -lookahead (an HCL graph composed on demand with a grammar G,
+decoder/biglm.py `LazyComposeFst`, in place of a prebuilt HCLG), and the
+loading and decode loop they share with nnet3-latgen-faster
+(cli/nnet3_tools.py): port of `kaldi_tpu/cli/nnet3_latgen_tools.py`;
+parity: src/nnet3bin/nnet3-latgen-faster{,-batch,-looped,-lookahead}.cc.
 
 The model is an xconfig checkpoint directory (parallel/checkpoint.py),
 computed on the card unless --use-gpu=no, in float32 with TF32 off; the
@@ -18,8 +19,7 @@ wall and real-time factor (audio_s counts the input frames at the
 features' 10-ms shift), the hand kernels' launches and, on the card,
 the peak memory.
 
-Not carried over yet: -lookahead (it needs decoder/biglm.py) and
--looped-parallel.
+Not carried over yet: -looped-parallel.
 """
 
 from __future__ import annotations
@@ -100,12 +100,14 @@ def _load_tm_and_model(tm_arg: str, nnet_dir: str, use_gpu: str):
 
 
 def _decode_loop(items: Iterable[Tuple[str, np.ndarray, int]],
-                 hclg_arg: str, tm, forward: _Forward, acoustic_scale: float,
+                 hclg_arg, tm, forward: _Forward, acoustic_scale: float,
                  dopts, lat_wspec: str, words_wspec: Optional[str],
                  name: str, ali_wspec: Optional[str] = None) -> int:
-    """Decode each (key, loglikes, input frames) of `items` into a
-    lattice (determinized unless --determinize-lattice=false) and its
-    best path's words and transition-ids; log the stats line."""
+    """Decode each (key, loglikes, input frames) of `items` over the
+    graph (`hclg_arg`: an FST file, or an FST object such as a lazy
+    composition) into a lattice (determinized unless
+    --determinize-lattice=false) and its best path's words and
+    transition-ids; log the stats line."""
     from kaldi_tpu_torch.cli.online_tools2 import stats_line
     from kaldi_tpu_torch.decoder.lattice_decoder import LatticeFasterDecoder
     from kaldi_tpu_torch.fstext.openfst_io import read_fst_file
@@ -113,7 +115,9 @@ def _decode_loop(items: Iterable[Tuple[str, np.ndarray, int]],
                                                lattice_best_path)
     from kaldi_tpu_torch.lat.kaldi_lattice import LatticeHolder
     t_start = time.perf_counter()
-    dec = LatticeFasterDecoder(read_fst_file(hclg_arg), dopts)
+    dec = LatticeFasterDecoder(read_fst_file(hclg_arg)
+                               if isinstance(hclg_arg, str) else hclg_arg,
+                               dopts)
     lat_writer = TableWriter(LatticeHolder(), lat_wspec)
     word_writer = (TableWriter("int-vector", words_wspec)
                    if words_wspec else None)
@@ -259,3 +263,37 @@ def nnet3_latgen_faster_batch(argv: List[str]) -> int:
                         acoustic_scale[0], dopts, po.get_arg(5),
                         po.get_arg(6) if po.num_args() >= 6 else None,
                         "nnet3-latgen-faster-batch")
+
+
+def nnet3_latgen_faster_lookahead(argv: List[str]) -> int:
+    po = ParseOptions(
+        "Generate lattices decoding an HCLr graph composed ON THE FLY "
+        "with a grammar Gr (nnet3-latgen-faster-lookahead.cc: "
+        "lookahead composition replaces the prebuilt HCLG; "
+        "decoder/biglm.py LazyComposeFst).\n"
+        "Usage: nnet3-latgen-faster-lookahead [options] <trans-model> "
+        "<nnet-dir> <hcl-fst> <g-fst> <features-rspecifier> "
+        "<lattice-wspecifier> [<words-wspecifier>]")
+    dopts, acoustic_scale, use_gpu = register_latgen(po)
+    po.read(argv)
+    if po.num_args() < 6:
+        po.print_usage()
+        return 1
+    from kaldi_tpu_torch.decoder.biglm import BackoffWordFst, LazyComposeFst
+    from kaldi_tpu_torch.fstext.openfst_io import read_fst_file
+    tm, forward = _load_tm_and_model(po.get_arg(1), po.get_arg(2),
+                                     use_gpu[0])
+    lazy = LazyComposeFst(read_fst_file(po.get_arg(3)),
+                          BackoffWordFst(read_fst_file(po.get_arg(4))))
+
+    def items():
+        for key, feats in SequentialTableReader("matrix", po.get_arg(5)):
+            yield key, forward(feats[None])[0].cpu().numpy(), len(feats)
+
+    rc = _decode_loop(items(), lazy, tm, forward, acoustic_scale[0], dopts,
+                      po.get_arg(6),
+                      po.get_arg(7) if po.num_args() >= 7 else None,
+                      "nnet3-latgen-faster-lookahead")
+    log(f"nnet3-latgen-faster-lookahead: {lazy.num_interned} product "
+        "states interned")
+    return rc

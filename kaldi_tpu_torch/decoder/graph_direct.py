@@ -11,9 +11,7 @@ carries the word label and the LM cost; the bigram is dense (backoff
 folded in), so G needs no epsilon arcs; states are pairs (context u,
 trie node n) and every arc carries -log(0.5).  pdf-ids mimic a
 context-dependent tree by hashing (phone, trie node).
-
-Not carried over yet: `to_dense_device_graph` (it needs
-`decoder/dense_relax.py`).
+`to_dense_device_graph` packs a FlatGraph for `decoder/dense_relax.py`.
 """
 
 from __future__ import annotations
@@ -260,3 +258,12 @@ def build_direct_hclg(spec: Optional[DirectGraphSpec] = None,
     return FlatGraph(src, dst, ilabel, olabel,
                      weight.astype(np.float32), finals, start,
                      tid2pdf, num_pdfs, word_names)
+
+
+def to_dense_device_graph(g: FlatGraph, **kw):
+    """Pack a FlatGraph for the dense-relaxation device decoder."""
+    from kaldi_tpu_torch.decoder.dense_relax import DenseDeviceGraph
+    pdf = g.tid2pdf[g.ilabel]
+    return DenseDeviceGraph.from_arrays(
+        g.src, g.dst, pdf, g.olabel, g.weight, g.finals, g.start,
+        ilabel=g.ilabel, num_pdfs=g.num_pdfs, **kw)

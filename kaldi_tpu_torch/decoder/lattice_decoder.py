@@ -22,11 +22,17 @@ token it leads to, not against the frontier's best token
 final lattice holds, the lattices are the same.
 
 The layout is not the reference's dicts of tuples: a frame's emitting
-arcs are expanded as arrays (the graph's non-epsilon arcs in CSR rows),
-the links are kept as arrays a frame at a time, and a token is an int64
-key, frame * num_states + state.  Only the epsilon closure, the
-epsilon links' part of the sweeps and the lattice's assembly run a link
-at a time, as the reference runs everything.
+arcs are expanded as arrays (the graph's non-epsilon arcs in CSR rows,
+`GraphRows`), the links are kept as arrays a frame at a time, and a
+token is an int64 key, (frame << 32) | state.  Only the epsilon closure,
+the epsilon links' part of the sweeps and the lattice's assembly run a
+link at a time, as the reference runs everything.
+
+The graph is a VectorFst, whose rows are built whole up front, or any
+object with `start`, `arcs[s]` and `finals[s]` (decoder/biglm.py's lazy
+compositions, fstext/grammar_fst.py's GrammarFst): its states get local
+ids as the search meets them, and a state's row is asked of it when the
+search first reaches the state, so a lazy FST expands only those.
 """
 
 from __future__ import annotations
@@ -99,29 +105,128 @@ class _Tokens:
         self.keys, self.cost = self.keys[mask], self.cost[mask]
 
 
+def _grown(a: np.ndarray, n: int) -> np.ndarray:
+    """`a` with room for at least n entries (capacity doubles)."""
+    if n <= len(a):
+        return a
+    out = np.zeros(max(n, 2 * len(a), 16), a.dtype)
+    out[:len(a)] = a
+    return out
+
+
+class GraphRows:
+    """A decoding graph's emitting arcs as CSR rows over local state ids
+    (`beg`, `cnt`; the arcs' `il`, `ol`, `w`, `dst`) and its epsilon arcs
+    by state (`eps`: local id -> [(olabel, weight, next local id)], the
+    states that have any).
+
+    A VectorFst's rows are built whole and its local ids are its states.
+    Any other FST is read on demand: `local` gives a state its id when a
+    row first names it, and `need` asks the FST for the rows of the ids
+    not read yet, so only the states the search reaches are expanded."""
+
+    def __init__(self, fst):
+        self.fst = fst
+        self.lazy = not isinstance(fst, VectorFst)
+        if self.lazy:
+            self._ids: Dict[int, int] = {}
+            self._ext: List[int] = []
+            self._done = np.zeros(0, bool)
+            self.beg = np.zeros(0, np.int64)
+            self.cnt = np.zeros(0, np.int64)
+            self.il = np.zeros(0, np.int64)
+            self.ol = np.zeros(0, np.int64)
+            self.w = np.zeros(0, np.float64)
+            self.dst = np.zeros(0, np.int64)
+            self.num_arcs = 0
+            self.eps: Dict[int, list] = {}
+            self.start = self.local(fst.start)
+            return
+        n = fst.num_states
+        emit = [[a for a in arcs if a.ilabel != EPS] for arcs in fst.arcs]
+        counts = np.array([len(a) for a in emit], np.int64)
+        self.beg = np.concatenate([[0], np.cumsum(counts)[:-1]]) \
+            .astype(np.int64) if n else np.zeros(0, np.int64)
+        self.cnt = counts
+        flat = [a for arcs in emit for a in arcs]
+        self.il = np.array([a.ilabel for a in flat], np.int64)
+        self.ol = np.array([a.olabel for a in flat], np.int64)
+        self.w = np.array([a.weight for a in flat], np.float64)
+        self.dst = np.array([a.nextstate for a in flat], np.int64)
+        # the epsilon arcs of the states that have any, in arc order
+        self.eps = {s: [(a.olabel, a.weight, a.nextstate) for a in arcs
+                        if a.ilabel == EPS]
+                    for s, arcs in enumerate(fst.arcs)
+                    if any(a.ilabel == EPS for a in arcs)}
+        self.start = fst.start
+
+    @property
+    def num_expanded(self) -> int:
+        """States whose rows were read (all of a VectorFst's)."""
+        return int(self._done.sum()) if self.lazy else len(self.cnt)
+
+    def local(self, state: int) -> int:
+        if not self.lazy:
+            return state
+        i = self._ids.get(state)
+        if i is None:
+            i = self._ids[state] = len(self._ext)
+            self._ext.append(state)
+        return i
+
+    def external(self, local: int) -> int:
+        return self._ext[local] if self.lazy else local
+
+    def final(self, local: int):
+        return self.fst.finals[self.external(local)]
+
+    def _room(self) -> None:
+        """Row arrays as long as the local ids given so far."""
+        n = len(self._ext)
+        if len(self._done) < n:
+            self._done = _grown(self._done, n)
+            self.beg = _grown(self.beg, n)
+            self.cnt = _grown(self.cnt, n)
+
+    def need(self, states) -> None:
+        """Read the rows of the local ids in `states` not read yet."""
+        if not self.lazy:
+            return
+        self._room()
+        states = np.asarray(states, np.int64)
+        todo = states[~self._done[states]]
+        if not len(todo):
+            return
+        # the unread ids once each, in the order they come
+        _, first = np.unique(todo, return_index=True)
+        for s in todo[np.sort(first)].tolist():
+            arcs = self.fst.arcs[self._ext[s]]
+            emit = [a for a in arcs if a.ilabel != EPS]
+            k, m = self.num_arcs, len(emit)
+            if m:
+                for name in ("il", "ol", "w", "dst"):
+                    setattr(self, name, _grown(getattr(self, name), k + m))
+                self.il[k:k + m] = [a.ilabel for a in emit]
+                self.ol[k:k + m] = [a.olabel for a in emit]
+                self.w[k:k + m] = [a.weight for a in emit]
+                self.dst[k:k + m] = [self.local(a.nextstate) for a in emit]
+            eps = [(a.olabel, a.weight, self.local(a.nextstate))
+                   for a in arcs if a.ilabel == EPS]
+            if eps:
+                self.eps[s] = eps
+            self._room()
+            self.beg[s], self.cnt[s] = k, m
+            self.num_arcs = k + m
+            self._done[s] = True
+
+
 class LatticeFasterDecoder:
-    def __init__(self, fst: VectorFst,
+    def __init__(self, fst,
                  opts: Optional[LatticeFasterDecoderOptions] = None):
         self.fst = fst
         self.opts = opts or LatticeFasterDecoderOptions()
         self.stats: Dict[str, int] = {}
-        n = fst.num_states
-        self._n = n
-        emit = [[a for a in arcs if a.ilabel != EPS] for arcs in fst.arcs]
-        counts = np.array([len(a) for a in emit], np.int64)
-        self._beg = np.concatenate([[0], np.cumsum(counts)[:-1]]) \
-            .astype(np.int64) if n else np.zeros(0, np.int64)
-        self._cnt = counts
-        flat = [a for arcs in emit for a in arcs]
-        self._il = np.array([a.ilabel for a in flat], np.int64)
-        self._ol = np.array([a.olabel for a in flat], np.int64)
-        self._w = np.array([a.weight for a in flat], np.float64)
-        self._dst = np.array([a.nextstate for a in flat], np.int64)
-        # the epsilon arcs of the states that have any, in arc order
-        self._eps = {s: [(a.olabel, a.weight, a.nextstate) for a in arcs
-                         if a.ilabel == EPS]
-                     for s, arcs in enumerate(fst.arcs)
-                     if any(a.ilabel == EPS for a in arcs)}
+        self.rows = GraphRows(fst)
 
     # -- the frame loop ------------------------------------------------------
 
@@ -130,14 +235,15 @@ class LatticeFasterDecoder:
         """The raw (state-level) lattice: ilabels transition ids, olabels
         words, weights (graph_cost, acoustic_cost); None when no token
         survives a frame or no final path exists."""
-        opts, n = self.opts, self._n
+        opts, rows = self.opts, self.rows
         T = loglikes.shape[0]
         self.stats = {"max_live_links": 0}
-        pdf = np.asarray(tid_to_pdf, np.int64)[self._il]
+        tid = np.asarray(tid_to_pdf, np.int64)
+        pdf = None if rows.lazy else tid[rows.il]
         tokens = _Tokens()
         links: List[_Links] = []
         # `cur`: the frame's tokens, in the order they were made
-        cur = self._closure({self.fst.start: 0.0}, 0, links)
+        cur = self._closure({rows.start: 0.0}, 0, links)
         cur_s = np.fromiter(cur.keys(), np.int64, len(cur))
         cur_c = np.fromiter(cur.values(), np.float64, len(cur))
         tokens.add_frame(cur_s, cur_c)
@@ -149,17 +255,20 @@ class LatticeFasterDecoder:
                     cur_c, opts.max_active - 1)[opts.max_active - 1])
             act = cur_c <= cutoff
             src_s, src_c = cur_s[act], cur_c[act]
-            cnt = self._cnt[src_s]
+            rows.need(src_s)
+            cnt = rows.cnt[src_s]
             total = int(cnt.sum())
             run = np.repeat(np.cumsum(cnt) - cnt, cnt)
-            arc = np.repeat(self._beg[src_s], cnt) \
+            arc = np.repeat(rows.beg[src_s], cnt) \
                 + np.arange(total, dtype=np.int64) - run
-            ac = -acoustic_scale * frame[pdf[arc]]
-            nc = np.repeat(src_c, cnt) + self._w[arc] + ac
-            dst = self._dst[arc]
-            links.append(_Links(True, np.repeat(src_s, cnt) + t * n,
-                                dst + (t + 1) * n, self._il[arc],
-                                self._ol[arc], self._w[arc], ac))
+            il = rows.il[arc]
+            ac = -acoustic_scale * frame[tid[il] if pdf is None
+                                         else pdf[arc]]
+            nc = np.repeat(src_c, cnt) + rows.w[arc] + ac
+            dst = rows.dst[arc]
+            links.append(_Links(True, np.repeat(src_s, cnt) | (t << 32),
+                                dst | ((t + 1) << 32), il,
+                                rows.ol[arc], rows.w[arc], ac))
             finite = nc < INF
             if not finite.any():
                 warn(f"lattice decode: no tokens at frame {t}")
@@ -175,25 +284,29 @@ class LatticeFasterDecoder:
             nxt_s, nxt_c = uniq[order], best[order]
             keep = nxt_c <= nxt_c.min() + opts.beam
             nxt_s, nxt_c = nxt_s[keep], nxt_c[keep]
-            if self._eps and any(int(s) in self._eps for s in nxt_s):
+            rows.need(nxt_s)
+            if rows.eps and any(int(s) in rows.eps for s in nxt_s):
                 nxt = self._closure(dict(zip(nxt_s.tolist(),
                                              nxt_c.tolist())), t + 1, links)
                 nxt_s = np.fromiter(nxt.keys(), np.int64, len(nxt))
                 nxt_c = np.fromiter(nxt.values(), np.float64, len(nxt))
-            tokens.add_frame(nxt_s + (t + 1) * n, nxt_c)
+            tokens.add_frame(nxt_s | ((t + 1) << 32), nxt_c)
             cur_s, cur_c = nxt_s, nxt_c
             if opts.prune_interval > 0 and (t + 1) % opts.prune_interval \
                     == 0:
                 links = self._prune_links(links, tokens, cur_s, cur_c, t + 1)
                 self.stats["max_live_links"] = max(
                     self.stats["max_live_links"], sum(map(len, links)))
+        self.stats["states_expanded"] = rows.num_expanded
         return self._raw_lattice(links, tokens, cur_s, T)
 
     def _closure(self, tokens: Dict[int, float], t: int,
                  links: List[_Links]) -> Dict[int, float]:
         """The reference's epsilon closure, last in first out; appends the
         epsilon links it walks to `links` as one run."""
-        eps, n = self._eps, self._n
+        rows = self.rows
+        eps = rows.eps
+        rows.need(list(tokens))
         queue = [s for s in tokens if s in eps]
         limit = min(tokens.values(), default=0.0) + self.opts.beam
         rec = []
@@ -207,12 +320,13 @@ class LatticeFasterDecoder:
                 rec.append((s, d, ol, w))
                 if nc < tokens.get(d, INF) - 1e-9:
                     tokens[d] = nc
+                    rows.need((d,))
                     if d in eps:
                         queue.append(d)
         if rec:
             s, d, ol, w = (np.array(x) for x in zip(*rec))
-            links.append(_Links(False, s.astype(np.int64) + t * n,
-                                d.astype(np.int64) + t * n,
+            links.append(_Links(False, s.astype(np.int64) | (t << 32),
+                                d.astype(np.int64) | (t << 32),
                                 np.zeros(len(rec), np.int64),
                                 ol.astype(np.int64), w.astype(np.float64),
                                 np.zeros(len(rec))))
@@ -263,7 +377,7 @@ class LatticeFasterDecoder:
         best = front_c.min()
         cutoff = best + self.opts.lattice_beam
         back = np.full(len(tokens.keys), INF)
-        back[tokens.index(front_s + t * self._n)] = best - front_c
+        back[tokens.index(front_s | (t << 32))] = best - front_c
         dpos = self._sweep(links, tokens, back)
         kept, live = [], np.zeros(len(tokens.keys), bool)
         for r, dp in zip(links, dpos):
@@ -277,7 +391,7 @@ class LatticeFasterDecoder:
                 kept.append(rr)
                 live[sp[ok]] = True
                 live[dp[ok]] = True
-        live[tokens.index(front_s + t * self._n)] = True
+        live[tokens.index(front_s | (t << 32))] = True
         tokens.keep(live)
         return kept
 
@@ -285,9 +399,9 @@ class LatticeFasterDecoder:
 
     def _raw_lattice(self, links: List[_Links], tokens: _Tokens,
                      last_s: np.ndarray, T: int) -> Optional[Lattice]:
-        fst, n = self.fst, self._n
-        finals = {int(s): fst.finals[s] for s in last_s
-                  if fst.finals[s] != TropicalWeight.zero}
+        rows = self.rows
+        finals = {int(s): rows.final(s) for s in last_s
+                  if rows.final(s) != TropicalWeight.zero}
         if not finals:
             warn("lattice decode: no final tokens; using all last-frame "
                  "tokens as final")
@@ -296,13 +410,13 @@ class LatticeFasterDecoder:
         # a frame at a time from the last: the emitting runs out of frame
         # f (slot 2f + 1), then the epsilon runs inside it (slot 2f)
         back = np.full(len(tokens.keys), INF)
-        fpos = tokens.index(np.array(list(finals), np.int64) + T * n)
+        fpos = tokens.index(np.array(list(finals), np.int64) | (T << 32))
         back[fpos[fpos >= 0]] = [fw for p, fw in zip(fpos, finals.values())
                                  if p >= 0]
         by_frame: Dict[int, List[_Links]] = {}
         for r in links:
             if len(r):
-                f = int(r.src[0] // n)
+                f = int(r.src[0] >> 32)
                 by_frame.setdefault(2 * f + (1 if r.emit else 0),
                                     []).append(r)
         for slot in range(2 * T + 1, -1, -1):
@@ -342,10 +456,10 @@ class LatticeFasterDecoder:
                 state_of[k] = lat.add_state()
             return state_of[k]
 
-        start = tokens.index(np.array([fst.start], np.int64))[0]
+        start = tokens.index(np.array([rows.start], np.int64))[0]
         if start < 0 or not keep[start]:
             cand = np.flatnonzero(keep)
-            frames = tokens.keys[cand] // n
+            frames = tokens.keys[cand] >> 32
             first = cand[frames == frames.min()]
             start = first[np.argmin(tokens.cost[first])]
         lat.set_start(get(int(tokens.keys[start])))
@@ -365,6 +479,6 @@ class LatticeFasterDecoder:
                 lat.add_arc(get(src), Arc(il, ol, (g, a), get(dst)))
         for p, (s, fw) in zip(fpos, finals.items()):
             if p >= 0 and keep[p]:
-                lat.finals[get(s + T * n)] = (fw, 0.0)
+                lat.finals[get(s | (T << 32))] = (fw, 0.0)
         connect(lat)
         return lat

@@ -6,7 +6,10 @@ decoder that every device decoder is held against (port of
 Parity: decoder/faster-decoder.h (beam token passing with
 ProcessEmitting/ProcessNonemitting).  The acoustic scores arrive as a
 precomputed (frames x pdfs) matrix, so this host loop only does the
-data-dependent search.
+data-dependent search.  The graph is a VectorFst or any object with
+`start`, `arcs[s]` and `finals[s]` (a lazy composition of
+decoder/biglm.py, a GrammarFst), whose states are read as the search
+reaches them.
 
 `align_equal` (bin/align-equal-compiled) gives the flat-start alignment
 of monophone training: a seeded random feasible path through the
@@ -49,10 +52,25 @@ class _Token:
         self.arc_olabel = olabel
 
 
+class _LazyEmitting(dict):
+    """`FasterDecoder.emitting_arcs` of an FST read on demand."""
+
+    def __init__(self, fst, tid_to_pdf):
+        super().__init__()
+        self.fst, self.tid_to_pdf = fst, tid_to_pdf
+
+    def __missing__(self, state):
+        row = self[state] = [(a.ilabel, a.olabel, a.weight, a.nextstate,
+                              int(self.tid_to_pdf[a.ilabel]))
+                             for a in self.fst.arcs[state]
+                             if a.ilabel != EPS]
+        return row
+
+
 class FasterDecoder:
     """Beam Viterbi producing the best path (alignment + words)."""
 
-    def __init__(self, fst: VectorFst, opts: Optional[FasterDecoderOptions] = None):
+    def __init__(self, fst, opts: Optional[FasterDecoderOptions] = None):
         self.fst = fst
         self.opts = opts or FasterDecoderOptions()
 
@@ -103,12 +121,18 @@ class FasterDecoder:
         words.reverse()
         return alignment, words, best_cost
 
-    def emitting_arcs(self, tid_to_pdf: np.ndarray) -> list:
+    def emitting_arcs(self, tid_to_pdf: np.ndarray):
         """Each state's emitting arcs as (ilabel, olabel, weight,
-        nextstate, pdf) tuples, the pdfs looked up once."""
-        return [[(a.ilabel, a.olabel, a.weight, a.nextstate,
-                  int(tid_to_pdf[a.ilabel]))
-                 for a in arcs if a.ilabel != EPS] for arcs in self.fst.arcs]
+        nextstate, pdf) tuples, the pdfs looked up once: a list over a
+        VectorFst's states, and for any other FST (a lazy composition, a
+        GrammarFst) a dict that reads a state's arcs when the search
+        first asks for them."""
+        if isinstance(self.fst, VectorFst):
+            return [[(a.ilabel, a.olabel, a.weight, a.nextstate,
+                      int(tid_to_pdf[a.ilabel]))
+                     for a in arcs if a.ilabel != EPS]
+                    for arcs in self.fst.arcs]
+        return _LazyEmitting(self.fst, tid_to_pdf)
 
     def _process_emitting(self, cur: Dict[int, _Token], emitting: list,
                           frame: np.ndarray, acoustic_scale: float,

@@ -81,7 +81,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "recipes.mmi", "recipes.synthetic_run", "cli.vtln_tools",
                  "cli.fst_tools", "cli.graph_tools", "cli.lat_tools2",
                  "lm.const_arpa", "lm.rescore", "lat.compose_pruned",
-                 "lat.sausages", "lat.word_align"):
+                 "lat.sausages", "lat.word_align", "fstext.grammar_fst",
+                 "decoder.biglm", "decoder.incremental",
+                 "decoder.dense_relax", "decoder.beam_sparse",
+                 "cli.decoders2_tools", "cli.tail15_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

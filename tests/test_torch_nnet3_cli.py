@@ -212,10 +212,11 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "fstrmepslocal", "fstrmsymbols",
                              "fsttablecompose", "gmm-acc-mllt",
                              "gmm-acc-stats-ali", "gmm-acc-stats-twofeats",
-                             "gmm-acc-stats2", "gmm-align-compiled", "gmm-est",
-                             "gmm-est-fmllr", "gmm-est-gaussians-ebw",
-                             "gmm-est-lvtln-trans", "gmm-est-weights-ebw",
-                             "gmm-global-acc-stats",
+                             "gmm-acc-stats2", "gmm-align-compiled",
+                             "gmm-decode-biglm-faster", "gmm-decode-simple",
+                             "gmm-est", "gmm-est-fmllr",
+                             "gmm-est-gaussians-ebw", "gmm-est-lvtln-trans",
+                             "gmm-est-weights-ebw", "gmm-global-acc-stats",
                              "gmm-global-acc-stats-twofeats",
                              "gmm-global-copy", "gmm-global-est",
                              "gmm-global-est-fmllr",
@@ -227,9 +228,11 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "gmm-global-sum-accs", "gmm-global-to-fgmm",
                              "gmm-gselect", "gmm-info", "gmm-init-lvtln",
                              "gmm-init-mono", "gmm-ismooth-stats",
-                             "gmm-latgen-faster", "gmm-rescore-lattice",
-                             "gmm-sum-accs", "gmm-train-lvtln-special",
-                             "gmm-transform-means", "ivector-adapt-plda",
+                             "gmm-latgen-biglm-faster", "gmm-latgen-faster",
+                             "gmm-latgen-map", "gmm-latgen-simple",
+                             "gmm-rescore-lattice", "gmm-sum-accs",
+                             "gmm-train-lvtln-special", "gmm-transform-means",
+                             "ivector-adapt-plda",
                              "ivector-compute-dot-products",
                              "ivector-compute-lda", "ivector-compute-plda",
                              "ivector-copy-plda", "ivector-extract",
@@ -244,8 +247,8 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "ivector-plda-scoring-dense", "ivector-randomize",
                              "ivector-subtract-global-mean",
                              "ivector-transform", "latgen-faster-mapped",
-                             "lattice-1best", "lattice-add-penalty",
-                             "lattice-align-words",
+                             "latgen-incremental-mapped", "lattice-1best",
+                             "lattice-add-penalty", "lattice-align-words",
                              "lattice-align-words-lexicon",
                              "lattice-best-path", "lattice-boost-ali",
                              "lattice-compose", "lattice-copy",
@@ -258,10 +261,11 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "lattice-to-ctm-conf", "lattice-to-nbest",
                              "lattice-to-post", "logistic-regression-copy",
                              "logistic-regression-eval",
-                             "logistic-regression-train", "make-h-transducer",
-                             "merge-vads", "nbest-to-ctm", "nbest-to-linear",
-                             "nnet3-align-compiled", "nnet3-average",
-                             "nnet3-chain-combine", "nnet3-chain-combine2",
+                             "logistic-regression-train", "make-grammar-fst",
+                             "make-h-transducer", "merge-vads", "nbest-to-ctm",
+                             "nbest-to-linear", "nnet3-align-compiled",
+                             "nnet3-average", "nnet3-chain-combine",
+                             "nnet3-chain-combine2",
                              "nnet3-chain-compute-prob",
                              "nnet3-chain-copy-egs", "nnet3-chain-e2e-get-egs",
                              "nnet3-chain-get-egs", "nnet3-chain-merge-egs",
@@ -282,11 +286,15 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "nnet3-discriminative-train", "nnet3-get-egs",
                              "nnet3-latgen-faster",
                              "nnet3-latgen-faster-batch",
-                             "nnet3-latgen-faster-looped", "nnet3-merge-egs",
+                             "nnet3-latgen-faster-lookahead",
+                             "nnet3-latgen-faster-looped",
+                             "nnet3-latgen-grammar", "nnet3-merge-egs",
                              "nnet3-shuffle-egs", "nnet3-subset-egs",
                              "nnet3-train", "online2-tcp-nnet3-decode-faster",
                              "online2-wav-dump-features",
                              "online2-wav-nnet3-latgen-faster",
+                             "online2-wav-nnet3-latgen-grammar",
+                             "online2-wav-nnet3-latgen-incremental",
                              "post-to-pdf-post", "prepare-lang",
                              "select-voiced-frames", "splice-feats",
                              "sum-tree-stats", "transform-feats",

@@ -21,7 +21,15 @@ the JAX package's `make_decoding_graph` makes them.  With use_log=False
 both determinizations are tropical and fstcopy takes fstpushspecial's
 place: the graph that weighs paths as `make_decoding_graph` does.
 
-Used by chip_smoke.py, tools/mkgraph_jax_bar.py and the tests:
+`flat_g` writes the one-state G over a lang's words at cost 0 that
+makes mkgraph's steps give HCL (the graph the lookahead decoder
+composes with G on demand); `unigram_arpa` cuts an ARPA LM to its
+unigrams (a second LM for the biglm decoders); `template_graphs` runs
+the template recipe's corpus, lang, features and LMs through the tools
+and builds the tri1 HCLG of tests/data/template_tri1.
+
+Used by chip_smoke.py, tools/mkgraph_jax_bar.py,
+tools/decoders_jax_bar.py and the tests:
 
     from mkgraph_steps import mkgraph
     report = mkgraph("data/lang", "data/lang/G.fst", "exp/tri1/tree",
@@ -197,3 +205,78 @@ def align_lexicon(lexicon, lang_dir: str, out: str) -> str:
                 ids = " ".join(str(phones[p]) for p in pron)
                 f.write(f"{words[word]} {words[word]} {ids}\n")
     return out
+
+
+def flat_g(lang_dir: str, out: str) -> str:
+    """A one-state G (final, cost 0) with a loop of cost 0 for every word
+    of the lang's words.txt; with it mkgraph's steps give HCL."""
+    from kaldi_tpu_torch.decoder.lang_dir import read_symbol_table
+    from kaldi_tpu_torch.fstext.fst import Arc, TropicalWeight, VectorFst
+    from kaldi_tpu_torch.fstext.openfst_io import write_fst
+    words = read_symbol_table(os.path.join(lang_dir, "words.txt"))
+    g = VectorFst(TropicalWeight)
+    s = g.add_state()
+    g.set_start(s)
+    g.set_final(s)
+    for w, i in sorted(words.items(), key=lambda kv: kv[1]):
+        if i > 0 and not w.startswith("#") and w not in ("<s>", "</s>"):
+            g.add_arc(s, Arc(i, i, 0.0, s))
+    with open(out, "wb") as f:
+        write_fst(f, g)
+    return out
+
+
+def unigram_arpa(arpa: str) -> str:
+    """The unigram section of an ARPA LM as an LM of its own, backoff
+    weights dropped."""
+    unis = [u for u in arpa.split("\\1-grams:", 1)[1]
+            .split("\\2-grams:")[0].strip().splitlines() if u.strip()]
+    out = ["\\data\\", f"ngram 1={len(unis)}", "", "\\1-grams:"]
+    out += [" ".join(u.split()[:2]) for u in unis]
+    return "\n".join(out + ["", "\\end\\", ""])
+
+
+TEMPLATE_UTTS = (112, 32)
+
+
+def template_graphs(d: str, use_gpu: str) -> Dict:
+    """The template recipe's corpus (recipes/template_corpus.py at its
+    112/32 utterances), prepare-lang, the test set's MFCCs
+    (compute-mfcc-feats --use-gpu=<use_gpu>, the recipe's options), G
+    from lm.arpa and G2 from its unigrams (arpa2fst), and the HCLG of
+    tests/data/template_tri1 (mkgraph at the recipe's scales), all in d
+    through the tools.  Returns the paths and the test transcripts."""
+    from kaldi_tpu_torch.cli import get_tool
+    from kaldi_tpu_torch.recipes.template_corpus import (FS,
+                                                         make_standard_corpus)
+    _train, test_txt = make_standard_corpus(d, *TEMPLATE_UTTS)
+    lang, test = os.path.join(d, "lang"), os.path.join(d, "test")
+    tri1 = os.path.join(REPO, "tests", "data", "template_tri1")
+    with open(os.path.join(d, "lm.arpa")) as f:
+        arpa = f.read()
+    with open(os.path.join(d, "lm_uni.arpa"), "w") as f:
+        f.write(unigram_arpa(arpa))
+    t0 = time.perf_counter()
+    for argv in (["prepare-lang", os.path.join(d, "lexicon.txt"), lang],
+                 ["compute-mfcc-feats", f"--use-gpu={use_gpu}",
+                  f"--sample-frequency={FS}", "--dither=0",
+                  f"scp:{test}/wav.scp", f"ark:{test}/feats.ark"],
+                 ["arpa2fst", f"--read-symbol-table={lang}/words.txt",
+                  os.path.join(d, "lm.arpa"), os.path.join(lang, "G.fst")],
+                 ["arpa2fst", f"--read-symbol-table={lang}/words.txt",
+                  os.path.join(d, "lm_uni.arpa"),
+                  os.path.join(lang, "G2.fst")]):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = get_tool(argv[0])(argv)
+        if rc != 0:
+            raise RuntimeError(f"{' '.join(argv)}: exit {rc}\n"
+                               f"{err.getvalue()}")
+    tools_s = time.perf_counter() - t0
+    rep = mkgraph(lang, os.path.join(lang, "G.fst"), f"{tri1}/tree",
+                  f"{tri1}/final.mdl", os.path.join(d, "graph"))
+    return {"lang": lang, "G": os.path.join(lang, "G.fst"),
+            "G2": os.path.join(lang, "G2.fst"),
+            "feats": f"ark:{test}/feats.ark", "model": f"{tri1}/final.mdl",
+            "hclg": os.path.join(d, "graph", "HCLG.fst"), "report": rep,
+            "tools_s": tools_s, "test_txt": test_txt}
