@@ -122,7 +122,14 @@ checkpoint, the .mdl, the 128 utterances' MFCCs and nnet3-compute's
 loglikes), dense_hclg, beam_sparse_hclg, lazy_lm (with the template tri1
 system), incremental and grammar, each held to
 tools/decoders_jax_bar.py's bars (dense_flat reads slice_viterbi's decode
-and runs in chip_smoke.py's main process only).
+and runs in chip_smoke.py's main process only), then batched_cuda2.
+
+With --features it runs the phases of the rest of the feature front end
+alone: chip_smoke.py's features group (features_phases: feats_offline,
+feats_dither, feats_pitch, cudafeat_tools over the legacy corpus's 128
+test utterances), then decoders_graph's system and batched_cuda2 (the
+batched decode of batched-wav-nnet3-cuda2 over the tool HCLG), each held
+to tools/features_jax_bar.py's bars.
 
 With --profile-check it runs the main path's slice_ng and profile_ng
 with profile_ng's tables built twice: from the profiler's raw events (as
@@ -133,7 +140,8 @@ of each reported, the two held equal.
 Run: python3 chip_main_path.py [--online | --legacy | --train |
      --train-scale | --nnet3 | --online2 | --xconfig | --latgen |
      --chain-cli | --disc | --chain-frame | --template | --ivector |
-     --backend | --synthetic | --mkgraph | --decoders | --profile-check]
+     --backend | --synthetic | --mkgraph | --decoders | --features |
+     --profile-check]
      (needs CUDA)
 """
 
@@ -329,6 +337,9 @@ def main() -> int:
                       "beam-sparse device decoders, on-the-fly LM "
                       "composition, incremental determinization and "
                       "grammar FSTs over the tool HCLG")
+    mode.add_argument("--features", action="store_true",
+                      help="the feature front end's phases alone (the "
+                      "features group, then batched_cuda2)")
     mode.add_argument("--profile-check", action="store_true",
                       help="run slice_ng and profile_ng with profile_ng's "
                       "tables also built from torch's event tree")
@@ -347,8 +358,17 @@ def main() -> int:
             or args.chain_cli or args.template or args.profile_check \
             or args.disc or args.chain_frame or args.ivector \
             or args.backend or args.synthetic or args.mkgraph \
-            or args.decoders:
-        if args.decoders:
+            or args.decoders or args.features:
+        if args.features:
+            out = cs.features_phases()
+            with tempfile.TemporaryDirectory() as d:
+                out["batched_cuda2"] = cs.run_batched_cuda2(
+                    cs.decoders_system(d))
+            cs.emit("features_summary", **{
+                name: {k: v for k, v in phase.items() if k != "launches"}
+                for name, phase in out.items() if name != "walls"})
+            done = "features_done"
+        elif args.decoders:
             cs.emit("decoders_summary", **{
                 name: {k: v for k, v in phase.items() if k != "launches"}
                 for name, phase in cs.decoders_phases().items()})

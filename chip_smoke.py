@@ -335,18 +335,38 @@ system, old G = new G byte for byte gmm-latgen-faster's),
 incremental (latgen-incremental-mapped's best paths against
 latgen-faster-mapped's, online2-wav-nnet3-latgen-incremental, no
 marker label leaked) and grammar (make-grammar-fst and
-nnet3-latgen-grammar byte for byte nnet3-latgen-faster's); kernels a-c
-launched 0 times in each.
+nnet3-latgen-grammar byte for byte nnet3-latgen-faster's), then
+batched_cuda2 (batched-wav-nnet3-cuda2 over the HCLG, the .mdl and the
+128 utterances: the WER within 0.5 points and 8 words of
+tools/features_jax_bar.py's, RealTimeX, the card's busy ms; the -cuda
+alias's lattices and batched-wav-nnet3-cuda-online's words as forwarding
+checks); kernels a-c launched 0 times in each.
+
+The rest of the feature front end (the features group, over the legacy
+corpus's 128 test utterances): feats_offline (compute-{mfcc,fbank,
+spectrogram,plp}-feats with and without --snip-edges, MFCC at 40/40: the
+frames tools/features_jax_bar.py's, the card within the feature bars of
+--use-gpu=no, device ms and launches a batch), feats_dither (a seed
+twice equal, another different, within 1.0 of the undithered features,
+the noise's mean and deviation), feats_pitch (make_mfcc_pitch.sh's
+pipeline to copy-feats --compress=true, each pitch frame count and
+column means the bar's, the compressed archive within the CM format's
+step, OnlinePitchFeature in 0.25 s pieces against the offline output and
+JAX's online figures) and cudafeat_tools (the i-vector tools equal to
+BatchedIvectorExtractor; the feature and CMVN tools, which forward to the
+plain ones, as forwarding checks); kernels a-c launched 0 times in
+each.
 
 The online2, xconfig and training phases (online2_graph to
 xconfig_zoo, after a decode of the legacy test utterances on the int16
 wire as slice_lex_int16's, then mkgraph_legacy and scoring_legacy;
 train_lex to ng_precondition, then the generic corpus recipe with
 mkgraph_template, the synthetic recipe and MMI; train_scale, then the
-i-vector tools) and the decoders group run in four processes of their
-own on the same card (`--worker online2`, `--worker train`, `--worker
-scale`, `--worker decoders`) at a lower
-host priority (nice 10), started once 3, 4 and slice_ng with profile_ng
+i-vector tools), the decoders group and the features group run in five
+processes of their own on the same card (`--worker online2`, `--worker
+train`, `--worker scale`, `--worker decoders`, `--worker features`) at a
+lower host priority (nice 10; the decoders and features groups at nice 19
+and 2 host threads), started once 3, 4 and slice_ng with profile_ng
 are done, beside the rest of 5 and 6-7; their lines are printed when
 they end, before 8.  The back ends and VTLN run in this process after
 7, beside the workers.  The walls from ng_cpu_check on are measured
@@ -382,6 +402,7 @@ import time
 import numpy as np
 import torch
 
+from kaldi_tpu_torch.base import io_funcs
 from kaldi_tpu_torch.chain.graphs import batch_pack, den_graph_from_fst_file
 from kaldi_tpu_torch.chain.objective import (ChainTrainingOptions, InArcs,
                                              chain_loss, den_arcs)
@@ -414,7 +435,11 @@ from kaldi_tpu_torch.decoder.native_viterbi import NativeViterbi
 from kaldi_tpu_torch.decoder.viterbi import (FasterDecoder,
                                              FasterDecoderOptions)
 from kaldi_tpu_torch.device import full_f32
-from kaldi_tpu_torch.feat.frontend import OfflineFeature, mulaw_encode
+from kaldi_tpu_torch.feat import functions as ff
+from kaldi_tpu_torch.feat.frontend import (OfflineFeature, dither_noise,
+                                           make_feature_computer,
+                                           mulaw_encode)
+from kaldi_tpu_torch.feat.pitch import compute_and_process_kaldi_pitch
 from kaldi_tpu_torch.feat.wave import WaveData
 from kaldi_tpu_torch.fstext.fst import Arc, LogWeight, VectorFst
 from kaldi_tpu_torch.fstext.openfst_io import read_fst_file, write_fst
@@ -440,7 +465,8 @@ from kaldi_tpu_torch.online.batched_device_pipeline import (
     BatchedDeviceOnlinePipelineNg, OnlineDynamicBatcher)
 from kaldi_tpu_torch.online.decoding import OnlineEndpointConfig
 from kaldi_tpu_torch.online.features import (OnlineFeature,
-                                             OnlineFeaturePipeline)
+                                             OnlineFeaturePipeline,
+                                             OnlinePitchFeature)
 from kaldi_tpu_torch.ops import _build, kernel_launch_counts
 from kaldi_tpu_torch.ops import block_chain_lattice_step as bcl
 from kaldi_tpu_torch.ops import block_chain_step as bcs
@@ -7983,15 +8009,10 @@ def run_dense_flat(flat64, graph64, loglikes: torch.Tensor, out_lens,
     return res
 
 
-def decoders_system(d: str) -> dict:
-    """decoders_graph: the legacy corpus's HCLG through mkgraph.sh's steps
-    (mkgraph_legacy's graph), HCL (the same steps over mkgraph_steps.flat_g)
-    and the legacy G for the lookahead tool; the legacy TDNN-F as an
-    xconfig checkpoint with final.tm (as xconfig_graph writes it) and as a
-    .mdl (as online2_graph writes it); the test utterances' MFCCs on the
-    int16 wire (the port's frontend) and nnet3-compute's loglikes of them
-    (the ones mkgraph_legacy decodes); a wav archive of the first
-    DEC_ONLINE_UTTS."""
+def legacy_test_corpus(d: str) -> dict:
+    """The legacy corpus (its fingerprint the JAX package's) and its test
+    utterances on the int16 wire, all of them in the wav archive
+    d/wav_all.ark."""
     spec = BenchCorpusSpec()
     lexicon, _, _, test_txt, test_wav, lm_text = make_corpus(
         spec, train_audio=False)
@@ -8000,8 +8021,32 @@ def decoders_system(d: str) -> dict:
     if fingerprint != LEX_FINGERPRINT:
         raise SystemExit(f"corpus fingerprint {fingerprint}, the JAX "
                          f"package's {LEX_FINGERPRINT}")
-    _lang, tm, tree = chain_tm_tree_for(lexicon)
     utts = sorted(test_wav)
+    waves = {u: np.clip(test_wav[u], -32767, 32767).astype(np.int16)
+             for u in utts}
+    wav_all = os.path.join(d, "wav_all.ark")
+    with TableWriter("wave", f"ark:{wav_all}") as w:
+        for u in utts:
+            w.write(u, WaveData(spec.fs, waves[u]))
+    return {"spec": spec, "lexicon": lexicon, "lm_text": lm_text,
+            "test_txt": test_txt, "fingerprint": fingerprint, "utts": utts,
+            "waves": waves, "wav_all": f"ark:{wav_all}"}
+
+
+def decoders_system(d: str) -> dict:
+    """decoders_graph: the legacy corpus's HCLG through mkgraph.sh's steps
+    (mkgraph_legacy's graph), HCL (the same steps over mkgraph_steps.flat_g)
+    and the legacy G for the lookahead tool; the legacy TDNN-F as an
+    xconfig checkpoint with final.tm (as xconfig_graph writes it) and as a
+    .mdl (as online2_graph writes it); the test utterances' MFCCs on the
+    int16 wire (the port's frontend) and nnet3-compute's loglikes of them
+    (the ones mkgraph_legacy decodes); a wav archive of the first
+    DEC_ONLINE_UTTS, and one of all of them (batched_cuda2's)."""
+    corpus = legacy_test_corpus(d)
+    spec, lexicon, lm_text, test_txt, fingerprint, utts, waves = (
+        corpus[k] for k in ("spec", "lexicon", "lm_text", "test_txt",
+                            "fingerprint", "utts", "waves"))
+    _lang, tm, tree = chain_tm_tree_for(lexicon)
     t0 = time.perf_counter()
     inp = mkgraph_steps.legacy_inputs(os.path.join(d, "lm"), lexicon,
                                       lm_text, tm, tree)
@@ -8034,8 +8079,6 @@ def decoders_system(d: str) -> dict:
     del native
     model_s = time.perf_counter() - t0
     fe = OfflineFeature(mfcc_options(spec, num_ceps=40), device="cuda")
-    waves = {u: np.clip(test_wav[u], -32767, 32767).astype(np.int16)
-             for u in utts}
     feats = {}
     for u in utts:
         f, n = fe.compute_batch_device([waves[u]])
@@ -8071,7 +8114,8 @@ def decoders_system(d: str) -> dict:
             "refs": {u: test_txt[u] for u in utts}, "loglikes": loglikes,
             "feats": f"ark:{os.path.join(d, 'feats.ark')}",
             "loglikes_ark": f"ark:{os.path.join(d, 'loglikes.ark')}",
-            "wav": f"ark:{os.path.join(d, 'wav.ark')}"}
+            "wav": f"ark:{os.path.join(d, 'wav.ark')}",
+            "wav_all": corpus["wav_all"]}
 
 
 def _subset_ark(path: str, src: dict, keys) -> str:
@@ -8524,9 +8568,532 @@ def run_grammar(sysd: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the rest of the feature front end and the cudafeat / cudadecoder tools
+# ("features" worker group: feats_offline, feats_dither, feats_pitch,
+# cudafeat_tools over the legacy corpus's 128 test utterances;
+# batched_cuda2 in the decoders group after grammar, over its HCLG)
+
+# tools/features_jax_bar.py on the CPU (JAX): the frame counts of each
+# configuration, each utterance's processed pitch (frames, column means)
+# and the WER of batched-wav-nnet3-cuda2's pipeline with every third frame
+FEATURES_JAX_BAR = os.path.join(REPO, "tests", "data",
+                                "features_jax_bar.json")
+FEAT_TYPES = ("mfcc", "fbank", "spectrogram", "plp")
+FEAT_PITCH_MEAN_TOL = 1e-3      # a column mean against the bar's
+FEAT_PITCH_MISSES = 1           # utterances allowed past it (a tied lag)
+FEAT_ONLINE_UTTS = 16           # OnlinePitchFeature's, in 0.25 s pieces
+FEAT_ONLINE_REVISED = 1e-2      # a finalized frame this far off the offline
+FEAT_DITHER = 1.0
+EPS32 = float(np.finfo(np.float32).eps)
+# batched-wav-nnet3-cuda2 at decode.sh's beams with the models' MFCC
+CUDA2_ARGS = ["--dither=0", "--num-ceps=40", "--num-mel-bins=40",
+              "--beam=15", "--lattice-beam=8", "--max-active=7000",
+              "--max-batch-size=64", "--frame-subsampling-factor=3",
+              "--acoustic-scale=1.0"]
+
+
+def feature_configs() -> list:
+    """(name, tool, options) of each offline configuration, as
+    tools/features_jax_bar.py names them."""
+    out = [(f"{t}{'' if snip else '_nosnip'}", f"compute-{t}-feats",
+            ["--dither=0", f"--snip-edges={str(snip).lower()}"])
+           for t in FEAT_TYPES for snip in (True, False)]
+    out.append(("mfcc40", "compute-mfcc-feats",
+                ["--dither=0", "--num-ceps=40", "--num-mel-bins=40"]))
+    return out
+
+
+def feature_excess(kind: str, got: np.ndarray, ref: np.ndarray):
+    """(elements past the bar, the worst excess) of a feature type:
+    atol 2e-3 / rtol 1e-4, PLP 5e-3 / 1e-3; a spectrogram bin also
+    4 eps sqrt(S / P) of float32 FFT rounding (tests/feat_tolerance.py)."""
+    ref64 = ref.astype(np.float64)
+    if kind == "plp":
+        tol = 5e-3 + 1e-3 * np.abs(ref64)
+    else:
+        tol = 2e-3 + 1e-4 * np.abs(ref64)
+    if kind == "spectrogram":
+        power = np.exp(ref64[:, 1:])
+        tol[:, 1:] += 4 * EPS32 * np.sqrt(power.sum(1, keepdims=True)
+                                          / power)
+    excess = np.abs(got - ref64) - tol
+    return int((excess > 0).sum()), float(excess.max(initial=-1.0))
+
+
+def features_system(d: str) -> dict:
+    """The legacy corpus's 128 test utterances on the int16 wire, as
+    decoders_system has them (legacy_test_corpus), and the JAX bar."""
+    corpus = legacy_test_corpus(d)
+    with open(FEATURES_JAX_BAR) as f:
+        bar = json.load(f)
+    return {"dir": d, "bar": bar, **{k: corpus[k] for k in
+                                     ("spec", "utts", "waves", "wav_all")}}
+
+
+def run_feats_offline(fsys: dict) -> dict:
+    """feats_offline: compute-{mfcc,fbank,spectrogram,plp}-feats over the
+    128 utterances at the reference's defaults with --dither=0, each also
+    with --snip-edges=false, and MFCC at 40/40, on the card and at
+    --use-gpu=no: the frames of each configuration tools/features_jax_bar.
+    py's, every element within feature_excess's bar of the CPU's; then a
+    batch of 32 utterances of each type on the card: device ms (CUDA
+    events, the median of 3 calls) and launches (profiler)."""
+    reset_kernel_counts()
+    d, bar = fsys["dir"], fsys["bar"]["frames"]
+    seconds: dict = {}
+    configs = {}
+    for name, tool, opts in feature_configs():
+        out = {}
+        for gpu in ("yes", "no"):
+            ark = os.path.join(d, f"{name}.{gpu}.ark")
+            timed_tool(seconds, tool, f"--use-gpu={gpu}", *opts,
+                       fsys["wav_all"], f"ark:{ark}", key=f"{name}_{gpu}")
+            out[gpu] = read_ark(ark)
+            os.remove(ark)
+        kind = tool.split("-")[1]
+        past, worst, frames = 0, -1.0, 0
+        for u in fsys["utts"]:
+            a, b = out["yes"][u], out["no"][u]
+            if a.shape != b.shape:
+                raise SystemExit(f"feats_offline: {name} {u} {a.shape} on "
+                                 f"the card, {b.shape} on the CPU")
+            n, w = feature_excess(kind, a, b)
+            past, worst = past + n, max(worst, w)
+            frames += a.shape[0]
+        configs[name] = {"frames": frames, "bar_frames": bar[name],
+                         "dim": int(a.shape[1]), "elements_past_bar": past,
+                         "worst_excess": worst}
+    batch = [fsys["waves"][u] for u in fsys["utts"][:32]]
+    device = {}
+    for kind in FEAT_TYPES:
+        fe = make_feature_computer(kind, device="cuda")
+        fe.opts.frame_opts.dither = 0.0
+        fe.compute_batch_device(batch)                    # warm-up
+        ms = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            feats, nframes = fe.compute_batch_device(batch)
+            ev[1].record()
+            ev[1].synchronize()
+            ms.append(ev[0].elapsed_time(ev[1]))
+        prof = profile_call(lambda: fe.compute_batch_device(batch), top=5)
+        device[kind] = {"device_ms_median": sorted(ms)[1],
+                        "launches": prof["kernel_launches"],
+                        "profiled_device_ms": prof["device_ms"],
+                        "frames": int(nframes.sum()),
+                        "padded_frames": int(feats.shape[0]
+                                             * feats.shape[1]),
+                        "top_ops": prof.get("by_op", [])[:5]}
+    res = {"utterances": len(fsys["utts"]), "configs": configs,
+           "device_batch_32": device, "tool_s": seconds,
+           "launches": kernel_launch_counts()}
+    emit("feats_offline", **res)
+    bad = [n for n, c in configs.items()
+           if c["frames"] != c["bar_frames"] or c["elements_past_bar"]]
+    if bad:
+        raise SystemExit(f"feats_offline: {bad} differ in frames from "
+                         "tools/features_jax_bar.py's or past the bar of "
+                         "--use-gpu=no")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in feats_offline: {res['launches']}")
+    return res
+
+
+def run_feats_dither(fsys: dict) -> dict:
+    """feats_dither: the models' MFCC (40/40) with --dither 1.0 on the card
+    over the 128 utterances in batches of 32: one seed twice torch.equal,
+    another seed different, every coefficient within tests/test_feat.py:
+    109's 1.0 of the undithered features; the noise itself over a
+    (128, 512, 400) draw (26e6 samples): mean within 0.01 x dither of 0,
+    standard deviation within 1% of dither."""
+    reset_kernel_counts()
+    spec = fsys["spec"]
+    plain = OfflineFeature(mfcc_options(spec, num_ceps=40), device="cuda")
+    opts = mfcc_options(spec, num_ceps=40)
+    opts.frame_opts.dither = FEAT_DITHER
+    fe = OfflineFeature(opts, device="cuda")
+    equal = differ = True
+    worst = 0.0
+    utts = fsys["utts"]
+    t0 = time.perf_counter()
+    for b0 in range(0, len(utts), 32):
+        batch = [fsys["waves"][u] for u in utts[b0:b0 + 32]]
+        a, n = fe.compute_batch_device(batch, seed=b0 + 1)
+        b, _ = fe.compute_batch_device(batch, seed=b0 + 1)
+        c, _ = fe.compute_batch_device(batch, seed=b0 + 1000)
+        p, _ = plain.compute_batch_device(batch)
+        equal &= bool(torch.equal(a, b))
+        for i in range(len(batch)):
+            differ &= not torch.equal(a[i, :n[i]], c[i, :n[i]])
+            worst = max(worst, float((a[i, :n[i]] - p[i, :n[i]])
+                                     .abs().max()))
+    wall = time.perf_counter() - t0
+    noise = dither_noise((128, 512, 400), 7, FEAT_DITHER,
+                         torch.device("cuda")).double()
+    mean, std = float(noise.mean()), float(noise.std())
+    res = {"utterances": len(utts), "seed_twice_equal": equal,
+           "other_seed_differs": differ,
+           "max_abs_change": worst, "bound": 1.0,
+           "noise_draws": noise.numel(), "noise_mean": mean,
+           "noise_std": std, "dither": FEAT_DITHER, "wall_s": wall,
+           "launches": kernel_launch_counts()}
+    emit("feats_dither", **res)
+    if not (equal and differ and worst < 1.0
+            and abs(mean) < 0.01 * FEAT_DITHER
+            and abs(std - FEAT_DITHER) < 0.01 * FEAT_DITHER):
+        raise SystemExit("feats_dither: a bar failed")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in feats_dither: {res['launches']}")
+    return res
+
+
+def column_steps(mat: np.ndarray) -> np.ndarray:
+    """A bound on each column's error after the CM format (kaldi's
+    compressed-matrix.h, one byte with column headers), from the column's
+    own values in plain numpy: the percentile headers p0, p25, p75, p100
+    (sorted rows 0, n/4, 3n/4, n-1) split it into 64, 128 and 63 steps;
+    each header is a uint16 over the matrix's range, off by at most
+    two of its units (rounding, and the +1 that keeps headers apart).
+    The bound is the widest segment's step with both ends moved out by
+    that slop, plus the slop (a value clamped to a moved end)."""
+    m = mat.astype(np.float32)
+    if m.shape[0] < 5:
+        raise SystemExit("column_steps: fewer than 5 rows")
+    slop = 2.0 * (float(m.max()) - float(m.min())) / 65535
+    srt = np.sort(m.astype(np.float64), axis=0)
+    q = m.shape[0] // 4
+    p = srt[[0, q, 3 * q, m.shape[0] - 1]]
+    return np.max(np.stack([(p[1] - p[0] + 2 * slop) / 64,
+                            (p[2] - p[1] + 2 * slop) / 128,
+                            (p[3] - p[2] + 2 * slop) / 63]), axis=0) + slop
+
+
+def run_feats_pitch(fsys: dict) -> dict:
+    """feats_pitch: make_mfcc_pitch.sh's pipeline over the 128 utterances
+    (compute-mfcc-feats, compute-and-process-kaldi-pitch-feats, paste-feats,
+    copy-feats --compress=true): the combined pitch tool byte for byte
+    compute-kaldi-pitch-feats then process-kaldi-pitch-feats; each element
+    read back from the compressed archive within its column's
+    quantisation step; each utterance's pitch frames tools/features_jax_
+    bar.py's and its three column means within FEAT_PITCH_MEAN_TOL (at
+    most FEAT_PITCH_MISSES utterances past it, each reported with its
+    gap); OnlinePitchFeature on FEAT_ONLINE_UTTS utterances in 0.25 s
+    pieces: with max_frames_latency past the stream's length bit for bit
+    the offline output; at the default latency (30) each utterance's
+    frames final before input_finished as many as tools/features_jax_bar.
+    py's, as many of them past FEAT_ONLINE_REVISED of the offline output
+    as there, and their column means within FEAT_PITCH_MEAN_TOL (at most
+    FEAT_PITCH_MISSES utterances missing, each reported); that no
+    finalized frame changed is reported too, though OnlinePitchFeature
+    copies its finalized frames back on every call; the host seconds."""
+    reset_kernel_counts()
+    d, bar = fsys["dir"], fsys["bar"]["pitch"]
+    fs = f"--sample-frequency={fsys['spec'].fs}"
+    seconds: dict = {}
+    ark = {k: os.path.join(d, f"{k}.ark") for k in
+           ("mfcc", "pitch", "raw", "pitch2", "paste", "comp")}
+    timed_tool(seconds, "compute-mfcc-feats", "--use-gpu=yes", fs,
+               "--dither=0", "--num-ceps=40", "--num-mel-bins=40",
+               fsys["wav_all"], f"ark:{ark['mfcc']}")
+    timed_tool(seconds, "compute-and-process-kaldi-pitch-feats", fs,
+               fsys["wav_all"], f"ark:{ark['pitch']}")
+    timed_tool(seconds, "compute-kaldi-pitch-feats", fs, fsys["wav_all"],
+               f"ark:{ark['raw']}")
+    timed_tool(seconds, "process-kaldi-pitch-feats", f"ark:{ark['raw']}",
+               f"ark:{ark['pitch2']}")
+    timed_tool(seconds, "paste-feats", "--length-tolerance=2",
+               f"ark:{ark['mfcc']}", f"ark:{ark['pitch']}",
+               f"ark:{ark['paste']}")
+    timed_tool(seconds, "copy-feats", "--compress=true",
+               f"ark:{ark['paste']}", f"ark:{ark['comp']}")
+    with open(ark["pitch"], "rb") as f, open(ark["pitch2"], "rb") as g:
+        two_step_equal = f.read() == g.read()
+    pitch, paste, comp = (read_ark(ark[k]) for k in
+                          ("pitch", "paste", "comp"))
+    past_step, frames_off, misses = 0, [], {}
+    for u in fsys["utts"]:
+        x, y = paste[u], comp[u]
+        past_step += int((np.abs(y.astype(np.float64) - x)
+                          > column_steps(x)[None, :]).sum())
+        if pitch[u].shape[0] != bar[u]["frames"]:
+            frames_off.append(u)
+        gap = float(np.max(np.abs(pitch[u].mean(axis=0)
+                                  - np.asarray(bar[u]["means"]))))
+        if gap > FEAT_PITCH_MEAN_TOL:
+            misses[u] = gap
+    # the online pitch, in 0.25 s pieces
+    fsamp = fsys["spec"].fs
+    piece = int(0.25 * fsamp)
+    online = {"utterances": FEAT_ONLINE_UTTS, "piece_s": 0.25}
+    obar = fsys["bar"]["online_pitch"]
+    online_misses = {}
+    for mode, latency in (("whole", 10 ** 9), ("default", 30)):
+        t0 = time.perf_counter()
+        chunks, changed, equal_offline, t_offline = 0, 0, 0, 0.0
+        for u in fsys["utts"][:FEAT_ONLINE_UTTS]:
+            w = fsys["waves"][u].astype(np.float32)
+            op = OnlinePitchFeature(max_frames_latency=latency)
+            finals = []
+            for s in range(0, len(w), piece):
+                op.accept_waveform(fsamp, w[s:s + piece])
+                n = op.num_frames_final
+                finals.append(op.get_frames(np.arange(n)).copy())
+                chunks += 1
+            op.input_finished()
+            out = op.get_frames(np.arange(op.num_frames_ready()))
+            changed += sum(not np.array_equal(out[:len(f)], f)
+                           for f in finals)
+            t1 = time.perf_counter()
+            offline = compute_and_process_kaldi_pitch(w)
+            t_offline += time.perf_counter() - t1
+            if mode == "whole":
+                equal_offline += np.array_equal(out, offline)
+                continue
+            final = finals[-1]
+            revised = int((np.abs(final - offline[:len(final)]).max(
+                axis=1, initial=0.0) > FEAT_ONLINE_REVISED).sum())
+            gap = float(np.max(np.abs(final.mean(axis=0)
+                                      - np.asarray(obar[u]["means"]))))
+            if len(final) != obar[u]["final_frames"] or \
+                    revised != obar[u]["revised"] or \
+                    gap > FEAT_PITCH_MEAN_TOL:
+                online_misses[u] = {"final_frames": len(final),
+                                    "revised": revised, "mean_gap": gap}
+        t_online = time.perf_counter() - t0 - t_offline
+        online[mode] = {"chunks": chunks, "changed_final_frames": changed,
+                        "host_s": t_online,
+                        "host_ms_a_chunk": 1e3 * t_online / chunks}
+        if mode == "whole":
+            online[mode]["equal_offline"] = equal_offline
+        else:
+            online[mode].update(
+                misses=online_misses,
+                revised=sum(obar[u]["revised"]
+                            for u in fsys["utts"][:FEAT_ONLINE_UTTS]))
+    res = {"utterances": len(fsys["utts"]), "tool_s": seconds,
+           "two_step_equal": two_step_equal,
+           "elements_past_step": past_step,
+           "pitch_frames_off_bar": frames_off,
+           "pitch_mean_misses": misses, "online": online,
+           "launches": kernel_launch_counts()}
+    emit("feats_pitch", **res)
+    if not two_step_equal or past_step or frames_off or \
+            len(misses) > FEAT_PITCH_MISSES or \
+            online["whole"]["equal_offline"] != FEAT_ONLINE_UTTS or \
+            len(online_misses) > FEAT_PITCH_MISSES or \
+            online["whole"]["changed_final_frames"] or \
+            online["default"]["changed_final_frames"]:
+        raise SystemExit("feats_pitch: a bar failed")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in feats_pitch: {res['launches']}")
+    return res
+
+
+def run_cudafeat_tools(fsys: dict) -> dict:
+    """cudafeat_tools: the eight cudafeatbin tools on the card over the 128
+    utterances.  Forwarding checks, which show that the forwards run (the
+    feature tools are the plain computers' runner, the CMVN tools
+    apply-cmvn-online; feats_offline holds that runner to the CPU):
+    compute-{mfcc,fbank}-feats-cuda and compute-{mfcc,fbank}-online-
+    batched-cuda torch.equal to the plain tools at the same batch size
+    (dither on: one seed a batch from the same stream), and
+    apply-cmvn-online-cuda and apply-batched-cmvn-online-cuda byte for
+    byte apply-cmvn-online.  The bar: compute-online-feats-cuda and
+    -batched-cuda with the committed flagship_ng_ivec.npz (the main
+    path's MFCC, 40/40): their i-vectors torch.equal to
+    BatchedIvectorExtractor over the tool's own features and batches."""
+    reset_kernel_counts()
+    d = fsys["dir"]
+    fs = f"--sample-frequency={fsys['spec'].fs}"
+    seconds: dict = {}
+    res = {"utterances": len(fsys["utts"])}
+    for cuda, plain in (("compute-mfcc-feats-cuda", "compute-mfcc-feats"),
+                        ("compute-fbank-feats-cuda", "compute-fbank-feats"),
+                        ("compute-mfcc-online-batched-cuda",
+                         "compute-mfcc-feats"),
+                        ("compute-fbank-online-batched-cuda",
+                         "compute-fbank-feats")):
+        out = {}
+        for tool in (cuda, plain):
+            ark = os.path.join(d, f"{tool}.ark")
+            timed_tool(seconds, tool, "--use-gpu=yes", fs, "--batch-size=64",
+                       fsys["wav_all"], f"ark:{ark}")
+            out[tool] = read_ark(ark)
+        res[cuda] = {"forwarding_equal_plain": (
+            len(out[cuda]) == len(fsys["utts"])
+            and all(torch.equal(torch.from_numpy(out[cuda][u]),
+                                torch.from_numpy(out[plain][u]))
+                    for u in fsys["utts"]))}
+    mfcc = os.path.join(d, "mfcc13.ark")
+    timed_tool(seconds, "compute-mfcc-feats", "--use-gpu=yes", fs,
+               "--dither=0", fsys["wav_all"], f"ark:{mfcc}")
+    stats = sum(ff.acc_cmvn_stats(m) for m in read_ark(mfcc).values())
+    gstats = os.path.join(d, "global_cmvn.mat")
+    write_kaldi_object(lambda s, b: io_funcs.write_matrix(s, b, stats),
+                       gstats)
+    outs = {}
+    for tool in ("apply-cmvn-online", "apply-cmvn-online-cuda",
+                 "apply-batched-cmvn-online-cuda"):
+        ark = os.path.join(d, f"{tool}.ark")
+        timed_tool(seconds, tool, gstats, f"ark:{mfcc}", f"ark:{ark}")
+        with open(ark, "rb") as f:
+            outs[tool] = f.read()
+    for tool in ("apply-cmvn-online-cuda", "apply-batched-cmvn-online-cuda"):
+        res[tool] = {"forwarding_equal_host_bytes": outs[tool] ==
+                     outs["apply-cmvn-online"]}
+    ivec = os.path.join(ART, "flagship_ng_ivec.npz")
+    bex = BatchedIvectorExtractor(load_ivector_extractor(ivec),
+                                  device="cuda")
+    period, bsz = 10, 64
+    for tool in ("compute-online-feats-cuda",
+                 "compute-online-feats-batched-cuda"):
+        fa, ia = (os.path.join(d, f"{tool}.{k}.ark") for k in "fi")
+        timed_tool(seconds, tool, "--use-gpu=yes", fs, "--dither=0",
+                   "--num-ceps=40", "--num-mel-bins=40",
+                   f"--ivector-period={period}", f"--batch-size={bsz}",
+                   ivec, fsys["wav_all"], f"ark:{fa}", f"ark:{ia}")
+        feats, ivecs = read_ark(fa), read_ark(ia)
+        equal = True
+        utts = fsys["utts"]
+        for b0 in range(0, len(utts), bsz):
+            part = utts[b0:b0 + bsz]
+            lens = np.array([feats[u].shape[0] for u in part])
+            batch = np.zeros((len(part), lens.max(), 40), np.float32)
+            for i, u in enumerate(part):
+                batch[i, :lens[i]] = feats[u]
+            state = bex.init_state(len(part))
+            rows = [[] for _ in part]
+            for c0 in range(0, int(lens.max()), period):
+                t = np.arange(c0, min(c0 + period, int(lens.max())))
+                state = bex.acc_chunk(
+                    state, torch.from_numpy(batch[:, c0:c0 + period]).cuda(),
+                    torch.from_numpy(t[None] < lens[:, None]).cuda())
+                iv = bex.ivector(state).cpu().numpy()
+                for i in range(len(part)):
+                    if c0 < lens[i]:
+                        rows[i].append(iv[i])
+            equal &= all(torch.equal(torch.from_numpy(ivecs[u]),
+                                     torch.from_numpy(np.stack(rows[i])))
+                         for i, u in enumerate(part))
+        res[tool] = {"ivectors_equal_extractor": equal,
+                     "ivector_rows": sum(len(v) for v in ivecs.values())}
+    bad = [tool for tool, checks in res.items() if tool != "utterances"
+           and not all(v for v in checks.values() if isinstance(v, bool))]
+    res.update(tool_s=seconds, launches=kernel_launch_counts())
+    emit("cudafeat_tools", **res)
+    if bad:
+        raise SystemExit(f"cudafeat_tools: {bad} differ")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in cudafeat_tools: {res['launches']}")
+    return res
+
+
+def features_phases() -> dict:
+    """The features group: feats_offline, feats_dither, feats_pitch and
+    cudafeat_tools over the legacy corpus's 128 test utterances, each
+    phase's wall beside it."""
+    walls, out = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        fsys = features_system(d)
+        for name, fn in (("feats_offline", run_feats_offline),
+                         ("feats_dither", run_feats_dither),
+                         ("feats_pitch", run_feats_pitch),
+                         ("cudafeat_tools", run_cudafeat_tools)):
+            t0 = time.perf_counter()
+            out[name] = fn(fsys)
+            walls[name] = time.perf_counter() - t0
+    emit("features_walls", **walls)
+    out["walls"] = walls
+    return out
+
+
+def run_batched_cuda2(sysd: dict) -> dict:
+    """batched_cuda2: batched-wav-nnet3-cuda2 over the tool HCLG, the .mdl
+    and the 128 utterances (CUDA2_ARGS: decode.sh's beams, the models'
+    MFCC): the lattices' best paths' WER within DEC_WER_BAND points and
+    DEC_WORDS_BAND words of tools/features_jax_bar.py's (JAX's pipeline
+    with every third frame; JAX's tool as it stands reads the first third
+    of the frames, its WER reported beside); RealTimeX and the tool's
+    stats line (feature, forward, search seconds); the card's busy ms
+    over a second, profiled run.  Two forwarding checks, which show that
+    the forwards run and not what they compute (each tool forwards to
+    the other): the -cuda alias's lattices byte for byte -cuda2's, and
+    batched-wav-nnet3-cuda-online's words online2-wav-nnet3-latgen-
+    faster's on the first DEC_ONLINE_UTTS."""
+    reset_kernel_counts()
+    d = sysd["dir"]
+    with open(FEATURES_JAX_BAR) as f:
+        bar = json.load(f)["decode"]
+    seconds: dict = {}
+    lat = os.path.join(d, "cuda2.lat")
+    log = timed_tool(seconds, "batched-wav-nnet3-cuda2", "--use-gpu=yes",
+                     *CUDA2_ARGS, sysd["mdl"], sysd["hclg"],
+                     sysd["wav_all"], f"ark:{lat}")
+    realtimex = float(log.rsplit("RealTimeX:", 1)[1].split()[0])
+    stats = tool_stats("batched-wav-nnet3-cuda2", log)
+    names = sysd["names"]
+    lats = dict(SequentialTableReader("lattice", f"ark:{lat}"))
+    hyps = {u: [names[w] for w in latf.lattice_best_path(la)[1]]
+            for u, la in lats.items()}
+    wer = wer_of(hyps, sysd["refs"])
+    errors = word_errors(wer, sysd["refs"])
+    alias = os.path.join(d, "cuda.lat")
+    timed_tool(seconds, "batched-wav-nnet3-cuda", "--use-gpu=yes",
+               *CUDA2_ARGS, sysd["mdl"], sysd["hclg"], sysd["wav_all"],
+               f"ark:{alias}")
+    with open(lat, "rb") as f, open(alias, "rb") as g:
+        alias_equal = f.read() == g.read()
+    prof = profile_call(lambda: timed_tool(
+        seconds, "batched-wav-nnet3-cuda2", "--use-gpu=yes", *CUDA2_ARGS,
+        sysd["mdl"], sysd["hclg"], sysd["wav_all"],
+        f"ark:{os.path.join(d, 'cuda2_prof.lat')}", key="profiled"), top=8)
+    words = {}
+    opts = online2_args({"spec": sysd["spec"]})
+    for tool in ("batched-wav-nnet3-cuda-online",
+                 "online2-wav-nnet3-latgen-faster"):
+        out = os.path.join(d, f"{tool}.words")
+        timed_tool(seconds, tool, "--use-gpu=yes", *opts, "--beam=15",
+                   sysd["mdl"], sysd["hclg"], sysd["wav"], f"ark,t:{out}")
+        with open(out, "rb") as f:
+            words[tool] = f.read()
+    res = {"utterances": len(lats), "wer": wer, "word_errors": errors,
+           "bar_wer": bar["wer"], "bar_word_errors": bar["word_errors"],
+           "jax_tool_wer": bar["tool_wer"], "realtimex": realtimex,
+           "stats": stats, "wall_s": seconds["batched-wav-nnet3-cuda2"],
+           "device_busy_ms": prof["device_ms"],
+           "busy_share": prof["device_ms"] / 1e3 / prof["wall_s_profiled"],
+           "launches_profiled": prof["kernel_launches"],
+           "forwarding_checks": {
+               "cuda_lattices_equal_cuda2": alias_equal,
+               "cuda_online_words_equal_online2": (
+                   words["batched-wav-nnet3-cuda-online"]
+                   == words["online2-wav-nnet3-latgen-faster"]),
+               "cuda_online_utterances": len(
+                   words["batched-wav-nnet3-cuda-online"].splitlines())},
+           "tool_s": seconds, "launches": kernel_launch_counts()}
+    emit("batched_cuda2", **res)
+    if abs(wer - bar["wer"]) > DEC_WER_BAND or \
+            abs(errors - bar["word_errors"]) > DEC_WORDS_BAND or \
+            len(lats) != len(sysd["utts"]):
+        raise SystemExit(f"batched_cuda2: WER {wer:.3f}% ({errors}), "
+                         f"tools/features_jax_bar.py's {bar['wer']:.3f}% "
+                         f"({bar['word_errors']}), {len(lats)} lattices")
+    fwd = res["forwarding_checks"]
+    if not (fwd["cuda_lattices_equal_cuda2"]
+            and fwd["cuda_online_words_equal_online2"]
+            and fwd["cuda_online_utterances"] == DEC_ONLINE_UTTS):
+        raise SystemExit(f"batched_cuda2: a forwarding check failed: {fwd}")
+    if any(res["launches"].values()):
+        raise SystemExit(f"a kernel ran in batched_cuda2: {res['launches']}")
+    return res
+
+
 def decoders_phases() -> dict:
     """The decoders group: decoders_graph, dense_hclg, beam_sparse_hclg,
-    lazy_lm, incremental and grammar, each phase's wall beside it."""
+    lazy_lm, incremental, grammar and batched_cuda2, each phase's wall
+    beside it."""
     walls = {}
     with tempfile.TemporaryDirectory() as d:
         t0 = time.perf_counter()
@@ -8542,7 +9109,9 @@ def decoders_phases() -> dict:
                          ("lazy_lm", lambda: run_lazy_lm(sysd, dense)),
                          ("incremental", lambda: run_incremental(sysd,
                                                                  dense)),
-                         ("grammar", lambda: run_grammar(sysd))):
+                         ("grammar", lambda: run_grammar(sysd)),
+                         ("batched_cuda2", lambda: run_batched_cuda2(
+                             sysd))):
             t0 = time.perf_counter()
             out[name] = fn()
             walls[name] = time.perf_counter() - t0
@@ -8551,7 +9120,7 @@ def decoders_phases() -> dict:
     return out
 
 
-WORKER_GROUPS = ("train", "scale", "online2", "decoders")
+WORKER_GROUPS = ("train", "scale", "online2", "decoders", "features")
 
 
 def run_worker_group(group: str) -> dict:
@@ -8564,7 +9133,9 @@ def run_worker_group(group: str) -> dict:
     (lex_int16_words: the words online2_wav and mkgraph_legacy compare
     with); "decoders" is decoders_phases (the dense and beam-sparse
     device decoders, lazy LM composition, incremental determinization and
-    grammar FSTs over the tool HCLG)."""
+    grammar FSTs over the tool HCLG, then the batched decode of the
+    cudadecoder tools); "features" is features_phases (the rest of the
+    feature front end and the cudafeat tools)."""
     if group == "online2":
         lex = build_lex_path()
         words16 = lex_int16_words(lex, *legacy_am(lex))
@@ -8586,6 +9157,12 @@ def run_worker_group(group: str) -> dict:
         os.nice(9)
         torch.set_num_threads(2)
         return {"decoders": decoders_phases()}
+    if group == "features":
+        # host numpy pitch and the CPU twins' features: it yields the host
+        # as the decoders group does
+        os.nice(9)
+        torch.set_num_threads(2)
+        return {"features": features_phases()}
     keep: dict = {}
     scale = train_scale_phases(SMOKE_SCALE_EPOCHS, keep=keep)
     return {"scale": scale, "ivector": ivector_phases(**keep)}
@@ -9282,9 +9859,10 @@ def main() -> int:
     res = {}
     for w in workers.values():
         res.update(w.join())
-    online2, train, chain, frame, template, scale, ivector, decoders = (
-        res[k] for k in ("online2", "train", "chain", "frame", "template",
-                         "scale", "ivector", "decoders"))
+    online2, train, chain, frame, template, scale, ivector, decoders, \
+        features = (res[k] for k in (
+            "online2", "train", "chain", "frame", "template", "scale",
+            "ivector", "decoders", "features"))
     backend = {**backend, **res["mmi"]}
 
     # 8. tables -------------------------------------------------------------
@@ -9324,6 +9902,9 @@ def main() -> int:
          **{name: {k: v for k, v in phase.items() if k != "launches"}
             for name, phase in decoders.items() if name != "walls"},
          decoders_walls=decoders["walls"],
+         **{name: {k: v for k, v in phase.items() if k != "launches"}
+            for name, phase in features.items() if name != "walls"},
+         features_walls=features["walls"],
          seconds_total=time.perf_counter() - t_start)
     kernels = []
     for name, replaces, timed, checks, launches in (
@@ -9371,7 +9952,7 @@ def main() -> int:
         for phase, res in (*ivector.items(), *backend.items()):
             k[f"launches_{phase}"] = res["launches"][k["name"]]
         k["launches_dense_flat"] = dense_flat["launches"][k["name"]]
-        for phase, res in decoders.items():
+        for phase, res in (*decoders.items(), *features.items()):
             if "launches" in res:
                 k[f"launches_{phase}"] = res["launches"][k["name"]]
     kernels[-1].update(

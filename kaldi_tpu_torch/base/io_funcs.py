@@ -249,14 +249,14 @@ def read_int_pair_vector(stream: BinaryIO, binary: bool) -> List[tuple]:
 
 def read_matrix(stream: BinaryIO, binary: bool) -> np.ndarray:
     """A Kaldi Matrix: "FM"/"DM" + rows + cols + data in binary, " [ rows
-    ]" in text (float32).  Compressed matrices ("CM", "CM2", "CM3") need
-    the compressed-matrix codec, which is not ported yet."""
+    ]" in text (float32); a compressed matrix ("CM", "CM2", "CM3")
+    decompressed to float32."""
     if binary:
         tok = read_token(stream, binary)
         if tok in ("CM", "CM2", "CM3"):
-            raise NotImplementedError(
-                f"read_matrix: compressed matrix {tok!r} needs "
-                "kaldi_tpu/matrix/compressed.py, not ported yet")
+            from kaldi_tpu_torch.matrix.compressed import \
+                read_compressed_matrix_body
+            return read_compressed_matrix_body(stream, tok)
         if tok not in ("FM", "DM"):
             raise ValueError(f"read_matrix: bad token {tok!r}")
         dt = "<f4" if tok == "FM" else "<f8"

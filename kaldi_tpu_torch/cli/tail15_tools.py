@@ -1,8 +1,9 @@
-"""Grammar-FST tools and the incremental online decoder (port of the
-part of `kaldi_tpu/cli/tail15_tools.py` that is not a `*-cuda` tool;
-parity: src/fstbin/make-grammar-fst.cc, src/nnet3bin/
-nnet3-latgen-grammar.cc, src/online2bin/online2-wav-nnet3-latgen-grammar.cc
-and online2-wav-nnet3-latgen-incremental.cc).
+"""Grammar-FST tools, the incremental online decoder and the cudafeat
+and cudadecoder tools (port of `kaldi_tpu/cli/tail15_tools.py`; parity:
+src/fstbin/make-grammar-fst.cc, src/nnet3bin/nnet3-latgen-grammar.cc,
+src/online2bin/online2-wav-nnet3-latgen-grammar.cc and
+online2-wav-nnet3-latgen-incremental.cc, src/cudafeatbin/*.cc and
+src/cudadecoderbin/batched-wav-nnet3-cuda{,2,-online}.cc).
 
 The grammar container (`<KtGrammarFst>`: the nonterminal phones
 offset, the sub-FSTs with their nonterminals, then the top-level FST,
@@ -12,14 +13,33 @@ the grammar statically (`expand_grammar`, a walk over GrammarFst's lazy
 splice) and decode the expansion, as the reference does; the networks
 run on the card unless --use-gpu=no, the searches on the host.
 
-Not carried over yet: the `*-cuda` tools of the reference module.
+The `*-cuda` feature tools are the plain computers' runner
+(`cli/feat_tools.py` `_run_feature_tool`, a batch of utterances at a
+time on the card unless --use-gpu=no) with a batch of 64; the online
+CMVN tools are apply-cmvn-online (the host `OnlineCmvn`); the online
+feature tools carry `BatchedIvectorExtractor`'s state over
+--ivector-period frames at a time.  batched-wav-nnet3-cuda2 (and its
+alias -cuda) computes a batch's features and the compiled acoustic model
+(`nnet3/torch_bridge.py`) on the card, decodes each utterance with the
+host `LatticeFasterDecoder` over the HCLG and prints the reference's
+`RealTimeX` line, then a `batched-wav-nnet3-cuda2 stats {...}` JSON line
+(the feature, forward and search seconds).  The model's output is at the
+input frame rate and the decoder takes every --frame-subsampling-factor'th
+frame; the reference's tool takes the first 1/factor of the frames
+instead, a fault that tools/features_jax_bar.py shows on JAX.  A model
+that does not compile raises: the reference's host fallback is not
+carried over.  batched-wav-nnet3-cuda-online runs
+online2-wav-nnet3-latgen-faster, as the reference's does.
 """
 
 from __future__ import annotations
 
 import os
 import tempfile
+import time
 from typing import List
+
+import numpy as np
 
 from kaldi_tpu_torch.base.logging import log, warn
 from kaldi_tpu_torch.util import kaldi_io
@@ -259,3 +279,237 @@ def online2_wav_nnet3_latgen_incremental(argv: List[str]) -> int:
     log(f"decoded {n} utterances (incremental determinization; "
         f"max_chunk_links {max_links})")
     return 0 if n else 1
+
+
+# -- cudafeat: the batched device frontend ---------------------------------
+
+def _cuda_feats(argv: List[str], name: str, fbank: bool) -> int:
+    from kaldi_tpu_torch.cli.feat_tools import _run_feature_tool
+    from kaldi_tpu_torch.feat.frontend import FbankOptions, MfccOptions
+    return _run_feature_tool(name, FbankOptions if fbank else MfccOptions,
+                             argv, default_batch_size=64)
+
+
+def compute_mfcc_feats_cuda(argv: List[str]) -> int:
+    return _cuda_feats(argv, "compute-mfcc-feats-cuda", False)
+
+
+def compute_fbank_feats_cuda(argv: List[str]) -> int:
+    return _cuda_feats(argv, "compute-fbank-feats-cuda", True)
+
+
+def compute_mfcc_online_batched_cuda(argv: List[str]) -> int:
+    return _cuda_feats(argv, "compute-mfcc-online-batched-cuda", False)
+
+
+def compute_fbank_online_batched_cuda(argv: List[str]) -> int:
+    return _cuda_feats(argv, "compute-fbank-online-batched-cuda", True)
+
+
+def apply_cmvn_online_cuda(argv: List[str]) -> int:
+    """cudafeatbin/apply-{,batched-}cmvn-online-cuda.cc: the host online
+    CMVN of apply-cmvn-online, a stream per utterance."""
+    from kaldi_tpu_torch.cli.tail14_tools import apply_cmvn_online
+    return apply_cmvn_online(["apply-cmvn-online"] + argv[1:])
+
+
+apply_batched_cmvn_online_cuda = apply_cmvn_online_cuda
+
+
+def _online_feats_pipeline(argv: List[str], name: str) -> int:
+    import torch
+
+    from kaldi_tpu_torch.cli.nnet3_tools import _device
+    from kaldi_tpu_torch.cli.online_tools2 import register_use_gpu
+    from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
+    from kaldi_tpu_torch.ivector.batched import BatchedIvectorExtractor
+    from kaldi_tpu_torch.recipes.bench_corpus import load_ivector_extractor
+    po = ParseOptions(
+        "Compute features and online i-vectors, the whole online front "
+        f"end (cudafeatbin/{name}.cc).\n"
+        f"Usage: {name} [options] <ivector-extractor (.npz)> "
+        "<wav-rspecifier> <feats-wspecifier> <ivectors-wspecifier>")
+    opts = MfccOptions()
+    po.register_struct(opts)
+    ivector_period = po.register_value(
+        "ivector-period", 10, "Frames between i-vector estimates")
+    batch_size = po.register_value("batch-size", 64,
+                                   "Utterances per device batch")
+    use_gpu = register_use_gpu(po)
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    device = _device(use_gpu[0])
+    bex = BatchedIvectorExtractor(load_ivector_extractor(po.get_arg(1)),
+                                  device=device)
+    fe = OfflineFeature(opts, device=device)
+    fwriter = TableWriter("matrix", po.get_arg(3))
+    iwriter = TableWriter("matrix", po.get_arg(4))
+    buf = []
+    n = 0
+
+    def flush():
+        nonlocal n
+        if not buf:
+            return
+        feats = fe.compute_batch([w for _k, w in buf])
+        lens = np.array([f.shape[0] for f in feats])
+        t_max = int(lens.max())
+        batch = np.zeros((len(buf), t_max, feats[0].shape[1]), np.float32)
+        for i, f in enumerate(feats):
+            batch[i, :f.shape[0]] = f
+        # an i-vector a period from the carried device state
+        state = bex.init_state(len(buf))
+        period = max(ivector_period[0], 1)
+        ivs = [[] for _ in buf]
+        for c0 in range(0, t_max, period):
+            chunk = torch.from_numpy(batch[:, c0:c0 + period]).to(
+                bex.device)
+            mask = torch.from_numpy(
+                np.arange(c0, min(c0 + period, t_max))[None, :]
+                < lens[:, None]).to(bex.device)
+            state = bex.acc_chunk(state, chunk, mask)
+            iv = bex.ivector(state).cpu().numpy()
+            for i in range(len(buf)):
+                if c0 < lens[i]:
+                    ivs[i].append(iv[i])
+        for i, (k, _w) in enumerate(buf):
+            fwriter.write(k, feats[i])
+            iwriter.write(k, np.stack(ivs[i]))
+            n += 1
+        buf.clear()
+
+    for key, wave in SequentialTableReader("wave", po.get_arg(2)):
+        buf.append((key, wave.channel(0)))
+        if len(buf) >= batch_size[0]:
+            flush()
+    flush()
+    fwriter.close()
+    iwriter.close()
+    log(f"computed features + online i-vectors for {n} utterances")
+    return 0 if n else 1
+
+
+def compute_online_feats_cuda(argv: List[str]) -> int:
+    return _online_feats_pipeline(argv, "compute-online-feats-cuda")
+
+
+def compute_online_feats_batched_cuda(argv: List[str]) -> int:
+    return _online_feats_pipeline(argv, "compute-online-feats-batched-cuda")
+
+
+# -- cudadecoder: the batched offline decode ------------------------------
+
+def batched_wav_nnet3_cuda2(argv: List[str]) -> int:
+    from kaldi_tpu_torch.cli.nnet3_tools import _device
+    from kaldi_tpu_torch.cli.online_tools2 import (register_use_gpu,
+                                                  stats_line)
+    from kaldi_tpu_torch.decoder.lattice_decoder import (
+        LatticeFasterDecoder, LatticeFasterDecoderOptions)
+    from kaldi_tpu_torch.device import resolve_device
+    from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
+    from kaldi_tpu_torch.fstext.openfst_io import read_fst_file
+    from kaldi_tpu_torch.lat.kaldi_lattice import LatticeHolder
+    from kaldi_tpu_torch.nnet3.mdl_io import read_nnet3_any
+    from kaldi_tpu_torch.nnet3.torch_bridge import compile_graph
+    po = ParseOptions(
+        "Batched offline decode: wav -> batched device features -> "
+        "batched device AM forward -> lattices, with the RealTimeX metric "
+        "of record (cudadecoderbin/batched-wav-nnet3-cuda2.cc:246-249); "
+        "the search over the HCLG runs on the host.\n"
+        "Usage: batched-wav-nnet3-cuda2 [options] <nnet3-in> <fst-in> "
+        "<wav-rspecifier> <lattice-wspecifier>")
+    dopts = LatticeFasterDecoderOptions()
+    po.register_struct(dopts)
+    mfcc_opts = MfccOptions()
+    po.register_struct(mfcc_opts)
+    acoustic_scale = po.register_value(
+        "acoustic-scale", 1.0, "Scaling factor for acoustic likelihoods")
+    sub = po.register_value("frame-subsampling-factor", 3,
+                            "Frame subsampling factor of the model")
+    batch_size = po.register_value("max-batch-size", 64,
+                                   "Utterances per device batch")
+    use_gpu = register_use_gpu(po)
+    po.read(argv)
+    if po.num_args() != 4:
+        po.print_usage()
+        return 1
+    tm, graph, _ = read_nnet3_any(po.get_arg(1))
+    if tm is None:
+        warn("need an .mdl with a transition model")
+        return 1
+    device = resolve_device(_device(use_gpu[0]))
+    dec = LatticeFasterDecoder(read_fst_file(po.get_arg(2)), dopts)
+    fe = OfflineFeature(mfcc_opts, device=device)
+    net = compile_graph(graph, "output", device=device)
+    writer = TableWriter(LatticeHolder(), po.get_arg(4))
+    buf = []
+    stats = dict(utterances=0, failed=0, frames=0, feat_s=0.0,
+                 forward_s=0.0, search_s=0.0)
+    total_audio = 0.0
+    t_start = time.time()
+
+    def flush():
+        if not buf:
+            return
+        t0 = time.perf_counter()
+        feats = fe.compute_batch([w for _k, w in buf])
+        t1 = time.perf_counter()
+        t_max = -(-max(f.shape[0] for f in feats) // 8) * 8
+        batch = np.zeros((len(buf), t_max, feats[0].shape[1]), np.float32)
+        for i, f in enumerate(feats):
+            batch[i, :f.shape[0]] = f
+        out = net(batch, None).cpu().numpy()
+        # the model's output is at the input frame rate: every sub'th
+        # frame of the utterance's own (the reference's first 1/sub of
+        # them is a fault)
+        lls = [out[i, :f.shape[0]:sub[0]] for i, f in enumerate(feats)]
+        t2 = time.perf_counter()
+        stats["feat_s"] += t1 - t0
+        stats["forward_s"] += t2 - t1
+        for (k, _w), ll in zip(buf, lls):
+            stats["frames"] += ll.shape[0]
+            t0 = time.perf_counter()
+            lat = dec.decode(ll, tm.id2pdf_id, acoustic_scale[0])
+            stats["search_s"] += time.perf_counter() - t0
+            if lat is None:
+                stats["failed"] += 1
+                continue
+            writer.write(k, lat)
+            stats["utterances"] += 1
+        buf.clear()
+
+    for key, wave in SequentialTableReader("wave", po.get_arg(3)):
+        buf.append((key, wave.channel(0)))
+        total_audio += wave.duration
+        if len(buf) >= batch_size[0]:
+            flush()
+    flush()
+    writer.close()
+    wall = time.time() - t_start
+    n = stats["utterances"]
+    log(f"decoded {n} utterances; Overall: Aggregate Total Time: "
+        f"{wall:.4f} Total Audio: {total_audio:.4f} "
+        f"RealTimeX: {total_audio / max(wall, 1e-9):.4f}")
+    stats.update(wall_s=wall, audio_s=total_audio,
+                 realtimex=total_audio / max(wall, 1e-9))
+    stats_line("batched-wav-nnet3-cuda2", stats, device)
+    return 0 if n else 1
+
+
+def batched_wav_nnet3_cuda(argv: List[str]) -> int:
+    """cudadecoderbin/batched-wav-nnet3-cuda.cc, superseded by -cuda2 in
+    the reference too: the same pipeline."""
+    return batched_wav_nnet3_cuda2(["batched-wav-nnet3-cuda2"] + argv[1:])
+
+
+def batched_wav_nnet3_cuda_online(argv: List[str]) -> int:
+    """cudadecoderbin/batched-wav-nnet3-cuda-online.cc: the chunked online
+    decode of online2-wav-nnet3-latgen-faster, as the reference's runs
+    it (the batched device lanes are `online/batched_device_pipeline.py`
+    over the port's own graphs)."""
+    from kaldi_tpu_torch.cli.online_tools import \
+        online2_wav_nnet3_latgen_faster
+    return online2_wav_nnet3_latgen_faster(
+        ["online2-wav-nnet3-latgen-faster"] + argv[1:])

@@ -2,8 +2,9 @@
 
 Numpy copy of `kaldi_tpu/feat/window.py` (parity with the reference's
 feat/feature-window.{h,cc}: FrameExtractionOptions, NumFrames,
-FirstSampleOfFrame, FeatureWindowFunction).  The port's frontend
-frames with `snip_edges=True`, so the reflection path is not copied.
+FirstSampleOfFrame, FeatureWindowFunction) and the reference's
+reflection of frame indices about the utterance's edges, which frames
+with `snip_edges=False`, as PyTorch ops on the device.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 
 def round_up_to_nearest_power_of_two(n: int) -> int:
@@ -109,3 +111,14 @@ def frame_indices(max_frames: int, wave_len: int,
                        for f in range(max_frames)], dtype=np.int32)
     offs = np.arange(opts.window_size(), dtype=np.int32)
     return starts[:, None] + offs[None, :]
+
+
+def reflect_indices(idx: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Reflect indices into [0, n) about the edges (feature-window.cc:205
+    convention: -1 -> 0, n -> n-1).  Two passes and then a clip, as the
+    reference does (not Kaldi's unbounded loop): enough while a window
+    is at most twice the utterance."""
+    for _ in range(2):
+        idx = torch.where(idx < 0, -idx - 1, idx)
+        idx = torch.where(idx >= n, 2 * n - 1 - idx, idx)
+    return torch.minimum(torch.clamp_min(idx, 0), n - 1)

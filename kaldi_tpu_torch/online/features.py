@@ -6,13 +6,17 @@ pipeline of online2/online-nnet2-feature-pipeline.h:200).
 
 Audio arrives in pieces.  accept_waveform buffers the samples and
 computes the newly complete frames with the batched offline extractor
-over the whole received prefix: with snip_edges=True a frame depends
-only on its own samples, so every complete frame is final and the
-recomputation equals streaming emission.  Frames are kept on the host,
-and the stages above the base feature are host numpy, as in the
-reference.
+(MFCC, fbank or PLP, on the device) over the whole received prefix: a
+frame counted with flush=False depends only on samples already received,
+so every complete frame is final and the recomputation equals streaming
+emission.  Frames are kept on the host, and the stages above the base
+feature are host numpy, as in the reference.
 
-Not carried over yet: `OnlinePitchFeature`, which waits for pitch.
+`OnlinePitchFeature` (host numpy, `feat/pitch.py`) recomputes the
+pitch of the whole received waveform on every accept_waveform, as the
+reference's code does, so its cost a chunk grows with the stream; a
+frame becomes final once it is `max_frames_latency` plus the
+normalization right context behind the newest frame.
 """
 
 from __future__ import annotations
@@ -24,7 +28,10 @@ import numpy as np
 
 from kaldi_tpu_torch.device import DeviceLike
 from kaldi_tpu_torch.feat import window as win
-from kaldi_tpu_torch.feat.frontend import MfccOptions, OfflineFeature
+from kaldi_tpu_torch.feat.frontend import OfflineFeature
+from kaldi_tpu_torch.feat.pitch import (PitchExtractionOptions,
+                                        ProcessPitchOptions,
+                                        compute_and_process_kaldi_pitch)
 from kaldi_tpu_torch.feat.functions import (DeltaFeaturesOptions,
                                             apply_cmvn, delta_scales)
 
@@ -49,10 +56,11 @@ class OnlineFeatureInterface:
 
 
 class OnlineFeature(OnlineFeatureInterface):
-    """OnlineGenericBaseFeature over the port's MFCC extractor, which
-    runs on `device`."""
+    """OnlineGenericBaseFeature over the port's extractor of the options'
+    type (MfccOptions, FbankOptions or PlpOptions), which runs on
+    `device`."""
 
-    def __init__(self, opts: MfccOptions, device: DeviceLike = None):
+    def __init__(self, opts, device: DeviceLike = None):
         self.computer = OfflineFeature(opts, device=device)
         self.opts = opts
         self.fo = opts.frame_opts
@@ -342,3 +350,88 @@ class OnlineFeaturePipeline:
         if hi <= lo:
             return np.zeros((0, self.dim()), np.float32)
         return np.stack([self.output.get_frame(t) for t in range(lo, hi)])
+
+
+class OnlinePitchFeature(OnlineFeatureInterface):
+    """Latency-controlled online pitch (parity: feat/pitch-functions.cc
+    OnlinePitchFeature + online-feature.cc OnlineProcessPitch): the
+    processed (pov-feature, normalized log pitch, delta pitch) stream.
+
+    The Viterbi lag decisions of recent frames can change as more audio
+    arrives, so frames within `max_frames_latency` plus the
+    normalization right context of the newest frame are provisional:
+    every accept_waveform() recomputes the whole received waveform
+    (`compute_and_process_kaldi_pitch`) and replaces them, and a frame
+    becomes final when it falls further behind, or at input_finished().
+    Finalized frames never change, but need not equal the offline
+    output: the latency window cuts the Viterbi backtrace and the
+    normalization short, voiced frames too (tools/features_jax_bar.py
+    counts them).  With max_frames_latency at least the stream's length
+    the output equals the offline output bit for bit.
+    """
+
+    def __init__(self, pitch_opts: Optional[PitchExtractionOptions] = None,
+                 process_opts: Optional[ProcessPitchOptions] = None,
+                 max_frames_latency: int = 30):
+        self.pitch_opts = pitch_opts or PitchExtractionOptions()
+        self.process_opts = process_opts or ProcessPitchOptions()
+        self.max_frames_latency = max_frames_latency
+        self.waveform: List[np.ndarray] = []
+        self.num_samples = 0
+        self.finished = False
+        self._feats = np.zeros((0, 3), np.float32)
+        self._num_final = 0
+
+    def dim(self) -> int:
+        return self._feats.shape[1] if self._feats.size else 3
+
+    def accept_waveform(self, samp_freq: float,
+                        waveform: np.ndarray) -> None:
+        if self.finished:
+            raise RuntimeError("accept_waveform after input_finished")
+        if abs(samp_freq - self.pitch_opts.samp_freq) > 1e-3:
+            raise ValueError(f"sample rate {samp_freq}, the pitch "
+                             f"options' {self.pitch_opts.samp_freq}")
+        self.waveform.append(np.asarray(waveform, np.float32))
+        self.num_samples += len(waveform)
+        self._recompute()
+
+    def input_finished(self) -> None:
+        self.finished = True
+        self._recompute()
+        self._num_final = self._feats.shape[0]
+
+    @property
+    def num_frames_final(self) -> int:
+        return self._num_final
+
+    def _recompute(self) -> None:
+        wave = (np.concatenate(self.waveform) if self.waveform
+                else np.zeros(0, np.float32))
+        if len(wave) < int(0.025 * self.pitch_opts.samp_freq):
+            return
+        feats = compute_and_process_kaldi_pitch(wave, self.pitch_opts,
+                                                self.process_opts)
+        if self._num_final:
+            feats = np.concatenate([self._feats[:self._num_final],
+                                    feats[self._num_final:]])
+        self._feats = feats
+        if not self.finished:
+            # a frame is final only when the rightmost frame of its
+            # normalization window is itself past the revision window:
+            # the two lags add
+            lag = (self.max_frames_latency
+                   + self.process_opts.normalization_right_context)
+            self._num_final = max(self._num_final, feats.shape[0] - lag)
+
+    def num_frames_ready(self) -> int:
+        return self._feats.shape[0]
+
+    def is_last_frame(self, frame: int) -> bool:
+        return self.finished and frame == self._feats.shape[0] - 1
+
+    def get_frame(self, frame: int) -> np.ndarray:
+        return self._feats[frame]
+
+    def get_frames(self, frames) -> np.ndarray:
+        return self._feats[np.asarray(frames)]

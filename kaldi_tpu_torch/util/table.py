@@ -14,8 +14,9 @@ marker when binary); a script line is "<key> <rxfilename>", the
 rxfilename possibly with a byte offset ("foo.ark:1234"): the reference's
 own format, so either implementation reads what the other writes.
 
-Holders of types whose codec is not ported yet (compressed and sparse
-matrices) raise, naming the module they wait for.
+The "compressed-matrix" holder writes the reference's CompressedMatrix
+formats (`matrix/compressed.py`, byte for byte) and reads any matrix;
+"sparse-matrix" is `matrix/sparse.py`'s SparseMatrix.
 """
 
 from __future__ import annotations
@@ -133,6 +134,25 @@ class MatrixHolder(Holder):
 
     def write(self, stream, binary, value):
         io_funcs.write_matrix(stream, binary, np.asarray(value))
+
+
+class CompressedMatrixHolder(Holder):
+    """Writes a CompressedMatrix (methods 1-7 of the reference's
+    CompressionMethod numbering); reads any matrix type."""
+
+    def __init__(self, method: int = 1):
+        self.method = method
+
+    def read(self, stream):
+        binary = io_funcs.init_input_stream(stream)
+        return io_funcs.read_matrix(stream, binary)
+
+    def write(self, stream, binary, value):
+        from kaldi_tpu_torch.matrix.compressed import \
+            write_compressed_matrix
+        if not binary:
+            raise KaldiTpuError("CompressedMatrix requires binary mode")
+        write_compressed_matrix(stream, np.asarray(value), self.method)
 
 
 class VectorHolder(Holder):
@@ -304,8 +324,15 @@ def _degs_holder() -> Holder:
     return DiscriminativeExampleHolder()
 
 
+def _sparse_matrix_holder():
+    from kaldi_tpu_torch.matrix.sparse import SparseMatrixHolder
+    return SparseMatrixHolder()
+
+
 _HOLDERS = {
     "matrix": MatrixHolder,
+    "compressed-matrix": CompressedMatrixHolder,
+    "sparse-matrix": _sparse_matrix_holder,
     "vector": VectorHolder,
     "int": lambda: _ScalarHolder(io_funcs.read_int32, io_funcs.write_int32),
     "float": lambda: _ScalarHolder(io_funcs.read_float,
@@ -325,21 +352,10 @@ _HOLDERS = {
     "degs": _degs_holder,
 }
 
-# holder name -> the module of the JAX package whose codec it waits for
-_NOT_PORTED = {
-    "compressed-matrix": "kaldi_tpu/matrix/compressed.py",
-    "sparse-matrix": "kaldi_tpu/matrix/sparse.py",
-}
-
-
 def _make_holder(holder) -> Holder:
     if isinstance(holder, Holder):
         return holder
     if isinstance(holder, str):
-        if holder in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the {holder!r} table holder needs "
-                f"{_NOT_PORTED[holder]}, not ported yet")
         if holder not in _HOLDERS:
             raise KaldiTpuError(f"unknown holder {holder!r}")
         return _HOLDERS[holder]()

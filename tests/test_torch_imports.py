@@ -84,7 +84,10 @@ def test_no_jax_flax_triton_or_kaldi_tpu():
                  "lat.sausages", "lat.word_align", "fstext.grammar_fst",
                  "decoder.biglm", "decoder.incremental",
                  "decoder.dense_relax", "decoder.beam_sparse",
-                 "cli.decoders2_tools", "cli.tail15_tools"):
+                 "cli.decoders2_tools", "cli.tail15_tools",
+                 "feat.plp", "feat.resample", "feat.pitch", "feat.perturb",
+                 "feat.htk", "matrix", "matrix.compressed",
+                 "matrix.sparse", "cli.tail7_tools", "cli.tail14_tools"):
         assert f"kaldi_tpu_torch.{name}" in walked, name
 
 

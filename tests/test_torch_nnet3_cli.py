@@ -185,20 +185,40 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                       *io_args)
         assert rc != 0 and "CUDA" in err
     assert sorted(TOOLS) == ["acc-lda", "acc-tree-stats", "add-deltas",
-                             "add-self-loops", "agglomerative-cluster",
-                             "ali-to-pdf", "ali-to-phones", "ali-to-post",
-                             "align-equal-compiled", "apply-cmvn",
+                             "add-deltas-sdc", "add-self-loops",
+                             "agglomerative-cluster", "ali-to-pdf",
+                             "ali-to-phones", "ali-to-post",
+                             "align-equal-compiled", "append-post-to-feats",
+                             "append-vector-to-feats",
+                             "apply-batched-cmvn-online-cuda", "apply-cmvn",
+                             "apply-cmvn-online", "apply-cmvn-online-cuda",
                              "apply-cmvn-sliding", "arpa-to-const-arpa",
-                             "arpa2fst", "build-tree", "chain-est-phone-lm",
-                             "chain-get-supervision", "chain-make-den-fst",
-                             "cluster-phones", "compile-train-graphs",
-                             "compose-transforms", "compute-cmvn-stats",
-                             "compute-eer", "compute-mfcc-feats",
-                             "compute-vad", "compute-vad-from-frame-likes",
-                             "compute-wer", "convert-ali", "copy-feats",
-                             "copy-gselect", "copy-int-vector",
+                             "arpa2fst", "batched-wav-nnet3-cuda",
+                             "batched-wav-nnet3-cuda-online",
+                             "batched-wav-nnet3-cuda2", "build-tree",
+                             "chain-est-phone-lm", "chain-get-supervision",
+                             "chain-make-den-fst", "cluster-phones",
+                             "compare-feats", "compile-train-graphs",
+                             "compose-transforms",
+                             "compute-and-process-kaldi-pitch-feats",
+                             "compute-cmvn-stats",
+                             "compute-cmvn-stats-two-channel", "compute-eer",
+                             "compute-fbank-feats", "compute-fbank-feats-cuda",
+                             "compute-fbank-online-batched-cuda",
+                             "compute-kaldi-pitch-feats", "compute-mfcc-feats",
+                             "compute-mfcc-feats-cuda",
+                             "compute-mfcc-online-batched-cuda",
+                             "compute-online-feats-batched-cuda",
+                             "compute-online-feats-cuda", "compute-plp-feats",
+                             "compute-spectrogram-feats", "compute-vad",
+                             "compute-vad-from-frame-likes", "compute-wer",
+                             "concat-feats", "convert-ali", "copy-feats",
+                             "copy-feats-to-htk", "copy-feats-to-sphinx",
+                             "copy-gselect", "copy-int-vector", "copy-matrix",
                              "decode-faster-mapped", "est-lda", "est-mllt",
-                             "extract-segments", "feat-to-dim", "feat-to-len",
+                             "extend-wav-with-silence",
+                             "extract-feature-segments", "extract-segments",
+                             "feat-to-dim", "feat-to-len",
                              "fgmm-global-acc-stats",
                              "fgmm-global-acc-stats-post", "fgmm-global-copy",
                              "fgmm-global-est", "fgmm-global-get-frame-likes",
@@ -232,7 +252,7 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "gmm-latgen-map", "gmm-latgen-simple",
                              "gmm-rescore-lattice", "gmm-sum-accs",
                              "gmm-train-lvtln-special", "gmm-transform-means",
-                             "ivector-adapt-plda",
+                             "interpolate-pitch", "ivector-adapt-plda",
                              "ivector-compute-dot-products",
                              "ivector-compute-lda", "ivector-compute-plda",
                              "ivector-copy-plda", "ivector-extract",
@@ -262,7 +282,8 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "lattice-to-post", "logistic-regression-copy",
                              "logistic-regression-eval",
                              "logistic-regression-train", "make-grammar-fst",
-                             "make-h-transducer", "merge-vads", "nbest-to-ctm",
+                             "make-h-transducer", "matrix-max", "matrix-sum",
+                             "merge-vads", "modify-cmvn-stats", "nbest-to-ctm",
                              "nbest-to-linear", "nnet3-align-compiled",
                              "nnet3-average", "nnet3-chain-combine",
                              "nnet3-chain-combine2",
@@ -295,11 +316,17 @@ def test_no_host_fallback_and_refused_branches(tmp_path, monkeypatch,
                              "online2-wav-nnet3-latgen-faster",
                              "online2-wav-nnet3-latgen-grammar",
                              "online2-wav-nnet3-latgen-incremental",
-                             "post-to-pdf-post", "prepare-lang",
-                             "select-voiced-frames", "splice-feats",
+                             "paste-feats", "post-to-feats",
+                             "post-to-pdf-post", "post-to-smat",
+                             "prepare-lang", "process-kaldi-pitch-feats",
+                             "process-pitch-feats", "select-feats",
+                             "select-voiced-frames", "shift-feats",
+                             "splice-feats", "subsample-feats", "subset-feats",
                              "sum-tree-stats", "transform-feats",
                              "transform-vec", "validate-data-dir",
-                             "validate-lang", "wav-to-duration"]
+                             "validate-lang", "vector-sum", "wav-copy",
+                             "wav-perturb-speed", "wav-perturb-volume",
+                             "wav-reverberate", "wav-to-duration"]
 
 
 RSPECIFIERS = ["ark:foo.ark", "scp:foo.scp", "ark,s,cs:-", "ark,o,p:x.ark",

@@ -379,10 +379,32 @@ def test_chain_tdnnf_export_equals_jax(ivector_dim):
 
 
 @pytest.mark.parametrize("name", ["compressed-matrix", "sparse-matrix"])
-def test_unported_holders_raise_naming_their_module(name):
-    from kaldi_tpu_torch.util.table import SequentialTableReader
-    with pytest.raises(NotImplementedError, match="kaldi_tpu/"):
-        SequentialTableReader(name, "ark:x.ark")
+def test_holders_round_trip_jax_bytes(name, tmp_path):
+    """The compressed-matrix and sparse-matrix holders: the port writes
+    JAX's bytes and reads back what JAX wrote."""
+    from kaldi_tpu.matrix.sparse import SparseMatrix as JaxSparse
+    from kaldi_tpu.util.table import SequentialTableReader as JaxReader
+    from kaldi_tpu.util.table import TableWriter as JaxWriter
+    from kaldi_tpu_torch.matrix.sparse import SparseMatrix
+    from kaldi_tpu_torch.util.table import SequentialTableReader, TableWriter
+    rng = np.random.default_rng(0)
+    mat = rng.normal(size=(12, 5)).astype(np.float32)
+    if name == "sparse-matrix":
+        mat[rng.random(mat.shape) < 0.6] = 0.0
+        values = (JaxSparse.from_dense(mat), SparseMatrix.from_dense(mat))
+    else:
+        values = (mat, mat)
+    for writer, value, side in ((JaxWriter, values[0], "jax"),
+                                (TableWriter, values[1], "torch")):
+        with writer(name, f"ark:{tmp_path / side}.ark") as w:
+            w.write("u", value)
+    jax_bytes = (tmp_path / "jax.ark").read_bytes()
+    assert (tmp_path / "torch.ark").read_bytes() == jax_bytes
+    got = dict(SequentialTableReader(name, f"ark:{tmp_path}/jax.ark"))["u"]
+    want = dict(JaxReader(name, f"ark:{tmp_path}/torch.ark"))["u"]
+    if name == "sparse-matrix":
+        got, want = got.todense(), want.todense()
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("binary", [True, False])
